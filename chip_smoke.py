@@ -12,9 +12,10 @@ its number:
    and the build of every kernel from `smelter_tpu_torch/csrc/`, all
    `nvcc` processes at once;
 2. kernels against their plain PyTorch versions on the card, at the
-   ResNet-50 head shape and at a serving GEMM shape, with their times, the
-   plain versions' times, a PyTorch library call's time as a yardstick,
-   and the least time the card could take (the bound);
+   ResNet-50 head shape and at a serving GEMM shape, with their device
+   times (CUDA-graph replay of many launches), the host cost of one call,
+   the plain versions' times, a PyTorch library call's time as a
+   yardstick, and the least time the card could take (the bound);
 3. the main path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -22,9 +23,10 @@ its number:
    run of the same graph, timed in images/s;
 4. the server: `serve(..., max_batch=16)` answers 32 threaded requests.
 
-Every kernel wrapper counts its launches; the counts are set to 0 before
-phases 3-4 and read after, and each kernel must have launched there. The
-last three lines are the kernels' JSON line, the card's name and power
+Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
+activations, the server) sets the counts to 0 just before it compiles and
+runs, reads them just after, and must have launched the kernel it routes
+to and no other. The last three lines are the kernels' JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero
 before those lines. A JSON report of every number goes to
 `build/chip_smoke/report.json`.
@@ -77,7 +79,9 @@ def bound(nbytes: float, ops: float, kind: str, power_w: float):
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn(i) over `iters` calls, by CUDA events."""
+    """Mean time of fn(i) over `iters` calls issued from Python, by CUDA
+    events: the device time where a call outlasts its launch, else the
+    host's cost of a call."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -88,6 +92,33 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, side, fn, iters: int, replays: int = 5) -> float:
+    """Mean device time of fn(i), from replays of one CUDA graph that holds
+    `iters` calls, so that no host launch cost stands between them. `side`
+    is the stream the graph is captured on; one for all graphs, so that
+    cuBLAS keeps one workspace for them."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -125,6 +156,7 @@ def phase_kernels(torch, power_w: float) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    side = torch.cuda.Stream()
     rows = {}
     for label, (M, K, N) in (("head", HEAD), ("serving", SERVING)):
         iters = 50 if label == "head" else 10
@@ -153,15 +185,18 @@ def phase_kernels(torch, power_w: float) -> dict:
             check(math.isfinite(err) and err <= rel * scale,
                   f"dequant_matmul {label} {kind}: max-abs {err} > {rel} x {scale}")
             n = len(sets)
-            ms = time_ms(torch, lambda i: dm.dequant_matmul(*sets[i % n]), iters)
-            plain_ms = time_ms(torch, lambda i: dm.dequant_matmul_plain(*sets[i % n]), iters)
+            ms = graph_ms(torch, side, lambda i: dm.dequant_matmul(*sets[i % n]), iters)
+            call_ms = time_ms(torch, lambda i: dm.dequant_matmul(*sets[i % n]), iters)
+            plain_ms = graph_ms(torch, side, lambda i: dm.dequant_matmul_plain(*sets[i % n]),
+                                iters)
             w_deq = [(w_.float() * s_).to(dtype) for _, w_, s_ in sets]
-            lib_ms = time_ms(torch, lambda i: torch.matmul(sets[i % n][0], w_deq[i % n]), iters)
+            lib_ms = graph_ms(torch, side, lambda i: torch.matmul(sets[i % n][0], w_deq[i % n]),
+                              iters)
             nbytes = M * K * x.element_size() + K * N + N * 4 + M * N * x.element_size()
             b_ms, b_by = bound(nbytes, 2 * M * N * K, kind, power_w)
             rows[("dequant_matmul", label, kind)] = dict(
                 name="dequant_matmul", shape=[M, K, N], dtype=kind, max_abs_err=err,
-                tolerance=f"{rel} x max|plain| = {rel * scale:.4g}", ms=ms,
+                tolerance=f"{rel} x max|plain| = {rel * scale:.4g}", ms=ms, call_ms=call_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
             del sets, w_deq
 
@@ -180,26 +215,29 @@ def phase_kernels(torch, power_w: float) -> dict:
         err = (got.float() - ref.float()).abs().max().item()
         check(torch.equal(got, ref), f"int8_matmul {label}: outputs differ ({err})")
         n = len(sets)
-        ms = time_ms(torch, lambda i: im.int8_matmul(*sets[i % n]), iters)
-        plain_ms = time_ms(torch, lambda i: im.int8_matmul_plain(*sets[i % n]), iters)
+        ms = graph_ms(torch, side, lambda i: im.int8_matmul(*sets[i % n]), iters)
+        call_ms = time_ms(torch, lambda i: im.int8_matmul(*sets[i % n]), iters)
+        plain_ms = graph_ms(torch, side, lambda i: im.int8_matmul_plain(*sets[i % n]), iters)
         w_cm = [w_.t().contiguous().t() for _, w_, _, _ in sets]  # column-major for cuBLASLt
 
         def int_mm(i):
             xq_, _, sr_, s_ = sets[i % n]
             return (torch._int_mm(xq_, w_cm[i % n]).float() * sr_ * s_).to(torch.bfloat16)
 
-        lib_ms = time_ms(torch, int_mm, iters)
+        lib_ms = graph_ms(torch, side, int_mm, iters)
         nbytes = M * K + K * N + M * 4 + N * 4 + M * N * 2
         b_ms, b_by = bound(nbytes, 2 * M * N * K, "int8", power_w)
         rows[("int8_matmul", label, "int8")] = dict(
             name="int8_matmul", shape=[M, K, N], dtype="int8->bf16", max_abs_err=err,
-            tolerance="int32 sums exact, outputs equal", ms=ms, plain_ms=plain_ms,
+            tolerance="int32 sums exact, outputs equal", ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         del sets, w_cm
 
     for (name, label, kind), r in rows.items():
         say(2, f"{name} {label} {r['shape']} {kind}: err {r['max_abs_err']:.3g} "
-               f"({r['tolerance']}) | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+               f"({r['tolerance']}) | kernel {r['ms']:.4f} ms (host cost of a call "
+               f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                f"({r['bound_by']}) = {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
     REPORT["kernels_vs_plain"] = [dict(r, case=f"{k[1]}/{k[2]}") for k, r in rows.items()]
@@ -232,6 +270,27 @@ def _profile(torch, model, xg) -> dict:
         side = kernels if str(getattr(e, "device_type", "")).endswith("CUDA") else ops
         side[e.key] = side.get(e.key, 0.0) + t / 3e3  # us over 3 steps -> ms a step
     return kernels, ops
+
+
+def _counts() -> dict:
+    from smelter_tpu_torch.kernels import dequant_matmul as dm
+    from smelter_tpu_torch.kernels import int8_matmul as im
+
+    return {"dequant_matmul": dm.launches, "int8_matmul": im.launches}
+
+
+def _zero_counts() -> None:
+    from smelter_tpu_torch.kernels import dequant_matmul as dm
+    from smelter_tpu_torch.kernels import int8_matmul as im
+
+    dm.launches = im.launches = 0
+
+
+def _check_routed(label: str, counts: dict, routed: str) -> None:
+    """The path launched the kernel it routes to, and no other."""
+    check(counts[routed] > 0, f"{label}: {routed} never launched ({counts})")
+    check(all(n == 0 for k, n in counts.items() if k != routed),
+          f"{label}: a kernel other than {routed} launched ({counts})")
 
 
 def phase_main(torch, np, stt) -> dict:
@@ -271,11 +330,15 @@ def phase_main(torch, np, stt) -> dict:
     del gpu32
 
     xg = torch.from_numpy(x).cuda()
-    for label, cfg in (("bf16", stt.Config(compute_dtype="bfloat16")),
-                       ("bf16_int8act", stt.Config(compute_dtype="bfloat16",
-                                                    int8_activations=True))):
+    for label, cfg, routed in (
+            ("bf16", stt.Config(compute_dtype="bfloat16"), "dequant_matmul"),
+            ("bf16_int8act", stt.Config(compute_dtype="bfloat16", int8_activations=True),
+             "int8_matmul")):
+        _zero_counts()
         model = stt.compile(onnx_path, cfg, quant="int8", device="cuda")
         got = model(x)[0]
+        launches = _counts()
+        _check_routed(label, launches, routed)
         check(got.shape == (128, 1000) and np.isfinite(got).all(), f"{label} logits")
         agree = _top1(got, ref)
         top2 = np.sort(ref, axis=1)[:, -2:]
@@ -291,13 +354,14 @@ def phase_main(torch, np, stt) -> dict:
         ours = {k: v for k, v in per.items() if "dequant_matmul" in k or "int8_matmul" in k}
         top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
         top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
-        r = {"top1_vs_cpu_f32": agree, "max_abs_vs_cpu_f32": err, "median_top2_gap": gap,
-             "step_ms": step_ms, "images_per_s": 128e3 / step_ms, "peak_mem_gb": peak_gb,
+        r = {"launches": launches, "top1_vs_cpu_f32": agree, "max_abs_vs_cpu_f32": err,
+             "median_top2_gap": gap, "step_ms": step_ms, "images_per_s": 128e3 / step_ms, "peak_mem_gb": peak_gb,
              "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / step_ms),
              "port_kernel_ms": ours, "port_kernel_share": sum(ours.values()) / step_ms,
              "top_kernels_ms": top, "top_host_ops_ms": top_ops}
         res[label] = r
-        say(3, f"{label} batch 128: top-1 vs CPU f32 {agree:.4f} (median top-2 gap {gap:.3g}, "
+        say(3, f"{label} batch 128: launches in compile + one forward {launches} | "
+               f"top-1 vs CPU f32 {agree:.4f} (median top-2 gap {gap:.3g}, "
                f"max-abs {err:.3g}) | {r['images_per_s']:.1f} images/s, step {step_ms:.3f} ms, "
                f"peak {peak_gb:.2f} GB | port kernels {sum(ours.values()):.4f} ms = "
                f"{100 * r['port_kernel_share']:.3f}% of the step | profiled busy {busy:.3f} ms")
@@ -314,6 +378,7 @@ def phase_serve(torch, np, stt) -> dict:
     cfg = stt.Config(compute_dtype="bfloat16")
     xs = np.random.default_rng(1).standard_normal((32, 3, 224, 224)).astype(np.float32)
     direct = stt.compile(onnx_path, cfg, quant="int8", device="cuda")(xs)[0]
+    _zero_counts()
     server = stt.serve(onnx_path, cfg, quant="int8", device="cuda", max_batch=16)
     results = [None] * len(xs)
     try:
@@ -329,6 +394,8 @@ def phase_serve(torch, np, stt) -> dict:
         stats = server.stats()
     finally:
         server.shutdown()
+    launches = _counts()
+    _check_routed("server", launches, "dequant_matmul")
     check(all(r is not None for r in results), "server left requests unanswered")
     got = np.stack(results)
     err = float(np.abs(got - direct).max())
@@ -337,10 +404,12 @@ def phase_serve(torch, np, stt) -> dict:
     check(stats["requests"] == 32 and stats["errors"] == 0, f"server stats {stats}")
     # bf16 outputs of other batch sizes (other cuDNN algorithms): 5e-2.
     check(err <= 5e-2 * scale, f"served vs direct: max-abs {err} > 5e-2 x {scale}")
-    say(4, f"served {stats['requests']} requests in {stats['batches']} batches | "
+    say(4, f"served {stats['requests']} requests in {stats['batches']} batches, "
+           f"launches {launches} (bucket warm-ups included) | "
            f"p50 {stats['latency_ms_p50']:.1f} ms, p95 {stats['latency_ms_p95']:.1f} ms | "
            f"vs direct: top-1 {agree:.4f}, max-abs {err:.3g} (bound 5e-2 x {scale:.3g})")
-    return {"stats": stats, "top1_vs_direct": agree, "max_abs_vs_direct": err}
+    return {"launches": launches, "stats": stats, "top1_vs_direct": agree,
+            "max_abs_vs_direct": err}
 
 
 # -- main -------------------------------------------------------------------
@@ -354,8 +423,6 @@ def main() -> int:
           f"{ROOT} holds no smelter_tpu_torch package: run from a checkout")
     sys.path.insert(0, str(ROOT))
     import smelter_tpu_torch as stt
-    from smelter_tpu_torch.kernels import dequant_matmul as dm
-    from smelter_tpu_torch.kernels import int8_matmul as im
 
     check(Path(stt.__file__).resolve().parent == ROOT / "smelter_tpu_torch",
           f"imported smelter_tpu_torch from {stt.__file__}, not from {ROOT}")
@@ -363,13 +430,11 @@ def main() -> int:
     smi, power_w = phase_environment(torch)
     rows = phase_kernels(torch, power_w)
 
-    dm.launches = 0
-    im.launches = 0
-    REPORT["main_path"] = phase_main(torch, np, stt)
+    main_path = REPORT["main_path"] = phase_main(torch, np, stt)
     REPORT["serve"] = phase_serve(torch, np, stt)
-    launches = {"dequant_matmul": dm.launches, "int8_matmul": im.launches}
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
+    # Each kernel's launches on the path that routes to it.
+    launches = {"dequant_matmul": main_path["bf16"]["launches"]["dequant_matmul"],
+                "int8_matmul": main_path["bf16_int8act"]["launches"]["int8_matmul"]}
     say(5, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
     sources = {"dequant_matmul": ("smelter_tpu_torch/csrc/dequant_matmul.cu",

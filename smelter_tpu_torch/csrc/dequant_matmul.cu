@@ -21,15 +21,11 @@
 // operands: out-of-range elements load as zero. The scale multiplies the
 // accumulator once, after the K sum, then the result is cast.
 //
-// A small problem (the ResNet head makes 8 output tiles for 132 SMs) splits
-// K: blockIdx.z sums one K range into an f32 workspace, and a second kernel
-// adds the ranges in order, applies the scale and casts, so the result does
-// not depend on scheduling. f32 activations take an FMA kernel in full f32
-// (no TF32), because the reference computes in the activation dtype. No
+// f32 activations take an FMA kernel in full f32 (no TF32), because the
+// reference computes in the activation dtype. A small problem leaves SMs
+// idle (the ResNet head makes 8 output tiles for 132 SMs); no split-K,
 // cp.async, TMA or wgmma yet.
 #include "common.cuh"
-
-#include <algorithm>
 
 namespace {
 
@@ -44,9 +40,8 @@ constexpr int B_CHUNKS = BK * BN / 8 / THREADS;  // 8-byte chunks a thread loads
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 dequant_matmul_mma(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scales, OutT* __restrict__ out,
-                   float* __restrict__ partial, int M, int N, int K, int k_split,
-                   bool x_vec, bool w_vec) {
+                   const float* __restrict__ scales, OutT* __restrict__ out, int M, int N,
+                   int K, bool x_vec, bool w_vec) {
   __shared__ __align__(16) uint16_t As[BM * SA];  // [m][k]
   __shared__ __align__(16) uint16_t Bs[BK * SB];  // [k][n], already in type T
 
@@ -54,8 +49,6 @@ dequant_matmul_mma(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_split;
-  const int k_end = min(K, k_begin + k_split);
 
   float acc[2][8][4];
 #pragma unroll
@@ -68,20 +61,20 @@ dequant_matmul_mma(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
   uint4 ra[A_CHUNKS];
   uint2 rb[B_CHUNKS];
 
-  // Global -> registers for the K step at k0, zero outside [0, M) x [k0, k_end).
+  // Global -> registers for the K step at k0, zero outside [0, M) x [0, K).
   auto load = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < A_CHUNKS; ++i) {
       const int c = tid + i * THREADS;
       const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
       const int gm = m0 + r, gk = k0 + col;
-      if (x_vec && gm < M && gk + 8 <= k_end) {
+      if (x_vec && gm < M && gk + 8 <= K) {
         ra[i] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(gm) * K + gk);
       } else {
         uint32_t e[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          if (gm < M && gk + j < k_end)
+          if (gm < M && gk + j < K)
             e[j >> 1] |= static_cast<uint32_t>(x[static_cast<size_t>(gm) * K + gk + j])
                          << (16 * (j & 1));
         ra[i] = make_uint4(e[0], e[1], e[2], e[3]);
@@ -92,13 +85,13 @@ dequant_matmul_mma(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
       const int c = tid + i * THREADS;
       const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
       const int gk = k0 + r, gn = n0 + col;
-      if (w_vec && gk < k_end && gn + 8 <= N) {
+      if (w_vec && gk < K && gn + 8 <= N) {
         rb[i] = *reinterpret_cast<const uint2*>(w + static_cast<size_t>(gk) * N + gn);
       } else {
         uint32_t e[2] = {0u, 0u};
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          if (gk < k_end && gn + j < N)
+          if (gk < K && gn + j < N)
             e[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
                              w[static_cast<size_t>(gk) * N + gn + j]))
                          << (8 * (j & 3));
@@ -130,11 +123,11 @@ dequant_matmul_mma(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
 
-  if (k_begin < k_end) load(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  if (K > 0) load(0);
+  for (int k0 = 0; k0 < K; k0 += BK) {
     stash();
     __syncthreads();
-    if (k0 + BK < k_end) load(k0 + BK);  // in flight while the tensor cores work
+    if (k0 + BK < K) load(k0 + BK);  // in flight while the tensor cores work
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t a[2][4], b[8][2];
@@ -163,9 +156,7 @@ dequant_matmul_mma(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();
   }
 
-  // Epilogue: the per-N scale once, after the K sum, then the cast; or this
-  // K range's raw sum into the workspace.
-  float* part = partial ? partial + static_cast<size_t>(blockIdx.z) * M * N : nullptr;
+  // Epilogue: the per-N scale once, after the K sum, then the cast.
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -178,11 +169,8 @@ dequant_matmul_mma(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           if (col + j >= N) continue;
-          const size_t o = static_cast<size_t>(row) * N + col + j;
-          if (part)
-            part[o] = acc[mi][ni][h * 2 + j];
-          else
-            store(&out[o], __fmul_rn(acc[mi][ni][h * 2 + j], scales[col + j]));
+          store(&out[static_cast<size_t>(row) * N + col + j],
+                __fmul_rn(acc[mi][ni][h * 2 + j], scales[col + j]));
         }
       }
     }
@@ -194,33 +182,31 @@ constexpr int FM = 64, FN = 64, FK = 16;
 template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
 dequant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scales, OutT* __restrict__ out,
-                   float* __restrict__ partial, int M, int N, int K, int k_split) {
+                   const float* __restrict__ scales, OutT* __restrict__ out, int M, int N,
+                   int K) {
   __shared__ float As[FK][FM + 4];  // [k][m]
   __shared__ float Bs[FK][FN + 4];  // [k][n]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
-  const int k_begin = blockIdx.z * k_split;
-  const int k_end = min(K, k_begin + k_split);
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += FK) {
+  for (int k0 = 0; k0 < K; k0 += FK) {
 #pragma unroll
     for (int i = tid; i < FM * FK; i += THREADS) {
       const int r = i / FK, c = i % FK;
       const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < k_end) ? x[static_cast<size_t>(gm) * K + gk] : 0.f;
+      As[c][r] = (gm < M && gk < K) ? x[static_cast<size_t>(gm) * K + gk] : 0.f;
     }
 #pragma unroll
     for (int i = tid; i < FK * FN; i += THREADS) {
       const int r = i / FN, c = i % FN;
       const int gk = k0 + r, gn = n0 + c;
       Bs[r][c] =
-          (gk < k_end && gn < N) ? static_cast<float>(w[static_cast<size_t>(gk) * N + gn]) : 0.f;
+          (gk < K && gn < N) ? static_cast<float>(w[static_cast<size_t>(gk) * N + gn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -237,7 +223,6 @@ dequant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
     }
     __syncthreads();
   }
-  float* part = partial ? partial + static_cast<size_t>(blockIdx.z) * M * N : nullptr;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
@@ -246,59 +231,29 @@ dequant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
       if (col >= N) continue;
-      const size_t o = static_cast<size_t>(row) * N + col;
-      if (part)
-        part[o] = acc[i][j];
-      else
-        store(&out[o], __fmul_rn(acc[i][j], scales[col]));
+      store(&out[static_cast<size_t>(row) * N + col], __fmul_rn(acc[i][j], scales[col]));
     }
   }
 }
 
-// Adds the K ranges' partial sums in order, then scale and cast.
 template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-reduce_splits(const float* __restrict__ partial, const float* __restrict__ scales,
-              OutT* __restrict__ out, int M, int N, int splits) {
-  const size_t mn = static_cast<size_t>(M) * N;
-  for (size_t o = blockIdx.x * static_cast<size_t>(THREADS) + threadIdx.x; o < mn;
-       o += static_cast<size_t>(gridDim.x) * THREADS) {
-    float sum = partial[o];
-    for (int s = 1; s < splits; ++s) sum = __fadd_rn(sum, partial[s * mn + o]);
-    store(&out[o], __fmul_rn(sum, scales[o % N]));
-  }
-}
-
-template <typename OutT>
-int run(const void* x, int x_dtype, const int8_t* w, const float* s, OutT* out, float* partial,
-        int M, int N, int K, int splits, cudaStream_t stream) {
-  const bool mma = x_dtype != kF32;
-  const int bm = mma ? BM : FM, bn = mma ? BN : FN, bk = mma ? BK : FK;
-  // K range of one split: whole K steps, so only the last range is ragged.
-  const int k_split = splits > 1 ? cdiv(cdiv(K, splits), bk) * bk : (K > 0 ? K : 1);
-  const int z = splits > 1 ? cdiv(K, k_split) : 1;
-  float* part = splits > 1 ? partial : nullptr;
-  const dim3 grid(cdiv(N, bn), cdiv(M, bm), z);
+int run(const void* x, int x_dtype, const int8_t* w, const float* s, OutT* out, int M, int N,
+        int K, cudaStream_t stream) {
   if (x_dtype == kF32) {
+    const dim3 grid(cdiv(N, FN), cdiv(M, FM));
     dequant_matmul_f32<OutT><<<grid, THREADS, 0, stream>>>(static_cast<const float*>(x), w, s,
-                                                            out, part, M, N, K, k_split);
+                                                            out, M, N, K);
   } else {
+    const dim3 grid(cdiv(N, BN), cdiv(M, BM));
     const bool x_vec = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     const bool w_vec = (N % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 8 == 0);
     const auto* xs = static_cast<const uint16_t*>(x);
     if (x_dtype == kBF16)
       dequant_matmul_mma<__nv_bfloat16, OutT><<<grid, THREADS, 0, stream>>>(
-          xs, w, s, out, part, M, N, K, k_split, x_vec, w_vec);
+          xs, w, s, out, M, N, K, x_vec, w_vec);
     else
-      dequant_matmul_mma<__half, OutT><<<grid, THREADS, 0, stream>>>(
-          xs, w, s, out, part, M, N, K, k_split, x_vec, w_vec);
-  }
-  if (splits > 1) {
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    const int blocks = static_cast<int>(std::min<size_t>(
-        (static_cast<size_t>(M) * N + THREADS - 1) / THREADS, 132 * 16));
-    reduce_splits<OutT><<<blocks, THREADS, 0, stream>>>(partial, s, out, M, N, z);
+      dequant_matmul_mma<__half, OutT><<<grid, THREADS, 0, stream>>>(xs, w, s, out, M, N, K,
+                                                                     x_vec, w_vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -310,26 +265,22 @@ extern "C" const char* smelter_error_string(int code) {
 }
 
 // x (M, K) row-major in x_dtype, w (K, N) int8 row-major, scales (N,) f32,
-// out (M, N) row-major in out_dtype. splits > 1 sums that many K ranges
-// into `workspace` (splits * M * N f32) first. Returns a cudaError_t code.
+// out (M, N) row-major in out_dtype. Returns a cudaError_t code.
 extern "C" int smelter_dequant_matmul(const void* x, const void* w, const void* scales, void* out,
-                                      void* workspace, int M, int N, int K, int splits,
-                                      int x_dtype, int out_dtype, void* stream) {
+                                      int M, int N, int K, int x_dtype, int out_dtype,
+                                      void* stream) {
   const auto* wq = static_cast<const int8_t*>(w);
   const auto* s = static_cast<const float*>(scales);
-  auto* ws = static_cast<float*>(workspace);
   auto st = static_cast<cudaStream_t>(stream);
   if (x_dtype != kF32 && x_dtype != kBF16 && x_dtype != kF16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (K <= 0) splits = 1;
-  if (splits > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (out_dtype) {
     case kF32:
-      return run(x, x_dtype, wq, s, static_cast<float*>(out), ws, M, N, K, splits, st);
+      return run(x, x_dtype, wq, s, static_cast<float*>(out), M, N, K, st);
     case kBF16:
-      return run(x, x_dtype, wq, s, static_cast<__nv_bfloat16*>(out), ws, M, N, K, splits, st);
+      return run(x, x_dtype, wq, s, static_cast<__nv_bfloat16*>(out), M, N, K, st);
     case kF16:
-      return run(x, x_dtype, wq, s, static_cast<__half*>(out), ws, M, N, K, splits, st);
+      return run(x, x_dtype, wq, s, static_cast<__half*>(out), M, N, K, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,12 +21,10 @@
 // accumulator stays in registers; the epilogue computes
 // float(acc) * s_row * s_col in that order, then casts (or writes the raw
 // int32 sum, for exact checks). M, N and K edges are masked on both
-// operands. A small problem splits K: blockIdx.z sums one K range into an
-// int32 workspace and a second kernel adds the ranges (exact in integers)
-// before the epilogue. No cp.async, TMA or wgmma yet.
+// operands. A small problem leaves SMs idle (the ResNet head makes 8 output
+// tiles for 132 SMs); no split-K, cp.async, TMA or wgmma yet.
 #include "common.cuh"
 
-#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -56,8 +54,7 @@ template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
 int8_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ s_row, const float* __restrict__ s_col,
-                OutT* __restrict__ out, int* __restrict__ partial, int M, int N, int K,
-                int k_split, bool x_vec, bool w_vec) {
+                OutT* __restrict__ out, int M, int N, int K, bool x_vec, bool w_vec) {
   __shared__ __align__(16) int8_t As[BM * SA];  // [m][k]
   __shared__ __align__(16) int8_t Bs[BN * SB];  // [n][k]
 
@@ -65,8 +62,6 @@ int8_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_split;
-  const int k_end = min(K, k_begin + k_split);
 
   int acc[2][8][4];
 #pragma unroll
@@ -79,20 +74,20 @@ int8_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   uint4 ra[A_CHUNKS];
   uint32_t rb[B_BLOCKS][4];
 
-  // Global -> registers for the K step at k0, zero outside [0, M) x [k0, k_end).
+  // Global -> registers for the K step at k0, zero outside [0, M) x [0, K).
   auto load = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < A_CHUNKS; ++i) {
       const int c = tid + i * THREADS;
       const int r = c / (BK / 16), col = (c % (BK / 16)) * 16;
       const int gm = m0 + r, gk = k0 + col;
-      if (x_vec && gm < M && gk + 16 <= k_end) {
+      if (x_vec && gm < M && gk + 16 <= K) {
         ra[i] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(gm) * K + gk);
       } else {
         uint32_t e[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          if (gm < M && gk + j < k_end)
+          if (gm < M && gk + j < K)
             e[j >> 2] |= load_byte(x + static_cast<size_t>(gm) * K + gk + j) << (8 * (j & 3));
         ra[i] = make_uint4(e[0], e[1], e[2], e[3]);
       }
@@ -105,13 +100,13 @@ int8_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int8_t* row = w + static_cast<size_t>(gk + i) * N + gn;
-        if (w_vec && gk + i < k_end && gn + 4 <= N) {
+        if (w_vec && gk + i < K && gn + 4 <= N) {
           rb[b][i] = *reinterpret_cast<const uint32_t*>(row);
         } else {
           rb[b][i] = 0u;
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (gk + i < k_end && gn + j < N) rb[b][i] |= load_byte(row + j) << (8 * j);
+            if (gk + i < K && gn + j < N) rb[b][i] |= load_byte(row + j) << (8 * j);
         }
       }
     }
@@ -140,11 +135,11 @@ int8_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
 
-  if (k_begin < k_end) load(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  if (K > 0) load(0);
+  for (int k0 = 0; k0 < K; k0 += BK) {
     stash();
     __syncthreads();
-    if (k0 + BK < k_end) load(k0 + BK);  // in flight while the tensor cores work
+    if (k0 + BK < K) load(k0 + BK);  // in flight while the tensor cores work
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
       uint32_t a[2][4], b[8][2];
@@ -170,7 +165,6 @@ int8_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();
   }
 
-  int* part = partial ? partial + static_cast<size_t>(blockIdx.z) * M * N : nullptr;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -183,50 +177,21 @@ int8_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           if (col + j >= N) continue;
-          const size_t o = static_cast<size_t>(row) * N + col + j;
-          if (part)
-            part[o] = acc[mi][ni][h * 2 + j];
-          else
-            epilogue(&out[o], acc[mi][ni][h * 2 + j], s_row[row], s_col[col + j]);
+          epilogue(&out[static_cast<size_t>(row) * N + col + j], acc[mi][ni][h * 2 + j],
+                   s_row[row], s_col[col + j]);
         }
       }
     }
 }
 
-// Adds the K ranges' int32 sums (exact, any order), then the epilogue.
 template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-reduce_splits(const int* __restrict__ partial, const float* __restrict__ s_row,
-              const float* __restrict__ s_col, OutT* __restrict__ out, int M, int N, int splits) {
-  const size_t mn = static_cast<size_t>(M) * N;
-  for (size_t o = blockIdx.x * static_cast<size_t>(THREADS) + threadIdx.x; o < mn;
-       o += static_cast<size_t>(gridDim.x) * THREADS) {
-    int sum = partial[o];
-    for (int s = 1; s < splits; ++s) sum += partial[s * mn + o];
-    epilogue(&out[o], sum, s_row[o / N], s_col[o % N]);
-  }
-}
-
-template <typename OutT>
-int launch(const int8_t* x, const int8_t* w, const float* sr, const float* sc, void* out,
-           int* partial, int M, int N, int K, int splits, cudaStream_t stream) {
-  // K range of one split: whole K steps, so only the last range is ragged.
-  const int k_split = splits > 1 ? cdiv(cdiv(K, splits), BK) * BK : (K > 0 ? K : 1);
-  const int z = splits > 1 ? cdiv(K, k_split) : 1;
-  int* part = splits > 1 ? partial : nullptr;
-  const dim3 grid(cdiv(N, BN), cdiv(M, BM), z);
+int launch(const int8_t* x, const int8_t* w, const float* sr, const float* sc, void* out, int M,
+           int N, int K, cudaStream_t stream) {
+  const dim3 grid(cdiv(N, BN), cdiv(M, BM));
   const bool x_vec = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   const bool w_vec = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(w) % 4 == 0);
-  auto* o = static_cast<OutT*>(out);
-  int8_matmul_mma<OutT><<<grid, THREADS, 0, stream>>>(x, w, sr, sc, o, part, M, N, K, k_split,
-                                                      x_vec, w_vec);
-  if (splits > 1) {
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    const int blocks = static_cast<int>(std::min<size_t>(
-        (static_cast<size_t>(M) * N + THREADS - 1) / THREADS, 132 * 16));
-    reduce_splits<OutT><<<blocks, THREADS, 0, stream>>>(partial, sr, sc, o, M, N, z);
-  }
+  int8_matmul_mma<OutT><<<grid, THREADS, 0, stream>>>(x, w, sr, sc, static_cast<OutT*>(out), M,
+                                                      N, K, x_vec, w_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -238,24 +203,20 @@ extern "C" const char* smelter_error_string(int code) {
 
 // x_q (M, K) int8, w_q (K, N) int8, both row-major; s_row (M,) f32,
 // s_col (N,) f32; out (M, N) row-major in out_dtype (kI32: the raw sum).
-// splits > 1 sums that many K ranges into `workspace` (splits * M * N
-// int32) first. Returns a cudaError_t code.
+// Returns a cudaError_t code.
 extern "C" int smelter_int8_matmul(const void* x_q, const void* w_q, const void* s_row,
-                                   const void* s_col, void* out, void* workspace, int M, int N,
-                                   int K, int splits, int out_dtype, void* stream) {
+                                   const void* s_col, void* out, int M, int N, int K,
+                                   int out_dtype, void* stream) {
   const auto* x = static_cast<const int8_t*>(x_q);
   const auto* w = static_cast<const int8_t*>(w_q);
   const auto* sr = static_cast<const float*>(s_row);
   const auto* sc = static_cast<const float*>(s_col);
-  auto* ws = static_cast<int*>(workspace);
   auto st = static_cast<cudaStream_t>(stream);
-  if (K <= 0) splits = 1;
-  if (splits > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (out_dtype) {
-    case kF32: return launch<float>(x, w, sr, sc, out, ws, M, N, K, splits, st);
-    case kBF16: return launch<__nv_bfloat16>(x, w, sr, sc, out, ws, M, N, K, splits, st);
-    case kF16: return launch<__half>(x, w, sr, sc, out, ws, M, N, K, splits, st);
-    case kI32: return launch<int>(x, w, sr, sc, out, ws, M, N, K, splits, st);
+    case kF32: return launch<float>(x, w, sr, sc, out, M, N, K, st);
+    case kBF16: return launch<__nv_bfloat16>(x, w, sr, sc, out, M, N, K, st);
+    case kF16: return launch<__half>(x, w, sr, sc, out, M, N, K, st);
+    case kI32: return launch<int>(x, w, sr, sc, out, M, N, K, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -38,9 +38,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "dequant_matmul": ("smelter_dequant_matmul",
-                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "int8_matmul": ("smelter_int8_matmul",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -123,19 +123,6 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.smelter_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({rc}): {msg}")
-
-
-def k_splits(device: torch.device, M: int, N: int, K: int,
-             bm: int, bn: int, bk: int) -> int:
-    """K ranges for a (bm, bn, bk)-tiled product: enough that every SM gets
-    a block when the output tiles alone leave SMs idle (the ResNet head
-    makes 8 tiles for 132 SMs), with at least two K steps a range."""
-    tiles = -(-M // bm) * -(-N // bn)
-    steps = -(-K // bk)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if tiles >= sms or steps < 4:
-        return 1
-    return max(1, min(-(-sms // tiles), steps // 2))
 
 
 def stream_of(t: torch.Tensor) -> int:

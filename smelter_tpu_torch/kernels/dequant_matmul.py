@@ -13,10 +13,9 @@ _dequant_matmul_impl`. The Hopper kernel is `csrc/dequant_matmul.cu`:
 - What the simple design does about it: W crosses HBM as int8 only and is
   converted to the activation type on its way into shared memory;
   mma.sync.m16n8k16 tiles of 128x128 per block, with the next K step loaded
-  into registers during the current one. When the output tiles leave SMs
-  idle, K is split into ranges summed in an f32 workspace and added in a
-  fixed order by a second kernel. f32 activations take a full-f32 FMA
-  kernel.
+  into registers during the current one. f32 activations take a full-f32
+  FMA kernel. At the head the 8 output tiles leave most SMs idle; one
+  launch is one kernel, with no split-K or workspace.
 
 `dequant_matmul` takes the plain PyTorch version for a tensor on the CPU or
 the `meta` device, and launches the kernel for a CUDA tensor or raises.
@@ -72,15 +71,10 @@ def dequant_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    tile = (64, 64, 16) if x.dtype == torch.float32 else (128, 128, 64)
-    splits = _build.k_splits(x.device, M, N, K, *tile)
-    workspace = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-                 if splits > 1 else None)
     lib = _build.library("dequant_matmul")
     with torch.cuda.device(x.device):
         rc = lib.smelter_dequant_matmul(
-            x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            None if workspace is None else workspace.data_ptr(), M, N, K, splits,
+            x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, K,
             _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
             _build.stream_of(x))
     _build.check(lib, rc, "dequant_matmul")

@@ -15,9 +15,9 @@ _int8_matmul_impl`. The Hopper kernel is `csrc/int8_matmul.cu`:
   with the int32 sum in registers, so the K loop does no float work; the
   (K, N) row-major weight tile is transposed into the B fragment's [n][k]
   layout in shared memory, per tile, so weights need no second copy. The
-  next K step loads into registers during the current one; when the output
-  tiles leave SMs idle, K is split into ranges whose int32 sums a second
-  kernel adds (exact in any order).
+  next K step loads into registers during the current one. At the head the
+  8 output tiles leave most SMs idle; one launch is one kernel, with no
+  split-K or workspace.
 
 `int8_matmul` takes the plain PyTorch version for a tensor on the CPU or the
 `meta` device, and launches the kernel for a CUDA tensor or raises.
@@ -88,15 +88,11 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, row_scales: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     if M == 0 or N == 0:
         return out
-    splits = _build.k_splits(x_q.device, M, N, K, 128, 128, 64)
-    workspace = (torch.empty((splits, M, N), dtype=torch.int32, device=x_q.device)
-                 if splits > 1 else None)
     lib = _build.library("int8_matmul")
     with torch.cuda.device(x_q.device):
         rc = lib.smelter_int8_matmul(
             x_q.data_ptr(), w_q.data_ptr(), row_scales.data_ptr(),
-            col_scales.data_ptr(), out.data_ptr(),
-            None if workspace is None else workspace.data_ptr(), M, N, K, splits,
+            col_scales.data_ptr(), out.data_ptr(), M, N, K,
             _build.DTYPE_CODES[out_dtype], _build.stream_of(x_q))
     _build.check(lib, rc, "int8_matmul")
     launches += 1
