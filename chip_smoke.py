@@ -11,24 +11,37 @@ its number:
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the build of every kernel from `smelter_tpu_torch/csrc/`, all
    `nvcc` processes at once;
-2. kernels against their plain PyTorch versions on the card, at the
-   ResNet-50 head shape and at a serving GEMM shape, with their device
-   times (CUDA-graph replay of many launches), the host cost of one call,
-   the plain versions' times, a PyTorch library call's time as a
-   yardstick, and the least time the card could take (the bound);
-3. the main path at full width: ResNet-50 (batch 128, 224 px, random
+2. kernels against their plain PyTorch versions on the card, with their
+   device times (CUDA-graph replay of many launches), the host cost of one
+   call, the plain versions' times, a PyTorch library call's time as a
+   yardstick, and the least time the card could take (the bound):
+   `dequant_matmul` and `int8_matmul` at the ResNet-50 head shape and at a
+   serving GEMM shape; `int4_matmul` at M = 8 for each N x K of llama_1b's
+   decode step and `paged_decode_attention` at its decode shape (8 slots,
+   int8 pools, positions spread over 0-511);
+3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
    f32, bf16 and bf16 with int8 activations, checked against the port's CPU
    run of the same graph, timed in images/s;
-4. the server: `serve(..., max_batch=16)` answers 32 threaded requests.
+4. the server: `serve(..., max_batch=16)` answers 32 threaded requests;
+5. the paged decode serving path at llama_1b's full width and depth (vocab
+   32000, dim 2048, 16 heads, 8 KV heads, ffn 5632, 24 layers; random
+   weights from a seed), int4-g128 weights, int8 KV pools of 128-row pages,
+   bf16: one step against the port's CPU f32 run of the same graph and
+   inputs, then `PagedDecodeServer` (8 slots) serving 34 requests at
+   tick_steps 1 with tokens equal to solo runs, and a short run at
+   tick_steps 4; tok/s, ms a tick, idle share, peak memory and the device
+   ms of each host op in a step.
 
 Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
-activations, the server) sets the counts to 0 just before it compiles and
-runs, reads them just after, and must have launched the kernel it routes
-to and no other. The last three lines are the kernels' JSON line, the card's name and power
-limit, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero
-before those lines. A JSON report of every number goes to
+activations, the ResNet server, the decode step, the two decode serving
+runs) sets the counts to 0 just before it runs, reads them just after, and
+must have launched the kernels it routes to and no other (on the decode
+path 169 int4_matmul and 24 paged_decode_attention a step). The last three
+lines are the kernels' JSON line, the card's name and power limit, and
+`{"ok": true, "device": {...}}`. Any failed check exits non-zero before
+those lines. A JSON report of every number goes to
 `build/chip_smoke/report.json`.
 """
 
@@ -52,6 +65,16 @@ L2_BYTES = 50 * 2**20
 
 HEAD = (128, 2048, 1000)          # ResNet-50 classifier at batch 128 (M, K, N)
 SERVING = (8192, 4096, 4096)      # serving GEMM (M, K, N)
+
+# llama_1b as bench.py serves it paged (bench.py:179, 400-528).
+LLAMA_1B = dict(vocab=32000, dim=2048, heads=16, kv_heads=8, ffn=5632, layers=24)
+SLOTS, PAGE, NPG = 8, 128, 4      # max_len 512; pool 1 + SLOTS * NPG pages
+GROUP = 128                       # int4-g128
+# int4_matmul calls of one decode step: (N, K) -> calls (q, k, v, o; gate,
+# up, down: 7 a layer; the head once).
+DECODE_GEMMS = {(2048, 2048): 2 * 24, (1024, 2048): 2 * 24, (5632, 2048): 2 * 24,
+                (2048, 5632): 24, (32000, 2048): 1}
+KERNELS = ("dequant_matmul", "int8_matmul", "int4_matmul", "paged_decode_attention")
 
 REPORT: dict = {}
 
@@ -244,22 +267,169 @@ def phase_kernels(torch, power_w: float) -> dict:
     return rows
 
 
+def phase_decode_kernels(torch, power_w: float) -> dict:
+    """int4_matmul at each decode GEMM of llama_1b (M = 8 slots, bf16 x) and
+    paged_decode_attention at its decode shape, against their plain
+    versions, with device, host, plain, library and bound times."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import int4_matmul as i4
+    from smelter_tpu_torch.kernels import paged_decode_attention as pda
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    side = torch.cuda.Stream()
+    bf16 = torch.bfloat16
+    rows = {}
+    M = SLOTS
+    for (N, K), calls in DECODE_GEMMS.items():
+        nbytes = M * K * 2 + K * N // 2 + K // GROUP * N * 4 + M * N * 2
+        sets = []
+        for _ in range(_copies(nbytes)):
+            x = torch.randn(M, K, device="cuda", generator=gen).to(bf16)
+            pk = torch.randint(-128, 128, (K // 2, N), device="cuda", generator=gen,
+                               dtype=torch.int8)
+            sc = torch.rand(K // GROUP, N, device="cuda", generator=gen) * 0.02 + 1e-3
+            sets.append((x, pk, sc))
+        n = len(sets)
+        x, pk, sc = sets[0]
+        errs = {}
+        # f32 out: the same bf16 products summed in another order, 1e-5;
+        # bf16 out (the path's type): both sums round to 8 bits, 1e-2.
+        for out_dtype, rel in ((torch.float32, 1e-5), (bf16, 1e-2)):
+            got = i4.int4_matmul(x, pk, sc, group=GROUP, out_dtype=out_dtype)
+            ref = i4.int4_matmul_plain(x, pk, sc, group=GROUP, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            check(got.shape == (M, N) and math.isfinite(err) and err <= rel * scale,
+                  f"int4_matmul N {N} K {K} {out_dtype}: max-abs {err} > {rel} x {scale}")
+            errs[str(out_dtype).split(".")[-1]] = (err, f"{rel} x max|plain| = {rel * scale:.4g}")
+
+        def call(i):
+            return i4.int4_matmul(*sets[i % n], group=GROUP, out_dtype=bf16)
+
+        ms = graph_ms(torch, side, call, 20)
+        call_ms = time_ms(torch, call, 20)
+        plain_ms = graph_ms(torch, side, lambda i: i4.int4_matmul_plain(
+            *sets[i % n], group=GROUP, out_dtype=bf16), 5)
+        w_deq = [(i4.unpack_int4_half(pk_).float() * sc_.repeat_interleave(GROUP, 0)).to(bf16)
+                 for _, pk_, sc_ in sets]
+        lib_ms = graph_ms(torch, side, lambda i: torch.matmul(sets[i % n][0], w_deq[i % n]), 20)
+        b_ms, b_by = bound(nbytes, 2 * M * N * K, "bf16", power_w)
+        rows[("int4_matmul", N, K)] = dict(
+            name="int4_matmul", shape=[M, K, N], calls_per_step=calls,
+            max_abs_err=errs["float32"][0], tolerance=errs["float32"][1], bf16_out_err=errs["bfloat16"][0], ms=ms,
+            call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library="bf16 torch.matmul on the dequantized weight", bound_ms=b_ms, bound_by=b_by,
+            bytes=nbytes)
+        del sets, w_deq
+
+    # paged_decode_attention: 8 slots, 8 KV heads of 128 (g 2), int8 pools
+    # of 128-row pages, 4 pages a slot, positions spread over 0-511.
+    kvh, g, c, hd = LLAMA_1B["kv_heads"], LLAMA_1B["heads"] // LLAMA_1B["kv_heads"], 1, 128
+    P_ = 1 + SLOTS * NPG
+    pos = torch.tensor([0, 73, 127, 128, 292, 365, 438, 511], device="cuda")
+    table = (1 + torch.randperm(P_ - 1, device="cuda", generator=gen)).reshape(SLOTS, NPG)
+    table = table.to(torch.int32)
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    live = int((pos + c).sum())
+    for dtype, kind, rel in ((bf16, "bf16", 1e-2), (torch.float32, "f32", 1e-5)):
+        nbytes = (2 * live * kvh * hd + 2 * live * 2 + 2 * SLOTS * kvh * g * c * hd * 2
+                  + SLOTS * NPG * 4 + SLOTS * 8) if dtype == bf16 else None
+        sets = []
+        for _ in range(_copies(2 * P_ * PAGE * kvh * hd)):
+            q = torch.randn(SLOTS, kvh, g * c, hd, device="cuda", generator=gen).to(dtype)
+            k, v = (torch.randint(-127, 128, (P_, PAGE, kvh * hd), device="cuda",
+                                  generator=gen, dtype=torch.int8) for _ in range(2))
+            ks, vs = ((torch.rand(P_, PAGE, 1, device="cuda", generator=gen) * 0.02
+                       + 1e-3).to(dtype) for _ in range(2))
+            sets.append((q, k, v, table, pos, ks, vs))
+        n = len(sets)
+        got = pda.paged_decode_attention(*sets[0], **kw)
+        ref = pda.paged_decode_attention_plain(*sets[0], **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(got.shape == sets[0][0].shape and math.isfinite(err) and err <= rel * scale,
+              f"paged_decode_attention {kind}: max-abs {err} > {rel} x {scale}")
+        if dtype != bf16:
+            rows[("paged_decode_attention", "f32")] = dict(max_abs_err=err,
+                                                            tolerance=f"{rel} x {scale:.4g}")
+            continue
+
+        def call(i):
+            return pda.paged_decode_attention(*sets[i % n], **kw)
+
+        ms = graph_ms(torch, side, call, 50)
+        call_ms = time_ms(torch, call, 50)
+        plain_ms = graph_ms(torch, side, lambda i: pda.paged_decode_attention_plain(
+            *sets[i % n], **kw), 10)
+        # library yardstick: SDPA over the gathered, dequantized caches
+        L = NPG * PAGE
+        mask = (torch.arange(L, device="cuda")[None] <= pos[:, None])[:, None, None, :]
+        dense = []
+        for q, k, v, _, _, ks, vs in sets:
+            kd, vd = ((pda.paged_gather_reference(a, table, L).float()
+                       * pda.paged_gather_reference(sa, table, L).float())
+                      .reshape(SLOTS, L, kvh, hd).transpose(1, 2).to(dtype).contiguous()
+                      for a, sa in ((k, ks), (v, vs)))
+            dense.append((q, kd, vd))
+        lib_ms = graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
+            *dense[i % n], attn_mask=mask, scale=kw["scale"]), 50)
+        b_ms, b_by = bound(nbytes, 4 * kvh * g * c * hd * live, "bf16", power_w)
+        rows[("paged_decode_attention", "bf16")] = dict(
+            name="paged_decode_attention", shape=[SLOTS, kvh, g * c, hd, PAGE, NPG],
+            calls_per_step=LLAMA_1B["layers"], live_rows=live, max_abs_err=err,
+            tolerance=f"{rel} x max|plain| = {rel * scale:.4g}", ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, library_ms=lib_ms,
+            library="F.scaled_dot_product_attention over the gathered, dequantized cache",
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        del sets, dense
+
+    for key, r in rows.items():
+        if "ms" not in r:
+            say(2, f"paged_decode_attention f32: err {r['max_abs_err']:.3g} ({r['tolerance']})")
+            continue
+        say(2, f"{r['name']} {r['shape']} bf16: err {r['max_abs_err']:.3g} "
+               f"({r['tolerance']}) | kernel {r['ms']:.4f} ms (host cost of a call "
+               f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+               f"{r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.5f} ms "
+               f"({r['bound_by']}, {r['bytes']} bytes) = {100 * r['bound_ms'] / r['ms']:.1f}% "
+               f"of bound | "
+               f"{r['calls_per_step']} calls a step")
+    REPORT["decode_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
+    return rows
+
+
+def per_step(rows: dict, name: str) -> dict:
+    """A decode kernel's numbers over one step's calls (calls x per call)."""
+    rs = [r for r in rows.values() if r.get("name") == name]
+    out = {k: sum(r[k] * r["calls_per_step"] for r in rs)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+    out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rs) else "operations"
+    return out
+
+
 # -- phase 3 ---------------------------------------------------------------
 
 def _top1(a, b) -> float:
     return float((a.argmax(1) == b.argmax(1)).mean())
 
 
-def _profile(torch, model, xg) -> dict:
-    """Device time by kernel over three forwards (torch.profiler)."""
+def _profile(torch, run, steps: int = 3):
+    """Device ms a step by kernel and by the host op that launched it, and
+    device kernels a step, over `steps` calls of run() (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            model.run_device(xg)
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
-    kernels, ops = {}, {}
+    kernels, ops, n_kernels = {}, {}, 0
     for e in prof.key_averages():
+        on_card = str(getattr(e, "device_type", "")).endswith("CUDA")
+        n_kernels += e.count if on_card else 0
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
@@ -267,29 +437,31 @@ def _profile(torch, model, xg) -> dict:
             continue
         # A kernel's time shows on its own entry and again on the host op
         # that launched it: keep the two apart.
-        side = kernels if str(getattr(e, "device_type", "")).endswith("CUDA") else ops
-        side[e.key] = side.get(e.key, 0.0) + t / 3e3  # us over 3 steps -> ms a step
-    return kernels, ops
+        side = kernels if on_card else ops
+        side[e.key] = side.get(e.key, 0.0) + t / (1e3 * steps)  # us in all -> ms a step
+    return kernels, ops, n_kernels / steps
+
+
+def _kernel_modules() -> dict:
+    import importlib
+
+    return {k: importlib.import_module(f"smelter_tpu_torch.kernels.{k}") for k in KERNELS}
 
 
 def _counts() -> dict:
-    from smelter_tpu_torch.kernels import dequant_matmul as dm
-    from smelter_tpu_torch.kernels import int8_matmul as im
-
-    return {"dequant_matmul": dm.launches, "int8_matmul": im.launches}
+    return {k: m.launches for k, m in _kernel_modules().items()}
 
 
 def _zero_counts() -> None:
-    from smelter_tpu_torch.kernels import dequant_matmul as dm
-    from smelter_tpu_torch.kernels import int8_matmul as im
-
-    dm.launches = im.launches = 0
+    for m in _kernel_modules().values():
+        m.launches = 0
 
 
-def _check_routed(label: str, counts: dict, routed: str) -> None:
-    """The path launched the kernel it routes to, and no other."""
-    check(counts[routed] > 0, f"{label}: {routed} never launched ({counts})")
-    check(all(n == 0 for k, n in counts.items() if k != routed),
+def _check_routed(label: str, counts: dict, routed) -> None:
+    """The path launched the kernels it routes to, and no other."""
+    routed = {routed} if isinstance(routed, str) else set(routed)
+    check(all(counts[k] > 0 for k in routed), f"{label}: {routed} not all launched ({counts})")
+    check(all(n == 0 for k, n in counts.items() if k not in routed),
           f"{label}: a kernel other than {routed} launched ({counts})")
 
 
@@ -349,7 +521,7 @@ def phase_main(torch, np, stt) -> dict:
         torch.cuda.reset_peak_memory_stats()
         step_ms = time_ms(torch, lambda i: model.run_device(xg), 20)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        per, by_op = _profile(torch, model, xg)
+        per, by_op, _ = _profile(torch, lambda: model.run_device(xg))
         busy = sum(per.values())
         ours = {k: v for k, v in per.items() if "dequant_matmul" in k or "int8_matmul" in k}
         top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
@@ -412,6 +584,245 @@ def phase_serve(torch, np, stt) -> dict:
             "max_abs_vs_direct": err}
 
 
+# -- phase 5 ---------------------------------------------------------------
+
+def _llama_graph(layers: int):
+    """llama_1b's batched paged step graph, int4-g128 weights fused, int8 KV
+    pools: random weights from seed 0, quantized and fused by the port. With
+    fewer layers, the same weights cut to the first `layers`."""
+    from smelter_tpu_torch.models import llama_style as ls
+    from smelter_tpu_torch.passes.pass_manager import run_passes
+    from smelter_tpu_torch.quant import quantize_weights
+
+    cfg = dict(LLAMA_1B, layers=layers)
+    w = ls.make_weights(**cfg, max_len=PAGE * NPG, seed=0)
+    g = ls.build_decode_step_paged(w, **cfg, slots=SLOTS, page_size=PAGE,
+                                   n_pages=1 + SLOTS * NPG, npg=NPG, kv_quant=True)[0]
+    del w
+    quantize_weights(g, f"int4-g{GROUP}", min_elements=1 << 16)
+    run_passes(g, ["fuse_dequant_matmul", "dce"])
+    return g
+
+
+def _step_inputs(np, g) -> dict:
+    """One step's inputs from seed 2: 8 slots at positions on both sides of
+    the page boundaries, a shuffled page table, and pools full of int8
+    values with per-row scales (as f32; the card's run takes them in bf16)."""
+    rng = np.random.default_rng(2)
+    by = {"token": rng.integers(1, LLAMA_1B["vocab"] - 1, (SLOTS, 1)).astype(np.int64),
+          "pos": np.array([0, 37, PAGE - 1, PAGE, 2 * PAGE - 6, 3 * PAGE - 1, 3 * PAGE,
+                           NPG * PAGE - 1], np.int64),
+          "page_table": (1 + rng.permutation(SLOTS * NPG)).reshape(SLOTS, NPG)
+          .astype(np.int32)}
+    for v in g.inputs:
+        if v.name.startswith(("k_pool", "v_pool")):
+            by[v.name] = rng.integers(-127, 128, tuple(v.type.shape), dtype=np.int8)
+        elif v.name.startswith(("k_scale_pool", "v_scale_pool")):
+            by[v.name] = rng.uniform(1e-3, 2e-2, tuple(v.type.shape)).astype(np.float32)
+    return by
+
+
+def _expect_decode_launches(label: str, counts: dict, steps: int, layers: int = 0) -> None:
+    layers = layers or LLAMA_1B["layers"]
+    per = {"int4_matmul": 7 * layers + 1, "paged_decode_attention": layers}
+    _check_routed(label, counts, per)
+    for k, n in per.items():
+        check(counts[k] == n * steps, f"{label}: {k} launched {counts[k]} times in {steps} "
+                                      f"steps, not {n} a step")
+
+
+def _check_step(torch, np, stt, g, layers: int, f32_rel: float) -> dict:
+    """One step of `g` on the card in f32 and in bf16 (the path's type)
+    against the port's CPU runs of the same graph and inputs in f32 (the
+    reference) and bf16. The card's f32 must lie within f32_rel of the
+    largest reference logit; its bf16 within 3x the CPU's own bf16 error;
+    top-1 must agree wherever the reference's top-2 gap exceeds twice the
+    error. Each card run must launch the decode kernels once a layer."""
+    from smelter_tpu_torch.runtime.executor import Executor
+
+    by = _step_inputs(np, g)
+    names = [v.name for v in g.inputs]
+
+    def step(device, dtype):
+        """Last-row logits (B, vocab) of one step, and the step's launches."""
+        ex_ = Executor(g, stt.Config(device=device, compute_dtype=dtype))
+        ins = [torch.from_numpy(by[n].copy()).to(device) for n in names]
+        if dtype == "bfloat16":
+            ins = [t.to(torch.bfloat16) if t.is_floating_point() else t for t in ins]
+        prm = ex_.cast_params(ex_.init_params())
+        _zero_counts()
+        out_ = ex_.build_fn()(prm, *ins)[0]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out_.float().cpu().numpy()[:, -1], _counts()
+
+    got32, launches32 = step("cuda", "float32")
+    got16, launches = step("cuda", "bfloat16")
+    _expect_decode_launches(f"{layers}-layer step f32", launches32, 1, layers)
+    _expect_decode_launches(f"{layers}-layer step bf16", launches, 1, layers)
+    t0 = time.perf_counter()
+    ref, _ = step("cpu", "float32")
+    ref16, _ = step("cpu", "bfloat16")
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(ref).max())
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    err_cpu16 = float(np.abs(ref16 - ref).max())
+    r = {"max_abs_ref": scale, "cpu_bf16_max_abs_err": err_cpu16, "gaps": gap.tolist(),
+         "launches": launches, "cpu_s": cpu_s}
+    text = []
+    for label, a, bound in (("f32", got32, f32_rel * scale), ("bf16", got16, 3 * err_cpu16)):
+        check(a.shape == (SLOTS, LLAMA_1B["vocab"]) and np.isfinite(a).all(),
+              f"{layers}-layer step {label}: logits")
+        err = float(np.abs(a - ref).max())
+        agree = a.argmax(1) == ref.argmax(1)
+        r[label] = {"max_abs_err": err, "bound": bound, "top1_agree": float(agree.mean())}
+        check(err <= bound, f"{layers}-layer step {label}: max-abs {err} > {bound}")
+        check(bool(agree[gap > 2 * err].all()),
+              f"{layers}-layer step {label}: top-1 differs on a clear row "
+              f"(agree {agree.tolist()}, gaps {gap.tolist()})")
+        text.append(f"card {label} max-abs {err:.4g} (bound {bound:.4g}), top-1 "
+                    f"{int(agree.sum())}/{SLOTS} (clear rows {int((gap > 2 * err).sum())})")
+    say(5, f"(a) {layers}-layer step vs the CPU's f32 run (max|ref| {scale:.4g}, CPU bf16 "
+           f"max-abs {err_cpu16:.4g}, CPU runs {cpu_s:.1f} s): " + "; ".join(text)
+           + f" | launches {launches}")
+    return r
+
+
+def phase_paged(torch, np, stt) -> dict:
+    from smelter_tpu_torch.runtime.executor import Executor
+    from smelter_tpu_torch.serving.paged_server import PagedDecodeServer
+
+    res: dict = {}
+    # (a) one step on the card against the port's CPU runs, on the first 2
+    # layers of the weights and at full depth. A last-bit difference moves
+    # an activation by a whole step where it is rounded to bf16 (each int4
+    # product's x) or to int8 (the KV rows), and the random network carries
+    # that on: on the CPU, summing only the int4 products in f64 instead of
+    # f32 moves the logits by 4.8e-3 of the largest at 2 layers of this
+    # width, and by 1.0e-2 at 24 layers of width 512. So the card's f32 is
+    # held to 1e-2 at 2 layers and 5e-2 at 24.
+    t0 = time.perf_counter()
+    g2 = _llama_graph(2)
+    build2_s = time.perf_counter() - t0
+    res["step_2_layers"] = _check_step(torch, np, stt, g2, 2, 1e-2)
+    del g2
+    t0 = time.perf_counter()
+    g = _llama_graph(LLAMA_1B["layers"])
+    res["build_s"] = time.perf_counter() - t0
+    n_i4 = sum(n.op_type == "FusedDequantMatMulI4" for n in g.nodes)
+    say(5, f"llama_1b paged step graph, int4-g{GROUP} fused ({n_i4} int4 matmuls), int8 KV, "
+           f"built in {res['build_s']:.1f} s (2-layer cut in {build2_s:.1f} s)")
+    res["step_vs_cpu_f32"] = _check_step(torch, np, stt, g, LLAMA_1B["layers"], 5e-2)
+
+    by = _step_inputs(np, g)
+    names = [v.name for v in g.inputs]
+    cfg = stt.Config(compute_dtype="bfloat16")
+    ex = Executor(g, cfg)
+    params = ex.cast_params(ex.init_params())
+    fn = ex.build_fn()
+    dev_in = [torch.from_numpy(by[n]).cuda() for n in names]
+    dev_in = [t.to(torch.bfloat16) if t.is_floating_point() else t for t in dev_in]
+
+    # (c) a step's device time and where it goes
+    step_ms = time_ms(torch, lambda i: fn(params, *dev_in), 10)
+    kernels, ops, n_kernels = _profile(torch, lambda: fn(params, *dev_in))
+    busy = sum(kernels.values())
+    ours = {k: v for k, v in kernels.items() if "int4_matmul" in k or "paged_attention" in k}
+    res["step"] = {"step_ms": step_ms, "device_busy_ms": busy,
+                   "idle_share": max(0.0, 1 - busy / step_ms), "port_kernel_ms": ours,
+                   "top_kernels_ms": sorted(kernels.items(), key=lambda kv: -kv[1])[:10],
+                   "top_host_ops_ms": sorted(ops.items(), key=lambda kv: -kv[1])[:10],
+                   "kernel_launches_profiled": n_kernels}
+    del params, dev_in, ex, fn
+    torch.cuda.empty_cache()
+    r = res["step"]
+    say(5, f"(c) step {step_ms:.3f} ms (host-timed, 10 steps), profiled device busy "
+           f"{busy:.3f} ms, idle share {100 * r['idle_share']:.1f}%, port kernels "
+           f"{sum(ours.values()):.3f} ms, ~{r['kernel_launches_profiled']:.0f} device kernels "
+           f"a step")
+    say(5, "  device ms a step by host op: "
+           + "; ".join(f"{k} {v:.3f}" for k, v in r["top_host_ops_ms"]))
+    say(5, "  device ms a step by kernel: "
+           + "; ".join(f"{k[:60]} {v:.3f}" for k, v in r["top_kernels_ms"][:6]))
+
+    # (b) serving: bench.py's 32 requests (prompts of 8-47 tokens, 64 new
+    # each, seed 0; none reaches row 128) and two longer ones (100 and 120
+    # tokens) that cross the page boundary
+    rng = np.random.default_rng(0)
+    vocab = LLAMA_1B["vocab"]
+    reqs = [[int(t) for t in rng.integers(1, vocab - 1, n)]
+            for n in rng.integers(8, min(48, PAGE * NPG // 4), 32)]
+    reqs += [[int(t) for t in rng.integers(1, vocab - 1, n)] for n in (PAGE - 28, PAGE - 8)]
+    n_new = 64
+    server = PagedDecodeServer(g, cfg, tick_steps=1)
+    try:
+        server.submit(reqs[0][:8], 4).result(timeout=600)  # first use outside the clock
+        steps0 = server.stats()["steps"]
+        _zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        futs = [server.submit(p, n_new) for p in reqs]
+        served = [f.result(timeout=900) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        stats = server.stats()
+        steps = stats["steps"] - steps0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _expect_decode_launches("paged serving", launches, steps)
+        check(all(len(r) == len(p) + n_new and r[:len(p)] == p for r, p in zip(served, reqs)),
+              "paged serving: a request came back short or altered")
+        crossed = sum(len(r) > PAGE for r in served)
+        check(crossed >= 1, "paged serving: no sequence crossed a page boundary")
+        solo_idx = (0, 7, 32, 33)
+        for i in solo_idx:  # one active slot
+            alone = server.submit(reqs[i], n_new).result(timeout=600)
+            check(alone == served[i], f"paged serving: request {i} served != alone")
+        cache_gb = server.cache_bytes() / 1e9
+    finally:
+        server.shutdown()
+    del server
+    tokens = len(reqs) * n_new
+    res["serve_t1"] = {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
+                       "tok_s": tokens / wall, "ticks": steps, "ms_per_tick": 1e3 * wall / steps,
+                       "peak_mem_gb": peak_gb, "pool_gb": cache_gb, "launches": launches,
+                       "page_crossings": crossed, "stall_ticks": stats["stall_ticks"],
+                       "solo_equal": list(solo_idx)}
+    r = res["serve_t1"]
+    say(5, f"(b) served {len(reqs)} requests, {tokens} new tokens in {wall:.2f} s: "
+           f"{r['tok_s']:.1f} tok/s, {steps} ticks, {r['ms_per_tick']:.2f} ms a tick, peak "
+           f"{peak_gb:.2f} GB (pools {cache_gb:.3f} GB), {crossed} sequences crossed a page, "
+           f"stall ticks {stats['stall_ticks']} | launches {launches} | requests {solo_idx} "
+           f"alone: equal")
+
+    # a short run at tick_steps 4: the same tokens as at tick_steps 1
+    server = PagedDecodeServer(g, cfg, tick_steps=4)
+    short, n4 = reqs[:8] + reqs[33:], 16
+    try:
+        server.submit(reqs[0][:8], 4).result(timeout=600)
+        steps0 = server.stats()["steps"]
+        _zero_counts()
+        t0 = time.perf_counter()
+        got4 = [f.result(timeout=600) for f in [server.submit(p, n4) for p in short]]
+        wall4 = time.perf_counter() - t0
+        launches4 = _counts()
+        steps4 = server.stats()["steps"] - steps0
+    finally:
+        server.shutdown()
+    del server
+    _expect_decode_launches("paged serving, tick_steps 4", launches4, steps4)
+    want4 = [served[i][:len(reqs[i]) + n4] for i in list(range(8)) + [33]]
+    check(got4 == want4, "paged serving: tick_steps 4 tokens differ from tick_steps 1")
+    res["serve_t4"] = {"requests": len(short), "tokens": len(short) * n4, "wall_s": wall4,
+                       "tok_s": len(short) * n4 / wall4, "steps": steps4,
+                       "launches": launches4}
+    say(5, f"(b) tick_steps 4: {len(short)} requests x {n4} tokens in {wall4:.2f} s "
+           f"({res['serve_t4']['tok_s']:.1f} tok/s, {steps4} steps), tokens equal to "
+           f"tick_steps 1 | launches {launches4}")
+    return res
+
+
 # -- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -430,24 +841,40 @@ def main() -> int:
     smi, power_w = phase_environment(torch)
     rows = phase_kernels(torch, power_w)
 
+    decode_rows = phase_decode_kernels(torch, power_w)
+
     main_path = REPORT["main_path"] = phase_main(torch, np, stt)
     REPORT["serve"] = phase_serve(torch, np, stt)
+    paged = REPORT["paged"] = phase_paged(torch, np, stt)
     # Each kernel's launches on the path that routes to it.
     launches = {"dequant_matmul": main_path["bf16"]["launches"]["dequant_matmul"],
-                "int8_matmul": main_path["bf16_int8act"]["launches"]["int8_matmul"]}
-    say(5, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
+                "int8_matmul": main_path["bf16_int8act"]["launches"]["int8_matmul"],
+                "int4_matmul": paged["serve_t1"]["launches"]["int4_matmul"],
+                "paged_decode_attention":
+                    paged["serve_t1"]["launches"]["paged_decode_attention"]}
+    say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
+    # ResNet-50 kernels: one call at the head shape. Decode kernels: the
+    # sum over one decode step's calls (169 int4_matmul, 24 attention).
     sources = {"dequant_matmul": ("smelter_tpu_torch/csrc/dequant_matmul.cu",
-                                  "smelter_tpu/kernels/dequant_matmul.py:104", "bf16"),
+                                  "smelter_tpu/kernels/dequant_matmul.py:104",
+                                  rows[("dequant_matmul", "head", "bf16")], "call"),
                "int8_matmul": ("smelter_tpu_torch/csrc/int8_matmul.cu",
-                               "smelter_tpu/kernels/int8_matmul.py:125", "int8")}
+                               "smelter_tpu/kernels/int8_matmul.py:125",
+                               rows[("int8_matmul", "head", "int8")], "call"),
+               "int4_matmul": ("smelter_tpu_torch/csrc/int4_matmul.cu",
+                               "smelter_tpu/kernels/int4_matmul.py:232",
+                               per_step(decode_rows, "int4_matmul"), "decode step"),
+               "paged_decode_attention": ("smelter_tpu_torch/csrc/paged_decode_attention.cu",
+                                          "smelter_tpu/kernels/paged_decode_attention.py:151",
+                                          per_step(decode_rows, "paged_decode_attention"),
+                                          "decode step")}
     kernels = []
-    for name, (src, replaces, kind) in sources.items():
-        r = rows[(name, "head", kind)]  # the shape the main path gives it
+    for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "per": per})
     REPORT["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)

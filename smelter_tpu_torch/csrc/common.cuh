@@ -15,7 +15,7 @@
 namespace smelter {
 
 // Element-type codes shared with smelter_tpu_torch/kernels/_build.py.
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI32 = 3 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI32 = 3, kI8 = 4 };
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }

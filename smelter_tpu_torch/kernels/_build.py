@@ -31,16 +31,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Element-type codes of csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-               torch.int32: 3}
+               torch.int32: 3, torch.int8: 4}
 
 # name -> the C entry point's argument types (pointers and the stream are
 # c_void_p, so ctypes never cuts them to 32 bits).
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "dequant_matmul": ("smelter_dequant_matmul",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "int8_matmul": ("smelter_int8_matmul",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "int4_matmul": ("smelter_int4_matmul",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "paged_decode_attention": ("smelter_paged_decode_attention",
+                               [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -58,9 +62,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    """Where kernel `name` is built: named by a hash of its source, of
+    every header under csrc/ (so an edited header never loads a stale
+    library) and of the flags."""
     h = hashlib.sha256()
-    for p in (src, CSRC / "common.cuh"):
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

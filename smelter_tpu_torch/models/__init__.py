@@ -1,3 +1,4 @@
-"""Model zoo of the port: ResNet-50, built as in the JAX package."""
+"""Model zoo of the port: ResNet-50 and the LLaMA-style decoder, built as in
+the JAX package."""
 
-from . import resnet50  # noqa: F401
+from . import llama_style, resnet50  # noqa: F401

@@ -1,7 +1,9 @@
-"""Elementwise op lowerings of the ResNet path: Relu, Identity, Add.
+"""Elementwise op lowerings: Relu, Identity, Add (the ResNet path), Sigmoid,
+Abs, Round, Clip, Mul, Div, Max (the decode path).
 
 Counterparts of `smelter_tpu/ops/math_ops.py`; a binary op casts its second
-operand to the first one's dtype, as there.
+operand to the first one's dtype, as there. Round is half to even, as
+`jnp.round`.
 """
 
 from __future__ import annotations
@@ -30,4 +32,35 @@ def _binary(op_type: str, fn, since: int = 1):
 
 _unary("Relu", torch.relu)
 _unary("Identity", lambda x: x)
+_unary("Sigmoid", torch.sigmoid)
+_unary("Abs", torch.abs)
+_unary("Round", torch.round)
 _binary("Add", torch.add)
+_binary("Mul", torch.mul)
+_binary("Div", torch.div)
+
+
+@register("Clip")
+def clip(ctx: Ctx, node: Node):
+    x = ctx.get(node.inputs[0])
+    if ctx.opset >= 11:
+        lo = ctx.get(node.inputs[1]) if len(node.inputs) > 1 and node.inputs[1] else None
+        hi = ctx.get(node.inputs[2]) if len(node.inputs) > 2 and node.inputs[2] else None
+    else:
+        lo = node.attr("min")
+        hi = node.attr("max")
+    y = x
+    if lo is not None:
+        y = torch.maximum(y, torch.as_tensor(lo, device=x.device).to(x.dtype))
+    if hi is not None:
+        y = torch.minimum(y, torch.as_tensor(hi, device=x.device).to(x.dtype))
+    ctx.set(node.outputs[0], y)
+
+
+@register("Max")
+def max_n(ctx: Ctx, node: Node):
+    vals = [ctx.get(n) for n in node.inputs]
+    out = vals[0]
+    for v in vals[1:]:
+        out = torch.maximum(out, v.to(out.dtype))
+    ctx.set(node.outputs[0], out)

@@ -1,5 +1,5 @@
-"""Tensor-manipulation op lowerings of the ResNet path: Constant, Reshape,
-Flatten, Transpose, DepthToSpace.
+"""Tensor-manipulation op lowerings: Constant, Reshape, Flatten, Transpose,
+DepthToSpace (the ResNet path), Gather, Cast, CastLike (the decode path).
 
 Counterparts of `smelter_tpu/ops/tensor_ops.py`. Constant publishes its
 value into the static env, so a Reshape whose shape comes from it resolves
@@ -9,9 +9,11 @@ before the run.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ir.errors import NotSupportedError
 from ..ir.graph import Node
+from ..utils import dtypes as dt
 from .registry import Ctx, register
 
 
@@ -101,3 +103,39 @@ def depth_to_space(ctx: Ctx, node: Node):
     else:  # CRD
         y = x.reshape(n, c // (bs * bs), bs, bs, h, w).permute(0, 1, 4, 2, 5, 3)
     ctx.set(node.outputs[0], y.reshape(n, c // (bs * bs), h * bs, w * bs))
+
+
+@register("Gather")
+def gather(ctx: Ctx, node: Node):
+    x = ctx.get(node.inputs[0])
+    axis = node.attr("axis", 0)
+    st_idx = ctx.static(node.inputs[1], required=False)
+    st_x = ctx.static(node.inputs[0], required=False)
+    if st_idx is not None and st_x is not None:
+        ctx.set_static(node.outputs[0], np.take(st_x, st_idx.astype(np.int64), axis=axis))
+        return
+    indices = ctx.get(node.inputs[1]).long()
+    axis = axis if axis >= 0 else axis + x.ndim
+    dim = x.shape[axis]
+    # ONNX allows negative indices (from the end).
+    indices = torch.where(indices < 0, indices + dim, indices)
+    y = x.index_select(axis, indices.reshape(-1))
+    ctx.set(node.outputs[0], y.reshape(
+        tuple(x.shape[:axis]) + tuple(indices.shape) + tuple(x.shape[axis + 1:])))
+
+
+@register("Cast", since=6)
+def cast(ctx: Ctx, node: Node):
+    x = ctx.get(node.inputs[0])
+    code = int(node.attr("to"))
+    ctx.set(node.outputs[0], x.to(dt.onnx_to_torch_dtype(code)))
+    st = ctx.static(node.inputs[0], required=False)
+    if st is not None:
+        ctx.set_static(node.outputs[0], np.asarray(st).astype(dt.onnx_to_numpy_dtype(code)))
+
+
+@register("CastLike", since=15)
+def cast_like(ctx: Ctx, node: Node):
+    x = ctx.get(node.inputs[0])
+    like = ctx.get(node.inputs[1])
+    ctx.set(node.outputs[0], x.to(like.dtype))

@@ -2,7 +2,8 @@
 
 Rewrites DequantizeLinear(w_q, s) -> MatMul/Gemm chains into the internal
 FusedDequantMatMul op, whose lowering (ops/fused_ops.py) runs the port's
-dequant_matmul or int8_matmul kernel on the card. This removes the
+dequant_matmul or int8_matmul kernel on the card, and grouped 4-bit chains
+into FusedDequantMatMulI4 (the int4_matmul kernel). This removes the
 materialized fp32 weight tensor: the int8 weight is the only resident copy.
 
 Gemm(transB=1) weights are pre-transposed to (K, N) on the host at pass
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ir.graph import Graph, Node
+from ..quant.weight_quant import is_int4_graph
 from .pass_manager import register_pass
 
 
@@ -87,12 +89,12 @@ def _build_fused_i4(graph: Graph, node: Node, dq: Node) -> list[Node] | None:
     """Blocked (grouped) int4 DequantizeLinear + MatMul/Gemm -> the
     FusedDequantMatMulI4 internal op: the 4-bit weight packs host-side
     into half-split int8 nibbles (kernels/int4_matmul.py layout) so the
-    Pallas kernel can unpack between the DMA and the MXU. Required on
-    TPU: s4 arrays are backend-UNIMPLEMENTED and the XLA unpack
-    composite materializes (probe67)."""
+    kernel unpacks them on their way to the tensor cores. The port holds
+    4-bit values as int8, marked 4-bit by the graph's quant mode
+    (quant/weight_quant.py::is_int4_graph)."""
     q = graph.initializers[dq.inputs[0]]
     s = graph.initializers[dq.inputs[1]]
-    if q.ndim != 2 or q.dtype.name != "int4":
+    if q.ndim != 2 or q.dtype != np.int8 or not is_int4_graph(graph):
         return None
     group = int(dq.attr("block_size"))
     axis = int(dq.attr("axis", 1)) % 2

@@ -1,8 +1,9 @@
 """Engine configuration.
 
 The port's counterpart of `smelter_tpu/runtime/config.py`, with the fields
-this slice reads, `use_pallas` (so a configuration of the JAX package's
-ResNet path carries across), and `device`.
+the port reads, `device`, and three it keeps unread so that configurations
+of the JAX package's ResNet and paged-decode paths carry across:
+`use_pallas`, `int4_block_n` and `ragged_attention`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ class Config:
     # ignores it: FusedDequantMatMul always takes the port's kernels on the
     # card and their plain versions on the CPU.
     use_pallas: bool = False
+    # Kept, unread: the JAX package's int4 kernel N-block override. The
+    # port's int4_matmul kernel fixes its tiles (kernels/int4_matmul.py).
+    int4_block_n: int | None = None
+    # Kept, unread: the JAX package rewrites a dense decode step's cache
+    # attention into RaggedDecodeAttention. The port runs only the paged
+    # step, whose PagedDecodeAttention reads just the live pages already.
+    ragged_attention: bool = False
     # Run FusedDequantMatMul on the int8 tensor cores by quantizing the
     # activations per row (kernels/int8_matmul.py); adds one activation
     # rounding step. Off by default: weight-only numerics unchanged.

@@ -32,6 +32,7 @@ _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 _SCALE_POS = {
     "DequantizeLinear": (1, 2),
     "FusedDequantMatMul": (2,),
+    "FusedDequantMatMulI4": (2,),
 }
 
 

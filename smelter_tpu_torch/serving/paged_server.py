@@ -1,0 +1,345 @@
+"""Paged continuous-batching decode server (single shared KV pool).
+
+The port's counterpart of `smelter_tpu/serving/paged_server.py::
+PagedDecodeServer`. All slots share ONE pool of fixed-size pages per layer
+(kernels/paged_decode_attention.py), each slot owns a page-table row, and
+pages are allocated as sequences GROW and returned the moment they finish:
+device memory is pages-in-use, whatever the mix of lengths.
+
+The step graph is BATCHED (models/llama_style.py::
+build_decode_step_paged): token (B, 1), pos (B,), page table (B, npg) and
+one shared pool per layer, so no per-slot mapping is needed. Each tick runs
+the step on the device and reads back only the (B,) greedy tokens. With
+`tick_steps` T > 1 a tick chains T steps: prompt tokens ride in `forced`,
+generated ones feed the next step on the device through argmax, and the
+(B, T) tokens are read back once.
+
+The pools are updated IN PLACE by PagedCacheUpdate, where the JAX server
+donates them to a jitted step that returns new ones; the readers see the
+same values. A failed step fails the in-flight requests and releases their
+pages; nothing needs healing, since no buffer was given away.
+
+Two disciplines keep shared pages safe with zero in-graph masking:
+- scratch page (kv_pool.PagePool(scratch=True)): dead/stalled slots'
+  table rows point at reserved page 0, so their unconditional writes land
+  there instead of corrupting re-assigned pages;
+- backpressure, not eviction: when the pool cannot grow a slot this tick
+  (PoolExhausted), the slot is STALLED — it still rides the batched step
+  (its row is pinned to the scratch page) but its result is not committed,
+  and it resumes when pages free up. When every active slot is stalled,
+  the least-progressed sequences are failed until one can move.
+
+Prefill admission (`prefill_graphs`) needs the contrib-op prefill graphs
+(`build_full`), which the port cannot run yet: it raises NotSupportedError,
+and prompts are fed one token per tick.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import Future
+
+import numpy as np
+import torch
+
+from ..ir.errors import NotSupportedError
+from .decode_server import _Slot
+from .kv_pool import PagePool, PoolExhausted
+
+
+class PagedDecodeServer:
+    """Continuous batching over a batched paged step graph.
+
+    submit(prompt, n_new) -> Future of prompt+generated tokens (greedy;
+    stop_tokens end early). Admission and growth are page-granular.
+    """
+
+    def __init__(self, step_graph, config=None,
+                 stop_tokens: tuple[int, ...] = (), prefill_graphs=(),
+                 tick_steps: int = 1):
+        from ..runtime.config import Config
+        from ..runtime.executor import Executor
+        from ..runtime.generate import _cache_dtypes
+
+        if prefill_graphs:
+            raise NotSupportedError(
+                "PagedDecodeServer prefill admission is not in the PyTorch port "
+                "yet: prompts are fed one token per tick")
+        cfg = config or Config()
+        ex = Executor(step_graph, cfg)
+        self.device = ex.device
+        self._params = ex.cast_params(ex.init_params())
+        self._fn = ex.build_fn()
+        self._input_names = [v.name for v in step_graph.inputs]
+        shapes = {v.name: tuple(v.type.shape) for v in step_graph.inputs}
+        self._pool_names = [n for n in self._input_names
+                            if n.startswith(("k_pool_", "v_pool_",
+                                             "k_scale_pool_",
+                                             "v_scale_pool_"))]
+        if not self._pool_names:
+            raise ValueError("step graph has no k_pool_/v_pool_ inputs "
+                             "(need build_decode_step_paged form)")
+        self.slots, self.chunk = shapes["token"]
+        if self.chunk != 1:
+            raise NotImplementedError("paged server ticks at chunk=1")
+        n_pages, page_size, _ = shapes[self._pool_names[0]]
+        npg = shapes["page_table"][1]
+        self.max_len = npg * page_size
+        self.stop_tokens = set(stop_tokens)
+        # ONE allocator for all layers: every layer's pool is indexed by
+        # the same page table, so page p is "the" page p in all of them
+        self.pool = PagePool(n_pages, page_size, self.slots, scratch=True)
+        self.tick_steps = max(1, int(tick_steps))
+        # floating pools run in the executor's compute dtype; made in it,
+        # they are never converted (a converted copy would not be updated
+        # in place)
+        dts = _cache_dtypes(step_graph, cfg, self._pool_names)
+        self._pools = [torch.zeros(shapes[n], dtype=d, device=self.device)
+                       for n, d in zip(self._pool_names, dts)]
+        self._table = self.pool.table(npg)
+        self._npg = npg
+        self._state = [_Slot() for _ in range(self.slots)]
+        self._pending: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._shutdown = False
+        self._wake = threading.Event()
+        self._stall_ticks = 0  # observability: ticks with >=1 stalled slot
+        self._steps = 0        # step-graph runs (tick_steps per tick)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # -- public API ------------------------------------------------------
+
+    def submit(self, prompt: list[int], n_new: int,
+               context=None) -> Future:
+        fut: Future = Future()
+        if context:
+            fut.set_exception(ValueError(
+                "PagedDecodeServer does not take context arrays"))
+            return fut
+        if not prompt:
+            fut.set_exception(ValueError("prompt must be non-empty"))
+            return fut
+        if len(prompt) >= self.max_len:
+            fut.set_exception(ValueError(
+                f"prompt length {len(prompt)} >= table capacity "
+                f"{self.max_len}"))
+            return fut
+        if n_new <= 0:
+            fut.set_result(list(prompt))
+            return fut
+        self._pending.put((list(prompt), int(n_new), fut))
+        self._wake.set()
+        return fut
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "slots": self.slots,
+                "active": sum(s.active for s in self._state),
+                "queued": self._pending.qsize(),
+                "free_pages": self.pool.free_pages,
+                "page_size": self.pool.page_size,
+                "stall_ticks": self._stall_ticks,
+                "steps": self._steps,
+            }
+
+    def cache_bytes(self) -> int:
+        """Device bytes of the shared pools (the whole pool is resident;
+        pages-IN-USE is the scheduling quantity — see stats())."""
+        return sum(p.numel() * p.element_size() for p in self._pools)
+
+    def shutdown(self) -> None:
+        self._shutdown = True
+        self._wake.set()
+        self._thread.join(timeout=30)
+
+    # -- the step on the device ------------------------------------------
+
+    def _run_step(self, tokens, pos, table) -> torch.Tensor:
+        """One step graph: tokens (B, 1) and pos (B,) int64, table (B, npg)
+        int32, all on the device. Updates the pools in place and returns
+        the (B,) greedy tokens, still on the device."""
+        by = {"token": tokens, "pos": pos, "page_table": table}
+        by.update(zip(self._pool_names, self._pools))
+        outs = self._fn(self._params, *[by[n] for n in self._input_names])
+        self._pools = list(outs[1:])
+        self._steps += 1
+        return outs[0][:, -1, :].argmax(dim=-1)
+
+    def _step_multi(self, tokens, pos, forced, nf, table) -> torch.Tensor:
+        """T chained steps: step j feeds forced[:, j] where j < nf (the
+        prompt), else step j-1's argmax. Returns (B, T): step j's argmax."""
+        T = self.tick_steps
+        tk, outs = tokens, []
+        for j in range(T):
+            out = self._run_step(tk[:, None], pos + j, table)
+            outs.append(out)
+            tk = torch.where(j < nf, forced[:, min(j, T - 2)], out)
+        return torch.stack(outs, dim=1)
+
+    # -- slot loop -------------------------------------------------------
+
+    def _admit(self) -> None:
+        for i, s in enumerate(self._state):
+            if s.active:
+                continue
+            try:
+                prompt, n_new, fut = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            n_new = min(n_new, self.max_len - len(prompt))
+            self._state[i] = _Slot(active=True, prompt=prompt, fed=0,
+                                   generated=[], n_new=n_new,
+                                   last_token=prompt[0], pos=0,
+                                   future=fut)
+
+    def _loop(self) -> None:
+        T = self.tick_steps
+        dev = self.device
+        while not self._shutdown:
+            with self._lock:
+                self._admit()
+                active = [i for i, s in enumerate(self._state)
+                          if s.active]
+            if not active:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+                continue
+            # page growth BEFORE the step; slots the pool cannot grow are
+            # stalled (they ride along but do not commit). Multi-step
+            # ticks need T rows of headroom (capped at the table capacity
+            # so the last tokens of a max-length sequence do not stall
+            # forever).
+            live: list[int] = []
+            for i in active:
+                s = self._state[i]
+                try:
+                    self.pool.ensure(i, min(s.pos + T, self.max_len))
+                    live.append(i)
+                except PoolExhausted:
+                    pass
+            if not live:
+                # every active slot is stalled: pages can only free when
+                # a sequence finishes, and nothing can step — resolve the
+                # deadlock by failing the least-progressed sequence(s)
+                # until someone can move (their pages return to the pool)
+                with self._lock:
+                    self._stall_ticks += 1
+                    for i in sorted(active,
+                                    key=lambda j: self._state[j].pos):
+                        s = self._state[i]
+                        s.future.set_exception(PoolExhausted(
+                            "page pool exhausted by longer sequences"))
+                        self._state[i] = _Slot()
+                        self.pool.release(i)
+                        nxt_i = [j for j in active if self._state[j].active]
+                        if any(self.pool.pages_for(self._state[j].pos + 1)
+                               - len(self.pool.pages_of(j))
+                               <= self.pool.free_pages for j in nxt_i):
+                            break
+                continue
+            if len(live) < len(active):
+                self._stall_ticks += 1
+            self._table = self.pool.table(self._npg, out=self._table)
+            # stalled slots ride with their REAL pos: pos >= their page
+            # capacity, so table[i, pos // ps] hits the zero-filled
+            # (scratch) region and their writes are harmless; only
+            # `live` slots commit results below
+            tokens = np.zeros((self.slots,), np.int64)
+            pos = np.zeros((self.slots,), np.int64)
+            forced = np.zeros((self.slots, max(T - 1, 1)), np.int64)
+            nf = np.zeros((self.slots,), np.int64)
+            for i in active:
+                s = self._state[i]
+                tokens[i] = s.last_token
+                pos[i] = s.pos
+                nxt_prompt = s.prompt[s.pos + 1:s.pos + T]
+                nf[i] = len(nxt_prompt)
+                forced[i, :len(nxt_prompt)] = nxt_prompt
+            try:
+                with torch.inference_mode():
+                    tok_d = torch.from_numpy(tokens).to(dev)
+                    pos_d = torch.from_numpy(pos).to(dev)
+                    table_d = torch.from_numpy(self._table).to(dev)
+                    if T > 1:
+                        nxt = self._step_multi(
+                            tok_d, pos_d, torch.from_numpy(forced).to(dev),
+                            torch.from_numpy(nf).to(dev), table_d)
+                    else:
+                        nxt = self._run_step(tok_d[:, None], pos_d, table_d)
+                    nxt = nxt.cpu().numpy()
+            except Exception as e:  # noqa: BLE001 — fail requests, keep
+                # the serving thread; the pools were written in place, and
+                # every page is released (before the callers hear of it), so
+                # nothing stale is read again
+                with self._lock:
+                    failed = [s.future for s in self._state
+                              if s.active and s.future is not None]
+                    for i in range(self.slots):
+                        self._state[i] = _Slot()
+                        self.pool.release(i)
+                    for fut in failed:
+                        fut.set_exception(e)
+                continue
+            with self._lock:
+                for i in live:
+                    s = self._state[i]
+                    if T > 1:
+                        # nxt[i, j] predicts sequence position
+                        # s.pos + j + 1; those past the prompt are
+                        # generated (greedy chain on device)
+                        plen = len(s.prompt)
+                        start = s.pos
+                        s.pos = min(start + T, self.max_len)
+                        s.fed = min(plen - 1, s.pos)
+                        done = False
+                        for j in range(T):
+                            idx = start + j + 1
+                            if idx < plen:
+                                continue
+                            tok = int(nxt[i, j])
+                            s.generated.append(tok)
+                            if (len(s.generated) >= s.n_new
+                                    or tok in self.stop_tokens
+                                    or idx >= self.max_len):
+                                done = True
+                                s.generated = s.generated[:s.n_new]
+                                break
+                        if done:
+                            s.future.set_result(
+                                list(s.prompt) + s.generated)
+                            self._state[i] = _Slot()
+                            self.pool.release(i)
+                        else:
+                            seq = s.prompt + s.generated
+                            s.last_token = seq[s.pos] \
+                                if s.pos < len(seq) else seq[-1]
+                        continue
+                    s.pos += 1
+                    if s.fed + 1 < len(s.prompt):
+                        s.fed += 1
+                        s.last_token = s.prompt[s.fed]
+                        continue
+                    tok = int(nxt[i])
+                    s.generated.append(tok)
+                    s.last_token = tok
+                    done = (len(s.generated) >= s.n_new
+                            or tok in self.stop_tokens
+                            or s.pos >= self.max_len)
+                    if done:
+                        s.future.set_result(list(s.prompt) + s.generated)
+                        self._state[i] = _Slot()
+                        self.pool.release(i)  # pages free THIS tick
+        with self._lock:
+            for s in self._state:
+                if s.active and s.future is not None \
+                        and not s.future.done():
+                    s.future.set_exception(RuntimeError("server shut down"))
+            while True:
+                try:
+                    *_rest, fut = self._pending.get_nowait()
+                except queue.Empty:
+                    break
+                fut.set_exception(RuntimeError("server shut down"))

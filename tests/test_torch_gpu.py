@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from smelter_tpu_torch.kernels import dequant_matmul as dm
+from smelter_tpu_torch.kernels import int4_matmul as i4
 from smelter_tpu_torch.kernels import int8_matmul as im
+from smelter_tpu_torch.kernels import paged_decode_attention as pda
+from smelter_tpu_torch.passes.fuse_dequant import pack_int4_half
 
 pytestmark = pytest.mark.gpu
 
@@ -85,3 +88,123 @@ def test_wrappers_raise_on_bad_operands(cuda):
         dm.dequant_matmul(x.t(), w, s)
     with pytest.raises(TypeError):
         im.int8_matmul(x, w, s[:16].reshape(16, 1), s)
+
+
+# int4_matmul: (M, K, N, group) at the llama_1b decode shapes (M 8) and
+# small ragged ones (M not a multiple of 16, several M tiles).
+INT4_SHAPES = [(8, 2048, 1024, 128), (8, 2048, 2048, 128), (8, 5632, 2048, 128),
+               (8, 2048, 5632, 128), (1, 64, 32, 32), (37, 512, 96, 64), (130, 256, 128, 32)]
+
+
+def _int4_operands(m, k, n, group, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(device, dtype)
+    w4 = rng.integers(-8, 8, (k, n), dtype=np.int8)
+    pk = torch.from_numpy(pack_int4_half(w4)).to(device)
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, (k // group, n)).astype(np.float32)).to(device)
+    return x, pk, s
+
+
+@pytest.mark.parametrize("shape", INT4_SHAPES)
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16)])
+def test_int4_matmul_matches_plain(cuda, shape, dtype, out_dtype):
+    m, k, n, group = shape
+    x, pk, s = _int4_operands(m, k, n, group, dtype, cuda)
+    before = i4.launches
+    got = i4.int4_matmul(x, pk, s, group=group, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert i4.launches == before + 1
+    ref = i4.int4_matmul_plain(x, pk, s, group=group, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    # f32: the same bf16 products summed in another order; a bf16 output
+    # rounds both sums to 8 mantissa bits.
+    tol = 1e-5 if out_dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("m", [8, 37])
+def test_int4_matmul_rows_do_not_depend_on_the_batch(cuda, m):
+    x, pk, s = _int4_operands(m, 2048, 1024, 128, torch.bfloat16, cuda, seed=3)
+    full = i4.int4_matmul(x, pk, s, group=128)
+    for r in (0, 5, m - 1):
+        one = i4.int4_matmul(x[r:r + 1].contiguous(), pk, s, group=128)
+        assert torch.equal(one[0], full[r])
+
+
+def _paged_operands(B, kvh, g, c, hd, ps, npg, quant, dtype, scale_dtype, device, seed=0):
+    """Pools with foreign pages: every page not owned by a slot holds other
+    values, and the table's tail past a slot's pages points anywhere."""
+    rng = np.random.default_rng(seed)
+    P_ = 1 + B * npg + 3
+    kvd = kvh * hd
+    q = torch.from_numpy(rng.standard_normal((B, kvh, g * c, hd), np.float32)).to(device, dtype)
+    perm = rng.permutation(np.arange(1, P_))[: B * npg].reshape(B, npg).astype(np.int32)
+    table = torch.from_numpy(perm).to(device)
+    pos = torch.from_numpy(rng.integers(0, npg * ps - c + 1, B).astype(np.int64)).to(device)
+    if quant:
+        k = torch.from_numpy(rng.integers(-127, 128, (P_, ps, kvd), dtype=np.int8)).to(device)
+        v = torch.from_numpy(rng.integers(-127, 128, (P_, ps, kvd), dtype=np.int8)).to(device)
+        ks = torch.from_numpy(rng.uniform(1e-3, 2e-2, (P_, ps, 1)).astype(np.float32))
+        vs = torch.from_numpy(rng.uniform(1e-3, 2e-2, (P_, ps, 1)).astype(np.float32))
+        ks, vs = ks.to(device, scale_dtype), vs.to(device, scale_dtype)
+    else:
+        k = torch.from_numpy(rng.standard_normal((P_, ps, kvd), np.float32)).to(device, dtype)
+        v = torch.from_numpy(rng.standard_normal((P_, ps, kvd), np.float32)).to(device, dtype)
+        ks = vs = None
+    return q, k, v, table, pos, ks, vs
+
+
+@pytest.mark.parametrize("geom", [(8, 8, 2, 1, 128, 128, 4), (3, 2, 2, 2, 128, 32, 3),
+                                  (2, 4, 4, 1, 64, 16, 5), (2, 1, 2, 4, 256, 32, 2)])
+@pytest.mark.parametrize("quant,dtype,scale_dtype", [
+    (True, torch.bfloat16, torch.bfloat16), (True, torch.float32, torch.float32),
+    (True, torch.bfloat16, torch.float32), (False, torch.float32, None),
+    (False, torch.bfloat16, None)])
+def test_paged_decode_attention_matches_plain(cuda, geom, quant, dtype, scale_dtype):
+    B, kvh, g, c, hd, ps, npg = geom
+    q, k, v, table, pos, ks, vs = _paged_operands(B, kvh, g, c, hd, ps, npg, quant, dtype,
+                                                  scale_dtype, cuda)
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    before = pda.launches
+    got = pda.paged_decode_attention(q, k, v, table, pos, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert pda.launches == before + 1
+    ref = pda.paged_decode_attention_plain(q, k, v, table, pos, ks, vs, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    # f32: the streaming softmax sums in another order; bf16 output: 8 bits.
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_paged_decode_attention_reads_only_live_rows(cuda):
+    """NaN past every slot's frontier and on pages it does not own changes
+    nothing: the kernel never reads them."""
+    B, kvh, g, c, hd, ps, npg = 4, 2, 2, 1, 128, 32, 3
+    q, k, v, table, pos, ks, vs = _paged_operands(B, kvh, g, c, hd, ps, npg, False,
+                                                  torch.float32, None, cuda, seed=5)
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    ref = pda.paged_decode_attention(q, k, v, table, pos, **kw)
+    live = torch.zeros(k.shape[:2], dtype=torch.bool, device=cuda)
+    for b in range(B):
+        for r in range(int(pos[b]) + c):
+            live[table[b, r // ps], r % ps] = True
+    k2 = torch.where(live[..., None], k, float("nan"))
+    v2 = torch.where(live[..., None], v, float("nan"))
+    got = pda.paged_decode_attention(q, k2, v2, table, pos, **kw)
+    assert torch.equal(got, ref)
+
+
+def test_new_wrappers_raise_on_bad_operands(cuda):
+    x, pk, s = _int4_operands(8, 256, 128, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        i4.int4_matmul(x, pk[:, :96].contiguous(), s[:, :96].contiguous(), group=48)
+    with pytest.raises(TypeError):
+        i4.int4_matmul(x.half(), pk, s, group=64)
+    q, k, v, table, pos, ks, vs = _paged_operands(2, 2, 2, 1, 96, 16, 2, True,
+                                                  torch.bfloat16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):  # head dim 96 is not taken
+        pda.paged_decode_attention(q, k, v, table, pos, ks, vs, c=1, kv_heads=2, scale=0.1)
