@@ -17,8 +17,11 @@ its number:
    yardstick, and the least time the card could take (the bound):
    `dequant_matmul` and `int8_matmul` at the ResNet-50 head shape and at a
    serving GEMM shape; `int4_matmul` at M = 8 for each N x K of llama_1b's
-   decode step and `paged_decode_attention` at its decode shape (8 slots,
-   int8 pools, positions spread over 0-511);
+   decode step, checked also at the prefill graphs' M of 64 and 256,
+   `paged_decode_attention` at its decode shape (8 slots,
+   int8 pools, positions spread over 0-511), and `ragged_decode_attention`
+   at the static-cache step's (8 slots over a 512-row int8 cache), at the
+   speculative chunk c 5 of one slot at row 511, and over 4096 rows;
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -32,21 +35,35 @@ its number:
    inputs, then `PagedDecodeServer` (8 slots) serving 34 requests at
    tick_steps 1 with tokens equal to solo runs, and a short run at
    tick_steps 4; tok/s, ms a tick, idle share, peak memory and the device
-   ms of each host op in a step.
+   ms of each host op in a step;
+7. the static-cache decode path at llama_1b's full width and depth (int4-
+   g128, int8 KV caches of 512 rows, bf16, `ragged_attention=True`, prefill
+   graphs of 64 and 256 tokens): one step and one 256-token prefill
+   forward (logits and int8 cache rows) against the port's CPU f32 runs;
+   `FusedGenerator` (the step as a CUDA graph, one replay a token) against
+   `Generator`'s tokens, single-stream tok/s K-differenced over n_new
+   16->272 as `bench.py --decode` does; `DecodeServer` (8 slots, the step
+   vmapped over slots) serving `bench.py --serve-decode`'s 32 requests plus
+   a 100- and a 300-token prompt, every prompt admitted by a prefill, with
+   tokens equal to solo runs and to tick_steps 4; and `PagedDecodeServer`
+   with the same prefill graphs on phase 5's traffic;
+6. printed last: each kernel's launches on its path, and the total time.
 
 Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
-activations, the ResNet server, the decode step, the two decode serving
-runs) sets the counts to 0 just before it runs, reads them just after, and
-must have launched the kernels it routes to and no other (on the decode
-path 169 int4_matmul and 24 paged_decode_attention a step). The last three
-lines are the kernels' JSON line, the card's name and power limit, and
-`{"ok": true, "device": {...}}`. Any failed check exits non-zero before
-those lines. A JSON report of every number goes to
-`build/chip_smoke/report.json`.
+activations, the ResNet server, the decode steps, the decode serving runs)
+sets the counts to 0 just before it runs, reads them just after, and must
+have launched the kernels it routes to and no other: a decode step 169
+int4_matmul and 24 attention launches (paged or ragged), a prefill 169
+int4_matmul. `FusedGenerator` replays a CUDA graph, whose launches the
+wrappers count once, at capture. The last three lines are the kernels'
+JSON line, the card's name and power limit, and `{"ok": true, "device":
+{...}}`. Any failed check exits non-zero before those lines. A JSON report
+of every number goes to `build/chip_smoke/report.json`.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -74,7 +91,9 @@ GROUP = 128                       # int4-g128
 # up, down: 7 a layer; the head once).
 DECODE_GEMMS = {(2048, 2048): 2 * 24, (1024, 2048): 2 * 24, (5632, 2048): 2 * 24,
                 (2048, 5632): 24, (32000, 2048): 1}
-KERNELS = ("dequant_matmul", "int8_matmul", "int4_matmul", "paged_decode_attention")
+BUCKETS = (64, 256)  # the prefill ladder bench.py --serve-decode builds
+KERNELS = ("dequant_matmul", "int8_matmul", "int4_matmul", "paged_decode_attention",
+           "ragged_decode_attention")
 
 REPORT: dict = {}
 
@@ -304,6 +323,23 @@ def phase_decode_kernels(torch, power_w: float) -> dict:
             check(got.shape == (M, N) and math.isfinite(err) and err <= rel * scale,
                   f"int4_matmul N {N} K {K} {out_dtype}: max-abs {err} > {rel} x {scale}")
             errs[str(out_dtype).split(".")[-1]] = (err, f"{rel} x max|plain| = {rel * scale:.4g}")
+        # the prefill graphs' M (64 and 256 prompt rows, many M tiles) with
+        # the same tolerances; device time of the bf16 call
+        prefill = {}
+        for m in BUCKETS:
+            xm = torch.randn(m, K, device="cuda", generator=gen).to(bf16)
+            for out_dtype, rel in ((torch.float32, 1e-5), (bf16, 1e-2)):
+                got = i4.int4_matmul(xm, pk, sc, group=GROUP, out_dtype=out_dtype)
+                ref = i4.int4_matmul_plain(xm, pk, sc, group=GROUP, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                check(got.shape == (m, N) and math.isfinite(err) and err <= rel * scale,
+                      f"int4_matmul M {m} N {N} K {K} {out_dtype}: max-abs {err} > "
+                      f"{rel} x {scale}")
+                prefill[f"m{m}_{str(out_dtype).split('.')[-1]}_err"] = err
+            prefill[f"m{m}_ms"] = graph_ms(torch, side, lambda i: i4.int4_matmul(
+                xm, *sets[i % n][1:], group=GROUP, out_dtype=bf16), 10)
 
         def call(i):
             return i4.int4_matmul(*sets[i % n], group=GROUP, out_dtype=bf16)
@@ -321,7 +357,7 @@ def phase_decode_kernels(torch, power_w: float) -> dict:
             max_abs_err=errs["float32"][0], tolerance=errs["float32"][1], bf16_out_err=errs["bfloat16"][0], ms=ms,
             call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
             library="bf16 torch.matmul on the dequantized weight", bound_ms=b_ms, bound_by=b_by,
-            bytes=nbytes)
+            bytes=nbytes, prefill_m=prefill)
         del sets, w_deq
 
     # paged_decode_attention: 8 slots, 8 KV heads of 128 (g 2), int8 pools
@@ -397,16 +433,117 @@ def phase_decode_kernels(torch, power_w: float) -> dict:
                f"({r['bound_by']}, {r['bytes']} bytes) = {100 * r['bound_ms'] / r['ms']:.1f}% "
                f"of bound | "
                f"{r['calls_per_step']} calls a step")
+        if "prefill_m" in r:
+            p = r["prefill_m"]
+            say(2, "  at the prefill's M: " + "; ".join(
+                f"M {m} err f32 {p[f'm{m}_float32_err']:.3g}, bf16 {p[f'm{m}_bfloat16_err']:.3g}"
+                f", kernel {p[f'm{m}_ms']:.4f} ms" for m in BUCKETS))
     REPORT["decode_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
+    return rows
+
+
+def _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, calls):
+    """ragged_decode_attention at one shape against its plain version: int8
+    caches with per-row scales in q's dtype, caches full of values past
+    every frontier. Timed for bf16 (the path's type): kernel by graph
+    replay, the host cost of a call, the plain version, SDPA over the
+    dequantized cache with the same mask, and the bound (live bytes)."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import ragged_decode_attention as rda
+
+    kvh, hd = LLAMA_1B["kv_heads"], 128
+    g = LLAMA_1B["heads"] // kvh if c == 1 else 1
+    kvd, gc = kvh * hd, g * c
+    pos = torch.tensor(pos, dtype=torch.int64, device="cuda")
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    sets = []
+    for _ in range(_copies(2 * B * L * kvd)):
+        q = torch.randn(B, kvh, gc, hd, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randint(-127, 128, (B, L, kvd), device="cuda", generator=gen,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = ((torch.rand(B, L, 1, device="cuda", generator=gen) * 0.02 + 1e-3).to(dtype)
+                  for _ in range(2))
+        sets.append((q, k, v, pos, ks, vs))
+    n = len(sets)
+    got = rda.ragged_decode_attention(*sets[0], **kw)
+    ref = rda.ragged_decode_attention_reference(*sets[0], **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    check(got.shape == sets[0][0].shape and math.isfinite(err) and err <= rel * scale,
+          f"ragged_decode_attention {label}: max-abs {err} > {rel} x {scale}")
+    r = dict(name="ragged_decode_attention", case=label, shape=[B, kvh, gc, hd, L],
+             dtype=str(dtype).split(".")[-1], calls_per_step=calls, max_abs_err=err,
+             tolerance=f"{rel} x max|plain| = {rel * scale:.4g}")
+    if dtype != torch.bfloat16:
+        return r
+
+    def call(i):
+        return rda.ragged_decode_attention(*sets[i % n], **kw)
+
+    r["ms"] = graph_ms(torch, side, call, 50)
+    r["call_ms"] = time_ms(torch, call, 50)
+    r["plain_ms"] = graph_ms(torch, side, lambda i: rda.ragged_decode_attention_reference(
+        *sets[i % n], **kw), 5)
+    # library yardstick: SDPA over the dequantized caches, row i of a slot
+    # masked to rows <= pos + i % c
+    rows = torch.arange(L, device="cuda")
+    limit = pos[:, None] + torch.arange(gc, device="cuda")[None] % c  # (B, gc)
+    mask = (rows[None, None] <= limit[..., None])[:, None]  # (B, 1, gc, L)
+    dense = [(q_, (k_.float() * ks_.float()).reshape(B, L, kvh, hd).transpose(1, 2).to(dtype)
+              .contiguous(), (v_.float() * vs_.float()).reshape(B, L, kvh, hd).transpose(1, 2)
+              .to(dtype).contiguous()) for q_, k_, v_, _, ks_, vs_ in sets]
+    r["library_ms"] = graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
+        *dense[i % n], attn_mask=mask, scale=kw["scale"]), 50)
+    r["library"] = "F.scaled_dot_product_attention over the dequantized cache"
+    live = int(torch.clamp(pos + c, max=L).sum())
+    r["live_rows"] = live
+    r["bytes"] = 2 * live * (kvd + 2) + 2 * B * kvh * gc * hd * 2 + B * 8
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], 4 * kvh * gc * hd * live, "bf16", power_w)
+    del sets, dense
+    return r
+
+
+def phase_ragged_kernel(torch, power_w: float) -> dict:
+    """ragged_decode_attention at the shapes of the static-cache decode path:
+    8 slots spread over a 512-row cache (the DecodeServer's step, 24 calls),
+    the speculative chunk c 5 of one slot at its last row, and a 4096-row
+    cache."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    side = torch.cuda.Stream()
+    spread = [0, 73, 127, 128, 292, 365, 438, 511]
+    rows = {}
+    for label, B, c, L, pos, calls in (
+            ("b8_l512", SLOTS, 1, 512, spread, LLAMA_1B["layers"]),
+            ("c5_b1_pos511", 1, 5, 512, [511], 0),
+            ("b8_l4096", SLOTS, 1, 4096, [p * 8 for p in spread[:-1]] + [4095], 0)):
+        for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            r = _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, calls)
+            rows[(label, r["dtype"])] = r
+    for r in rows.values():
+        if "ms" not in r:
+            say(2, f"ragged_decode_attention {r['case']} f32: err {r['max_abs_err']:.3g} "
+                   f"({r['tolerance']})")
+            continue
+        say(2, f"ragged_decode_attention {r['case']} {r['shape']} bf16: err "
+               f"{r['max_abs_err']:.3g} ({r['tolerance']}) | kernel {r['ms']:.4f} ms (host "
+               f"cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+               f"{r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.5f} ms "
+               f"({r['bound_by']}, {r['bytes']} bytes, {r['live_rows']} live rows) = "
+               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {r['calls_per_step']} calls "
+               f"a step")
+    REPORT["ragged_kernel"] = [dict(r) for r in rows.values()]
     return rows
 
 
 def per_step(rows: dict, name: str) -> dict:
     """A decode kernel's numbers over one step's calls (calls x per call)."""
-    rs = [r for r in rows.values() if r.get("name") == name]
+    named = [r for r in rows.values() if r.get("name") == name]
+    rs = [r for r in named if "ms" in r]
     out = {k: sum(r[k] * r["calls_per_step"] for r in rs)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in named)
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rs) else "operations"
     return out
 
@@ -820,6 +957,356 @@ def phase_paged(torch, np, stt) -> dict:
     say(5, f"(b) tick_steps 4: {len(short)} requests x {n4} tokens in {wall4:.2f} s "
            f"({res['serve_t4']['tok_s']:.1f} tok/s, {steps4} steps), tokens equal to "
            f"tick_steps 1 | launches {launches4}")
+    return res, g, reqs, served
+
+
+# -- phase 7 ---------------------------------------------------------------
+
+def _static_graphs(layers: int):
+    """llama_1b's static-cache step graph (max_len 512, int8 KV) and its
+    prefill graphs at BUCKETS, int4-g128 weights fused: random weights from
+    seed 0, each graph quantized on its own, as bench.py --decode and
+    --serve-decode build them."""
+    from smelter_tpu_torch.models import llama_style as ls
+    from smelter_tpu_torch.passes.pass_manager import run_passes
+    from smelter_tpu_torch.quant import quantize_weights
+
+    cfg = dict(LLAMA_1B, layers=layers)
+    max_len = PAGE * NPG
+    w = ls.make_weights(**cfg, max_len=max_len, seed=0)
+
+    def q(g):
+        quantize_weights(g, f"int4-g{GROUP}", min_elements=1 << 16)
+        run_passes(g, ["fuse_dequant_matmul", "dce"])
+        return g
+
+    step = q(ls.build_decode_step(w, **cfg, max_len=max_len, kv_quant=True)[0])
+    pfs = [q(ls.build_prefill(w, prompt_len=p, max_len=max_len, kv_quant=True, **cfg))
+           for p in BUCKETS]
+    return step, pfs
+
+
+def _check_static_step(torch, np, stt, g) -> dict:
+    """One static-cache step of `g` with ragged_attention on the card (f32
+    and bf16) against the port's CPU runs (f32, the reference, and bf16),
+    with phase 5's bounds: f32 within 5e-2 of the largest reference logit at 24
+    layers, bf16 within 3x the CPU's own bf16 error, top-1 equal where the
+    top-2 gap exceeds twice the error. Caches hold int8 rows with scales up
+    to pos 300, and other values past it."""
+    from smelter_tpu_torch.runtime.executor import Executor
+    from smelter_tpu_torch.runtime.generate import _decode_graph
+
+    layers = LLAMA_1B["layers"]
+    rng = np.random.default_rng(4)
+    by = {"token": np.array([LLAMA_1B["vocab"] // 7], np.int64),
+          "pos": np.array([PAGE * NPG * 300 // 512], np.int64)}
+    for v in g.inputs:
+        if v.name.startswith(("k_cache_scale", "v_cache_scale")):
+            by[v.name] = rng.uniform(1e-3, 2e-2, tuple(v.type.shape)).astype(np.float32)
+        elif v.name.startswith(("k_cache", "v_cache")):
+            by[v.name] = rng.integers(-127, 128, tuple(v.type.shape), dtype=np.int8)
+
+    def step(device, dtype):
+        cfg = stt.Config(device=device, compute_dtype=dtype, ragged_attention=True)
+        gr = _decode_graph(g, cfg)
+        ex_ = Executor(gr, cfg)
+        ins = [torch.from_numpy(by[v.name].copy()).to(ex_.device) for v in gr.inputs]
+        if dtype == "bfloat16":
+            ins = [t.to(torch.bfloat16) if t.is_floating_point() else t for t in ins]
+        prm = ex_.cast_params(ex_.init_params())
+        _zero_counts()
+        out_ = ex_.build_fn()(prm, *ins)[0]
+        if ex_.device.type == "cuda":
+            torch.cuda.synchronize()
+        return out_.float().cpu().numpy()[-1:], _counts()
+
+    per = {"int4_matmul": 7 * layers + 1, "ragged_decode_attention": layers}
+    got32, l32 = step("cuda", "float32")
+    got16, l16 = step("cuda", "bfloat16")
+    for label, counts in (("static step f32", l32), ("static step bf16", l16)):
+        _check_routed(label, counts, per)
+        check(all(counts[k] == n for k, n in per.items()), f"{label}: launches {counts}")
+    t0 = time.perf_counter()
+    ref, _ = step("cpu", "float32")
+    ref16, _ = step("cpu", "bfloat16")
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(ref).max())
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    gap = float(top2[0, 1] - top2[0, 0])
+    err_cpu16 = float(np.abs(ref16 - ref).max())
+    r = {"max_abs_ref": scale, "cpu_bf16_max_abs_err": err_cpu16, "gap": gap,
+         "launches": l16, "cpu_s": cpu_s}
+    text = []
+    for label, a, lim in (("f32", got32, 5e-2 * scale), ("bf16", got16, 3 * err_cpu16)):
+        check(a.shape == (1, LLAMA_1B["vocab"]) and np.isfinite(a).all(),
+              f"static step {label}: logits")
+        err = float(np.abs(a - ref).max())
+        agree = bool(a.argmax() == ref.argmax())
+        r[label] = {"max_abs_err": err, "bound": lim, "top1_agree": agree}
+        check(err <= lim, f"static step {label}: max-abs {err} > {lim}")
+        check(agree or gap <= 2 * err, f"static step {label}: top-1 differs at gap {gap}")
+        text.append(f"card {label} max-abs {err:.4g} (bound {lim:.4g}), top-1 "
+                    f"{'equal' if agree else 'differs'} (gap {gap:.3g})")
+    say(7, f"(a) {layers}-layer static step, ragged attention, vs the CPU's f32 run (max|ref| "
+           f"{scale:.4g}, CPU bf16 max-abs {err_cpu16:.4g}, CPU runs {cpu_s:.1f} s): "
+           + "; ".join(text) + f" | launches {l16}")
+    return r
+
+
+def _check_prefill(torch, np, stt, g) -> dict:
+    """One forward of the 256-token prefill graph `g` on the card (f32 and
+    bf16) against the port's CPU runs of the same graph (f32, the
+    reference, and bf16), with phase 5's bounds, for its logits and for the
+    int8 cache rows it emits, taken times their scales. Rows past the
+    prompt must be zeros. A forward launches int4_matmul 169 times (M 256)
+    and no attention kernel (GroupQueryAttention is SDPA)."""
+    from smelter_tpu_torch.runtime.executor import Executor
+
+    layers, T = LLAMA_1B["layers"], BUCKETS[-1]
+    tokens = np.random.default_rng(6).integers(1, LLAMA_1B["vocab"] - 1, T).astype(np.int64)
+    names = [v.name for v in g.outputs]
+
+    def forward(device, dtype):
+        ex_ = Executor(g, stt.Config(device=device, compute_dtype=dtype))
+        prm = ex_.cast_params(ex_.init_params())
+        _zero_counts()
+        out = dict(zip(names, ex_.build_fn()(prm, torch.from_numpy(tokens).to(ex_.device))))
+        counts = _counts()
+        caches = [(out[f"{kv}_out_{i}"], out[f"{kv}_scale_out_{i}"])
+                  for i in range(layers) for kv in "kv"]
+        check(all(not q[T:].any() and not s[T:].any() for q, s in caches),
+              f"prefill {device} {dtype}: cache rows past the prompt are not zeros")
+        rows = torch.stack([q[:T].float() * s[:T].float() for q, s in caches])
+        return out[names[0]].float().cpu().numpy(), rows.cpu().numpy(), counts
+
+    got32, rows32, l32 = forward("cuda", "float32")
+    got16, rows16, l16 = forward("cuda", "bfloat16")
+    for label, counts in (("prefill f32", l32), ("prefill bf16", l16)):
+        _check_routed(label, counts, "int4_matmul")
+        check(counts["int4_matmul"] == 7 * layers + 1, f"{label}: launches {counts}")
+    t0 = time.perf_counter()
+    ref, ref_rows, _ = forward("cpu", "float32")
+    ref16, ref16_rows, _ = forward("cpu", "bfloat16")
+    r = {"prompt": T, "cpu_s": time.perf_counter() - t0, "launches": l16}
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    text = []
+    for what, a32, a16, want, want16 in (("logits", got32, got16, ref, ref16),
+                                         ("cache rows", rows32, rows16, ref_rows, ref16_rows)):
+        scale = float(np.abs(want).max())
+        err_cpu16 = float(np.abs(want16 - want).max())
+        r[what] = {"max_abs_ref": scale, "cpu_bf16_max_abs_err": err_cpu16}
+        for label, a, lim in (("f32", a32, 5e-2 * scale), ("bf16", a16, 3 * err_cpu16)):
+            check(a.shape == want.shape and np.isfinite(a).all(), f"prefill {what} {label}")
+            err = float(np.abs(a - want).max())
+            r[what][label] = {"max_abs_err": err, "bound": lim}
+            check(err <= lim, f"prefill {what} {label}: max-abs {err} > {lim}")
+            note = ""
+            if what == "logits":
+                agree = a.argmax(1) == want.argmax(1)
+                clear = gap > 2 * err
+                r[what][label]["top1_agree"] = float(agree.mean())
+                check(bool(agree[clear].all()), f"prefill logits {label}: top-1 differs on a "
+                                                f"clear row")
+                note = f", top-1 {int(agree.sum())}/{T} (clear rows {int(clear.sum())})"
+            text.append(f"{what} {label} max-abs {err:.4g} (bound {lim:.4g}{note})")
+    say(7, f"(a) {layers}-layer {T}-token prefill vs the CPU's f32 run (max|logit| "
+           f"{r['logits']['max_abs_ref']:.4g}, max|row| {r['cache rows']['max_abs_ref']:.4g}, "
+           f"CPU runs {r['cpu_s']:.1f} s): " + "; ".join(text) + f" | launches {l16}")
+    return r
+
+
+def _serve_run(torch, server, reqs, n_new, label):
+    """Serve `reqs` after a warm-up request; the launches, steps and prefills
+    of just this run, its wall time and peak memory."""
+    server.submit(reqs[0][:8], 4).result(timeout=600)  # first use outside the clock
+    st0 = server.stats()
+    gc.collect()  # what earlier phases left, so that the peak is this run's
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = [f.result(timeout=900) for f in [server.submit(p, n_new) for p in reqs]]
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    st1 = server.stats()
+    r = {"requests": len(reqs), "tokens": len(reqs) * n_new, "wall_s": wall,
+         "tok_s": len(reqs) * n_new / wall, "steps": st1["steps"] - st0["steps"],
+         "prefills": st1["prefills"] - st0["prefills"], "launches": launches,
+         "resident_gb": resident / 1e9, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    r["ms_per_tick"] = 1e3 * wall / max(1, r["steps"])
+    check(all(len(x) == len(p) + n_new and x[:len(p)] == p for x, p in zip(served, reqs)),
+          f"{label}: a request came back short or altered")
+    # every multi-token prompt was admitted by a prefill forward; each
+    # prefill runs the 169 int4 matmuls of the prefill graph once
+    check(r["prefills"] == sum(len(p) > 1 for p in reqs),
+          f"{label}: {r['prefills']} prefills for {len(reqs)} prompts")
+    return served, r
+
+
+def _expect_serving_launches(label, counts, r, attention):
+    layers = LLAMA_1B["layers"]
+    per = {"int4_matmul": (7 * layers + 1) * (r["steps"] + r["prefills"]),
+           attention: layers * r["steps"]}
+    _check_routed(label, counts, per)
+    for k, n in per.items():
+        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, not {n} (169 a step "
+                              f"and a prefill, 24 attention a step)")
+
+
+def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
+    """The static-cache decode path at llama_1b's full width and depth:
+    the step against the CPU, FusedGenerator (CUDA graph of the step),
+    DecodeServer (a vmapped step, prefill ladder), and PagedDecodeServer
+    with the same prefill ladder."""
+    from smelter_tpu_torch.runtime.generate import FusedGenerator, Generator
+    from smelter_tpu_torch.serving.decode_server import DecodeServer
+    from smelter_tpu_torch.serving.paged_server import PagedDecodeServer
+
+    res: dict = {}
+    t0 = time.perf_counter()
+    step, pfs = _static_graphs(LLAMA_1B["layers"])
+    res["build_s"] = time.perf_counter() - t0
+    say(7, f"llama_1b static step graph and prefill graphs {BUCKETS}, int4-g{GROUP} fused, "
+           f"int8 KV, built in {res['build_s']:.1f} s")
+    res["step_vs_cpu_f32"] = _check_static_step(torch, np, stt, step)
+    res["prefill_vs_cpu_f32"] = _check_prefill(torch, np, stt, pfs[-1])
+    cfg = stt.Config(compute_dtype="bfloat16", ragged_attention=True)
+
+    # (b) FusedGenerator: bench.py --decode's prompt and K-differenced n_new
+    prompt = list(range(1, 9))
+    n_lo, n_hi, reps = 16, 272, 3
+    gen = FusedGenerator(step, cfg, prefill_graph=pfs)
+    _zero_counts()
+    host = Generator(step, cfg).generate(prompt, 64)
+    check(gen.generate(prompt, 64) == host, "FusedGenerator tokens differ from Generator's")
+    check(len(gen._graphs) == 1 and gen.step_launches["greedy"] == {
+        "int4_matmul": 169, "ragged_decode_attention": 24},
+        f"FusedGenerator graph launches {gen.step_launches}")
+
+    def timed(n):
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = gen.generate(prompt, n)
+            best = min(best, time.perf_counter() - t)
+        check(len(out) == len(prompt) + n, "FusedGenerator output length")
+        return best
+
+    timed(n_lo)
+    per_tok = (timed(n_hi) - timed(n_lo)) / (n_hi - n_lo)
+    # device time a token: one replay's kernels, by torch.profiler
+    graph = gen._graph(False, 0)
+    kernels, _, n_k = _profile(torch, graph.replay, steps=20)
+    busy = sum(kernels.values())
+    pf_prompt = [int(t) for t in np.random.default_rng(5).integers(
+        1, LLAMA_1B["vocab"] - 1, BUCKETS[0])]
+    t = time.perf_counter()
+    pf_out = gen.generate(pf_prompt, 16)
+    pf_s = time.perf_counter() - t
+    check(len(pf_out) == BUCKETS[0] + 16, "FusedGenerator prefill output length")
+    res["fused"] = {"tok_s": 1 / per_tok, "ms_per_token": 1e3 * per_tok, "n_lo": n_lo,
+                    "n_hi": n_hi, "device_busy_ms_per_token": busy,
+                    "idle_share": max(0.0, 1 - busy / (1e3 * per_tok)) if n_k else None,
+                    "kernels_per_token_profiled": n_k, "step_launches": gen.step_launches,
+                    "replays": gen.replays, "prefill64_plus_16_s": pf_s,
+                    "tokens_equal_generator": 64}
+    r = res["fused"]
+    say(7, f"(b) FusedGenerator (CUDA graph of the step, one replay a token): "
+           f"{r['tok_s']:.1f} tok/s, {r['ms_per_token']:.3f} ms a token (K-differenced n_new "
+           f"{n_lo}->{n_hi}, best of {reps}), profiled device busy {busy:.3f} ms a token "
+           f"({n_k:.0f} kernels), idle share "
+           + (f"{100 * r['idle_share']:.1f}%" if r["idle_share"] is not None else "not measured")
+           + f" | 64 tokens equal Generator's | a replay launches {gen.step_launches['greedy']}"
+           f" | prefill 64 + 16 tokens in {pf_s:.3f} s")
+    del gen, graph
+    torch.cuda.empty_cache()
+
+    # (c) DecodeServer: bench.py --serve-decode's 32 requests plus a 100- and
+    # a 300-token prompt (the last prefills the 256 bucket, then is fed)
+    rng = np.random.default_rng(0)
+    vocab = LLAMA_1B["vocab"]
+    reqs = [[int(t) for t in rng.integers(1, vocab - 1, n)]
+            for n in rng.integers(8, min(48, PAGE * NPG // 4), 32)]
+    reqs += [[int(t) for t in rng.integers(1, vocab - 1, n)] for n in (100, 300)]
+    n_new = 64
+    server = DecodeServer(step, slots=SLOTS, config=cfg, prefill_graphs=pfs, tick_steps=1)
+    try:
+        served, r = _serve_run(torch, server, reqs, n_new, "DecodeServer")
+        _expect_serving_launches("DecodeServer", r["launches"], r, "ragged_decode_attention")
+        # the prefill graphs share the step graph's weights: only small
+        # constants that differ between the graphs (their position ids) are
+        # held under a second name
+        params = server.shared_weights()[0]
+        dup = sorted(n for n, t in params.items()
+                     if "__p" in n and t.numel() * t.element_size() > 1 << 20)
+        check(not dup, f"DecodeServer holds weights twice: {dup[:5]}")
+        r["params_gb"] = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        del params  # the server's own reference is the one that should hold them
+        r["cache_gb"] = server.cache_bytes() / 1e9
+        solo = (0, 7, 32, 33)
+        for i in solo:
+            check(server.submit(reqs[i], n_new).result(timeout=600) == served[i],
+                  f"DecodeServer: request {i} served != alone")
+        # a tick's device time and where it goes, on the idle server
+        tok = torch.ones(SLOTS, 1, dtype=torch.int64, device=server.device)
+        posd = torch.tensor([[0], [73], [127], [128], [292], [365], [438], [511]][:SLOTS],
+                            device=server.device)
+        with torch.inference_mode():
+            r["tick_ms_alone"] = time_ms(torch, lambda i: server._run_step(tok, posd), 10)
+            kernels, ops, n_k = _profile(torch, lambda: server._run_step(tok, posd))
+        r["device_busy_ms"] = sum(kernels.values())
+        r["idle_share"] = max(0.0, 1 - r["device_busy_ms"] / r["tick_ms_alone"])
+        r["kernels_per_tick"] = n_k
+        r["top_host_ops_ms"] = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+    finally:
+        server.shutdown()
+    del server
+    res["decode_server"] = r
+    say(7, f"(c) DecodeServer (8 slots, vmapped step, prefill {BUCKETS}): {r['requests']} "
+           f"requests, {r['tokens']} new tokens in {r['wall_s']:.2f} s: {r['tok_s']:.1f} tok/s, "
+           f"{r['steps']} ticks at {r['ms_per_tick']:.2f} ms, {r['prefills']} prefills | a tick "
+           f"alone {r['tick_ms_alone']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, idle "
+           f"share {100 * r['idle_share']:.1f}%, ~{n_k:.0f} kernels | peak {r['peak_mem_gb']:.3f}"
+           f" GB over {r['resident_gb']:.3f} GB resident (weights {r['params_gb']:.3f} GB held "
+           f"once, caches {r['cache_gb']:.3f} GB; the rest is the prefill walk's activations) | "
+           f"launches {r['launches']} | requests {solo} alone: equal")
+
+    server = DecodeServer(step, slots=SLOTS, config=cfg, prefill_graphs=pfs, tick_steps=4)
+    short, n4 = reqs[:8] + reqs[33:], 16
+    try:
+        got4, r4 = _serve_run(torch, server, short, n4, "DecodeServer tick_steps 4")
+    finally:
+        server.shutdown()
+    del server
+    _expect_serving_launches("DecodeServer tick_steps 4", r4["launches"], r4,
+                             "ragged_decode_attention")
+    check(got4 == [served[i][:len(reqs[i]) + n4] for i in list(range(8)) + [33]],
+          "DecodeServer: tick_steps 4 tokens differ from tick_steps 1")
+    res["decode_server_t4"] = r4
+    say(7, f"(c) tick_steps 4: {len(short)} requests x {n4} tokens in {r4['wall_s']:.2f} s "
+           f"({r4['tok_s']:.1f} tok/s, {r4['steps']} steps), tokens equal to tick_steps 1")
+
+    # (d) PagedDecodeServer with the prefill ladder on phase 5's traffic
+    server = PagedDecodeServer(paged_graph, stt.Config(compute_dtype="bfloat16"),
+                               prefill_graphs=pfs, tick_steps=1)
+    try:
+        _, rp = _serve_run(torch, server, paged_reqs, n_new, "PagedDecodeServer prefill")
+        rp["stall_ticks"] = server.stats()["stall_ticks"]
+    finally:
+        server.shutdown()
+    del server
+    _expect_serving_launches("PagedDecodeServer prefill", rp["launches"], rp,
+                             "paged_decode_attention")
+    rp["tok_s_fed_a_token_a_tick"] = paged_tok_s
+    res["paged_prefill"] = rp
+    say(7, f"(d) PagedDecodeServer with prefill {BUCKETS}: {rp['requests']} requests in "
+           f"{rp['wall_s']:.2f} s: {rp['tok_s']:.1f} tok/s ({paged_tok_s:.1f} fed a token a "
+           f"tick, phase 5), {rp['steps']} ticks at {rp['ms_per_tick']:.2f} ms, "
+           f"{rp['prefills']} prefills, peak {rp['peak_mem_gb']:.3f} GB over "
+           f"{rp['resident_gb']:.3f} GB resident | launches {rp['launches']}")
     return res
 
 
@@ -842,16 +1329,23 @@ def main() -> int:
     rows = phase_kernels(torch, power_w)
 
     decode_rows = phase_decode_kernels(torch, power_w)
+    ragged_rows = phase_ragged_kernel(torch, power_w)
 
     main_path = REPORT["main_path"] = phase_main(torch, np, stt)
     REPORT["serve"] = phase_serve(torch, np, stt)
-    paged = REPORT["paged"] = phase_paged(torch, np, stt)
+    paged, paged_graph, paged_reqs, _ = phase_paged(torch, np, stt)
+    REPORT["paged"] = paged
+    static = REPORT["static"] = phase_static(torch, np, stt, paged_graph, paged_reqs,
+                                             paged["serve_t1"]["tok_s"])
+    del paged_graph
     # Each kernel's launches on the path that routes to it.
     launches = {"dequant_matmul": main_path["bf16"]["launches"]["dequant_matmul"],
                 "int8_matmul": main_path["bf16_int8act"]["launches"]["int8_matmul"],
                 "int4_matmul": paged["serve_t1"]["launches"]["int4_matmul"],
                 "paged_decode_attention":
-                    paged["serve_t1"]["launches"]["paged_decode_attention"]}
+                    paged["serve_t1"]["launches"]["paged_decode_attention"],
+                "ragged_decode_attention":
+                    static["decode_server"]["launches"]["ragged_decode_attention"]}
     say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
     # ResNet-50 kernels: one call at the head shape. Decode kernels: the
@@ -868,7 +1362,11 @@ def main() -> int:
                "paged_decode_attention": ("smelter_tpu_torch/csrc/paged_decode_attention.cu",
                                           "smelter_tpu/kernels/paged_decode_attention.py:151",
                                           per_step(decode_rows, "paged_decode_attention"),
-                                          "decode step")}
+                                          "decode step"),
+               "ragged_decode_attention": ("smelter_tpu_torch/csrc/ragged_decode_attention.cu",
+                                           "smelter_tpu/kernels/ragged_decode_attention.py:178",
+                                           per_step(ragged_rows, "ragged_decode_attention"),
+                                           "decode step")}
     kernels = []
     for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -45,6 +45,8 @@ SIGNATURES = {
                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "paged_decode_attention": ("smelter_paged_decode_attention",
                                [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P]),
+    "ragged_decode_attention": ("smelter_ragged_decode_attention",
+                                [_P] * 7 + [_I] * 7 + [_F, _I, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -134,3 +136,14 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def vmapped(*tensors) -> bool:
+    """Whether any operand is a tensor batched by `torch.func.vmap`: a
+    wrapper then calls its custom op, whose vmap rule folds the batch into
+    one launch; otherwise it calls the kernel directly. The custom op's
+    dispatch costs the host about 51 us a call, more than the launch itself
+    (`experiments/torch_custom_op_cost.py` on an H100 host: 92 against 41
+    us, about 9 ms on an eager llama_1b decode step's 169 int4 calls)."""
+    return any(isinstance(t, torch.Tensor) and torch._C._functorch.is_batchedtensor(t)
+               for t in tensors)

@@ -25,9 +25,12 @@ int4_matmul`. The Hopper kernel is `csrc/int4_matmul.cu`:
 
 The JAX package's CPU composite (`smelter_tpu/ops/fused_ops.py:288-291`)
 keeps x in f32; this module follows its Pallas kernel, which rounds x to
-bf16. `int4_matmul` takes the plain PyTorch version for a tensor on the CPU
-or the `meta` device, and launches the kernel for a CUDA tensor or raises.
-`launches` counts kernel launches and nothing else.
+bf16. `int4_matmul` takes the plain PyTorch version for a tensor on the
+CPU or the `meta` device, and launches the kernel for a CUDA tensor or
+raises. Under `torch.func.vmap` it goes through a `torch.library` custom op
+whose vmap rule folds the vmapped axis into M, so a decode step vmapped over
+slots (the DecodeServer) launches the kernel once for all slots. `launches`
+counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -61,15 +64,9 @@ def int4_matmul_plain(x: torch.Tensor, pk: torch.Tensor, scales: torch.Tensor, *
     return (part[: ng // 2] + part[ng // 2:]).sum(0).to(out_dtype)
 
 
-def int4_matmul(x: torch.Tensor, pk: torch.Tensor, scales: torch.Tensor, *,
-                group: int, out_dtype=torch.float32) -> torch.Tensor:
-    """(M, K) float @ dequant((K/2, N) packed int4, (K/g, N) scales) ->
-    (M, N) out_dtype."""
+def _launch(x: torch.Tensor, pk: torch.Tensor, scales: torch.Tensor, group: int,
+            out_dtype: torch.dtype) -> torch.Tensor:
     global launches
-    if x.device.type in ("cpu", "meta"):
-        return int4_matmul_plain(x, pk, scales, group=group, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"int4_matmul: no kernel for device {x.device}")
     if x.dim() != 2 or pk.dim() != 2:
         raise ValueError(f"int4_matmul: x {tuple(x.shape)} and pk {tuple(pk.shape)} not 2-D")
     M, K = x.shape
@@ -102,3 +99,45 @@ def int4_matmul(x: torch.Tensor, pk: torch.Tensor, scales: torch.Tensor, *,
     _build.check(lib, rc, "int4_matmul")
     launches += 1
     return out
+
+
+def _call(x, pk, scales, group: int, out_dtype) -> torch.Tensor:
+    if x.device.type in ("cpu", "meta"):
+        return int4_matmul_plain(x, pk, scales, group=group, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_matmul: no kernel for device {x.device}")
+    return _launch(x, pk, scales, group, out_dtype)
+
+
+@torch.library.custom_op("smelter::int4_matmul", mutates_args=())
+def _op(x: torch.Tensor, pk: torch.Tensor, scales: torch.Tensor, group: int,
+        out_dtype: torch.dtype) -> torch.Tensor:
+    return _call(x, pk, scales, group, out_dtype)
+
+
+@_op.register_fake
+def _(x, pk, scales, group, out_dtype):
+    return x.new_empty((x.shape[0], pk.shape[1]), dtype=out_dtype)
+
+
+def _vmap_rule(info, in_dims, x, pk, scales, group, out_dtype):
+    """Fold the vmapped axis into M: one launch for every vmapped row."""
+    x_dim, pk_dim, s_dim = in_dims[:3]
+    if pk_dim is not None or s_dim is not None:
+        raise ValueError("int4_matmul: vmap over the weight or its scales is not taken")
+    x = x.movedim(x_dim, 0)
+    n, m, k = x.shape
+    y = _op(x.reshape(n * m, k).contiguous(), pk, scales, group, out_dtype)
+    return y.reshape(n, m, -1), 0
+
+
+_op.register_vmap(_vmap_rule)
+
+
+def int4_matmul(x: torch.Tensor, pk: torch.Tensor, scales: torch.Tensor, *,
+                group: int, out_dtype=torch.float32) -> torch.Tensor:
+    """(M, K) float @ dequant((K/2, N) packed int4, (K/g, N) scales) ->
+    (M, N) out_dtype."""
+    if _build.vmapped(x, pk, scales):
+        return _op(x, pk, scales, int(group), out_dtype)
+    return _call(x, pk, scales, int(group), out_dtype)

@@ -9,7 +9,8 @@ pools `(P, ps, 1)`.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/paged_decode_attention.py::
 paged_decode_attention`. The Hopper kernel is
-`csrc/paged_decode_attention.cu`:
+`csrc/paged_decode_attention.cu`, the kernel of `csrc/decode_attention.cuh`
+with a page as its row block:
 
 - What bounds it on an H100: the live K/V bytes, ceil((pos+c)/ps) pages a
   slot and of the last page only the rows up to the frontier; ~4 MB a step
@@ -20,9 +21,10 @@ paged_decode_attention`. The Hopper kernel is
   out of the pool.
 
 Beside it, in plain PyTorch: `paged_cache_update` (not a kernel in the JAX
-package either: a c-row scatter), `paged_gather_reference` and the dense
-masked `ragged_decode_attention_reference`, which together are the plain
-version of the attention. `paged_decode_attention` takes the plain version
+package either: a c-row scatter) and `paged_gather_reference`, which with
+the dense masked `ragged_decode_attention_reference`
+(`kernels/ragged_decode_attention.py`) are the plain version of the
+attention. `paged_decode_attention` takes the plain version
 for a tensor on the CPU or the `meta` device, and launches the kernel for a
 CUDA tensor or raises. `launches` counts kernel launches and nothing else.
 """
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .ragged_decode_attention import ragged_decode_attention_reference
 
 launches = 0
 
@@ -69,30 +72,6 @@ def paged_gather_reference(pool: torch.Tensor, page_table: torch.Tensor,
     pg = page_table.long()[:, lrow // ps]  # (B, n)
     idx = pg * ps + (lrow % ps)[None]
     return pool.reshape(P_ * ps, kvd)[idx]
-
-
-def ragged_decode_attention_reference(q, k, v, pos, k_scale=None, v_scale=None, *,
-                                      c: int, kv_heads: int, scale: float) -> torch.Tensor:
-    """Dense masked attention over a contiguous cache, for one stream (q
-    (kvh, g*c, hd), k/v (L, kvd), pos ()) or a batch of them (a leading
-    dim on every operand); int8 k/v take per-row scales (L, 1)."""
-    *lead, kvh, gc, hd = q.shape
-    L = k.shape[-2]
-    g = gc // c
-    kf, vf = k.float(), v.float()
-    if k_scale is not None:
-        kf = kf * k_scale.float()
-        vf = vf * v_scale.float()
-    k3 = kf.reshape(*lead, L, kvh, hd)
-    v3 = vf.reshape(*lead, L, kvh, hd)
-    q4 = q.float().reshape(*lead, kvh, g, c, hd)
-    s = torch.einsum("...hgcd,...lhd->...hgcl", q4, k3) * scale
-    limit = pos.reshape(*lead, 1).long() + torch.arange(c, device=q.device)  # (..., c)
-    mask = torch.arange(L, device=q.device) <= limit[..., None]  # (..., c, L)
-    s = torch.where(mask[..., None, None, :, :], s, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("...hgcl,...lhd->...hgcd", p, v3)
-    return out.reshape(*lead, kvh, gc, hd).to(q.dtype)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, pos, k_scale=None,

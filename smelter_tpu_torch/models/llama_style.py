@@ -6,15 +6,17 @@ for node the same graphs:
 
 - ``make_weights``: seeded-random weights (no pretrained weights exist
   here);
+- ``build_full``: full-sequence causal forward in the contrib-op
+  vocabulary (SimplifiedLayerNormalization, SkipSimplifiedLayerNormalization,
+  RotaryEmbedding, GroupQueryAttention); with ``cache_max_len`` it also
+  emits the filled KV caches, which is ``build_prefill``, the prefill graph
+  the generators and servers admit prompts with;
 - ``build_decode_step``: batch-1 static-KV-cache step graph (ScatterND
-  cache writes at a traced position, broadcast GQA head sharing);
+  cache writes at a traced position, broadcast GQA head sharing), which
+  ``runtime/generate.py`` and ``serving/decode_server.py`` run;
 - ``build_decode_step_paged``: the batched paged-pool step graph that
   ``serving/paged_server.py`` runs (PagedCacheUpdate writes,
   PagedDecodeAttention reads).
-
-``build_full``/``build_prefill`` (the contrib-op prefill graphs) are not
-copied yet: their GroupQueryAttention, SkipSimplifiedLayerNormalization and
-Pad lowerings are not in the port.
 """
 
 from __future__ import annotations
@@ -108,6 +110,109 @@ def _emit_mlp(b, weights, li, h2, top_k: int = 2):
     prod = b.node("Mul", [silu, up])
     return b.node("MatMul", [prod, b.init(weights[f"wdown_{li}"],
                                           f"wdown_{li}")])
+
+
+def build_full(weights: dict, seq_len: int, vocab: int = 96, dim: int = 64,
+               heads: int = 4, kv_heads: int = 2, ffn: int = 128,
+               layers: int = 2, moe_top_k: int = 2,
+               cache_max_len: int | None = None, kv_quant: bool = False):
+    """tokens (T,) -> logits (T, vocab), causal, contrib-op vocabulary.
+
+    With ``cache_max_len`` the graph additionally emits the filled KV
+    caches (k_out_li/v_out_li, each (cache_max_len, kvd): rotary-applied
+    K rows / raw V rows for positions < T, zeros beyond) — the PREFILL
+    form FusedGenerator seeds its decode scan with. Same row layout as
+    build_decode_step's ScatterND writes, so decode continues the
+    sequence exactly."""
+    hd = dim // heads
+    kvd = kv_heads * hd
+    b = GraphBuilder("llama_full", opset=17)
+    tokens = b.input("tokens", (seq_len,), dt.INT64)
+    cos, sin = (b.init(weights["cos"], "rope_cos"),
+                b.init(weights["sin"], "rope_sin"))
+    pos = b.init(np.arange(seq_len, dtype=np.int64)[None], "pos_ids")  # (1,T)
+    x = b.node("Gather", [b.init(weights["wte"], "wte"), tokens], axis=0)
+    x = b.node("Reshape", [x, b.init(np.array([1, seq_len, dim], np.int64))])
+    residual = x
+    cache_outs: list[str] = []
+    for li in range(layers):
+        h = b.node("SimplifiedLayerNormalization",
+                   [residual, b.init(weights[f"norm1_{li}"], f"norm1_{li}")],
+                   axis=-1, epsilon=1e-6)
+        q = b.node("MatMul", [h, b.init(weights[f"wq_{li}"], f"wq_{li}")])
+        k = b.node("MatMul", [h, b.init(weights[f"wk_{li}"], f"wk_{li}")])
+        v = b.node("MatMul", [h, b.init(weights[f"wv_{li}"], f"wv_{li}")])
+        q = b.node("RotaryEmbedding", [q, pos, cos, sin], num_heads=heads)
+        k = b.node("RotaryEmbedding", [k, pos, cos, sin], num_heads=kv_heads)
+        if kv_quant:
+            # attend the SAME quantize-dequantize K/V the decode step will
+            # read from the int8 cache — otherwise prefill-seeded and
+            # scan-path generations diverge on near-tie logits (measured
+            # ~3.5% first-token flips with fp-attention prefill)
+            sh2d = b.init(np.array([seq_len, kvd], np.int64),
+                          f"kv2d_shape_{li}")
+            sh3d = b.init(np.array([1, seq_len, kvd], np.int64),
+                          f"kv3d_shape_{li}")
+            k2d = b.node("Reshape", [k, sh2d])
+            v2d = b.node("Reshape", [v, sh2d])
+            kq2, ks2 = _emit_row_quant(b, k2d, seq_len)
+            vq2, vs2 = _emit_row_quant(b, v2d, seq_len)
+            # CastLike (not Cast-to-FLOAT): the dequant must stay in the
+            # runtime compute dtype, or f32 contaminates every layer
+            # downstream and the step/prefill dtype flows diverge
+            k = b.node("Reshape", [b.node("Mul", [
+                b.node("CastLike", [kq2, k2d]), ks2]), sh3d])
+            v = b.node("Reshape", [b.node("Mul", [
+                b.node("CastLike", [vq2, v2d]), vs2]), sh3d])
+        att = b.node("GroupQueryAttention", [q, k, v],
+                     num_heads=heads, kv_num_heads=kv_heads)
+        proj = b.node("MatMul", [att, b.init(weights[f"wo_{li}"], f"wo_{li}")])
+        if cache_max_len is not None:
+            pad = b.init(np.array([0, 0, cache_max_len - seq_len, 0],
+                                  np.int64), f"cache_pad_{li}")
+            if kv_quant:
+                for nm, qv, sv in ((f"k_out_{li}", kq2, ks2),
+                                   (f"v_out_{li}", vq2, vs2)):
+                    b.node("Pad", [qv, pad], outputs=[nm])
+                    b.node("Pad", [sv, pad],
+                           outputs=[nm.replace("_out_", "_scale_out_")])
+                    cache_outs += [nm, nm.replace("_out_", "_scale_out_")]
+            else:
+                for nm, t3 in ((f"k_out_{li}", k), (f"v_out_{li}", v)):
+                    t2 = b.node("Reshape",
+                                [t3, b.init(np.array([seq_len, kvd],
+                                                     np.int64),
+                                            f"kv2d_shape_{li}_{nm[0]}")])
+                    b.node("Pad", [t2, pad], outputs=[nm])
+                    cache_outs.append(nm)
+        # SkipSimplifiedLayerNormalization: output 0 feeds the MLP, output 3
+        # (input+skip sum) is the next residual — the ORT-genai pattern.
+        outs = b.node("SkipSimplifiedLayerNormalization",
+                      [proj, residual,
+                       b.init(weights[f"norm2_{li}"], f"norm2_{li}")],
+                      outputs=[f"mlp_in_{li}", "", "", f"res2_{li}"],
+                      epsilon=1e-6)
+        h2, res2 = outs[0], outs[3]
+        down = _emit_mlp(b, weights, li, h2, top_k=moe_top_k)
+        residual = b.node("Add", [down, res2])
+    xf = b.node("SimplifiedLayerNormalization",
+                [residual, b.init(weights["norm_f"], "norm_f")],
+                axis=-1, epsilon=1e-6)
+    logits = b.node("MatMul", [xf, b.init(weights["w_head"], "w_head")])
+    logits = b.node("Reshape",
+                    [logits, b.init(np.array([seq_len, vocab], np.int64))])
+    return b.finish([logits] + cache_outs)
+
+
+def build_prefill(weights: dict, prompt_len: int, max_len: int = 32,
+                  **cfg):
+    """Prefill graph: tokens (prompt_len,) -> (logits (prompt_len, vocab),
+    k_out_i/v_out_i caches (max_len, kvd)) — one full-sequence forward
+    fills the KV caches at MXU rates instead of prompt_len scan steps
+    each re-reading every weight (the standard serving prefill/decode
+    split; reference scope: none)."""
+    return build_full(weights, seq_len=prompt_len, cache_max_len=max_len,
+                      **cfg)
 
 
 def build_decode_step(weights: dict | None = None, vocab: int = 96,

@@ -1,7 +1,8 @@
 """Op-lowering registry and the op implementations of the port's slice.
 
-Only the ops the ResNet-50 int8 path and the paged decode step emit are
-registered; any other op raises UnknownOpError when an Executor is built.
+Only the ops the ResNet-50 int8 path, the decode steps (paged and
+static-cache) and the prefill graph emit are registered; any other op
+raises UnknownOpError when an Executor is built.
 """
 
 from . import (  # noqa: F401  (registration side effects)

@@ -1,12 +1,23 @@
 """onnxruntime `com.microsoft` contrib op lowerings of the decode path:
-SimplifiedLayerNormalization (RMSNorm) and RotaryEmbedding.
+SimplifiedLayerNormalization (RMSNorm), RotaryEmbedding,
+SkipSimplifiedLayerNormalization and GroupQueryAttention (the prefill
+graph, `models/llama_style.py::build_full`).
 
 Counterparts of `smelter_tpu/ops/contrib_ops.py` (`_rms_norm`,
-`simplified_layer_norm`, `_apply_rotary`, `rotary_embedding`), with the same
-dtype handling: both compute in f32 and return the input's dtype; the rotary
-tables are read in whatever dtype the executor gives them (the compute
-dtype) and widened to f32. Rotary positions past the end of the tables are
-clamped, as JAX's gather does.
+`simplified_layer_norm`, `_apply_rotary`, `rotary_embedding`,
+`skip_simplified_layer_norm`, `group_query_attention`), with the same
+dtype handling: the norms and rotary compute in f32 and return the input's
+dtype; the rotary tables are read in whatever dtype the executor gives them
+(the compute dtype) and widened to f32. Rotary positions past the end of the
+tables are clamped, as JAX's gather does.
+
+GroupQueryAttention takes the no-past causal form (what `build_full`
+emits), with packed or separate projections, fused rotary, a sliding window
+and per-batch key lengths; the ORT-genai past-buffer form raises
+NotSupportedError. Its attention core is the JAX package's
+(`jax.nn.dot_product_attention`'s XLA formulation) written out: f32 logits,
+the additive -10000 bias in the promoted dtype, an f32 softmax, the
+probabilities in K's dtype against V.
 """
 
 from __future__ import annotations
@@ -38,6 +49,24 @@ def simplified_layer_norm(ctx: Ctx, node: Node):
     for extra in node.outputs[1:]:
         if extra:
             raise NotSupportedError("SimplifiedLayerNormalization inv_std_var output")
+
+
+@register("SkipSimplifiedLayerNormalization")
+def skip_simplified_layer_norm(ctx: Ctx, node: Node):
+    """RMSNorm(input + skip [+ bias]); output 3 is the pre-norm sum."""
+    x = ctx.get(node.inputs[0])
+    skip = ctx.get(node.inputs[1]).to(x.dtype)
+    gamma = ctx.get(node.inputs[2])
+    h = x + skip
+    if len(node.inputs) > 3 and node.inputs[3]:
+        h = h + ctx.get(node.inputs[3]).to(x.dtype)
+    eps = float(node.attr("epsilon", 1e-6))
+    ctx.set(node.outputs[0], _rms_norm(h, gamma, eps, h.ndim - 1))
+    if len(node.outputs) > 3 and node.outputs[3]:
+        ctx.set(node.outputs[3], h)
+    for extra in node.outputs[1:3]:
+        if extra:
+            raise NotSupportedError("SkipSimplifiedLayerNormalization mean/inv_std outputs")
 
 
 def _apply_rotary(x, pos, cos_cache, sin_cache, interleaved, rot_dim=0):
@@ -97,3 +126,76 @@ def rotary_embedding(ctx: Ctx, node: Node):
     y = _apply_rotary(x.reshape(b, s, h, d // h), pos, cos_cache, sin_cache,
                       interleaved, rot_dim)
     ctx.set(node.outputs[0], y.reshape(b, s, d))
+
+
+def _core_attention(q, k, v, bias, scale):
+    """q/k/v (B, S, H, hd); bias additive (B|1, H|1, Sq, T) f32. Mixed q/k
+    dtypes (K/V dequantized mid-graph) are promoted, as the JAX package
+    does."""
+    ct = torch.promote_types(q.dtype, k.dtype)
+    q, k, v = q.to(ct), k.to(ct), v.to(ct)
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.to(ct).float()
+    probs = torch.softmax(logits, dim=-1).to(k.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+@register("GroupQueryAttention")
+def group_query_attention(ctx: Ctx, node: Node):
+    """GQA: H query heads share H_kv key/value heads; always causal."""
+    def opt(i):
+        return ctx.get(node.inputs[i]) if len(node.inputs) > i and node.inputs[i] else None
+
+    h = int(node.attr("num_heads"))
+    h_kv = int(node.attr("kv_num_heads"))
+    window = int(node.attr("local_window_size", -1))
+    query, key, value = opt(0), opt(1), opt(2)
+    if opt(3) is not None or opt(4) is not None:
+        raise NotSupportedError("GroupQueryAttention past_key/past_value buffers")
+    seqlens_k, cos_cache, sin_cache = opt(5), opt(7), opt(8)
+    b, s = query.shape[0], query.shape[1]
+    if key is None:  # packed: (B, S, (H + 2 H_kv) hd)
+        hd = query.shape[-1] // (h + 2 * h_kv)
+        q = query[..., :h * hd].reshape(b, s, h, hd)
+        k = query[..., h * hd:(h + h_kv) * hd].reshape(b, s, h_kv, hd)
+        v = query[..., (h + h_kv) * hd:].reshape(b, s, h_kv, hd)
+    else:
+        hd = query.shape[-1] // h
+        q = query.reshape(b, s, h, hd)
+        k = key.reshape(b, s, h_kv, hd)
+        v = value.reshape(b, s, h_kv, hd)
+    if int(node.attr("do_rotary", 0)):
+        if cos_cache is None or sin_cache is None:
+            raise NotSupportedError("GroupQueryAttention do_rotary without caches")
+        pos = torch.arange(s, device=query.device)[None] + torch.zeros(
+            (b, 1), dtype=torch.long, device=query.device)
+        inter = int(node.attr("rotary_interleaved", 0))
+        q = _apply_rotary(q, pos, cos_cache, sin_cache, inter)
+        k = _apply_rotary(k, pos, cos_cache, sin_cache, inter)
+    scale = node.attr("scale")
+    scale = float(scale) if scale is not None else hd ** -0.5
+    rep = h // h_kv
+    kq = k.repeat_interleave(rep, dim=2)
+    vq = v.repeat_interleave(rep, dim=2)
+    t = k.shape[1]
+    dev = query.device
+    keep = torch.ones((s, t), dtype=torch.bool, device=dev).tril(t - s)
+    bias = torch.where(keep, 0.0, -10000.0)[None, None]
+    if window > 0:
+        # key j is visible to query i only when i - window < j <= i
+        band = torch.ones((s, t), dtype=torch.bool, device=dev).tril(t - s - window)
+        bias = bias + torch.where(band, -10000.0, 0.0)[None, None]
+    if seqlens_k is not None:
+        # per ORT: seqlens_k = total key length - 1
+        if tuple(seqlens_k.shape) != (b,):
+            raise NotSupportedError(f"GroupQueryAttention seqlens_k shape {tuple(seqlens_k.shape)}")
+        lens = seqlens_k.reshape(b, 1).long() + 1
+        valid = torch.arange(t, device=dev)[None] < lens  # (B, T)
+        bias = bias + torch.where(valid, 0.0, -10000.0)[:, None, None, :]
+    out = _core_attention(q, kq, vq, bias, scale)
+    ctx.set(node.outputs[0], out.reshape(b, s, h * hd))
+    if len(node.outputs) > 1 and node.outputs[1]:
+        ctx.set(node.outputs[1], k.transpose(1, 2))
+    if len(node.outputs) > 2 and node.outputs[2]:
+        ctx.set(node.outputs[2], v.transpose(1, 2))

@@ -1,5 +1,5 @@
 """Fused op lowerings: FusedDequantMatMul, FusedDequantMatMulI4,
-PagedDecodeAttention, PagedCacheUpdate.
+RaggedDecodeAttention, PagedDecodeAttention, PagedCacheUpdate.
 
 `passes/fuse_dequant.py` rewrites DequantizeLinear(int8 W, scales) ->
 MatMul/Gemm into FusedDequantMatMul(x, W (K, N) int8, scales (N,)), and the
@@ -9,8 +9,12 @@ grouped 4-bit form into FusedDequantMatMulI4(x, packed (K/2, N), scales
 `Config.int8_activations` is set) and `int4_matmul`. The paged decode step
 (`models/llama_style.py::build_decode_step_paged`) reads its KV pools
 through `paged_decode_attention` and writes them with `paged_cache_update`,
-in place. Each kernel wrapper launches its Hopper kernel for CUDA tensors
-and takes its plain version on the CPU and on `meta`. `Config.use_pallas`
+in place. The static-cache step (`build_decode_step` after
+`passes/ragged_attention.py`, which `Config.ragged_attention` applies)
+reads its caches through `ragged_decode_attention`. Each kernel wrapper
+launches its Hopper kernel for CUDA tensors and takes its plain version on
+the CPU and on `meta`: there is no envelope gate that takes the dense chain
+on the card, as the JAX package's TPU gate (`_ragged_kernel_ok`) does. `Config.use_pallas`
 and `Config.int4_block_n` are kept so configurations carry across from the
 JAX package; the port reads neither.
 """
@@ -22,6 +26,7 @@ from ..kernels.dequant_matmul import dequant_matmul
 from ..kernels.int4_matmul import int4_matmul
 from ..kernels.int8_matmul import dequant_matmul_int8
 from ..kernels.paged_decode_attention import paged_cache_update, paged_decode_attention
+from ..kernels.ragged_decode_attention import ragged_decode_attention
 from .registry import Ctx, register
 
 
@@ -50,6 +55,37 @@ def fused_dequant_matmul_i4(ctx: Ctx, node: Node):
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     y = int4_matmul(x2, pk, s, group=int(node.attr("group")), out_dtype=x.dtype)
     ctx.set(node.outputs[0], y.reshape(lead + (pk.shape[1],)))
+
+
+@register("RaggedDecodeAttention")
+def ragged_decode_attention_op(ctx: Ctx, node: Node):
+    """Decode-step attention over one stream's static KV cache, reading only
+    rows <= pos + chunk - 1. Inputs: (q (c, dim), k (L, kvd), v (L, kvd),
+    pos (1,)) or the int8-KV form (q, kq int8, ks (L, 1), vq, vs, pos).
+    Attributes num_heads, kv_heads, chunk, scale. The kernel takes a slot
+    batch; one stream is a batch of 1 (and a vmapped step a batch of all
+    slots, through the kernel's vmap rule)."""
+    q = ctx.get(node.inputs[0])
+    quant = len(node.inputs) == 6
+    if quant:
+        k, ks, v, vs, pos = (ctx.get(n) for n in node.inputs[1:])
+    else:
+        k, v, pos = (ctx.get(n) for n in node.inputs[1:])
+        ks = vs = None
+    heads = int(node.attr("num_heads"))
+    kvh = int(node.attr("kv_heads"))
+    c = int(node.attr("chunk", 1))
+    scale = float(node.attr("scale"))
+    dim = q.shape[-1]
+    hd = dim // heads
+    g = heads // kvh
+    # (c, dim) -> (kvh, g*c, hd); row r = g_idx*c + c_idx (c minor)
+    qh = q.reshape(c, kvh, g, hd).permute(1, 2, 0, 3).reshape(1, kvh, g * c, hd)
+    one = (lambda t: None if t is None else t.unsqueeze(0))
+    out = ragged_decode_attention(qh.contiguous(), one(k), one(v), pos.reshape(1).long(),
+                                  one(ks), one(vs), c=c, kv_heads=kvh, scale=scale)
+    out = out.reshape(kvh, g, c, hd).permute(2, 0, 1, 3)
+    ctx.set(node.outputs[0], out.reshape(c, dim).to(q.dtype))
 
 
 @register("PagedDecodeAttention")

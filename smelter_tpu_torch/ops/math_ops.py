@@ -1,9 +1,10 @@
 """Elementwise op lowerings: Relu, Identity, Add (the ResNet path), Sigmoid,
-Abs, Round, Clip, Mul, Div, Max (the decode path).
+Abs, Round, Clip, Mul, Div, Max (the decode path), LessOrEqual and Where
+(the static-cache step's dense attention mask).
 
 Counterparts of `smelter_tpu/ops/math_ops.py`; a binary op casts its second
-operand to the first one's dtype, as there. Round is half to even, as
-`jnp.round`.
+operand to the first one's dtype, as there, and a comparison compares the
+two as they are. Round is half to even, as `jnp.round`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,23 @@ _unary("Round", torch.round)
 _binary("Add", torch.add)
 _binary("Mul", torch.mul)
 _binary("Div", torch.div)
+
+
+def _compare(op_type: str, fn, since: int = 1):
+    @register(op_type, since=since)
+    def _lower(ctx: Ctx, node: Node, _fn=fn):
+        ctx.set(node.outputs[0], _fn(ctx.get(node.inputs[0]), ctx.get(node.inputs[1])))
+
+
+_compare("LessOrEqual", torch.le, since=12)
+
+
+@register("Where", since=9)
+def where(ctx: Ctx, node: Node):
+    cond = ctx.get(node.inputs[0])
+    a = ctx.get(node.inputs[1])
+    b = ctx.get(node.inputs[2])
+    ctx.set(node.outputs[0], torch.where(cond, a, b.to(a.dtype)))
 
 
 @register("Clip")

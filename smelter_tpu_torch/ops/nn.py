@@ -1,5 +1,6 @@
 """Neural-net op lowerings of the ResNet path: Conv, MaxPool,
-GlobalAveragePool, BatchNormalization, Gemm, MatMul.
+GlobalAveragePool, BatchNormalization, Gemm, MatMul; and Softmax (the
+static-cache decode step's dense attention).
 
 The port's counterparts of the lowerings in `smelter_tpu/ops/nn.py`, with
 the same semantics. A node the layout pass rewrote (`data_layout=NHWC`)
@@ -162,3 +163,16 @@ def batch_norm(ctx: Ctx, node: Node):
     inv = torch.rsqrt(var + eps) * scale
     y = x.float() * inv.reshape(shape) + (bias - mean * inv).reshape(shape)
     ctx.set(node.outputs[0], y.to(x.dtype))
+
+
+@register("Softmax")
+def softmax(ctx: Ctx, node: Node):
+    x = ctx.get(node.inputs[0])
+    if ctx.opset >= 13:
+        y = torch.softmax(x, dim=int(node.attr("axis", -1)))
+    else:
+        # opset < 13: softmax over the coalesced dims [axis:] (2-D flatten).
+        axis = int(node.attr("axis", 1))
+        axis = axis + x.ndim if axis < 0 else axis
+        y = torch.softmax(x.reshape(tuple(x.shape[:axis]) + (-1,)), dim=-1).reshape(x.shape)
+    ctx.set(node.outputs[0], y)

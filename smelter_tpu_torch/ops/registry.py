@@ -84,14 +84,17 @@ class Ctx:
     `get`/`set` move torch tensors along edges; `static` reads host values
     known before the run (initializers, or values produced by statically
     evaluable ops like Constant). `device` is where new constants go.
+    `donated` names the graph inputs whose tensors a lowering may update in
+    place (the caller gave them away, as JAX's buffer donation does).
     """
 
     def __init__(self, graph: Graph, env: dict[str, Any], config=None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", donated=frozenset()):
         self.graph = graph
         self.env = env
         self.config = config
         self.device = torch.device(device)
+        self.donated = frozenset(donated)
         # Host-side (numpy) values known at trace time, keyed by edge name.
         self.static_env: dict[str, np.ndarray] = {}
 

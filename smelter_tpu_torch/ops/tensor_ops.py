@@ -1,15 +1,24 @@
 """Tensor-manipulation op lowerings: Constant, Reshape, Flatten, Transpose,
-DepthToSpace (the ResNet path), Gather, Cast, CastLike (the decode path).
+DepthToSpace (the ResNet path), Gather, Cast, CastLike (the decode path),
+ScatterND (the static-cache step's cache writes) and Pad (the prefill
+graph's padded caches).
 
 Counterparts of `smelter_tpu/ops/tensor_ops.py`. Constant publishes its
 value into the static env, so a Reshape whose shape comes from it resolves
 before the run.
+
+ScatterND writes in place when its data input is a graph input the caller
+donated (`Executor.build_fn(donate=...)`, the port's counterpart of JAX's
+buffer donation): a decode step then updates its KV caches where they lie,
+instead of copying every cache every step. Otherwise it returns a new
+tensor, as the JAX lowering does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ir.errors import NotSupportedError
 from ..ir.graph import Node
@@ -139,3 +148,62 @@ def cast_like(ctx: Ctx, node: Node):
     x = ctx.get(node.inputs[0])
     like = ctx.get(node.inputs[1])
     ctx.set(node.outputs[0], x.to(like.dtype))
+
+
+@register("ScatterND", since=11)
+def scatter_nd(ctx: Ctx, node: Node):
+    """x[idx[..., :k]] = updates. Negative indices count from the end and
+    out-of-range ones are dropped, as JAX's scatter drops them: a dropped
+    row writes its old value back at its index modulo the dim, which is a
+    no-op as long as the indices are distinct modulo the dims (the decode
+    graphs write c <= L consecutive rows). The reduction attribute is not
+    taken."""
+    if node.attr("reduction", "none") not in ("none", b"none"):
+        raise NotSupportedError("ScatterND with a reduction")
+    x = ctx.get(node.inputs[0])
+    idx = ctx.get(node.inputs[1]).long()
+    upd = ctx.get(node.inputs[2])
+    k = idx.shape[-1]
+    flat = idx.reshape(-1, k)
+    cols, inside = [], None
+    for i in range(k):
+        d = x.shape[i]
+        col = flat[:, i]
+        col = torch.where(col < 0, col + d, col)
+        ok = (col >= 0) & (col < d)
+        inside = ok if inside is None else inside & ok
+        cols.append(torch.remainder(col, d))
+    cols = tuple(cols)
+    rows = upd.reshape((-1,) + tuple(x.shape[k:])).to(x.dtype)
+    keep = inside.reshape((-1,) + (1,) * (x.ndim - k))
+    rows = torch.where(keep, rows, x[cols])
+    if node.inputs[0] in ctx.donated:
+        out = x.index_put_(cols, rows)
+    else:
+        out = x.index_put(cols, rows)
+    ctx.set(node.outputs[0], out)
+
+
+@register("Pad", static={1, 2})
+def pad(ctx: Ctx, node: Node):
+    """Constant padding over any dims (the JAX lowering's reflect, edge and
+    wrap modes are not taken)."""
+    x = ctx.get(node.inputs[0])
+    mode = node.attr("mode", "constant")
+    if isinstance(mode, bytes):
+        mode = mode.decode()
+    if mode != "constant":
+        raise NotSupportedError(f"Pad mode {mode!r}")
+    if ctx.opset >= 11:
+        pads = ctx.static(node.inputs[1]).reshape(-1).astype(np.int64)
+        cval = 0.0
+        if len(node.inputs) > 2 and node.inputs[2]:
+            cval = float(ctx.static(node.inputs[2]).reshape(-1)[0])
+    else:
+        pads = np.asarray(node.attr("pads"), np.int64)
+        cval = node.attr("value", 0.0)
+    rank = x.ndim
+    flat = []
+    for i in reversed(range(rank)):  # F.pad takes the last dim first
+        flat += [int(pads[i]), int(pads[i + rank])]
+    ctx.set(node.outputs[0], F.pad(x, flat, mode="constant", value=cval))

@@ -80,7 +80,8 @@ def run_passes(graph: Graph, pipeline: list[str] | None = None, verbose: bool = 
     """Run the pipeline in place (returns the same graph for chaining)."""
     from . import (  # noqa: F401  (registration side effects)
         all_passes, decoder_fusion, dw_barrier, fuse_attention,
-        fuse_dequant, layout, mxu_packing, pixel_regions, vit_block)
+        fuse_dequant, layout, mxu_packing, pixel_regions, ragged_attention,
+        vit_block)
 
     for name in pipeline or DEFAULT_PIPELINE:
         n = _PASSES[name](graph)

@@ -1,9 +1,9 @@
 """Engine configuration.
 
 The port's counterpart of `smelter_tpu/runtime/config.py`, with the fields
-the port reads, `device`, and three it keeps unread so that configurations
-of the JAX package's ResNet and paged-decode paths carry across:
-`use_pallas`, `int4_block_n` and `ragged_attention`.
+the port reads, `device`, and two it keeps unread so that configurations
+of the JAX package's ResNet and decode paths carry across: `use_pallas` and
+`int4_block_n`.
 """
 
 from __future__ import annotations
@@ -34,9 +34,11 @@ class Config:
     # Kept, unread: the JAX package's int4 kernel N-block override. The
     # port's int4_matmul kernel fixes its tiles (kernels/int4_matmul.py).
     int4_block_n: int | None = None
-    # Kept, unread: the JAX package rewrites a dense decode step's cache
-    # attention into RaggedDecodeAttention. The port runs only the paged
-    # step, whose PagedDecodeAttention reads just the live pages already.
+    # Static-cache decode (runtime/generate.py, serving/decode_server.py):
+    # rewrite the step's dense masked cache attention into
+    # RaggedDecodeAttention, whose kernel reads only the live cache rows
+    # (kernels/ragged_decode_attention.py). The JAX package's TPU block size
+    # (`ragged_block`) has no counterpart: the kernel fixes its row blocks.
     ragged_attention: bool = False
     # Run FusedDequantMatMul on the int8 tensor cores by quantizing the
     # activations per row (kernels/int8_matmul.py); adds one activation

@@ -160,15 +160,26 @@ class Executor:
     # -- the forward function -------------------------------------------
 
     def build_fn(self, return_all_edges: bool = False,
-                 device: str | torch.device | None = None) -> Callable:
+                 device: str | torch.device | None = None,
+                 donate: tuple[str, ...] | frozenset[str] = ()) -> Callable:
         """fn(params, *inputs) -> outputs, computing on `device` (default:
-        the executor's). `params` come as `cast_params` gives them."""
+        the executor's). `params` come as `cast_params` gives them.
+
+        `donate` names inputs the caller gives away, as JAX's buffer
+        donation does: lowerings may update them in place (ScatterND's cache
+        writes), and an output may then be the input's own tensor. A donated
+        input must arrive as a tensor on `device` in the dtype the walk
+        computes it in, so that it is not copied on the way in."""
         graph, config = self.graph, self.config
         dev = torch.device(device) if device is not None else self.device
         input_names = graph.input_names
         output_names = graph.output_names
         cd = _COMPUTE_DTYPES[config.compute_dtype]
         param_names = self.param_names
+        donated = frozenset(donate)
+        unknown = donated - set(input_names)
+        if unknown:
+            raise ValueError(f"donated names {sorted(unknown)} are not graph inputs")
 
         def fn(params: dict[str, Any], *inputs):
             if len(inputs) != len(input_names):
@@ -177,12 +188,16 @@ class Executor:
                     f"{input_names}, got {len(inputs)}")
             with torch.inference_mode():
                 env: dict[str, Any] = {name: params[name] for name in param_names}
-                for name, x in zip(input_names, inputs):
-                    x = torch.as_tensor(x, device=dev)
+                for name, given in zip(input_names, inputs):
+                    x = torch.as_tensor(given, device=dev)
                     if x.dtype.is_floating_point and x.dtype != cd:
                         x = x.to(cd)
+                    if name in donated and x is not given:
+                        raise TypeError(
+                            f"donated input {name!r} must be a tensor on {dev} in "
+                            f"{cd if x.dtype.is_floating_point else x.dtype}")
                     env[name] = x
-                ctx = Ctx(graph, env, config, device=dev)
+                ctx = Ctx(graph, env, config, device=dev, donated=donated)
                 for node in graph.nodes:
                     lower_node(ctx, node)
                 if return_all_edges:

@@ -29,9 +29,16 @@ Two disciplines keep shared pages safe with zero in-graph masking:
   and it resumes when pages free up. When every active slot is stalled,
   the least-progressed sequences are failed until one can move.
 
-Prefill admission (`prefill_graphs`) needs the contrib-op prefill graphs
-(`build_full`), which the port cannot run yet: it raises NotSupportedError,
-and prompts are fed one token per tick.
+Prefill admission (`prefill_graphs`, `build_prefill` twins of the step
+graph, the JAX package's `_build_paged_prefill_ladder`): a new request's
+prompt runs one dense prefill forward of the smallest bucket that holds it,
+and its cache rows are written into the slot's pages at position 0. Pages
+are allocated for the prompt rows only; pad rows past them land on the
+scratch page. When the pool cannot hold the prompt now (PoolExhausted) the
+prompt is fed a token a tick instead, as the JAX server does; any other
+prefill failure fails its own request (the JAX server falls back to feeding
+there too, which would hide the failure). `stats()["prefills"]` counts the
+prompts admitted by a prefill.
 """
 
 from __future__ import annotations
@@ -43,8 +50,8 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from ..ir.errors import NotSupportedError
-from .decode_server import _Slot
+from ..kernels.paged_decode_attention import paged_cache_update
+from .decode_server import _Slot, _bucket, _build_prefill_ladder, _commit
 from .kv_pool import PagePool, PoolExhausted
 
 
@@ -62,15 +69,14 @@ class PagedDecodeServer:
         from ..runtime.executor import Executor
         from ..runtime.generate import _cache_dtypes
 
-        if prefill_graphs:
-            raise NotSupportedError(
-                "PagedDecodeServer prefill admission is not in the PyTorch port "
-                "yet: prompts are fed one token per tick")
         cfg = config or Config()
         ex = Executor(step_graph, cfg)
         self.device = ex.device
         self._params = ex.cast_params(ex.init_params())
         self._fn = ex.build_fn()
+        host_map = {n: step_graph.initializers[n] for n in ex.param_names}
+        # (plen, dense prefill forward), weights shared with the step's
+        self._prefills = _build_prefill_ladder(prefill_graphs, self._params, host_map, cfg)
         self._input_names = [v.name for v in step_graph.inputs]
         shapes = {v.name: tuple(v.type.shape) for v in step_graph.inputs}
         self._pool_names = [n for n in self._input_names
@@ -106,6 +112,7 @@ class PagedDecodeServer:
         self._wake = threading.Event()
         self._stall_ticks = 0  # observability: ticks with >=1 stalled slot
         self._steps = 0        # step-graph runs (tick_steps per tick)
+        self._prefilled = 0    # prompts admitted by a prefill forward
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -143,6 +150,7 @@ class PagedDecodeServer:
                 "page_size": self.pool.page_size,
                 "stall_ticks": self._stall_ticks,
                 "steps": self._steps,
+                "prefills": self._prefilled,
             }
 
     def cache_bytes(self) -> int:
@@ -181,6 +189,27 @@ class PagedDecodeServer:
 
     # -- slot loop -------------------------------------------------------
 
+    def _prefill_slot(self, i: int, prompt: list[int]):
+        """Fill slot i's pages with one prefill forward. Allocates pages for
+        the prompt rows only (pad rows past them land on the scratch page);
+        raises PoolExhausted when the pool cannot hold the prompt now.
+        Returns (fed, first) as DecodeServer._prefill_slot does."""
+        p_len, fn, eff = _bucket(self._prefills, len(prompt))
+        self.pool.ensure(i, eff)
+        self._table = self.pool.table(self._npg, out=self._table)
+        toks = np.zeros((p_len,), np.int64)
+        toks[:eff] = prompt[:eff]
+        dev = self.device
+        with torch.inference_mode():
+            outs = fn(self._params, torch.from_numpy(toks).to(dev))
+            row = torch.from_numpy(self._table[i:i + 1]).to(dev)
+            zero = torch.zeros(1, dtype=torch.int64, device=dev)
+            for pool, rows in zip(self._pools, outs[1:]):
+                paged_cache_update(pool, row, zero, rows[:p_len][None])
+            first = int(outs[0][eff - 1].argmax()) if eff == len(prompt) else None
+        self._prefilled += 1
+        return eff - 1, first
+
     def _admit(self) -> None:
         for i, s in enumerate(self._state):
             if s.active:
@@ -190,10 +219,31 @@ class PagedDecodeServer:
             except queue.Empty:
                 return
             n_new = min(n_new, self.max_len - len(prompt))
-            self._state[i] = _Slot(active=True, prompt=prompt, fed=0,
-                                   generated=[], n_new=n_new,
-                                   last_token=prompt[0], pos=0,
-                                   future=fut)
+            fed = pos = 0
+            last = prompt[0]
+            generated: list[int] = []
+            if self._prefills and len(prompt) > 1:
+                try:
+                    fed, first = self._prefill_slot(i, prompt)
+                except PoolExhausted:
+                    pass  # fed a token a tick instead, stalling until pages free
+                except Exception as e:  # noqa: BLE001 — this request fails; the
+                    # prefill wrote only slot i's pages and the scratch page
+                    self.pool.release(i)
+                    fut.set_exception(e)
+                    continue
+                else:
+                    if first is not None:
+                        generated = [first]
+                        pos, last = len(prompt), first
+                        if len(generated) >= n_new or first in self.stop_tokens:
+                            fut.set_result(list(prompt) + generated)
+                            self.pool.release(i)
+                            continue
+                    else:  # partial prefill: feed the rest a token a tick
+                        pos, last = fed, prompt[fed]
+            self._state[i] = _Slot(active=True, prompt=prompt, fed=fed, generated=generated,
+                                   n_new=n_new, last_token=last, pos=pos, future=fut)
 
     def _loop(self) -> None:
         T = self.tick_steps
@@ -286,49 +336,7 @@ class PagedDecodeServer:
             with self._lock:
                 for i in live:
                     s = self._state[i]
-                    if T > 1:
-                        # nxt[i, j] predicts sequence position
-                        # s.pos + j + 1; those past the prompt are
-                        # generated (greedy chain on device)
-                        plen = len(s.prompt)
-                        start = s.pos
-                        s.pos = min(start + T, self.max_len)
-                        s.fed = min(plen - 1, s.pos)
-                        done = False
-                        for j in range(T):
-                            idx = start + j + 1
-                            if idx < plen:
-                                continue
-                            tok = int(nxt[i, j])
-                            s.generated.append(tok)
-                            if (len(s.generated) >= s.n_new
-                                    or tok in self.stop_tokens
-                                    or idx >= self.max_len):
-                                done = True
-                                s.generated = s.generated[:s.n_new]
-                                break
-                        if done:
-                            s.future.set_result(
-                                list(s.prompt) + s.generated)
-                            self._state[i] = _Slot()
-                            self.pool.release(i)
-                        else:
-                            seq = s.prompt + s.generated
-                            s.last_token = seq[s.pos] \
-                                if s.pos < len(seq) else seq[-1]
-                        continue
-                    s.pos += 1
-                    if s.fed + 1 < len(s.prompt):
-                        s.fed += 1
-                        s.last_token = s.prompt[s.fed]
-                        continue
-                    tok = int(nxt[i])
-                    s.generated.append(tok)
-                    s.last_token = tok
-                    done = (len(s.generated) >= s.n_new
-                            or tok in self.stop_tokens
-                            or s.pos >= self.max_len)
-                    if done:
+                    if _commit(s, nxt[i], T, self.max_len, self.stop_tokens):
                         s.future.set_result(list(s.prompt) + s.generated)
                         self._state[i] = _Slot()
                         self.pool.release(i)  # pages free THIS tick

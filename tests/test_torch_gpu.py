@@ -208,3 +208,162 @@ def test_new_wrappers_raise_on_bad_operands(cuda):
                                                   torch.bfloat16, torch.bfloat16, cuda)
     with pytest.raises(ValueError):  # head dim 96 is not taken
         pda.paged_decode_attention(q, k, v, table, pos, ks, vs, c=1, kv_heads=2, scale=0.1)
+
+
+# -- ragged_decode_attention -------------------------------------------------
+
+def _ragged_operands(B, kvh, g, c, hd, L, quant, dtype, scale_dtype, device, seed=0,
+                     pos=None):
+    """Caches full of values in every row, positions anywhere a chunk of c
+    fits (or the given ones)."""
+    rng = np.random.default_rng(seed)
+    kvd = kvh * hd
+    q = torch.from_numpy(rng.standard_normal((B, kvh, g * c, hd), np.float32)).to(device, dtype)
+    if pos is None:
+        pos = rng.integers(0, L - c + 1, B)
+    pos = torch.as_tensor(np.asarray(pos, np.int64)).to(device)
+    if quant:
+        k = torch.from_numpy(rng.integers(-127, 128, (B, L, kvd), dtype=np.int8)).to(device)
+        v = torch.from_numpy(rng.integers(-127, 128, (B, L, kvd), dtype=np.int8)).to(device)
+        ks = torch.from_numpy(rng.uniform(1e-3, 2e-2, (B, L, 1)).astype(np.float32))
+        vs = torch.from_numpy(rng.uniform(1e-3, 2e-2, (B, L, 1)).astype(np.float32))
+        ks, vs = ks.to(device, scale_dtype), vs.to(device, scale_dtype)
+    else:
+        k = torch.from_numpy(rng.standard_normal((B, L, kvd), np.float32)).to(device, dtype)
+        v = torch.from_numpy(rng.standard_normal((B, L, kvd), np.float32)).to(device, dtype)
+        ks = vs = None
+    return q, k, v, pos, ks, vs
+
+
+def _ragged_check(q, k, v, pos, ks, vs, c, kvh, hd):
+    from smelter_tpu_torch.kernels import ragged_decode_attention as rda
+
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    before = rda.launches
+    got = rda.ragged_decode_attention(q, k, v, pos, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert rda.launches == before + 1
+    ref = rda.ragged_decode_attention_reference(q, k, v, pos, ks, vs, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    # f32: the streaming softmax sums in another order; bf16 output: 8 bits.
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+    return got
+
+
+@pytest.mark.parametrize("geom", [(8, 8, 2, 1, 128, 512), (3, 2, 1, 5, 128, 64),
+                                  (2, 4, 4, 2, 64, 100), (2, 1, 2, 4, 256, 300),
+                                  (1, 8, 1, 5, 128, 512)])
+@pytest.mark.parametrize("quant,dtype,scale_dtype", [
+    (True, torch.bfloat16, torch.bfloat16), (True, torch.float32, torch.float32),
+    (True, torch.bfloat16, torch.float32), (False, torch.float32, None),
+    (False, torch.bfloat16, None)])
+def test_ragged_decode_attention_matches_plain(cuda, geom, quant, dtype, scale_dtype):
+    B, kvh, g, c, hd, L = geom
+    ops = _ragged_operands(B, kvh, g, c, hd, L, quant, dtype, scale_dtype, cuda)
+    _ragged_check(*ops, c, kvh, hd)
+
+
+@pytest.mark.parametrize("c", [1, 5])
+def test_ragged_decode_attention_long_cache(cuda, c):
+    """L 4096: the kernel walks 32 row blocks; shared memory does not grow."""
+    B, kvh, g, hd, L = 3, 8, 8 // c if c < 8 else 1, 128, 4096
+    ops = _ragged_operands(B, kvh, g, c, hd, L, True, torch.bfloat16, torch.bfloat16, cuda,
+                           seed=2, pos=[0, 2048 + 77, L - c])
+    _ragged_check(*ops, c, kvh, hd)
+    ops = _ragged_operands(B, kvh, g, c, hd, L, False, torch.float32, None, cuda, seed=3,
+                           pos=[L - c, 1000, 127])
+    _ragged_check(*ops, c, kvh, hd)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_ragged_decode_attention_reads_only_live_rows(cuda, c):
+    """NaN in every row past a slot's frontier (K, V and their scales)
+    changes nothing: the kernel never reads them."""
+    from smelter_tpu_torch.kernels import ragged_decode_attention as rda
+
+    B, kvh, g, hd, L = 4, 2, 2, 128, 300
+    for quant, dtype, sd in ((False, torch.float32, None), (True, torch.bfloat16, torch.float32)):
+        q, k, v, pos, ks, vs = _ragged_operands(B, kvh, g, c, hd, L, quant, dtype, sd, cuda,
+                                                seed=5, pos=[0, 127, 128, L - c])
+        kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+        ref = rda.ragged_decode_attention(q, k, v, pos, ks, vs, **kw)
+        stale = torch.arange(L, device=cuda)[None] > (pos + c - 1)[:, None]  # (B, L)
+        if quant:
+            k2, v2 = k.clone(), v.clone()  # int8 has no NaN: the scales carry it
+            ks2 = torch.where(stale[..., None], float("nan"), ks)
+            vs2 = torch.where(stale[..., None], float("nan"), vs)
+        else:
+            k2 = torch.where(stale[..., None], float("nan"), k)
+            v2 = torch.where(stale[..., None], float("nan"), v)
+            ks2 = vs2 = None
+        got = rda.ragged_decode_attention(q, k2, v2, pos, ks2, vs2, **kw)
+        assert torch.equal(got, ref)
+
+
+def test_vmap_rules_launch_once_for_all_slots(cuda):
+    """torch.func.vmap of a per-slot call over 5 slots launches each kernel
+    once (the vmap rules fold the slot axis), with the per-slot results."""
+    from smelter_tpu_torch.kernels import ragged_decode_attention as rda
+
+    S, kvh, g, hd, L = 5, 2, 2, 128, 200
+    q, k, v, pos, ks, vs = _ragged_operands(S, kvh, g, 1, hd, L, True, torch.bfloat16,
+                                            torch.bfloat16, cuda, seed=7)
+    x, pk, s = _int4_operands(S, 256, 128, 64, torch.bfloat16, cuda, seed=8)
+    kw = dict(c=1, kv_heads=kvh, scale=hd ** -0.5)
+
+    def one(q1, k1, v1, p1, ks1, vs1, x1):
+        att = rda.ragged_decode_attention(q1[None], k1[None], v1[None], p1.reshape(1),
+                                          ks1[None], vs1[None], **kw)[0]
+        return att, i4.int4_matmul(x1[None], pk, s, group=64, out_dtype=torch.bfloat16)[0]
+
+    before = (rda.launches, i4.launches)
+    att, mm = torch.func.vmap(one)(q, k, v, pos, ks, vs, x)
+    torch.cuda.synchronize()
+    assert (rda.launches, i4.launches) == (before[0] + 1, before[1] + 1)
+    for b in range(S):
+        a1, m1 = one(q[b], k[b], v[b], pos[b], ks[b], vs[b], x[b])
+        assert torch.equal(att[b], a1) and torch.equal(mm[b], m1)
+
+
+def _small_llama(kv_quant=True):
+    """A 2-layer llama at the int4 gates (dim 256, hd 128), int4-g64 weights."""
+    from smelter_tpu_torch.models import llama_style as ls
+    from smelter_tpu_torch.passes.pass_manager import run_passes
+    from smelter_tpu_torch.quant import quantize_weights
+
+    cfg = dict(vocab=256, dim=256, heads=2, kv_heads=1, ffn=512, layers=2)
+    w = ls.make_weights(**cfg, max_len=128, seed=1)
+
+    def q(g):
+        quantize_weights(g, "int4-g64", min_elements=1024)
+        run_passes(g, ["fuse_dequant_matmul", "dce"])
+        return g
+
+    step = q(ls.build_decode_step(w, **cfg, max_len=128, kv_quant=kv_quant)[0])
+    pf = q(ls.build_prefill(w, prompt_len=16, max_len=128, kv_quant=kv_quant, **cfg))
+    return step, pf
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_generator_graph_matches_generator(cuda, dtype):
+    """The CUDA-graph generator gives the host loop's greedy tokens; a
+    seeded sampled run repeats; the graph is captured once."""
+    import smelter_tpu_torch as stt
+    from smelter_tpu_torch.runtime.generate import FusedGenerator, Generator
+
+    step, pf = _small_llama()
+    cfg = stt.Config(compute_dtype=dtype, ragged_attention=True)
+    prompt = [3, 17, 99, 4, 250, 61, 8]
+    want = Generator(step, cfg).generate(prompt, 40)
+    gen = FusedGenerator(step, cfg, prefill_graph=[pf])
+    assert gen.generate(prompt, 40) == want
+    assert gen.generate(prompt[:3], 20) == Generator(step, cfg).generate(prompt[:3], 20)
+    assert list(gen.step_launches) == ["greedy"] and gen.step_launches["greedy"] == {
+        "int4_matmul": 15, "ragged_decode_attention": 2}
+    p16 = list(range(5, 21))  # takes the prefill graph
+    assert len(gen.generate(p16, 10)) == 26
+    a = gen.generate(prompt, 12, temperature=0.8, top_k=20, seed=4)
+    assert a == gen.generate(prompt, 12, temperature=0.8, top_k=20, seed=4)
+    assert len(gen._graphs) == 2

@@ -357,13 +357,18 @@ def test_server_deadlock_eviction_fails_one_and_finishes_the_other():
 
 
 def test_server_rejects_what_the_port_leaves_out():
-    g = _paged(ls, _weights(), True)
-    with pytest.raises(NotSupportedError):
-        PagedDecodeServer(g, CPU, prefill_graphs=[g])
+    """Still left out: a step of more than one token a slot, and context
+    arrays (prefill admission is in; tests/test_torch_decode.py covers it)."""
     gc2 = ls.build_decode_step_paged(_weights(), **CFG, slots=SLOTS, page_size=PS,
                                      n_pages=NPAGES, npg=NPG, chunk=2)[0]
     with pytest.raises(NotImplementedError):
         PagedDecodeServer(gc2, CPU)
+    srv = PagedDecodeServer(_paged(ls, _weights(), True), CPU)
+    try:
+        with pytest.raises(ValueError, match="context"):
+            srv.submit([3, 4], 2, context={"memory": np.zeros(4, np.float32)}).result(timeout=60)
+    finally:
+        srv.shutdown()
 
 
 def test_server_fails_requests_on_a_step_error_and_keeps_serving():

@@ -81,6 +81,10 @@ def test_import_and_cpu_compile_without_jax_protobuf_or_ml_dtypes(tmp_path):
         sys.modules["google.protobuf"] = None
         import numpy as np
         import smelter_tpu_torch as stt
+        import smelter_tpu_torch.kernels.ragged_decode_attention
+        import smelter_tpu_torch.passes.ragged_attention
+        import smelter_tpu_torch.runtime.generate
+        import smelter_tpu_torch.serving.decode_server  # noqa: F401
         m = stt.compile({str(path)!r}, quant="int8", device="cpu")
         y = m(np.zeros({shape!r}, np.float32))[0]
         assert y.shape == ({shape[0]}, 16) and np.isfinite(y).all()
