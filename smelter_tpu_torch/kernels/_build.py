@@ -47,6 +47,8 @@ SIGNATURES = {
                                [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P]),
     "ragged_decode_attention": ("smelter_ragged_decode_attention",
                                 [_P] * 7 + [_I] * 7 + [_F, _I, _I, _I, _P]),
+    "layer_norm": ("smelter_layer_norm", [_P] * 6 + [_I, _I, _F, _I, _I, _P]),
+    "vit_block": ("smelter_vit_block", [_P] * 13 + [_I] * 7 + [_F] * 3 + [_I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

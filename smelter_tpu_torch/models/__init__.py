@@ -1,4 +1,4 @@
-"""Model zoo of the port: ResNet-50 and the LLaMA-style decoder, built as in
-the JAX package."""
+"""Model zoo of the port: ResNet-50, the LLaMA-style decoder and ViT, built
+as in the JAX package."""
 
-from . import llama_style, resnet50  # noqa: F401
+from . import llama_style, resnet50, vit  # noqa: F401

@@ -1,10 +1,12 @@
 """onnxruntime `com.microsoft` contrib op lowerings of the decode path:
 SimplifiedLayerNormalization (RMSNorm), RotaryEmbedding,
 SkipSimplifiedLayerNormalization and GroupQueryAttention (the prefill
-graph, `models/llama_style.py::build_full`).
+graph, `models/llama_style.py::build_full`); and SkipLayerNormalization
+(the residual add + LayerNorm that `passes/fuse_attention.py::
+fuse_residual_ln` makes of the ViT graph).
 
 Counterparts of `smelter_tpu/ops/contrib_ops.py` (`_rms_norm`,
-`simplified_layer_norm`, `_apply_rotary`, `rotary_embedding`,
+`simplified_layer_norm`, `skip_layer_norm`, `_apply_rotary`, `rotary_embedding`,
 `skip_simplified_layer_norm`, `group_query_attention`), with the same
 dtype handling: the norms and rotary compute in f32 and return the input's
 dtype; the rotary tables are read in whatever dtype the executor gives them
@@ -67,6 +69,43 @@ def skip_simplified_layer_norm(ctx: Ctx, node: Node):
     for extra in node.outputs[1:3]:
         if extra:
             raise NotSupportedError("SkipSimplifiedLayerNormalization mean/inv_std outputs")
+
+
+@register("SkipLayerNormalization")
+def skip_layer_norm(ctx: Ctx, node: Node):
+    """LayerNorm(input + skip [+ bias]) over the last axis; output 3 is the
+    pre-norm sum. Under `fused_layernorm=True` or `use_pallas`, without a
+    bias and with skip of x's shape, it takes
+    `kernels/layer_norm.py::residual_layer_norm`, as the JAX lowering takes
+    its Pallas kernel; otherwise the composite."""
+    from ..kernels.layer_norm import layer_norm_plain, residual_layer_norm
+
+    x = ctx.get(node.inputs[0])
+    skip = ctx.get(node.inputs[1]).to(x.dtype)
+    gamma = ctx.get(node.inputs[2])
+    beta = ctx.get(node.inputs[3]) if len(node.inputs) > 3 and node.inputs[3] else None
+    eps = float(node.attr("epsilon", 1e-12))
+    for extra in node.outputs[1:3]:
+        if extra:
+            raise NotSupportedError("SkipLayerNormalization mean/inv_std outputs")
+    has_bias = len(node.inputs) > 4 and bool(node.inputs[4])
+    cfg = ctx.config
+    fln = getattr(cfg, "fused_layernorm", "auto") if cfg is not None else "auto"
+    use_pallas = bool(cfg is not None and getattr(cfg, "use_pallas", False))
+    if ((fln is True or use_pallas) and not has_bias and x.dtype.is_floating_point
+            and x.shape == skip.shape):
+        b = beta if beta is not None else torch.zeros_like(gamma)
+        if b.dtype != gamma.dtype:
+            gamma, b = gamma.float(), b.float()
+        h, y = residual_layer_norm(x, skip, gamma, b, eps=eps)
+    else:
+        h = x + skip
+        if has_bias:
+            h = h + ctx.get(node.inputs[4]).to(x.dtype)
+        y = layer_norm_plain(h, gamma, beta, eps=eps)
+    ctx.set(node.outputs[0], y)
+    if len(node.outputs) > 3 and node.outputs[3]:
+        ctx.set(node.outputs[3], h)
 
 
 def _apply_rotary(x, pos, cos_cache, sin_cache, interleaved, rot_dim=0):

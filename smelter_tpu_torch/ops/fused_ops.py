@@ -1,5 +1,6 @@
 """Fused op lowerings: FusedDequantMatMul, FusedDequantMatMulI4,
-RaggedDecodeAttention, PagedDecodeAttention, PagedCacheUpdate.
+RaggedDecodeAttention, PagedDecodeAttention, PagedCacheUpdate,
+FusedQKVAttention and VitAttnBlock.
 
 `passes/fuse_dequant.py` rewrites DequantizeLinear(int8 W, scales) ->
 MatMul/Gemm into FusedDequantMatMul(x, W (K, N) int8, scales (N,)), and the
@@ -14,12 +15,23 @@ in place. The static-cache step (`build_decode_step` after
 reads its caches through `ragged_decode_attention`. Each kernel wrapper
 launches its Hopper kernel for CUDA tensors and takes its plain version on
 the CPU and on `meta`: there is no envelope gate that takes the dense chain
-on the card, as the JAX package's TPU gate (`_ragged_kernel_ok`) does. `Config.use_pallas`
-and `Config.int4_block_n` are kept so configurations carry across from the
-JAX package; the port reads neither.
+on the card, as the JAX package's TPU gate (`_ragged_kernel_ok`) does.
+`Config.int4_block_n` is kept so configurations carry across from the JAX
+package; the port does not read it.
+
+`passes/fuse_attention.py` packs a ViT block's attention into
+FusedQKVAttention, and `passes/vit_block.py::fuse_vit_block` turns LN ->
+QKV projection -> FusedQKVAttention -> projection into one VitAttnBlock.
+VitAttnBlock always goes to `kernels/vit_block.py::vit_attention_block`, as
+the JAX lowering always goes to its Pallas kernel. FusedQKVAttention is
+computed outside any kernel, as the JAX lowering computes it with
+`jax.nn.dot_product_attention`: it remains only where the pass's gate turns
+a block down.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ir.graph import Node
 from ..kernels.dequant_matmul import dequant_matmul
@@ -27,6 +39,8 @@ from ..kernels.int4_matmul import int4_matmul
 from ..kernels.int8_matmul import dequant_matmul_int8
 from ..kernels.paged_decode_attention import paged_cache_update, paged_decode_attention
 from ..kernels.ragged_decode_attention import ragged_decode_attention
+from ..kernels.vit_block import vit_attention_block
+from .contrib_ops import _core_attention
 from .registry import Ctx, register
 
 
@@ -128,3 +142,46 @@ def paged_cache_update_op(ctx: Ctx, node: Node):
     bsz = rows.shape[0]
     ctx.set(node.outputs[0], paged_cache_update(
         pool, table.reshape(bsz, -1), pos.reshape(bsz), rows))
+
+
+@register("FusedQKVAttention")
+def fused_qkv_attention(ctx: Ctx, node: Node):
+    """Attention over a packed (B, N, 3D) QKV tensor ([q | k | v] on the
+    last axis, heads (H, hd) within each), in the JAX lowering's numerics
+    (`jax.nn.dot_product_attention`: f32 logits times scale, an f32
+    softmax, the probabilities in K's dtype against V)."""
+    x = ctx.get(node.inputs[0])
+    h = int(node.attr("num_heads"))
+    scale = float(node.attr("scale", 1.0))
+    b, n, three_d = x.shape
+    d = three_d // 3
+    q, k, v = (x[..., i * d:(i + 1) * d].reshape(b, n, h, d // h) for i in range(3))
+    out = _core_attention(q, k, v, None, scale)
+    ctx.set(node.outputs[0], out.reshape(b, n, d).to(x.dtype))
+
+
+@register("VitAttnBlock")
+def vit_attn_block(ctx: Ctx, node: Node):
+    """LN -> packed QKV projection -> per-head attention -> projection + bias,
+    in the port's kernel (the residual stays outside: the next
+    Add/SkipLayerNormalization takes it). Inputs: x, LN gamma and beta, the
+    packed QKV weight and bias, w_proj, b_proj and an optional key mask;
+    attributes num_heads, scale (0.0: 1/sqrt(hd)), epsilon, pre_ln,
+    mask_filter."""
+    x = ctx.get(node.inputs[0]).contiguous()
+    params = [ctx.get(node.inputs[i]).reshape(-1).contiguous() for i in (1, 2, 4, 6)]
+    if len({t.dtype for t in params}) > 1 or params[0].dtype not in (torch.float32, x.dtype):
+        params = [t.float() for t in params]
+    g, b, bpk, bp = params
+    wpk = ctx.get(node.inputs[3]).to(x.dtype).contiguous()
+    wp = ctx.get(node.inputs[5]).to(x.dtype).contiguous()
+    mask = ctx.get(node.inputs[7]) if len(node.inputs) > 7 and node.inputs[7] else None
+    if mask is not None:
+        mask = (mask.reshape(-1).to(torch.int32) if mask.dim() == 1
+                else mask.float()).contiguous()
+    out = vit_attention_block(
+        x, g, b, wpk, bpk, wp, bp, mask, heads=int(node.attr("num_heads")),
+        scale=float(node.attr("scale", 1.0)), eps=float(node.attr("epsilon", 1e-5)),
+        residual=False, pre_ln=bool(node.attr("pre_ln", 1)),
+        mask_filter=float(node.attr("mask_filter", -10000.0)))
+    ctx.set(node.outputs[0], out)

@@ -1,6 +1,6 @@
 """Elementwise op lowerings: Relu, Identity, Add (the ResNet path), Sigmoid,
 Abs, Round, Clip, Mul, Div, Max (the decode path), LessOrEqual and Where
-(the static-cache step's dense attention mask).
+(the static-cache step's dense attention mask), and Gelu (the ViT MLP).
 
 Counterparts of `smelter_tpu/ops/math_ops.py`; a binary op casts its second
 operand to the first one's dtype, as there, and a comparison compares the
@@ -10,6 +10,7 @@ two as they are. Round is half to even, as `jnp.round`.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..ir.graph import Node
 from .registry import Ctx, register
@@ -82,3 +83,24 @@ def max_n(ctx: Ctx, node: Node):
     for v in vals[1:]:
         out = torch.maximum(out, v.to(out.dtype))
     ctx.set(node.outputs[0], out)
+
+
+# Official since opset 20, accepted at any opset, as the JAX package does.
+@register("Gelu")
+def gelu(ctx: Ctx, node: Node):
+    """Gelu, exact or tanh. `Config.gelu="auto"` takes the tanh form under a
+    reduced compute dtype (its error is below bf16 resolution), as the JAX
+    lowering does; "exact"/"tanh" force a form."""
+    x = ctx.get(node.inputs[0])
+    approx = node.attr("approximate", "none")
+    if isinstance(approx, bytes):
+        approx = approx.decode()
+    use_tanh = approx == "tanh"
+    mode = getattr(ctx.config, "gelu", "auto") if ctx.config else "auto"
+    if mode == "tanh":
+        use_tanh = True
+    elif mode == "auto" and not use_tanh:
+        cd = getattr(ctx.config, "compute_dtype", "float32") if ctx.config else "float32"
+        if cd != "float32" and x.dtype != torch.float32:
+            use_tanh = True
+    ctx.set(node.outputs[0], F.gelu(x, approximate="tanh" if use_tanh else "none"))

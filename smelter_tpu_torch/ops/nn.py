@@ -1,6 +1,8 @@
 """Neural-net op lowerings of the ResNet path: Conv, MaxPool,
-GlobalAveragePool, BatchNormalization, Gemm, MatMul; and Softmax (the
-static-cache decode step's dense attention).
+GlobalAveragePool, BatchNormalization, Gemm, MatMul; Softmax (the
+static-cache decode step's dense attention); and LayerNormalization (the
+ViT graph), which takes `kernels/layer_norm.py::fused_layer_norm` where the
+configuration routes it there, as the JAX lowering takes its Pallas kernel.
 
 The port's counterparts of the lowerings in `smelter_tpu/ops/nn.py`, with
 the same semantics. A node the layout pass rewrote (`data_layout=NHWC`)
@@ -176,3 +178,39 @@ def softmax(ctx: Ctx, node: Node):
         axis = axis + x.ndim if axis < 0 else axis
         y = torch.softmax(x.reshape(tuple(x.shape[:axis]) + (-1,)), dim=-1).reshape(x.shape)
     ctx.set(node.outputs[0], y)
+
+
+@register("LayerNormalization", since=17)
+def layer_norm(ctx: Ctx, node: Node):
+    """The JAX lowering's routing: the LayerNorm kernel engages under
+    `fused_layernorm=True`, under `use_pallas`, or under "auto" for a tensor
+    on the card (the JAX package: on the TPU), and is taken when engaged
+    unless `fused_layernorm` is False, for a last-axis norm with no
+    mean/inv-std outputs. Otherwise the f32 composite, the kernel's plain
+    version over the normalized axes."""
+    from ..kernels.layer_norm import fused_layer_norm, layer_norm_plain
+
+    x = ctx.get(node.inputs[0])
+    gamma = ctx.get(node.inputs[1])
+    has_beta = len(node.inputs) > 2 and bool(node.inputs[2])
+    axis = node.attr("axis", -1)
+    eps = float(node.attr("epsilon", 1e-5))
+    if axis < 0:
+        axis += x.ndim
+    cfg = ctx.config
+    fln = getattr(cfg, "fused_layernorm", "auto") if cfg is not None else "auto"
+    use_pallas = bool(cfg is not None and getattr(cfg, "use_pallas", False))
+    engage = (fln is True or use_pallas
+              or (fln == "auto" and x.device.type == "cuda"))
+    if engage and fln is not False and axis == x.ndim - 1 and not any(node.outputs[1:]):
+        beta = ctx.get(node.inputs[2]) if has_beta else torch.zeros_like(gamma)
+        if beta.dtype != gamma.dtype:
+            gamma, beta = gamma.float(), beta.float()
+        ctx.set(node.outputs[0], fused_layer_norm(x, gamma, beta, eps=eps))
+        return
+    beta = ctx.get(node.inputs[2]) if has_beta else None
+    ctx.set(node.outputs[0], layer_norm_plain(x, gamma, beta, eps=eps,
+                                              dims=tuple(range(axis, x.ndim))))
+    for extra in node.outputs[1:]:
+        if extra:
+            raise NotSupportedError("LayerNormalization mean/invstd outputs")

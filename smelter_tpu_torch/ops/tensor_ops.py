@@ -1,7 +1,8 @@
 """Tensor-manipulation op lowerings: Constant, Reshape, Flatten, Transpose,
 DepthToSpace (the ResNet path), Gather, Cast, CastLike (the decode path),
-ScatterND (the static-cache step's cache writes) and Pad (the prefill
-graph's padded caches).
+ScatterND (the static-cache step's cache writes), Pad (the prefill
+graph's padded caches), and Squeeze, Unsqueeze, Concat, Slice and Expand
+(the ViT graph: its class token, head split and class-token read-out).
 
 Counterparts of `smelter_tpu/ops/tensor_ops.py`. Constant publishes its
 value into the static env, so a Reshape whose shape comes from it resolves
@@ -80,6 +81,108 @@ def flatten(ctx: Ctx, node: Node):
         axis += x.ndim
     lead = int(np.prod(x.shape[:axis])) if axis else 1
     ctx.set(node.outputs[0], x.reshape(lead, -1))
+
+
+@register("Squeeze", static={1})
+def squeeze(ctx: Ctx, node: Node):
+    x = ctx.get(node.inputs[0])
+    if ctx.opset >= 13:
+        axes = ctx.static(node.inputs[1] if len(node.inputs) > 1 else "", required=False)
+        axes = None if axes is None else tuple(int(a) for a in axes.reshape(-1))
+    else:
+        a = node.attr("axes")
+        axes = tuple(a) if a else None
+    if axes is None:
+        axes = tuple(i for i, d in enumerate(x.shape) if d == 1)
+    axes = tuple(a + x.ndim if a < 0 else a for a in axes)
+    y = x.reshape(tuple(d for i, d in enumerate(x.shape) if i not in axes))
+    ctx.set(node.outputs[0], y)
+    st = ctx.static(node.inputs[0], required=False)
+    if st is not None:
+        ctx.set_static(node.outputs[0], st.reshape(tuple(y.shape)))
+
+
+@register("Unsqueeze", static={1})
+def unsqueeze(ctx: Ctx, node: Node):
+    x = ctx.get(node.inputs[0])
+    if ctx.opset >= 13:
+        axes = tuple(int(a) for a in ctx.static(node.inputs[1]).reshape(-1))
+    else:
+        axes = tuple(node.attr("axes"))
+    out_rank = x.ndim + len(axes)
+    axes = tuple(a + out_rank if a < 0 else a for a in axes)
+    shape = []
+    it = iter(x.shape)
+    for i in range(out_rank):
+        shape.append(1 if i in axes else next(it))
+    y = x.reshape(tuple(shape))
+    ctx.set(node.outputs[0], y)
+    st = ctx.static(node.inputs[0], required=False)
+    if st is not None:
+        ctx.set_static(node.outputs[0], st.reshape(tuple(y.shape)))
+
+
+@register("Concat")
+def concat(ctx: Ctx, node: Node):
+    """N-input concat; the inputs take the first one's dtype."""
+    vals = [ctx.get(n) for n in node.inputs]
+    axis = node.attr("axis", 1)
+    ctx.set(node.outputs[0], torch.cat([v.to(vals[0].dtype) for v in vals], dim=axis))
+    statics = [ctx.static(n, required=False) for n in node.inputs]
+    if all(s is not None for s in statics):
+        ctx.set_static(node.outputs[0], np.concatenate(statics, axis=axis))
+
+
+def _take(x, idx):
+    """x[idx] for a tuple of slices, any step: a negative step (which torch
+    slicing does not take) gathers the indices Python's slice gives."""
+    if all(s.step is None or s.step > 0 for s in idx):
+        return x[idx]
+    for ax, s in enumerate(idx):
+        if s.step is not None and s.step < 0:
+            rows = torch.arange(*s.indices(x.shape[ax]), device=x.device)
+            x = x.index_select(ax, rows)
+        elif s != slice(None):
+            x = x[(slice(None),) * ax + (s,)]
+    return x
+
+
+@register("Slice", static={1, 2, 3, 4})
+def slice_op(ctx: Ctx, node: Node):
+    """Static starts, ends, axes and steps, with Python's slice semantics
+    (as the JAX lowering indexes); an end at or past int32's max is open."""
+    x = ctx.get(node.inputs[0])
+    if ctx.opset >= 10:
+        starts = ctx.static(node.inputs[1]).reshape(-1)
+        ends = ctx.static(node.inputs[2]).reshape(-1)
+        axes = ctx.static(node.inputs[3] if len(node.inputs) > 3 else "", required=False)
+        steps = ctx.static(node.inputs[4] if len(node.inputs) > 4 else "", required=False)
+        axes = axes.reshape(-1) if axes is not None else np.arange(len(starts))
+        steps = steps.reshape(-1) if steps is not None else np.ones(len(starts), np.int64)
+    else:
+        starts = np.asarray(node.attr("starts"))
+        ends = np.asarray(node.attr("ends"))
+        a = node.attr("axes")
+        axes = np.asarray(a) if a else np.arange(len(starts))
+        steps = np.ones(len(starts), np.int64)
+    idx = [slice(None)] * x.ndim
+    for s, e, ax, st in zip(starts, ends, axes, steps):
+        ax = int(ax) + (x.ndim if ax < 0 else 0)
+        idx[ax] = slice(int(s), None if int(e) >= np.iinfo(np.int32).max else int(e), int(st))
+    idx = tuple(idx)
+    ctx.set(node.outputs[0], _take(x, idx))
+    stv = ctx.static(node.inputs[0], required=False)
+    if stv is not None:
+        ctx.set_static(node.outputs[0], stv[idx])
+
+
+@register("Expand", since=8, static={1})
+def expand(ctx: Ctx, node: Node):
+    """Numpy broadcasting of x against a static shape (a 1 in the shape
+    keeps x's dim)."""
+    x = ctx.get(node.inputs[0])
+    shape = tuple(int(d) for d in ctx.static(node.inputs[1]).reshape(-1))
+    ctx.set(node.outputs[0], x.expand(np.broadcast_shapes(tuple(x.shape), shape)))
 
 
 @register("Transpose")

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ir.graph import Graph, Node
+from ..kernels.vit_block import head_group
 from .decoder_fusion import _ensure_types
 from .pass_manager import register_pass
 
@@ -73,23 +74,13 @@ def _tokens_dim(graph: Graph, edge: str):
     return n * d
 
 
-def _head_group(heads: int, hd: int) -> int:
-    """Heads per projection group: the largest divisor of `heads` whose
-    group width group*hd fits a 128-lane tile. 2 for hd=64 (ViT/BERT), 4
-    for hd=32; odd geometries still get a correct (if narrower) grouping."""
-    g = max(1, min(128 // max(hd, 1), heads))
-    while heads % g:
-        g -= 1
-    return g
-
-
 def pack_qkv_weights(w_qkv, b_qkv, heads: int):
     """(D, 3D) packed [q|k|v] + (3D,) bias -> per-head-GROUP blocks:
     weights (3*n_groups, D, group*hd) ordered [q_g0, k_g0, v_g0, q_g1, ...],
     bias (1, 3*n_groups, group*hd)."""
     D = w_qkv.shape[0]
     hd = D // heads
-    group = _head_group(heads, hd)
+    group = head_group(heads, hd)
     wq, wk, wv = (w_qkv[:, i * D:(i + 1) * D] for i in range(3))
     bq, bk, bv = (b_qkv[i * D:(i + 1) * D] for i in range(3))
     ws, bs = [], []

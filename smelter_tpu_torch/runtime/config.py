@@ -1,9 +1,8 @@
 """Engine configuration.
 
 The port's counterpart of `smelter_tpu/runtime/config.py`, with the fields
-the port reads, `device`, and two it keeps unread so that configurations
-of the JAX package's ResNet and decode paths carry across: `use_pallas` and
-`int4_block_n`.
+the port reads, `device`, and one it keeps unread so that configurations
+of the JAX package's decode paths carry across: `int4_block_n`.
 """
 
 from __future__ import annotations
@@ -22,15 +21,27 @@ class Config:
     # -- numerics --------------------------------------------------------
     # Activation compute dtype: "float32" | "bfloat16" | "float16".
     compute_dtype: str = "float32"
+    # Gelu form: "auto" takes the tanh approximation under a reduced compute
+    # dtype (its error is below bf16 resolution), "exact"/"tanh" force one.
+    gelu: str = "auto"
 
     # -- execution -------------------------------------------------------
     # Where the model runs: "cuda" (default, and None means it) or "cpu".
     # Without a card, only an explicit "cpu" runs; the default raises.
     device: str | None = None
-    # Kept so configurations carry across from the JAX package. The port
-    # ignores it: FusedDequantMatMul always takes the port's kernels on the
-    # card and their plain versions on the CPU.
+    # The JAX package's switch for its hand-written kernels. The port reads
+    # it where the JAX package does for LayerNorm: SkipLayerNormalization
+    # takes the `residual_layer_norm` kernel under it (ops/contrib_ops.py),
+    # and LayerNormalization engages `fused_layer_norm` under it unless
+    # `fused_layernorm` is False (ops/nn.py). The ops with only a kernel
+    # route (FusedDequantMatMul, VitAttnBlock, ...) take their kernels
+    # whatever it says.
     use_pallas: bool = False
+    # LayerNorm kernels (kernels/layer_norm.py): True routes every
+    # last-axis LayerNormalization and SkipLayerNormalization to them, False
+    # keeps LayerNormalization on the composite, "auto" engages them for
+    # tensors on the card. The JAX package's default, False, is kept.
+    fused_layernorm: bool | str = False
     # Kept, unread: the JAX package's int4 kernel N-block override. The
     # port's int4_matmul kernel fixes its tiles (kernels/int4_matmul.py).
     int4_block_n: int | None = None

@@ -367,3 +367,163 @@ def test_fused_generator_graph_matches_generator(cuda, dtype):
     a = gen.generate(prompt, 12, temperature=0.8, top_k=20, seed=4)
     assert a == gen.generate(prompt, 12, temperature=0.8, top_k=20, seed=4)
     assert len(gen._graphs) == 2
+
+
+# -- layer_norm (fused_layer_norm, residual_layer_norm) -----------------------
+
+def _ln_operands(M, D, dtype, p_dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x, skip = (torch.from_numpy(rng.standard_normal((M, D), np.float32) * 2 + 0.5).to(device, dtype)
+               for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(D).astype(np.float32) * 0.1 + 1).to(device, p_dtype)
+    b = torch.from_numpy(rng.standard_normal(D).astype(np.float32) * 0.1).to(device, p_dtype)
+    return x, skip, g, b
+
+
+@pytest.mark.parametrize("M,D", [(8, 128), (24, 768), (1576, 768), (16, 1024), (8, 4096),
+                                 (197, 768), (12, 96), (5, 100)])
+@pytest.mark.parametrize("dtype,p_dtype", [(torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.float16, torch.float32),
+                                           (torch.float32, torch.float32)])
+def test_layer_norm_matches_plain(cuda, M, D, dtype, p_dtype):
+    from smelter_tpu_torch.kernels import layer_norm as ln
+
+    x, skip, g, b = _ln_operands(M, D, dtype, p_dtype, cuda)
+    before = (ln.fused_launches, ln.residual_launches)
+    y = ln.fused_layer_norm(x, g, b, eps=1e-6)
+    s, y2 = ln.residual_layer_norm(x, skip, g, b, eps=1e-6)
+    torch.cuda.synchronize()
+    assert (ln.fused_launches, ln.residual_launches) == (before[0] + 1, before[1] + 1)
+    s_ref, y2_ref = ln.residual_layer_norm_plain(x, skip, g, b, eps=1e-6)
+    assert torch.equal(s, s_ref)  # the carry: one rounding of an exact f32 sum
+    # f32: statistics summed in another order; 16-bit: one output rounding.
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, ref in ((y, ln.layer_norm_plain(x, g, b, eps=1e-6)), (y2, y2_ref)):
+        assert got.dtype == dtype and got.shape == x.shape
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_layer_norm_shape_rule_and_bad_operands(cuda):
+    """Outside the JAX entry points' tiling rule (D % 128, rows % 8) a CUDA
+    tensor still launches the kernel; rows the kernel takes not raise."""
+    from smelter_tpu_torch.kernels import layer_norm as ln
+
+    x, skip, g, b = _ln_operands(197, 96, torch.bfloat16, torch.float32, cuda)
+    before = (ln.fused_launches, ln.residual_launches)
+    y = ln.fused_layer_norm(x[1:], g, b)  # a row-offset view: 8-byte aligned rows
+    ln.residual_layer_norm(x, skip, g, b)
+    assert (ln.fused_launches, ln.residual_launches) == (before[0] + 1, before[1] + 1)
+    ref = ln.layer_norm_plain(x[1:], g, b)
+    assert (y.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    for D in (98, 8192):
+        x, skip, g, b = _ln_operands(8, D, torch.bfloat16, torch.float32, cuda)
+        with pytest.raises(ValueError):
+            ln.fused_layer_norm(x, g, b)
+        with pytest.raises(ValueError):
+            ln.residual_layer_norm(x, skip, g, b)
+    x, skip, g, b = _ln_operands(16, 256, torch.bfloat16, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ln.residual_layer_norm(x, skip[:1], g, b)
+    with pytest.raises(TypeError):
+        ln.fused_layer_norm(x, g, b.half())
+    with pytest.raises(TypeError):
+        ln.residual_layer_norm(x, skip.float(), g, b)
+    assert (ln.fused_launches, ln.residual_launches) == (before[0] + 1, before[1] + 1)
+
+
+# -- vit_attention_block -----------------------------------------------------
+
+def _vit_operands(B, N, D, H, dtype, device, p_dtype=torch.float32, seed=0):
+    """The JAX test's operands (tests/test_vit_block.py), packed per head
+    group as passes/vit_block.py packs them."""
+    from smelter_tpu_torch.passes.vit_block import pack_qkv_weights
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, D)).astype(np.float32) * 0.5
+    g = (rng.standard_normal(D) * 0.1 + 1).astype(np.float32)
+    b = (rng.standard_normal(D) * 0.1).astype(np.float32)
+    wqkv = (rng.standard_normal((D, 3 * D)) / np.sqrt(D)).astype(np.float32)
+    bqkv = (rng.standard_normal(3 * D) * 0.02).astype(np.float32)
+    wp = (rng.standard_normal((D, D)) / np.sqrt(D)).astype(np.float32)
+    bp = (rng.standard_normal(D) * 0.02).astype(np.float32)
+    wpk, bpk = pack_qkv_weights(wqkv, bqkv, H)
+
+    def t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    return (t(x, dtype), t(g, p_dtype), t(b, p_dtype), t(wpk, dtype), t(bpk, p_dtype),
+            t(wp, dtype), t(bp, p_dtype))
+
+
+def _masks(B, N, device, seed=1):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, N + 1, B).astype(np.int32)
+    keep = (np.arange(N)[None] < lens[:, None]).astype(np.float32)
+    keep[:, 0] = 1.0
+    return {"keep2d": torch.from_numpy(keep).to(device),
+            "len1d": torch.from_numpy(lens).to(device)}
+
+
+def _vit_check(args, mask=None, **kw):
+    from smelter_tpu_torch.kernels import vit_block as vb
+
+    before = vb.launches
+    got = vb.vit_attention_block(*args, mask, **kw)
+    torch.cuda.synchronize()
+    assert vb.launches == before + 1
+    ref = vb.vit_attention_block_plain(*args, mask, **kw)
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    # f32: every product in full f32, summed in another order; 16-bit: q, k,
+    # v, p and the outputs round to 8 or 11 bits after sums in other orders.
+    tol = 1e-5 if got.dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+# (B, N, D, H): the JAX test's cases, ViT-B/16's block, hd 128 over more
+# keys than a chunk, hd 16, and hd 48 (the warp-per-row attention kernel)
+VIT_GEOMS = [(2, 197, 128, 4), (1, 64, 128, 2), (2, 50, 192, 6), (2, 197, 768, 12),
+             (1, 300, 512, 4), (2, 33, 256, 16), (1, 20, 96, 2)]
+
+
+@pytest.mark.parametrize("geom", VIT_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_vit_attention_block_matches_plain(cuda, geom, dtype):
+    B, N, D, H = geom
+    _vit_check(_vit_operands(B, N, D, H, dtype, cuda), heads=H, eps=1e-6)
+
+
+@pytest.mark.parametrize("geom", [(2, 197, 128, 4), (2, 50, 192, 6)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["no_ln", "keep2d", "len1d", "residual", "scale", "bf16_params"])
+def test_vit_attention_block_forms(cuda, geom, dtype, form):
+    B, N, D, H = geom
+    p_dtype = dtype if form == "bf16_params" else torch.float32
+    args = _vit_operands(B, N, D, H, dtype, cuda, p_dtype=p_dtype)
+    kw = dict(heads=H, eps=1e-6)
+    mask = _masks(B, N, cuda).get(form)
+    if form == "no_ln":
+        kw["pre_ln"] = False
+    elif form == "residual":
+        kw["residual"] = True
+    elif form == "scale":
+        kw["scale"] = 0.3
+    _vit_check(args, mask, **kw)
+
+
+def test_vit_attention_block_raises_on_bad_operands(cuda):
+    from smelter_tpu_torch.kernels import vit_block as vb
+
+    x, g, b, wpk, bpk, wp, bp = _vit_operands(1, 16, 128, 4, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):  # weights not in x's dtype
+        vb.vit_attention_block(x, g, b, wpk.float(), bpk, wp, bp, heads=4)
+    with pytest.raises(TypeError):  # params of mixed dtypes
+        vb.vit_attention_block(x, g.bfloat16(), b, wpk, bpk, wp, bp, heads=4)
+    with pytest.raises(ValueError):  # a projection of another width
+        vb.vit_attention_block(x, g, b, wpk, bpk, wp[:64], bp, heads=4)
+    with pytest.raises(TypeError):  # a mask of the wrong dtype
+        vb.vit_attention_block(x, g, b, wpk, bpk, wp, bp, torch.ones(1, 16, device=cuda,
+                                                                     dtype=torch.int64),
+                               heads=4)

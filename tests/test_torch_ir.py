@@ -85,6 +85,6 @@ def test_bad_bytes_raise_import_error():
 def test_executor_rejects_ops_outside_the_slice():
     g = st.import_model(small_resnet_bytes()[0])
     gt = stt.import_model(st.export_model(g))
-    gt.nodes[-1].op_type = "LayerNormalization"
+    gt.nodes[-1].op_type = "LRN"
     with pytest.raises(UnknownOpError):
         stt.Executor(gt, stt.Config(device="cpu"))

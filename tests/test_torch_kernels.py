@@ -13,8 +13,13 @@ import torch
 
 from smelter_tpu.kernels import dequant_matmul as jdm
 from smelter_tpu.kernels import int8_matmul as jim
+from smelter_tpu.kernels import layer_norm as jln
+from smelter_tpu.kernels import vit_block as jvb
 from smelter_tpu_torch.kernels import dequant_matmul as dm
 from smelter_tpu_torch.kernels import int8_matmul as im
+from smelter_tpu_torch.kernels import layer_norm as ln
+from smelter_tpu_torch.kernels import vit_block as vb
+from smelter_tpu_torch.passes.vit_block import pack_qkv_weights
 
 SHAPES = [(2, 16, 64), (37, 100, 70), (130, 257, 300), (8, 1000, 2048)]
 
@@ -95,3 +100,126 @@ def test_meta_tensors_take_the_plain_version():
     assert dm.dequant_matmul(x, w, s).shape == (5, 10)
     assert im.dequant_matmul_int8(x, w, s).shape == (5, 10)
     assert dm.launches == 0 and im.launches == 0
+    xv = torch.empty(2, 16, 128, device="meta", dtype=torch.bfloat16)
+    p = torch.empty(128, device="meta", dtype=torch.bfloat16)
+    assert ln.fused_layer_norm(xv, p, p).shape == xv.shape
+    assert ln.residual_layer_norm(xv, xv, p, p)[1].shape == xv.shape
+    wpk = torch.empty(3, 128, 128, device="meta", dtype=torch.bfloat16)
+    out = vb.vit_attention_block(xv, p, p, wpk, torch.empty(1, 3, 128, device="meta"),
+                                 torch.empty(128, 128, device="meta", dtype=torch.bfloat16), p,
+                                 heads=4)
+    assert out.shape == xv.shape and out.dtype == torch.bfloat16
+    assert ln.fused_launches == 0 and ln.residual_launches == 0 and vb.launches == 0
+
+
+# -- LayerNorm ---------------------------------------------------------------
+
+def _ln_operands(m, d, seed=5):
+    rng = np.random.default_rng(seed)
+    x, skip = ((rng.standard_normal((m, d)) * 2 + 0.5).astype(np.float32) for _ in range(2))
+    g = (rng.standard_normal(d) * 0.1 + 1).astype(np.float32)
+    b = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    return x, skip, g, b
+
+
+@pytest.mark.parametrize("shape", [(16, 128), (24, 768), (2, 4, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_plain_matches_pallas(shape, dtype):
+    """Both kernels' plain versions against the Pallas kernels in interpret
+    mode, inside the entry points' shape rule."""
+    x, skip, g, b = _ln_operands(int(np.prod(shape[:-1])), shape[-1])
+    x, skip = x.reshape(shape), skip.reshape(shape)
+    tdt = getattr(torch, dtype)
+    xt, st_ = (torch.from_numpy(a).to(tdt) for a in (x, skip))
+    xj, sj = (jnp.asarray(a).astype(dtype) for a in (x, skip))
+    gt, bt, gj, bj = torch.from_numpy(g), torch.from_numpy(b), jnp.asarray(g), jnp.asarray(b)
+    y = ln.fused_layer_norm(xt, gt, bt, eps=1e-6)
+    s, y2 = ln.residual_layer_norm(xt, st_, gt, bt, eps=1e-6)
+    assert ln.fused_launches == 0 and ln.residual_launches == 0
+    yj = jln.fused_layer_norm(xj, gj, bj, eps=1e-6, interpret=True)
+    sj2, y2j = jln.residual_layer_norm(xj, sj, gj, bj, eps=1e-6, interpret=True)
+    # the carry: one rounding of the exact f32 sum in both
+    assert np.array_equal(s.float().numpy(), np.asarray(sj2.astype(jnp.float32)))
+    # f32: statistics summed in other orders -> 1e-5 of the largest output;
+    # bf16: one rounding of outputs that agree to f32 precision -> 1e-2.
+    tol = {"float32": 1e-5, "bfloat16": 1e-2}[dtype]
+    for got, want in ((y, yj), (y2, y2j)):
+        assert got.dtype == tdt and tuple(got.shape) == shape
+        want = np.asarray(want.astype(jnp.float32))
+        assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+def test_layer_norm_outside_the_shape_rule_takes_the_composite():
+    """D % 128 != 0 or a row count that is not a multiple of 8: the JAX
+    entry points take their composite, whose arithmetic the port's plain
+    version (the CPU's route at every shape) shares."""
+    for m, d in ((12, 96), (6, 128)):
+        x, skip, g, b = _ln_operands(m, d)
+        y = ln.fused_layer_norm(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b))
+        yj = np.asarray(jln.fused_layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                                             interpret=True))
+        assert np.abs(y.numpy() - yj).max() <= 1e-5 * np.abs(yj).max()
+        s, y2 = ln.residual_layer_norm(*(torch.from_numpy(a) for a in (x, skip, g, b)))
+        sj, y2j = jln.residual_layer_norm(*(jnp.asarray(a) for a in (x, skip, g, b)),
+                                          interpret=True)
+        assert np.array_equal(s.numpy(), np.asarray(sj))
+        assert np.abs(y2.numpy() - np.asarray(y2j)).max() <= 1e-5 * np.abs(y2j).max()
+
+
+# -- vit_attention_block -----------------------------------------------------
+
+def _vit_operands(B, N, D, H, seed=0):
+    """tests/test_vit_block.py's operands (f32 on the host), packed."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, N, D)) * 0.5).astype(np.float32)
+    g = (rng.standard_normal(D) * 0.1 + 1).astype(np.float32)
+    b = (rng.standard_normal(D) * 0.1).astype(np.float32)
+    wqkv = (rng.standard_normal((D, 3 * D)) / np.sqrt(D)).astype(np.float32)
+    bqkv = (rng.standard_normal(3 * D) * 0.02).astype(np.float32)
+    wp = (rng.standard_normal((D, D)) / np.sqrt(D)).astype(np.float32)
+    bp = (rng.standard_normal(D) * 0.02).astype(np.float32)
+    wpk, bpk = pack_qkv_weights(wqkv, bqkv, H)
+    wj, bj = jvb.pack_qkv_weights(wqkv, bqkv, H)
+    assert np.array_equal(wpk, wj) and np.array_equal(bpk, bj)
+    lens = rng.integers(1, N + 1, B).astype(np.int32)
+    keep = (np.arange(N)[None] < lens[:, None]).astype(np.float32)
+    return (x, g, b, wpk, bpk, wp, bp), {"keep2d": keep, "len1d": lens}
+
+
+@pytest.mark.parametrize("geom", [(2, 197, 128, 4), (1, 64, 128, 2), (2, 50, 192, 6)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["pre_ln", "no_ln", "keep2d", "len1d"])
+def test_vit_block_plain_matches_pallas(geom, dtype, form):
+    """The plain version against `_vit_block_impl` in interpret mode, with the
+    op's arguments: residual outside, the node's epsilon (1e-6 for ViT)."""
+    B, N, D, H = geom
+    (x, g, b, wpk, bpk, wp, bp), masks = _vit_operands(B, N, D, H)
+    mask = masks.get(form)
+    pre_ln = form != "no_ln"
+    tdt = getattr(torch, dtype)
+    got = vb.vit_attention_block(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(g), torch.from_numpy(b),
+        torch.from_numpy(wpk).to(tdt), torch.from_numpy(bpk), torch.from_numpy(wp).to(tdt),
+        torch.from_numpy(bp), None if mask is None else torch.from_numpy(mask), heads=H,
+        eps=1e-6, pre_ln=pre_ln)
+    assert vb.launches == 0 and got.dtype == tdt and tuple(got.shape) == (B, N, D)
+    want = jvb._vit_block_impl(
+        jnp.asarray(x).astype(dtype), jnp.asarray(g), jnp.asarray(b),
+        jnp.asarray(wpk).astype(dtype), jnp.asarray(bpk), jnp.asarray(wp).astype(dtype),
+        jnp.asarray(bp), None if mask is None else jnp.asarray(mask), heads=H,
+        interpret=True, eps=1e-6, residual=False, pre_ln=pre_ln)
+    want = np.asarray(want.astype(jnp.float32))
+    # f32: every product summed in f32 in other orders -> 1e-5 of the largest
+    # output; bf16: q, k, v, p and the outputs round to 8 bits -> 3e-2, the
+    # JAX package's own kernel test bound.
+    tol = {"float32": 1e-5, "bfloat16": 3e-2}[dtype]
+    assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+def test_vit_block_residual_and_scale_match_pallas():
+    (x, g, b, wpk, bpk, wp, bp), _ = _vit_operands(2, 33, 64, 2, seed=3)
+    got = vb.vit_attention_block(*(torch.from_numpy(a) for a in (x, g, b, wpk, bpk, wp, bp)),
+                                 heads=2, scale=0.3, residual=True)
+    want = np.asarray(jvb._vit_block_impl(*(jnp.asarray(a) for a in (x, g, b, wpk, bpk, wp, bp)),
+                                          heads=2, scale=0.3, residual=True, interpret=True))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
