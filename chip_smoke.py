@@ -25,7 +25,10 @@ its number:
    `fused_layer_norm` and `residual_layer_norm` over ViT-B/16's batch-128
    activations (25,216 rows of 768) and `vit_attention_block` at B 128,
    N 197, D 768, 12 heads (and in f32 at batch 8), plus small shapes for
-   pre_ln=0, both mask forms and head dim 32;
+   pre_ln=0, both mask forms and head dim 32; `pixel_conv_rowdot` (bf16,
+   and f32 at batch 1) and `pixel_conv_rowdot_q` (int8 and bf16 out) at
+   each of ESRGAN x4's PixelConv shapes at batch 8, and `max_unpool2x2` at
+   SegNet's three unpools at batch 16;
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -62,15 +65,32 @@ its number:
    `fused_layernorm=True` (25 `fused_layer_norm`, no block), each within
    the bf16 bound of (b); (e) `serve(..., max_batch=16)` answering 32
    threaded requests;
+9. ESRGAN x4 (RRDBNet at RealESRGAN_x4plus's width and depth: nf 64, gc
+   32, 23 RRDBs; 128 px in; random weights from seed 0), built by the
+   port's zoo builder: (a) gates at the zoo's depth 4 and batch 1 against
+   the port's CPU runs of the same graph: f32, bf16 within 3x the CPU's own
+   bf16 error, and int8-pixel (calibrated on the CPU) with its int8 edges
+   compared element for element; (b) at depth 23 and batch 8, images/s,
+   idle share, peak memory and a profile of the default bf16 routing (349
+   `pixel_conv_rowdot` a forward), of `quant="int8-pixel"` calibrated on
+   the card (349 `pixel_conv_rowdot_q`) and of the graph without passes
+   (cuDNN's convs, no port kernel); (c) both served; then SegNet (base 32,
+   depth 3, 2 classes, 256 px, batch 16): (d) f32 against the CPU's walk
+   on the card's pool indices (the indices equal the CPU's own but at
+   near-ties) and bf16 within 3x the CPU's bf16 error; (e) the default
+   bf16 routing (3 `max_unpool2x2`) and the graph without passes; (f) the
+   server;
 6. printed last: each kernel's launches on its path, and the total time.
 
 Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
 activations, the ResNet server, the decode steps, the decode serving runs,
-the ViT forwards and server) sets the counts to 0 just before it runs,
-reads them just after, and must have launched the kernels it routes to and
-no other: a decode step 169 int4_matmul and 24 attention launches (paged or
-ragged), a prefill 169 int4_matmul, a ViT-B/16 forward 12 blocks (and 13
-residual or 25 plain LayerNorms where the configuration routes them).
+the ViT, ESRGAN and SegNet forwards and servers) sets the counts to 0 just
+before it runs, reads them just after, and must have launched the kernels
+it routes to and no other: a decode step 169 int4_matmul and 24 attention
+launches (paged or ragged), a prefill 169 int4_matmul, a ViT-B/16 forward
+12 blocks (and 13 residual or 25 plain LayerNorms where the configuration
+routes them), an ESRGAN x4 forward 349 pixel convs, a SegNet forward 3
+unpools.
 `FusedGenerator` replays a CUDA graph, whose launches the wrappers count
 once, at capture. The last three lines are the kernels'
 JSON line, the card's name and power limit, and `{"ok": true, "device":
@@ -115,6 +135,21 @@ BUCKETS = (64, 256)  # the prefill ladder bench.py --serve-decode builds
 # MLP 3072, 1000 classes; served at batch 128 in bf16.
 VIT_B16 = dict(image_size=224, patch=16, dim=768, depth=12, heads=12, num_classes=1000)
 VIT_BATCH = 128
+# ESRGAN x4 at the width and depth of ESRGAN / Real-ESRGAN's RealESRGAN_x4plus
+# (nf 64, gc 32, 23 RRDBs), the zoo's RRDBNet, 128 px in, served at batch 8
+# (the README's ESRGAN row); the CPU gates run the zoo's default depth, 4.
+ESRGAN = dict(nf=64, nb=23, scale=4, image_size=128)
+ESRGAN_BATCH, ESRGAN_GATE_NB = 8, 4
+# Its PixelConvs a forward, (C_in, C_out, map side) -> calls: five dense-
+# block convs x 3 blocks x nb, conv_body at 128 px, upconv1 at 256,
+# upconv2 and conv_hr at 512 (conv_first and conv_last stay on cuDNN).
+ESRGAN_CONVS = {**{(64 + 32 * i, 32 if i < 4 else 64, 128): 3 * ESRGAN["nb"] for i in range(5)},
+                (64, 64, 128): 1, (64, 64, 256): 1, (64, 64, 512): 2}
+# SegNet as the zoo builds it (base 32, depth 3, 2 classes), 256 px, served
+# at batch 16 (the README's row); its three unpools' inputs (B, C, h, w).
+SEGNET = dict(base=32, depth=3, num_classes=2, image_size=256)
+SEGNET_BATCH = 16
+SEGNET_UNPOOLS = [(16, 128, 32, 32), (16, 64, 64, 64), (16, 32, 128, 128)]
 # Each kernel's launch counter: name -> (module under
 # smelter_tpu_torch/kernels, counter).
 KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
@@ -124,7 +159,10 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "ragged_decode_attention": ("ragged_decode_attention", "launches"),
            "fused_layer_norm": ("layer_norm", "fused_launches"),
            "residual_layer_norm": ("layer_norm", "residual_launches"),
-           "vit_attention_block": ("vit_block", "launches")}
+           "vit_attention_block": ("vit_block", "launches"),
+           "pixel_conv_rowdot": ("pixel_conv", "launches"),
+           "pixel_conv_rowdot_q": ("pixel_conv", "q_launches"),
+           "max_unpool2x2": ("max_unpool", "launches")}
 
 REPORT: dict = {}
 
@@ -777,6 +815,165 @@ def phase_vit_kernels(torch, np, power_w: float) -> dict:
            + "; ".join(f"{k} {v:.3g}" for k, v in small.items()))
     REPORT["vit_kernels"] = list(rows.values())
     return rows
+
+
+def phase_image_kernels(torch, power_w: float) -> dict:
+    """The image-to-image path's kernels against their plain versions at
+    the shapes the main path gives them: pixel_conv_rowdot (bf16, and f32 at
+    batch 1) and pixel_conv_rowdot_q (int8 out, and bf16 out) at each
+    PixelConv shape of ESRGAN x4 at batch 8, and max_unpool2x2 at SegNet's
+    three unpools at batch 16. Timed in the path's types: kernel by graph
+    replay, host cost of a call, plain version, library yardstick, bound."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import max_unpool as mu
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    torch.backends.cudnn.allow_tf32 = False  # the plain versions' convs in full f32
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    side = torch.cuda.Stream()
+    bf16, i8 = torch.bfloat16, torch.int8
+    B = ESRGAN_BATCH
+    rows = {}
+
+    def err_of(got, ref, rel, label):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(got.shape == ref.shape and got.dtype == ref.dtype and math.isfinite(err)
+              and err <= rel * scale, f"{label}: max-abs {err} > {rel} x {scale}")
+        return err
+
+    for (cin, cout, side_px), calls in ESRGAN_CONVS.items():
+        shape = (B, side_px, cin, side_px)
+        flops = 2 * B * side_px * side_px * 9 * cin * cout
+        for name, dtype in (("pixel_conv_rowdot", bf16), ("pixel_conv_rowdot_q", i8)):
+            es = 2 if dtype == bf16 else 1
+            nbytes = (B * side_px * side_px * (cin + cout) * es + 9 * cin * cout * es
+                      + cout * 4 * (1 if dtype == bf16 else 2))
+            sets = []
+            for _ in range(_copies(nbytes)):
+                w = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (3 * cin ** 0.5)
+                b = torch.randn(cout, device="cuda", generator=gen)
+                if dtype == bf16:
+                    x = torch.randn(shape, device="cuda", generator=gen).to(bf16)
+                    w = w.to(bf16).permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+                    sets.append((x, w, b.to(bf16)))
+                else:
+                    x = torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=i8)
+                    wq = torch.randint(-127, 128, (cout, cin, 3, 3), device="cuda",
+                                       generator=gen, dtype=i8)
+                    wq = wq.permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+                    sc = torch.rand(cout, device="cuda", generator=gen) * 1e-3 / cin ** 0.5
+                    sets.append((x, wq, sc, b))
+            n = len(sets)
+            r = {"name": name, "shape": [B, side_px, cin, side_px, cout],
+                 "calls_per_forward": calls, "bytes": nbytes, "flops": flops}
+            if dtype == bf16:
+                kw = dict(alpha=0.2)
+                call = lambda i: pc.pixel_conv_rowdot(*sets[i % n], **kw)  # noqa: E731
+                plain = lambda i: pc.pixel_conv_rowdot_plain(*sets[i % n], **kw)  # noqa: E731
+                # bf16 outputs of f32 sums in other orders: 1e-2 of the largest
+                r["max_abs_err"] = err_of(call(0), plain(0), 1e-2, f"{name} {shape} bf16")
+                r["tolerance"] = "1e-2 x max|plain| (bf16)"
+                # f32 at batch 1, the same operands: 1e-5 (sums in other orders)
+                x1, w1, b1 = sets[0][0][:1].float(), sets[0][1].float(), sets[0][2].float()
+                r["f32_b1_err"] = err_of(pc.pixel_conv_rowdot(x1, w1, b1, **kw),
+                                         pc.pixel_conv_rowdot_plain(x1, w1, b1, **kw), 1e-5,
+                                         f"{name} {shape} f32 b1")
+                xl = [s_[0].permute(0, 2, 1, 3).contiguous(memory_format=torch.channels_last)
+                      for s_ in sets]
+                wl = [s_[1].contiguous(memory_format=torch.channels_last) for s_ in sets]
+
+                def lib(i):
+                    return F.leaky_relu(F.conv2d(xl[i % n], wl[i % n], sets[i % n][2],
+                                                 padding=1), 0.2)
+
+                r["library"] = "F.conv2d channels-last bf16 with bias, then F.leaky_relu"
+                kind = "bf16"
+            else:
+                kw = dict(alpha=0.2, inv_sy=0.5, requant=True)
+                call = lambda i: pc.pixel_conv_rowdot_q(*sets[i % n], **kw)  # noqa: E731
+                plain = lambda i: pc.pixel_conv_rowdot_q_plain(*sets[i % n], **kw)  # noqa: E731
+                got, ref = call(0), plain(0)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"{name} {shape}: int8 outputs differ")
+                kw16 = dict(kw, requant=False, out_dtype=bf16)
+                check(torch.equal(pc.pixel_conv_rowdot_q(*sets[0], **kw16),
+                                  pc.pixel_conv_rowdot_q_plain(*sets[0], **kw16)),
+                      f"{name} {shape}: bf16 outputs differ")
+                r["max_abs_err"] = (got.float() - ref.float()).abs().max().item()
+                r["tolerance"] = "int8 and bf16 outputs equal"
+                r["int8_levels_used"] = int(torch.unique(got).numel())
+                lib, xl, wl = None, [], []
+                r["library"] = "none: PyTorch has no int8 convolution on the card"
+                kind = "int8"
+            r["ms"] = graph_ms(torch, side, call, 10)
+            r["call_ms"] = time_ms(torch, call, 10)
+            r["plain_ms"] = graph_ms(torch, side, plain, 3)
+            r["library_ms"] = graph_ms(torch, side, lib, 10) if lib is not None else None
+            r["bound_ms"], r["bound_by"] = bound(nbytes, flops, kind, power_w)
+            rows[(name, cin, cout, side_px)] = r
+            del sets, xl, wl
+
+    for shape in SEGNET_UNPOOLS:
+        Bs, C, h, w = shape
+        nbytes = Bs * C * h * w * (2 + 8 + 4 * 2)
+        sets = []
+        for _ in range(_copies(nbytes)):
+            full = torch.randn(Bs, C, 2 * h, 2 * w, device="cuda", generator=gen).to(bf16)
+            val, plane = F.max_pool2d(full, 2, 2, return_indices=True)
+            flat = plane + torch.arange(Bs * C, device="cuda").reshape(Bs, C, 1, 1) * 4 * h * w
+            sets.append((val, flat, plane))
+        n = len(sets)
+        got = mu.max_unpool2x2(*sets[0][:2])
+        ref = mu.max_unpool2x2_plain(*sets[0][:2])
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"max_unpool2x2 {shape}: outputs differ from the plain")
+        lib_out = F.max_unpool2d(sets[0][0], sets[0][2], 2, 2)
+        check(torch.equal(got, lib_out), f"max_unpool2x2 {shape}: outputs differ from "
+                                         "F.max_unpool2d")
+        r = {"name": "max_unpool2x2", "shape": list(shape), "calls_per_forward": 1,
+             "bytes": nbytes, "max_abs_err": 0.0,
+             "tolerance": "outputs equal (plain version and F.max_unpool2d)",
+             "library": "F.max_unpool2d on per-plane indices"}
+        r["ms"] = graph_ms(torch, side, lambda i: mu.max_unpool2x2(*sets[i % n][:2]), 20)
+        r["call_ms"] = time_ms(torch, lambda i: mu.max_unpool2x2(*sets[i % n][:2]), 20)
+        r["plain_ms"] = graph_ms(torch, side, lambda i: mu.max_unpool2x2_plain(
+            *sets[i % n][:2]), 5)
+        r["library_ms"] = graph_ms(torch, side, lambda i: F.max_unpool2d(
+            sets[i % n][0], sets[i % n][2], 2, 2), 20)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, Bs * C * h * w * 4, "bf16", power_w)
+        rows[("max_unpool2x2",) + shape] = r
+        del sets
+
+    for r in rows.values():
+        lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        extra = f"; f32 b1 err {r['f32_b1_err']:.3g} (1e-5 x max)" if "f32_b1_err" in r else ""
+        say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']})"
+               f"{extra} | kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), "
+               f"plain {r['plain_ms']:.4f} ms, library {lib} ({r['library']}), bound "
+               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {r['calls_per_forward']} "
+               f"calls a forward")
+    torch.backends.cudnn.allow_tf32 = True
+    REPORT["image_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
+    return rows
+
+
+def per_forward(rows: dict, name: str) -> dict:
+    """A kernel's numbers over one forward's calls (calls x per call)."""
+    rs = [r for r in rows.values() if r.get("name") == name]
+    out = {k: sum(r[k] * r["calls_per_forward"] for r in rs)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in rs]
+    out["library_ms"] = (None if any(v is None for v in lib)
+                         else sum(v * r["calls_per_forward"] for v, r in zip(lib, rs)))
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+    out["bound_by"] = ("bytes" if sum(r["bound_ms"] * r["calls_per_forward"] for r in rs
+                                      if r["bound_by"] == "bytes") >= out["bound_ms"] / 2
+                       else "operations")
+    return out
 
 
 def per_step(rows: dict, name: str) -> dict:
@@ -1761,6 +1958,396 @@ def phase_vit(torch, np, stt) -> dict:
     return res
 
 
+# -- phase 9 ---------------------------------------------------------------
+
+# The symbols of csrc/pixel_conv.cu's and csrc/max_unpool.cu's kernels, as
+# the profiler names them.
+_PORT_IMAGE_KERNEL = re.compile(r"pixel_conv_mma|pixel_conv_f32|max_unpool2x2_kernel")
+
+
+def _image_forward(torch, np, model, xg, label: str, batch: int, routed: dict,
+                   iters: int) -> dict:
+    """One forward with the launch check (exactly `routed`, no other kernel),
+    then images/s over `iters` forwards by CUDA events, peak memory and a
+    profile of 2 forwards."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    out = model.run_device(xg)[0].float().cpu().numpy()
+    launches = _counts()
+    for k, want in routed.items():
+        check(launches[k] == want, f"{label}: {k} launched {launches[k]} times, not {want}")
+    check(all(n == 0 for k, n in launches.items() if k not in routed),
+          f"{label}: a kernel other than {set(routed)} launched ({launches})")
+    check(np.isfinite(out).all(), f"{label}: outputs not finite")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, lambda i: model.run_device(xg), iters, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per, by_op, n_k = _profile(torch, lambda: model.run_device(xg), steps=2)
+    busy = sum(per.values())
+    ours = {k: v for k, v in per.items() if _PORT_IMAGE_KERNEL.search(k)}
+    return {"launches": launches, "step_ms": step_ms, "images_per_s": batch * 1e3 / step_ms,
+            "peak_mem_gb": peak_gb, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / step_ms), "kernels_per_forward": n_k,
+            "port_kernel_ms": sum(ours.values()),
+            "top_kernels_ms": sorted(per.items(), key=lambda kv: -kv[1])[:8],
+            "top_host_ops_ms": sorted(by_op.items(), key=lambda kv: -kv[1])[:8],
+            "out": out}
+
+
+def _say_run(label: str, r: dict, extra: str = "") -> None:
+    say(9, f"{label}: {r['images_per_s']:.2f} images/s, step {r['step_ms']:.2f} ms, idle share "
+           f"{100 * r['idle_share']:.1f}% (profiled busy {r['device_busy_ms']:.2f} ms, "
+           f"~{r['kernels_per_forward']:.0f} kernels), port kernels "
+           f"{r['port_kernel_ms']:.2f} ms, peak {r['peak_mem_gb']:.2f} GB | launches "
+           f"{ {k: v for k, v in r['launches'].items() if v} }" + extra)
+    say(9, "  device ms a forward by host op: "
+           + "; ".join(f"{k} {v:.3f}" for k, v in r["top_host_ops_ms"]))
+    say(9, "  device ms a forward by kernel: "
+           + "; ".join(f"{k[:60]} {v:.3f}" for k, v in r["top_kernels_ms"][:6]))
+
+
+def _serve_check(torch, np, stt, g, cfg, xs, batch: int, direct, bound_abs: float, label: str,
+                 routed: str) -> dict:
+    """serve(...) with one bucket of the graph's batch answers len(xs)
+    threaded requests within `bound_abs` of the direct forward."""
+    _zero_counts()
+    server = stt.serve(g, cfg, optimize=False, device="cuda", max_batch=batch,
+                       buckets=(batch,))
+    results = [None] * len(xs)
+    try:
+        check(server.wait_ready(600), f"{label} server bucket did not warm up")
+
+        def ask(i):
+            results[i] = server.infer(xs[i])[0]
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        stats = server.stats()
+    finally:
+        server.shutdown()
+    launches = _counts()
+    _check_routed(f"{label} server", launches, routed)
+    check(all(r is not None for r in results), f"{label} server left requests unanswered")
+    err = float(np.abs(np.stack(results) - direct).max())
+    check(stats["requests"] == len(xs) and stats["errors"] == 0, f"{label} server stats {stats}")
+    check(err <= bound_abs, f"{label} served vs direct: max-abs {err} > {bound_abs}")
+    say(9, f"{label} server: {stats['requests']} requests in {stats['batches']} batches of up "
+           f"to {batch}, p50 {stats['latency_ms_p50']:.1f} ms, p95 "
+           f"{stats['latency_ms_p95']:.1f} ms | vs direct: max-abs {err:.3g} (bound "
+           f"{bound_abs:.3g}) | launches {launches[routed]} {routed}")
+    return {"launches": launches, "stats": stats, "max_abs_vs_direct": err}
+
+
+def _int8_edges(torch, np, stt, gq, x, device: str) -> dict:
+    """Every int8 edge of the int8-pixel graph `gq` on `device`, on the host."""
+    from smelter_tpu_torch.runtime.executor import Executor
+
+    ex = Executor(gq, stt.Config(device=device))
+    env = ex.build_fn(return_all_edges=True)(ex.cast_params(ex.init_params()), x)
+    return {k: v.cpu().numpy() for k, v in env.items()
+            if isinstance(v, torch.Tensor) and v.dtype == torch.int8 and k not in gq.initializers}
+
+
+def phase_esrgan(torch, np, stt) -> dict:
+    """ESRGAN x4: (a) gates at batch 1 and the zoo's depth 4, against the
+    port's CPU runs of the same graphs: f32 on the card, bf16 within 3x the
+    CPU bf16's own error, and int8-pixel (calibrated on the CPU) edge for
+    edge; (b) at RealESRGAN_x4plus's depth 23 and batch 8: images/s of the
+    default bf16 routing (349 pixel_conv_rowdot a forward), int8-pixel
+    calibrated on the card (349 pixel_conv_rowdot_q), and the graph without
+    passes (cuDNN's convs); (c) serve(...)."""
+    import copy
+
+    from smelter_tpu_torch.models import esrgan
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    res: dict = {}
+    n_pc = 15 * ESRGAN["nb"] + 4
+    side_px = ESRGAN["image_size"]
+    x = np.random.default_rng(0).standard_normal(
+        (ESRGAN_BATCH, 3, side_px, side_px)).astype(np.float32)
+    build = dict(nf=ESRGAN["nf"], scale=ESRGAN["scale"], image_size=side_px, seed=0)
+
+    # (a) gates at batch 1, depth 4: 15 x 4 + 4 = 64 PixelConv
+    t0 = time.perf_counter()
+    g1 = esrgan.build(batch=1, nb=ESRGAN_GATE_NB, **build)[0]
+    n_gate = 15 * ESRGAN_GATE_NB + 4
+    x1 = x[:1]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu32 = stt.compile(copy.deepcopy(g1), stt.Config(), device="cpu")
+    ref = cpu32(x1)[0]
+    ref16 = stt.compile(copy.deepcopy(g1), stt.Config(compute_dtype="bfloat16"),
+                        device="cpu")(x1)[0]
+    gq = stt.compile(copy.deepcopy(g1), quant="int8-pixel", calibration_data=[(x1,)],
+                     device="cpu").graph
+    refq = CompiledModel(copy.deepcopy(gq), stt.Config(device="cpu"))(x1)[0]
+    edges_cpu = _int8_edges(torch, np, stt, copy.deepcopy(gq), x1, "cpu")
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(ref).max())
+    out = {}
+    for label, cfg, routed in (("f32", stt.Config(), "pixel_conv_rowdot"),
+                               ("bf16", stt.Config(compute_dtype="bfloat16"),
+                                "pixel_conv_rowdot")):
+        model = stt.compile(copy.deepcopy(g1), cfg, device="cuda")
+        _zero_counts()
+        out[label] = model(x1)[0]
+        launches = _counts()
+        _check_routed(f"ESRGAN b1 {label}", launches, routed)
+        check(launches[routed] == n_gate, f"ESRGAN b1 {label}: {launches[routed]} launches")
+        del model
+    _zero_counts()
+    outq = CompiledModel(copy.deepcopy(gq), stt.Config(device="cuda"))(x1)[0]
+    launches = _counts()
+    _check_routed("ESRGAN b1 int8-pixel", launches, "pixel_conv_rowdot_q")
+    check(launches["pixel_conv_rowdot_q"] == n_gate, f"ESRGAN b1 int8-pixel: {launches}")
+    edges_gpu = _int8_edges(torch, np, stt, copy.deepcopy(gq), x1, "cuda")
+    torch.backends.cudnn.allow_tf32 = True
+    for label, o in list(out.items()) + [("int8-pixel", outq)]:
+        check(o.shape == ref.shape == (1, 3, 4 * side_px, 4 * side_px) and np.isfinite(o).all(),
+              f"ESRGAN b1 {label} output")
+    err32 = float(np.abs(out["f32"] - ref).max())
+    err16 = float(np.abs(out["bf16"] - ref).max())
+    err_cpu16 = float(np.abs(ref16 - ref).max())
+    errq = float(np.abs(outq - refq).max())
+    # f32: the card's kernels and cuDNN in full f32 against the CPU, sums in
+    # other orders through 66 convs: 1e-3 of the largest output.
+    check(err32 <= 1e-3 * scale, f"ESRGAN b1 f32: max-abs {err32} > 1e-3 x {scale}")
+    # bf16: 3x the port's own CPU bf16 error against f32, as phase 8.
+    check(err16 <= 3 * err_cpu16, f"ESRGAN b1 bf16: max-abs {err16} > 3 x {err_cpu16}")
+    # int8-pixel: the same graph and scales; the int8 edges are equal but
+    # where the f32 value before a requant lies within the sum-order noise
+    # of a half-way point: such flips move an element one step, in at most
+    # 1e-3 of the elements, and the outputs stay within 1e-2 of the largest.
+    check(set(edges_cpu) == set(edges_gpu) and edges_cpu, "int8 edges differ in name")
+    n_el = sum(a.size for a in edges_cpu.values())
+    n_flip = sum(int((edges_cpu[k] != edges_gpu[k]).sum()) for k in edges_cpu)
+    max_step = max(int(np.abs(edges_cpu[k].astype(np.int32) - edges_gpu[k]).max())
+                   for k in edges_cpu)
+    scale_q = float(np.abs(refq).max())
+    check(max_step <= 1 and n_flip <= 1e-3 * n_el,
+          f"ESRGAN b1 int8-pixel: {n_flip} of {n_el} int8 elements differ, by up to {max_step}")
+    check(errq <= 1e-2 * scale_q, f"ESRGAN b1 int8-pixel: max-abs {errq} > 1e-2 x {scale_q}")
+    res["gates"] = {"depth": ESRGAN_GATE_NB, "max_abs_ref": scale, "f32_max_abs_err": err32,
+                    "bf16_max_abs_err": err16, "cpu_bf16_max_abs_err": err_cpu16,
+                    "int8_max_abs_err": errq, "int8_max_abs_ref": scale_q,
+                    "int8_elements": n_el, "int8_flips": n_flip, "int8_max_step": max_step,
+                    "int8_vs_f32_cpu": float(np.abs(refq - ref).max()), "cpu_s": cpu_s}
+    say(9, f"(a) ESRGAN x4 depth {ESRGAN_GATE_NB} batch 1 vs the CPU's runs (max|ref| "
+           f"{scale:.4g}, CPU runs {cpu_s:.1f} s): f32 max-abs {err32:.4g} (bound "
+           f"{1e-3 * scale:.4g}); bf16 {err16:.4g} (bound 3 x the CPU bf16's {err_cpu16:.4g}); "
+           f"int8-pixel {errq:.4g} (bound {1e-2 * scale_q:.4g}), int8 edges: {n_flip} of "
+           f"{n_el} differ, by up to {max_step} (bound 1 step, 1e-3 of them); int8 vs f32 on "
+           f"the CPU {res['gates']['int8_vs_f32_cpu']:.4g} | {n_gate} launches a forward")
+    del cpu32, edges_cpu, edges_gpu
+    bound16_rel = 3 * err_cpu16 / scale
+
+    # (b) depth 23, batch 8
+    t0 = time.perf_counter()
+    g = esrgan.build(batch=ESRGAN_BATCH, nb=ESRGAN["nb"], **build)[0]
+    raw = copy.deepcopy(g)
+    res["build_s"] = time.perf_counter() - t0
+    xg = torch.from_numpy(x).cuda()
+    runs = {}
+    cfg16 = stt.Config(compute_dtype="bfloat16")
+    for label, make, routed in (
+            ("default", lambda: stt.compile(copy.deepcopy(g), cfg16, device="cuda"),
+             {"pixel_conv_rowdot": n_pc}),
+            ("int8_pixel", lambda: stt.compile(copy.deepcopy(g), cfg16, quant="int8-pixel",
+                                               calibration_data=[(x,)], device="cuda"),
+             {"pixel_conv_rowdot_q": n_pc}),
+            ("raw", lambda: CompiledModel(raw, cfg16), {})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = make()
+        compile_s = time.perf_counter() - t0
+        compile_peak = torch.cuda.max_memory_allocated() / 1e9
+        r = _image_forward(torch, np, model, xg, f"ESRGAN {label}", ESRGAN_BATCH, routed, 5)
+        r["compile_s"], r["compile_peak_mem_gb"] = compile_s, compile_peak
+        if label == "int8_pixel":
+            res["int8_graph"] = model.graph
+        extra = ""
+        if runs:
+            base = runs["default"]["out"]
+            r["max_abs_vs_default_rel"] = float(np.abs(r["out"] - base).max()
+                                                / np.abs(base).max())
+            # reported, not gated: no CPU run stands beside depth 23; the
+            # gates of (a) hold each routing to the CPU at depth 4
+            extra = (f" | vs default: max-abs {r['max_abs_vs_default_rel']:.4g} of the largest "
+                     f"output")
+        runs[label] = r
+        _say_run(f"(b) ESRGAN x4 depth {ESRGAN['nb']} batch {ESRGAN_BATCH} {label} "
+                 f"(compiled in {compile_s:.1f} s, peak {compile_peak:.2f} GB)", r, extra)
+        if label != "default":
+            del model
+        else:
+            direct_model = model
+    res.update(runs)
+
+    # (c) serve(...): one batch of 8 requests against the direct forward
+    direct = runs["default"]["out"]
+    del direct_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    g_served = copy.deepcopy(g)
+    from smelter_tpu_torch.api import _prepare
+
+    g_served = _prepare(g_served, None, True)
+    # the served batch is the direct forward's: within the bf16 bound of (a)
+    res["serve"] = _serve_check(torch, np, stt, g_served, cfg16, x, ESRGAN_BATCH, direct,
+                                bound16_rel * float(np.abs(direct).max()), "(c) ESRGAN",
+                                "pixel_conv_rowdot")
+    gq8 = res.pop("int8_graph")
+    res["serve_int8"] = _serve_check(torch, np, stt, gq8, cfg16, x, ESRGAN_BATCH,
+                                     runs["int8_pixel"]["out"],
+                                     bound16_rel * float(np.abs(runs["int8_pixel"]["out"]).max()),
+                                     "(c) ESRGAN int8-pixel", "pixel_conv_rowdot_q")
+    for r in runs.values():
+        r.pop("out")
+    del g, raw, xg, g_served, gq8
+    return res
+
+
+def _walk_with(torch, stt, g, x, fixed: dict) -> dict:
+    """Every edge of the f32 walk of `g` on the CPU, the edges in `fixed`
+    replaced by the given tensors right after the node that makes them."""
+    from smelter_tpu_torch.ops.registry import Ctx, lower_node
+    from smelter_tpu_torch.runtime.executor import Executor
+
+    ex = Executor(g, stt.Config(device="cpu"))
+    params = ex.cast_params(ex.init_params())
+    env = {name: params[name] for name in ex.param_names}
+    env[g.input_names[0]] = torch.from_numpy(x)
+    ctx = Ctx(g, env, ex.config, device="cpu")
+    with torch.inference_mode():
+        for node in g.nodes:
+            lower_node(ctx, node)
+            env.update({o: fixed[o] for o in node.outputs if o in fixed})
+    return env
+
+
+def phase_segnet(torch, np, stt) -> dict:
+    """SegNet (base 32, depth 3, 2 classes, 256 px): (d) batch 16 on the card
+    in f32 against the port's CPU f32 walk on the card's pool indices, which
+    equal the CPU's own but at near-ties, and in bf16 within 3x the CPU
+    bf16's own error; (e) images/s of the default bf16 routing (3
+    max_unpool2x2 a forward) and of the graph without passes; (f)
+    serve(...)."""
+    import copy
+
+    from smelter_tpu_torch.models import segnet
+    from smelter_tpu_torch.runtime.executor import CompiledModel, Executor
+
+    res: dict = {}
+    side_px = SEGNET["image_size"]
+    x = np.random.default_rng(1).standard_normal(
+        (SEGNET_BATCH, 3, side_px, side_px)).astype(np.float32)
+    t0 = time.perf_counter()
+    g = segnet.build(batch=SEGNET_BATCH, image_size=side_px, base=SEGNET["base"],
+                     depth=SEGNET["depth"], num_classes=SEGNET["num_classes"], seed=0)[0]
+    raw = copy.deepcopy(g)
+    res["build_s"] = time.perf_counter() - t0
+
+    # (a) f32 and bf16 against the CPU, every edge of the f32 runs kept
+    torch.backends.cudnn.allow_tf32 = False
+    gp = stt.compile(copy.deepcopy(g), stt.Config(), device="cpu").graph
+    pools = [n for n in gp.nodes if n.op_type == "MaxPool" and len(n.outputs) > 1]
+    envs = {}
+    for dev in ("cpu", "cuda"):
+        ex = Executor(copy.deepcopy(gp), stt.Config(device=dev))
+        _zero_counts()
+        env = ex.build_fn(return_all_edges=True)(ex.cast_params(ex.init_params()), x)
+        if dev == "cuda":
+            _check_routed("SegNet f32", _counts(), "max_unpool2x2")
+        envs[dev] = {k: v.cpu() for k, v in env.items() if isinstance(v, torch.Tensor)}
+        del env, ex
+    # the CPU's f32 walk again, each pool's indices taken from the card's
+    # run: the same function of the same pool decisions
+    envs["cpu_card_idx"] = _walk_with(torch, stt, gp, x, {
+        n.outputs[1]: envs["cuda"][n.outputs[1]] for n in pools})
+    ref16 = stt.compile(copy.deepcopy(g), stt.Config(compute_dtype="bfloat16"),
+                        device="cpu")(x)[0]
+    m16 = stt.compile(copy.deepcopy(g), stt.Config(compute_dtype="bfloat16"), device="cuda")
+    got16 = m16(x)[0]
+    del m16
+    torch.backends.cudnn.allow_tf32 = True
+    out_name = gp.output_names[0]
+    ref, got32 = envs["cpu"][out_name].numpy(), envs["cuda"][out_name].numpy()
+    ref_same = envs["cpu_card_idx"][out_name].numpy()
+    scale = float(np.abs(ref).max())
+    err32 = float(np.abs(got32 - ref_same).max())
+    err32_own = float(np.abs(got32 - ref).max())
+    err16 = float(np.abs(got16 - ref).max())
+    err_cpu16 = float(np.abs(ref16 - ref).max())
+    # The indices: equal, but where a window's two largest values lie within
+    # the f32 sum-order noise of each other (1e-5 of the largest input); a
+    # flipped index moves its value a pixel, so the outputs are compared
+    # with the CPU's walk on the card's indices.
+    idx = {}
+    for node in pools:
+        a, b = envs["cpu"][node.outputs[1]], envs["cuda"][node.outputs[1]]
+        check(a.dtype == b.dtype == torch.int64, "SegNet: indices are not int64")
+        xin = envs["cpu"][node.inputs[0]].reshape(-1)
+        diff = a != b
+        near = (xin[a[diff]] - xin[b[diff]]).abs().max().item() if diff.any() else 0.0
+        idx[node.outputs[1]] = {"count": a.numel(), "differ": int(diff.sum()),
+                                "max_gap_where_differ": near}
+        check(near <= 1e-5 * xin.abs().max().item(),
+              f"SegNet: indices {node.outputs[1]} differ at windows {near} apart")
+    del envs
+    check(err32 <= 1e-3 * scale, f"SegNet f32: max-abs {err32} > 1e-3 x {scale}")
+    check(err16 <= 3 * err_cpu16, f"SegNet bf16: max-abs {err16} > 3 x {err_cpu16}")
+    res["gates"] = {"max_abs_ref": scale, "f32_max_abs_err": err32,
+                    "f32_max_abs_err_own_indices": err32_own, "bf16_max_abs_err": err16,
+                    "cpu_bf16_max_abs_err": err_cpu16, "indices": idx}
+    say(9, f"(d) SegNet batch {SEGNET_BATCH} {side_px} px vs the CPU's f32 run (max|ref| "
+           f"{scale:.4g}): f32 max-abs {err32:.4g} on the card's indices (bound "
+           f"{1e-3 * scale:.4g}; {err32_own:.4g} on the CPU's own); bf16 {err16:.4g} (bound "
+           f"3 x the CPU bf16's {err_cpu16:.4g}); indices differ at "
+           + ", ".join(f"{v['differ']} of {v['count']}" for v in idx.values())
+           + " (only at near-ties, 1e-5 of the largest input)")
+
+    # (b) images/s
+    xg = torch.from_numpy(x).cuda()
+    cfg16 = stt.Config(compute_dtype="bfloat16")
+    runs = {}
+    for label, make, routed in (
+            ("default", lambda: stt.compile(copy.deepcopy(g), cfg16, device="cuda"),
+             {"max_unpool2x2": 3}),
+            ("raw", lambda: CompiledModel(raw, cfg16), {"max_unpool2x2": 3})):
+        t0 = time.perf_counter()
+        model = make()
+        compile_s = time.perf_counter() - t0
+        r = _image_forward(torch, np, model, xg, f"SegNet {label}", SEGNET_BATCH, routed, 20)
+        r["compile_s"] = compile_s
+        extra = ""
+        if runs:
+            base = runs["default"]["out"]
+            r["max_abs_vs_default"] = float(np.abs(r["out"] - base).max())
+            extra = f" | vs default: max-abs {r['max_abs_vs_default']:.4g}"
+        runs[label] = r
+        _say_run(f"(e) SegNet batch {SEGNET_BATCH} {label} (compiled in {compile_s:.1f} s)",
+                 r, extra)
+        del model
+    res.update(runs)
+    direct = runs["default"]["out"]
+    from smelter_tpu_torch.api import _prepare
+
+    res["serve"] = _serve_check(torch, np, stt, _prepare(copy.deepcopy(g), None, True), cfg16,
+                                x, SEGNET_BATCH, direct, 3 * err_cpu16, "(f) SegNet",
+                                "max_unpool2x2")
+    for r in runs.values():
+        r.pop("out")
+    return res
+
+
 # -- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -1782,6 +2369,7 @@ def main() -> int:
     decode_rows = phase_decode_kernels(torch, power_w)
     ragged_rows = phase_ragged_kernel(torch, power_w)
     vit_rows = phase_vit_kernels(torch, np, power_w)
+    image_rows = phase_image_kernels(torch, power_w)
 
     main_path = REPORT["main_path"] = phase_main(torch, np, stt)
     REPORT["serve"] = phase_serve(torch, np, stt)
@@ -1791,6 +2379,8 @@ def main() -> int:
                                              paged["serve_t1"]["tok_s"])
     del paged_graph
     vit = REPORT["vit"] = phase_vit(torch, np, stt)
+    sr = REPORT["esrgan"] = phase_esrgan(torch, np, stt)
+    seg = REPORT["segnet"] = phase_segnet(torch, np, stt)
     # Each kernel's launches on the path that routes to it.
     launches = {"dequant_matmul": main_path["bf16"]["launches"]["dequant_matmul"],
                 "int8_matmul": main_path["bf16_int8act"]["launches"]["int8_matmul"],
@@ -1801,12 +2391,18 @@ def main() -> int:
                     static["decode_server"]["launches"]["ragged_decode_attention"],
                 "fused_layer_norm": vit["raw_fused_layernorm"]["launches"]["fused_layer_norm"],
                 "residual_layer_norm": vit["use_pallas"]["launches"]["residual_layer_norm"],
-                "vit_attention_block": vit["default"]["launches"]["vit_attention_block"]}
+                "vit_attention_block": vit["default"]["launches"]["vit_attention_block"],
+                "pixel_conv_rowdot": sr["default"]["launches"]["pixel_conv_rowdot"],
+                "pixel_conv_rowdot_q": sr["int8_pixel"]["launches"]["pixel_conv_rowdot_q"],
+                "max_unpool2x2": seg["default"]["launches"]["max_unpool2x2"]}
     say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
     # ResNet-50 kernels: one call at the head shape. Decode kernels: the
     # sum over one decode step's calls (169 int4_matmul, 24 attention). ViT
-    # kernels: one call at ViT-B/16's batch-128 shape.
+    # kernels: one call at ViT-B/16's batch-128 shape. Image kernels: the sum
+    # over one forward's calls (349 pixel convs of ESRGAN x4 at batch 8, 3
+    # unpools of SegNet at batch 16); pixel_conv_rowdot_q has no library
+    # call (null).
     sources = {"dequant_matmul": ("smelter_tpu_torch/csrc/dequant_matmul.cu",
                                   "smelter_tpu/kernels/dequant_matmul.py:104",
                                   rows[("dequant_matmul", "head", "bf16")], "call"),
@@ -1832,7 +2428,17 @@ def main() -> int:
                                        vit_rows["residual_layer_norm"], "call"),
                "vit_attention_block": ("smelter_tpu_torch/csrc/vit_block.cu",
                                        "smelter_tpu/kernels/vit_block.py:147",
-                                       vit_rows["vit_attention_block"], "call")}
+                                       vit_rows["vit_attention_block"], "call"),
+               "pixel_conv_rowdot": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+                                     "smelter_tpu/kernels/pixel_conv.py:140",
+                                     per_forward(image_rows, "pixel_conv_rowdot"), "forward"),
+               "pixel_conv_rowdot_q": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+                                       "smelter_tpu/kernels/pixel_conv.py:269",
+                                       per_forward(image_rows, "pixel_conv_rowdot_q"),
+                                       "forward"),
+               "max_unpool2x2": ("smelter_tpu_torch/csrc/max_unpool.cu",
+                                 "smelter_tpu/kernels/max_unpool.py:78",
+                                 per_forward(image_rows, "max_unpool2x2"), "forward")}
     kernels = []
     for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -27,7 +27,8 @@ from .runtime.executor import CompiledModel, resolve_device
 
 
 def _prepare(model: str | os.PathLike | Graph, quant: str | None,
-             optimize: bool, layout: str = "nhwc") -> Graph:
+             optimize: bool, layout: str = "nhwc", calibration_data=None,
+             device: str | None = None) -> Graph:
     g = load_model(model) if not isinstance(model, Graph) else model
     # Preprocessed detection needs BOTH the producer tag and the explicit
     # optimized flag the offline tool writes — a bare save_model also stamps
@@ -38,10 +39,24 @@ def _prepare(model: str | os.PathLike | Graph, quant: str | None,
         from .passes.pass_manager import run_passes
 
         run_passes(g)
-    if quant in ("int8-static", "int8-pixel"):
+    if quant == "int8-static":
         if g.metadata.get("quant") != quant:
             raise NotSupportedError(
-                f"quant={quant!r} (calibrated int8) is not in the PyTorch port yet")
+                "quant='int8-static' (static int8 QLinear graphs) is not in the "
+                "PyTorch port yet")
+    elif quant == "int8-pixel":
+        # Calibrated int8 over the NHCW pixel-conv trunks only (ESRGAN-class
+        # decoders); everything outside the regions stays float. Calibration
+        # runs in f32 on `device`.
+        if g.metadata.get("quant") != quant:
+            if calibration_data is None:
+                raise ValueError(
+                    "quant='int8-pixel' needs calibration_data: a list of "
+                    "graph-input tuples, e.g. [(batch1,), (batch2,)]")
+            from .quant import calibrate, quantize_pixel_regions
+
+            amax = calibrate(g, calibration_data, Config(device=device))
+            quantize_pixel_regions(g, amax)
     elif quant and g.metadata.get("quant") != quant:
         from .quant import quantize_weights
 
@@ -68,7 +83,8 @@ def _with_device(config: Config | None, device) -> Config:
 
 def compile(model: str | os.PathLike | Graph, config: Config | None = None,
             quant: str | None = None, optimize: bool = True,
-            layout: str = "nhwc", device: str | None = None) -> CompiledModel:
+            layout: str = "nhwc", device: str | None = None,
+            calibration_data=None) -> CompiledModel:
     """Load (path or Graph), optimize, optionally quantize, and put the
     params on the device (`device`, else `config.device`, else "cuda").
     layout="nhwc" (default) rewrites 4-D CNN flow to channels-last; pass
@@ -78,12 +94,17 @@ def compile(model: str | os.PathLike | Graph, config: Config | None = None,
       "fp16"      — fp16 weight-only.
       "int8"      — int8 weight-only, per-channel scales; matmul weights
                     run in the port's dequant_matmul / int8_matmul kernels.
-    The JAX package's calibrated modes ("int8-static", "int8-pixel") and
-    4-bit/fp8 modes raise NotSupportedError here; "int8-conv" is not taken."""
+      "int8-pixel"— calibrated int8 over the NHCW pixel-conv regions only
+                    (ESRGAN-class decoders, the pixel_conv_rowdot_q kernel;
+                    everything outside the regions stays float); needs
+                    calibration_data: a list of graph-input tuples, run in
+                    f32 on the model's device.
+    The JAX package's "int8-static" and 4-bit/fp8 weight modes raise
+    NotSupportedError here; "int8-conv" is not taken."""
     config = _with_device(config, device)
     resolve_device(config.device)  # fail before the passes, not after
     return CompiledModel(
-        _prepare(model, quant, optimize, layout), config)
+        _prepare(model, quant, optimize, layout, calibration_data, config.device), config)
 
 
 def serve(model: str | os.PathLike | Graph, config: Config | None = None,
@@ -93,5 +114,7 @@ def serve(model: str | os.PathLike | Graph, config: Config | None = None,
 
     config = _with_device(config, device)
     resolve_device(config.device)
+    # As in the JAX package, a calibrated mode takes a graph quantized by
+    # compile's path (its metadata names the mode): serve does not calibrate.
     return InferenceServer(_prepare(model, quant, optimize, layout), config,
                            **server_kw)

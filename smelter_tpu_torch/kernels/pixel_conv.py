@@ -1,0 +1,167 @@
+"""3x3 / stride 1 / pad 1 convolution of (B, H, C, W) ("NHCW") activations:
+`pixel_conv_rowdot` in f32, bf16 or f16, and `pixel_conv_rowdot_q` on int8
+activations and weights with the dequant -> bias -> LeakyReLU -> requant
+epilogue.
+
+    out[b, h, co, w] = epilogue(sum over dy, dx, ci of
+                                W[co, ci, dy, dx] * x[b, h+dy-1, ci, w+dx-1])
+
+with zeros outside the map. `pixel_conv_rowdot` casts the weight to x's
+dtype, sums in f32, adds the f32 bias, applies LeakyReLU (alpha; alpha 0 is
+ReLU; None is linear) and rounds once to x's dtype. `pixel_conv_rowdot_q`
+sums int8 products exactly in int32, converts the sum to f32, multiplies it
+by scales[co] and adds bias[co] as two roundings (no fused multiply-add),
+applies LeakyReLU, then either rounds acc * inv_sy half to even and clips it
+to [-127, 127] as int8 (requant) or casts to `out_dtype`.
+
+Replaces the Pallas kernels `smelter_tpu/kernels/pixel_conv.py::
+pixel_conv_rowdot` and `::pixel_conv_rowdot_q`. The Hopper kernels are one
+entry point of `csrc/pixel_conv.cu`:
+
+- What bounds them on an H100: at ESRGAN's trunk convs (batch 8, 128 x 128,
+  C_in 64-192, C_out 32/64) the bf16 tensor cores and HBM nearly tie: about
+  4.7 TFLOP and 16 GB over the 349 convs of a forward, ~4.7 ms and ~4.9 ms at
+  the data sheet's peaks; int8 halves both.
+- What the simple design does about it: an implicit GEMM per pair of output
+  rows with mma.sync (m16n8k16 bf16/f16, m16n8k32 s8), the input rows staged
+  in shared memory transposed to [pixel][channel] so that the dx taps are
+  row offsets, both operands read by ldmatrix. f32 takes a full-f32 FMA
+  kernel (no TF32).
+
+The kernel reads the weight as [3, 3, C_out, C_in]: `weights.params_from_numpy`
+stores the graph's PixelConv weights so (an OIHW view over that buffer),
+once, when params go to the device; another layout is copied per call.
+
+A CPU or `meta` tensor takes the plain versions (`pixel_conv_rowdot_plain`,
+`pixel_conv_rowdot_q_plain`); a CUDA tensor launches the kernel at any
+B, H, W, C_in and C_out, or raises for operands it does not take.
+`launches` and `q_launches` count the two forms' launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+launches = 0
+q_launches = 0
+
+_X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _leaky(y: torch.Tensor, alpha) -> torch.Tensor:
+    return y if alpha is None else torch.where(y >= 0, y, y * float(alpha))
+
+
+def pixel_conv_rowdot_plain(x, w, bias, *, alpha=None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: a conv of the NCHW view in
+    f32 on the weight rounded to x's dtype, the f32 bias, LeakyReLU, one
+    rounding to x's dtype."""
+    y = F.conv2d(x.permute(0, 2, 1, 3).float(), w.to(x.dtype).float(), padding=1)
+    y = _leaky(y + bias.float().reshape(1, -1, 1, 1), alpha)
+    return y.to(x.dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def pixel_conv_rowdot_q_plain(x, w_q, scales, bias, *, alpha=None, inv_sy: float = 1.0,
+                              requant: bool = True, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8 kernel's arithmetic in plain PyTorch. The int8 products are
+    summed in f64, where every sum (|sum| < 2^53) is exact, so the sums are
+    the kernel's int32 sums; the epilogue's multiply and add are two ops."""
+    acc = F.conv2d(x.permute(0, 2, 1, 3).double(), w_q.double(), padding=1).float()
+    y = _leaky(acc * scales.float().reshape(1, -1, 1, 1) + bias.float().reshape(1, -1, 1, 1),
+               alpha)
+    if requant:
+        y = torch.clamp(torch.round(y * float(inv_sy)), -127, 127).to(torch.int8)
+    else:
+        y = y.to(out_dtype)
+    return y.permute(0, 2, 1, 3).contiguous()
+
+
+def _packed_weight(w: torch.Tensor) -> torch.Tensor:
+    """w (C_out, C_in, 3, 3) as the kernel's contiguous [3, 3, C_out, C_in]."""
+    wp = w.permute(2, 3, 0, 1)
+    return wp if wp.is_contiguous() else wp.contiguous()
+
+
+def _device_ok(x) -> bool:
+    """Whether x lies where the plain versions run (CPU, `meta`); raises for
+    a device with no kernel."""
+    if x.device.type in ("cpu", "meta"):
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"pixel_conv: no kernel for device {x.device}")
+    return False
+
+
+def _check(x, w, vecs, what: str):
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[2], 3, 3):
+        raise ValueError(f"{what}: x {tuple(x.shape)} (B, H, C_in, W) and w "
+                         f"{tuple(w.shape)} (C_out, C_in, 3, 3) do not fit")
+    for v in vecs:
+        if v.numel() != w.shape[0]:
+            raise ValueError(f"{what}: per-channel vectors must hold C_out = {w.shape[0]}")
+    for t in (w,) + tuple(vecs):
+        if t.device != x.device:
+            raise ValueError(f"{what}: operands must lie on one device")
+    if x.numel() >= 2 ** 31 or x.shape[0] * x.shape[1] * w.shape[0] * x.shape[3] >= 2 ** 31:
+        raise ValueError(f"{what}: tensors of 2^31 elements or more are not taken")
+
+
+def _launch(x, wp, bias, scales, out, alpha, inv_sy: float, requant: bool):
+    B, H, Cin, W = x.shape
+    Cout = out.shape[2]
+    lib = _build.library("pixel_conv")
+    with torch.cuda.device(x.device):
+        rc = lib.smelter_pixel_conv(
+            x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+            None if scales is None else scales.data_ptr(), out.data_ptr(),
+            B, H, Cin, W, Cout, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[bias.dtype],
+            _build.DTYPE_CODES[out.dtype], 0.0 if alpha is None else float(alpha),
+            int(alpha is not None), float(inv_sy), int(requant), _build.stream_of(x))
+    _build.check(lib, rc, "pixel_conv")
+
+
+def pixel_conv_rowdot(x, w, bias, *, alpha=None) -> torch.Tensor:
+    """x (B, H, C_in, W) f32/bf16/f16; w (C_out, C_in, 3, 3); bias (C_out,)
+    in f32 or x's dtype. Returns (B, H, C_out, W) in x's dtype."""
+    global launches
+    if _device_ok(x):
+        return pixel_conv_rowdot_plain(x, w, bias, alpha=alpha)
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"pixel_conv_rowdot: x {x.dtype} not taken")
+    bias = bias.reshape(-1)
+    _check(x, w, (bias,), "pixel_conv_rowdot")
+    if bias.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"pixel_conv_rowdot: bias {bias.dtype} is neither f32 nor x's dtype")
+    x = x.contiguous()
+    out = torch.empty((x.shape[0], x.shape[1], w.shape[0], x.shape[3]), dtype=x.dtype,
+                      device=x.device)
+    _launch(x, _packed_weight(w.to(x.dtype)), bias.contiguous(), None, out, alpha, 1.0, False)
+    launches += 1
+    return out
+
+
+def pixel_conv_rowdot_q(x, w_q, scales, bias, *, alpha=None, inv_sy: float = 1.0,
+                        requant: bool = True, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (B, H, C_in, W) int8; w_q (C_out, C_in, 3, 3) int8; scales and bias
+    (C_out,). Returns (B, H, C_out, W): int8 under requant, else out_dtype
+    (f32, bf16 or f16)."""
+    global q_launches
+    if _device_ok(x):
+        return pixel_conv_rowdot_q_plain(x, w_q, scales, bias, alpha=alpha, inv_sy=inv_sy,
+                                         requant=requant, out_dtype=out_dtype)
+    if x.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"pixel_conv_rowdot_q: x {x.dtype} and w {w_q.dtype} must be int8")
+    if not requant and out_dtype not in _X_DTYPES:
+        raise TypeError(f"pixel_conv_rowdot_q: out_dtype {out_dtype} not taken")
+    scales, bias = scales.reshape(-1), bias.reshape(-1)
+    _check(x, w_q, (scales, bias), "pixel_conv_rowdot_q")
+    x = x.contiguous()
+    out = torch.empty((x.shape[0], x.shape[1], w_q.shape[0], x.shape[3]),
+                      dtype=torch.int8 if requant else out_dtype, device=x.device)
+    _launch(x, _packed_weight(w_q), bias.float().contiguous(), scales.float().contiguous(), out,
+            alpha, inv_sy, requant)
+    q_launches += 1
+    return out

@@ -1,4 +1,4 @@
-"""Model zoo of the port: ResNet-50, the LLaMA-style decoder and ViT, built
-as in the JAX package."""
+"""Model zoo of the port: ResNet-50, the LLaMA-style decoder, ViT, ESRGAN's
+RRDBNet and SegNet, built as in the JAX package."""
 
-from . import llama_style, resnet50, vit  # noqa: F401
+from . import esrgan, llama_style, resnet50, segnet, vit  # noqa: F401

@@ -1,6 +1,7 @@
 """Elementwise op lowerings: Relu, Identity, Add (the ResNet path), Sigmoid,
 Abs, Round, Clip, Mul, Div, Max (the decode path), LessOrEqual and Where
-(the static-cache step's dense attention mask), and Gelu (the ViT MLP).
+(the static-cache step's dense attention mask), Gelu (the ViT MLP) and
+LeakyRelu (ESRGAN).
 
 Counterparts of `smelter_tpu/ops/math_ops.py`; a binary op casts its second
 operand to the first one's dtype, as there, and a comparison compares the
@@ -49,6 +50,14 @@ def _compare(op_type: str, fn, since: int = 1):
 
 
 _compare("LessOrEqual", torch.le, since=12)
+
+
+@register("LeakyRelu")
+def leaky_relu(ctx: Ctx, node: Node):
+    """x where x >= 0, else x times alpha in x's dtype, as the JAX lowering."""
+    x = ctx.get(node.inputs[0])
+    alpha = torch.as_tensor(node.attr("alpha", 0.01), dtype=x.dtype, device=x.device)
+    ctx.set(node.outputs[0], torch.where(x >= 0, x, x * alpha))
 
 
 @register("Where", since=9)

@@ -1,8 +1,11 @@
 """Neural-net op lowerings of the ResNet path: Conv, MaxPool,
 GlobalAveragePool, BatchNormalization, Gemm, MatMul; Softmax (the
-static-cache decode step's dense attention); and LayerNormalization (the
+static-cache decode step's dense attention); LayerNormalization (the
 ViT graph), which takes `kernels/layer_norm.py::fused_layer_norm` where the
-configuration routes it there, as the JAX lowering takes its Pallas kernel.
+configuration routes it there, as the JAX lowering takes its Pallas kernel;
+the image-to-image ops: nearest Resize, PixelNearestUp, PixelConv and
+PixelConvQ (ESRGAN, on `kernels/pixel_conv.py`), MaxPool's indices output
+and MaxUnpool (SegNet, on `kernels/max_unpool.py`).
 
 The port's counterparts of the lowerings in `smelter_tpu/ops/nn.py`, with
 the same semantics. A node the layout pass rewrote (`data_layout=NHWC`)
@@ -15,6 +18,10 @@ weights over an OHWI buffer so that their OIHW view is channels-last too.
 
 from __future__ import annotations
 
+import itertools
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,6 +29,7 @@ from ..ir.errors import NotSupportedError
 from ..ir.graph import Node
 from . import padding as P
 from .registry import Ctx, register
+from .resize_utils import resize_nearest
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -117,10 +125,24 @@ def matmul(ctx: Ctx, node: Node):
     ctx.set(node.outputs[0], torch.matmul(a, b.to(a.dtype)))
 
 
+def _pool_pads(node: Node, in_spatial, kernel, strides, dilations):
+    """(lo, hi) pads of a pool, ceil_mode's extra high pad included."""
+    pads = P.resolve_pads(node, in_spatial, kernel, strides, dilations)
+    if node.attr("ceil_mode", 0):
+        pads = [(lo, hi + P.pool_extra_ceil_pad(in_spatial[i], kernel[i], strides[i],
+                                                 dilations[i], lo, hi))
+                for i, (lo, hi) in enumerate(pads)]
+    return pads
+
+
+def _lowest(dtype: torch.dtype):
+    return torch.finfo(dtype).min if dtype.is_floating_point else torch.iinfo(dtype).min
+
+
 @register("MaxPool")
 def max_pool(ctx: Ctx, node: Node):
     if len(node.outputs) > 1 and node.outputs[1]:
-        raise NotSupportedError("MaxPool with an indices output")
+        return _max_pool_with_indices(ctx, node)
     x = ctx.get(node.inputs[0])
     nhwc = _layout(node) == "NHWC"
     rank = x.ndim - 2
@@ -130,15 +152,10 @@ def max_pool(ctx: Ctx, node: Node):
     if nhwc:
         x = _to_nchw(x)
     in_spatial = tuple(x.shape[2:])
-    pads = P.resolve_pads(node, in_spatial, kernel, strides, dilations)
-    if node.attr("ceil_mode", 0):
-        pads = [(lo, hi + P.pool_extra_ceil_pad(in_spatial[i], kernel[i], strides[i],
-                                                 dilations[i], lo, hi))
-                for i, (lo, hi) in enumerate(pads)]
+    pads = _pool_pads(node, in_spatial, kernel, strides, dilations)
     # PyTorch pads a pool by at most half the window: pad the rest here,
     # with the lowest value, so padding never wins the max.
-    low = (torch.finfo(x.dtype).min if x.dtype.is_floating_point
-           else torch.iinfo(x.dtype).min)
+    low = _lowest(x.dtype)
     if any(lo != hi or lo > k // 2 for (lo, hi), k in zip(pads, kernel)):
         x = F.pad(x, [p for lo, hi in reversed(pads) for p in (lo, hi)], value=low)
         sym = (0,) * rank
@@ -214,3 +231,244 @@ def layer_norm(ctx: Ctx, node: Node):
     for extra in node.outputs[1:]:
         if extra:
             raise NotSupportedError("LayerNormalization mean/invstd outputs")
+
+
+# -- MaxPool indices, MaxUnpool (SegNet) ---------------------------------------
+
+def _max_pool_with_indices(ctx: Ctx, node: Node):
+    """MaxPool with its second output: int64 indices into the flattened
+    [N, C, *spatial] input (ONNX MaxPool-12, storage_order=0), each the first
+    max of its window in row-major tap order. The JAX lowering's two forms:
+    kernel == stride with no pads or dilation (SegNet's encoder) argmaxes the
+    taps of each window; otherwise a stack of the kernel's strided taps over
+    the input padded with the lowest value."""
+    x = ctx.get(node.inputs[0])
+    if _layout(node) == "NHWC":
+        raise NotSupportedError("MaxPool indices output under NHWC layout")
+    if int(node.attr("storage_order", 0)):
+        raise NotSupportedError("MaxPool indices with storage_order=1")
+    rank = x.ndim - 2
+    kernel = tuple(int(k) for k in node.attr("kernel_shape"))
+    strides = tuple(int(s) for s in node.attr("strides", [1] * rank))
+    dilations = tuple(int(d) for d in node.attr("dilations", [1] * rank))
+    in_spatial = tuple(x.shape[2:])
+    pads = _pool_pads(node, in_spatial, kernel, strides, dilations)
+    if (strides == kernel and all(lo == 0 and hi == 0 for lo, hi in pads)
+            and all(d == 1 for d in dilations)):
+        y, spatial = _max_pool_windows(x, kernel)
+    else:
+        y, spatial = _max_pool_tap_stack(x, kernel, strides, dilations, pads)
+    hw = math.prod(in_spatial)
+    lead = (1,) * rank
+    n_idx = torch.arange(x.shape[0], device=x.device).reshape((-1, 1) + lead)
+    c_idx = torch.arange(x.shape[1], device=x.device).reshape((1, -1) + lead)
+    ctx.set(node.outputs[0], y)
+    ctx.set(node.outputs[1], (n_idx * x.shape[1] + c_idx) * hw + spatial)
+
+
+def _axis_range(n: int, axis: int, rank: int, device) -> torch.Tensor:
+    """arange(n) shaped to broadcast along spatial axis `axis` of `rank`."""
+    return torch.arange(n, device=device).reshape(
+        tuple(-1 if j == axis else 1 for j in range(rank)))
+
+
+def _max_pool_windows(x: torch.Tensor, kernel: tuple[int, ...]):
+    """Non-overlapping windows (kernel == stride): the max of each window and
+    the flat spatial index of its first max (torch.max over the window's
+    taps returns the first maximal one)."""
+    rank = len(kernel)
+    in_spatial = tuple(x.shape[2:])
+    out = tuple(s // k for s, k in zip(in_spatial, kernel))
+    xc = x[(slice(None), slice(None)) + tuple(slice(0, o * k) for o, k in zip(out, kernel))]
+    split = xc.reshape(tuple(x.shape[:2]) + tuple(d for o, k in zip(out, kernel) for d in (o, k)))
+    perm = (0, 1) + tuple(2 + 2 * i for i in range(rank)) + tuple(3 + 2 * i for i in range(rank))
+    y, tap = split.permute(perm).reshape(tuple(x.shape[:2]) + out + (-1,)).max(dim=-1)
+    offs = [None] * rank
+    for i in reversed(range(rank)):
+        offs[i] = tap % kernel[i]
+        tap = tap // kernel[i]
+    spatial = None
+    for i in range(rank):
+        coord = _axis_range(out[i], i, rank, x.device) * kernel[i] + offs[i]
+        spatial = coord if spatial is None else spatial * in_spatial[i] + coord
+    return y, spatial
+
+
+def _max_pool_tap_stack(x: torch.Tensor, kernel, strides, dilations, pads):
+    """Any window: the kernel's taps as strided slices of the padded input,
+    stacked, and the first max over them."""
+    rank = len(kernel)
+    in_spatial = tuple(x.shape[2:])
+    out_spatial = tuple(P.conv_out_size(in_spatial[i], kernel[i], strides[i], dilations[i],
+                                        pads[i][0], pads[i][1]) for i in range(rank))
+    xp = F.pad(x, [p for lo, hi in reversed(pads) for p in (lo, hi)], value=_lowest(x.dtype))
+    vals, flats = [], []
+    for taps in itertools.product(*(range(k) for k in kernel)):
+        sl = [slice(None), slice(None)]
+        flat = None
+        for i in range(rank):
+            start = taps[i] * dilations[i]
+            sl.append(slice(start, start + (out_spatial[i] - 1) * strides[i] + 1, strides[i]))
+            coord = _axis_range(out_spatial[i], i, rank, x.device) * strides[i] \
+                + start - pads[i][0]
+            flat = coord if flat is None else flat * in_spatial[i] + coord
+        vals.append(xp[tuple(sl)])
+        flats.append(flat.expand(out_spatial))
+    y, best = torch.stack(vals).max(dim=0)
+    tap_flat = torch.stack(flats).unsqueeze(1).unsqueeze(1).expand((len(vals),) + best.shape)
+    return y, torch.gather(tap_flat, 0, best.unsqueeze(0))[0]
+
+
+def _nearest_expand(t: torch.Tensor, kernel) -> torch.Tensor:
+    """Nearest upsample of the trailing spatial dims by integer factors."""
+    rank = len(kernel)
+    lead = tuple(t.shape[:t.ndim - rank])
+    sp = tuple(t.shape[t.ndim - rank:])
+    t = t.reshape(lead + tuple(d for s in sp for d in (s, 1)))
+    t = t.expand(lead + tuple(d for i, s in enumerate(sp) for d in (s, kernel[i])))
+    return t.reshape(lead + tuple(sp[i] * kernel[i] for i in range(rank)))
+
+
+def _unpool2x2_kernel_ok(x_shape, out_shape, kernel, strides, pads, rank: int) -> bool:
+    """The JAX lowering's gate for its 2x2/s2 kernel, kept as it is: windows
+    of 2x2 at stride 2, no pads, an output of twice the input and under 2^31
+    elements (the JAX kernel's int32 indices; the port's reads int64)."""
+    return (list(strides) == list(kernel) == [2, 2] and not any(pads) and rank == 2
+            and tuple(out_shape[2:]) == (2 * x_shape[2], 2 * x_shape[3])
+            and math.prod(int(d) for d in out_shape) < 2 ** 31)
+
+
+@register("MaxUnpool", since=9, static={2})
+def max_unpool(ctx: Ctx, node: Node):
+    """Inverse of MaxPool with indices: X's values at the flat [N, C,
+    *spatial] positions in I, zeros elsewhere. The output shape comes from
+    input 2 when given, else (x - 1) * stride + kernel - pads. Under the
+    JAX lowering's gate the `max_unpool2x2` kernel; other non-overlapping
+    windows take the dense form (upsample x and I, keep the position I
+    names); anything else a scatter."""
+    x = ctx.get(node.inputs[0])
+    idx = ctx.get(node.inputs[1])
+    kernel = [int(k) for k in node.attr("kernel_shape")]
+    rank = len(kernel)
+    strides = [int(s) for s in node.attr("strides", [1] * rank)]
+    pads = [int(p) for p in node.attr("pads", [0] * (2 * rank))]
+    if len(node.inputs) > 2 and node.inputs[2]:
+        out_shape = tuple(int(d) for d in ctx.static(node.inputs[2]).reshape(-1))
+    else:
+        out_shape = tuple(x.shape[:2]) + tuple(
+            (x.shape[2 + i] - 1) * strides[i] + kernel[i] - pads[i] - pads[rank + i]
+            for i in range(rank))
+    if _unpool2x2_kernel_ok(tuple(x.shape), out_shape, kernel, strides, pads, rank):
+        from ..kernels.max_unpool import max_unpool2x2
+
+        ctx.set(node.outputs[0], max_unpool2x2(x, idx.reshape(x.shape)))
+        return
+    idx = idx.reshape(x.shape).to(torch.int64)
+    if strides == kernel and not any(pads):
+        up_spatial = tuple(x.shape[2 + i] * kernel[i] for i in range(rank))
+        hw = math.prod(out_shape[2:])
+        pos = None
+        for i in range(rank):
+            coord = _axis_range(up_spatial[i], i, rank, x.device)
+            pos = coord if pos is None else pos * out_shape[2 + i] + coord
+        lead = (1,) * rank
+        n_idx = torch.arange(x.shape[0], device=x.device).reshape((-1, 1) + lead)
+        c_idx = torch.arange(x.shape[1], device=x.device).reshape((1, -1) + lead)
+        gpos = (n_idx * x.shape[1] + c_idx) * hw + pos
+        y = torch.where(_nearest_expand(idx, kernel) == gpos, _nearest_expand(x, kernel),
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+        # output_shape may ask for one more (never indexed) row or column a
+        # dim (odd sizes before the pool): pad with zeros; crop if smaller.
+        extra = [out_shape[2 + i] - y.shape[2 + i] for i in range(rank)]
+        if any(d > 0 for d in extra):
+            y = F.pad(y, [p for d in reversed(extra) for p in (0, max(0, d))])
+        if any(d < 0 for d in extra):
+            y = y[tuple(slice(None, d) for d in out_shape)]
+        ctx.set(node.outputs[0], y)
+        return
+    flat = torch.zeros(math.prod(out_shape), dtype=x.dtype, device=x.device)
+    flat[idx.reshape(-1)] = x.reshape(-1)
+    ctx.set(node.outputs[0], flat.reshape(out_shape))
+
+
+# -- Resize, and the pixel-conv region ops (ESRGAN) ---------------------------
+
+def _as_str(v) -> str:
+    return v.decode() if isinstance(v, bytes) else str(v)
+
+
+def _spatial_axes(node: Node, ndim: int) -> tuple[int, ...]:
+    """Spatial axes under the node's data_layout: NCHW from 2, NHWC from 1,
+    NHCW (pixel-conv regions) (1, 3)."""
+    layout = _layout(node)
+    if layout == "NHWC":
+        return tuple(range(1, ndim - 1))
+    if layout == "NHCW":
+        return (1, 3)
+    return tuple(range(2, ndim))
+
+
+@register("Resize", since=10, static={1, 2, 3})
+def resize(ctx: Ctx, node: Node):
+    """Nearest Resize under the asymmetric coordinate transform and floor
+    rounding (what the fx exporter emits for F.interpolate(mode="nearest")),
+    to the sizes input or to floor(scale * in). Other modes raise."""
+    x = ctx.get(node.inputs[0])
+    mode = _as_str(node.attr("mode", "nearest"))
+    if mode != "nearest":
+        raise NotSupportedError(f"Resize mode {mode!r} (the port takes nearest)")
+    axes = _spatial_axes(node, x.ndim)
+    if len(node.inputs) > 3 and node.inputs[3]:
+        sizes = ctx.static(node.inputs[3]).astype(np.int64)
+        out_sizes = tuple(int(s) for s in sizes[2:])  # NCHW-ordered vector
+    else:
+        scales_in = node.inputs[2] if len(node.inputs) > 2 else node.inputs[1]
+        if ctx.opset == 10:
+            scales_in = node.inputs[1]
+        sc = ctx.static(scales_in).astype(np.float64)[2:]
+        out_sizes = tuple(int(np.floor(s * x.shape[a])) for s, a in zip(sc, axes))
+    ctx.set(node.outputs[0], resize_nearest(
+        x, out_sizes, spatial_axes=axes,
+        coord_mode=_as_str(node.attr("coordinate_transformation_mode", "half_pixel")),
+        nearest_mode=_as_str(node.attr("nearest_mode", "round_prefer_floor"))))
+
+
+@register("PixelNearestUp")
+def pixel_nearest_up(ctx: Ctx, node: Node):
+    """Integer-scale nearest upsample of (B, H, C, W) activations, inserted
+    by passes/pixel_regions.py so ESRGAN's tail stays in the NHCW layout."""
+    x = ctx.get(node.inputs[0])
+    sh, sw = int(node.attr("sh", 2)), int(node.attr("sw", 2))
+    b, h, c, w = x.shape
+    y = x.reshape(b, h, 1, c, w, 1).expand(b, h, sh, c, w, sw)
+    ctx.set(node.outputs[0], y.reshape(b, h * sh, c, w * sw))
+
+
+@register("PixelConv")
+def pixel_conv(ctx: Ctx, node: Node):
+    """3x3/s1/p1 conv of (B, H, C_in, W) activations (passes/pixel_regions.py)
+    in `kernels/pixel_conv.py::pixel_conv_rowdot`, with the fused
+    LeakyRelu/Relu epilogue of the alpha attr."""
+    from ..kernels.pixel_conv import pixel_conv_rowdot
+
+    alpha = node.attrs.get("alpha")
+    ctx.set(node.outputs[0], pixel_conv_rowdot(
+        ctx.get(node.inputs[0]), ctx.get(node.inputs[1]), ctx.get(node.inputs[2]),
+        alpha=None if alpha is None else float(alpha)))
+
+
+@register("PixelConvQ")
+def pixel_conv_q(ctx: Ctx, node: Node):
+    """The int8 PixelConv of quant/pixel_quant.py: inputs x_q, w_q, scales
+    (s_x * s_w[c_out]), bias; `kernels/pixel_conv.py::pixel_conv_rowdot_q`.
+    requant=1 returns int8 on the 1/inv_sy grid, requant=0 the compute
+    dtype."""
+    from ..kernels.pixel_conv import pixel_conv_rowdot_q
+
+    cfg = ctx.config
+    alpha = node.attrs.get("alpha")
+    ctx.set(node.outputs[0], pixel_conv_rowdot_q(
+        ctx.get(node.inputs[0]), ctx.get(node.inputs[1]), ctx.get(node.inputs[2]),
+        ctx.get(node.inputs[3]), alpha=None if alpha is None else float(alpha),
+        inv_sy=float(node.attr("inv_sy", 1.0)), requant=bool(node.attr("requant", 1)),
+        out_dtype=getattr(torch, cfg.compute_dtype if cfg is not None else "float32")))

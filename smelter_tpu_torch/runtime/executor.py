@@ -33,6 +33,8 @@ _SCALE_POS = {
     "DequantizeLinear": (1, 2),
     "FusedDequantMatMul": (2,),
     "FusedDequantMatMulI4": (2,),
+    # scales (2) and bias (3) feed the kernel's f32 epilogue
+    "PixelConvQ": (2, 3),
 }
 
 

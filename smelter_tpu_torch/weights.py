@@ -8,7 +8,9 @@ moved there once, in their stored dtype.
 NHWC conv weights are HWIO after the layout pass. Given the graph, they are
 stored over an OHWI buffer and handed out as an HWIO view of it: the Conv
 lowering's OIHW view of that is channels-last, which is what cuDNN's
-channels-last kernels read, so no weight is relaid per call.
+channels-last kernels read, so no weight is relaid per call. PixelConv and
+PixelConvQ weights (OIHW) are stored over an HWOI buffer, the
+[3, 3, C_out, C_in] layout `kernels/pixel_conv.py` reads.
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ def hwio_conv_weights(graph: Graph) -> set[str]:
     return names
 
 
+def pixel_conv_weights(graph: Graph) -> set[str]:
+    """Initializers that are a PixelConv's or PixelConvQ's weight."""
+    return {node.inputs[1] for node in graph.nodes
+            if node.op_type in ("PixelConv", "PixelConvQ")
+            and node.inputs[1] in graph.initializers}
+
+
 def _host_tensor(arr) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         return arr
@@ -48,15 +57,20 @@ def _host_tensor(arr) -> torch.Tensor:
 def params_from_numpy(arrays: dict, device, graph: Graph | None = None
                       ) -> dict[str, torch.Tensor]:
     """{name: array} -> {name: tensor on `device`}, dtypes unchanged. With
-    `graph`, its NHWC conv weights are laid out for channels-last convs."""
+    `graph`, its NHWC conv weights are laid out for channels-last convs and
+    its PixelConv weights for the pixel-conv kernel."""
     device = torch.device(device)
     hwio = hwio_conv_weights(graph) if graph is not None else set()
+    pixel = pixel_conv_weights(graph) if graph is not None else set()
     out = {}
     for name, arr in arrays.items():
         t = _host_tensor(arr)
         if name in hwio and t.dim() == 4:
             # (H, W, I, O) view over an (O, H, W, I) buffer
             out[name] = t.permute(3, 0, 1, 2).contiguous().to(device).permute(1, 2, 3, 0)
+        elif name in pixel and t.dim() == 4:
+            # (O, I, H, W) view over an (H, W, O, I) buffer
+            out[name] = t.permute(2, 3, 0, 1).contiguous().to(device).permute(2, 3, 0, 1)
         else:
             out[name] = t.to(device)
     return out

@@ -527,3 +527,199 @@ def test_vit_attention_block_raises_on_bad_operands(cuda):
         vb.vit_attention_block(x, g, b, wpk, bpk, wp, bp, torch.ones(1, 16, device=cuda,
                                                                      dtype=torch.int64),
                                heads=4)
+
+
+# -- pixel_conv_rowdot, pixel_conv_rowdot_q (ESRGAN) ---------------------------
+
+# (B, H, C_in, W, C_out): ESRGAN's trunk and tail shapes at batch 1, and
+# ragged edges: H not a multiple of the 2-row block, W not a multiple of the
+# 128-pixel tile or of the 16-byte vector, C_in not a multiple of the
+# channel chunk or of the vector, C_out not a multiple of 16, or above 64.
+PIXEL_SHAPES = [(1, 128, 64, 128, 32), (1, 128, 192, 128, 64), (1, 16, 64, 512, 64),
+                (2, 7, 16, 100, 8), (1, 9, 40, 131, 24), (2, 5, 24, 37, 72), (1, 3, 5, 7, 3)]
+
+
+def _pixel_operands(B, H, Cin, W, Cout, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, H, Cin, W), np.float32)
+    w = (rng.standard_normal((Cout, Cin, 3, 3)) / (3 * np.sqrt(Cin))).astype(np.float32)
+    b = rng.standard_normal(Cout).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, w, b))
+
+
+@pytest.mark.parametrize("shape", PIXEL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("alpha", [None, 0.2])
+def test_pixel_conv_rowdot_matches_plain(cuda, shape, dtype, alpha):
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's conv in full f32
+    x, w, b = _pixel_operands(*shape, cuda)
+    x = x.to(dtype)
+    before = pc.launches
+    got = pc.pixel_conv_rowdot(x, w, b, alpha=alpha)
+    torch.cuda.synchronize()
+    assert pc.launches == before + 1
+    ref = pc.pixel_conv_rowdot_plain(x, w, b, alpha=alpha)
+    assert got.dtype == dtype and got.shape == ref.shape
+    # f32: the same products summed in other orders -> 1e-5 of the largest
+    # output; bf16/f16: f32 sums in other orders, each rounded once to 8/11
+    # mantissa bits -> 1e-2 / 2e-3 of the largest output.
+    tol = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}[dtype]
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_pixel_conv_rowdot_packed_weight_and_low_precision_bias(cuda):
+    """The executor's operands: the weight as an OIHW view over the kernel's
+    [3, 3, C_out, C_in] buffer (weights.py), the bias in x's dtype."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    x, w, b = _pixel_operands(2, 16, 96, 128, 32, cuda, seed=3)
+    x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    packed = w.permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+    got = pc.pixel_conv_rowdot(x, packed, b, alpha=0.2)
+    assert torch.equal(got, pc.pixel_conv_rowdot(x, w, b, alpha=0.2))
+    ref = pc.pixel_conv_rowdot_plain(x, w, b, alpha=0.2)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape", PIXEL_SHAPES)
+@pytest.mark.parametrize("requant,out_dtype", [(True, torch.int8), (False, torch.bfloat16),
+                                               (False, torch.float32)])
+def test_pixel_conv_rowdot_q_equals_plain(cuda, shape, requant, out_dtype):
+    """Exact int32 sums and the same epilogue roundings: equal outputs."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    B, H, Cin, W, Cout = shape
+    rng = np.random.default_rng(1)
+    xq = torch.from_numpy(rng.integers(-127, 128, (B, H, Cin, W), dtype=np.int8)).to(cuda)
+    wq = torch.from_numpy(rng.integers(-127, 128, (Cout, Cin, 3, 3), dtype=np.int8)).to(cuda)
+    sc = torch.from_numpy(rng.uniform(1e-4, 1e-3, Cout).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(Cout).astype(np.float32)).to(cuda)
+    for alpha in (None, 0.2):
+        kw = dict(alpha=alpha, inv_sy=5.0, requant=requant, out_dtype=out_dtype)
+        before = pc.q_launches
+        got = pc.pixel_conv_rowdot_q(xq, wq, sc, bias, **kw)
+        torch.cuda.synchronize()
+        assert pc.q_launches == before + 1
+        ref = pc.pixel_conv_rowdot_q_plain(xq, wq, sc, bias, **kw)
+        assert got.dtype == out_dtype and torch.equal(got, ref)
+
+
+def test_pixel_conv_rowdot_q_sums_past_f32_integers(cuda):
+    """Sums beyond 2^24 (all 127s at C_in 192) convert to f32 as the plain
+    version's do."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    xq = torch.full((1, 4, 192, 128), 127, dtype=torch.int8, device=cuda)
+    wq = torch.full((64, 192, 3, 3), 127, dtype=torch.int8, device=cuda)
+    sc = torch.full((64,), 1.0, device=cuda)
+    bias = torch.zeros(64, device=cuda)
+    kw = dict(requant=False, out_dtype=torch.float32)
+    got = pc.pixel_conv_rowdot_q(xq, wq, sc, bias, **kw)
+    assert got.max().item() == 127 * 127 * 9 * 192
+    assert torch.equal(got, pc.pixel_conv_rowdot_q_plain(xq, wq, sc, bias, **kw))
+
+
+# -- max_unpool2x2 (SegNet) ------------------------------------------------------
+
+# SegNet's three unpools at batch 16, 256 px, base 32, and ragged ones.
+UNPOOL_SHAPES = [(16, 128, 32, 32), (16, 64, 64, 64), (16, 32, 128, 128), (2, 3, 5, 7),
+                 (1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", UNPOOL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_max_unpool2x2_matches_plain_and_scatter(cuda, shape, dtype):
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import max_unpool as mu
+
+    B, C, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    full = torch.randn(B, C, 2 * h, 2 * w, device=cuda, generator=gen).to(dtype)
+    val, plane = F.max_pool2d(full.float(), 2, 2, return_indices=True)
+    val = val.to(dtype)
+    # per-plane indices -> flat over [N, C, 2h, 2w], as MaxPool's output
+    idx = plane + (torch.arange(B * C, device=cuda).reshape(B, C, 1, 1) * 4 * h * w)
+    before = mu.launches
+    got = mu.max_unpool2x2(val, idx)
+    torch.cuda.synchronize()
+    assert mu.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, mu.max_unpool2x2_plain(val, idx))
+    scatter = torch.zeros(B * C * 4 * h * w, dtype=dtype, device=cuda)
+    scatter[idx.reshape(-1)] = val.reshape(-1)
+    assert torch.equal(got, scatter.reshape(got.shape))
+
+
+def test_image_kernels_raise_on_bad_operands(cuda):
+    from smelter_tpu_torch.kernels import max_unpool as mu
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    x, w, b = _pixel_operands(1, 8, 16, 32, 8, cuda)
+    with pytest.raises(TypeError):  # int8 x in the float form
+        pc.pixel_conv_rowdot(x.to(torch.int8), w, b)
+    with pytest.raises(ValueError):  # a weight of other input channels
+        pc.pixel_conv_rowdot(x, w[:, :8], b)
+    with pytest.raises(ValueError):  # a bias of other output channels
+        pc.pixel_conv_rowdot(x, w, b[:4])
+    with pytest.raises(TypeError):  # float x in the int8 form
+        pc.pixel_conv_rowdot_q(x, w.to(torch.int8), b, b)
+    with pytest.raises(TypeError):  # an int8 output dtype without requant
+        pc.pixel_conv_rowdot_q(x.to(torch.int8), w.to(torch.int8), b, b, requant=False,
+                               out_dtype=torch.int8)
+    v = torch.randn(1, 2, 4, 4, device=cuda)
+    with pytest.raises(ValueError):  # indices of another shape
+        mu.max_unpool2x2(v, torch.zeros(1, 2, 4, 3, dtype=torch.int64, device=cuda))
+    with pytest.raises(TypeError):  # float indices
+        mu.max_unpool2x2(v, torch.zeros_like(v))
+    with pytest.raises(TypeError):  # integer values
+        mu.max_unpool2x2(v.to(torch.int32), torch.zeros(1, 2, 4, 4, dtype=torch.int64,
+                                                        device=cuda))
+
+
+@pytest.mark.parametrize("model", ["esrgan", "segnet"])
+def test_small_image_models_on_the_card_match_the_cpu(cuda, model):
+    """The port's small ESRGAN (19 PixelConv a forward) and SegNet (3
+    MaxUnpool) compiled on the card against the same graph on the CPU: f32
+    within 1e-4 of the largest output (cuDNN and the kernels in full f32),
+    bf16 within 3x the CPU bf16's own error against f32 (in bf16 a pool
+    window's two largest values may round to a tie, which moves SegNet's
+    unpooled values). ESRGAN's int8-pixel graph (calibrated on the CPU) on
+    the card against the same graph on the CPU: its int8 edges are equal
+    but for flips at a half-way point of the grid, 1e-3 of the largest."""
+    import copy
+
+    import smelter_tpu_torch as stt
+    from smelter_tpu_torch.kernels import max_unpool as mu
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+    from smelter_tpu_torch.models import esrgan, segnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    if model == "esrgan":
+        g, _, shape = esrgan.build(batch=1, image_size=128, nf=16, nb=1, scale=4)
+        counter, count = (pc, "launches"), 19
+    else:
+        g, _, shape = segnet.build(batch=2, image_size=64, base=8)
+        counter, count = (mu, "launches"), 3
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    ref = stt.compile(copy.deepcopy(g), device="cpu")(x)[0]
+    bf16 = {"compute_dtype": "bfloat16"}
+    ref16 = stt.compile(copy.deepcopy(g), stt.Config(**bf16), device="cpu")(x)[0]
+    bounds = {"f32": 1e-4 * np.abs(ref).max(), "bf16": 3 * np.abs(ref16 - ref).max()}
+    for label, cfg in (("f32", {}), ("bf16", bf16)):
+        m = stt.compile(copy.deepcopy(g), stt.Config(**cfg), device="cuda")
+        before = getattr(*counter)
+        got = m(x)[0]
+        assert getattr(*counter) == before + count
+        assert got.shape == ref.shape and np.abs(got - ref).max() <= bounds[label], label
+    if model == "esrgan":
+        gq = stt.compile(copy.deepcopy(g), quant="int8-pixel", calibration_data=[(x,)],
+                         device="cpu").graph
+        ref_q = stt.CompiledModel(copy.deepcopy(gq), stt.Config(device="cpu"))(x)[0]
+        before = pc.q_launches
+        got = stt.CompiledModel(gq, stt.Config(device="cuda"))(x)[0]
+        assert pc.q_launches == before + count
+        assert np.abs(got - ref_q).max() <= 1e-3 * np.abs(ref_q).max()

@@ -14,10 +14,14 @@ import torch
 from smelter_tpu.kernels import dequant_matmul as jdm
 from smelter_tpu.kernels import int8_matmul as jim
 from smelter_tpu.kernels import layer_norm as jln
+from smelter_tpu.kernels import max_unpool as jmu
+from smelter_tpu.kernels import pixel_conv as jpc
 from smelter_tpu.kernels import vit_block as jvb
 from smelter_tpu_torch.kernels import dequant_matmul as dm
 from smelter_tpu_torch.kernels import int8_matmul as im
 from smelter_tpu_torch.kernels import layer_norm as ln
+from smelter_tpu_torch.kernels import max_unpool as mu
+from smelter_tpu_torch.kernels import pixel_conv as pc
 from smelter_tpu_torch.kernels import vit_block as vb
 from smelter_tpu_torch.passes.vit_block import pack_qkv_weights
 
@@ -223,3 +227,97 @@ def test_vit_block_residual_and_scale_match_pallas():
     want = np.asarray(jvb._vit_block_impl(*(jnp.asarray(a) for a in (x, g, b, wpk, bpk, wp, bp)),
                                           heads=2, scale=0.3, residual=True, interpret=True))
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# -- pixel_conv_rowdot, pixel_conv_rowdot_q ----------------------------------
+
+def _pixel_operands(b, h, cin, w, cout, seed=0):
+    """tests/test_pixel_conv.py's operands, NHCW."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, cin, w)).astype(np.float32)
+    wt = (rng.standard_normal((cout, cin, 3, 3)) / (3 * np.sqrt(cin))).astype(np.float32)
+    bias = rng.standard_normal((cout,)).astype(np.float32)
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("geom", [(2, 16, 16, 128, 8), (1, 8, 32, 128, 16), (1, 16, 48, 256, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("alpha", [None, 0.2])
+def test_pixel_conv_rowdot_plain_matches_pallas(geom, dtype, alpha):
+    """The plain version against the Pallas kernel in interpret mode: f32
+    within 1e-5 of the largest output (sums in other orders), bf16 within
+    1e-2 (f32 sums of the same bf16 products, each rounded once)."""
+    x, wt, bias = _pixel_operands(*geom)
+    tdt = getattr(torch, dtype)
+    got = pc.pixel_conv_rowdot(torch.from_numpy(x).to(tdt), torch.from_numpy(wt),
+                               torch.from_numpy(bias), alpha=alpha)
+    assert pc.launches == 0 and got.dtype == tdt
+    want = jpc.pixel_conv_rowdot(jnp.asarray(x).astype(dtype), jnp.asarray(wt),
+                                 jnp.asarray(bias), alpha=alpha, rows=8, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    tol = {"float32": 1e-5, "bfloat16": 1e-2}[dtype]
+    assert got.shape == want.shape
+    assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("requant", [True, False])
+@pytest.mark.parametrize("alpha", [None, 0.2])
+def test_pixel_conv_rowdot_q_plain_matches_pallas(requant, alpha):
+    """tests/test_pixel_conv.py's int8 case: exact int32 sums, then the
+    epilogue. The int8 outputs are bit-equal; the float ones (requant off)
+    within 1e-6 of the largest, since XLA on the CPU contracts
+    acc * scale + bias into one fused multiply-add."""
+    rng = np.random.default_rng(11)
+    b, h, w, cin, cout = 2, 16, 128, 16, 8
+    xq = rng.integers(-127, 128, (b, h, cin, w), dtype=np.int8)
+    wq = rng.integers(-127, 128, (cout, cin, 3, 3), dtype=np.int8)
+    sx, sw = 0.02, rng.uniform(0.001, 0.01, cout).astype(np.float32)
+    scales = (sx * sw).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    kw = dict(alpha=alpha, inv_sy=1 / 0.05, requant=requant)
+    got = pc.pixel_conv_rowdot_q(*(torch.from_numpy(a) for a in (xq, wq, scales, bias)),
+                                 out_dtype=torch.float32, **kw)
+    want = np.asarray(jpc.pixel_conv_rowdot_q(*(jnp.asarray(a) for a in (xq, wq, scales, bias)),
+                                              out_dtype=jnp.float32, rows=8, interpret=True, **kw))
+    assert pc.q_launches == 0 and got.numpy().dtype == want.dtype
+    if requant:
+        assert np.array_equal(got.numpy(), want) and len(np.unique(want)) > 100
+    else:
+        assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+
+
+# -- max_unpool2x2 -------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 4, 8, 16), (1, 3, 4, 256), (2, 32, 16, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_max_unpool2x2_plain_matches_pallas(shape, dtype):
+    """tests/test_max_unpool.py's geometries, values from a 2x2 pool of a
+    random map: equal outputs (the kernel moves values, it computes none)."""
+    import torch.nn.functional as F
+
+    B, C, H, W = shape
+    full = torch.from_numpy(np.random.default_rng(0).standard_normal(shape).astype(np.float32))
+    val, plane = F.max_pool2d(full, 2, 2, return_indices=True)
+    idx = plane + torch.arange(B * C).reshape(B, C, 1, 1) * H * W
+    tdt = getattr(torch, dtype)
+    got = mu.max_unpool2x2(val.to(tdt), idx)
+    assert mu.launches == 0 and got.dtype == tdt
+    want = jmu.max_unpool2x2(jnp.asarray(val.numpy()).astype(dtype), jnp.asarray(idx.numpy()),
+                             interpret=True)
+    assert np.array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+def test_image_kernels_take_the_plain_version_on_meta():
+    x = torch.empty(2, 16, 32, 128, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(64, 32, 3, 3, device="meta")
+    v = torch.empty(64, device="meta")
+    assert pc.pixel_conv_rowdot(x, w, v, alpha=0.2).shape == (2, 16, 64, 128)
+    xq = torch.empty(2, 16, 32, 128, device="meta", dtype=torch.int8)
+    out = pc.pixel_conv_rowdot_q(xq, w.to(torch.int8), v, v, requant=False,
+                                 out_dtype=torch.bfloat16)
+    assert out.shape == (2, 16, 64, 128) and out.dtype == torch.bfloat16
+    assert pc.pixel_conv_rowdot_q(xq, w.to(torch.int8), v, v).dtype == torch.int8
+    up = mu.max_unpool2x2(torch.empty(2, 4, 8, 8, device="meta"),
+                          torch.empty(2, 4, 8, 8, device="meta", dtype=torch.int64))
+    assert up.shape == (2, 4, 16, 16)
+    assert pc.launches == 0 and pc.q_launches == 0 and mu.launches == 0

@@ -13,7 +13,6 @@ takes its kernels' plain versions.
 import functools
 import threading
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,18 +20,13 @@ import torch
 import smelter_tpu as st
 import smelter_tpu_torch as stt
 from smelter_tpu.api import _prepare as jax_prepare
-from smelter_tpu.ir.build import GraphBuilder as JGraphBuilder
 from smelter_tpu.kernels import vit_block as jvb
 from smelter_tpu.models import vit as jvit
-from smelter_tpu.runtime.executor import Executor as JExecutor
 from smelter_tpu_torch.api import _prepare as torch_prepare
-from smelter_tpu_torch.ir.build import GraphBuilder
 from smelter_tpu_torch.kernels import layer_norm as ln
 from smelter_tpu_torch.kernels import vit_block as vb
 from smelter_tpu_torch.models import vit
-from smelter_tpu_torch.runtime.executor import Executor
-from smelter_tpu_torch.utils import dtypes as dt
-from torch_port_common import assert_graphs_equal
+from torch_port_common import _close, _one_op, assert_graphs_equal
 
 # ViT at test size: 224 px, patch 16 (197 tokens), dim 256 in 4 heads, 2
 # layers; 197 x 256 = 50,432 clears fuse_vit_block's 50,000 gate.
@@ -50,43 +44,6 @@ def _image(shape, seed=0):
 
 
 # -- op lowerings ----------------------------------------------------------------
-
-def _one_op(op_type, inputs: dict, attrs: dict, inits: dict = (), n_out=1, opset: int = 17,
-            **config):
-    """One node through both executors under the same configuration fields:
-    graph inputs `inputs`, initializers `inits`. Returns (port outputs, JAX
-    outputs) as f32 or integer numpy arrays."""
-    inits = dict(inits)
-    res = []
-    for GB, Ex, cfg, conv in ((GraphBuilder, Executor, stt.Config(device="cpu", **config),
-                               torch.from_numpy),
-                              (JGraphBuilder, JExecutor, st.Config(**config), jnp.asarray)):
-        b = GB("op", opset=opset)
-        for n, a in inputs.items():
-            b.input(n, a.shape, dt.numpy_to_onnx_dtype(a.dtype))
-        for n, a in inits.items():
-            b.init(a, n)
-        names = list(attrs.pop("_order", [])) or list(inputs) + list(inits)
-        outs = b.node(op_type, names, outputs=n_out, **attrs)
-        g = b.finish([o for o in outs if o] if isinstance(outs, list) else [outs])
-        ex = Ex(g, cfg)
-        params = ex.init_params()
-        if Ex is Executor:
-            params = ex.cast_params(params)
-        got = ex.build_fn()(params, *[conv(a.copy()) for a in inputs.values()])
-        res.append([np.asarray(o.float() if isinstance(o, torch.Tensor)
-                               and o.dtype == torch.bfloat16 else o.astype(jnp.float32)
-                               if o.dtype == jnp.bfloat16 else o) for o in got])
-        attrs = dict(attrs, _order=names)
-    return res
-
-
-def _close(got, want, rel=1e-5):
-    assert len(got) == len(want)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape
-        assert np.abs(a.astype(np.float64) - b).max() <= rel * max(np.abs(b).max(), 1e-30)
-
 
 def test_concat_matches_jax():
     rng = np.random.default_rng(0)

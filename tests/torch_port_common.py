@@ -8,11 +8,18 @@ from __future__ import annotations
 
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 import smelter_tpu as st
+import smelter_tpu_torch as stt
+from smelter_tpu.ir.build import GraphBuilder as JGraphBuilder
 from smelter_tpu.models import resnet50 as jax_resnet50
+from smelter_tpu.runtime.executor import Executor as JExecutor
+from smelter_tpu_torch.ir.build import GraphBuilder
+from smelter_tpu_torch.runtime.executor import Executor
+from smelter_tpu_torch.utils import dtypes as dt
 
 # ResNet-50 at test size: one bottleneck per stage, width 16, 16 classes.
 SMALL = dict(batch=2, image_size=32, layers=(1, 1, 1, 1), width=16,
@@ -70,3 +77,40 @@ def assert_graphs_equal(gj, gt) -> None:
     for name, arr in gj.initializers.items():
         assert _same_value(np.asarray(arr), np.asarray(gt.initializers[name])), name
     assert gj.metadata == gt.metadata
+
+
+def _one_op(op_type, inputs: dict, attrs: dict, inits: dict = (), n_out=1, opset: int = 17,
+            **config):
+    """One node through both executors under the same configuration fields:
+    graph inputs `inputs`, initializers `inits`. Returns (port outputs, JAX
+    outputs) as f32 or integer numpy arrays."""
+    inits = dict(inits)
+    res = []
+    for GB, Ex, cfg, conv in ((GraphBuilder, Executor, stt.Config(device="cpu", **config),
+                               torch.from_numpy),
+                              (JGraphBuilder, JExecutor, st.Config(**config), jnp.asarray)):
+        b = GB("op", opset=opset)
+        for n, a in inputs.items():
+            b.input(n, a.shape, dt.numpy_to_onnx_dtype(a.dtype))
+        for n, a in inits.items():
+            b.init(a, n)
+        names = list(attrs.pop("_order", [])) or list(inputs) + list(inits)
+        outs = b.node(op_type, names, outputs=n_out, **attrs)
+        g = b.finish([o for o in outs if o] if isinstance(outs, list) else [outs])
+        ex = Ex(g, cfg)
+        params = ex.init_params()
+        if Ex is Executor:
+            params = ex.cast_params(params)
+        got = ex.build_fn()(params, *[conv(a.copy()) for a in inputs.values()])
+        res.append([np.asarray(o.float() if isinstance(o, torch.Tensor)
+                               and o.dtype == torch.bfloat16 else o.astype(jnp.float32)
+                               if o.dtype == jnp.bfloat16 else o) for o in got])
+        attrs = dict(attrs, _order=names)
+    return res
+
+
+def _close(got, want, rel=1e-5):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert np.abs(a.astype(np.float64) - b).max() <= rel * max(np.abs(b).max(), 1e-30)
