@@ -27,14 +27,22 @@ its number:
    N 197, D 768, 12 heads (and in f32 at batch 8), plus small shapes for
    pre_ln=0, both mask forms and head dim 32; `pixel_conv_rowdot` (bf16,
    and f32 at batch 1) and `pixel_conv_rowdot_q` (int8 and bf16 out) at
-   each of ESRGAN x4's PixelConv shapes at batch 8, and `max_unpool2x2` at
-   SegNet's three unpools at batch 16;
+   each of ESRGAN x4's PixelConv shapes at batch 8, `max_unpool2x2` at
+   SegNet's three unpools at batch 16, and, on (B, H, N, hd) views of
+   (B, N, H, hd) tensors as the HF-layout ViT hands them over,
+   `short_attention` at ViT-B/16 224 px (B 128, H 12, N 197, hd 64; f32 at
+   batch 8), `flash_attention` at 384 px (B 64, N 577) and at N 2048 and
+   4096 (B 2; small in f32), and `mlp_block` at 25,216 rows of 768 with F
+   3072 (f32 at batch 8, plus a small pre_ln=0 / tanh case);
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
-   f32, bf16 and bf16 with int8 activations, checked against the port's CPU
-   run of the same graph, timed in images/s;
-4. the server: `serve(..., max_batch=16)` answers 32 threaded requests;
+   f32 (default routing), bf16 and bf16 with int8 activations under
+   `use_pallas=True` (the head on `dequant_matmul` or `int8_matmul`), and
+   bf16 on the default routing (the head on its composite, no port kernel),
+   checked against the port's CPU run of the same graph, timed in images/s;
+4. the server: `serve(..., use_pallas=True, max_batch=16)` answers 32
+   threaded requests;
 5. the paged decode serving path at llama_1b's full width and depth (vocab
    32000, dim 2048, 16 heads, 8 KV heads, ffn 5632, 24 layers; random
    weights from a seed), int4-g128 weights, int8 KV pools of 128-row pages,
@@ -80,6 +88,22 @@ its number:
    near-ties) and bf16 within 3x the CPU's bf16 error; (e) the default
    bf16 routing (3 `max_unpool2x2`) and the graph without passes; (f) the
    server;
+10. ViT-B/16 in the Hugging Face layout (`tests/torch_hf_vit.py`: separate
+   q/k/v Linears, the attention as one unmarked FusedAttention a layer; the
+   published widths of google/vit-base-patch16-224 and -384, 12 layers,
+   random weights from seed 0), exported on the card by the port's
+   exporter: gates at 224 px batch 8 and 384 px batch 2 (f32 and bf16 on
+   the card under `use_pallas=True` against the port's CPU f32 run, as
+   phase 8); then images/s, idle share, top ops and peak memory of (c) 224
+   px b128 bf16 on the default config (library attention, no port kernel),
+   (a) the same under `use_pallas` (12 `short_attention`, one
+   `residual_layer_norm` per SkipLayerNormalization), (b) 384 px b64 under
+   `use_pallas` (12 `flash_attention`), (d) (c)'s graph and the zoo's
+   ViT-B/16 with `fuse_mlp_block` (12 `mlp_block`; the zoo also 12
+   `vit_attention_block`), each within the bf16 bound of its default; (e) a
+   one-node FusedAttention graph at N 4096 and 2048 through `compile` in
+   bf16 on the default config (1 `flash_attention` each, against SDPA); (f)
+   `serve(..., use_pallas=True, max_batch=16)` answering 32 requests;
 6. printed last: each kernel's launches on its path, and the total time.
 
 Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
@@ -90,7 +114,8 @@ it routes to and no other: a decode step 169 int4_matmul and 24 attention
 launches (paged or ragged), a prefill 169 int4_matmul, a ViT-B/16 forward
 12 blocks (and 13 residual or 25 plain LayerNorms where the configuration
 routes them), an ESRGAN x4 forward 349 pixel convs, a SegNet forward 3
-unpools.
+unpools, an HF-layout ViT-B/16 forward 12 short or flash attentions or 12
+MLPs, a one-node attention graph at N >= 2048 one flash attention.
 `FusedGenerator` replays a CUDA graph, whose launches the wrappers count
 once, at capture. The last three lines are the kernels'
 JSON line, the card's name and power limit, and `{"ok": true, "device":
@@ -135,6 +160,10 @@ BUCKETS = (64, 256)  # the prefill ladder bench.py --serve-decode builds
 # MLP 3072, 1000 classes; served at batch 128 in bf16.
 VIT_B16 = dict(image_size=224, patch=16, dim=768, depth=12, heads=12, num_classes=1000)
 VIT_BATCH = 128
+# ViT-B/16 in the Hugging Face layout (tests/torch_hf_vit.py: the published
+# widths of google/vit-base-patch16-224 and -384), served at batch 128 at
+# 224 px and batch 64 at 384 px (N 577); the f32 gates at batch 8 and 2.
+HF_384_BATCH = 64
 # ESRGAN x4 at the width and depth of ESRGAN / Real-ESRGAN's RealESRGAN_x4plus
 # (nf 64, gc 32, 23 RRDBs), the zoo's RRDBNet, 128 px in, served at batch 8
 # (the README's ESRGAN row); the CPU gates run the zoo's default depth, 4.
@@ -162,7 +191,10 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "vit_attention_block": ("vit_block", "launches"),
            "pixel_conv_rowdot": ("pixel_conv", "launches"),
            "pixel_conv_rowdot_q": ("pixel_conv", "q_launches"),
-           "max_unpool2x2": ("max_unpool", "launches")}
+           "max_unpool2x2": ("max_unpool", "launches"),
+           "short_attention": ("attention_short", "launches"),
+           "flash_attention": ("flash_attention", "launches"),
+           "mlp_block": ("mlp_block", "launches")}
 
 REPORT: dict = {}
 
@@ -961,6 +993,153 @@ def phase_image_kernels(torch, power_w: float) -> dict:
     return rows
 
 
+def phase_encoder_kernels(torch, power_w: float) -> dict:
+    """The transformer encoder's kernels against their plain versions, on
+    operands laid out as the HF-layout ViT's graph hands them over ((B, H,
+    N, hd) views of (B, N, H, hd) tensors): short_attention at ViT-B/16
+    224 px (B 128, H 12, N 197, hd 64) in bf16 and at batch 8 in f32;
+    flash_attention at 384 px (B 64, N 577) and at the auto-flash shapes (B
+    2, N 2048 and 4096) in bf16, and small in f32; mlp_block at 224 px
+    batch 128 (25,216 rows, D 768, F 3072) in bf16 and at batch 8 in f32,
+    plus a small pre_ln=0 / tanh case. Timed in bf16: kernel by graph
+    replay, host cost of a call, plain version, library yardstick (SDPA;
+    F.layer_norm, addmm, gelu, addmm and the add), bound."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import attention_short as sa
+    from smelter_tpu_torch.kernels import flash_attention as fa
+    from smelter_tpu_torch.kernels import mlp_block as mb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    side = torch.cuda.Stream()
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, hd, D, Fh = VIT_B16["heads"], VIT_B16["dim"] // VIT_B16["heads"], VIT_B16["dim"], 3072
+    rows = {}
+
+    def err_of(got, ref, rel, label):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(got.shape == ref.shape and got.dtype == ref.dtype and math.isfinite(err)
+              and err <= rel * scale, f"{label}: max-abs {err} > {rel} x {scale}")
+        return err, f"{rel} x max|plain| = {rel * scale:.4g}"
+
+    def bnhd(B, N, dtype):
+        return (torch.randn(B, N, H, hd, device="cuda", generator=gen)
+                .to(dtype).permute(0, 2, 1, 3))
+
+    def timed(r, call, plain, lib, nbytes, flops, iters):
+        r["ms"] = graph_ms(torch, side, call, iters)
+        r["call_ms"] = time_ms(torch, call, iters)
+        r["plain_ms"] = graph_ms(torch, side, plain, max(1, iters // 4))
+        r["library_ms"] = graph_ms(torch, side, lib, iters)
+        r["bytes"], r["flops"] = nbytes, flops
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, "bf16", power_w)
+
+    # -- the attention kernels: (name, module, B, Nq, Nk, calls a forward, path)
+    for name, mod, B, Nq, Nk, calls, path in (
+            ("short_attention", sa, VIT_BATCH, 197, 197, 12, "224 px b128"),
+            ("flash_attention", fa, HF_384_BATCH, 577, 577, 12, "384 px b64"),
+            ("flash_attention", fa, 2, 2048, 2048, 1, "auto flash N 2048"),
+            ("flash_attention", fa, 2, 4096, 4096, 1, "auto flash N 4096")):
+        fn = sa.short_attention if mod is sa else fa.flash_attention
+        plain_fn = sa.short_attention_plain if mod is sa else fa.flash_attention_plain
+        scale = hd ** -0.5
+        nbytes = 2 * B * H * (2 * Nq + 2 * Nk) * hd
+        sets = [(bnhd(B, Nq, bf16), bnhd(B, Nk, bf16), bnhd(B, Nk, bf16))
+                for _ in range(_copies(nbytes))]
+        n = len(sets)
+        r = {"name": name, "shape": [B, H, Nq, Nk, hd], "calls_per_forward": calls,
+             "path": path, "library": "F.scaled_dot_product_attention on the same views"}
+        # bf16: p is rounded to bf16 before p V in the kernel (both kernels)
+        # and not in flash's plain version; sums in other orders: 1e-2
+        r["max_abs_err"], r["tolerance"] = err_of(fn(*sets[0], scale=scale),
+                                                  plain_fn(*sets[0], scale=scale), 1e-2,
+                                                  f"{name} {path} bf16")
+        timed(r, lambda i: fn(*sets[i % n], scale=scale),
+              lambda i: plain_fn(*sets[i % n], scale=scale),
+              lambda i: F.scaled_dot_product_attention(*sets[i % n], scale=scale),
+              nbytes, 4 * B * H * Nq * Nk * hd, 10 if B * Nq * Nk < 2e7 else 5)
+        del sets
+        rows[(name, path)] = r
+    # f32 (full f32, sums in other orders: 1e-5) at the path's f32 gates' shapes
+    for name, fn, plain_fn, B, N in (
+            ("short_attention", sa.short_attention, sa.short_attention_plain, 8, 197),
+            ("flash_attention", fa.flash_attention, fa.flash_attention_plain, 2, 577)):
+        args = (bnhd(B, N, f32), bnhd(B, N, f32), bnhd(B, N, f32))
+        r = next(r for k, r in rows.items() if k[0] == name)
+        r[f"f32_b{B}_err"], r["f32_tolerance"] = err_of(
+            fn(*args, scale=0.125), plain_fn(*args, scale=0.125), 1e-5, f"{name} f32 b{B}")
+
+    # -- mlp_block ---------------------------------------------------------
+    def mlp_args(B, N, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def rnd(*shape, s=1.0):
+            return torch.randn(*shape, device="cuda", generator=g) * s
+
+        return (rnd(B, N, D).to(dtype), 1 + rnd(D, s=0.1), rnd(D, s=0.1),
+                rnd(D, Fh, s=D ** -0.5).to(dtype), rnd(Fh, s=0.1),
+                rnd(Fh, D, s=Fh ** -0.5).to(dtype), rnd(D, s=0.1))
+
+    B, N = VIT_BATCH, 197
+    M = B * N
+    kw = dict(eps=1e-12)
+    nbytes = 2 * (2 * M * D + 2 * D * Fh) + 4 * (3 * D + Fh)
+    sets = [mlp_args(B, N, bf16, 10 + i) for i in range(_copies(nbytes))]
+    n = len(sets)
+    r = {"name": "mlp_block", "shape": [M, D, Fh], "calls_per_forward": 12,
+         "path": "224 px b128",
+         "library": "F.layer_norm, torch.addmm, F.gelu, torch.addmm, the residual add"}
+
+    lib_params = [[t.to(bf16) for t in (g, b, b1, b2)] for _, g, b, _, b1, _, b2 in sets]
+
+    def lib(i):
+        x, _, _, w1, _, w2, _ = sets[i % n]
+        g, b, b1, b2 = lib_params[i % n]
+        x2 = x.reshape(M, D)
+        h = F.gelu(torch.addmm(b1, F.layer_norm(x2, (D,), g, b, 1e-12), w1))
+        return torch.addmm(b2, h, w2) + x2
+
+    # bf16: xn and h round to bf16 after sums in other orders: 1e-2
+    r["max_abs_err"], r["tolerance"] = err_of(mb.mlp_block(*sets[0], **kw),
+                                              mb.mlp_block_plain(*sets[0], **kw), 1e-2,
+                                              "mlp_block bf16")
+    timed(r, lambda i: mb.mlp_block(*sets[i % n], **kw),
+          lambda i: mb.mlp_block_plain(*sets[i % n], **kw), lib, nbytes, 4 * M * D * Fh, 5)
+    del sets, lib_params
+    args = mlp_args(8, N, f32, 30)
+    r["f32_b8_err"], r["f32_tolerance"] = err_of(mb.mlp_block(*args, **kw),
+                                                 mb.mlp_block_plain(*args, **kw), 1e-5,
+                                                 "mlp_block f32 b8")
+    small = {}
+    for dtype, rel in ((bf16, 1e-2), (f32, 1e-5)):
+        args = mlp_args(2, 50, dtype, 31)
+        kws = dict(eps=1e-6, pre_ln=False, approximate=True, residual=False)
+        small[f"pre_ln=0 tanh 2x50 {str(dtype)[6:]}"] = err_of(
+            mb.mlp_block(*args, **kws), mb.mlp_block_plain(*args, **kws), rel,
+            f"mlp_block pre_ln=0 {dtype}")[0]
+    r["small_forms_err"] = small
+    rows[("mlp_block", "224 px b128")] = r
+
+    for r in rows.values():
+        f32 = "; ".join(f"{k[:-4]} err {v:.3g} ({r['f32_tolerance']})"
+                        for k, v in r.items() if k.startswith("f32_b") and k.endswith("_err"))
+        say(2, f"{r['name']} {r['path']} {r['shape']} bf16: err {r['max_abs_err']:.3g} "
+               f"({r['tolerance']}){'; ' + f32 if f32 else ''} | kernel {r['ms']:.4f} ms (host "
+               f"cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+               f"{r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
+               f"({r['bound_by']}, {r['bytes']} bytes, {r['flops']:.4g} operations) = "
+               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+               f"{r['flops'] / r['ms'] / 1e9:.1f} TF/s | {r['calls_per_forward']} calls a "
+               f"forward")
+    say(2, "mlp_block at small shapes vs plain: "
+           + "; ".join(f"{k} {v:.3g}" for k, v in small.items()))
+    REPORT["encoder_kernels"] = [dict(r) for r in rows.values()]
+    return rows
+
+
 def per_forward(rows: dict, name: str) -> dict:
     """A kernel's numbers over one forward's calls (calls x per call)."""
     rs = [r for r in rows.values() if r.get("name") == name]
@@ -1080,10 +1259,13 @@ def phase_main(torch, np, stt) -> dict:
     del gpu32
 
     xg = torch.from_numpy(x).cuda()
+    # use_pallas routes the int8 head to the kernels, as the JAX package's
+    # FusedDequantMatMul lowering does; the default routes to the composites
     for label, cfg, routed in (
-            ("bf16", stt.Config(compute_dtype="bfloat16"), "dequant_matmul"),
-            ("bf16_int8act", stt.Config(compute_dtype="bfloat16", int8_activations=True),
-             "int8_matmul")):
+            ("bf16", stt.Config(compute_dtype="bfloat16", use_pallas=True), "dequant_matmul"),
+            ("bf16_int8act", stt.Config(compute_dtype="bfloat16", int8_activations=True,
+                                        use_pallas=True), "int8_matmul"),
+            ("bf16_default", stt.Config(compute_dtype="bfloat16"), set())):
         _zero_counts()
         model = stt.compile(onnx_path, cfg, quant="int8", device="cuda")
         got = model(x)[0]
@@ -1125,7 +1307,7 @@ def phase_main(torch, np, stt) -> dict:
 
 def phase_serve(torch, np, stt) -> dict:
     onnx_path = ROOT / "build" / "chip_smoke" / "resnet50_b128.onnx"
-    cfg = stt.Config(compute_dtype="bfloat16")
+    cfg = stt.Config(compute_dtype="bfloat16", use_pallas=True)
     xs = np.random.default_rng(1).standard_normal((32, 3, 224, 224)).astype(np.float32)
     direct = stt.compile(onnx_path, cfg, quant="int8", device="cuda")(xs)[0]
     _zero_counts()
@@ -1761,23 +1943,27 @@ def _vit_graph(batch: int):
     return vit.build(batch=batch, seed=0, **VIT_B16)[0]
 
 
-# The symbols of csrc/vit_block.cu's and csrc/layer_norm.cuh's kernels, as
+# The symbols of the transformer kernels (csrc/vit_block.cu, gemm.cuh,
+# layer_norm.cuh, attention.cuh, flash_attention.cu, attention_short.cu), as
 # the profiler names them (library kernels also hold "gemm" and "attention").
-_PORT_VIT_KERNEL = re.compile(r"\(anonymous namespace\)::(gemm_mma|gemm_f32|attention_mma|"
-                              r"attention_rows)<|smelter::layer_norm_rows<")
+_PORT_VIT_KERNEL = re.compile(r"(smelter|\(anonymous namespace\))::(gemm_mma|gemm_f32|"
+                              r"attention_mma|attention_rows|flash_mma|short_mma|"
+                              r"layer_norm_rows)<")
 
 
 def _vit_forward(torch, np, model, xg, label: str, routed: dict) -> dict:
-    """One forward of a compiled ViT-B/16 at VIT_BATCH with the launch check
+    """One forward of a compiled ViT-B/16 at xg's batch with the launch check
     (exactly `routed` launches, no other kernel), then images/s over 20
     forwards by CUDA events, peak memory and a profile of 3 forwards."""
+    batch = xg.shape[0]
     _zero_counts()
     logits = model.run_device(xg)[0].float().cpu().numpy()
     launches = _counts()
-    _check_routed(label, launches, routed)
+    check(all(n == 0 for k, n in launches.items() if k not in routed),
+          f"{label}: a kernel other than {set(routed)} launched ({launches})")
     for k, want in routed.items():
         check(launches[k] == want, f"{label}: {k} launched {launches[k]} times, not {want}")
-    check(logits.shape == (VIT_BATCH, VIT_B16["num_classes"]) and np.isfinite(logits).all(),
+    check(logits.shape == (batch, VIT_B16["num_classes"]) and np.isfinite(logits).all(),
           f"{label}: logits")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1786,7 +1972,7 @@ def _vit_forward(torch, np, model, xg, label: str, routed: dict) -> dict:
     per, by_op, n_k = _profile(torch, lambda: model.run_device(xg))
     busy = sum(per.values())
     ours = {k: v for k, v in per.items() if _PORT_VIT_KERNEL.search(k)}
-    return {"launches": launches, "step_ms": step_ms, "images_per_s": VIT_BATCH * 1e3 / step_ms,
+    return {"launches": launches, "step_ms": step_ms, "images_per_s": batch * 1e3 / step_ms,
             "peak_mem_gb": peak_gb, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / step_ms), "kernels_per_forward": n_k,
             "port_kernel_ms": sum(ours.values()),
@@ -1800,7 +1986,8 @@ def phase_vit(torch, np, stt) -> dict:
     against the port's CPU f32 run, and in bf16; (b) the default bf16
     configuration at batch 128; (c) `use_pallas=True`; (d) the graph without
     passes under `fused_layernorm=True`, as bench.py's baseline compiles it;
-    (e) `serve(...)`."""
+    (e) `serve(...)`. Returns the report and the batch-128 graph without
+    passes."""
     import copy
 
     from smelter_tpu_torch.runtime.executor import CompiledModel
@@ -1910,6 +2097,7 @@ def phase_vit(torch, np, stt) -> dict:
                + "; ".join(f"{k} {v:.3f}" for k, v in r["top_host_ops_ms"]))
         say(8, "  device ms a forward by kernel: "
                + "; ".join(f"{k[:50]} {v:.3f}" for k, v in r["top_kernels_ms"][:6]))
+    zoo = copy.deepcopy(raw)  # for phase 10's fuse_mlp_block run
     del g, raw, xg
     for r in runs.values():
         r.pop("logits")
@@ -1955,7 +2143,7 @@ def phase_vit(torch, np, stt) -> dict:
            f"{stats['latency_ms_p50']:.1f} ms, p95 {stats['latency_ms_p95']:.1f} ms | vs direct: "
            f"max-abs {err:.3g} (bound 5e-2 x {dscale:.3g}), top-1 "
            f"{res['serve']['top1_vs_direct']:.4f}")
-    return res
+    return res, zoo
 
 
 # -- phase 9 ---------------------------------------------------------------
@@ -2348,6 +2536,245 @@ def phase_segnet(torch, np, stt) -> dict:
     return res
 
 
+# -- phase 10 --------------------------------------------------------------
+
+def _hf_vit_graph(torch, batch: int, image_size: int):
+    """ViT-B/16 in the Hugging Face layout (tests/torch_hf_vit.py: 12
+    layers at the published widths, random weights from seed 0) at `batch`,
+    exported by the port's exporter. The module runs on the card for the
+    exporter's shape propagation."""
+    import importlib.util
+
+    from smelter_tpu_torch.frontend.torch_export import export_torch
+
+    spec = importlib.util.spec_from_file_location("torch_hf_vit",
+                                                  ROOT / "tests" / "torch_hf_vit.py")
+    hf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hf)
+    m = hf.create(batch=batch, seed=0, image_size=image_size).cuda()
+    example = torch.zeros(hf.input_shape(batch, image_size), device="cuda")
+    return export_torch(m, example, name=f"hf_vit_b16_{image_size}")
+
+
+def _gate(np, got, ref, ref16, label: str) -> dict:
+    """f32 on the card within 1e-3 x max|ref| of the CPU's f32 run; bf16
+    within 3x the CPU's own bf16 error, top-1 equal on the clear rows."""
+    scale = float(np.abs(ref).max())
+    gap = np.diff(np.sort(ref, axis=1)[:, -2:], axis=1)[:, 0]
+    err32 = float(np.abs(got["f32"] - ref).max())
+    err16 = float(np.abs(got["bf16"] - ref).max())
+    err_cpu16 = float(np.abs(ref16 - ref).max())
+    for k, v in got.items():
+        check(v.shape == ref.shape and np.isfinite(v).all(), f"{label} {k} logits")
+    # f32 on the card sums in other orders than the CPU through 12 layers
+    # (cuBLAS GEMMs, the attention kernels, cuDNN's patch conv), all in full
+    # f32: 1e-3.
+    check(err32 <= 1e-3 * scale, f"{label} f32: max-abs {err32} > 1e-3 x {scale}")
+    limit16 = 3 * err_cpu16
+    check(err16 <= limit16, f"{label} bf16: max-abs {err16} > 3 x the CPU bf16's {err_cpu16}")
+    agree = got["bf16"].argmax(1) == ref.argmax(1)
+    clear = gap > 2 * err16
+    check(bool(agree[clear].all()), f"{label} bf16: top-1 differs on a clear row")
+    return {"max_abs_ref": scale, "f32_max_abs_err": err32, "bf16_max_abs_err": err16,
+            "cpu_bf16_max_abs_err": err_cpu16, "bf16_limit": limit16,
+            "bf16_top1_agree": float(agree.mean()), "clear_rows": int(clear.sum())}
+
+
+def phase_hf_vit(torch, np, stt, zoo, zoo_bound16: float) -> dict:
+    """ViT-B/16 in the Hugging Face layout at full width and depth, its
+    attention as unmarked FusedAttention nodes: gates at 224 px batch 8 and
+    384 px batch 2 (f32 and bf16 on the card under use_pallas against the
+    port's CPU runs); (a) 224 px b128 bf16 use_pallas (12 short_attention a
+    forward); (b) 384 px b64 (12 flash_attention); (c) 224 px b128 default
+    (the library attention, no port kernel); (d) fuse_mlp_block on (c)'s
+    graph (12 mlp_block) and on the zoo's ViT-B/16 (12 mlp_block, 12
+    vit_attention_block); (e) a one-node FusedAttention graph at N 4096 and
+    2048 through compile in bf16 (1 flash_attention each, no use_pallas);
+    (f) serve(..., use_pallas, max_batch=16) answering 32 requests. `zoo` is
+    phase 8's ViT-B/16 graph at batch 128 without passes, and zoo_bound16
+    phase 8's bf16 bound between its routings."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.api import _prepare
+    from smelter_tpu_torch.ir.build import GraphBuilder
+    from smelter_tpu_torch.passes.pass_manager import run_passes
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    res: dict = {}
+    layers = VIT_B16["depth"]
+    pallas32, pallas16 = stt.Config(use_pallas=True), stt.Config(use_pallas=True,
+                                                                 compute_dtype="bfloat16")
+
+    def n_sln(g) -> int:
+        """SkipLayerNormalization nodes of the prepared graph: each takes
+        residual_layer_norm under use_pallas."""
+        gp = _prepare(copy.deepcopy(g), None, True, "nhwc")
+        return sum(n.op_type == "SkipLayerNormalization" for n in gp.nodes)
+
+    # gates: f32 and bf16 on the card under use_pallas against the CPU
+    t0 = time.perf_counter()
+    for size, batch, kernel in ((224, 8, "short_attention"), (384, 2, "flash_attention")):
+        g = _hf_vit_graph(torch, batch, size)
+        x = np.random.default_rng(10).standard_normal((batch, 3, size, size)).astype(np.float32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ref = stt.compile(copy.deepcopy(g), pallas32, device="cpu")(x)[0]
+        ref16 = stt.compile(copy.deepcopy(g), pallas16, device="cpu")(x)[0]
+        got = {}
+        for label, cfg in (("f32", pallas32), ("bf16", pallas16)):
+            model = stt.compile(copy.deepcopy(g), cfg, device="cuda")
+            _zero_counts()
+            got[label] = model(x)[0]
+            launches = _counts()
+            check(launches[kernel] == layers, f"HF ViT {size} b{batch} {label}: {kernel} "
+                                              f"launched {launches[kernel]} times")
+            del model
+        torch.backends.cudnn.allow_tf32 = True
+        r = res[f"gate_{size}"] = _gate(np, got, ref, ref16, f"HF ViT {size} b{batch}")
+        say(10, f"gate {size} px batch {batch} vs the CPU's f32 run (max|ref| "
+                f"{r['max_abs_ref']:.4g}): card f32 max-abs {r['f32_max_abs_err']:.4g} (bound "
+                f"{1e-3 * r['max_abs_ref']:.4g}); bf16 {r['bf16_max_abs_err']:.4g} (bound 3 x "
+                f"the CPU bf16's {r['cpu_bf16_max_abs_err']:.4g}), top-1 "
+                f"{r['bf16_top1_agree']:.3f} (clear rows {r['clear_rows']}) | {layers} {kernel} "
+                f"a forward")
+    res["gates_s"] = time.perf_counter() - t0
+    bound16 = res["gate_224"]["bf16_limit"]
+
+    # (a)-(d) at full batch, each profiled
+    runs = {}
+    x224 = np.random.default_rng(11).standard_normal((VIT_BATCH, 3, 224, 224)).astype(np.float32)
+    x384 = np.random.default_rng(12).standard_normal((HF_384_BATCH, 3, 384, 384)).astype(
+        np.float32)
+    g224 = _hf_vit_graph(torch, VIT_BATCH, 224)
+    g384 = _hf_vit_graph(torch, HF_384_BATCH, 384)
+    sln224, sln384 = n_sln(g224), n_sln(g384)
+
+    def mlp_fused(g):
+        gp = _prepare(copy.deepcopy(g), None, True, "nhwc")
+        check(run_passes(gp, ["fuse_mlp_block", "dce"]) is gp, "fuse_mlp_block")
+        check(sum(n.op_type == "MlpBlock" for n in gp.nodes) == layers,
+              "fuse_mlp_block left an MLP unfused")
+        return CompiledModel(gp, stt.Config(compute_dtype="bfloat16"))
+
+    cases = (
+        ("c_default_224", lambda: stt.compile(copy.deepcopy(g224),
+                                              stt.Config(compute_dtype="bfloat16"),
+                                              device="cuda"), x224, {}, None),
+        ("a_short_224", lambda: stt.compile(copy.deepcopy(g224), pallas16, device="cuda"),
+         x224, {"short_attention": layers, "residual_layer_norm": sln224}, "c_default_224"),
+        ("b_flash_384", lambda: stt.compile(copy.deepcopy(g384), pallas16, device="cuda"),
+         x384, {"flash_attention": layers, "residual_layer_norm": sln384}, None),
+        ("d_mlp_block_224", lambda: mlp_fused(g224), x224, {"mlp_block": layers},
+         "c_default_224"),
+        ("d_zoo_default", lambda: stt.compile(copy.deepcopy(zoo),
+                                              stt.Config(compute_dtype="bfloat16"),
+                                              device="cuda"), x224,
+         {"vit_attention_block": layers}, None),
+        ("d_zoo_mlp_block", lambda: mlp_fused(zoo), x224,
+         {"mlp_block": layers, "vit_attention_block": layers}, "d_zoo_default"))
+    for label, make, x, routed, versus in cases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = make()
+        compile_s = time.perf_counter() - t0
+        xg = torch.from_numpy(x).cuda()
+        r = _vit_forward(torch, np, model, xg, f"HF ViT {label}", routed)
+        r["compile_s"] = compile_s
+        if versus is not None:
+            b = zoo_bound16 if versus == "d_zoo_default" else bound16
+            base = runs[versus]["logits"]
+            r["max_abs_vs"] = float(np.abs(r["logits"] - base).max())
+            r["top1_vs"] = _top1(r["logits"], base)
+            check(r["max_abs_vs"] <= b, f"HF ViT {label}: logits {r['max_abs_vs']} from "
+                                        f"{versus}'s (bound {b})")
+        runs[label] = r
+        del model, xg
+        vs = (f" | vs {versus}: max-abs {r['max_abs_vs']:.4g}, top-1 {r['top1_vs']:.4f}"
+              if versus is not None else "")
+        say(10, f"({label}) bf16 batch {x.shape[0]}: {r['images_per_s']:.1f} images/s, step "
+                f"{r['step_ms']:.3f} ms, idle share {100 * r['idle_share']:.1f}% (profiled busy "
+                f"{r['device_busy_ms']:.3f} ms, ~{r['kernels_per_forward']:.0f} kernels), port "
+                f"kernels {r['port_kernel_ms']:.3f} ms, peak {r['peak_mem_gb']:.2f} GB, "
+                f"compiled in {compile_s:.1f} s | launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }" + vs)
+        say(10, "  device ms a forward by host op: "
+                + "; ".join(f"{k} {v:.3f}" for k, v in r["top_host_ops_ms"]))
+        say(10, "  device ms a forward by kernel: "
+                + "; ".join(f"{k[:50]} {v:.3f}" for k, v in r["top_kernels_ms"][:6]))
+    for r in runs.values():
+        r.pop("logits")
+    res.update(runs)
+    del g384
+
+    # (e) the default config's auto flash on a one-node graph
+    for N in (4096, 2048):
+        shape = (2, VIT_B16["heads"], N, VIT_B16["dim"] // VIT_B16["heads"])
+        b = GraphBuilder("attn", opset=17)
+        q, k, v = (b.input(n, shape) for n in "qkv")
+        g = b.finish([b.node("FusedAttention", [q, k, v], scale=0.125)])
+        model = stt.compile(g, stt.Config(compute_dtype="bfloat16"), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(N)
+        qkv = [torch.randn(shape, device="cuda", generator=gen) for _ in range(3)]
+        _zero_counts()
+        out = model.run_device(*qkv)[0]
+        launches = _counts()
+        check(launches["flash_attention"] == 1 and sum(launches.values()) == 1,
+              f"auto flash N {N}: launches {launches}")
+        ref = F.scaled_dot_product_attention(*(t.bfloat16() for t in qkv), scale=0.125)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(out.shape == shape and err <= 1e-2 * scale,
+              f"auto flash N {N}: max-abs {err} vs SDPA > 1e-2 x {scale}")
+        ms = time_ms(torch, lambda i: model.run_device(*qkv), 20)
+        res[f"e_auto_flash_{N}"] = {"launches": launches, "max_abs_vs_sdpa": err, "ms": ms}
+        say(10, f"(e) one-node FusedAttention {list(shape)} bf16, default config: 1 "
+                f"flash_attention launch | vs SDPA max-abs {err:.3g} (bound 1e-2 x {scale:.3g}) "
+                f"| {ms:.4f} ms a forward (host-timed with the cast of q, k, v)")
+        del model, qkv
+
+    # (f) serve(...) on (a)'s routing: one bucket of 16, 32 threaded requests
+    g16 = _hf_vit_graph(torch, 16, 224)
+    xs = x224[:32]
+    direct_model = stt.compile(copy.deepcopy(g16), pallas16, device="cuda")
+    direct = np.concatenate([direct_model(xs[:16])[0], direct_model(xs[16:])[0]])
+    del direct_model
+    _zero_counts()
+    server = stt.serve(g16, pallas16, device="cuda", max_batch=16, buckets=(16,))
+    results = [None] * len(xs)
+    try:
+        check(server.wait_ready(600), "HF ViT server bucket did not warm up")
+
+        def ask(i):
+            results[i] = server.infer(xs[i])[0]
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        stats = server.stats()
+    finally:
+        server.shutdown()
+    launches = _counts()
+    _check_routed("HF ViT server", launches, {"short_attention", "residual_layer_norm"})
+    check(all(r is not None for r in results), "HF ViT server left requests unanswered")
+    err = float(np.abs(np.stack(results) - direct).max())
+    dscale = float(np.abs(direct).max())
+    check(stats["requests"] == 32 and stats["errors"] == 0, f"HF ViT server stats {stats}")
+    check(err <= 5e-2 * dscale, f"HF ViT served vs direct: max-abs {err} > 5e-2 x {dscale}")
+    res["f_serve"] = {"launches": launches, "stats": stats, "max_abs_vs_direct": err}
+    say(10, f"(f) served {stats['requests']} requests in {stats['batches']} batches of up to "
+            f"16, launches {launches['short_attention']} short_attention (bucket warm-up "
+            f"included) | p50 {stats['latency_ms_p50']:.1f} ms, p95 "
+            f"{stats['latency_ms_p95']:.1f} ms | vs direct: max-abs {err:.3g} (bound 5e-2 x "
+            f"{dscale:.3g})")
+    return res
+
+
 # -- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -2370,6 +2797,7 @@ def main() -> int:
     ragged_rows = phase_ragged_kernel(torch, power_w)
     vit_rows = phase_vit_kernels(torch, np, power_w)
     image_rows = phase_image_kernels(torch, power_w)
+    encoder_rows = phase_encoder_kernels(torch, power_w)
 
     main_path = REPORT["main_path"] = phase_main(torch, np, stt)
     REPORT["serve"] = phase_serve(torch, np, stt)
@@ -2378,9 +2806,12 @@ def main() -> int:
     static = REPORT["static"] = phase_static(torch, np, stt, paged_graph, paged_reqs,
                                              paged["serve_t1"]["tok_s"])
     del paged_graph
-    vit = REPORT["vit"] = phase_vit(torch, np, stt)
+    vit, zoo = phase_vit(torch, np, stt)
+    REPORT["vit"] = vit
     sr = REPORT["esrgan"] = phase_esrgan(torch, np, stt)
     seg = REPORT["segnet"] = phase_segnet(torch, np, stt)
+    hfv = REPORT["hf_vit"] = phase_hf_vit(torch, np, stt, zoo, vit["b8"]["bf16_bound_b128"])
+    del zoo
     # Each kernel's launches on the path that routes to it.
     launches = {"dequant_matmul": main_path["bf16"]["launches"]["dequant_matmul"],
                 "int8_matmul": main_path["bf16_int8act"]["launches"]["int8_matmul"],
@@ -2394,10 +2825,15 @@ def main() -> int:
                 "vit_attention_block": vit["default"]["launches"]["vit_attention_block"],
                 "pixel_conv_rowdot": sr["default"]["launches"]["pixel_conv_rowdot"],
                 "pixel_conv_rowdot_q": sr["int8_pixel"]["launches"]["pixel_conv_rowdot_q"],
-                "max_unpool2x2": seg["default"]["launches"]["max_unpool2x2"]}
+                "max_unpool2x2": seg["default"]["launches"]["max_unpool2x2"],
+                "short_attention": hfv["a_short_224"]["launches"]["short_attention"],
+                "flash_attention": hfv["b_flash_384"]["launches"]["flash_attention"],
+                "mlp_block": hfv["d_mlp_block_224"]["launches"]["mlp_block"]}
     say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
-    # ResNet-50 kernels: one call at the head shape. Decode kernels: the
+    # ResNet-50 kernels: one call at the head shape (its launches from the
+    # use_pallas forward). Encoder kernels: one call at the HF-layout
+    # ViT-B/16's shapes (224 px b128; flash at 384 px b64). Decode kernels: the
     # sum over one decode step's calls (169 int4_matmul, 24 attention). ViT
     # kernels: one call at ViT-B/16's batch-128 shape. Image kernels: the sum
     # over one forward's calls (349 pixel convs of ESRGAN x4 at batch 8, 3
@@ -2438,7 +2874,16 @@ def main() -> int:
                                        "forward"),
                "max_unpool2x2": ("smelter_tpu_torch/csrc/max_unpool.cu",
                                  "smelter_tpu/kernels/max_unpool.py:78",
-                                 per_forward(image_rows, "max_unpool2x2"), "forward")}
+                                 per_forward(image_rows, "max_unpool2x2"), "forward"),
+               "short_attention": ("smelter_tpu_torch/csrc/attention_short.cu",
+                                   "smelter_tpu/kernels/attention_short.py:74",
+                                   encoder_rows[("short_attention", "224 px b128")], "call"),
+               "flash_attention": ("smelter_tpu_torch/csrc/flash_attention.cu",
+                                   "smelter_tpu/kernels/flash_attention.py:93",
+                                   encoder_rows[("flash_attention", "384 px b64")], "call"),
+               "mlp_block": ("smelter_tpu_torch/csrc/mlp_block.cu",
+                             "smelter_tpu/kernels/mlp_block.py:79",
+                             encoder_rows[("mlp_block", "224 px b128")], "call")}
     kernels = []
     for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -93,7 +93,8 @@ def compile(model: str | os.PathLike | Graph, config: Config | None = None,
       None        — keep float weights.
       "fp16"      — fp16 weight-only.
       "int8"      — int8 weight-only, per-channel scales; matmul weights
-                    run in the port's dequant_matmul / int8_matmul kernels.
+                    run in the port's dequant_matmul / int8_matmul kernels
+                    under Config.use_pallas, else in their composites.
       "int8-pixel"— calibrated int8 over the NHCW pixel-conv regions only
                     (ESRGAN-class decoders, the pixel_conv_rowdot_q kernel;
                     everything outside the regions stays float); needs

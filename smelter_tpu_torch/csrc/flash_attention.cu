@@ -1,0 +1,190 @@
+// Streaming-softmax attention for Hopper: out = softmax(q k^T * scale) v over
+// q (B, H, Nq, hd) and k, v (B, H, Nk, hd), non-causal, Nq and Nk free.
+//
+// Replaces the Pallas kernel smelter_tpu/kernels/flash_attention.py::
+// _flash_attention_impl, whose grid walks the KV tiles of one query tile in
+// order with a running max, sum and rescaled f32 accumulator in VMEM. Here
+// the KV sweep is a loop inside one block of 4 warps a (batch, head, 64
+// query rows): the Q tile's fragments stay in registers, K and V arrive 64
+// keys at a time through a two-stage cp.async ring in shared memory (the
+// next tile loads while the tensor cores work on this one), and each warp
+// keeps its 16 rows' max, sum and f32 accumulator in registers, so nothing
+// of the (Nq, Nk) scores reaches device memory.
+//
+// Arithmetic, as the Pallas kernel's: scores q k^T in f32 (mma.sync on the
+// 16-bit operands with f32 accumulation, which is exact products summed in
+// f32), times scale; keys past Nk are -inf and their V rows zeros; per KV
+// tile m_new = max(m, max_j s), p = exp(s - m_new), l = exp(m - m_new) l +
+// sum_j p, acc = exp(m - m_new) acc + p V; out = acc / l in q's type. One
+// deviation: p meets V on the tensor cores rounded to the operands' 16-bit
+// type (the Pallas kernel keeps it in f32); the sum l is taken over the f32
+// p. The fast exp (ex2.approx) stands for exp. Other operands (f32 in full
+// f32, other head dims, rows not 16-byte aligned) take csrc/attention.cuh's
+// warp-per-row kernel with f32 p.
+//
+// What bounds it on an H100: at ViT-B/16 384 px (B 64, H 12, N 577, hd 64)
+// a call does 4 B H N^2 hd = 65.5 GFLOP (66 us at 989 TFLOP/s dense bf16)
+// against 227 MB of q, k, v and out (68 us at 3.35 TB/s): the bytes, by a
+// hair; at B 2, H 12, N 4096 the tensor cores (103 GFLOP, 104 us). The
+// design reads q, k and v once per query tile (k and v again for each of
+// the Nq / 64 query tiles, mostly from L2) and runs mma.sync, not wgmma.
+#include "attention.cuh"
+
+namespace {
+
+using namespace smelter;
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(ATT_THREADS)
+flash_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+          const uint16_t* __restrict__ v, uint16_t* __restrict__ out, Strides qs, Strides ks,
+          Strides vs, Strides os, int Nq, int Nk, float scale) {
+  constexpr int S = HD + 8, TILE = ATT_ROWS * S;
+  extern __shared__ __align__(16) uint16_t smem[];
+  uint16_t* Qs = smem;               // [row][d]
+  uint16_t* Ks = smem + TILE;        // [stage][key][d]
+  uint16_t* Vs = smem + 3 * TILE;    // [stage][key][d]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_ROWS, wq = warp * 16;
+  const bool active = q0 + wq < Nq;
+  const int chunks = (Nk + ATT_ROWS - 1) / ATT_ROWS;
+
+  load_tile<HD>(Qs, q, qs, b, h, q0, Nq);
+  load_tile<HD>(Ks, k, ks, b, h, 0, Nk);
+  load_tile<HD>(Vs, v, vs, b, h, 0, Nk);
+  cp_async_commit();
+
+  uint32_t qa[HD / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int c0 = c * ATT_ROWS, stage = c & 1;
+    if (c + 1 < chunks) {  // the next tile into the other stage, freed at the end of c - 1
+      load_tile<HD>(Ks + (stage ^ 1) * TILE, k, ks, b, h, c0 + ATT_ROWS, Nk);
+      load_tile<HD>(Vs + (stage ^ 1) * TILE, v, vs, b, h, c0 + ATT_ROWS, Nk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the newest: tile c (and Q) landed
+    __syncthreads();
+    if (c == 0) q_fragments<HD>(qa, Qs, wq);
+    if (active) {
+      float s[8][4];
+      tile_scores<T, HD>(s, qa, Ks + stage * TILE);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = c0 + j * 8 + t * 2 + (e & 1) < Nk ? s[j][e] * scale : -INFINITY;
+      // running max and sum of each of the thread's two rows (4 lanes a row)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[r], mx);
+        const float alpha = __expf(m[r] - mn);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[j][2 * r] = __expf(s[j][2 * r] - mn);
+          s[j][2 * r + 1] = __expf(s[j][2 * r + 1] - mn);
+          sum += s[j][2 * r] + s[j][2 * r + 1];
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[r] = l[r] * alpha + sum;
+        m[r] = mn;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+      }
+      const uint16_t* vt = Vs + stage * TILE;
+#pragma unroll
+      for (int k2 = 0; k2 < ATT_ROWS / 16; ++k2) {
+        const float* s0 = s[2 * k2];
+        const float* s1 = s[2 * k2 + 1];
+        const uint32_t a[4] = {pack2<T>(s0[0], s0[1]), pack2<T>(s0[2], s0[3]),
+                               pack2<T>(s1[0], s1[1]), pack2<T>(s1[2], s1[3])};
+        pv_step<T, HD>(o, a, vt + k2 * 16 * S);
+      }
+    }
+    __syncthreads();  // tile c is consumed: its stage takes tile c + 2
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  store_rows<T, HD>(out, os, b, h, q0 + wq, Nq, o, inv);
+}
+
+template <typename T, int HD>
+void launch_mma(const void* q, const void* k, const void* v, void* o, const Strides (&s)[4],
+                int B, int H, int Nq, int Nk, float scale, cudaStream_t stream) {
+  constexpr int smem = 5 * ATT_ROWS * (HD + 8) * 2;  // Q and two stages of K and V
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      flash_mma<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)smem_set;  // a refusal shows as the launch's error
+  const dim3 grid(cdiv(Nq, ATT_ROWS), H, B);
+  flash_mma<T, HD><<<grid, ATT_THREADS, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), s[0], s[1], s[2], s[3], Nq,
+      Nk, scale);
+}
+
+template <typename T>
+void launch(const void* q, const void* k, const void* v, void* o, const Strides (&s)[4], int B,
+            int H, int Nq, int Nk, int hd, float scale, bool mma, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (mma) {
+      if (hd == 16) return launch_mma<T, 16>(q, k, v, o, s, B, H, Nq, Nk, scale, stream);
+      if (hd == 32) return launch_mma<T, 32>(q, k, v, o, s, B, H, Nq, Nk, scale, stream);
+      if (hd == 64) return launch_mma<T, 64>(q, k, v, o, s, B, H, Nq, Nk, scale, stream);
+      return launch_mma<T, 128>(q, k, v, o, s, B, H, Nq, Nk, scale, stream);
+    }
+  }
+  launch_rows<T, false>(q, k, v, o, s, B, H, Nq, Nk, hd, scale, stream);
+}
+
+}  // namespace
+
+extern "C" const char* smelter_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// q (B, H, Nq, hd), k and v (B, H, Nk, hd) and out (B, H, Nq, hd), all in
+// x_dtype, each addressed by its (batch, head, row) element strides with a
+// contiguous head dim. hd <= 256. Returns a cudaError_t code.
+extern "C" int smelter_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                       int B, int H, int Nq, int Nk, int hd, int qsb, int qsh,
+                                       int qsn, int ksb, int ksh, int ksn, int vsb, int vsh,
+                                       int vsn, int osb, int osh, int osn, float scale,
+                                       int x_dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (hd <= 0 || hd > ROWS_HD_MAX || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || Nq == 0) return 0;
+  const Strides s[4] = {{qsb, qsh, qsn}, {ksb, ksh, ksn}, {vsb, vsh, vsn}, {osb, osh, osn}};
+  const void* const ptrs[4] = {q, k, v, out};
+  const bool mma = mma_path(x_dtype, hd, ptrs, s);
+  switch (x_dtype) {
+    case kF32:
+      launch<float>(q, k, v, out, s, B, H, Nq, Nk, hd, scale, false, st);
+      break;
+    case kBF16:
+      launch<__nv_bfloat16>(q, k, v, out, s, B, H, Nq, Nk, hd, scale, mma, st);
+      break;
+    case kF16:
+      launch<__half>(q, k, v, out, s, B, H, Nq, Nk, hd, scale, mma, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -14,10 +14,10 @@
 //      row, xn rounded to x's type as the Pallas kernel rounds it;
 //   2. the QKV product xn (M, D) @ the packed weight (3 n_groups, D, G)
 //      with G = group * hd, read in place as a (D, 3D) matrix whose column
-//      block j is weight block j: mma.sync bf16/f16 tiles of 128 x 128 with
-//      f32 accumulators, fed by a 4-stage cp.async ring, the f32 bias
-//      added and the sum rounded to x's type (q, k and v are each rounded,
-//      as in the Pallas kernel);
+//      block j is weight block j (csrc/gemm.cuh): mma.sync bf16/f16
+//      tiles of 128 x 128 with f32 accumulators, fed by a 4-stage
+//      cp.async ring, the f32 bias added and the sum rounded to x's type
+//      (q, k and v are each rounded, as in the Pallas kernel);
 //   3. attention, one block of 4 warps per (image, head, 64 query rows):
 //      Q in shared memory, K and V streamed through it 64 keys (32 at hd
 //      128) at a time, so shared memory does not grow with N. Two passes
@@ -43,234 +43,11 @@
 // simple design above keeps mma.sync's rate at best; xn, q/k/v and the
 // attention output cross device memory between the launches (~270 MB at
 // ViT-B). No TMA or wgmma yet.
-#include <type_traits>
-
-#include "layer_norm.cuh"
+#include "gemm.cuh"
 
 namespace {
 
 using namespace smelter;
-
-// ---- GEMM: out (M, N) = A (M, K) @ B + bias [+ residual] ----------------
-// B(k, n) lies in block n / G of shape (K, G), row-major: the packed QKV
-// weight with G = group * hd, a plain (K, N) weight with G = N.
-
-__device__ __forceinline__ size_t b_offset(int k, int n, int K, int G) {
-  return static_cast<size_t>(n / G) * K * G + static_cast<size_t>(k) * G + (n % G);
-}
-
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  // 16 bytes global -> shared without a register stop; zeros when !full
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(gmem), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices from shared memory: the A operand of m16n8k16 from
-// a row-major [m][k] tile (or the B operand of two n8 tiles from [n][k]).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 128x128 output tiles, K steps of 32 through a ring of 4 shared-memory
-// stages filled by cp.async (three steps in flight while the tensor cores
-// work on the fourth); 8 warps of 32x64, fragments by ldmatrix; at most 128
-// registers a thread, so two blocks share an SM. K, N and G are multiples
-// of 8 and A, B 16-byte aligned (the entry point checks), so every 16-byte
-// chunk lies wholly inside or outside the matrices.
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4;
-constexpr int SA = BK + 8;  // halves per A row in shared memory (80 bytes)
-constexpr int SB = BN + 8;  // halves per B row in shared memory (272 bytes)
-constexpr int A_STAGE = BM * SA, B_STAGE = BK * SB;
-constexpr int GEMM_SMEM = STAGES * (A_STAGE + B_STAGE) * 2;  // 75,776 bytes
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
-         const void* __restrict__ bias, int p_code, const T* __restrict__ residual,
-         T* __restrict__ out, int M, int N, int K, int G) {
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* As = smem;                   // [stage][m][k]
-  uint16_t* Bs = smem + STAGES * A_STAGE;  // [stage][k][n]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KT = (K + BK - 1) / BK;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const bool in = m0 + r < M && k0 + col < K;
-      cp_async16(&As[stage * A_STAGE + r * SA + col],
-                 in ? A + static_cast<size_t>(m0 + r) * K + k0 + col : A, in);
-    }
-#pragma unroll
-    for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const bool in = k0 + r < K && n0 + col < N;
-      cp_async16(&Bs[stage * B_STAGE + r * SB + col],
-                 in ? Bw + b_offset(k0 + r, n0 + col, K, G) : Bw, in);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step kt has landed; step kt - 1's stage is free
-    if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-    const uint16_t* as = As + (kt % STAGES) * A_STAGE;
-    const uint16_t* bs = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(a[mi], &as[(wm + mi * 16 + (lane & 15)) * SA + kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &bs[(kk + (lane & 15)) * SB + wn + nj * 16 + (lane >> 4) * 8]);
-        b[2 * nj][0] = r[0];
-        b[2 * nj][1] = r[1];
-        b[2 * nj + 1][0] = r[2];
-        b[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) mma_16816<T>(acc[mi][ni], a[mi], b[ni]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue: the bias in f32, the residual in f32, one rounding.
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int col = n0 + wn + ni * 8 + t * 2;
-      if (col >= N) continue;
-      const float b0 = param_at(bias, p_code, col), b1 = param_at(bias, p_code, col + 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + mi * 16 + g + h * 8;
-        if (row >= M) continue;
-        const size_t o = static_cast<size_t>(row) * N + col;
-        float v0 = acc[mi][ni][h * 2] + b0, v1 = acc[mi][ni][h * 2 + 1] + b1;
-        if (residual != nullptr) {
-          v0 = to_float(residual[o]) + v0;
-          v1 = to_float(residual[o + 1]) + v1;
-        }
-        store(&out[o], v0);
-        store(&out[o + 1], v1);
-      }
-    }
-}
-
-// f32: register-tiled FMA in full f32, 4x4 outputs a thread.
-constexpr int FM = 64, FN = 64, FK = 16;
-
-__global__ void __launch_bounds__(THREADS)
-gemm_f32(const float* __restrict__ A, const float* __restrict__ Bw,
-         const void* __restrict__ bias, int p_code, const float* __restrict__ residual,
-         float* __restrict__ out, int M, int N, int K, int G) {
-  __shared__ float As[FK][FM + 4];  // [k][m]
-  __shared__ float Bs[FK][FN + 4];  // [k][n]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += FK) {
-    for (int i = tid; i < FM * FK; i += THREADS) {
-      const int r = i / FK, c = i % FK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[static_cast<size_t>(gm) * K + gk] : 0.f;
-    }
-    for (int i = tid; i < FK * FN; i += THREADS) {
-      const int r = i / FN, c = i % FN;
-      const int gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < K && gn < N) ? Bw[b_offset(gk, gn, K, G)] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= N) continue;
-      const size_t o = static_cast<size_t>(row) * N + col;
-      float v = acc[i][j] + param_at(bias, p_code, col);
-      if (residual != nullptr) v = residual[o] + v;
-      out[o] = v;
-    }
-  }
-}
-
-template <typename T>
-void gemm(const T* A, const T* Bw, const void* bias, int p_code, const T* residual, T* out,
-          int M, int N, int K, int G, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value) {
-    const dim3 grid(cdiv(N, FN), cdiv(M, FM));
-    gemm_f32<<<grid, THREADS, 0, stream>>>(A, Bw, bias, p_code, residual, out, M, N, K, G);
-  } else {
-    static const cudaError_t smem_set = cudaFuncSetAttribute(
-        gemm_mma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-    (void)smem_set;  // a refusal shows as the launch's error
-    const dim3 grid(cdiv(N, BN), cdiv(M, BM));
-    gemm_mma<T><<<grid, THREADS, GEMM_SMEM, stream>>>(reinterpret_cast<const uint16_t*>(A),
-                                                      reinterpret_cast<const uint16_t*>(Bw),
-                                                      bias, p_code, residual, out, M, N, K, G);
-  }
-}
 
 // ---- attention over the (M, 3D) QKV product -----------------------------
 // Row m = b N + i of qkv holds, for head group p (heads p*group ..), the
@@ -287,16 +64,6 @@ __device__ __forceinline__ float mask_add(const float* keep, const int* lens, in
   if (kind == kKeep2d) return (1.f - keep[static_cast<size_t>(b) * N + key]) * filter;
   if (kind == kLen1d) return key < lens[b] ? 0.f : filter;
   return 0.f;
-}
-
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 constexpr int QT = 64;           // query rows a block: 4 warps of 16
@@ -548,15 +315,15 @@ int run(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, con
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gemm<T>(a, static_cast<const T*>(wqkv), bqkv, p_code, nullptr, static_cast<T*>(qkv), M, 3 * D,
-          D, group * hd, stream);
+  gemm<T>(a, static_cast<const T*>(wqkv), bqkv, p_code, kActNone, nullptr, static_cast<T*>(qkv),
+          M, 3 * D, D, group * hd, stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   attention<T>(static_cast<const T*>(qkv), mask_kind == kKeep2d ? static_cast<const float*>(mask)
                                                                  : nullptr,
                mask_kind == kLen1d ? static_cast<const int*>(mask) : nullptr, mask_kind, filter,
                static_cast<T*>(attn), B, N, D, heads, group, scale, stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gemm<T>(static_cast<const T*>(attn), static_cast<const T*>(wp), bp, p_code,
+  gemm<T>(static_cast<const T*>(attn), static_cast<const T*>(wp), bp, p_code, kActNone,
           static_cast<const T*>(residual), static_cast<T*>(out), M, D, D, D, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,18 @@ def dequant_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return (acc * scales.float()).to(out_dtype)
 
 
+def dequant_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """The composite FusedDequantMatMul takes without `Config.use_pallas`, as
+    the JAX package's `dequant_matmul_reference`: W * s in f32, rounded to
+    x's dtype, then x @ W summed in f32 and rounded to x's dtype. On the
+    card the product is one `torch.matmul` (f32 accumulation in cuBLAS)."""
+    w = (w_q.float() * scales.float().reshape(1, -1)).to(x.dtype)
+    if x.device.type == "cuda":
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
 def dequant_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
                    *, out_dtype=None) -> torch.Tensor:
     """(M, K) float @ (K, N) int8 with per-N scales -> (M, N) out_dtype

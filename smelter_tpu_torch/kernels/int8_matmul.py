@@ -99,6 +99,30 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, row_scales: torch.Tensor,
     return out
 
 
+def int32_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 summed in int32: `torch._int_mm` on the card
+    (which takes K and N multiples of 8 and M above 16: fewer rows are
+    padded with zeros), else in float64, which is exact here."""
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    if x_q.device.type == "cuda" and K % 8 == 0 and N % 8 == 0:
+        if M <= 16:
+            x_q = torch.nn.functional.pad(x_q, (0, 0, 0, 17 - M))
+        return torch._int_mm(x_q, w_q)[:M]
+    return torch.matmul(x_q.double(), w_q.double()).to(torch.int32)
+
+
+def dequant_matmul_int8_reference(x: torch.Tensor, w_q: torch.Tensor,
+                                  scales: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """The composite FusedDequantMatMul takes under `int8_activations`
+    without `Config.use_pallas`, as the JAX package's
+    `dequant_matmul_int8_xla`: `quantize_rows`, an int32-accumulating int8
+    matmul, and the scaled epilogue in f32."""
+    x_q, s_row = quantize_rows(x)
+    acc = int32_matmul(x_q, w_q)
+    return (acc.float() * s_row * scales.float().reshape(1, -1)).to(out_dtype or x.dtype)
+
+
 def dequant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
                         scales: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """Float activations, int8 weights with per-N scales: quantize the rows,

@@ -1,13 +1,17 @@
 """Fused op lowerings: FusedDequantMatMul, FusedDequantMatMulI4,
 RaggedDecodeAttention, PagedDecodeAttention, PagedCacheUpdate,
-FusedQKVAttention and VitAttnBlock.
+FusedAttention, FusedQKVAttention, VitAttnBlock and MlpBlock.
 
 `passes/fuse_dequant.py` rewrites DequantizeLinear(int8 W, scales) ->
 MatMul/Gemm into FusedDequantMatMul(x, W (K, N) int8, scales (N,)), and the
 grouped 4-bit form into FusedDequantMatMulI4(x, packed (K/2, N), scales
-(K/g, N)). Their lowerings always go to the port's kernels:
-`dequant_matmul` (or `int8_matmul` after `quantize_rows` when
-`Config.int8_activations` is set) and `int4_matmul`. The paged decode step
+(K/g, N)). FusedDequantMatMul routes as the JAX lowering does: under
+`Config.use_pallas` to the port's `dequant_matmul` kernel (or `int8_matmul`
+after `quantize_rows` when `Config.int8_activations` is set), otherwise to
+the composites the JAX package leaves to XLA (`dequant_matmul_reference`:
+W * s rounded to x's dtype, then the matmul; `dequant_matmul_int8_reference`:
+`quantize_rows`, an int32 matmul and the scaled epilogue).
+FusedDequantMatMulI4 always goes to `int4_matmul`. The paged decode step
 (`models/llama_style.py::build_decode_step_paged`) reads its KV pools
 through `paged_decode_attention` and writes them with `paged_cache_update`,
 in place. The static-cache step (`build_decode_step` after
@@ -19,24 +23,37 @@ on the card, as the JAX package's TPU gate (`_ragged_kernel_ok`) does.
 `Config.int4_block_n` is kept so configurations carry across from the JAX
 package; the port does not read it.
 
-`passes/fuse_attention.py` packs a ViT block's attention into
-FusedQKVAttention, and `passes/vit_block.py::fuse_vit_block` turns LN ->
-QKV projection -> FusedQKVAttention -> projection into one VitAttnBlock.
-VitAttnBlock always goes to `kernels/vit_block.py::vit_attention_block`, as
-the JAX lowering always goes to its Pallas kernel. FusedQKVAttention is
-computed outside any kernel, as the JAX lowering computes it with
-`jax.nn.dot_product_attention`: it remains only where the pass's gate turns
-a block down.
+`passes/fuse_attention.py` turns the exported matmul -> softmax -> matmul
+pattern into FusedAttention, and packs a ViT block's attention into
+FusedQKVAttention; `passes/vit_block.py::fuse_vit_block` turns LN -> QKV
+projection -> FusedQKVAttention -> projection into one VitAttnBlock, and
+`fuse_mlp_block` (off by default) an MLP into MlpBlock. FusedAttention
+routes as the JAX lowering does: (B, H, N, hd) operands without a bias take
+`flash_attention` from N 2048 with a head dim of at least 64, and under
+`use_pallas` from N 512; under `use_pallas`, equal shapes below N 512 take
+`short_attention`; every other form (native-layout operands, a bias, rank
+3) is computed outside any kernel of the port, as the JAX lowering computes
+it with `jax.nn.dot_product_attention`: `F.scaled_dot_product_attention` on
+the card, the einsum composite elsewhere. FusedQKVAttention is computed the
+same way; it remains only where `fuse_vit_block`'s gate turns a block down.
+VitAttnBlock and MlpBlock always go to their kernels
+(`vit_attention_block`, `mlp_block`), as the JAX lowerings always go to
+their Pallas kernels.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from ..ir.errors import NotSupportedError
 from ..ir.graph import Node
-from ..kernels.dequant_matmul import dequant_matmul
+from ..kernels.attention_short import short_attention
+from ..kernels.dequant_matmul import dequant_matmul, dequant_matmul_reference
+from ..kernels.flash_attention import flash_attention
 from ..kernels.int4_matmul import int4_matmul
-from ..kernels.int8_matmul import dequant_matmul_int8
+from ..kernels.int8_matmul import dequant_matmul_int8, dequant_matmul_int8_reference
+from ..kernels.mlp_block import mlp_block
 from ..kernels.paged_decode_attention import paged_cache_update, paged_decode_attention
 from ..kernels.ragged_decode_attention import ragged_decode_attention
 from ..kernels.vit_block import vit_attention_block
@@ -50,10 +67,14 @@ def fused_dequant_matmul(ctx: Ctx, node: Node):
     q = ctx.get(node.inputs[1])
     s = ctx.get(node.inputs[2])
     cfg = ctx.config
+    use_pallas = bool(cfg is not None and getattr(cfg, "use_pallas", False))
     int8_acts = bool(cfg is not None and getattr(cfg, "int8_activations", False))
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    fn = dequant_matmul_int8 if int8_acts else dequant_matmul
+    if int8_acts:
+        fn = dequant_matmul_int8 if use_pallas else dequant_matmul_int8_reference
+    else:
+        fn = dequant_matmul if use_pallas else dequant_matmul_reference
     y = fn(x2, q, s.reshape(-1))
     ctx.set(node.outputs[0], y.reshape(lead + (q.shape[-1],)))
 
@@ -144,19 +165,75 @@ def paged_cache_update_op(ctx: Ctx, node: Node):
         pool, table.reshape(bsz, -1), pos.reshape(bsz), rows))
 
 
+def _library_attention(q, k, v, bias, scale: float) -> torch.Tensor:
+    """Attention over (B, N, H, hd) operands outside any kernel of the port,
+    where the JAX lowering calls `jax.nn.dot_product_attention`:
+    `F.scaled_dot_product_attention` on the card, the einsum composite
+    (`_core_attention`: f32 logits times scale, an f32 softmax, the
+    probabilities in K's dtype against V) elsewhere. bias is additive,
+    (B|1, H|1, Nq, Nk). Returns (B, Nq, H, hd)."""
+    if q.device.type != "cuda":
+        return _core_attention(q, k, v, bias, scale)
+    ct = torch.promote_types(q.dtype, k.dtype)
+    q, k, v = (t.to(ct).transpose(1, 2) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=None if bias is None
+                                         else bias.to(ct), scale=scale)
+    return out.transpose(1, 2)
+
+
+@register("FusedAttention")
+def fused_attention(ctx: Ctx, node: Node):
+    """Scaled dot-product attention over (..., H, N, hd) Q/K/V, with an
+    optional additive bias, routed as the JAX lowering routes it (see the
+    module docstring). Native-layout operands ((B, N, H, hd), marked
+    `q_native` / `k_native` / `v_native` by the fusion pass) go to the
+    library attention as they are; batch-1 K/V against a batched query are
+    broadcast; `out_shape` reshapes the (B, N, H, hd) result."""
+    q, k, v = (ctx.get(node.inputs[i]) for i in range(3))
+    scale = float(node.attr("scale", 1.0))
+    bias = ctx.get(node.inputs[3]) if len(node.inputs) > 3 and node.inputs[3] else None
+    native = [bool(node.attr(f"{n}_native", 0)) for n in "qkv"]
+    if any(native):
+        qt, kt, vt = (t if nat else t.transpose(1, 2) for t, nat in zip((q, k, v), native))
+        b = qt.shape[0]
+        kt, vt = (t.expand((b,) + tuple(t.shape[1:])) if t.shape[0] == 1 and b != 1 else t
+                  for t in (kt, vt))
+        out = _library_attention(qt, kt, vt, bias, scale)
+        out_shape = node.attr("out_shape")
+        out = (out.reshape([int(d) for d in out_shape]) if out_shape is not None
+               else out.transpose(1, 2))
+        ctx.set(node.outputs[0], out.to(q.dtype))
+        return
+    use_pallas = bool(ctx.config is not None and getattr(ctx.config, "use_pallas", False))
+    four = q.dim() == 4 and bias is None
+    if four and ((q.shape[2] >= 2048 and q.shape[-1] >= 64)
+                 or (use_pallas and q.shape[2] >= 512)):
+        out = flash_attention(q, k, v, scale=scale)
+    elif four and use_pallas and q.shape == k.shape == v.shape:
+        out = short_attention(q, k, v, scale=scale)
+    elif q.dim() == 4:
+        out = _library_attention(*(t.transpose(1, 2) for t in (q, k, v)), bias,
+                                 scale).transpose(1, 2)
+    elif q.dim() == 3:  # (B, N, hd): one head
+        out = _library_attention(q[:, :, None], k[:, :, None], v[:, :, None], bias,
+                                 scale)[:, :, 0]
+    else:
+        raise NotSupportedError(f"FusedAttention rank {q.dim()}")
+    ctx.set(node.outputs[0], out.to(q.dtype))
+
+
 @register("FusedQKVAttention")
 def fused_qkv_attention(ctx: Ctx, node: Node):
     """Attention over a packed (B, N, 3D) QKV tensor ([q | k | v] on the
-    last axis, heads (H, hd) within each), in the JAX lowering's numerics
-    (`jax.nn.dot_product_attention`: f32 logits times scale, an f32
-    softmax, the probabilities in K's dtype against V)."""
+    last axis, heads (H, hd) within each), by the library attention, as the
+    JAX lowering calls `jax.nn.dot_product_attention`."""
     x = ctx.get(node.inputs[0])
     h = int(node.attr("num_heads"))
     scale = float(node.attr("scale", 1.0))
     b, n, three_d = x.shape
     d = three_d // 3
     q, k, v = (x[..., i * d:(i + 1) * d].reshape(b, n, h, d // h) for i in range(3))
-    out = _core_attention(q, k, v, None, scale)
+    out = _library_attention(q, k, v, None, scale)
     ctx.set(node.outputs[0], out.reshape(b, n, d).to(x.dtype))
 
 
@@ -184,4 +261,23 @@ def vit_attn_block(ctx: Ctx, node: Node):
         scale=float(node.attr("scale", 1.0)), eps=float(node.attr("epsilon", 1e-5)),
         residual=False, pre_ln=bool(node.attr("pre_ln", 1)),
         mask_filter=float(node.attr("mask_filter", -10000.0)))
+    ctx.set(node.outputs[0], out)
+
+
+@register("MlpBlock")
+def mlp_block_op(ctx: Ctx, node: Node):
+    """[LN ->] FC1 -> GELU -> FC2 [+ residual] in the port's kernel. Inputs:
+    x, LN gamma and beta, W1 (D, F), b1, W2 (F, D), b2; attributes
+    epsilon, approximate, residual, pre_ln."""
+    x = ctx.get(node.inputs[0]).contiguous()
+    params = [ctx.get(node.inputs[i]).reshape(-1).contiguous() for i in (1, 2, 4, 6)]
+    if len({t.dtype for t in params}) > 1 or params[0].dtype not in (torch.float32, x.dtype):
+        params = [t.float() for t in params]
+    g, b, b1, b2 = params
+    w1 = ctx.get(node.inputs[3]).to(x.dtype).contiguous()
+    w2 = ctx.get(node.inputs[5]).to(x.dtype).contiguous()
+    out = mlp_block(x, g, b, w1, b1, w2, b2, eps=float(node.attr("epsilon", 1e-5)),
+                    approximate=bool(node.attr("approximate", 0)),
+                    residual=bool(node.attr("residual", 1)),
+                    pre_ln=bool(node.attr("pre_ln", 1)))
     ctx.set(node.outputs[0], out)

@@ -29,13 +29,17 @@ class Config:
     # Where the model runs: "cuda" (default, and None means it) or "cpu".
     # Without a card, only an explicit "cpu" runs; the default raises.
     device: str | None = None
-    # The JAX package's switch for its hand-written kernels. The port reads
-    # it where the JAX package does for LayerNorm: SkipLayerNormalization
-    # takes the `residual_layer_norm` kernel under it (ops/contrib_ops.py),
-    # and LayerNormalization engages `fused_layer_norm` under it unless
-    # `fused_layernorm` is False (ops/nn.py). The ops with only a kernel
-    # route (FusedDequantMatMul, VitAttnBlock, ...) take their kernels
-    # whatever it says.
+    # The JAX package's switch for its hand-written kernels; the port reads
+    # it where the JAX package does. FusedDequantMatMul takes `dequant_matmul`
+    # (`int8_matmul` under `int8_activations`) under it, and its composites
+    # without it (ops/fused_ops.py). FusedAttention takes `flash_attention`
+    # from N 512 and `short_attention` below it under it; without it only
+    # the long-sequence gate (N >= 2048, head dim >= 64) reaches
+    # `flash_attention`. SkipLayerNormalization takes `residual_layer_norm`
+    # under it (ops/contrib_ops.py), and LayerNormalization engages
+    # `fused_layer_norm` under it unless `fused_layernorm` is False
+    # (ops/nn.py). The ops with only a kernel route (FusedDequantMatMulI4,
+    # VitAttnBlock, MlpBlock, ...) take their kernels whatever it says.
     use_pallas: bool = False
     # LayerNorm kernels (kernels/layer_norm.py): True routes every
     # last-axis LayerNormalization and SkipLayerNormalization to them, False

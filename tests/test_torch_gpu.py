@@ -723,3 +723,209 @@ def test_small_image_models_on_the_card_match_the_cpu(cuda, model):
         got = stt.CompiledModel(gq, stt.Config(device="cuda"))(x)[0]
         assert pc.q_launches == before + count
         assert np.abs(got - ref_q).max() <= 1e-3 * np.abs(ref_q).max()
+
+
+# -- flash_attention, short_attention, mlp_block (transformer encoder) --------
+
+def _bnhd(B, H, N, hd, dtype, device, seed):
+    """A (B, H, N, hd) view of a (B, N, H, hd) tensor, as a graph's Reshape
+    -> Transpose hands attention its operands."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((B, N, H, hd), np.float32)).to(device, dtype)
+    return a.permute(0, 2, 1, 3)
+
+
+def _attention_check(fn, plain, counter, q, k, v, scale, tol16):
+    """One launch; the output takes q's strides; f32 within 1e-5 of the
+    largest plain output (full f32, sums in other orders), 16-bit within
+    tol16 of it."""
+    before = getattr(*counter)
+    got = fn(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 1
+    ref = plain(q, k, v, scale=scale)
+    assert got.shape == ref.shape and got.dtype == q.dtype and got.stride() == q.stride()
+    tol = 1e-5 if q.dtype == torch.float32 else tol16
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+# (B, H, Nq, Nk, hd): ViT-B/16 384 px at batch 1, Nq != Nk both ways, a KV
+# tail of one key, hd 16, 32 and 128, and hd 48 (the warp-per-row kernel)
+FLASH_GEOMS = [(1, 12, 577, 577, 64), (1, 2, 300, 600, 64), (2, 2, 130, 65, 32),
+               (1, 2, 100, 129, 128), (1, 3, 64, 2048, 16), (1, 2, 70, 90, 48)]
+
+
+@pytest.mark.parametrize("geom", FLASH_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("layout", ["bnhd", "contiguous"])
+def test_flash_attention_matches_plain(cuda, geom, dtype, layout):
+    """16-bit within 1e-2 of the largest output: the kernel rounds p to the
+    operands' type before p V, the plain version keeps it in f32."""
+    from smelter_tpu_torch.kernels import flash_attention as fa
+
+    B, H, Nq, Nk, hd = geom
+    q, k, v = (_bnhd(B, H, n, hd, dtype, cuda, s) for n, s in ((Nq, 0), (Nk, 1), (Nk, 2)))
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _attention_check(fa.flash_attention, fa.flash_attention_plain, (fa, "launches"), q, k, v,
+                     hd ** -0.5, 1e-2)
+
+
+# (B, H, N, hd): ViT-B/16 224 px at batch 2, the JAX test's shapes, N at
+# the 512 limit, hd 128 and 16, and hd 40 (the warp-per-row kernel)
+SHORT_GEOMS = [(2, 12, 197, 64), (2, 4, 64, 64), (1, 2, 30, 32), (1, 2, 512, 64),
+               (1, 2, 100, 128), (2, 3, 65, 16), (1, 2, 50, 40)]
+
+
+@pytest.mark.parametrize("geom", SHORT_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("layout", ["bnhd", "contiguous"])
+def test_short_attention_matches_plain(cuda, geom, dtype, layout):
+    """16-bit within 1e-2 of the largest output: p is rounded to the
+    operands' type in both, and an f32 p one ulp apart can round apart."""
+    from smelter_tpu_torch.kernels import attention_short as sa
+
+    B, H, N, hd = geom
+    q, k, v = (_bnhd(B, H, N, hd, dtype, cuda, s) for s in (3, 4, 5))
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _attention_check(sa.short_attention, sa.short_attention_plain, (sa, "launches"), q, k, v,
+                     hd ** -0.5, 1e-2)
+
+
+def test_attention_kernels_raise_on_bad_operands(cuda):
+    from smelter_tpu_torch.kernels import attention_short as sa
+    from smelter_tpu_torch.kernels import flash_attention as fa
+
+    q = torch.randn(1, 2, 600, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # short: N past the 512 its rows hold
+        sa.short_attention(q, q, q, scale=0.125)
+    with pytest.raises(ValueError):  # short: unequal shapes
+        sa.short_attention(q[:, :, :100], q[:, :, :50], q[:, :, :50], scale=0.125)
+    with pytest.raises(ValueError):  # flash: k and v of other lengths
+        fa.flash_attention(q, q, q[:, :, :10], scale=0.125)
+    with pytest.raises(ValueError):  # flash: a head dim past 256
+        big = torch.randn(1, 1, 8, 512, device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention(big, big, big)
+    with pytest.raises(TypeError):  # mixed dtypes
+        fa.flash_attention(q, q.float(), q.float())
+    with pytest.raises(ValueError):  # rank 3
+        fa.flash_attention(q[0], q[0], q[0])
+
+
+def _mlp_operands_gpu(B, N, D, F, dtype, device, p_dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dt)
+
+    return (t(rng.standard_normal((B, N, D)), dtype),
+            t(1 + 0.1 * rng.standard_normal(D), p_dtype), t(0.1 * rng.standard_normal(D), p_dtype),
+            t(rng.standard_normal((D, F)) / np.sqrt(D), dtype),
+            t(0.1 * rng.standard_normal(F), p_dtype),
+            t(rng.standard_normal((F, D)) / np.sqrt(F), dtype),
+            t(0.1 * rng.standard_normal(D), p_dtype))
+
+
+# (B, N, D, F): ViT-B/16's at batch 1, the CPU test's, and ragged rows and
+# widths (not multiples of the 128 x 128 tile)
+MLP_GEOMS = [(1, 197, 768, 3072), (2, 50, 64, 256), (3, 7, 136, 264)]
+
+
+@pytest.mark.parametrize("geom", MLP_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("form", ["default", "post_ln_tanh", "no_residual", "bf16_params"])
+def test_mlp_block_matches_plain(cuda, geom, dtype, form):
+    """f32 within 1e-5 of the largest output (full f32, sums in other
+    orders); 16-bit within 1e-2 (xn and h round to 8 or 11 bits after sums
+    in other orders)."""
+    from smelter_tpu_torch.kernels import mlp_block as mb
+
+    p_dtype = dtype if form == "bf16_params" else torch.float32
+    args = _mlp_operands_gpu(*geom, dtype, cuda, p_dtype)
+    kw = dict(eps=1e-6, pre_ln=form != "post_ln_tanh", approximate=form == "post_ln_tanh",
+              residual=form != "no_residual")
+    before = mb.launches
+    got = mb.mlp_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert mb.launches == before + 1
+    ref = mb.mlp_block_plain(*args, **kw)
+    assert got.dtype == dtype and got.shape == args[0].shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_mlp_block_raises_on_bad_operands(cuda):
+    from smelter_tpu_torch.kernels import mlp_block as mb
+
+    x, g, b, w1, b1, w2, b2 = _mlp_operands_gpu(1, 16, 64, 256, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):  # weights not in x's dtype
+        mb.mlp_block(x, g, b, w1.float(), b1, w2, b2)
+    with pytest.raises(ValueError):  # weights that do not chain
+        mb.mlp_block(x, g, b, w1, b1, w2[:128], b2)
+    with pytest.raises(ValueError):  # a width that is not a multiple of 8
+        xs = torch.randn(1, 4, 60, device=cuda, dtype=torch.bfloat16)
+        mb.mlp_block(xs, g[:60], b[:60], w1[:60], b1, w2[:, :60], b2[:60])
+    with pytest.raises(TypeError):  # params of mixed dtypes
+        mb.mlp_block(x, g.bfloat16(), b, w1, b1, w2, b2)
+
+
+def test_hf_vit_on_the_card_matches_the_cpu(cuda):
+    """The small HF-layout ViT (tests/torch_hf_vit.py) under use_pallas on
+    the card: 2 short_attention launches a forward at 32 px (N 65), 2
+    flash_attention at 96 px (N 577), and with fuse_mlp_block 2 mlp_block;
+    f32 within 1e-4 of the CPU's largest logit."""
+    import copy
+    import sys
+    from pathlib import Path
+
+    import smelter_tpu_torch as stt
+    from smelter_tpu_torch.frontend.torch_export import export_torch
+    from smelter_tpu_torch.kernels import attention_short as sa
+    from smelter_tpu_torch.kernels import flash_attention as fa
+    from smelter_tpu_torch.kernels import mlp_block as mb
+    from smelter_tpu_torch.passes.pass_manager import run_passes
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_hf_vit as hf
+
+    torch.backends.cudnn.allow_tf32 = False
+    for image_size, counter in ((32, (sa, "launches")), (96, (fa, "launches"))):
+        cfg = dict(image_size=image_size, patch=4, dim=128, depth=2, heads=2, mlp=512,
+                   num_classes=10)
+        m = hf.create(batch=2, **cfg)
+        x = np.random.default_rng(0).standard_normal(hf.input_shape(2, **cfg)).astype(np.float32)
+        g = export_torch(m, torch.from_numpy(x))
+        ref = stt.compile(copy.deepcopy(g), stt.Config(use_pallas=True), device="cpu")(x)[0]
+        model = stt.compile(copy.deepcopy(g), stt.Config(use_pallas=True), device="cuda")
+        before = getattr(*counter)
+        got = model(x)[0]
+        assert getattr(*counter) == before + 2
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+        gm = stt.api._prepare(copy.deepcopy(g), None, True, "nhwc")
+        run_passes(gm, ["fuse_mlp_block", "dce"])
+        before = mb.launches
+        got = CompiledModel(gm, stt.Config(device="cuda"))(x)[0]
+        assert mb.launches == before + 2
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("m", [8, 128])
+def test_dequant_composites_on_the_card(cuda, m):
+    """FusedDequantMatMul's default routes: the int32 sums of
+    `int32_matmul` (torch._int_mm, rows below 17 padded) equal the exact
+    ones; the composites hold the kernels' plain versions (bf16 within 1e-2
+    of the largest output: W * s is rounded to bf16 first)."""
+    x, w, s = _operands(m, 1000, 2048, torch.bfloat16, cuda)
+    xq, sr = im.quantize_rows(x)
+    assert torch.equal(im.int32_matmul(xq, w), im.int8_matmul_plain(xq, w, sr, s,
+                                                                    out_dtype=torch.int32))
+    got = im.dequant_matmul_int8_reference(x, w, s)
+    assert torch.equal(got, im.int8_matmul_plain(xq, w, sr, s, out_dtype=torch.bfloat16))
+    got = dm.dequant_matmul_reference(x, w, s)
+    ref = dm.dequant_matmul_plain(x, w, s)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert got.dtype == torch.bfloat16 and err <= 1e-2 * ref.float().abs().max().item()
