@@ -33,7 +33,12 @@ its number:
    `short_attention` at ViT-B/16 224 px (B 128, H 12, N 197, hd 64; f32 at
    batch 8), `flash_attention` at 384 px (B 64, N 577) and at N 2048 and
    4096 (B 2; small in f32), and `mlp_block` at 25,216 rows of 768 with F
-   3072 (f32 at batch 8, plus a small pre_ln=0 / tanh case);
+   3072 (f32 at batch 8, plus a small pre_ln=0 / tanh case); the image
+   models' block kernels: `convnext_block` at ConvNeXt-T's three fused
+   stages at batch 64 (f32 at batch 2), `cross_attn_block` at SD-UNet's
+   two shapes at batch 8 with k/v per image and shared, and
+   `vit_attention_block` at SD-UNet's self-attention (hd 16 over 1024
+   tokens, hd 32 over 256);
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -104,6 +109,20 @@ its number:
    one-node FusedAttention graph at N 4096 and 2048 through `compile` in
    bf16 on the default config (1 `flash_attention` each, against SDPA); (f)
    `serve(..., use_pallas=True, max_batch=16)` answering 32 requests;
+11. ConvNeXt-T (the zoo default at facebook/convnext-tiny-224's widths:
+   dims 96/192/384/768, depths 3/3/9/3, 1000 classes, 224 px; random
+   weights from seed 0, layer scales from [0.2, 0.6)) and SD-UNet (the
+   zoo's 256 px configuration: latent 32, base 128, a 16 x 256 context, 8
+   heads, the context baked at batch 8), both exported on the card: gates
+   at batch 8 for each routing (ConvNeXt-T: the default passes, with 18
+   barriers and no port kernel, and `fuse_convnext_block` run after
+   `_prepare`, 15 `convnext_block`; SD-UNet: the default, 5
+   `vit_attention_block` and the cross-attention on the library
+   attention, and the cross branch on, 5 `cross_attn_block` besides),
+   as phase 8's; images/s, idle share, top ops and peak memory of each
+   routing in bf16 (ConvNeXt-T at batch 64, also under `use_pallas`;
+   SD-UNet at 8); the fused ConvNeXt-T served at `max_batch=16`, and the
+   cross-on SD-UNet with `buckets=(8,)`, short batches padded;
 6. printed last: each kernel's launches on its path, and the total time.
 
 Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
@@ -115,7 +134,9 @@ launches (paged or ragged), a prefill 169 int4_matmul, a ViT-B/16 forward
 12 blocks (and 13 residual or 25 plain LayerNorms where the configuration
 routes them), an ESRGAN x4 forward 349 pixel convs, a SegNet forward 3
 unpools, an HF-layout ViT-B/16 forward 12 short or flash attentions or 12
-MLPs, a one-node attention graph at N >= 2048 one flash attention.
+MLPs, a one-node attention graph at N >= 2048 one flash attention, a fused
+ConvNeXt-T forward 15 ConvNeXt blocks, an SD-UNet forward 5 ViT blocks and,
+with the cross branch on, 5 cross-attention blocks.
 `FusedGenerator` replays a CUDA graph, whose launches the wrappers count
 once, at capture. The last three lines are the kernels'
 JSON line, the card's name and power limit, and `{"ok": true, "device":
@@ -179,6 +200,18 @@ ESRGAN_CONVS = {**{(64 + 32 * i, 32 if i < 4 else 64, 128): 3 * ESRGAN["nb"] for
 SEGNET = dict(base=32, depth=3, num_classes=2, image_size=256)
 SEGNET_BATCH = 16
 SEGNET_UNPOOLS = [(16, 128, 32, 32), (16, 64, 64, 64), (16, 32, 128, 128)]
+# ConvNeXt-T as the JAX package's zoo builds it by default (`convnext`: the
+# widths of facebook/convnext-tiny-224, dims 96/192/384/768, depths 3/3/9/3,
+# 1000 classes), 224 px, served at batch 64 in bf16 (the README's row); the
+# gates at batch 8. fuse_convnext_block fuses 15 of its 18 blocks.
+CONVNEXT = dict(image_size=224, num_classes=1000, dims=(96, 192, 384, 768),
+                depths=(3, 3, 9, 3))
+CONVNEXT_BATCH, CONVNEXT_GATE_BATCH, CONVNEXT_FUSED = 64, 8, 15
+# SD-UNet at the zoo's 256 px configuration (`sd_unet`: latent 32, base 128,
+# a 16 x 256 context, 8 heads; the README's row), its context baked at
+# batch 8.
+SD_UNET = dict(latent=32, base=128, ctx_dim=256, ctx_len=16, heads=8)
+SD_UNET_BATCH = 8
 # Each kernel's launch counter: name -> (module under
 # smelter_tpu_torch/kernels, counter).
 KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
@@ -194,7 +227,9 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "max_unpool2x2": ("max_unpool", "launches"),
            "short_attention": ("attention_short", "launches"),
            "flash_attention": ("flash_attention", "launches"),
-           "mlp_block": ("mlp_block", "launches")}
+           "mlp_block": ("mlp_block", "launches"),
+           "convnext_block": ("convnext_block", "launches"),
+           "cross_attn_block": ("cross_attn_block", "launches")}
 
 REPORT: dict = {}
 
@@ -212,12 +247,15 @@ def say(phase, text: str) -> None:
     print(f"[{phase}] {text}", flush=True)
 
 
-def bound(nbytes: float, ops: float, kind: str, power_w: float):
+def bound(nbytes: float, ops, kind: str | None, power_w: float):
     """Least time (ms) for the work: bytes over HBM rate vs operations over
-    the peak rate of their type, the peak scaled down by a lower power
-    limit. Returns (ms, "bytes" | "operations")."""
+    the peak rate of their type (`ops` of `kind`, or a {kind: ops} dict for
+    work of several types, each at its own rate), the peak scaled down by a
+    lower power limit. Returns (ms, "bytes" | "operations")."""
     t_mem = nbytes / HBM_BYTES_S
-    t_ops = ops / PEAK_OPS_S[kind] * max(1.0, FULL_POWER_W / power_w)
+    by_kind = ops if isinstance(ops, dict) else {kind: ops}
+    t_ops = (sum(n / PEAK_OPS_S[k] for k, n in by_kind.items())
+             * max(1.0, FULL_POWER_W / power_w))
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -1137,6 +1175,207 @@ def phase_encoder_kernels(torch, power_w: float) -> dict:
     say(2, "mlp_block at small shapes vs plain: "
            + "; ".join(f"{k} {v:.3g}" for k, v in small.items()))
     REPORT["encoder_kernels"] = [dict(r) for r in rows.values()]
+    return rows
+
+
+def phase_block_kernels(torch, np, power_w: float) -> dict:
+    """The opt-in block kernels of the image models against their plain
+    versions: convnext_block at ConvNeXt-T's three fused stages at batch 64
+    (56 x 56 x 96, 28 x 28 x 192, 14 x 14 x 384) in bf16 and at batch 2 in
+    f32; cross_attn_block at SD-UNet's two shapes at batch 8 ((N 1024, D 128)
+    and (N 256, D 256), 8 heads, 16 keys), k/v per image (Bk = B, the path's)
+    and shared (Bk = 1, timed too), in bf16 and f32; vit_attention_block at
+    SD-UNet's self-attention shapes (hd 16 in one head group of 8, hd 32 in
+    groups of 4). Timed in bf16: kernel by graph replay, host cost of a call, plain
+    version, library yardstick, bound (the depthwise taps count at the f32
+    CUDA-core rate, the products at the bf16 tensor-core rate)."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import convnext_block as cb
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+    from smelter_tpu_torch.kernels import vit_block as vb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    side = torch.cuda.Stream()
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+
+    def err_of(got, ref, rel, label):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(got.shape == ref.shape and got.dtype == ref.dtype and math.isfinite(err)
+              and err <= rel * scale, f"{label}: max-abs {err} > {rel} x {scale}")
+        return err, f"{rel} x max|plain| = {rel * scale:.4g}"
+
+    def rnd(*shape, s=1.0, dtype=bf16):
+        return (torch.randn(*shape, device="cuda", generator=gen) * s).to(dtype)
+
+    def timed(r, call, plain, lib, nbytes, ops, iters):
+        r["ms"] = graph_ms(torch, side, call, iters)
+        r["call_ms"] = time_ms(torch, call, iters)
+        r["plain_ms"] = graph_ms(torch, side, plain, max(1, iters // 4))
+        r["library_ms"] = graph_ms(torch, side, lib, iters)
+        r["bytes"], r["flops"] = nbytes, sum(ops.values())
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, None, power_w)
+
+    # -- convnext_block ----------------------------------------------------
+    def cnx_args(B, H, W, C, dtype):
+        """A block's operands; a layer scale of 0.5 (not the 1e-6 init), so
+        the MLP shows in the output."""
+        Fh = 4 * C
+        return (rnd(B, H, W, C, dtype=dtype), rnd(7, 7, 1, C, s=1 / 7, dtype=dtype),
+                rnd(C, s=0.1, dtype=f32), 1 + rnd(C, s=0.1, dtype=f32), rnd(C, s=0.1, dtype=f32),
+                rnd(C, Fh, s=C ** -0.5, dtype=dtype), rnd(Fh, s=0.1, dtype=f32),
+                rnd(Fh, C, s=Fh ** -0.5, dtype=dtype), rnd(C, s=0.1, dtype=f32),
+                0.5 + rnd(C, s=0.1, dtype=f32))
+
+    B = CONVNEXT_BATCH
+    for stage, (hw, C) in enumerate(((56, 96), (28, 192), (14, 384))):
+        M, Fh = B * hw * hw, 4 * C
+        nbytes = 2 * (2 * M * C + 49 * C + 2 * C * Fh) + 4 * (5 * C + Fh)
+        sets = [cnx_args(B, hw, hw, C, bf16) for _ in range(_copies(nbytes))]
+        n = len(sets)
+        lib_w = [(dw.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
+                  db.to(bf16), g.to(bf16), b.to(bf16), b1.to(bf16), b2.to(bf16), gm.to(bf16))
+                 for _, dw, db, g, b, _, b1, _, b2, gm in sets]
+        path = f"stage {stage + 1} b{B}"
+        r = {"name": "convnext_block", "shape": [B, hw, hw, C],
+             "calls_per_forward": CONVNEXT["depths"][stage], "path": path,
+             "library": "channels-last depthwise F.conv2d, F.layer_norm, torch.addmm, F.gelu, "
+                        "torch.addmm, the layer-scale mul and the residual add"}
+
+        def lib(i, hw=hw, C=C, M=M):
+            x, _, _, _, _, w1, _, w2, _, _ = sets[i % n]
+            dw, db, g, b, b1, b2, gm = lib_w[i % n]
+            y = F.conv2d(x.permute(0, 3, 1, 2), dw, db, padding=3, groups=C).permute(0, 2, 3, 1)
+            xn = F.layer_norm(y, (C,), g, b, 1e-6).reshape(M, C)
+            h = F.gelu(torch.addmm(b1, xn, w1))
+            return x + (torch.addmm(b2, h, w2) * gm).reshape(x.shape)
+
+        # bf16: xn, h and the output round to bf16 after sums in other orders
+        r["max_abs_err"], r["tolerance"] = err_of(cb.convnext_block(*sets[0]),
+                                                  cb.convnext_block_plain(*sets[0]), 1e-2,
+                                                  f"convnext_block {path} bf16")
+        timed(r, lambda i: cb.convnext_block(*sets[i % n]),
+              lambda i: cb.convnext_block_plain(*sets[i % n]), lib, nbytes,
+              {"bf16": 16 * M * C * C, "f32": 2 * 49 * M * C}, 5)
+        del sets, lib_w
+        # f32 at batch 2: every tap and product in full f32 (TF32 off for
+        # the plain version's cuDNN conv), sums in other orders: 1e-5
+        torch.backends.cudnn.allow_tf32 = False
+        args = cnx_args(2, hw, hw, C, f32)
+        r["f32_b2_err"], r["f32_tolerance"] = err_of(cb.convnext_block(*args),
+                                                     cb.convnext_block_plain(*args), 1e-5,
+                                                     f"convnext_block {path} f32 b2")
+        torch.backends.cudnn.allow_tf32 = True
+        rows[("convnext_block", path)] = r
+
+    # -- cross_attn_block --------------------------------------------------
+    S, H = SD_UNET["ctx_len"], SD_UNET["heads"]
+    for N, D, calls in ((1024, 128, 2), (256, 256, 3)):
+        B, hd = SD_UNET_BATCH, D // H
+
+        def xa_args(bk, dtype):
+            return (rnd(B, N, D, dtype=dtype), rnd(D, D, s=D ** -0.5, dtype=dtype),
+                    rnd(bk, H, S, hd, dtype=dtype), rnd(bk, H, S, hd, dtype=dtype),
+                    rnd(D, D, s=D ** -0.5, dtype=dtype), rnd(D, s=0.1, dtype=f32))
+
+        nbytes = 2 * (2 * B * N * D + 2 * D * D + 2 * B * H * S * hd) + 4 * D
+        sets = [xa_args(B, bf16) for _ in range(_copies(nbytes))]
+        n = len(sets)
+        lib_b = [a[5].to(bf16) for a in sets]
+        path = f"N {N} D {D} b{B}"
+        r = {"name": "cross_attn_block", "shape": [B, N, D, H, S], "calls_per_forward": calls,
+             "path": path, "library": "torch.matmul, F.scaled_dot_product_attention, "
+                                      "torch.addmm"}
+
+        def lib(i, B=B, N=N, D=D, hd=hd):
+            x, wq, k, v, wp, _ = sets[i % n]
+            q = torch.matmul(x, wq).reshape(B, N, H, hd).transpose(1, 2)
+            a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B * N, D)
+            return torch.addmm(lib_b[i % n], a, wp)
+
+        # bf16: q, p and the attention output round to bf16 after sums in
+        # other orders: 1e-2
+        r["max_abs_err"], r["tolerance"] = err_of(xa.cross_attn_block(*sets[0], heads=H),
+                                                  xa.cross_attn_block_plain(*sets[0], heads=H),
+                                                  1e-2, f"cross_attn_block {path} bf16")
+        timed(r, lambda i: xa.cross_attn_block(*sets[i % n], heads=H),
+              lambda i: xa.cross_attn_block_plain(*sets[i % n], heads=H), lib, nbytes,
+              {"bf16": B * (4 * N * D * D + 4 * N * S * D)}, 20)
+        del sets, lib_b
+        for bk in (1, B):  # shared and per-image k/v, bf16 and f32
+            for dtype, rel in ((bf16, 1e-2), (f32, 1e-5)):
+                args = xa_args(bk, dtype)
+                r[f"bk{bk}_{str(dtype)[6:]}_err"] = err_of(
+                    xa.cross_attn_block(*args, heads=H), xa.cross_attn_block_plain(*args, heads=H),
+                    rel, f"cross_attn_block {path} Bk {bk} {dtype}")[0]
+        # the shared context (Bk = 1) timed too: kernel, host cost, plain
+        sets = [xa_args(1, bf16) for _ in range(_copies(nbytes))]
+        n = len(sets)
+        r["bk1_ms"] = graph_ms(torch, side, lambda i: xa.cross_attn_block(*sets[i % n], heads=H),
+                               20)
+        r["bk1_call_ms"] = time_ms(torch, lambda i: xa.cross_attn_block(*sets[i % n], heads=H),
+                                   20)
+        r["bk1_plain_ms"] = graph_ms(
+            torch, side, lambda i: xa.cross_attn_block_plain(*sets[i % n], heads=H), 5)
+        del sets
+        r["f32_tolerance"] = "1e-5 x max|plain|"
+        rows[("cross_attn_block", path)] = r
+
+    # -- vit_attention_block at SD-UNet's self-attention --------------------
+    for N, D, calls in ((1024, 128, 2), (256, 256, 3)):
+        B = SD_UNET_BATCH
+        kw = dict(heads=H, eps=1e-5)
+        nbytes = 2 * B * N * D * 2 + 4 * D * D * 2 + 6 * D * 2
+        sets, libw = [], []
+        for k in range(_copies(nbytes)):
+            args, lw = _vit_case(torch, np, gen, B, N, D, H, bf16, bf16, seed=20 + k)
+            sets.append(args)
+            libw.append(lw)
+        n = len(sets)
+        path = f"SD-UNet N {N} D {D} b{B}"
+        r = {"name": "vit_attention_block", "shape": [B, N, D, H], "calls_per_forward": calls,
+             "path": path, "library": "F.layer_norm, torch.addmm, "
+                                      "F.scaled_dot_product_attention, torch.addmm"}
+
+        def lib(i, B=B, N=N, D=D):
+            x, g, b = sets[i % n][:3]
+            wqkv, bqkv, wp, bp = libw[i % n]
+            xn = F.layer_norm(x, (D,), g, b, 1e-5).reshape(B * N, D)
+            q, k, v = torch.addmm(bqkv, xn, wqkv).reshape(B, N, 3, H, D // H).permute(2, 0, 3,
+                                                                                       1, 4)
+            a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B * N, D)
+            return torch.addmm(bp, a, wp)
+
+        r["max_abs_err"], r["tolerance"] = err_of(vb.vit_attention_block(*sets[0], **kw),
+                                                  vb.vit_attention_block_plain(*sets[0], **kw),
+                                                  1e-2, f"vit_attention_block {path} bf16")
+        timed(r, lambda i: vb.vit_attention_block(*sets[i % n], **kw),
+              lambda i: vb.vit_attention_block_plain(*sets[i % n], **kw), lib, nbytes,
+              {"bf16": B * (8 * N * D * D + 4 * N * N * D)}, 10)
+        del sets, libw
+        args, _ = _vit_case(torch, np, gen, B, N, D, H, f32, f32, seed=30)
+        r["f32_b8_err"], r["f32_tolerance"] = err_of(vb.vit_attention_block(*args, **kw),
+                                                     vb.vit_attention_block_plain(*args, **kw),
+                                                     1e-5, f"vit_attention_block {path} f32")
+        rows[("vit_attention_block", path)] = r
+
+    for r in rows.values():
+        f32s = "; ".join(f"{k[:-4]} err {v:.3g}" for k, v in r.items()
+                         if k.endswith("_err") and k != "max_abs_err")
+        bk1 = (f"; Bk 1: kernel {r['bk1_ms']:.4f} ms (host cost {r['bk1_call_ms']:.4f}), plain "
+               f"{r['bk1_plain_ms']:.4f}" if "bk1_ms" in r else "")
+        say(2, f"{r['name']} {r['path']} {r['shape']} bf16: err {r['max_abs_err']:.3g} "
+               f"({r['tolerance']}); {f32s} ({r['f32_tolerance']}) | kernel {r['ms']:.4f} ms "
+               f"(host cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+               f"library {r['library_ms']:.4f} ms ({r['library']}), bound "
+               f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} bytes, "
+               f"{r['flops']:.4g} operations) = {100 * r['bound_ms'] / r['ms']:.1f}% of bound "
+               f"| {r['calls_per_forward']} calls a forward{bk1}")
+    REPORT["block_kernels"] = [dict(r) for r in rows.values()]
     return rows
 
 
@@ -2154,10 +2393,10 @@ _PORT_IMAGE_KERNEL = re.compile(r"pixel_conv_mma|pixel_conv_f32|max_unpool2x2_ke
 
 
 def _image_forward(torch, np, model, xg, label: str, batch: int, routed: dict,
-                   iters: int) -> dict:
+                   iters: int, port_re=_PORT_IMAGE_KERNEL) -> dict:
     """One forward with the launch check (exactly `routed`, no other kernel),
     then images/s over `iters` forwards by CUDA events, peak memory and a
-    profile of 2 forwards."""
+    profile of 2 forwards; `port_re` names the port's kernels in it."""
     gc.collect()
     torch.cuda.empty_cache()
     _zero_counts()
@@ -2174,7 +2413,7 @@ def _image_forward(torch, np, model, xg, label: str, batch: int, routed: dict,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per, by_op, n_k = _profile(torch, lambda: model.run_device(xg), steps=2)
     busy = sum(per.values())
-    ours = {k: v for k, v in per.items() if _PORT_IMAGE_KERNEL.search(k)}
+    ours = {k: v for k, v in per.items() if port_re.search(k)}
     return {"launches": launches, "step_ms": step_ms, "images_per_s": batch * 1e3 / step_ms,
             "peak_mem_gb": peak_gb, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / step_ms), "kernels_per_forward": n_k,
@@ -2184,22 +2423,23 @@ def _image_forward(torch, np, model, xg, label: str, batch: int, routed: dict,
             "out": out}
 
 
-def _say_run(label: str, r: dict, extra: str = "") -> None:
-    say(9, f"{label}: {r['images_per_s']:.2f} images/s, step {r['step_ms']:.2f} ms, idle share "
+def _say_run(label: str, r: dict, extra: str = "", phase: int = 9) -> None:
+    say(phase, f"{label}: {r['images_per_s']:.2f} images/s, step {r['step_ms']:.2f} ms, idle share "
            f"{100 * r['idle_share']:.1f}% (profiled busy {r['device_busy_ms']:.2f} ms, "
            f"~{r['kernels_per_forward']:.0f} kernels), port kernels "
            f"{r['port_kernel_ms']:.2f} ms, peak {r['peak_mem_gb']:.2f} GB | launches "
            f"{ {k: v for k, v in r['launches'].items() if v} }" + extra)
-    say(9, "  device ms a forward by host op: "
-           + "; ".join(f"{k} {v:.3f}" for k, v in r["top_host_ops_ms"]))
-    say(9, "  device ms a forward by kernel: "
-           + "; ".join(f"{k[:60]} {v:.3f}" for k, v in r["top_kernels_ms"][:6]))
+    say(phase, "  device ms a forward by host op: "
+               + "; ".join(f"{k} {v:.3f}" for k, v in r["top_host_ops_ms"]))
+    say(phase, "  device ms a forward by kernel: "
+               + "; ".join(f"{k[:60]} {v:.3f}" for k, v in r["top_kernels_ms"][:6]))
 
 
 def _serve_check(torch, np, stt, g, cfg, xs, batch: int, direct, bound_abs: float, label: str,
-                 routed: str) -> dict:
+                 routed, phase: int = 9) -> dict:
     """serve(...) with one bucket of the graph's batch answers len(xs)
-    threaded requests within `bound_abs` of the direct forward."""
+    threaded requests within `bound_abs` of the direct forward. `routed`:
+    the kernel (or set of kernels) the served forwards launch."""
     _zero_counts()
     server = stt.serve(g, cfg, optimize=False, device="cuda", max_batch=batch,
                        buckets=(batch,))
@@ -2224,10 +2464,11 @@ def _serve_check(torch, np, stt, g, cfg, xs, batch: int, direct, bound_abs: floa
     err = float(np.abs(np.stack(results) - direct).max())
     check(stats["requests"] == len(xs) and stats["errors"] == 0, f"{label} server stats {stats}")
     check(err <= bound_abs, f"{label} served vs direct: max-abs {err} > {bound_abs}")
-    say(9, f"{label} server: {stats['requests']} requests in {stats['batches']} batches of up "
-           f"to {batch}, p50 {stats['latency_ms_p50']:.1f} ms, p95 "
-           f"{stats['latency_ms_p95']:.1f} ms | vs direct: max-abs {err:.3g} (bound "
-           f"{bound_abs:.3g}) | launches {launches[routed]} {routed}")
+    names = {routed} if isinstance(routed, str) else set(routed)
+    say(phase, f"{label} server: {stats['requests']} requests in {stats['batches']} batches of "
+               f"up to {batch}, p50 {stats['latency_ms_p50']:.1f} ms, p95 "
+               f"{stats['latency_ms_p95']:.1f} ms | vs direct: max-abs {err:.3g} (bound "
+               f"{bound_abs:.3g}) | launches { {k: launches[k] for k in sorted(names)} }")
     return {"launches": launches, "stats": stats, "max_abs_vs_direct": err}
 
 
@@ -2556,28 +2797,31 @@ def _hf_vit_graph(torch, batch: int, image_size: int):
     return export_torch(m, example, name=f"hf_vit_b16_{image_size}")
 
 
-def _gate(np, got, ref, ref16, label: str) -> dict:
+def _gate(np, got, ref, ref16, label: str, classes: bool = True) -> dict:
     """f32 on the card within 1e-3 x max|ref| of the CPU's f32 run; bf16
-    within 3x the CPU's own bf16 error, top-1 equal on the clear rows."""
+    within 3x the CPU's own bf16 error, and for logits (`classes`) top-1
+    equal on the clear rows."""
     scale = float(np.abs(ref).max())
-    gap = np.diff(np.sort(ref, axis=1)[:, -2:], axis=1)[:, 0]
     err32 = float(np.abs(got["f32"] - ref).max())
     err16 = float(np.abs(got["bf16"] - ref).max())
     err_cpu16 = float(np.abs(ref16 - ref).max())
     for k, v in got.items():
-        check(v.shape == ref.shape and np.isfinite(v).all(), f"{label} {k} logits")
-    # f32 on the card sums in other orders than the CPU through 12 layers
-    # (cuBLAS GEMMs, the attention kernels, cuDNN's patch conv), all in full
+        check(v.shape == ref.shape and np.isfinite(v).all(), f"{label} {k} outputs")
+    # f32 on the card sums in other orders than the CPU through the whole
+    # model (cuBLAS GEMMs, the port's kernels, cuDNN's convs), all in full
     # f32: 1e-3.
     check(err32 <= 1e-3 * scale, f"{label} f32: max-abs {err32} > 1e-3 x {scale}")
     limit16 = 3 * err_cpu16
     check(err16 <= limit16, f"{label} bf16: max-abs {err16} > 3 x the CPU bf16's {err_cpu16}")
-    agree = got["bf16"].argmax(1) == ref.argmax(1)
-    clear = gap > 2 * err16
-    check(bool(agree[clear].all()), f"{label} bf16: top-1 differs on a clear row")
-    return {"max_abs_ref": scale, "f32_max_abs_err": err32, "bf16_max_abs_err": err16,
-            "cpu_bf16_max_abs_err": err_cpu16, "bf16_limit": limit16,
-            "bf16_top1_agree": float(agree.mean()), "clear_rows": int(clear.sum())}
+    r = {"max_abs_ref": scale, "f32_max_abs_err": err32, "bf16_max_abs_err": err16,
+         "cpu_bf16_max_abs_err": err_cpu16, "bf16_limit": limit16}
+    if classes:
+        gap = np.diff(np.sort(ref, axis=1)[:, -2:], axis=1)[:, 0]
+        agree = got["bf16"].argmax(1) == ref.argmax(1)
+        clear = gap > 2 * err16
+        check(bool(agree[clear].all()), f"{label} bf16: top-1 differs on a clear row")
+        r.update(bf16_top1_agree=float(agree.mean()), clear_rows=int(clear.sum()))
+    return r
 
 
 def phase_hf_vit(torch, np, stt, zoo, zoo_bound16: float) -> dict:
@@ -2775,6 +3019,289 @@ def phase_hf_vit(torch, np, stt, zoo, zoo_bound16: float) -> dict:
     return res
 
 
+# -- phase 11 --------------------------------------------------------------
+
+# The symbols of the block kernels and of the kernels they share (csrc/
+# convnext_block.cu, cross_attn_block.cu, vit_block.cu, gemm.cuh,
+# layer_norm.cuh), as the profiler names them.
+_PORT_BLOCK_KERNEL = re.compile(r"(smelter|\(anonymous namespace\))::(gemm_mma|gemm_f32|dw_ln|"
+                                r"xattn_mma|xattn_f32|attention_mma|attention_rows|"
+                                r"layer_norm_rows)[<(]")
+
+
+def _convnext_graph(torch, batch: int):
+    """ConvNeXt-T (CONVNEXT, random weights from seed 0) at `batch`, exported
+    by the port's exporter with the module on the card. The layer scales are
+    drawn from [0.2, 0.6) (seed 1): at the 1e-6 init each block's MLP adds
+    too little to change its bf16 input, and no gate would see the blocks."""
+    from smelter_tpu_torch.frontend.torch_export import export_torch
+    from smelter_tpu_torch.models import convnext
+
+    m = convnext.create_torch(0, CONVNEXT["num_classes"], CONVNEXT["dims"],
+                              CONVNEXT["depths"])
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith("gamma"):
+                p.copy_(0.2 + 0.4 * torch.rand(p.shape, generator=gen))
+    m = m.cuda()
+    side_px = CONVNEXT["image_size"]
+    return export_torch(m, torch.zeros(batch, 3, side_px, side_px, device="cuda"),
+                        name="convnext")
+
+
+def _sd_unet_graph(torch, batch: int):
+    """SD-UNet at the zoo's 256 px configuration (SD_UNET; weights, timestep
+    and context from seed 0, the context baked at `batch`), exported by the
+    port's exporter with the module on the card."""
+    from smelter_tpu_torch.frontend.torch_export import export_torch
+    from smelter_tpu_torch.models import sd_unet
+
+    kw = {k: SD_UNET[k] for k in sd_unet.ZOO_KW}
+    check(kw == sd_unet.ZOO_KW, f"SD_UNET {kw} is not the zoo's {sd_unet.ZOO_KW}")
+    m = sd_unet.create_torch(batch, seed=0, **kw).cuda()
+    side = SD_UNET["latent"]
+    return export_torch(m, torch.zeros(batch, 4, side, side, device="cuda"), name="sd_unet")
+
+
+def _prepared(stt, g, *, fuse_convnext: bool = False, cross: bool = False):
+    """`_prepare` with the default passes on a copy of g; then
+    fuse_convnext_block explicitly (as tests/test_vit_block_pass.py runs
+    it), or fuse_vit_block's cross branch switched on by its module flag."""
+    import copy
+
+    from smelter_tpu_torch.api import _prepare
+    from smelter_tpu_torch.passes import vit_block as vbp
+    from smelter_tpu_torch.passes.pass_manager import run_passes
+
+    flag = vbp._CROSS_ENABLED
+    vbp._CROSS_ENABLED = cross
+    try:
+        gp = _prepare(copy.deepcopy(g), None, True, "nhwc")
+    finally:
+        vbp._CROSS_ENABLED = flag
+    if fuse_convnext:
+        run_passes(gp, ["fuse_convnext_block", "dce"])
+    return gp
+
+
+def _routed_of(gp, cfg) -> dict:
+    """The launches a forward of prepared graph gp makes on the card under
+    Config cfg: its block kernels; a fused_layer_norm for each
+    LayerNormalization where cfg.fused_layernorm is True or "auto"; a
+    residual_layer_norm for each bias-free SkipLayerNormalization where it is
+    True or under use_pallas (ops/nn.py, ops/contrib_ops.py)."""
+    ops = [n.op_type for n in gp.nodes]
+    fln = cfg.fused_layernorm
+    routed = {"convnext_block": ops.count("ConvNeXtBlock"),
+              "cross_attn_block": ops.count("CrossAttnBlock"),
+              "vit_attention_block": ops.count("VitAttnBlock"),
+              "fused_layer_norm": ops.count("LayerNormalization") if fln in (True, "auto")
+              else 0,
+              "residual_layer_norm": sum(
+                  n.op_type == "SkipLayerNormalization" and not (len(n.inputs) > 4
+                                                                and n.inputs[4])
+                  for n in gp.nodes) if fln is True or cfg.use_pallas else 0}
+    return {k: v for k, v in routed.items() if v}
+
+
+def _gates(torch, np, stt, graphs: dict, x, label: str, classes: bool) -> dict:
+    """Each routing's prepared graph in f32 and bf16 on the card, with its
+    launches, held by `_gate` to the port's CPU runs of the same graph."""
+    import copy
+
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for routing, gp in graphs.items():
+        ref = CompiledModel(copy.deepcopy(gp), stt.Config(device="cpu"))(x)[0]
+        ref16 = CompiledModel(copy.deepcopy(gp), stt.Config(device="cpu",
+                                                            compute_dtype="bfloat16"))(x)[0]
+        got = {}
+        for key, dt in (("f32", "float32"), ("bf16", "bfloat16")):
+            cfg = stt.Config(compute_dtype=dt)
+            model = CompiledModel(copy.deepcopy(gp), cfg)
+            _zero_counts()
+            got[key] = model(x)[0]
+            launches = _counts()
+            routed = _routed_of(gp, cfg)
+            check({k: v for k, v in launches.items() if v} == routed,
+                  f"{label} {routing} {dt}: launches {launches}, not {routed}")
+            del model
+        r = out[routing] = _gate(np, got, ref, ref16, f"{label} {routing}", classes)
+        r["launches"] = routed
+        top1 = (f", top-1 {r['bf16_top1_agree']:.3f} (clear rows {r['clear_rows']})"
+                if classes else "")
+        say(11, f"{label} gate, {routing} (batch {x.shape[0]}) vs the CPU's f32 run (max|ref| "
+                f"{r['max_abs_ref']:.4g}): card f32 max-abs {r['f32_max_abs_err']:.4g} (bound "
+                f"{1e-3 * r['max_abs_ref']:.4g}); bf16 {r['bf16_max_abs_err']:.4g} (bound 3 x "
+                f"the CPU bf16's {r['cpu_bf16_max_abs_err']:.4g}){top1} | launches a forward "
+                f"{routed}")
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def _runs(torch, np, stt, cases, x, label: str, batch: int) -> dict:
+    """Each (name, prepared graph, config) at full batch: the launch check,
+    images/s, step ms, idle share, kernels a forward, peak memory and a
+    profile's top device ops; the bf16 outputs of each against the first's."""
+    import copy
+
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    runs = {}
+    xg = torch.from_numpy(x).cuda()
+    for name, gp, cfg in cases:
+        t0 = time.perf_counter()
+        model = CompiledModel(copy.deepcopy(gp), cfg)
+        compile_s = time.perf_counter() - t0
+        r = _image_forward(torch, np, model, xg, f"{label} {name}", batch,
+                           _routed_of(gp, cfg), 20, port_re=_PORT_BLOCK_KERNEL)
+        r["compile_s"] = compile_s
+        extra = ""
+        if runs:
+            base = next(iter(runs.values()))["out"]
+            r["max_abs_vs_first"] = float(np.abs(r["out"] - base).max())
+            extra = f" | vs {next(iter(runs))}: max-abs {r['max_abs_vs_first']:.4g}"
+        runs[name] = r
+        _say_run(f"{label} {name} bf16 batch {batch} (compiled in {compile_s:.1f} s)", r,
+                 extra, phase=11)
+        del model
+    del xg
+    for r in runs.values():
+        r.pop("out")
+    return runs
+
+
+def phase_convnext(torch, np, stt) -> dict:
+    """ConvNeXt-T at full width and depth (224 px, dims 96/192/384/768,
+    depths 3/3/9/3, 1000 classes; random weights from seed 0), exported on
+    the card: (a) gates at batch 8 on the default passes (the composite
+    blocks with their 18 barriers) and with fuse_convnext_block (15
+    ConvNeXtBlock, the stage-4 blocks below the tokens x dim gate); (b) at
+    batch 64 in bf16 the default (0 convnext_block), fuse_convnext_block (15
+    a forward) and use_pallas; (c) the fused graph served at max_batch=16."""
+    res: dict = {}
+    t0 = time.perf_counter()
+    g8 = _convnext_graph(torch, CONVNEXT_GATE_BATCH)
+    graphs = {"default": _prepared(stt, g8), "fused": _prepared(stt, g8, fuse_convnext=True)}
+    ops = [n.op_type for n in graphs["default"].nodes]
+    check(ops.count("OptimizationBarrier") == 18 and ops.count("ConvNeXtBlock") == 0,
+          f"ConvNeXt-T default passes: {ops.count('OptimizationBarrier')} barriers")
+    n_fused = sum(n.op_type == "ConvNeXtBlock" for n in graphs["fused"].nodes)
+    check(n_fused == CONVNEXT_FUSED, f"fuse_convnext_block fused {n_fused} blocks, not "
+                                     f"{CONVNEXT_FUSED}")
+    side_px = CONVNEXT["image_size"]
+    x8 = np.random.default_rng(13).standard_normal(
+        (CONVNEXT_GATE_BATCH, 3, side_px, side_px)).astype(np.float32)
+    res["gates"] = _gates(torch, np, stt, graphs, x8, "ConvNeXt-T", classes=True)
+    res["gates_s"] = time.perf_counter() - t0
+    del g8, graphs
+
+    g = _convnext_graph(torch, CONVNEXT_BATCH)
+    x = np.random.default_rng(14).standard_normal(
+        (CONVNEXT_BATCH, 3, side_px, side_px)).astype(np.float32)
+    cfg16 = stt.Config(compute_dtype="bfloat16")
+    default = _prepared(stt, g)
+    res.update(_runs(torch, np, stt, (
+        ("default", default, cfg16),
+        ("fuse_convnext_block", _prepared(stt, g, fuse_convnext=True), cfg16),
+        ("use_pallas", default, stt.Config(compute_dtype="bfloat16", use_pallas=True))),
+        x, "(b) ConvNeXt-T", CONVNEXT_BATCH))
+    bound16 = res["gates"]["fused"]["bf16_limit"]
+    del g, default
+
+    # (c) the fused graph at batch 16 served: one bucket of 16, 32 requests
+    import copy
+
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    g16 = _prepared(stt, _convnext_graph(torch, 16), fuse_convnext=True)
+    xs = x[:32]
+    direct_model = CompiledModel(copy.deepcopy(g16), cfg16)
+    direct = np.concatenate([direct_model(xs[:16])[0], direct_model(xs[16:])[0]])
+    del direct_model
+    res["serve"] = _serve_check(torch, np, stt, g16, cfg16, xs, 16, direct, bound16,
+                                "(c) ConvNeXt-T fused", set(_routed_of(g16, cfg16)), phase=11)
+    return res
+
+
+def phase_sd_unet(torch, np, stt) -> dict:
+    """SD-UNet at the zoo's 256 px configuration (latent 32, base 128, a 16 x
+    256 context, 8 heads; weights, timestep and context from seed 0, the
+    context baked at batch 8), exported on the card: (a) gates at batch 8 on
+    the default passes (5 vit_attention_block at hd 16 and 32, the 5 cross
+    attentions as native FusedAttention on the library attention) and with
+    the cross branch on (5 cross_attn_block besides); (b) both at batch 8 in
+    bf16; (c) served with buckets=(8,), the short batches padded, each
+    answer held to the direct output of its image in one of the 8 context
+    slots."""
+    import copy
+
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    res: dict = {}
+    B, side = SD_UNET_BATCH, SD_UNET["latent"]
+    t0 = time.perf_counter()
+    g = _sd_unet_graph(torch, B)
+    graphs = {"default": _prepared(stt, g), "cross": _prepared(stt, g, cross=True)}
+    want = {"default": {"vit_attention_block": 5},
+            "cross": {"vit_attention_block": 5, "cross_attn_block": 5}}
+    for routing, gp in graphs.items():
+        blocks = {k: v for k, v in _routed_of(gp, stt.Config()).items()
+                  if k in ("vit_attention_block", "cross_attn_block")}
+        check(blocks == want[routing], f"SD-UNet {routing}: blocks {blocks}, not "
+                                       f"{want[routing]}")
+    x = np.random.default_rng(15).standard_normal((B, 4, side, side)).astype(np.float32)
+    res["gates"] = _gates(torch, np, stt, graphs, x, "SD-UNet", classes=False)
+    res["gates_s"] = time.perf_counter() - t0
+    cfg16 = stt.Config(compute_dtype="bfloat16")
+    res.update(_runs(torch, np, stt, (("default", graphs["default"], cfg16),
+                                      ("cross", graphs["cross"], cfg16)),
+                     x, "(b) SD-UNet", B))
+
+    # (c) served: 20 requests through one bucket of 8; each image's direct
+    # outputs in every slot (its context is the slot's)
+    gp = graphs["cross"]
+    model = CompiledModel(copy.deepcopy(gp), cfg16)
+    xs = np.random.default_rng(16).standard_normal((20, 4, side, side)).astype(np.float32)
+    slots = [model(np.stack([xi] * B))[0] for xi in xs]
+    del model
+    _zero_counts()
+    server = stt.serve(gp, cfg16, optimize=False, device="cuda", max_batch=B, buckets=(B,))
+    results = [None] * len(xs)
+    try:
+        check(server.wait_ready(600), "SD-UNet server bucket did not warm up")
+
+        def ask(i):
+            results[i] = server.infer(xs[i])[0]
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        stats = server.stats()
+    finally:
+        server.shutdown()
+    launches = _counts()
+    _check_routed("SD-UNet server", launches, set(_routed_of(gp, cfg16)))
+    check(all(r is not None for r in results), "SD-UNet server left requests unanswered")
+    check(stats["requests"] == len(xs) and stats["errors"] == 0, f"SD-UNet server stats {stats}")
+    bound16 = res["gates"]["cross"]["bf16_limit"]
+    errs = [min(float(np.abs(r - s[j]).max()) for j in range(B)) for r, s in zip(results, slots)]
+    check(max(errs) <= bound16, f"SD-UNet served vs direct: max-abs {max(errs)} > {bound16}")
+    res["serve"] = {"launches": launches, "stats": stats, "max_abs_vs_direct": max(errs)}
+    say(11, f"(c) SD-UNet cross served {stats['requests']} requests in {stats['batches']} "
+            f"batches of up to {B} (short ones padded), p50 {stats['latency_ms_p50']:.1f} ms, "
+            f"p95 {stats['latency_ms_p95']:.1f} ms | vs the direct output in the nearest "
+            f"slot: max-abs {max(errs):.3g} (bound {bound16:.3g}) | launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    return res
+
+
 # -- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -2798,6 +3325,7 @@ def main() -> int:
     vit_rows = phase_vit_kernels(torch, np, power_w)
     image_rows = phase_image_kernels(torch, power_w)
     encoder_rows = phase_encoder_kernels(torch, power_w)
+    block_rows = phase_block_kernels(torch, np, power_w)
 
     main_path = REPORT["main_path"] = phase_main(torch, np, stt)
     REPORT["serve"] = phase_serve(torch, np, stt)
@@ -2812,6 +3340,8 @@ def main() -> int:
     seg = REPORT["segnet"] = phase_segnet(torch, np, stt)
     hfv = REPORT["hf_vit"] = phase_hf_vit(torch, np, stt, zoo, vit["b8"]["bf16_bound_b128"])
     del zoo
+    cnx = REPORT["convnext"] = phase_convnext(torch, np, stt)
+    sdu = REPORT["sd_unet"] = phase_sd_unet(torch, np, stt)
     # Each kernel's launches on the path that routes to it.
     launches = {"dequant_matmul": main_path["bf16"]["launches"]["dequant_matmul"],
                 "int8_matmul": main_path["bf16_int8act"]["launches"]["int8_matmul"],
@@ -2828,7 +3358,9 @@ def main() -> int:
                 "max_unpool2x2": seg["default"]["launches"]["max_unpool2x2"],
                 "short_attention": hfv["a_short_224"]["launches"]["short_attention"],
                 "flash_attention": hfv["b_flash_384"]["launches"]["flash_attention"],
-                "mlp_block": hfv["d_mlp_block_224"]["launches"]["mlp_block"]}
+                "mlp_block": hfv["d_mlp_block_224"]["launches"]["mlp_block"],
+                "convnext_block": cnx["fuse_convnext_block"]["launches"]["convnext_block"],
+                "cross_attn_block": sdu["cross"]["launches"]["cross_attn_block"]}
     say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
     # ResNet-50 kernels: one call at the head shape (its launches from the
@@ -2837,8 +3369,10 @@ def main() -> int:
     # sum over one decode step's calls (169 int4_matmul, 24 attention). ViT
     # kernels: one call at ViT-B/16's batch-128 shape. Image kernels: the sum
     # over one forward's calls (349 pixel convs of ESRGAN x4 at batch 8, 3
-    # unpools of SegNet at batch 16); pixel_conv_rowdot_q has no library
-    # call (null).
+    # unpools of SegNet at batch 16; the 15 convnext_block calls of a
+    # ConvNeXt-T forward at batch 64, the 5 cross_attn_block calls of an
+    # SD-UNet forward at batch 8); pixel_conv_rowdot_q has no library call
+    # (null).
     sources = {"dequant_matmul": ("smelter_tpu_torch/csrc/dequant_matmul.cu",
                                   "smelter_tpu/kernels/dequant_matmul.py:104",
                                   rows[("dequant_matmul", "head", "bf16")], "call"),
@@ -2883,7 +3417,13 @@ def main() -> int:
                                    encoder_rows[("flash_attention", "384 px b64")], "call"),
                "mlp_block": ("smelter_tpu_torch/csrc/mlp_block.cu",
                              "smelter_tpu/kernels/mlp_block.py:79",
-                             encoder_rows[("mlp_block", "224 px b128")], "call")}
+                             encoder_rows[("mlp_block", "224 px b128")], "call"),
+               "convnext_block": ("smelter_tpu_torch/csrc/convnext_block.cu",
+                                  "smelter_tpu/kernels/convnext_block.py:84",
+                                  per_forward(block_rows, "convnext_block"), "forward"),
+               "cross_attn_block": ("smelter_tpu_torch/csrc/cross_attn_block.cu",
+                                    "smelter_tpu/kernels/vit_block.py:295",
+                                    per_forward(block_rows, "cross_attn_block"), "forward")}
     kernels = []
     for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,7 +1,7 @@
 // The GEMM of the port's transformer kernels: out (M, N) = A (M, K) @ B +
-// f32 bias [-> GELU] [+ residual], one rounding to the output's type. The
-// QKV and output projections of csrc/vit_block.cu and the two products of
-// csrc/mlp_block.cu.
+// f32 bias [-> GELU] [* column scale] [+ residual], one rounding to the
+// output's type. The QKV and output projections of csrc/vit_block.cu and
+// the two products of csrc/mlp_block.cu and csrc/convnext_block.cu.
 //
 // B(k, n) lies in block n / G of shape (K, G), row-major: the packed QKV
 // weight with G = group * hd, a plain (K, N) weight with G = N.
@@ -11,8 +11,9 @@
 // FMA kernel in full f32 (no TF32). The epilogue adds the bias in f32,
 // applies the activation in f32 (GELU's exact form as the Pallas MLP kernel
 // spells it, smelter_tpu/kernels/mlp_block.py::_mlp_kernel: the
-// Abramowitz-Stegun 7.1.26 polynomial over exp; or the tanh form), adds the
-// residual in f32 and rounds once.
+// Abramowitz-Stegun 7.1.26 polynomial over exp; or the tanh form),
+// multiplies by a per-column scale in f32 (ConvNeXt's layer scale), adds
+// the residual in f32 and rounds once.
 #pragma once
 
 #include <type_traits>
@@ -93,7 +94,7 @@ template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
          const void* __restrict__ bias, int p_code, int act, const T* __restrict__ residual,
-         T* __restrict__ out, int M, int N, int K, int G) {
+         T* __restrict__ out, int M, int N, int K, int G, const void* __restrict__ scale) {
   extern __shared__ __align__(16) uint16_t smem[];
   uint16_t* As = smem;                     // [stage][m][k]
   uint16_t* Bs = smem + STAGES * A_STAGE;  // [stage][k][n]
@@ -175,6 +176,8 @@ gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
       const int col = n0 + wn + ni * 8 + t * 2;
       if (col >= N) continue;
       const float b0 = param_at(bias, p_code, col), b1 = param_at(bias, p_code, col + 1);
+      const float s0 = scale != nullptr ? param_at(scale, p_code, col) : 1.f;
+      const float s1 = scale != nullptr ? param_at(scale, p_code, col + 1) : 1.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm + mi * 16 + g + h * 8;
@@ -182,6 +185,10 @@ gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
         const size_t o = static_cast<size_t>(row) * N + col;
         float v0 = activate(acc[mi][ni][h * 2] + b0, act);
         float v1 = activate(acc[mi][ni][h * 2 + 1] + b1, act);
+        if (scale != nullptr) {
+          v0 *= s0;
+          v1 *= s1;
+        }
         if (residual != nullptr) {
           v0 = to_float(residual[o]) + v0;
           v1 = to_float(residual[o + 1]) + v1;
@@ -198,7 +205,7 @@ constexpr int FM = 64, FN = 64, FK = 16;
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_f32(const float* __restrict__ A, const float* __restrict__ Bw,
          const void* __restrict__ bias, int p_code, int act, const float* __restrict__ residual,
-         float* __restrict__ out, int M, int N, int K, int G) {
+         float* __restrict__ out, int M, int N, int K, int G, const void* __restrict__ scale) {
   __shared__ float As[FK][FM + 4];  // [k][m]
   __shared__ float Bs[FK][FN + 4];  // [k][n]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -245,6 +252,7 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ Bw,
       if (col >= N) continue;
       const size_t o = static_cast<size_t>(row) * N + col;
       float v = activate(acc[i][j] + param_at(bias, p_code, col), act);
+      if (scale != nullptr) v *= param_at(scale, p_code, col);
       if (residual != nullptr) v = residual[o] + v;
       out[o] = v;
     }
@@ -254,13 +262,15 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ Bw,
 // static: each kernel library keeps its own copy and its own guard below (a
 // template's static local is one symbol for the whole process otherwise, so
 // one library's cudaFuncSetAttribute would stand for another's).
+// `scale` (N,) in p_code, or nullptr: the per-column scale of the epilogue.
 template <typename T>
 static void gemm(const T* A, const T* Bw, const void* bias, int p_code, int act,
-                 const T* residual, T* out, int M, int N, int K, int G, cudaStream_t stream) {
+                 const T* residual, T* out, int M, int N, int K, int G, cudaStream_t stream,
+                 const void* scale = nullptr) {
   if constexpr (std::is_same<T, float>::value) {
     const dim3 grid(cdiv(N, FN), cdiv(M, FM));
     gemm_f32<<<grid, GEMM_THREADS, 0, stream>>>(A, Bw, bias, p_code, act, residual, out, M, N,
-                                                K, G);
+                                                K, G, scale);
   } else {
     static const cudaError_t smem_set = cudaFuncSetAttribute(
         gemm_mma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
@@ -268,7 +278,7 @@ static void gemm(const T* A, const T* Bw, const void* bias, int p_code, int act,
     const dim3 grid(cdiv(N, BN), cdiv(M, BM));
     gemm_mma<T><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
         reinterpret_cast<const uint16_t*>(A), reinterpret_cast<const uint16_t*>(Bw), bias,
-        p_code, act, residual, out, M, N, K, G);
+        p_code, act, residual, out, M, N, K, G, scale);
   }
 }
 

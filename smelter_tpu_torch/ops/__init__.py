@@ -6,7 +6,7 @@ raises UnknownOpError when an Executor is built.
 """
 
 from . import (  # noqa: F401  (registration side effects)
-    contrib_ops, fused_ops, math_ops, nn, quant_ops, reduce_ops, tensor_ops)
+    contrib_ops, fused_ops, math_ops, misc_ops, nn, quant_ops, reduce_ops, tensor_ops)
 from .registry import Ctx, lower_node, register, registered_ops, resolve  # noqa: F401
 
 ALL_OPS_LOADED = True

@@ -1,6 +1,7 @@
 """Fused op lowerings: FusedDequantMatMul, FusedDequantMatMulI4,
 RaggedDecodeAttention, PagedDecodeAttention, PagedCacheUpdate,
-FusedAttention, FusedQKVAttention, VitAttnBlock and MlpBlock.
+FusedAttention, FusedQKVAttention, VitAttnBlock, MlpBlock, CrossAttnBlock
+and ConvNeXtBlock.
 
 `passes/fuse_dequant.py` rewrites DequantizeLinear(int8 W, scales) ->
 MatMul/Gemm into FusedDequantMatMul(x, W (K, N) int8, scales (N,)), and the
@@ -36,9 +37,12 @@ routes as the JAX lowering does: (B, H, N, hd) operands without a bias take
 it with `jax.nn.dot_product_attention`: `F.scaled_dot_product_attention` on
 the card, the einsum composite elsewhere. FusedQKVAttention is computed the
 same way; it remains only where `fuse_vit_block`'s gate turns a block down.
-VitAttnBlock and MlpBlock always go to their kernels
-(`vit_attention_block`, `mlp_block`), as the JAX lowerings always go to
-their Pallas kernels.
+`fuse_vit_block` also turns SD-UNet's constant-context cross-attention
+into CrossAttnBlock when its module flag `_CROSS_ENABLED` is set, and
+`fuse_convnext_block` (off by default) a ConvNeXt block into ConvNeXtBlock.
+VitAttnBlock, MlpBlock, CrossAttnBlock and ConvNeXtBlock always go to their
+kernels (`vit_attention_block`, `mlp_block`, `cross_attn_block`,
+`convnext_block`), as the JAX lowerings always go to their Pallas kernels.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ import torch.nn.functional as F
 from ..ir.errors import NotSupportedError
 from ..ir.graph import Node
 from ..kernels.attention_short import short_attention
+from ..kernels.convnext_block import convnext_block
+from ..kernels.cross_attn_block import cross_attn_block
 from ..kernels.dequant_matmul import dequant_matmul, dequant_matmul_reference
 from ..kernels.flash_attention import flash_attention
 from ..kernels.int4_matmul import int4_matmul
@@ -237,6 +243,16 @@ def fused_qkv_attention(ctx: Ctx, node: Node):
     ctx.set(node.outputs[0], out.reshape(b, n, d).to(x.dtype))
 
 
+def _params(ctx: Ctx, node: Node, positions, x: torch.Tensor) -> list[torch.Tensor]:
+    """The small f32 operands of a block kernel, flat: as stored when they
+    share one dtype, f32 or x's (the kernel reads either in f32), else in
+    f32."""
+    params = [ctx.get(node.inputs[i]).reshape(-1).contiguous() for i in positions]
+    if len({t.dtype for t in params}) > 1 or params[0].dtype not in (torch.float32, x.dtype):
+        params = [t.float() for t in params]
+    return params
+
+
 @register("VitAttnBlock")
 def vit_attn_block(ctx: Ctx, node: Node):
     """LN -> packed QKV projection -> per-head attention -> projection + bias,
@@ -246,10 +262,7 @@ def vit_attn_block(ctx: Ctx, node: Node):
     attributes num_heads, scale (0.0: 1/sqrt(hd)), epsilon, pre_ln,
     mask_filter."""
     x = ctx.get(node.inputs[0]).contiguous()
-    params = [ctx.get(node.inputs[i]).reshape(-1).contiguous() for i in (1, 2, 4, 6)]
-    if len({t.dtype for t in params}) > 1 or params[0].dtype not in (torch.float32, x.dtype):
-        params = [t.float() for t in params]
-    g, b, bpk, bp = params
+    g, b, bpk, bp = _params(ctx, node, (1, 2, 4, 6), x)
     wpk = ctx.get(node.inputs[3]).to(x.dtype).contiguous()
     wp = ctx.get(node.inputs[5]).to(x.dtype).contiguous()
     mask = ctx.get(node.inputs[7]) if len(node.inputs) > 7 and node.inputs[7] else None
@@ -270,14 +283,39 @@ def mlp_block_op(ctx: Ctx, node: Node):
     x, LN gamma and beta, W1 (D, F), b1, W2 (F, D), b2; attributes
     epsilon, approximate, residual, pre_ln."""
     x = ctx.get(node.inputs[0]).contiguous()
-    params = [ctx.get(node.inputs[i]).reshape(-1).contiguous() for i in (1, 2, 4, 6)]
-    if len({t.dtype for t in params}) > 1 or params[0].dtype not in (torch.float32, x.dtype):
-        params = [t.float() for t in params]
-    g, b, b1, b2 = params
+    g, b, b1, b2 = _params(ctx, node, (1, 2, 4, 6), x)
     w1 = ctx.get(node.inputs[3]).to(x.dtype).contiguous()
     w2 = ctx.get(node.inputs[5]).to(x.dtype).contiguous()
     out = mlp_block(x, g, b, w1, b1, w2, b2, eps=float(node.attr("epsilon", 1e-5)),
                     approximate=bool(node.attr("approximate", 0)),
                     residual=bool(node.attr("residual", 1)),
                     pre_ln=bool(node.attr("pre_ln", 1)))
+    ctx.set(node.outputs[0], out)
+
+
+@register("CrossAttnBlock")
+def cross_attn_block_op(ctx: Ctx, node: Node):
+    """q projection -> per-head attention against the folded constant k/v ->
+    output projection + bias, in the port's kernel. Inputs: x (B, N, D), Wq,
+    k and v (Bk, heads, S, hd), Wp, bp; attributes num_heads, scale (0.0:
+    1/sqrt(hd))."""
+    x = ctx.get(node.inputs[0]).contiguous()
+    wq, k, v, wp = (ctx.get(node.inputs[i]).to(x.dtype).contiguous() for i in (1, 2, 3, 4))
+    (bp,) = _params(ctx, node, (5,), x)
+    out = cross_attn_block(x, wq, k, v, wp, bp, heads=int(node.attr("num_heads")),
+                           scale=float(node.attr("scale", 0.0)) or None)
+    ctx.set(node.outputs[0], out)
+
+
+@register("ConvNeXtBlock")
+def convnext_block_op(ctx: Ctx, node: Node):
+    """dw7x7 -> LN -> FC1 -> GELU -> FC2 -> layer scale -> residual on NHWC x,
+    in the port's kernel. Inputs: x, the (7, 7, 1, C) depthwise weight and
+    its bias, LN gamma and beta, W1 (C, F), b1, W2 (F, C), b2, gamma;
+    attribute epsilon."""
+    x = ctx.get(node.inputs[0]).contiguous()
+    dw, w1, w2 = (ctx.get(node.inputs[i]).to(x.dtype).contiguous() for i in (1, 5, 7))
+    db, g, b, b1, b2, gm = _params(ctx, node, (2, 3, 4, 6, 8, 9), x)
+    out = convnext_block(x, dw, db, g, b, w1, b1, w2, b2, gm,
+                         eps=float(node.attr("epsilon", 1e-6)))
     ctx.set(node.outputs[0], out)

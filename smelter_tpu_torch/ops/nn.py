@@ -1,5 +1,6 @@
 """Neural-net op lowerings of the ResNet path: Conv, MaxPool,
-GlobalAveragePool, BatchNormalization, Gemm, MatMul; Softmax (the
+GlobalAveragePool, BatchNormalization, Gemm, MatMul; GroupNormalization
+(SD-UNet); Softmax (the
 static-cache decode step's dense attention); LayerNormalization (the
 ViT graph), which takes `kernels/layer_norm.py::fused_layer_norm` where the
 configuration routes it there, as the JAX lowering takes its Pallas kernel;
@@ -231,6 +232,42 @@ def layer_norm(ctx: Ctx, node: Node):
     for extra in node.outputs[1:]:
         if extra:
             raise NotSupportedError("LayerNormalization mean/invstd outputs")
+
+
+def _group_norm(x: torch.Tensor, num_groups: int, scale, bias, eps: float,
+                layout: str = "NCHW") -> torch.Tensor:
+    """GroupNorm in f32: the statistics over each group's channels and all
+    spatial positions (mean, then the mean of squared deviations), then the
+    per-channel scale and bias; returns f32."""
+    xf = x.float()
+    if layout == "NHWC":
+        n, c = x.shape[0], x.shape[-1]
+        xf = xf.reshape((n,) + tuple(x.shape[1:-1]) + (num_groups, c // num_groups))
+        axes = tuple(range(1, xf.ndim - 2)) + (xf.ndim - 1,)
+        shape = (-1,)
+    else:
+        n, c = x.shape[:2]
+        xf = xf.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+        axes = tuple(range(2, xf.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = (xf - mean).square().mean(dim=axes, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return y * scale.reshape(shape) + bias.reshape(shape)
+
+
+# Official since opset 18; taken at any opset, as the JAX lowering does.
+@register("GroupNormalization")
+def group_normalization(ctx: Ctx, node: Node):
+    """SD-UNet's GroupNorm, in either data_layout (NHWC after the layout
+    pass). Plain PyTorch, as the JAX package computes it outside any
+    kernel."""
+    x = ctx.get(node.inputs[0])
+    scale = ctx.get(node.inputs[1]).float()
+    bias = ctx.get(node.inputs[2]).float()
+    y = _group_norm(x, int(node.attr("num_groups")), scale, bias,
+                    float(node.attr("epsilon", 1e-5)), _layout(node))
+    ctx.set(node.outputs[0], y.to(x.dtype))
 
 
 # -- MaxPool indices, MaxUnpool (SegNet) ---------------------------------------

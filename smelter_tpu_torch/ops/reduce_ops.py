@@ -1,4 +1,5 @@
-"""Reduction op lowerings of the decode path: ReduceMax.
+"""Reduction op lowerings: ReduceMax (the decode path) and ReduceMean
+(ConvNeXt's global pool, over axes (1, 2) after the layout pass).
 
 Counterpart of `smelter_tpu/ops/reduce_ops.py`. ONNX moved the axes of a
 reduction from an attribute to an input at opset 18; both forms are read.
@@ -37,4 +38,5 @@ def _reduce(op_type: str, fn):
         ctx.set(node.outputs[0], _fn(x, axes, keep))
 
 
+_reduce("ReduceMean", lambda x, a, k: torch.mean(x, dim=a, keepdim=k))
 _reduce("ReduceMax", lambda x, a, k: torch.amax(x, dim=a, keepdim=k))

@@ -2,7 +2,8 @@
 DepthToSpace (the ResNet path), Gather, Cast, CastLike (the decode path),
 ScatterND (the static-cache step's cache writes), Pad (the prefill
 graph's padded caches), and Squeeze, Unsqueeze, Concat, Slice and Expand
-(the ViT graph: its class token, head split and class-token read-out).
+(the ViT graph: its class token, head split and class-token read-out), and
+Split (SD-UNet's GEGLU halves).
 
 Counterparts of `smelter_tpu/ops/tensor_ops.py`. Constant publishes its
 value into the static env, so a Reshape whose shape comes from it resolves
@@ -310,3 +311,30 @@ def pad(ctx: Ctx, node: Node):
     for i in reversed(range(rank)):  # F.pad takes the last dim first
         flat += [int(pads[i]), int(pads[i + rank])]
     ctx.set(node.outputs[0], F.pad(x, flat, mode="constant", value=cval))
+
+
+@register("Split", since=2, static={1})
+def split(ctx: Ctx, node: Node):
+    """Sizes from the input (opset >= 13) or the attribute (earlier), else
+    equal chunks of ceil(dim / outputs) with the remainder last (opset 18's
+    rule, and GEGLU's `torch.chunk`)."""
+    x = ctx.get(node.inputs[0])
+    axis = int(node.attr("axis", 0))
+    if axis < 0:
+        axis += x.ndim
+    sizes = None
+    if ctx.opset >= 13:
+        if len(node.inputs) > 1 and node.inputs[1]:
+            sizes = [int(s) for s in ctx.static(node.inputs[1]).reshape(-1)]
+    else:
+        s = node.attr("split")
+        sizes = list(s) if s else None
+    n_out = len(node.outputs)
+    if sizes is None:
+        chunk = -(-x.shape[axis] // n_out)
+        sizes = [chunk] * (n_out - 1) + [x.shape[axis] - chunk * (n_out - 1)]
+        if sizes[-1] <= 0:
+            raise NotSupportedError(f"Split: dim {x.shape[axis]} into {n_out} outputs leaves an "
+                                    f"empty chunk")
+    for out_name, part in zip(node.outputs, torch.split(x, sizes, dim=axis)):
+        ctx.set(out_name, part)

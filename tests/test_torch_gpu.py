@@ -483,9 +483,12 @@ def _vit_check(args, mask=None, **kw):
 
 
 # (B, N, D, H): the JAX test's cases, ViT-B/16's block, hd 128 over more
-# keys than a chunk, hd 16, and hd 48 (the warp-per-row attention kernel)
+# keys than a chunk, hd 16, and hd 48 (the warp-per-row attention kernel);
+# SD-UNet's two blocks at batch 8: hd 16 in one head group of 8 (group width
+# 128) over 1024 tokens, and hd 32 over 256
 VIT_GEOMS = [(2, 197, 128, 4), (1, 64, 128, 2), (2, 50, 192, 6), (2, 197, 768, 12),
-             (1, 300, 512, 4), (2, 33, 256, 16), (1, 20, 96, 2)]
+             (1, 300, 512, 4), (2, 33, 256, 16), (1, 20, 96, 2), (8, 1024, 128, 8),
+             (8, 256, 256, 8)]
 
 
 @pytest.mark.parametrize("geom", VIT_GEOMS)
@@ -929,3 +932,184 @@ def test_dequant_composites_on_the_card(cuda, m):
     ref = dm.dequant_matmul_plain(x, w, s)
     err = (got.float() - ref.float()).abs().max().item()
     assert got.dtype == torch.bfloat16 and err <= 1e-2 * ref.float().abs().max().item()
+
+
+# -- convnext_block (ConvNeXt-T), cross_attn_block (SD-UNet) -------------------
+
+def _t(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device, dtype)
+
+
+def _cnx_operands(B, H, W, C, dtype, device, p_dtype=torch.float32, seed=0):
+    """x, the depthwise weight and bias, LN gamma and beta, w1, b1, w2, b2 and
+    a layer scale of 0.5 (not ConvNeXt's 1e-6 init, so the MLP shows)."""
+    rng = np.random.default_rng(seed)
+    F = 4 * C
+    return (_t(rng.standard_normal((B, H, W, C)), dtype, device),
+            _t(rng.standard_normal((7, 7, 1, C)) / 7, dtype, device),
+            _t(0.1 * rng.standard_normal(C), p_dtype, device),
+            _t(1 + 0.1 * rng.standard_normal(C), p_dtype, device),
+            _t(0.1 * rng.standard_normal(C), p_dtype, device),
+            _t(rng.standard_normal((C, F)) / np.sqrt(C), dtype, device),
+            _t(0.1 * rng.standard_normal(F), p_dtype, device),
+            _t(rng.standard_normal((F, C)) / np.sqrt(F), dtype, device),
+            _t(0.1 * rng.standard_normal(C), p_dtype, device),
+            _t(0.5 + 0.1 * rng.standard_normal(C), p_dtype, device))
+
+
+def _close_to_plain(got, ref, dtype):
+    """f32 within 1e-5 of the largest output (full f32, sums in other
+    orders); 16-bit within 1e-2 (intermediates round to 8 or 11 bits after
+    sums in other orders)."""
+    assert got.dtype == dtype and got.shape == ref.shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+# (B, H, W, C): ConvNeXt-T's three fused stages at batch 8; stage 4; ragged
+# rows (W not a multiple of the 4-pixel strip), and wide C whose f32 tile
+# splits a row (3 tiles of 4 pixels and one of 2 at C 2048)
+CNX_GEOMS = [(8, 56, 56, 96), (8, 28, 28, 192), (8, 14, 14, 384), (2, 7, 7, 768),
+             (2, 9, 13, 40), (1, 3, 14, 2048)]
+
+
+@pytest.mark.parametrize("geom", CNX_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("p_dtype", ["f32", "x"])
+def test_convnext_block_matches_plain(cuda, geom, dtype, p_dtype):
+    from smelter_tpu_torch.kernels import convnext_block as cb
+
+    args = _cnx_operands(*geom, dtype, cuda, torch.float32 if p_dtype == "f32" else dtype)
+    before = cb.launches
+    got = cb.convnext_block(*args, eps=1e-6)
+    torch.cuda.synchronize()
+    assert cb.launches == before + 1
+    _close_to_plain(got, cb.convnext_block_plain(*args, eps=1e-6), dtype)
+
+
+def test_convnext_block_raises_on_bad_operands(cuda):
+    from smelter_tpu_torch.kernels import convnext_block as cb
+
+    x, dw, db, g, b, w1, b1, w2, b2, gm = _cnx_operands(1, 8, 8, 64, torch.bfloat16, cuda)
+    before = cb.launches
+    with pytest.raises(ValueError):  # a 3x3 depthwise weight
+        cb.convnext_block(x, dw[2:5, 2:5].contiguous(), db, g, b, w1, b1, w2, b2, gm)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        xs, dws, dbs, gs, bs, w1s, b1s, w2s, b2s, gms = _cnx_operands(1, 8, 8, 60,
+                                                                      torch.bfloat16, cuda)
+        cb.convnext_block(xs, dws, dbs, gs, bs, w1s, b1s, w2s, b2s, gms)
+    with pytest.raises(TypeError):  # weights not in x's dtype
+        cb.convnext_block(x, dw, db, g, b, w1.float(), b1, w2, b2, gm)
+    with pytest.raises(TypeError):  # params of mixed dtypes
+        cb.convnext_block(x, dw, db, g.bfloat16(), b, w1, b1, w2, b2, gm)
+    with pytest.raises(ValueError):  # NCHW strides
+        cb.convnext_block(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), dw, db, g,
+                          b, w1, b1, w2, b2, gm)
+    assert cb.launches == before
+
+
+def _xattn_operands(B, N, D, H, S, bk, dtype, device, p_dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    hd = D // H
+    return (_t(rng.standard_normal((B, N, D)), dtype, device),
+            _t(rng.standard_normal((D, D)) / np.sqrt(D), dtype, device),
+            _t(rng.standard_normal((bk, H, S, hd)), dtype, device),
+            _t(rng.standard_normal((bk, H, S, hd)), dtype, device),
+            _t(rng.standard_normal((D, D)) / np.sqrt(D), dtype, device),
+            _t(0.1 * rng.standard_normal(D), p_dtype, device))
+
+
+# (B, N, D, H, S): SD-UNet's two blocks at batch 8 (hd 16 and 32, 16 keys),
+# and ragged ones: rows not a multiple of the 64-row tile, S not a multiple
+# of 16, hd 64 over 64 keys, D not a multiple of the 64-column weight pass
+XATTN_GEOMS = [(8, 1024, 128, 8, 16), (8, 256, 256, 8, 16), (2, 37, 64, 4, 5),
+               (3, 100, 192, 3, 40), (1, 70, 96, 3, 33), (2, 65, 128, 2, 64),
+               (1, 10, 80, 5, 1)]
+
+
+@pytest.mark.parametrize("geom", XATTN_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("bk", ["B", 1])
+def test_cross_attn_block_matches_plain(cuda, geom, dtype, bk):
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+
+    B, N, D, H, S = geom
+    args = _xattn_operands(B, N, D, H, S, B if bk == "B" else 1, dtype, cuda)
+    for scale in (None, 0.3):
+        before = xa.launches
+        got = xa.cross_attn_block(*args, heads=H, scale=scale)
+        torch.cuda.synchronize()
+        assert xa.launches == before + 1
+        _close_to_plain(got, xa.cross_attn_block_plain(*args, heads=H, scale=scale), dtype)
+
+
+def test_cross_attn_block_bf16_bias(cuda):
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+
+    args = _xattn_operands(2, 50, 128, 8, 16, 2, torch.bfloat16, cuda, p_dtype=torch.bfloat16)
+    got = xa.cross_attn_block(*args, heads=8)
+    _close_to_plain(got, xa.cross_attn_block_plain(*args, heads=8), torch.bfloat16)
+
+
+def test_cross_attn_block_raises_on_bad_operands(cuda):
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+
+    x, wq, k, v, wp, bp = _xattn_operands(2, 16, 128, 8, 16, 2, torch.bfloat16, cuda)
+    before = xa.launches
+    with pytest.raises(ValueError):  # hd 8
+        x8, wq8, k8, v8, wp8, bp8 = _xattn_operands(2, 16, 64, 8, 16, 2, torch.bfloat16, cuda)
+        xa.cross_attn_block(x8, wq8, k8, v8, wp8, bp8, heads=8)
+    with pytest.raises(ValueError):  # 65 keys
+        _, _, k65, v65, _, _ = _xattn_operands(2, 16, 128, 8, 65, 2, torch.bfloat16, cuda)
+        xa.cross_attn_block(x, wq, k65, v65, wp, bp, heads=8)
+    with pytest.raises(ValueError):  # Bk neither 1 nor B
+        xa.cross_attn_block(x, wq, torch.cat([k, k]), torch.cat([v, v]), wp, bp, heads=8)
+    with pytest.raises(ValueError):  # D above 256
+        xw, wqw, kw, vw, wpw, bpw = _xattn_operands(1, 8, 512, 8, 16, 1, torch.bfloat16, cuda)
+        xa.cross_attn_block(xw, wqw, kw, vw, wpw, bpw, heads=8)
+    with pytest.raises(TypeError):  # k not in x's dtype
+        xa.cross_attn_block(x, wq, k.float(), v, wp, bp, heads=8)
+    assert xa.launches == before
+
+
+def test_small_convnext_and_sd_unet_on_the_card_match_the_cpu(cuda):
+    """A small ConvNeXt with fuse_convnext_block (gate patched to 0: 5
+    convnext_block launches a forward) and a small SD-UNet with the cross
+    branch on (5 cross_attn_block; no vit_attention_block: D 32 and 64 are
+    not multiples of the 128 the self-attention branch asks for); f32
+    within 1e-4 of the CPU's largest output."""
+    import copy
+
+    import smelter_tpu_torch as stt
+    from smelter_tpu_torch.kernels import convnext_block as cb
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+    from smelter_tpu_torch.models import convnext, sd_unet
+    from smelter_tpu_torch.passes import vit_block as vbp
+    from smelter_tpu_torch.passes.pass_manager import run_passes
+    from smelter_tpu_torch.runtime.executor import CompiledModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    gate, cross = vbp._MIN_TOKENS_X_DIM, vbp._CROSS_ENABLED
+    vbp._MIN_TOKENS_X_DIM, vbp._CROSS_ENABLED = 0, True
+    try:
+        g, _m, shape = convnext.build(batch=2, image_size=64, dims=(32, 64, 128, 256),
+                                      depths=(1, 1, 2, 1), num_classes=10)
+        rng = np.random.default_rng(7)  # layer scales that show (not the 1e-6 init)
+        for name, arr in g.initializers.items():
+            if name.endswith("_gamma"):
+                g.initializers[name] = rng.uniform(0.2, 0.6, arr.shape).astype(np.float32)
+        gm = stt.api._prepare(g, None, True, "nhwc")
+        run_passes(gm, ["fuse_convnext_block", "dce"])
+        g2, _m, shape2 = sd_unet.build(batch=2, image_size=16, base=32, heads=2)
+        gs = stt.api._prepare(g2, None, True, "nhwc")
+    finally:
+        vbp._MIN_TOKENS_X_DIM, vbp._CROSS_ENABLED = gate, cross
+    for graph, shp, counter, n in ((gm, shape, cb, 5), (gs, shape2, xa, 5)):
+        x = np.random.default_rng(0).standard_normal(shp).astype(np.float32)
+        ref = CompiledModel(copy.deepcopy(graph), stt.Config(device="cpu"))(x)[0]
+        before = counter.launches
+        got = CompiledModel(graph, stt.Config(device="cuda"))(x)[0]
+        assert counter.launches == before + n
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+

@@ -11,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from smelter_tpu.kernels import convnext_block as jcb
 from smelter_tpu.kernels import dequant_matmul as jdm
 from smelter_tpu.kernels import int8_matmul as jim
 from smelter_tpu.kernels import layer_norm as jln
 from smelter_tpu.kernels import max_unpool as jmu
 from smelter_tpu.kernels import pixel_conv as jpc
 from smelter_tpu.kernels import vit_block as jvb
+from smelter_tpu_torch.kernels import convnext_block as cb
+from smelter_tpu_torch.kernels import cross_attn_block as xa
 from smelter_tpu_torch.kernels import dequant_matmul as dm
 from smelter_tpu_torch.kernels import int8_matmul as im
 from smelter_tpu_torch.kernels import layer_norm as ln
@@ -190,7 +193,10 @@ def _vit_operands(B, N, D, H, seed=0):
     return (x, g, b, wpk, bpk, wp, bp), {"keep2d": keep, "len1d": lens}
 
 
-@pytest.mark.parametrize("geom", [(2, 197, 128, 4), (1, 64, 128, 2), (2, 50, 192, 6)])
+# (B, N, D, H): the JAX test's cases, and SD-UNet's geometries at few tokens
+# (hd 16 in one head group of 8, hd 32 in groups of 4)
+@pytest.mark.parametrize("geom", [(2, 197, 128, 4), (1, 64, 128, 2), (2, 50, 192, 6),
+                                  (2, 40, 128, 8), (1, 24, 256, 8)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("form", ["pre_ln", "no_ln", "keep2d", "len1d"])
 def test_vit_block_plain_matches_pallas(geom, dtype, form):
@@ -321,3 +327,85 @@ def test_image_kernels_take_the_plain_version_on_meta():
                           torch.empty(2, 4, 8, 8, device="meta", dtype=torch.int64))
     assert up.shape == (2, 4, 16, 16)
     assert pc.launches == 0 and pc.q_launches == 0 and mu.launches == 0
+
+
+# -- convnext_block, cross_attn_block ----------------------------------------
+
+def _cnx_operands(B, H, W, C, seed=0):
+    """x, dw (7, 7, 1, C), dw_b, LN gamma and beta, w1, b1, w2, b2 and a
+    layer scale of 0.5 (ConvNeXt's 1e-6 init would hide the MLP)."""
+    rng = np.random.default_rng(seed)
+    F = 4 * C
+    return tuple(a.astype(np.float32) for a in (
+        rng.standard_normal((B, H, W, C)), rng.standard_normal((7, 7, 1, C)) / 7,
+        0.1 * rng.standard_normal(C), 1 + 0.1 * rng.standard_normal(C),
+        0.1 * rng.standard_normal(C), rng.standard_normal((C, F)) / np.sqrt(C),
+        0.1 * rng.standard_normal(F), rng.standard_normal((F, C)) / np.sqrt(F),
+        0.1 * rng.standard_normal(C), 0.5 + 0.1 * rng.standard_normal(C)))
+
+
+@pytest.mark.parametrize("geom", [(2, 9, 11, 32), (1, 7, 7, 64), (1, 4, 13, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convnext_block_plain_matches_pallas(geom, dtype):
+    """The plain version against the Pallas kernel in interpret mode, with
+    the op's casts: the conv and MLP weights in x's dtype, the rest f32."""
+    args = _cnx_operands(*geom)
+    tdt = getattr(torch, dtype)
+    cast = (0, 1, 5, 7)  # x, dw, w1, w2
+    got = cb.convnext_block(*(torch.from_numpy(a).to(tdt) if i in cast else torch.from_numpy(a)
+                              for i, a in enumerate(args)), eps=1e-6)
+    assert cb.launches == 0 and got.dtype == tdt and tuple(got.shape) == geom
+    want = jcb.convnext_block(*(jnp.asarray(a).astype(dtype) if i in cast else jnp.asarray(a)
+                                for i, a in enumerate(args)), eps=1e-6, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    # f32: the taps and both products summed in f32 in other orders -> 1e-5
+    # of the largest output; bf16: xn, h and the output round to 8 bits ->
+    # 1e-2.
+    tol = {"float32": 1e-5, "bfloat16": 1e-2}[dtype]
+    assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+def _xattn_operands(B, N, D, H, S, bk, seed=0):
+    rng = np.random.default_rng(seed)
+    hd = D // H
+    return tuple(a.astype(np.float32) for a in (
+        rng.standard_normal((B, N, D)), rng.standard_normal((D, D)) / np.sqrt(D),
+        rng.standard_normal((bk, H, S, hd)), rng.standard_normal((bk, H, S, hd)),
+        rng.standard_normal((D, D)) / np.sqrt(D), 0.1 * rng.standard_normal(D)))
+
+
+# (B, N, D, H, S): SD-UNet's hd 16 and hd 32 at few tokens, and hd 64
+@pytest.mark.parametrize("geom", [(2, 40, 128, 8, 16), (2, 24, 256, 8, 16), (1, 9, 128, 2, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", ["B", 1])
+def test_cross_attn_block_plain_matches_pallas(geom, dtype, bk):
+    B, N, D, H, S = geom
+    args = _xattn_operands(B, N, D, H, S, B if bk == "B" else 1)
+    tdt = getattr(torch, dtype)
+    for scale in (None, 0.3):
+        got = xa.cross_attn_block(*(torch.from_numpy(a).to(tdt) for a in args[:5]),
+                                  torch.from_numpy(args[5]), heads=H, scale=scale)
+        assert xa.launches == 0 and got.dtype == tdt and tuple(got.shape) == (B, N, D)
+        want = jvb.cross_attn_block(*(jnp.asarray(a).astype(dtype) for a in args[:5]),
+                                    jnp.asarray(args[5]), heads=H, scale=scale, interpret=True)
+        want = np.asarray(want.astype(jnp.float32))
+        # f32: sums in other orders -> 1e-5; bf16: q, p, the attention output
+        # and the result round to 8 bits -> 1e-2 of the largest output.
+        tol = {"float32": 1e-5, "bfloat16": 1e-2}[dtype]
+        assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+def test_block_kernels_take_the_plain_version_on_meta():
+    x = torch.empty(2, 14, 14, 64, device="meta", dtype=torch.bfloat16)
+    c, f = torch.empty(64, device="meta"), torch.empty(256, device="meta")
+    w1 = torch.empty(64, 256, device="meta", dtype=torch.bfloat16)
+    out = cb.convnext_block(x, torch.empty(7, 7, 1, 64, device="meta", dtype=torch.bfloat16), c,
+                            c, c, w1, f, w1.t(), c, c)
+    assert out.shape == x.shape and out.dtype == x.dtype
+    xs = torch.empty(2, 40, 128, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(128, 128, device="meta", dtype=torch.bfloat16)
+    kv = torch.empty(1, 8, 16, 16, device="meta", dtype=torch.bfloat16)
+    out = xa.cross_attn_block(xs, w, kv, kv, w, torch.empty(128, device="meta"), heads=8)
+    assert out.shape == xs.shape and out.dtype == xs.dtype
+    assert cb.launches == 0 and xa.launches == 0
+
