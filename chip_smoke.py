@@ -38,7 +38,12 @@ its number:
    stages at batch 64 (f32 at batch 2), `cross_attn_block` at SD-UNet's
    two shapes at batch 8 with k/v per image and shared, and
    `vit_attention_block` at SD-UNet's self-attention (hd 16 over 1024
-   tokens, hd 32 over 256);
+   tokens, hd 32 over 256); `qlinear_conv` (int8 outputs equal to the
+   plain version's; cuDNN's bf16 conv as the yardstick) at each of
+   ResNet-50's 23 distinct conv shapes at batch 128, and `dequant_conv`'s
+   entry point at ResNet-50's four stride-1 3x3 shapes at batch 128 in bf16
+   (its launches: no path of either package reaches it), held there to its
+   plain version and in f32 and bf16 at small and odd shapes;
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -48,6 +53,15 @@ its number:
    checked against the port's CPU run of the same graph, timed in images/s;
 4. the server: `serve(..., use_pallas=True, max_batch=16)` answers 32
    threaded requests;
+12. (run right after 4) ResNet-50 int8-static on phase 3's ONNX bytes:
+   `compile(..., quant="int8-static")` calibrated on the card with two
+   batches of 8; (a) batch 8 in f32, the same quantized graph on the CPU
+   and on the card: every int8 edge before the global pool equal, the
+   head's within one step in 1 % of its elements, logits within 1e-3;
+   (b) batch 128 in bf16 (53 `qlinear_conv` launches a forward): top-1
+   against the CPU's f32-compute run, images/s, idle share, peak memory,
+   profile, layout copies a forward; (c) `serve(..., max_batch=16)`
+   answering 32 threaded requests within the bf16 bound;
 5. the paged decode serving path at llama_1b's full width and depth (vocab
    32000, dim 2048, 16 heads, 8 KV heads, ffn 5632, 24 layers; random
    weights from a seed), int4-g128 weights, int8 KV pools of 128-row pages,
@@ -136,7 +150,9 @@ routes them), an ESRGAN x4 forward 349 pixel convs, a SegNet forward 3
 unpools, an HF-layout ViT-B/16 forward 12 short or flash attentions or 12
 MLPs, a one-node attention graph at N >= 2048 one flash attention, a fused
 ConvNeXt-T forward 15 ConvNeXt blocks, an SD-UNet forward 5 ViT blocks and,
-with the cross branch on, 5 cross-attention blocks.
+with the cross branch on, 5 cross-attention blocks, a ResNet-50 int8-static
+forward 53 int8 convs; `dequant_conv`'s entry point, called at its four
+shapes, 4.
 `FusedGenerator` replays a CUDA graph, whose launches the wrappers count
 once, at capture. The last three lines are the kernels'
 JSON line, the card's name and power limit, and `{"ok": true, "device":
@@ -164,6 +180,7 @@ PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 FULL_POWER_W = 700.0
 L2_BYTES = 50 * 2**20
 
+RESNET_BATCH, RESNET_IMAGE = 128, 224  # ResNet-50 as the README's row serves it
 HEAD = (128, 2048, 1000)          # ResNet-50 classifier at batch 128 (M, K, N)
 SERVING = (8192, 4096, 4096)      # serving GEMM (M, K, N)
 
@@ -229,7 +246,9 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "flash_attention": ("flash_attention", "launches"),
            "mlp_block": ("mlp_block", "launches"),
            "convnext_block": ("convnext_block", "launches"),
-           "cross_attn_block": ("cross_attn_block", "launches")}
+           "cross_attn_block": ("cross_attn_block", "launches"),
+           "qlinear_conv": ("qlinear_conv", "launches"),
+           "dequant_conv": ("dequant_conv", "launches")}
 
 REPORT: dict = {}
 
@@ -1379,6 +1398,181 @@ def phase_block_kernels(torch, np, power_w: float) -> dict:
     return rows
 
 
+def resnet50_convs(size: int = RESNET_IMAGE) -> dict:
+    """ResNet-50 v1.5's convs (the zoo builder's: the stride on the 3x3):
+    (C_in, C_out, k, stride, H_in) -> calls a forward, 53 in all."""
+    convs: dict = {}
+
+    def add(*key):
+        convs[key] = convs.get(key, 0) + 1
+
+    add(3, 64, 7, 2, size)
+    h, cin = size // 4, 64
+    for width, blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)):
+        for i in range(blocks):
+            s = stride if i == 0 else 1
+            h_out = (h - 1) // s + 1
+            add(cin, width, 1, 1, h)
+            add(width, width, 3, s, h)
+            add(width, 4 * width, 1, 1, h_out)
+            if i == 0:
+                add(cin, 4 * width, 1, s, h)
+            cin, h = 4 * width, h_out
+    return convs
+
+
+def phase_conv_kernels(torch, power_w: float) -> dict:
+    """qlinear_conv at each distinct conv shape of ResNet-50 at batch 128
+    (int8 outputs equal to the plain version's; the library yardstick is
+    cuDNN's bf16 channels-last conv, since PyTorch has no int8 conv), and
+    dequant_conv: first its own entry point called at ResNet-50's four
+    stride-1 3x3 shapes at batch 128 in bf16 (its launches: no path of
+    either package reaches it), then against its plain version there
+    (1e-2 of the largest), in f32 at small shapes (1e-5, TF32 off) and at
+    the JAX tests' odd cases; the yardstick cuDNN's bf16 channels-last conv
+    on the dequantized weight."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import dequant_conv as dc
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    side = torch.cuda.Stream()
+    cl, bf16, i8 = torch.channels_last, torch.bfloat16, torch.int8
+    B = RESNET_BATCH
+    rows = {}
+    convs = resnet50_convs()
+    check(sum(convs.values()) == 53, f"ResNet-50 has 53 convs, not {sum(convs.values())}")
+    for (cin, cout, k, s, h), calls in convs.items():
+        p = k // 2
+        ho = (h + 2 * p - k) // s + 1
+        K = k * k * cin
+        nbytes = B * h * h * cin + cout * K + 8 * cout + B * ho * ho * cout
+        ops = 2 * B * ho * ho * cout * K
+        sets = []
+        for _ in range(_copies(nbytes)):
+            x = torch.randint(-128, 128, (B, cin, h, h), device="cuda", generator=gen,
+                              dtype=i8).contiguous(memory_format=cl)
+            w = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=gen,
+                              dtype=i8).contiguous(memory_format=cl)
+            # the sums' spread is about 5400 sqrt(K): outputs span the grid
+            m = (torch.rand(cout, device="cuda", generator=gen) + 0.5) * 0.0074 / K ** 0.5
+            b = (torch.rand(cout, device="cuda", generator=gen) - 0.5) * 40
+            sets.append((x, w, m, b))
+        n = len(sets)
+        kw = dict(stride=(s, s), pads=((p, p), (p, p)))
+        call = lambda i: qc.qlinear_conv(*sets[i % n], **kw)  # noqa: E731
+        plain = lambda i: qc.qlinear_conv_plain(*sets[i % n], **kw)  # noqa: E731
+        got, ref = call(0), plain(0)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"qlinear_conv {(cin, cout, k, s, h)}: int8 outputs "
+                                     "differ from the plain version")
+        check(got.is_contiguous(memory_format=cl), "qlinear_conv output not channels-last")
+        xl = [s_[0].to(bf16) for s_ in sets]
+        wl = [s_[1].to(bf16) for s_ in sets]
+        r = {"name": "qlinear_conv", "shape": [B, cin, h, h, cout, k, s],
+             "calls_per_forward": calls, "bytes": nbytes, "ops": ops, "max_abs_err": 0.0,
+             "tolerance": "int8 outputs equal",
+             "int8_levels_used": int(torch.unique(got).numel()),
+             "library": "F.conv2d channels-last bf16 (PyTorch has no int8 conv)"}
+        del got, ref
+        r["ms"] = graph_ms(torch, side, call, 10)
+        r["call_ms"] = time_ms(torch, call, 10)
+        r["plain_ms"] = graph_ms(torch, side, plain, 2, replays=2)
+        r["library_ms"] = graph_ms(torch, side, lambda i: F.conv2d(
+            xl[i % n], wl[i % n], stride=s, padding=p), 10)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, "int8", power_w)
+        rows[("qlinear_conv", cin, cout, k, s, h)] = r
+        del sets, xl, wl
+
+    # dequant_conv: its entry point once at each of ResNet-50's stride-1 3x3
+    # shapes (its launches), then the checks and times at those shapes
+    dshapes = [(56, 64), (28, 128), (14, 256), (7, 512)]
+    operands = {}
+    for hw, c in dshapes:
+        x = torch.randn(B, hw, hw, c, device="cuda", generator=gen).to(bf16)
+        wq = torch.randint(-127, 128, (3, 3, c, c), device="cuda", generator=gen, dtype=i8)
+        sc = (torch.rand(c, device="cuda", generator=gen) + 0.5) * 1e-2 / (9 * c) ** 0.5
+        operands[(hw, c)] = [(x, wq, sc)]
+    _zero_counts()
+    outs = {key: dc.dequant_conv(*ops_[0], pads=((1, 1), (1, 1)))
+            for key, ops_ in operands.items()}
+    torch.cuda.synchronize()
+    entry = _counts()
+    _check_routed("dequant_conv entry point", entry, "dequant_conv")
+    check(entry["dequant_conv"] == len(dshapes), f"dequant_conv launches {entry}")
+    REPORT["dequant_conv_entry_launches"] = entry["dequant_conv"]
+    for (hw, c), sets in operands.items():
+        nbytes = B * hw * hw * c * 2 * 2 + 9 * c * c + 4 * c
+        ops = 2 * B * hw * hw * c * 9 * c
+        for _ in range(_copies(nbytes) - 1):
+            x = torch.randn(B, hw, hw, c, device="cuda", generator=gen).to(bf16)
+            sets.append((x, sets[0][1], sets[0][2]))
+        n = len(sets)
+        pads = ((1, 1), (1, 1))
+        ref = dc.dequant_conv_plain(*sets[0], pads=pads)
+        got = outs.pop((hw, c))
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(got.shape == ref.shape and got.dtype == bf16 and err <= 1e-2 * scale,
+              f"dequant_conv {(hw, c)} bf16: max-abs {err} > 1e-2 x {scale}")
+        xl = [s_[0].permute(0, 3, 1, 2) for s_ in sets]  # NCHW views, channels-last
+        wd = ((sets[0][1].float() * sets[0][2]).to(bf16).permute(3, 2, 0, 1)
+              .contiguous(memory_format=cl))
+        r = {"name": "dequant_conv", "shape": [B, hw, hw, c, c, 3], "calls_per_forward": 1,
+             "bytes": nbytes, "ops": ops, "max_abs_err": err,
+             "tolerance": f"1e-2 x max|plain| = {1e-2 * scale:.4g} (bf16)",
+             "library": "F.conv2d channels-last bf16 on the dequantized weight"}
+        del got, ref
+        r["ms"] = graph_ms(torch, side, lambda i: dc.dequant_conv(*sets[i % n], pads=pads), 10)
+        r["call_ms"] = time_ms(torch, lambda i: dc.dequant_conv(*sets[i % n], pads=pads), 10)
+        r["plain_ms"] = graph_ms(torch, side, lambda i: dc.dequant_conv_plain(
+            *sets[i % n], pads=pads), 3)
+        r["library_ms"] = graph_ms(torch, side, lambda i: F.conv2d(xl[i % n], wd, padding=1), 10)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, "bf16", power_w)
+        rows[("dequant_conv", hw, c)] = r
+        del sets, xl, wd
+    # small f32 (1e-5, TF32 off) and bf16 checks, among them the JAX tests'
+    # odd cases: 5x5, VALID 11 x 9, W 28 with pad 1, and C_in 3
+    checks = []
+    for (hw_, c_in, c_out, k, pads) in (((14, 14), 64, 64, 3, ((1, 1), (1, 1))),
+                                        ((12, 12), 128, 128, 5, ((2, 2), (2, 2))),
+                                        ((11, 9), 128, 128, 3, ((0, 0), (0, 0))),
+                                        ((28, 28), 128, 128, 3, ((1, 1), (1, 1))),
+                                        ((17, 19), 3, 64, 3, ((1, 1), (1, 1)))):
+        wq = torch.randint(-127, 128, (k, k, c_in, c_out), device="cuda", generator=gen, dtype=i8)
+        sc = torch.rand(c_out, device="cuda", generator=gen) * 1e-2
+        for dtype, rel in ((torch.float32, 1e-5), (bf16, 1e-2)):
+            x = torch.randn((2,) + hw_ + (c_in,), device="cuda", generator=gen).to(dtype)
+            got = dc.dequant_conv(x, wq, sc, pads=pads)
+            ref = dc.dequant_conv_plain(x, wq, sc, pads=pads)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            check(got.shape == ref.shape and err <= rel * scale,
+                  f"dequant_conv {hw_, c_in, c_out, k, pads} {dtype}: {err} > {rel} x {scale}")
+            checks.append([list(hw_), c_in, c_out, k, str(dtype), err / scale])
+    REPORT["dequant_conv_checks"] = checks
+
+    for r in rows.values():
+        say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']}) | "
+               f"kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), plain "
+               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms ({r['library']}), "
+               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+               f"{r['ops'] / r['ms'] / 1e9:.1f} TOP/s | {r['calls_per_forward']} a forward")
+    fw = per_forward({k: v for k, v in rows.items() if k[0] == "qlinear_conv"}, "qlinear_conv")
+    say(2, f"qlinear_conv over a ResNet-50 b128 forward's 53 calls: kernel {fw['ms']:.3f} ms, "
+           f"plain {fw['plain_ms']:.3f} ms, cuDNN bf16 {fw['library_ms']:.3f} ms, bound "
+           f"{fw['bound_ms']:.3f} ms; dequant_conv small checks (max-abs / max): "
+           + ", ".join(f"{c[:4]} {c[4][6:]} {c[5]:.2g}" for c in checks))
+    torch.backends.cudnn.allow_tf32 = True
+    REPORT["conv_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
+    return rows
+
+
 def per_forward(rows: dict, name: str) -> dict:
     """A kernel's numbers over one forward's calls (calls x per call)."""
     rs = [r for r in rows.values() if r.get("name") == name]
@@ -1539,7 +1733,7 @@ def phase_main(torch, np, stt) -> dict:
         say(3, "  device ms a step by host op: "
                + "; ".join(f"{k} {v:.3f}" for k, v in top_ops))
         del model
-    return res
+    return res, ref
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -1581,6 +1775,189 @@ def phase_serve(torch, np, stt) -> dict:
            f"vs direct: top-1 {agree:.4f}, max-abs {err:.3g} (bound 5e-2 x {scale:.3g})")
     return {"launches": launches, "stats": stats, "top1_vs_direct": agree,
             "max_abs_vs_direct": err}
+
+
+# -- phase 12 --------------------------------------------------------------
+
+_PORT_QCONV_KERNEL = re.compile(r"qlinear_conv_mma")
+
+
+def phase_int8_static(torch, np, stt, ref_f32) -> dict:
+    """ResNet-50 int8-static on phase 3's 224 px ONNX bytes: compile(...,
+    quant="int8-static") calibrated on the card with two batches of 8, then
+    (a) batch 8 in f32 on the CPU and on the card, the same quantized graph:
+    every int8 edge up to the global pool equal, the head's within one step
+    in at most 1 % of its elements (the pool's mean sums in another order),
+    the logits within 1e-3 of the largest; the CPU's bf16 run gives the bf16
+    bound (3x its error, as phase 8); (b) batch 128 in bf16 against the
+    CPU's f32-compute run of the graph: top-1 agreement at least 0.99 on the
+    rows whose top-2 gap exceeds twice the max-abs error; 53 qlinear_conv
+    launches a forward and no other port kernel; images/s, idle share, peak
+    memory, profile, layout copies a forward; top-1 against phase 3's float
+    reference (information only); (c) serve(..., max_batch=16) answering
+    32 threaded requests within the bf16 bound of the direct forward."""
+    import copy
+
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+    from smelter_tpu_torch.runtime.executor import CompiledModel, Executor
+
+    onnx_path = ROOT / "build" / "chip_smoke" / "resnet50_b128.onnx"
+    shape = (RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE)
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    calib = [(np.random.default_rng(s).standard_normal((8,) + shape[1:]).astype(np.float32),)
+             for s in (10, 11)]
+    res: dict = {}
+    cfg16 = stt.Config(compute_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = stt.compile(onnx_path, cfg16, quant="int8-static", calibration_data=calib,
+                        device="cuda")
+    res["compile_s"] = time.perf_counter() - t0
+    gq = model.graph
+    ops: dict = {}
+    for node in gq.nodes:
+        ops[node.op_type] = ops.get(node.op_type, 0) + 1
+    res["ops"] = ops
+    convs = {}
+    for node in gq.nodes:
+        if node.op_type == "QLinearConv":
+            co, ci, k, _ = gq.initializers[node.inputs[3]].shape
+            key = (ci, co, k, int(node.attr("strides")[0]))
+            convs[key] = convs.get(key, 0) + 1
+    want = {}
+    for (ci, co, k, s, _), n in resnet50_convs().items():
+        want[(ci, co, k, s)] = want.get((ci, co, k, s), 0) + n
+    check(convs == want and ops.get("QLinearMatMul") == 1,
+          f"int8-static graph: QLinearConvs {convs} are not ResNet-50's {want} ({ops})")
+    say(12, f"ResNet-50 int8-static compiled in {res['compile_s']:.1f} s (calibrated on the card "
+            f"with 2 batches of 8): {ops}")
+
+    # (a) batch 8, f32 compute, the CPU against the card
+    x8 = x[:8]
+    t0 = time.perf_counter()
+    cpu = CompiledModel(copy.deepcopy(gq), stt.Config(device="cpu"))
+    ref8 = cpu(x8)[0]
+    ref8_16 = CompiledModel(copy.deepcopy(gq), stt.Config(compute_dtype="bfloat16",
+                                                          device="cpu"))(x8)[0]
+    edges_cpu = _int8_edges(torch, np, stt, copy.deepcopy(gq), x8, "cpu")
+    cpu_s = time.perf_counter() - t0
+    _zero_counts()
+    got8 = CompiledModel(copy.deepcopy(gq), stt.Config(device="cuda"))(x8)[0]
+    launches = _counts()
+    _check_routed("int8-static b8 f32", launches, "qlinear_conv")
+    check(launches["qlinear_conv"] == 53, f"int8-static b8: {launches}")
+    ex = Executor(copy.deepcopy(gq), stt.Config(device="cuda"))
+    env = ex.build_fn(return_all_edges=True)(ex.cast_params(ex.init_params()), x8)
+    # the Transposes around the pool stay views: no layout copy there
+    check(all(env[nd.outputs[0]].data_ptr() == env[nd.inputs[0]].data_ptr()
+              for nd in gq.nodes if nd.op_type == "Transpose"), "a Transpose copied its input")
+    edges_gpu = {k: v.cpu().numpy() for k, v in env.items() if isinstance(v, torch.Tensor)
+                 and v.dtype == torch.int8 and k not in gq.initializers}
+    del ex, env
+    check(set(edges_cpu) == set(edges_gpu) and len(edges_cpu) >= 100,
+          f"int8 edges differ in name ({len(edges_cpu)}, {len(edges_gpu)})")
+    pool = next(i for i, nd in enumerate(gq.nodes) if nd.op_type == "GlobalAveragePool")
+    before_pool = {o for nd in gq.nodes[:pool] for o in nd.outputs}
+    pre = [k for k in edges_cpu if k in before_pool]
+    post = [k for k in edges_cpu if k not in before_pool]
+    pre_flips = sum(int((edges_cpu[k] != edges_gpu[k]).sum()) for k in pre)
+    pre_el = sum(edges_cpu[k].size for k in pre)
+    post_el = sum(edges_cpu[k].size for k in post)
+    post_flips = sum(int((edges_cpu[k] != edges_gpu[k]).sum()) for k in post)
+    post_step = max([int(np.abs(edges_cpu[k].astype(np.int32) - edges_gpu[k]).max())
+                     for k in post] or [0])
+    check(pre_flips == 0, f"int8-static b8: {pre_flips} of {pre_el} int8 elements before the "
+                          "pool differ between the CPU and the card")
+    check(post_step <= 1 and post_flips <= 0.01 * post_el,
+          f"int8-static b8: {post_flips} of {post_el} head int8 elements differ, by up to "
+          f"{post_step}")
+    scale8 = float(np.abs(ref8).max())
+    err8 = float(np.abs(got8 - ref8).max())
+    err_cpu16 = float(np.abs(ref8_16 - ref8).max())
+    check(got8.shape == (8, 1000) and np.isfinite(got8).all(), "int8-static b8 logits")
+    check(err8 <= 1e-3 * scale8, f"int8-static b8 f32: max-abs {err8} > 1e-3 x {scale8}")
+    res["gate_a"] = {"int8_edges": len(edges_cpu), "elements_before_pool": pre_el,
+                     "flips_before_pool": pre_flips, "head_elements": post_el,
+                     "head_flips": post_flips, "max_abs_err": err8, "max_abs_ref": scale8,
+                     "cpu_bf16_max_abs_err": err_cpu16, "cpu_s": cpu_s}
+    say(12, f"(a) batch 8 f32, CPU vs card: {len(edges_cpu)} int8 edges, {pre_flips} of "
+            f"{pre_el} elements before the pool differ (bound 0), {post_flips} of {post_el} "
+            f"after it (bound 1 step, 1 %); logits max-abs {err8:.3g} (bound "
+            f"{1e-3 * scale8:.3g}); CPU bf16 vs f32 {err_cpu16:.3g} | CPU runs {cpu_s:.1f} s")
+    del cpu, edges_cpu, edges_gpu
+    bound16_rel = 3 * err_cpu16 / scale8
+
+    # (b) batch 128, bf16 compute, against the CPU's f32-compute run
+    t0 = time.perf_counter()
+    refq = CompiledModel(copy.deepcopy(gq), stt.Config(device="cpu"))(x)[0]
+    res["cpu_b128_s"] = time.perf_counter() - t0
+    xg = torch.from_numpy(x).cuda()
+    copies = qc.layout_copies
+    model.run_device(xg)
+    torch.cuda.synchronize()
+    res["layout_copies_a_forward"] = qc.layout_copies - copies
+    r = _image_forward(torch, np, model, xg, "int8-static b128", RESNET_BATCH,
+                       {"qlinear_conv": 53}, 20, port_re=_PORT_QCONV_KERNEL)
+    got = r.pop("out")
+    check(got.shape == (RESNET_BATCH, 1000) and np.isfinite(got).all(), "int8-static logits")
+    err = float(np.abs(got - refq).max())
+    top2 = np.sort(refq, axis=1)[:, -2:]
+    gaps = top2[:, 1] - top2[:, 0]
+    clear = gaps > 2 * err
+    agree = _top1(got, refq)
+    agree_clear = float((got.argmax(1) == refq.argmax(1))[clear].mean()) if clear.any() else 0.0
+    check(clear.sum() >= RESNET_BATCH // 4 and agree_clear >= 0.99,
+          f"int8-static b128 bf16: top-1 {agree_clear} on {int(clear.sum())} clear rows")
+    r.update({"max_abs_vs_cpu_f32": err, "top1_vs_cpu_f32": agree,
+              "top1_vs_cpu_f32_clear_rows": agree_clear, "clear_rows": int(clear.sum()),
+              "top1_vs_phase3_float": _top1(got, ref_f32),
+              "max_abs_vs_phase3_float": float(np.abs(got - ref_f32).max()),
+              "cpu_b128_s": res["cpu_b128_s"],
+              "layout_copies_a_forward": res["layout_copies_a_forward"]})
+    res["b128"] = r
+    _say_run(f"(b) ResNet-50 int8-static b{RESNET_BATCH} bf16", r,
+             f" | vs the CPU's f32-compute run: top-1 {agree:.4f} ({agree_clear:.4f} on "
+             f"{int(clear.sum())} rows with a top-2 gap over 2 x {err:.3g}) | vs phase 3's "
+             f"float reference (not gated): top-1 {r['top1_vs_phase3_float']:.4f} | layout "
+             f"copies a forward {res['layout_copies_a_forward']}", phase=12)
+
+    # (c) the server on the quantized graph
+    xs = x[:32]
+    direct = got[:32]
+    bound_abs = bound16_rel * float(np.abs(direct).max())
+    _zero_counts()
+    server = stt.serve(gq, cfg16, quant="int8-static", optimize=False, device="cuda",
+                       max_batch=16)
+    results = [None] * len(xs)
+    try:
+        check(server.wait_ready(600), "int8-static server buckets did not warm up")
+
+        def ask(i):
+            results[i] = server.infer(xs[i])[0]
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        stats = server.stats()
+    finally:
+        server.shutdown()
+    launches = _counts()
+    _check_routed("int8-static server", launches, "qlinear_conv")
+    check(all(v is not None for v in results), "int8-static server left requests unanswered")
+    errs = [float(np.abs(results[i] - direct[i]).max()) for i in range(len(xs))]
+    check(stats["requests"] == 32 and stats["errors"] == 0, f"int8-static server stats {stats}")
+    check(max(errs) <= bound_abs, f"int8-static served vs direct: max-abs {max(errs)} > "
+                                  f"{bound_abs}")
+    res["serve"] = {"launches": launches, "stats": stats, "max_abs_vs_direct": max(errs)}
+    say(12, f"(c) served {stats['requests']} requests in {stats['batches']} batches of up to 16, "
+            f"p50 {stats['latency_ms_p50']:.1f} ms, p95 {stats['latency_ms_p95']:.1f} ms | vs "
+            f"direct: max-abs {max(errs):.3g} (bound {bound_abs:.3g}) | launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    del model, xg
+    return res
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -3326,9 +3703,13 @@ def main() -> int:
     image_rows = phase_image_kernels(torch, power_w)
     encoder_rows = phase_encoder_kernels(torch, power_w)
     block_rows = phase_block_kernels(torch, np, power_w)
+    conv_rows = phase_conv_kernels(torch, power_w)
 
-    main_path = REPORT["main_path"] = phase_main(torch, np, stt)
+    main_path, ref_f32 = phase_main(torch, np, stt)
+    REPORT["main_path"] = main_path
     REPORT["serve"] = phase_serve(torch, np, stt)
+    i8s = REPORT["int8_static"] = phase_int8_static(torch, np, stt, ref_f32)
+    del ref_f32
     paged, paged_graph, paged_reqs, _ = phase_paged(torch, np, stt)
     REPORT["paged"] = paged
     static = REPORT["static"] = phase_static(torch, np, stt, paged_graph, paged_reqs,
@@ -3360,7 +3741,9 @@ def main() -> int:
                 "flash_attention": hfv["b_flash_384"]["launches"]["flash_attention"],
                 "mlp_block": hfv["d_mlp_block_224"]["launches"]["mlp_block"],
                 "convnext_block": cnx["fuse_convnext_block"]["launches"]["convnext_block"],
-                "cross_attn_block": sdu["cross"]["launches"]["cross_attn_block"]}
+                "cross_attn_block": sdu["cross"]["launches"]["cross_attn_block"],
+                "qlinear_conv": i8s["b128"]["launches"]["qlinear_conv"],
+                "dequant_conv": REPORT["dequant_conv_entry_launches"]}
     say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
     # ResNet-50 kernels: one call at the head shape (its launches from the
@@ -3371,8 +3754,11 @@ def main() -> int:
     # over one forward's calls (349 pixel convs of ESRGAN x4 at batch 8, 3
     # unpools of SegNet at batch 16; the 15 convnext_block calls of a
     # ConvNeXt-T forward at batch 64, the 5 cross_attn_block calls of an
-    # SD-UNet forward at batch 8); pixel_conv_rowdot_q has no library call
-    # (null).
+    # SD-UNet forward at batch 8; the 53 qlinear_conv calls of a ResNet-50
+    # forward at batch 128); dequant_conv: the sum over its entry point's four
+    # calls at ResNet-50's stride-1 3x3 shapes at batch 128, bf16.
+    # pixel_conv_rowdot_q has no library call (null); qlinear_conv's is
+    # cuDNN's bf16 conv (PyTorch has no int8 conv).
     sources = {"dequant_matmul": ("smelter_tpu_torch/csrc/dequant_matmul.cu",
                                   "smelter_tpu/kernels/dequant_matmul.py:104",
                                   rows[("dequant_matmul", "head", "bf16")], "call"),
@@ -3423,7 +3809,13 @@ def main() -> int:
                                   per_forward(block_rows, "convnext_block"), "forward"),
                "cross_attn_block": ("smelter_tpu_torch/csrc/cross_attn_block.cu",
                                     "smelter_tpu/kernels/vit_block.py:295",
-                                    per_forward(block_rows, "cross_attn_block"), "forward")}
+                                    per_forward(block_rows, "cross_attn_block"), "forward"),
+               "qlinear_conv": ("smelter_tpu_torch/csrc/qlinear_conv.cu",
+                                "smelter_tpu/ops/quant_ops.py:260",
+                                per_forward(conv_rows, "qlinear_conv"), "forward"),
+               "dequant_conv": ("smelter_tpu_torch/csrc/dequant_conv.cu",
+                                "smelter_tpu/kernels/dequant_conv.py:103",
+                                per_forward(conv_rows, "dequant_conv"), "four calls")}
     kernels = []
     for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -19,7 +19,6 @@ from __future__ import annotations
 import dataclasses
 import os
 
-from .ir.errors import NotSupportedError
 from .ir.graph import Graph
 from .ir.importer import PREPROCESSED_PRODUCER, load_model
 from .runtime.config import Config
@@ -40,10 +39,17 @@ def _prepare(model: str | os.PathLike | Graph, quant: str | None,
 
         run_passes(g)
     if quant == "int8-static":
+        # Full static int8: activations and weights, folded requant
+        # epilogues. Calibration runs in f32 on `device`.
         if g.metadata.get("quant") != quant:
-            raise NotSupportedError(
-                "quant='int8-static' (static int8 QLinear graphs) is not in the "
-                "PyTorch port yet")
+            if calibration_data is None:
+                raise ValueError(
+                    "quant='int8-static' needs calibration_data: a list of "
+                    "graph-input tuples, e.g. [(batch1,), (batch2,)]")
+            from .quant import calibrate, quantize_static
+
+            amax = calibrate(g, calibration_data, Config(device=device))
+            quantize_static(g, amax)
     elif quant == "int8-pixel":
         # Calibrated int8 over the NHCW pixel-conv trunks only (ESRGAN-class
         # decoders); everything outside the regions stays float. Calibration
@@ -95,12 +101,15 @@ def compile(model: str | os.PathLike | Graph, config: Config | None = None,
       "int8"      — int8 weight-only, per-channel scales; matmul weights
                     run in the port's dequant_matmul / int8_matmul kernels
                     under Config.use_pallas, else in their composites.
+      "int8-static"— full static int8 (activations and weights, folded
+                    requant epilogues; QLinearConv on the qlinear_conv
+                    kernel); needs calibration_data: a list of graph-input
+                    tuples, run in f32 on the model's device.
       "int8-pixel"— calibrated int8 over the NHCW pixel-conv regions only
                     (ESRGAN-class decoders, the pixel_conv_rowdot_q kernel;
                     everything outside the regions stays float); needs
-                    calibration_data: a list of graph-input tuples, run in
-                    f32 on the model's device.
-    The JAX package's "int8-static" and 4-bit/fp8 weight modes raise
+                    calibration_data, as "int8-static".
+    The JAX package's 4-bit/fp8 weight modes raise
     NotSupportedError here; "int8-conv" is not taken."""
     config = _with_device(config, device)
     resolve_device(config.device)  # fail before the passes, not after

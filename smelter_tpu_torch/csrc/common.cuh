@@ -64,6 +64,15 @@ __device__ __forceinline__ void mma_16832_s8(int (&d)[4], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four 8x8 b16 matrices from shared memory: the A operand of m16n8k16 from
+// a row-major [m][k] tile (or the B operand of two n8 tiles from [n][k]).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // Four 8x8 b16 matrices from shared memory, transposed: the B operand of
 // mma.m16n8k16 for two n8 tiles from a row-major [k][n] tile.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {

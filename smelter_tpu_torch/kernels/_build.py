@@ -56,6 +56,8 @@ SIGNATURES = {
     "mlp_block": ("smelter_mlp_block", [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P]),
     "convnext_block": ("smelter_convnext_block", [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P]),
     "cross_attn_block": ("smelter_cross_attn_block", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
+    "qlinear_conv": ("smelter_qlinear_conv", [_P] * 5 + [_I] * 13 + [_P]),
+    "dequant_conv": ("smelter_dequant_conv", [_P] * 4 + [_I] * 12 + [_P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

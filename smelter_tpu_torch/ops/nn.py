@@ -154,6 +154,12 @@ def max_pool(ctx: Ctx, node: Node):
         x = _to_nchw(x)
     in_spatial = tuple(x.shape[2:])
     pads = _pool_pads(node, in_spatial, kernel, strides, dilations)
+    if not x.dtype.is_floating_point:
+        # int8 (static quantization's quant-transparent twin): the max of
+        # the window's strided taps, which keeps x's memory format
+        y = _max_pool_taps(x, kernel, strides, dilations, pads)
+        ctx.set(node.outputs[0], _to_nhwc(y) if nhwc else y)
+        return
     # PyTorch pads a pool by at most half the window: pad the rest here,
     # with the lowest value, so padding never wins the max.
     low = _lowest(x.dtype)
@@ -164,6 +170,24 @@ def max_pool(ctx: Ctx, node: Node):
         sym = tuple(lo for lo, _ in pads)
     y = _MAX_POOL[rank](x, kernel, strides, sym, dilations)
     ctx.set(node.outputs[0], _to_nhwc(y) if nhwc else y)
+
+
+def _max_pool_taps(x: torch.Tensor, kernel, strides, dilations, pads) -> torch.Tensor:
+    """MaxPool as the elementwise max of the kernel's strided taps over x
+    padded with its dtype's lowest value: exact for any dtype on any device
+    (PyTorch's integer pools are not: on the CPU a channels-last int8 map
+    of more than 127 positions is refused)."""
+    rank = len(kernel)
+    out_spatial = tuple(P.conv_out_size(x.shape[2 + i], kernel[i], strides[i], dilations[i],
+                                        pads[i][0], pads[i][1]) for i in range(rank))
+    xp = F.pad(x, [p for lo, hi in reversed(pads) for p in (lo, hi)], value=_lowest(x.dtype))
+    y = None
+    for taps in itertools.product(*(range(k) for k in kernel)):
+        sl = (slice(None), slice(None)) + tuple(
+            slice(t * d, t * d + (o - 1) * s + 1, s)
+            for t, d, o, s in zip(taps, dilations, out_spatial, strides))
+        y = xp[sl] if y is None else torch.maximum(y, xp[sl])
+    return y if math.prod(kernel) > 1 else y.clone()  # one tap: a view of xp
 
 
 @register("GlobalAveragePool")

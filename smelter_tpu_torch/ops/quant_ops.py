@@ -1,8 +1,21 @@
-"""Quantization op lowerings: QuantizeLinear / DequantizeLinear.
+"""Quantization op lowerings: QuantizeLinear / DequantizeLinear, and the
+static int8 ops QLinearConv / QLinearMatMul.
 
 Counterparts of `smelter_tpu/ops/quant_ops.py`. DequantizeLinear is how
 int8 weight-only models express their weights (quant/weight_quant.py); it
 computes in f32, and the consumer casts to its activation dtype.
+
+QLinearConv and QLinearMatMul take the form `quant/static_quant.py` emits:
+int8 activations and weights, zero points 0, scales known before the run.
+The requant epilogue folds to y = round(acc * m (+ b)) with m = x_s * w_s /
+y_s combined in f64 and rounded to f32, as the JAX lowering folds it; the
+constants are folded once per forward function (`Ctx.memo`), on the
+device. QLinearConv runs on `kernels/qlinear_conv.py` (the Hopper int8
+convolution on the card), QLinearMatMul's int32 product on
+`kernels/int8_matmul.py::int32_matmul`. The forms the rewrite never emits
+raise `NotSupportedError` on every device: nonzero or run-time zero points
+(the ORT QOperator models), run-time scales, uint8 tensors, and for
+QLinearConv groups > 1, dilation > 1 and other than 2 spatial dims.
 """
 
 from __future__ import annotations
@@ -10,7 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ir.errors import NotSupportedError
 from ..ir.graph import Node
+from . import padding as P
 from .registry import Ctx, register
 
 
@@ -58,14 +73,16 @@ def quantize_linear(ctx: Ctx, node: Node):
         axis += x.ndim
     block = int(node.attr("block_size", 0))
 
-    def host(p):
-        return torch.as_tensor(np.asarray(p, np.float32), device=x.device)
+    def host(p, tag: str):
+        """A static value on x's device, uploaded once per forward function."""
+        return ctx.memo((id(node), x.device, tag),
+                        lambda: torch.as_tensor(np.asarray(p, np.float32), device=x.device))
 
     # A scale known before the run: multiply by its reciprocal (taken in
     # f64, then rounded to f32), as the JAX lowering folds it.
     s_c = ctx.static(node.inputs[1], required=False)
     if s_c is not None:
-        inv = host(np.reciprocal(np.asarray(s_c, np.float64)))
+        inv = host(np.reciprocal(np.asarray(s_c, np.float64)), "inv_scale")
         y = torch.round(x.float() * _shaped(inv, x, axis, block))
     else:
         s = _shaped(ctx.get(node.inputs[1]), x, axis, block)
@@ -76,7 +93,7 @@ def quantize_linear(ctx: Ctx, node: Node):
         if zp_c is not None:
             zp_c = np.asarray(zp_c)
             if np.any(zp_c):  # symmetric (zp=0) adds nothing
-                y = y + _shaped(host(zp_c), x, axis, block)
+                y = y + _shaped(host(zp_c, "zero_point"), x, axis, block)
             out_dtype = torch.from_numpy(zp_c.reshape(-1)[:0]).dtype
         else:
             zp = ctx.get(node.inputs[2])
@@ -84,3 +101,106 @@ def quantize_linear(ctx: Ctx, node: Node):
             out_dtype = zp.dtype
     info = torch.iinfo(out_dtype)
     ctx.set(node.outputs[0], torch.clamp(y, info.min, info.max).to(out_dtype))
+
+
+def _static_inputs(ctx: Ctx, node: Node, positions) -> list:
+    """Host values of the given input positions (None for an absent input);
+    raises for an input computed at run time."""
+    out = []
+    for i in positions:
+        name = node.inputs[i] if i < len(node.inputs) else ""
+        if not name:
+            out.append(None)
+            continue
+        c = ctx.static(name, required=False)
+        if c is None:
+            raise NotSupportedError(
+                f"{node.op_type} {node.name!r}: input {i} ({name!r}) is computed at run time; "
+                f"the port takes scales and zero points known before the run")
+        out.append(np.asarray(c))
+    return out
+
+
+def _symmetric_int8(node: Node, zero_points, *tensors) -> None:
+    """Raise unless the zero points are all 0 and x, w and y are int8."""
+    for zp in zero_points:
+        if zp is None or np.any(zp):
+            raise NotSupportedError(
+                f"{node.op_type} {node.name!r}: nonzero or absent zero points (the asymmetric "
+                f"form) are not in the port")
+    dtypes = [t.dtype for t in tensors] + [zero_points[-1].dtype]
+    if any(d not in (torch.int8, np.int8) for d in dtypes):
+        raise NotSupportedError(f"{node.op_type} {node.name!r}: int8 tensors only, not {dtypes}")
+
+
+def _fold(x_s, w_s, y_s, b, n: int, device) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The folded epilogue's constants for n output columns on `device`:
+    m = x_s * w_s / y_s and b * (x_s * w_s / y_s), combined in f64 and
+    rounded to f32, as the JAX lowering folds them. A single weight scale
+    gives one m for every column."""
+    x_s64 = np.asarray(x_s, np.float64).reshape(())
+    w_s64 = np.asarray(w_s, np.float64).reshape(-1)
+    y_s64 = np.asarray(y_s, np.float64).reshape(())
+    m = np.broadcast_to((x_s64 * w_s64 / y_s64).astype(np.float32), (n,))
+    bias = None
+    if b is not None:
+        bias = (np.asarray(b, np.float64) * (x_s64 * w_s64 / y_s64)).astype(np.float32)
+    return (torch.tensor(m, device=device),
+            None if bias is None else torch.as_tensor(bias.reshape(-1), device=device))
+
+
+@register("QLinearMatMul", since=10, static={1, 2, 4, 5, 6, 7})
+def qlinear_matmul(ctx: Ctx, node: Node):
+    """The static quantizer's int8 matmul: acc = a @ b summed in int32 (a
+    (..., K) int8, b (K, N) int8 with per-column or one scale), then
+    round(acc * m) clipped to int8. The int32 product is `int32_matmul`'s
+    (`torch._int_mm` on the card, which takes K and N multiples of 8)."""
+    from ..kernels.int8_matmul import int32_matmul
+
+    a = ctx.get(node.inputs[0])
+    b = ctx.get(node.inputs[3])
+    a_s, a_z, b_s, b_z, y_s, y_z = _static_inputs(ctx, node, (1, 2, 4, 5, 6, 7))
+    _symmetric_int8(node, (a_z, b_z, y_z), a, b)
+    if b.dim() != 2:
+        raise NotSupportedError(f"QLinearMatMul {node.name!r}: a 2-D weight only")
+    K, N = b.shape
+    if a.device.type == "cuda" and (K % 8 or N % 8):
+        raise NotSupportedError(
+            f"QLinearMatMul {node.name!r}: K {K} and N {N} must be multiples of 8 on the card")
+
+    m, _ = ctx.memo((id(node), a.device), lambda: _fold(a_s, b_s, y_s, None, N, a.device))
+    acc = int32_matmul(a.reshape(-1, K).contiguous(), b).reshape(tuple(a.shape[:-1]) + (N,))
+    y = torch.round(acc.float() * m)
+    ctx.set(node.outputs[0], torch.clamp(y, -128, 127).to(torch.int8))
+
+
+@register("QLinearConv", since=10, static={1, 2, 4, 5, 6, 7, 8})
+def qlinear_conv(ctx: Ctx, node: Node):
+    """The static quantizer's int8 conv on `kernels/qlinear_conv.py`: the
+    int32 sum, then round(f32(acc) * m + b) as one fused multiply-add, as
+    the JAX package's compiled epilogue computes it. Either layout: NCHW
+    with an OIHW weight (what the rewrite emits), or data_layout=NHWC with
+    an HWIO weight."""
+    from ..kernels.qlinear_conv import qlinear_conv as conv
+    from .nn import _conv_attrs, _layout
+
+    x = ctx.get(node.inputs[0])
+    w = ctx.get(node.inputs[3])
+    x_s, x_z, w_s, w_z, y_s, y_z, b_q = _static_inputs(ctx, node, (1, 2, 4, 5, 6, 7, 8))
+    _symmetric_int8(node, (x_z, w_z, y_z), x, w)
+    rank = x.ndim - 2
+    if rank != 2:
+        raise NotSupportedError(f"QLinearConv {node.name!r}: {rank} spatial dims (2 taken)")
+    strides, dilations, group = _conv_attrs(node, rank)
+    if group != 1 or any(d != 1 for d in dilations):
+        raise NotSupportedError(
+            f"QLinearConv {node.name!r}: group {group} and dilations {dilations} (1 taken)")
+    nhwc = _layout(node) == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)  # (N, C, H, W) view, channels-last
+        w = w.permute(3, 2, 0, 1)  # HWIO -> OIHW view
+    pads = P.resolve_pads(node, tuple(x.shape[2:]), tuple(w.shape[2:]), strides, dilations)
+    m, b = ctx.memo((id(node), x.device),
+                    lambda: _fold(x_s, w_s, y_s, b_q, w.shape[0], x.device))
+    y = conv(x, w, m, b, stride=strides, pads=pads)
+    ctx.set(node.outputs[0], y.permute(0, 2, 3, 1) if nhwc else y)

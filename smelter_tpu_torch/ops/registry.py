@@ -86,15 +86,19 @@ class Ctx:
     evaluable ops like Constant). `device` is where new constants go.
     `donated` names the graph inputs whose tensors a lowering may update in
     place (the caller gave them away, as JAX's buffer donation does).
+    `memo` outlives the call: the forward function hands every call the same
+    dict, so that `memo()` computes a lowering's constants once.
     """
 
     def __init__(self, graph: Graph, env: dict[str, Any], config=None,
-                 device: torch.device | str = "cpu", donated=frozenset()):
+                 device: torch.device | str = "cpu", donated=frozenset(),
+                 memo: dict | None = None):
         self.graph = graph
         self.env = env
         self.config = config
         self.device = torch.device(device)
         self.donated = frozenset(donated)
+        self._memo = {} if memo is None else memo
         # Host-side (numpy) values known at trace time, keyed by edge name.
         self.static_env: dict[str, np.ndarray] = {}
 
@@ -137,6 +141,14 @@ class Ctx:
                 f"is computed from constants"
             )
         return None
+
+    def memo(self, key, make: Callable[[], Any]):
+        """make() on the first call of the forward function, its value on
+        every later one: constants a lowering folds from static inputs, put
+        on the device once instead of uploaded every call."""
+        if key not in self._memo:
+            self._memo[key] = make()
+        return self._memo[key]
 
     def inputs(self, node: Node, minimum: int = 0) -> list[str]:
         names = [i for i in node.inputs]

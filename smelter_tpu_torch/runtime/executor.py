@@ -182,6 +182,7 @@ class Executor:
         unknown = donated - set(input_names)
         if unknown:
             raise ValueError(f"donated names {sorted(unknown)} are not graph inputs")
+        memo: dict = {}  # the lowerings' folded constants, kept across calls
 
         def fn(params: dict[str, Any], *inputs):
             if len(inputs) != len(input_names):
@@ -199,7 +200,7 @@ class Executor:
                             f"donated input {name!r} must be a tensor on {dev} in "
                             f"{cd if x.dtype.is_floating_point else x.dtype}")
                     env[name] = x
-                ctx = Ctx(graph, env, config, device=dev, donated=donated)
+                ctx = Ctx(graph, env, config, device=dev, donated=donated, memo=memo)
                 for node in graph.nodes:
                     lower_node(ctx, node)
                 if return_all_edges:

@@ -1113,3 +1113,220 @@ def test_small_convnext_and_sd_unet_on_the_card_match_the_cpu(cuda):
         assert counter.launches == before + n
         assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
 
+
+
+# -- qlinear_conv, dequant_conv (int8-static ResNet-50) -----------------------
+
+# (N, C_in, H, W, C_out, k, stride, pad): ResNet-50's stem (C_in 3, 7x7/2),
+# the bottleneck's 1x1, 3x3/1 and 3x3/2 and the 1x1/2 downsample at small
+# maps, W not a multiple of 8, C_out 64 and not a multiple of 8, uneven pads.
+QCONV_GEOMS = [(2, 3, 37, 45, 64, 7, 2, 3), (2, 64, 14, 14, 256, 1, 1, 0),
+               (2, 64, 13, 11, 64, 3, 1, 1), (2, 128, 15, 15, 128, 3, 2, 1),
+               (2, 256, 14, 14, 512, 1, 2, 0), (1, 48, 9, 10, 37, 3, 1, 1),
+               (1, 5, 7, 9, 24, 4, 2, 1)]
+
+
+def _qconv_operands(geom, device, seed=0, channels_last=True):
+    n, cin, h, w, cout, k, _, _ = geom
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-128, 128, (n, cin, h, w), dtype=np.int8)).to(device)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8)).to(device)
+    wq = wq.contiguous(memory_format=torch.channels_last)  # OHWI, as params_from_numpy stores it
+    # the sums' spread is about 5400 sqrt(K): outputs span the int8 grid
+    m = rng.uniform(0.5, 1.5, cout) * 0.0074 / np.sqrt(cin * k * k)
+    m = torch.from_numpy(m.astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.uniform(-20, 20, cout).astype(np.float32)).to(device)
+    return x, wq, m, b
+
+
+@pytest.mark.parametrize("geom", QCONV_GEOMS)
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_qlinear_conv_equals_plain(cuda, geom, bias, channels_last):
+    """One launch, int8 outputs bit-equal to the plain version, channels-last;
+    an input in another memory format is copied once (layout_copies)."""
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+
+    x, wq, m, b = _qconv_operands(geom, cuda, channels_last=channels_last)
+    _, _, _, _, _, k, s, p = geom
+    kw = dict(stride=(s, s), pads=((p, p), (p, p)))
+    before, copies = qc.launches, qc.layout_copies
+    got = qc.qlinear_conv(x, wq, m, b if bias else None, **kw)
+    torch.cuda.synchronize()
+    assert qc.launches == before + 1
+    assert qc.layout_copies == copies + (0 if channels_last else 1)
+    ref = qc.qlinear_conv_plain(x, wq, m, b if bias else None, **kw)
+    assert got.dtype == torch.int8 and got.shape == ref.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ref)
+    assert len(torch.unique(got)) > 50  # the grid, not a clip
+
+
+def test_qlinear_conv_sums_past_f32_integers_and_rounds_one_fma(cuda):
+    """Sums beyond 2^24 (3x3x512 of 127 x 127: 7.4e7) convert to f32 with
+    one rounding, and the crafted epilogue cases of the CPU tests (round
+    apart as a fused multiply-add and as a product then a sum) round as one
+    fused multiply-add."""
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+
+    x = torch.full((1, 512, 3, 3), 127, dtype=torch.int8, device=cuda)
+    w = torch.full((8, 512, 3, 3), 127, dtype=torch.int8, device=cuda)
+    w[1:] = -127
+    m = torch.full((8,), 1.1e-6, device=cuda)
+    got = qc.qlinear_conv(x, w, m, torch.zeros(8, device=cuda))
+    assert torch.equal(got, qc.qlinear_conv_plain(x, w, m, torch.zeros(8, device=cuda)))
+    cases = [(-27653, 3.0384628772735596, 27640), (-27601, 3.0384628772735596, 27640),
+             (-28482, 3.3037209510803223, 28454), (-22608, 3.7256858348846436, 22639)]
+    x = torch.zeros((len(cases), 256, 1, 1), dtype=torch.int8)
+    for r, (acc, _, _) in enumerate(cases):
+        rem = acc
+        for i in range(256):
+            x[r, i] = v = max(-127, min(127, rem))
+            rem -= v
+    ms = torch.tensor([c[1] for c in cases])
+    bs = (torch.tensor([c[2] for c in cases], dtype=torch.float64) * ms.double()).float()
+    w = torch.ones((len(cases), 256, 1, 1), dtype=torch.int8)
+    got = qc.qlinear_conv(x.to(cuda), w.to(cuda), ms.to(cuda), bs.to(cuda)).cpu()
+    assert torch.equal(got, qc.qlinear_conv_plain(x, w, ms, bs))
+    acc = torch.tensor([c[0] for c in cases], dtype=torch.float32)
+    fused = torch.round((acc.double() * ms.double() + bs.double()).float())
+    assert torch.equal(torch.diagonal(got[:, :, 0, 0]).float(), fused)
+
+
+# (N, H, W, C_in, C_out, k, (ph0, ph1), (pw0, pw1)): ResNet-50's stride-1
+# 3x3 at a small batch, the JAX tests' odd cases (5x5, VALID 11x9, W 28 with
+# pad 1), C_in 3, C_out 64 and one not a multiple of 16, uneven pads.
+DCONV_GEOMS = [(2, 14, 14, 64, 64, 3, (1, 1), (1, 1)), (2, 12, 12, 128, 128, 5, (2, 2), (2, 2)),
+               (2, 11, 9, 128, 128, 3, (0, 0), (0, 0)), (1, 28, 28, 128, 128, 3, (1, 1), (1, 1)),
+               (2, 17, 19, 3, 64, 3, (1, 1), (1, 1)), (1, 9, 10, 40, 37, 3, (0, 2), (1, 0))]
+
+
+@pytest.mark.parametrize("geom", DCONV_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_dequant_conv_matches_plain(cuda, geom, dtype):
+    """One launch; f32 within 1e-5 of the largest plain output (full f32,
+    TF32 off in the plain conv), 16-bit within 1e-2 (f32 sums of exact
+    products in other orders, one rounding each)."""
+    from smelter_tpu_torch.kernels import dequant_conv as dc
+
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, w, cin, cout, k, ph, pw = geom
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin), np.float32)).to(cuda, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8)).to(cuda)
+    s = torch.from_numpy(rng.uniform(1e-3, 1e-2, cout).astype(np.float32)).to(cuda)
+    before = dc.launches
+    got = dc.dequant_conv(x, wq, s, pads=(ph, pw))
+    torch.cuda.synchronize()
+    assert dc.launches == before + 1
+    ref = dc.dequant_conv_plain(x, wq, s, pads=(ph, pw))
+    assert got.dtype == dtype and got.shape == ref.shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def test_conv_kernels_raise_on_bad_operands(cuda):
+    """A CUDA tensor of a form the kernels or QLinearConv's lowering do not
+    take raises; it never falls back to a plain version."""
+    import smelter_tpu_torch as stt
+    from smelter_tpu_torch.ir.build import GraphBuilder
+    from smelter_tpu_torch.ir.errors import NotSupportedError
+    from smelter_tpu_torch.kernels import dequant_conv as dc
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+
+    x, wq, m, b = _qconv_operands((1, 16, 8, 8, 32, 3, 1, 1), cuda)
+    before = qc.launches
+    with pytest.raises(TypeError):  # uint8 activations
+        qc.qlinear_conv(x.to(torch.uint8), wq, m, b)
+    with pytest.raises(TypeError):  # scales of another length
+        qc.qlinear_conv(x, wq, m[:5], b)
+    with pytest.raises(ValueError):  # weights on the CPU
+        qc.qlinear_conv(x, wq.cpu(), m, b)
+    with pytest.raises(ValueError):  # an empty output
+        qc.qlinear_conv(x, wq, m, b, stride=(1, 1), pads=((0, 0), (-8, 0)))
+    assert qc.launches == before
+    xf = torch.zeros(1, 8, 8, 16, device=cuda, dtype=torch.bfloat16)
+    w8 = torch.zeros(3, 3, 16, 32, dtype=torch.int8, device=cuda)
+    s = torch.ones(32, device=cuda)
+    with pytest.raises(TypeError):  # int8 activations
+        dc.dequant_conv(xf.to(torch.int8), w8, s)
+    with pytest.raises(ValueError):  # C_in mismatch
+        dc.dequant_conv(xf, w8[:, :, :8], s)
+    with pytest.raises(TypeError):  # bf16 scales
+        dc.dequant_conv(xf, w8, s.to(torch.bfloat16))
+    # QLinearConv with groups 2 on the card
+    bld = GraphBuilder("q", opset=17)
+    xin = bld.input("x", (1, 8, 6, 6), 3)
+    ins = [xin, bld.init(np.float32(0.1)), bld.init(np.int8(0)),
+           bld.init(np.ones((8, 4, 3, 3), np.int8)), bld.init(np.ones(8, np.float32)),
+           bld.init(np.zeros(8, np.int8)), bld.init(np.float32(0.1)), bld.init(np.int8(0))]
+    g = bld.finish([bld.node("QLinearConv", ins, kernel_shape=[3, 3], group=2)])
+    model = stt.CompiledModel(g, stt.Config(device="cuda"))
+    with pytest.raises(NotSupportedError):
+        model(np.zeros((1, 8, 6, 6), np.int8))
+
+
+@pytest.mark.parametrize("op,attrs", [("Relu", {}),
+                                      ("MaxPool", {"kernel_shape": [3, 3], "strides": [2, 2],
+                                                   "pads": [1, 1, 1, 1]})])
+def test_int8_relu_and_max_pool_on_channels_last_memory(cuda, op, attrs):
+    """The int8 twins on channels-last CUDA memory, as the int8 convs hand it
+    over (a 112 x 112 map, as after ResNet-50's stem): equal to the CPU,
+    and the output stays channels-last."""
+    from smelter_tpu_torch.ir.graph import Graph, Node
+    from smelter_tpu_torch.ops.registry import Ctx, lower_node
+
+    x = torch.from_numpy(np.random.default_rng(2).integers(-128, 128, (2, 64, 112, 112),
+                                                          dtype=np.int8))
+    outs = {}
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).contiguous(memory_format=torch.channels_last)
+        ctx = Ctx(Graph(), {"x": xd}, None, device=dev)
+        lower_node(ctx, Node(op, ["x"], ["y"], attrs=dict(attrs)))
+        outs[str(dev)] = ctx.get("y")
+    got = outs[str(cuda)]
+    assert got.dtype == torch.int8 and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.cpu(), outs["cpu"])
+
+
+def test_small_resnet_int8_static_on_the_card_matches_the_cpu(cuda):
+    """The port's small ResNet at width 32 (17 QLinearConv, one a 4x4/2
+    packed conv; every conv quantized, so no float conv sums in another
+    order) compiled with quant="int8-static" on the CPU, then the same
+    quantized graph on the card: every int8 edge equal (the kernel's sums
+    are exact, its epilogue rounds the plain version's fused multiply-add,
+    and the float ops between are elementwise in f32); the logits within
+    1e-5 of the largest (the global pool's order). One qlinear_conv launch
+    a QLinearConv; the stem's NCHW input is copied to channels-last."""
+    import copy
+
+    import smelter_tpu_torch as stt
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+    from smelter_tpu_torch.models import resnet50
+    from smelter_tpu_torch.runtime.executor import Executor
+
+    g, _, shape = resnet50.build(batch=2, image_size=32, layers=(1, 1, 1, 1), width=32,
+                                 num_classes=16)
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    gq = stt.compile(g, quant="int8-static", calibration_data=[(x,)], device="cpu").graph
+    assert "Conv" not in [n.op_type for n in gq.nodes]
+    n_conv = sum(n.op_type == "QLinearConv" for n in gq.nodes)
+    envs = {}
+    for dev in ("cpu", "cuda"):
+        ex = Executor(copy.deepcopy(gq), stt.Config(device=dev))
+        before, copies = qc.launches, qc.layout_copies
+        env = ex.build_fn(return_all_edges=True)(ex.cast_params(ex.init_params()), x)
+        envs[dev] = {k: v.cpu() for k, v in env.items() if isinstance(v, torch.Tensor)}
+        if dev == "cuda":
+            assert qc.launches == before + n_conv and qc.layout_copies >= copies + 1
+    int8 = [k for k, v in envs["cpu"].items() if v.dtype == torch.int8 and k not in gq.initializers]
+    assert len(int8) >= 30
+    for k in int8:
+        assert torch.equal(envs["cpu"][k], envs["cuda"][k]), k
+    out = gq.output_names[0]
+    ref, got = envs["cpu"][out], envs["cuda"][out]
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from smelter_tpu.kernels import convnext_block as jcb
+from smelter_tpu.kernels import dequant_conv as jdc
 from smelter_tpu.kernels import dequant_matmul as jdm
 from smelter_tpu.kernels import int8_matmul as jim
 from smelter_tpu.kernels import layer_norm as jln
@@ -20,11 +21,13 @@ from smelter_tpu.kernels import pixel_conv as jpc
 from smelter_tpu.kernels import vit_block as jvb
 from smelter_tpu_torch.kernels import convnext_block as cb
 from smelter_tpu_torch.kernels import cross_attn_block as xa
+from smelter_tpu_torch.kernels import dequant_conv as dc
 from smelter_tpu_torch.kernels import dequant_matmul as dm
 from smelter_tpu_torch.kernels import int8_matmul as im
 from smelter_tpu_torch.kernels import layer_norm as ln
 from smelter_tpu_torch.kernels import max_unpool as mu
 from smelter_tpu_torch.kernels import pixel_conv as pc
+from smelter_tpu_torch.kernels import qlinear_conv as qc
 from smelter_tpu_torch.kernels import vit_block as vb
 from smelter_tpu_torch.passes.vit_block import pack_qkv_weights
 
@@ -409,3 +412,72 @@ def test_block_kernels_take_the_plain_version_on_meta():
     assert out.shape == xs.shape and out.dtype == xs.dtype
     assert cb.launches == 0 and xa.launches == 0
 
+
+
+# -- dequant_conv, qlinear_conv ------------------------------------------------
+
+# The JAX package's own dequant_conv cases (tests/test_kernels.py): (h, w,
+# C_in, C_out, k, pad) at batch 2.
+DEQUANT_CONV = [(8, 8, 128, 128, 3, 1), (14, 14, 128, 256, 3, 1), (10, 10, 128, 128, 1, 0),
+                (12, 12, 128, 128, 5, 2), (11, 9, 128, 128, 3, 0), (28, 28, 128, 128, 3, 1)]
+
+
+def _dequant_conv_operands(h, w, cin, cout, k, seed=0):
+    from smelter_tpu_torch.quant import quantize_array
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, h, w, cin)).astype(np.float32)
+    q, s = quantize_array(rng.standard_normal((cout, cin, k, k)).astype(np.float32) * 0.1, 0)
+    return x, np.ascontiguousarray(q.transpose(2, 3, 1, 0)), s.reshape(-1)
+
+
+@pytest.mark.parametrize("geom", DEQUANT_CONV)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dequant_conv_plain_matches_pallas(geom, dtype):
+    """Against the Pallas kernel in interpret mode. f32: sums in other
+    orders, 1e-5 of the largest output; bf16: the same f32 sums of exact
+    products, each side rounding once to bf16, 1e-2 of the largest."""
+    h, w, cin, cout, k, pad = geom
+    x, q, s = _dequant_conv_operands(h, w, cin, cout, k)
+    pads = ((pad, pad), (pad, pad))
+    tdt = getattr(torch, dtype)
+    got = dc.dequant_conv(torch.from_numpy(x).to(tdt), torch.from_numpy(q), torch.from_numpy(s),
+                          pads=pads)
+    assert dc.launches == 0 and got.dtype == tdt
+    want = jdc.dequant_conv(jnp.asarray(x).astype(dtype), jnp.asarray(q), jnp.asarray(s),
+                            pads=pads, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    assert tuple(got.shape) == want.shape == (2, h + 2 * pad - k + 1, w + 2 * pad - k + 1, cout)
+    tol = {"float32": 1e-5, "bfloat16": 1e-2}[dtype]
+    assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dequant_conv_plain_against_the_reference(dtype):
+    """The JAX reference rounds w * s to x's dtype before its conv, the
+    kernel (and its plain version) scales the f32 sum: in f32 they agree to
+    sum order (1.2e-6 of the largest output here, held to 1e-5); in bf16 the
+    reference's rounded weights move the output by 4.5e-3 of the largest
+    here, held to 2e-2."""
+    x, q, s = _dequant_conv_operands(14, 14, 128, 256, 3, seed=1)
+    pads = ((1, 1), (1, 1))
+    tdt = getattr(torch, dtype)
+    got = dc.dequant_conv(torch.from_numpy(x).to(tdt), torch.from_numpy(q), torch.from_numpy(s),
+                          pads=pads).float().numpy()
+    ref = np.asarray(jdc.dequant_conv_reference(jnp.asarray(x).astype(dtype), jnp.asarray(q),
+                                                jnp.asarray(s), pads=pads).astype(jnp.float32))
+    gap = np.abs(got - ref).max() / np.abs(ref).max()
+    assert gap <= {"float32": 1e-5, "bfloat16": 2e-2}[dtype], gap
+
+
+def test_conv_kernels_take_the_plain_version_on_meta():
+    x = torch.empty(2, 14, 14, 64, device="meta", dtype=torch.bfloat16)
+    out = dc.dequant_conv(x, torch.empty(3, 3, 64, 32, device="meta", dtype=torch.int8),
+                          torch.empty(32, device="meta"), pads=((1, 1), (0, 2)))
+    assert out.shape == (2, 14, 14, 32) and out.dtype == x.dtype
+    xq = torch.empty(2, 3, 224, 224, device="meta", dtype=torch.int8)
+    wq = torch.empty(64, 3, 7, 7, device="meta", dtype=torch.int8)
+    v = torch.empty(64, device="meta")
+    out = qc.qlinear_conv(xq, wq, v, v, stride=(2, 2), pads=((3, 3), (3, 3)))
+    assert out.shape == (2, 64, 112, 112) and out.dtype == torch.int8
+    assert dc.launches == 0 and qc.launches == 0

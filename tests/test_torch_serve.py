@@ -83,6 +83,8 @@ def test_import_and_cpu_compile_without_jax_protobuf_or_ml_dtypes(tmp_path):
         import smelter_tpu_torch as stt
         import smelter_tpu_torch.kernels.convnext_block
         import smelter_tpu_torch.kernels.cross_attn_block
+        import smelter_tpu_torch.kernels.dequant_conv
+        import smelter_tpu_torch.kernels.qlinear_conv
         import smelter_tpu_torch.kernels.ragged_decode_attention
         import smelter_tpu_torch.models.convnext
         import smelter_tpu_torch.models.sd_unet
@@ -93,6 +95,10 @@ def test_import_and_cpu_compile_without_jax_protobuf_or_ml_dtypes(tmp_path):
         m = stt.compile({str(path)!r}, quant="int8", device="cpu")
         y = m(np.zeros({shape!r}, np.float32))[0]
         assert y.shape == ({shape[0]}, 16) and np.isfinite(y).all()
+        x = np.random.default_rng(0).standard_normal({shape!r}).astype(np.float32)
+        m = stt.compile({str(path)!r}, quant="int8-static", calibration_data=[(x,)],
+                        device="cpu")
+        assert np.isfinite(m(x)[0]).all()
         bad = sorted(k for k, v in sys.modules.items() if v is not None and (
             k == "smelter_tpu" or k.startswith(("smelter_tpu.", "ml_dtypes", "jax"))))
         assert not bad, bad
