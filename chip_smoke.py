@@ -43,7 +43,16 @@ its number:
    ResNet-50's 23 distinct conv shapes at batch 128, and `dequant_conv`'s
    entry point at ResNet-50's four stride-1 3x3 shapes at batch 128 in bf16
    (its launches: no path of either package reaches it), held there to its
-   plain version and in f32 and bf16 at small and odd shapes;
+   plain version and in f32 and bf16 at small and odd shapes; and the
+   four kernels no path reaches, each through its own entry point, called
+   first once at its main shapes (its launches): `dequant_matmul_int8_fused`
+   and `_fused2` at the ResNet-50 head and the serving GEMM in bf16 (equal
+   to their plain version and to `dequant_matmul_int8`, timed beside it,
+   `dequant_matmul_int8_reference` on `torch._int_mm` as the yardstick),
+   `pixel_conv_blockdot` (NHCW) and `pixel_conv_patch` (flat NCHW) at each
+   of ESRGAN x4's PixelConv shapes at batch 8 in bf16 and at batch 1 in
+   f32, then small odd shapes, and a profile showing one kernel a `patch`
+   call (no layout copy);
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -152,7 +161,8 @@ MLPs, a one-node attention graph at N >= 2048 one flash attention, a fused
 ConvNeXt-T forward 15 ConvNeXt blocks, an SD-UNet forward 5 ViT blocks and,
 with the cross branch on, 5 cross-attention blocks, a ResNet-50 int8-static
 forward 53 int8 convs; `dequant_conv`'s entry point, called at its four
-shapes, 4.
+shapes, 4; the fused GEMMs' entry points 2 each (head, serving), blockdot's
+and patch's 8 each (ESRGAN x4's eight PixelConv shapes).
 `FusedGenerator` replays a CUDA graph, whose launches the wrappers count
 once, at capture. The last three lines are the kernels'
 JSON line, the card's name and power limit, and `{"ok": true, "device":
@@ -248,7 +258,11 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "convnext_block": ("convnext_block", "launches"),
            "cross_attn_block": ("cross_attn_block", "launches"),
            "qlinear_conv": ("qlinear_conv", "launches"),
-           "dequant_conv": ("dequant_conv", "launches")}
+           "dequant_conv": ("dequant_conv", "launches"),
+           "dequant_matmul_int8_fused": ("int8_matmul", "fused_launches"),
+           "dequant_matmul_int8_fused2": ("int8_matmul", "fused2_launches"),
+           "pixel_conv_blockdot": ("pixel_conv", "blockdot_launches"),
+           "pixel_conv_patch": ("pixel_conv", "patch_launches")}
 
 REPORT: dict = {}
 
@@ -1570,6 +1584,217 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
            + ", ".join(f"{c[:4]} {c[4][6:]} {c[5]:.2g}" for c in checks))
     torch.backends.cudnn.allow_tf32 = True
     REPORT["conv_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
+    return rows
+
+
+def phase_variant_kernels(torch, power_w: float) -> dict:
+    """The four kernels no path of either package reaches, through their
+    own entry points: first each called once at its main shapes (its
+    launches: `dequant_matmul_int8_fused` and `_fused2` at the ResNet-50
+    head and the serving GEMM, `pixel_conv_blockdot` and `pixel_conv_patch`
+    at each of ESRGAN x4's PixelConv shapes at batch 8, all bf16), then held
+    to their plain versions there and timed: the fused GEMMs bit-equal to
+    the plain version and to the two-pass `dequant_matmul_int8` (whose time
+    goes beside them; the yardstick `dequant_matmul_int8_reference`, on
+    `torch._int_mm`); blockdot and patch within 1e-2 x max|plain| in bf16
+    and 1e-5 in f32 at batch 1 (TF32 off), yardsticks cuDNN's channels-last
+    (blockdot, as rowdot) and NCHW (patch) convs + leaky_relu. Then small
+    odd shapes, and a profile of one patch call: one kernel, no layout
+    copy."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import int8_matmul as im
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    side = torch.cuda.Stream()
+    bf16, B = torch.bfloat16, ESRGAN_BATCH
+    fused = {"dequant_matmul_int8_fused": im.dequant_matmul_int8_fused,
+             "dequant_matmul_int8_fused2": im.dequant_matmul_int8_fused2}
+
+    def gemm_operands(M, K, N, dtype=bf16, copies=1):
+        return [(torch.randn(M, K, device="cuda", generator=gen).to(dtype),
+                 torch.randint(-127, 128, (K, N), device="cuda", generator=gen, dtype=torch.int8),
+                 torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3)
+                for _ in range(copies)]
+
+    def conv_operands(cin, cout, px, batch=B, dtype=bf16, copies=1, width=None):
+        """NHCW x of px rows of `width` (px) pixels, the weight as an OIHW
+        view of its packed buffer, bias."""
+        sets = []
+        for _ in range(copies):
+            w = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (3 * cin ** 0.5)
+            x = torch.randn(batch, px, cin, width or px, device="cuda", generator=gen)
+            sets.append((x.to(dtype),
+                         w.to(dtype).permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1),
+                         torch.randn(cout, device="cuda", generator=gen).to(dtype)))
+        return sets
+
+    def flat(x):  # NHCW -> flat NCHW (B, C, H*W)
+        b_, h_, c_, w_ = x.shape
+        return x.permute(0, 2, 1, 3).reshape(b_, c_, h_ * w_).contiguous()
+
+    def err_of(got, ref, rel, label):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(got.shape == ref.shape and got.dtype == ref.dtype and math.isfinite(err)
+              and err <= rel * scale, f"{label}: max-abs {err} > {rel} x {scale}")
+        return err
+
+    # (a) the entry points, once at each main shape
+    gemm_ops = {label: gemm_operands(*shape)[0] for label, shape in
+                (("head", HEAD), ("serving", SERVING))}
+    conv_ops = {key: conv_operands(*key)[0] for key in ESRGAN_CONVS}
+    _zero_counts()
+    for x, w, s in gemm_ops.values():
+        for fn in fused.values():
+            fn(x, w, s)
+    for (cin, cout, px), (x, w, b) in conv_ops.items():
+        pc.pixel_conv_blockdot(x, w, b, alpha=0.2)
+        pc.pixel_conv_patch(flat(x), w, b, width=px, alpha=0.2)
+    torch.cuda.synchronize()
+    entry = _counts()
+    expect = {"dequant_matmul_int8_fused": 2, "dequant_matmul_int8_fused2": 2,
+              "pixel_conv_blockdot": len(ESRGAN_CONVS), "pixel_conv_patch": len(ESRGAN_CONVS)}
+    _check_routed("variant entry points", entry, set(expect))
+    check(all(entry[k] == n for k, n in expect.items()), f"variant launches {entry}")
+    REPORT["variant_entry_launches"] = {k: entry[k] for k in expect}
+    del gemm_ops, conv_ops
+
+    rows = {}
+    # (b) the fused GEMMs at the head and the serving shape
+    for label, (M, K, N) in (("head", HEAD), ("serving", SERVING)):
+        iters = 50 if label == "head" else 10
+        nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+        sets = gemm_operands(M, K, N, copies=_copies(nbytes))
+        n = len(sets)
+        x, w, s = sets[0]
+        ref = im.dequant_matmul_int8_fused_plain(x, w, s)
+        check(torch.equal(ref, im.dequant_matmul_int8(x, w, s)),
+              f"fused plain {label}: differs from dequant_matmul_int8")
+        two_pass_ms = graph_ms(torch, side, lambda i: im.dequant_matmul_int8(*sets[i % n]), iters)
+        lib_ms = graph_ms(torch, side, lambda i: im.dequant_matmul_int8_reference(*sets[i % n]),
+                          iters)
+        plain_ms = graph_ms(torch, side, lambda i: im.dequant_matmul_int8_fused_plain(
+            *sets[i % n]), 2, replays=2)
+        b_ms, b_by = bound(nbytes, 2 * M * N * K, "int8", power_w)
+        for name, fn in fused.items():
+            got = fn(x, w, s)
+            torch.cuda.synchronize()
+            check(got.dtype == bf16 and torch.equal(got, ref),
+                  f"{name} {label}: outputs differ from the plain version and "
+                  "dequant_matmul_int8")
+            rows[(name, label)] = dict(
+                name=name, shape=[M, K, N], dtype="bf16", max_abs_err=0.0,
+                tolerance="bf16 outputs equal (plain version and dequant_matmul_int8)",
+                ms=graph_ms(torch, side, lambda i, fn=fn: fn(*sets[i % n]), iters),
+                call_ms=time_ms(torch, lambda i, fn=fn: fn(*sets[i % n]), iters),
+                plain_ms=plain_ms, library_ms=lib_ms, two_pass_ms=two_pass_ms,
+                library="dequant_matmul_int8_reference (quantize_rows, torch._int_mm, "
+                        "epilogue)", bound_ms=b_ms, bound_by=b_by, ops=2 * M * N * K,
+                calls_per_forward=1)
+        del sets, ref
+    checks = []
+    for dtype in (torch.float32, bf16):  # small odd shape, f32 out
+        x, w, s = gemm_operands(17, 200, 72, dtype)[0]
+        ref = im.dequant_matmul_int8_fused_plain(x, w, s, out_dtype=torch.float32)
+        for name, fn in fused.items():
+            check(torch.equal(fn(x, w, s, out_dtype=torch.float32), ref),
+                  f"{name} (17, 200, 72) {dtype}: outputs differ from the plain version")
+            checks.append([name, [17, 200, 72], str(dtype), "equal"])
+
+    # (c) blockdot and patch at ESRGAN x4's shapes, batch 8
+    for (cin, cout, px), calls in ESRGAN_CONVS.items():
+        nbytes = B * px * px * (cin + cout) * 2 + 9 * cin * cout * 2 + cout * 2
+        flops = 2 * B * px * px * 9 * cin * cout
+        b_ms, b_by = bound(nbytes, flops, "bf16", power_w)
+        sets = conv_operands(cin, cout, px, copies=_copies(nbytes))
+        n = len(sets)
+        x1, w1, b1 = sets[0][0][:1].float(), sets[0][1].float(), sets[0][2].float()
+        kw = dict(alpha=0.2)
+        for name in ("pixel_conv_blockdot", "pixel_conv_patch"):
+            if name == "pixel_conv_blockdot":
+                ops_ = sets
+                call = lambda i: pc.pixel_conv_blockdot(*ops_[i % n], **kw)  # noqa: E731
+                plain = lambda i: pc.pixel_conv_blockdot_plain(*ops_[i % n], **kw)  # noqa: E731
+                f32_err = err_of(pc.pixel_conv_blockdot(x1, w1, b1, **kw),
+                                 pc.pixel_conv_blockdot_plain(x1, w1, b1, **kw), 1e-5,
+                                 f"{name} {(cin, cout, px)} f32 b1")
+                xl = [s_[0].permute(0, 2, 1, 3).contiguous(memory_format=torch.channels_last)
+                      for s_ in sets]
+                wl = [s_[1].contiguous(memory_format=torch.channels_last) for s_ in sets]
+                library = "F.conv2d channels-last bf16 with bias, then F.leaky_relu"
+            else:
+                ops_ = [(flat(x_), w_, b_) for x_, w_, b_ in sets]
+                kwp = dict(kw, width=px)
+                call = lambda i: pc.pixel_conv_patch(*ops_[i % n], **kwp)  # noqa: E731
+                plain = lambda i: pc.pixel_conv_patch_plain(*ops_[i % n], **kwp)  # noqa: E731
+                f32_err = err_of(pc.pixel_conv_patch(flat(x1), w1, b1, **kwp),
+                                 pc.pixel_conv_patch_plain(flat(x1), w1, b1, **kwp), 1e-5,
+                                 f"{name} {(cin, cout, px)} f32 b1")
+                xl = [o[0].reshape(B, cin, px, px) for o in ops_]
+                wl = [s_[1].contiguous() for s_ in sets]
+                library = "F.conv2d NCHW bf16 with bias, then F.leaky_relu"
+
+            def lib(i, xl=xl, wl=wl):
+                return F.leaky_relu(F.conv2d(xl[i % n], wl[i % n], sets[i % n][2], padding=1),
+                                    0.2)
+
+            r = {"name": name, "shape": [B, px, cin, px, cout], "calls_per_forward": calls,
+                 "bytes": nbytes, "flops": flops, "library": library, "f32_b1_err": f32_err,
+                 "max_abs_err": err_of(call(0), plain(0), 1e-2, f"{name} {(cin, cout, px)} bf16"),
+                 "tolerance": "1e-2 x max|plain| (bf16)"}
+            r["ms"] = graph_ms(torch, side, call, 10)
+            r["call_ms"] = time_ms(torch, call, 10)
+            r["plain_ms"] = graph_ms(torch, side, plain, 3)
+            r["library_ms"] = graph_ms(torch, side, lib, 10)
+            r["bound_ms"], r["bound_by"] = b_ms, b_by
+            rows[(name, cin, cout, px)] = r
+            del ops_, xl, wl
+        del sets
+    for alpha in (None, 0.2):  # small odd shape: H 7, W 100, C_in 24, C_out 40
+        for dtype, rel in ((torch.float32, 1e-5), (bf16, 1e-2)):
+            x, w, b = conv_operands(24, 40, 7, batch=2, dtype=dtype, width=100)[0]
+            e1 = err_of(pc.pixel_conv_blockdot(x, w, b, alpha=alpha),
+                        pc.pixel_conv_blockdot_plain(x, w, b, alpha=alpha), rel,
+                        f"pixel_conv_blockdot (2, 7, 24, 100, 40) {dtype} alpha {alpha}")
+            e2 = err_of(pc.pixel_conv_patch(flat(x), w, b, width=100, alpha=alpha),
+                        pc.pixel_conv_patch_plain(flat(x), w, b, width=100, alpha=alpha), rel,
+                        f"pixel_conv_patch (2, 24, 700) {dtype} alpha {alpha}")
+            checks.append(["blockdot, patch", [2, 7, 24, 100, 40], str(dtype), alpha, e1, e2])
+    REPORT["variant_checks"] = checks
+
+    # (d) one patch call is one kernel: no layout copy on the way in or out
+    x, w, b = conv_operands(64, 32, 128)[0]
+    xf = flat(x)
+    kernels, _, n_kernels = _profile(torch, lambda: pc.pixel_conv_patch(xf, w, b, width=128,
+                                                                       alpha=0.2), steps=1)
+    check(n_kernels == 1 and all(_PORT_IMAGE_KERNEL.search(k) for k in kernels),
+          f"pixel_conv_patch ran {n_kernels} kernels: {sorted(kernels)}")
+    REPORT["patch_kernels_a_call"] = {"kernels": n_kernels, "names": sorted(kernels)}
+
+    for r in rows.values():
+        extra = (f", dequant_matmul_int8 {r['two_pass_ms']:.4f} ms, "
+                 f"{r['ops'] / r['ms'] / 1e9:.1f} TOP/s" if "two_pass_ms" in r
+                 else f"; f32 b1 err {r['f32_b1_err']:.3g} (1e-5 x max)")
+        say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']}) | "
+               f"kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), plain "
+               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms ({r['library']})"
+               f"{extra}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+               f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {r['calls_per_forward']} "
+               "a forward")
+    for name in ("pixel_conv_blockdot", "pixel_conv_patch"):
+        fw = per_forward(rows, name)
+        say(2, f"{name} over an ESRGAN x4 b8 forward's 349 calls: kernel {fw['ms']:.3f} ms, "
+               f"plain {fw['plain_ms']:.3f} ms, library {fw['library_ms']:.3f} ms, bound "
+               f"{fw['bound_ms']:.3f} ms")
+    say(2, f"entry-point launches {REPORT['variant_entry_launches']}; one pixel_conv_patch "
+           f"call: {n_kernels} kernel; small checks: {checks}")
+    torch.backends.cudnn.allow_tf32 = True
+    REPORT["variant_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
     return rows
 
 
@@ -3704,6 +3929,7 @@ def main() -> int:
     encoder_rows = phase_encoder_kernels(torch, power_w)
     block_rows = phase_block_kernels(torch, np, power_w)
     conv_rows = phase_conv_kernels(torch, power_w)
+    variant_rows = phase_variant_kernels(torch, power_w)
 
     main_path, ref_f32 = phase_main(torch, np, stt)
     REPORT["main_path"] = main_path
@@ -3743,7 +3969,8 @@ def main() -> int:
                 "convnext_block": cnx["fuse_convnext_block"]["launches"]["convnext_block"],
                 "cross_attn_block": sdu["cross"]["launches"]["cross_attn_block"],
                 "qlinear_conv": i8s["b128"]["launches"]["qlinear_conv"],
-                "dequant_conv": REPORT["dequant_conv_entry_launches"]}
+                "dequant_conv": REPORT["dequant_conv_entry_launches"],
+                **REPORT["variant_entry_launches"]}
     say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
     # ResNet-50 kernels: one call at the head shape (its launches from the
@@ -3815,7 +4042,22 @@ def main() -> int:
                                 per_forward(conv_rows, "qlinear_conv"), "forward"),
                "dequant_conv": ("smelter_tpu_torch/csrc/dequant_conv.cu",
                                 "smelter_tpu/kernels/dequant_conv.py:103",
-                                per_forward(conv_rows, "dequant_conv"), "four calls")}
+                                per_forward(conv_rows, "dequant_conv"), "four calls"),
+               "dequant_matmul_int8_fused": ("smelter_tpu_torch/csrc/int8_matmul_fused.cu",
+                                             "smelter_tpu/kernels/int8_matmul.py:232",
+                                             variant_rows[("dequant_matmul_int8_fused",
+                                                           "serving")], "call"),
+               "dequant_matmul_int8_fused2": ("smelter_tpu_torch/csrc/int8_matmul_fused.cu",
+                                              "smelter_tpu/kernels/int8_matmul.py:325",
+                                              variant_rows[("dequant_matmul_int8_fused2",
+                                                            "serving")], "call"),
+               "pixel_conv_blockdot": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+                                       "smelter_tpu/kernels/pixel_conv.py:377",
+                                       per_forward(variant_rows, "pixel_conv_blockdot"),
+                                       "forward"),
+               "pixel_conv_patch": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+                                    "smelter_tpu/kernels/pixel_conv.py:487",
+                                    per_forward(variant_rows, "pixel_conv_patch"), "forward")}
     kernels = []
     for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,25 +1,31 @@
-// 3x3 / stride 1 / pad 1 convolution of (B, H, C, W) activations for Hopper:
+// 3x3 / stride 1 / pad 1 convolution for Hopper, on activations whose W is
+// contiguous and whose batch, row and channel strides are arguments:
 // out[b, h, co, w] = epilogue(sum_{dy,dx,ci} W[co,ci,dy,dx] * x[b, h+dy-1, ci, w+dx-1]).
+// (B, H, C, W) "NHCW" has strides (H*C*W, C*W, W), flat NCHW (B, C, H*W)
+// has (C*H*W, W, H*W): one device code serves both, with no layout copy.
 //
 // Replaces smelter_tpu/kernels/pixel_conv.py::pixel_conv_rowdot (f32/bf16)
 // and ::pixel_conv_rowdot_q (int8), the Pallas kernels that put the pixels of
 // a row on the 128 MXU lanes, run one [3*C_out, 3*C_in] x [3*C_in, W] dot a
-// row and fold the dx taps with lane rolls of the partial sums.
+// row and fold the dx taps with lane rolls of the partial sums; ::
+// pixel_conv_blockdot, which runs one dot a block of rows (here: the taller
+// tile, RB = 4 output rows a block); and ::pixel_conv_patch, which builds a
+// 9*C_in patch matrix of flat NCHW with lane rolls (here: NCHW strides).
 //
 // What bounds it on an H100: ESRGAN's trunk convs (batch 8, 128 x 128, C_in
 // 64-192, C_out 32/64) sit near the ridge: the 349 convs of a bf16 forward
 // do ~4.7 TFLOP and move ~16 GB, ~4.7 ms of bf16 tensor-core time and ~4.9
 // ms of HBM time at the data sheet's peaks. int8 halves both.
 //
-// Design, simple first: an implicit GEMM per block of RB = 2 output rows x
-// TW = 128 pixels x 64 output channels (M = output channels, N = pixels,
+// Design, simple first: an implicit GEMM per block of RB = 2 (or 4) output
+// rows x TW = 128 pixels x 64 output channels (M = output channels, N = pixels,
 // K = the 9 taps x C_in). Input channels stream in chunks of 64 bytes (32
 // bf16 or 64 int8 channels): the block stages the RB + 2 input rows of the
 // chunk, pixels w0-1 .. w0+TW, transposed to [row][pixel][channel] in
 // shared memory, so that the dx shift of a tap is a shift of whole staged
 // rows and both operands come through ldmatrix (no transposed loads). The
 // weights arrive as [3][3][C_out][C_in] (weights.py packs the graph's once)
-// and are staged as [tap][co][channel]. 8 warps, each 32 pixels of one
+// and are staged as [tap][co][channel]. 4 * RB warps, each 32 pixels of one
 // output row x all 64 channels (32 where C_out <= 32), run mma.sync
 // m16n8k16 (bf16/f16, f32 accumulators) or m16n8k32 (int8, int32
 // accumulators) over the 9 taps.
@@ -29,7 +35,9 @@
 // adds the bias in two roundings (__fmul_rn, __fadd_rn: no contraction),
 // applies LeakyReLU and requantizes half to even, clipped to [-127, 127].
 // Ragged H, W, C_in and C_out are masked; no cp.async double buffering,
-// TMA or wgmma yet. f32 takes an FMA kernel in full f32 (no TF32).
+// TMA or wgmma yet. f32 takes an FMA kernel in full f32 (no TF32), of R = 1
+// (or 4) output rows a block. RB 4 / R 4 halve the weight staging a pixel
+// and cut the rows staged per output row from 2 to 1.5.
 #include <type_traits>
 
 #include "common.cuh"
@@ -39,15 +47,27 @@ namespace {
 using namespace smelter;
 
 constexpr int TW = 128;               // output pixels a block
-constexpr int RB = 2;                 // output rows a block
 constexpr int CO = 64;                // output channels a block (grid.y covers more)
 constexpr int KB = 64;                // bytes of input channels a chunk
 constexpr int ROWB = KB + 16;         // bytes a staged row (80)
-constexpr int XR = RB + 2, XP = TW + 2;
-constexpr int X_BYTES = XR * XP * ROWB;
+constexpr int XP = TW + 2;
 constexpr int W_BYTES = 9 * CO * ROWB;
-constexpr int SMEM_BYTES = X_BYTES + W_BYTES;  // 87,680: two blocks an SM
-constexpr int THREADS = 256;          // 8 warps: RB rows x 4 quarters of TW
+// RB output rows a block: 4 * RB warps (RB rows x 4 quarters of TW) and
+// (RB + 2) staged input rows; RB 2: 87,680 bytes, RB 4: 108,480, two
+// blocks an SM either way.
+template <int RB> struct Tile {
+  static constexpr int THREADS = 128 * RB;
+  static constexpr int X_BYTES = (RB + 2) * XP * ROWB;
+  static constexpr int SMEM_BYTES = X_BYTES + W_BYTES;
+};
+
+// Element strides of the batch, row and channel dims (W is contiguous).
+struct Strides {
+  long long b, h, c;
+  __device__ __forceinline__ size_t at(int bi, int hi, int ci) const {
+    return static_cast<size_t>(bi * b + hi * h + ci * c);
+  }
+};
 
 struct Epilogue {
   const void* bias;
@@ -126,11 +146,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* smem) {
 }
 
 // MT: m16 tiles of output channels a warp runs, 2 for C_out <= 32, else 4.
-template <typename T, typename OutT, int MT>
-__global__ void __launch_bounds__(THREADS, 2)
+// RB 4 with four tiles keeps one block an SM, so that the accumulators stay
+// in registers.
+template <typename T, typename OutT, int MT, int RB>
+__global__ void __launch_bounds__(Tile<RB>::THREADS, (RB == 2 || MT == 2) ? 2 : 1)
 pixel_conv_mma(const T* __restrict__ x, const T* __restrict__ w, Epilogue ep,
-               OutT* __restrict__ out, int H, int Cin, int W, int Cout, int ptiles,
-               int row_blocks, bool x_vec, bool w_vec) {
+               OutT* __restrict__ out, int H, int Cin, int W, int Cout, Strides xs_,
+               Strides os_, int ptiles, int row_blocks, bool x_vec, bool w_vec) {
+  constexpr int THREADS = Tile<RB>::THREADS, XR = RB + 2, X_BYTES = Tile<RB>::X_BYTES;
   using Raw = typename Tc<T>::Raw;
   using Acc = typename Tc<T>::Acc;
   constexpr int ES = sizeof(Raw);
@@ -186,7 +209,7 @@ pixel_conv_mma(const T* __restrict__ x, const T* __restrict__ w, Epilogue ep,
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       Raw* e = reinterpret_cast<Raw*>(&v);
       if (hin >= 0 && hin < H && ci < Cin) {
-        const Raw* src = xr + ((static_cast<size_t>(b) * H + hin) * Cin + ci) * W + win;
+        const Raw* src = xr + xs_.at(b, hin, ci) + win;
         if (x_vec && win + VE <= W) {
           v = *reinterpret_cast<const uint4*>(src);
         } else {
@@ -205,7 +228,7 @@ pixel_conv_mma(const T* __restrict__ x, const T* __restrict__ w, Epilogue ep,
       const int hin = h0 - 1 + r, ci = c0 + c, win = w0 - 1 + q;
       Raw v = 0;
       if (hin >= 0 && hin < H && ci < Cin && win >= 0 && win < W)
-        v = xr[((static_cast<size_t>(b) * H + hin) * Cin + ci) * W + win];
+        v = xr[xs_.at(b, hin, ci) + win];
       *reinterpret_cast<Raw*>(xs + (r * XP + q) * ROWB + c * ES) = v;
     }
     __syncthreads();
@@ -245,7 +268,7 @@ pixel_conv_mma(const T* __restrict__ x, const T* __restrict__ w, Epilogue ep,
     for (int hh = 0; hh < 2; ++hh) {
       const int co = co0 + mt * 16 + g + hh * 8;
       if (co >= Cout) continue;
-      OutT* orow = out + ((static_cast<size_t>(b) * H + h) * Cout + co) * W;
+      OutT* orow = out + os_.at(b, h, co);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -257,34 +280,38 @@ pixel_conv_mma(const T* __restrict__ x, const T* __restrict__ w, Epilogue ep,
   }
 }
 
-// f32: a register-tiled FMA kernel in full f32. A block is one output row x
-// FT pixels x 64 channels; a thread one pixel x 16 channels.
-constexpr int FT = 64, FK = 8;
+// f32: a register-tiled FMA kernel in full f32. A block is R output rows x
+// FT pixels x 64 channels; a thread one pixel x 16 channels of each row.
+constexpr int FT = 64, FK = 8, FTHREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
+template <int R>
+__global__ void __launch_bounds__(FTHREADS)
 pixel_conv_f32(const float* __restrict__ x, const float* __restrict__ w, Epilogue ep,
-               float* __restrict__ out, int H, int Cin, int W, int Cout, int ptiles) {
-  __shared__ float xs[3][FK][FT + 2];
+               float* __restrict__ out, int H, int Cin, int W, int Cout, Strides xs_,
+               Strides os_, int ptiles, int row_blocks) {
+  __shared__ float xs[R + 2][FK][FT + 2];
   __shared__ __align__(16) float ws[9][FK][CO];
   const int tid = threadIdx.x, px = tid % FT, cq = tid / FT;
   const int pt = blockIdx.x % ptiles, rest = blockIdx.x / ptiles;
-  const int w0 = pt * FT, h = rest % H, b = rest / H;
+  const int w0 = pt * FT, h0 = (rest % row_blocks) * R, b = rest / row_blocks;
   const int co0 = blockIdx.y * CO;
-  float acc[16];
+  float acc[R][16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
+  for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[rr][j] = 0.f;
 
   for (int c0 = 0; c0 < Cin; c0 += FK) {
     __syncthreads();
-    for (int i = tid; i < 3 * FK * (FT + 2); i += THREADS) {
+    for (int i = tid; i < (R + 2) * FK * (FT + 2); i += FTHREADS) {
       const int q = i % (FT + 2), r2 = i / (FT + 2);
       const int c = r2 % FK, r = r2 / FK;
-      const int hin = h - 1 + r, win = w0 - 1 + q, ci = c0 + c;
+      const int hin = h0 - 1 + r, win = w0 - 1 + q, ci = c0 + c;
       xs[r][c][q] = (hin >= 0 && hin < H && win >= 0 && win < W && ci < Cin)
-                        ? x[((static_cast<size_t>(b) * H + hin) * Cin + ci) * W + win]
+                        ? x[xs_.at(b, hin, ci) + win]
                         : 0.f;
     }
-    for (int i = tid; i < 9 * FK * CO; i += THREADS) {
+    for (int i = tid; i < 9 * FK * CO; i += FTHREADS) {
       const int co = i % CO, r2 = i / CO;
       const int c = r2 % FK, tap = r2 / FK;
       ws[tap][c][co] = (co0 + co < Cout && c0 + c < Cin)
@@ -296,69 +323,104 @@ pixel_conv_f32(const float* __restrict__ x, const float* __restrict__ w, Epilogu
     for (int c = 0; c < FK; ++c)
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
-        const float xv = xs[tap / 3][c][px + tap % 3];
         const float4* wv = reinterpret_cast<const float4*>(&ws[tap][c][cq * 16]);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float4 q = wv[k];
-          acc[4 * k] = fmaf(xv, q.x, acc[4 * k]);
-          acc[4 * k + 1] = fmaf(xv, q.y, acc[4 * k + 1]);
-          acc[4 * k + 2] = fmaf(xv, q.z, acc[4 * k + 2]);
-          acc[4 * k + 3] = fmaf(xv, q.w, acc[4 * k + 3]);
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr) {
+            const float xv = xs[rr + tap / 3][c][px + tap % 3];
+            acc[rr][4 * k] = fmaf(xv, q.x, acc[rr][4 * k]);
+            acc[rr][4 * k + 1] = fmaf(xv, q.y, acc[rr][4 * k + 1]);
+            acc[rr][4 * k + 2] = fmaf(xv, q.z, acc[rr][4 * k + 2]);
+            acc[rr][4 * k + 3] = fmaf(xv, q.w, acc[rr][4 * k + 3]);
+          }
         }
       }
   }
   const int wo = w0 + px;
   if (wo >= W) return;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int co = co0 + cq * 16 + j;
-    if (co < Cout)
-      finish(ep, acc[j], co, out + ((static_cast<size_t>(b) * H + h) * Cout + co) * W + wo);
+  for (int rr = 0; rr < R; ++rr) {
+    const int h = h0 + rr;
+    if (h >= H) break;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int co = co0 + cq * 16 + j;
+      if (co < Cout) finish(ep, acc[rr][j], co, out + os_.at(b, h, co) + wo);
+    }
   }
 }
 
-template <typename T, typename OutT, int MT>
-int launch_mma_mt(const void* x, const void* w, const Epilogue& ep, void* out, int B, int H,
-                  int Cin, int W, int Cout, cudaStream_t stream) {
+// Whether 16-byte vectors of VE elements can be loaded along W: W, the
+// strides and the base pointer all aligned to them.
+bool vec_ok(const void* p, int W, const Strides& s, int VE) {
+  return W % VE == 0 && s.b % VE == 0 && s.h % VE == 0 && s.c % VE == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+struct Conv {
+  const void* x;
+  const void* w;
+  void* out;
+  int B, H, Cin, W, Cout;
+  Strides xs, os;
+};
+
+template <typename T, typename OutT, int MT, int RB>
+int launch_mma_mt(const Conv& c, const Epilogue& ep, cudaStream_t stream) {
+  using K = Tile<RB>;
   static bool attr_set = false;  // per instantiation; setting it twice is harmless
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pixel_conv_mma<T, OutT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    const cudaError_t e = cudaFuncSetAttribute(pixel_conv_mma<T, OutT, MT, RB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               K::SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   constexpr int VE = 16 / static_cast<int>(sizeof(T));
-  const int ptiles = cdiv(W, TW), row_blocks = cdiv(H, RB);
-  const long long nx = static_cast<long long>(ptiles) * row_blocks * B;
-  if (nx > 0x7fffffffLL || cdiv(Cout, CO) > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const bool x_vec = (W % VE == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  const bool w_vec = (Cin % VE == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  const dim3 grid(static_cast<unsigned>(nx), cdiv(Cout, CO));
-  pixel_conv_mma<T, OutT, MT><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), ep, static_cast<OutT*>(out), H, Cin,
-      W, Cout, ptiles, row_blocks, x_vec, w_vec);
+  const int ptiles = cdiv(c.W, TW), row_blocks = cdiv(c.H, RB);
+  const long long nx = static_cast<long long>(ptiles) * row_blocks * c.B;
+  if (nx > 0x7fffffffLL || cdiv(c.Cout, CO) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool x_vec = vec_ok(c.x, c.W, c.xs, VE);
+  const bool w_vec = (c.Cin % VE == 0) && (reinterpret_cast<uintptr_t>(c.w) % 16 == 0);
+  const dim3 grid(static_cast<unsigned>(nx), cdiv(c.Cout, CO));
+  pixel_conv_mma<T, OutT, MT, RB><<<grid, K::THREADS, K::SMEM_BYTES, stream>>>(
+      static_cast<const T*>(c.x), static_cast<const T*>(c.w), ep, static_cast<OutT*>(c.out), c.H,
+      c.Cin, c.W, c.Cout, c.xs, c.os, ptiles, row_blocks, x_vec, w_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// C_out <= 32 (ESRGAN's growth convs) runs two m16 tiles a warp, more four.
+// C_out <= 32 (ESRGAN's growth convs) runs two m16 tiles a warp, more four;
+// `tall` takes RB 4 (float types only).
 template <typename T, typename OutT>
-int launch_mma(const void* x, const void* w, const Epilogue& ep, void* out, int B, int H,
-               int Cin, int W, int Cout, cudaStream_t stream) {
-  return Cout <= 32 ? launch_mma_mt<T, OutT, 2>(x, w, ep, out, B, H, Cin, W, Cout, stream)
-                    : launch_mma_mt<T, OutT, 4>(x, w, ep, out, B, H, Cin, W, Cout, stream);
+int launch_mma(const Conv& c, const Epilogue& ep, bool tall, cudaStream_t stream) {
+  if (tall) {
+    if constexpr (std::is_same<T, int8_t>::value) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return c.Cout <= 32 ? launch_mma_mt<T, OutT, 2, 4>(c, ep, stream)
+                          : launch_mma_mt<T, OutT, 4, 4>(c, ep, stream);
+    }
+  }
+  return c.Cout <= 32 ? launch_mma_mt<T, OutT, 2, 2>(c, ep, stream)
+                      : launch_mma_mt<T, OutT, 4, 2>(c, ep, stream);
 }
 
-int launch_f32(const void* x, const void* w, const Epilogue& ep, void* out, int B, int H,
-               int Cin, int W, int Cout, cudaStream_t stream) {
-  const int ptiles = cdiv(W, FT);
-  const long long nx = static_cast<long long>(ptiles) * H * B;
-  if (nx > 0x7fffffffLL || cdiv(Cout, CO) > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(nx), cdiv(Cout, CO));
-  pixel_conv_f32<<<grid, THREADS, 0, stream>>>(static_cast<const float*>(x),
-                                                static_cast<const float*>(w), ep,
-                                                static_cast<float*>(out), H, Cin, W, Cout, ptiles);
+template <int R>
+int launch_f32_r(const Conv& c, const Epilogue& ep, cudaStream_t stream) {
+  const int ptiles = cdiv(c.W, FT), row_blocks = cdiv(c.H, R);
+  const long long nx = static_cast<long long>(ptiles) * row_blocks * c.B;
+  if (nx > 0x7fffffffLL || cdiv(c.Cout, CO) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(nx), cdiv(c.Cout, CO));
+  pixel_conv_f32<R><<<grid, FTHREADS, 0, stream>>>(
+      static_cast<const float*>(c.x), static_cast<const float*>(c.w), ep,
+      static_cast<float*>(c.out), c.H, c.Cin, c.W, c.Cout, c.xs, c.os, ptiles, row_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const Conv& c, const Epilogue& ep, bool tall, cudaStream_t stream) {
+  return tall ? launch_f32_r<4>(c, ep, stream) : launch_f32_r<1>(c, ep, stream);
 }
 
 }  // namespace
@@ -367,43 +429,40 @@ extern "C" const char* smelter_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (B, H, Cin, W) in x_dtype; w [3][3][Cout][Cin] in x_dtype (int8 for
-// int8 x); bias (Cout,) in bias_dtype (f32, or x's dtype for float x);
-// scales (Cout,) f32 for int8 x, else unused; out (B, H, Cout, W) in
-// out_dtype: x's dtype for float x; for int8 x int8 when requant, else f32,
-// bf16 or f16. Returns a cudaError_t code.
+// x (B, H, Cin, W) in x_dtype at element strides (xsb, xsh, xsc) with W
+// contiguous; w [3][3][Cout][Cin] in x_dtype (int8 for int8 x); bias
+// (Cout,) in bias_dtype (f32, or x's dtype for float x); scales (Cout,) f32
+// for int8 x, else unused; out (B, H, Cout, W) at strides (osb, osh, osc)
+// in out_dtype: x's dtype for float x; for int8 x int8 when requant, else
+// f32, bf16 or f16. tall: 4 output rows a block (float x only) instead of
+// 2 (1 for f32). Returns a cudaError_t code.
 extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias,
                                   const void* scales, void* out, int B, int H, int Cin, int W,
-                                  int Cout, int x_dtype, int bias_dtype, int out_dtype,
-                                  float alpha, int has_alpha, float inv_sy, int requant,
-                                  void* stream) {
+                                  int Cout, long long xsb, long long xsh, long long xsc,
+                                  long long osb, long long osh, long long osc, int x_dtype,
+                                  int bias_dtype, int out_dtype, float alpha, int has_alpha,
+                                  float inv_sy, int requant, int tall, void* stream) {
   const Epilogue ep{bias, bias_dtype, static_cast<const float*>(scales), alpha, has_alpha,
                     inv_sy};
+  const Conv c{x, w, out, B, H, Cin, W, Cout, {xsb, xsh, xsc}, {osb, osh, osc}};
   auto st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0) return 0;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (bias_dtype != kF32 && bias_dtype != x_dtype) return bad;
   switch (x_dtype) {
     case kF32:
-      return out_dtype == kF32 ? launch_f32(x, w, ep, out, B, H, Cin, W, Cout, st) : bad;
+      return out_dtype == kF32 ? launch_f32(c, ep, tall, st) : bad;
     case kBF16:
-      return out_dtype == kBF16
-                 ? launch_mma<__nv_bfloat16, __nv_bfloat16>(x, w, ep, out, B, H, Cin, W, Cout, st)
-                 : bad;
+      return out_dtype == kBF16 ? launch_mma<__nv_bfloat16, __nv_bfloat16>(c, ep, tall, st) : bad;
     case kF16:
-      return out_dtype == kF16 ? launch_mma<__half, __half>(x, w, ep, out, B, H, Cin, W, Cout, st)
-                               : bad;
+      return out_dtype == kF16 ? launch_mma<__half, __half>(c, ep, tall, st) : bad;
     case kI8:
-      if (scales == nullptr) return bad;
-      if (requant) {
-        return out_dtype == kI8 ? launch_mma<int8_t, int8_t>(x, w, ep, out, B, H, Cin, W, Cout, st)
-                                : bad;
-      }
+      if (scales == nullptr || tall) return bad;
+      if (requant) return out_dtype == kI8 ? launch_mma<int8_t, int8_t>(c, ep, false, st) : bad;
       switch (out_dtype) {
-        case kF32: return launch_mma<int8_t, float>(x, w, ep, out, B, H, Cin, W, Cout, st);
-        case kBF16:
-          return launch_mma<int8_t, __nv_bfloat16>(x, w, ep, out, B, H, Cin, W, Cout, st);
-        case kF16: return launch_mma<int8_t, __half>(x, w, ep, out, B, H, Cin, W, Cout, st);
+        case kF32: return launch_mma<int8_t, float>(c, ep, false, st);
+        case kBF16: return launch_mma<int8_t, __nv_bfloat16>(c, ep, false, st);
+        case kF16: return launch_mma<int8_t, __half>(c, ep, false, st);
         default: return bad;
       }
     default:

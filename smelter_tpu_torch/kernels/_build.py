@@ -35,12 +35,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 
 # name -> the C entry point's argument types (pointers and the stream are
 # c_void_p, so ctypes never cuts them to 32 bits).
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "dequant_matmul": ("smelter_dequant_matmul",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "int8_matmul": ("smelter_int8_matmul",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "int8_matmul_fused": ("smelter_int8_matmul_fused", [_P] * 5 + [_I] * 7 + [_P]),
     "int4_matmul": ("smelter_int4_matmul",
                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "paged_decode_attention": ("smelter_paged_decode_attention",
@@ -49,7 +50,8 @@ SIGNATURES = {
                                 [_P] * 7 + [_I] * 7 + [_F, _I, _I, _I, _P]),
     "layer_norm": ("smelter_layer_norm", [_P] * 6 + [_I, _I, _F, _I, _I, _P]),
     "vit_block": ("smelter_vit_block", [_P] * 13 + [_I] * 7 + [_F] * 3 + [_I, _I, _P]),
-    "pixel_conv": ("smelter_pixel_conv", [_P] * 5 + [_I] * 8 + [_F, _I, _F, _I, _P]),
+    "pixel_conv": ("smelter_pixel_conv",
+                   [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_F, _I, _F, _I, _I, _P]),
     "max_unpool": ("smelter_max_unpool2x2", [_P] * 3 + [_I] * 3 + [_P]),
     "flash_attention": ("smelter_flash_attention", [_P] * 4 + [_I] * 17 + [_F, _I, _P]),
     "attention_short": ("smelter_short_attention", [_P] * 4 + [_I] * 16 + [_F, _I, _P]),

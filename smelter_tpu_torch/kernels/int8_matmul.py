@@ -19,9 +19,22 @@ _int8_matmul_impl`. The Hopper kernel is `csrc/int8_matmul.cu`:
   8 output tiles leave most SMs idle; one launch is one kernel, with no
   split-K or workspace.
 
-`int8_matmul` takes the plain PyTorch version for a tensor on the CPU or the
-`meta` device, and launches the kernel for a CUDA tensor or raises.
-`launches` counts kernel launches and nothing else.
+`dequant_matmul_int8_fused` and `dequant_matmul_int8_fused2` compute
+`dequant_matmul_int8`'s function in one kernel that quantizes x as it
+stages it (`csrc/int8_matmul_fused.cu`), in place of the Pallas kernels
+`_int8_matmul_fused_impl` (a BM x K int8 panel quantized once in shared
+memory, then swept against every N tile) and `_int8_matmul_fused2_impl`
+(quantize-on-revisit: each output tile quantizes the x tiles it stages).
+The per-row scales stay plain PyTorch, as they were plain XLA. The Pallas
+entries' block sizes are accepted and not read; the JAX `fused` entry's
+fall-back to the two-pass path on unaligned M or K (a Mosaic rule) is not
+copied: the kernels mask every edge. The panel must fit in shared memory
+beside one weight tile, so `dequant_matmul_int8_fused` raises past K 5,952.
+
+Each wrapper takes the plain PyTorch version for a tensor on the CPU or the
+`meta` device, and launches its kernel for a CUDA tensor or raises.
+`launches`, `fused_launches` and `fused2_launches` count kernel launches
+and nothing else.
 """
 
 from __future__ import annotations
@@ -31,6 +44,8 @@ import torch
 from . import _build
 
 launches = 0
+fused_launches = 0
+fused2_launches = 0
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -40,9 +55,15 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     s = max(absmax, 1e-30) / 127 and q = clip(round(x / s), -127, 127),
     rounding half to even; the division is kept, not a reciprocal."""
     xf = x.float()
-    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30) / 127.0
+    s = quantize_rows_scales(xf)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return q, s
+
+
+def quantize_rows_scales(x: torch.Tensor) -> torch.Tensor:
+    """`quantize_rows`' scales alone, f32 (M, 1): max(absmax, 1e-30) / 127."""
+    # |x| and its max are exact in every float type: convert only the max
+    return torch.clamp_min(x.abs().amax(dim=-1, keepdim=True).float(), 1e-30) / 127.0
 
 
 def int8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -129,3 +150,94 @@ def dequant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
     then the int8 kernel."""
     x_q, s_row = quantize_rows(x)
     return int8_matmul(x_q, w_q, s_row, scales, out_dtype=out_dtype or x.dtype)
+
+
+def dequant_matmul_int8_fused_plain(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
+                                    *, out_dtype=None) -> torch.Tensor:
+    """The fused kernels' arithmetic in plain PyTorch: `quantize_rows`, then
+    `int8_matmul_plain` (an exact int32 sum, `acc * s_row * s_col`)."""
+    x_q, s_row = quantize_rows(x)
+    return int8_matmul_plain(x_q, w_q, s_row, scales, out_dtype=out_dtype or x.dtype)
+
+
+# Shared memory a block may take on sm_90 (227 KB), and the panel kernel's
+# tiles: BM rows of K (rounded up to 64 bytes, plus 16) beside a weight
+# tile of 64 * 8 * 32 / BM columns of 80 bytes.
+_SMEM_MAX = 232_448
+_PANEL_ROWS = (128, 64, 32)
+
+
+def _panel_rows(K: int) -> int:
+    kp = max(1, -(-K // 64)) * 64
+    for bm in _PANEL_ROWS:
+        if bm * (kp + 16) + 64 * 8 * 32 // bm * 80 <= _SMEM_MAX:
+            return bm
+    raise ValueError(f"dequant_matmul_int8_fused: K {K} is too long for a 32-row int8 panel "
+                     f"in shared memory ({_SMEM_MAX} bytes a block); "
+                     "dequant_matmul_int8_fused2 takes any K")
+
+
+def _fused(x, w_q, scales, out_dtype, panel: bool, what: str) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    if x.dim() != 2 or w_q.dim() != 2 or w_q.shape[0] != x.shape[1]:
+        raise ValueError(f"{what}: x {tuple(x.shape)} and w_q {tuple(w_q.shape)} do not chain")
+    M, K = x.shape
+    N = w_q.shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16) or w_q.dtype != torch.int8:
+        raise TypeError(f"{what}: x {x.dtype} (f32, bf16 or f16) and w_q {w_q.dtype} (int8)")
+    if out_dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"{what}: out_dtype {out_dtype} is neither f32 nor x's dtype")
+    if scales.numel() != N or any(t.device != x.device for t in (w_q, scales)):
+        raise ValueError(f"{what}: scales must hold N = {N}, on x's device")
+    bm = _panel_rows(K) if panel else 0
+    x, w_q = x.contiguous(), w_q.contiguous()
+    s_row = quantize_rows_scales(x)
+    s_col = scales.float().reshape(-1).contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    splits = 1
+    if panel:  # split N where the row panels leave SMs idle
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        tiles = -(-N // (64 * 8 * 32 // bm))
+        splits = min(tiles, max(1, -(-sms // -(-M // bm))))
+    lib = _build.library("int8_matmul_fused")
+    with torch.cuda.device(x.device):
+        rc = lib.smelter_int8_matmul_fused(
+            x.data_ptr(), w_q.data_ptr(), s_row.data_ptr(), s_col.data_ptr(), out.data_ptr(),
+            M, N, K, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype], bm, splits,
+            _build.stream_of(x))
+    _build.check(lib, rc, what)
+    return out
+
+
+def dequant_matmul_int8_fused(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
+                              block_m: int = 512, block_n: int = 1024, block_k: int = 1024,
+                              out_dtype=None) -> torch.Tensor:
+    """`dequant_matmul_int8`'s function, x (M, K) f32/bf16/f16, w_q (K, N)
+    int8, scales (N,): one kernel that quantizes each block's row panel
+    into shared memory once and sweeps the N tiles against it. The block
+    arguments are not read."""
+    global fused_launches
+    del block_m, block_n, block_k
+    if x.device.type in ("cpu", "meta"):
+        return dequant_matmul_int8_fused_plain(x, w_q, scales, out_dtype=out_dtype)
+    out = _fused(x, w_q, scales, out_dtype or x.dtype, True, "dequant_matmul_int8_fused")
+    fused_launches += 1
+    return out
+
+
+def dequant_matmul_int8_fused2(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
+                               block_m: int = 256, block_n: int = 1024, block_k: int = 1024,
+                               out_dtype=None) -> torch.Tensor:
+    """`dequant_matmul_int8`'s function in one kernel whose output tiles
+    quantize the x tiles they stage (quantize-on-revisit). The block
+    arguments are not read."""
+    global fused2_launches
+    del block_m, block_n, block_k
+    if x.device.type in ("cpu", "meta"):
+        return dequant_matmul_int8_fused_plain(x, w_q, scales, out_dtype=out_dtype)
+    out = _fused(x, w_q, scales, out_dtype or x.dtype, False, "dequant_matmul_int8_fused2")
+    fused2_launches += 1
+    return out

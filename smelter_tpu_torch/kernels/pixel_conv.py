@@ -1,7 +1,8 @@
 """3x3 / stride 1 / pad 1 convolution of (B, H, C, W) ("NHCW") activations:
 `pixel_conv_rowdot` in f32, bf16 or f16, and `pixel_conv_rowdot_q` on int8
 activations and weights with the dequant -> bias -> LeakyReLU -> requant
-epilogue.
+epilogue; `pixel_conv_blockdot` (rowdot's function on a taller tile) and
+`pixel_conv_patch` (rowdot's function on flat NCHW, (B, C, H*W)).
 
     out[b, h, co, w] = epilogue(sum over dy, dx, ci of
                                 W[co, ci, dy, dx] * x[b, h+dy-1, ci, w+dx-1])
@@ -15,8 +16,11 @@ applies LeakyReLU, then either rounds acc * inv_sy half to even and clips it
 to [-127, 127] as int8 (requant) or casts to `out_dtype`.
 
 Replaces the Pallas kernels `smelter_tpu/kernels/pixel_conv.py::
-pixel_conv_rowdot` and `::pixel_conv_rowdot_q`. The Hopper kernels are one
-entry point of `csrc/pixel_conv.cu`:
+pixel_conv_rowdot`, `::pixel_conv_rowdot_q`, `::pixel_conv_blockdot` and
+`::pixel_conv_patch`. The Hopper kernels are one entry point of
+`csrc/pixel_conv.cu`, which reads and writes the maps at the batch, row and
+channel strides it is given (W contiguous), so `pixel_conv_patch` launches
+rowdot's device code on NCHW with no layout copy:
 
 - What bounds them on an H100: at ESRGAN's trunk convs (batch 8, 128 x 128,
   C_in 64-192, C_out 32/64) the bf16 tensor cores and HBM nearly tie: about
@@ -26,16 +30,22 @@ entry point of `csrc/pixel_conv.cu`:
   rows with mma.sync (m16n8k16 bf16/f16, m16n8k32 s8), the input rows staged
   in shared memory transposed to [pixel][channel] so that the dx taps are
   row offsets, both operands read by ldmatrix. f32 takes a full-f32 FMA
-  kernel (no TF32).
+  kernel (no TF32). `pixel_conv_blockdot` takes 4 output rows a block
+  (rowdot 2; f32 4 against 1), as the Pallas variant takes one dot a block
+  of rows: fewer staged input rows and weight chunks a pixel. The Pallas
+  kernels' `rows` (a TPU tiling) is accepted and not read, and H need not
+  divide into it.
 
 The kernel reads the weight as [3, 3, C_out, C_in]: `weights.params_from_numpy`
 stores the graph's PixelConv weights so (an OIHW view over that buffer),
 once, when params go to the device; another layout is copied per call.
 
 A CPU or `meta` tensor takes the plain versions (`pixel_conv_rowdot_plain`,
-`pixel_conv_rowdot_q_plain`); a CUDA tensor launches the kernel at any
-B, H, W, C_in and C_out, or raises for operands it does not take.
-`launches` and `q_launches` count the two forms' launches and nothing else.
+`pixel_conv_rowdot_q_plain`, `pixel_conv_blockdot_plain`,
+`pixel_conv_patch_plain`); a CUDA tensor launches the kernel at any B, H,
+W, C_in and C_out, or raises for operands it does not take. `launches`,
+`q_launches`, `blockdot_launches` and `patch_launches` count each entry
+point's launches and nothing else.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from . import _build
 
 launches = 0
 q_launches = 0
+blockdot_launches = 0
+patch_launches = 0
 
 _X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -62,6 +74,19 @@ def pixel_conv_rowdot_plain(x, w, bias, *, alpha=None) -> torch.Tensor:
     y = F.conv2d(x.permute(0, 2, 1, 3).float(), w.to(x.dtype).float(), padding=1)
     y = _leaky(y + bias.float().reshape(1, -1, 1, 1), alpha)
     return y.to(x.dtype).permute(0, 2, 1, 3).contiguous()
+
+
+# pixel_conv_blockdot computes pixel_conv_rowdot's function on its layout.
+pixel_conv_blockdot_plain = pixel_conv_rowdot_plain
+
+
+def pixel_conv_patch_plain(x, w, bias, *, width: int, alpha=None) -> torch.Tensor:
+    """`pixel_conv_rowdot_plain`'s arithmetic on flat NCHW: x (B, C_in, H*W)
+    with rows of `width` pixels, out (B, C_out, H*W)."""
+    B, C, hw = x.shape
+    y = F.conv2d(x.reshape(B, C, hw // width, width).float(), w.to(x.dtype).float(), padding=1)
+    y = _leaky(y + bias.float().reshape(1, -1, 1, 1), alpha)
+    return y.to(x.dtype).reshape(B, -1, hw)
 
 
 def pixel_conv_rowdot_q_plain(x, w_q, scales, bias, *, alpha=None, inv_sy: float = 1.0,
@@ -95,9 +120,13 @@ def _device_ok(x) -> bool:
     return False
 
 
-def _check(x, w, vecs, what: str):
-    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[2], 3, 3):
-        raise ValueError(f"{what}: x {tuple(x.shape)} (B, H, C_in, W) and w "
+def _check(x, w, vecs, what: str, cin_dim: int = 2):
+    """Shapes, devices and sizes; x is NHCW (C_in at dim 2) or flat NCHW
+    (B, C_in, H*W) (C_in at dim 1)."""
+    if (x.dim() != cin_dim + 2 or w.dim() != 4
+            or tuple(w.shape[1:]) != (x.shape[cin_dim], 3, 3)):
+        layout = "(B, H, C_in, W)" if cin_dim == 2 else "(B, C_in, H*W)"
+        raise ValueError(f"{what}: x {tuple(x.shape)} {layout} and w "
                          f"{tuple(w.shape)} (C_out, C_in, 3, 3) do not fit")
     for v in vecs:
         if v.numel() != w.shape[0]:
@@ -105,22 +134,47 @@ def _check(x, w, vecs, what: str):
     for t in (w,) + tuple(vecs):
         if t.device != x.device:
             raise ValueError(f"{what}: operands must lie on one device")
-    if x.numel() >= 2 ** 31 or x.shape[0] * x.shape[1] * w.shape[0] * x.shape[3] >= 2 ** 31:
+    if x.numel() >= 2 ** 31 or x.numel() // max(w.shape[1], 1) * w.shape[0] >= 2 ** 31:
         raise ValueError(f"{what}: tensors of 2^31 elements or more are not taken")
 
 
-def _launch(x, wp, bias, scales, out, alpha, inv_sy: float, requant: bool):
-    B, H, Cin, W = x.shape
-    Cout = out.shape[2]
+def _launch(x, wp, bias, scales, out, alpha, inv_sy: float, requant: bool, *,
+            dims=None, x_strides=None, out_strides=None, tall: bool = False):
+    """dims (B, H, C_in, W, C_out) and the (batch, row, channel) element
+    strides of x and out; by default those of contiguous NHCW maps."""
+    if dims is None:
+        dims = tuple(x.shape) + (out.shape[2],)
+        x_strides, out_strides = x.stride()[:3], out.stride()[:3]
     lib = _build.library("pixel_conv")
     with torch.cuda.device(x.device):
         rc = lib.smelter_pixel_conv(
             x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
             None if scales is None else scales.data_ptr(), out.data_ptr(),
-            B, H, Cin, W, Cout, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[bias.dtype],
-            _build.DTYPE_CODES[out.dtype], 0.0 if alpha is None else float(alpha),
-            int(alpha is not None), float(inv_sy), int(requant), _build.stream_of(x))
+            *dims, *x_strides, *out_strides, _build.DTYPE_CODES[x.dtype],
+            _build.DTYPE_CODES[bias.dtype], _build.DTYPE_CODES[out.dtype],
+            0.0 if alpha is None else float(alpha), int(alpha is not None), float(inv_sy),
+            int(requant), int(tall), _build.stream_of(x))
     _build.check(lib, rc, "pixel_conv")
+
+
+def _float_operands(x, w, bias, what: str, cin_dim: int = 2):
+    """The float forms' checks; bias as the kernel reads it."""
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"{what}: x {x.dtype} not taken")
+    bias = bias.reshape(-1)
+    _check(x, w, (bias,), what, cin_dim)
+    if bias.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"{what}: bias {bias.dtype} is neither f32 nor x's dtype")
+    return bias.contiguous()
+
+
+def _nhcw(x, w, bias, alpha, tall: bool, what: str) -> torch.Tensor:
+    bias = _float_operands(x, w, bias, what)
+    x = x.contiguous()
+    out = torch.empty((x.shape[0], x.shape[1], w.shape[0], x.shape[3]), dtype=x.dtype,
+                      device=x.device)
+    _launch(x, _packed_weight(w.to(x.dtype)), bias, None, out, alpha, 1.0, False, tall=tall)
+    return out
 
 
 def pixel_conv_rowdot(x, w, bias, *, alpha=None) -> torch.Tensor:
@@ -129,17 +183,44 @@ def pixel_conv_rowdot(x, w, bias, *, alpha=None) -> torch.Tensor:
     global launches
     if _device_ok(x):
         return pixel_conv_rowdot_plain(x, w, bias, alpha=alpha)
-    if x.dtype not in _X_DTYPES:
-        raise TypeError(f"pixel_conv_rowdot: x {x.dtype} not taken")
-    bias = bias.reshape(-1)
-    _check(x, w, (bias,), "pixel_conv_rowdot")
-    if bias.dtype not in (torch.float32, x.dtype):
-        raise TypeError(f"pixel_conv_rowdot: bias {bias.dtype} is neither f32 nor x's dtype")
-    x = x.contiguous()
-    out = torch.empty((x.shape[0], x.shape[1], w.shape[0], x.shape[3]), dtype=x.dtype,
-                      device=x.device)
-    _launch(x, _packed_weight(w.to(x.dtype)), bias.contiguous(), None, out, alpha, 1.0, False)
+    out = _nhcw(x, w, bias, alpha, False, "pixel_conv_rowdot")
     launches += 1
+    return out
+
+
+def pixel_conv_blockdot(x, w, bias, *, alpha=None, rows: int = 16) -> torch.Tensor:
+    """`pixel_conv_rowdot`'s contract on a tile of 4 output rows (the
+    Pallas variant's one dot a row block); `rows` is not read."""
+    global blockdot_launches
+    del rows
+    if _device_ok(x):
+        return pixel_conv_blockdot_plain(x, w, bias, alpha=alpha)
+    out = _nhcw(x, w, bias, alpha, True, "pixel_conv_blockdot")
+    blockdot_launches += 1
+    return out
+
+
+def pixel_conv_patch(x, w, bias, *, width: int, alpha=None, rows: int = 8) -> torch.Tensor:
+    """x (B, C_in, H*W) flat NCHW of an (H, width) map, f32/bf16/f16; w
+    (C_out, C_in, 3, 3); bias (C_out,) in f32 or x's dtype. Returns
+    (B, C_out, H*W) in x's dtype; `rows` is not read. A contiguous x is read
+    where it lies: one kernel, no layout copy."""
+    global patch_launches
+    del rows
+    if x.dim() != 3 or width <= 0 or x.shape[2] % width:
+        raise ValueError(f"pixel_conv_patch: x {tuple(x.shape)} is no (B, C_in, H*W) map "
+                         f"of rows of {width} pixels")
+    if _device_ok(x):
+        return pixel_conv_patch_plain(x, w, bias, width=width, alpha=alpha)
+    bias = _float_operands(x, w, bias, "pixel_conv_patch", cin_dim=1)
+    x = x.contiguous()
+    B, C, hw = x.shape
+    cout = w.shape[0]
+    out = torch.empty((B, cout, hw), dtype=x.dtype, device=x.device)
+    _launch(x, _packed_weight(w.to(x.dtype)), bias, None, out, alpha, 1.0, False,
+            dims=(B, hw // width, C, width, cout), x_strides=(C * hw, width, hw),
+            out_strides=(cout * hw, width, hw))
+    patch_launches += 1
     return out
 
 

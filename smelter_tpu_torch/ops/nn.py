@@ -91,10 +91,13 @@ def conv(ctx: Ctx, node: Node):
         raise NotSupportedError(f"conv with {rank} spatial dims")
     pads = P.resolve_pads(node, in_spatial, kernel, strides, dilations)
     x, sym = _split_pads(x, pads)
-    bias = None
+    y = _CONV[rank](x, w.to(x.dtype), None, strides, sym, dilations, group)
     if len(node.inputs) > 2 and node.inputs[2]:
+        # the conv rounds to x's dtype first, then the bias adds in that
+        # dtype, as the JAX lowering does (inside F.conv2d it would add
+        # before the rounding)
         bias = ctx.get(node.inputs[2]).to(x.dtype)
-    y = _CONV[rank](x, w.to(x.dtype), bias, strides, sym, dilations, group)
+        y = y + bias.reshape((1, -1) + (1,) * rank)
     ctx.set(node.outputs[0], _to_nhwc(y) if nhwc else y)
 
 

@@ -18,6 +18,8 @@ tensor, as the JAX lowering does.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -257,11 +259,13 @@ def cast_like(ctx: Ctx, node: Node):
 @register("ScatterND", since=11)
 def scatter_nd(ctx: Ctx, node: Node):
     """x[idx[..., :k]] = updates. Negative indices count from the end and
-    out-of-range ones are dropped, as JAX's scatter drops them: a dropped
-    row writes its old value back at its index modulo the dim, which is a
-    no-op as long as the indices are distinct modulo the dims (the decode
-    graphs write c <= L consecutive rows). The reduction attribute is not
-    taken."""
+    out-of-range ones are dropped, as JAX's scatter drops them; of several
+    in-range rows with one target, the last wins. Every row writes to its
+    index modulo the dims the update of the last in-range row with that
+    target, or the old value where there is none, so all writes to one
+    target carry one value and their order does not matter. No step waits
+    on the device (no boolean-mask indexing), so a CUDA graph can capture
+    it. The reduction attribute is not taken."""
     if node.attr("reduction", "none") not in ("none", b"none"):
         raise NotSupportedError("ScatterND with a reduction")
     x = ctx.get(node.inputs[0])
@@ -269,7 +273,7 @@ def scatter_nd(ctx: Ctx, node: Node):
     upd = ctx.get(node.inputs[2])
     k = idx.shape[-1]
     flat = idx.reshape(-1, k)
-    cols, inside = [], None
+    cols, inside, target = [], None, None
     for i in range(k):
         d = x.shape[i]
         col = flat[:, i]
@@ -277,9 +281,14 @@ def scatter_nd(ctx: Ctx, node: Node):
         ok = (col >= 0) & (col < d)
         inside = ok if inside is None else inside & ok
         cols.append(torch.remainder(col, d))
+        target = cols[-1] if target is None else target * d + cols[-1]
     cols = tuple(cols)
-    rows = upd.reshape((-1,) + tuple(x.shape[k:])).to(x.dtype)
-    keep = inside.reshape((-1,) + (1,) * (x.ndim - k))
+    n = flat.shape[0]
+    order = torch.arange(n, device=flat.device)
+    writer = torch.full((math.prod(x.shape[:k]),), -1, dtype=torch.long, device=flat.device)
+    writer = writer.scatter_reduce(0, target, torch.where(inside, order, -1), "amax")[target]
+    rows = upd.reshape((-1,) + tuple(x.shape[k:])).to(x.dtype)[writer.clamp_min(0)]
+    keep = (writer >= 0).reshape((-1,) + (1,) * (x.ndim - k))
     rows = torch.where(keep, rows, x[cols])
     if node.inputs[0] in ctx.donated:
         out = x.index_put_(cols, rows)

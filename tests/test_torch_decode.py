@@ -111,12 +111,18 @@ def _close(got, want, rel=1e-5):
         assert np.abs(a.astype(np.float64) - b).max() <= rel * max(np.abs(b).max(), 1e-30)
 
 
-@pytest.mark.parametrize("case", ["rows", "chunk", "out_of_range", "negative"])
+@pytest.mark.parametrize("case", ["rows", "chunk", "out_of_range", "negative", "collision",
+                                  "negative_out_of_range", "negative_collision"])
 def test_scatter_nd_matches_jax(case):
+    """Out-of-range rows are dropped without touching the in-range row that
+    shares their index modulo the dim (collision: 5 on a dim of 4 meets 1;
+    negative_collision: -5, dropped, meets 3, written before it)."""
     rng = np.random.default_rng(1)
-    x = rng.standard_normal((12, 5)).astype(np.float32)
-    idx = {"rows": [[3]], "chunk": [[7], [8], [9]], "out_of_range": [[10], [11], [12], [13]],
-           "negative": [[-2], [0]]}[case]
+    dim, idx = {"rows": (12, [[3]]), "chunk": (12, [[7], [8], [9]]),
+                "out_of_range": (12, [[10], [11], [12], [13]]), "negative": (12, [[-2], [0]]),
+                "collision": (4, [[1], [5]]), "negative_out_of_range": (4, [[-5], [1]]),
+                "negative_collision": (4, [[3], [-5]])}[case]
+    x = rng.standard_normal((dim, 5)).astype(np.float32)
     idx = np.array(idx, np.int64)
     upd = rng.standard_normal((idx.shape[0], 5)).astype(np.float32)
     got, want = _one_op("ScatterND", {"x": x, "idx": idx, "upd": upd}, {})

@@ -626,6 +626,99 @@ def test_pixel_conv_rowdot_q_sums_past_f32_integers(cuda):
     assert torch.equal(got, pc.pixel_conv_rowdot_q_plain(xq, wq, sc, bias, **kw))
 
 
+# -- pixel_conv_blockdot, pixel_conv_patch ------------------------------------------
+
+@pytest.mark.parametrize("shape", PIXEL_SHAPES + [(1, 7, 24, 100, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("alpha", [None, 0.2])
+def test_pixel_conv_variants_match_plain(cuda, shape, dtype, alpha):
+    """blockdot (4 output rows a block) on NHCW and patch (rowdot's tile at
+    NCHW strides) on the flat NCHW map, each against its plain version, in
+    rowdot's tolerances; H 3, 5, 7 and 9 leave the 4-row block ragged."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b = _pixel_operands(*shape, cuda)
+    x = x.to(dtype)
+    B, H, Cin, W, Cout = shape
+    tol = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}[dtype]
+    before = pc.blockdot_launches
+    got = pc.pixel_conv_blockdot(x, w, b, alpha=alpha)
+    torch.cuda.synchronize()
+    assert pc.blockdot_launches == before + 1
+    ref = pc.pixel_conv_blockdot_plain(x, w, b, alpha=alpha)
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+    xf = x.permute(0, 2, 1, 3).reshape(B, Cin, H * W).contiguous()
+    before = pc.patch_launches
+    got = pc.pixel_conv_patch(xf, w, b, width=W, alpha=alpha)
+    torch.cuda.synchronize()
+    assert pc.patch_launches == before + 1
+    ref = pc.pixel_conv_patch_plain(xf, w, b, width=W, alpha=alpha)
+    assert got.dtype == dtype and got.shape == (B, Cout, H * W)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_pixel_conv_variants_raise_on_bad_operands(cuda):
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    x, w, b = _pixel_operands(1, 8, 16, 32, 8, cuda)
+    with pytest.raises(TypeError):  # int8 x
+        pc.pixel_conv_blockdot(x.to(torch.int8), w, b)
+    with pytest.raises(ValueError):  # a weight of other input channels
+        pc.pixel_conv_blockdot(x, w[:, :8], b)
+    xf = x.permute(0, 2, 1, 3).reshape(1, 16, 8 * 32).contiguous()
+    with pytest.raises(ValueError):  # rows that do not tile the map
+        pc.pixel_conv_patch(xf, w, b, width=30)
+    with pytest.raises(ValueError):  # an NHCW map in the NCHW form
+        pc.pixel_conv_patch(x, w, b, width=32)
+    with pytest.raises(TypeError):  # a bias of a third type
+        pc.pixel_conv_patch(xf.bfloat16(), w, b.half(), width=32)
+
+
+# -- dequant_matmul_int8_fused, dequant_matmul_int8_fused2 -----------------------------
+
+# Ragged M, N and K beside the ResNet-50 head; K 4096 and 6000 take the
+# panel's 32 rows.
+FUSED_SHAPES = SHAPES + [(17, 72, 200), (64, 300, 4096), (40, 200, 5952)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_dequant_matmul_int8_fused_equal_plain(cuda, shape, dtype, out_dtype):
+    """Both schedules bit-equal to the plain version (quantize_rows, the
+    exact int32 sum, two f32 multiplies, one rounding) and to the two-pass
+    dequant_matmul_int8."""
+    m, n, k = shape
+    x, w, s = _operands(m, n, k, dtype, cuda, seed=7)
+    x[min(3, m - 1)] = 0  # the 1e-30 floor
+    ref = im.dequant_matmul_int8_fused_plain(x, w, s, out_dtype=out_dtype)
+    two_pass = im.dequant_matmul_int8(x, w, s, out_dtype=out_dtype)
+    assert torch.equal(ref, two_pass)
+    for fn, counter in ((im.dequant_matmul_int8_fused, "fused_launches"),
+                        (im.dequant_matmul_int8_fused2, "fused2_launches")):
+        before = getattr(im, counter)
+        got = fn(x, w, s, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert getattr(im, counter) == before + 1
+        assert got.dtype == (out_dtype or dtype) and torch.equal(got, ref), fn.__name__
+
+
+def test_dequant_matmul_int8_fused_raises(cuda):
+    x, w, s = _operands(8, 16, 5953, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="too long"):  # no 32-row panel fits
+        im.dequant_matmul_int8_fused(x, w, s)
+    assert torch.equal(im.dequant_matmul_int8_fused2(x, w, s),
+                       im.dequant_matmul_int8_fused_plain(x, w, s))
+    with pytest.raises(TypeError):  # an out_dtype that is neither f32 nor x's
+        im.dequant_matmul_int8_fused2(x, w, s, out_dtype=torch.float16)
+    with pytest.raises(ValueError):  # K mismatch
+        im.dequant_matmul_int8_fused2(x[:, :100], w, s)
+
+
 # -- max_unpool2x2 (SegNet) ------------------------------------------------------
 
 # SegNet's three unpools at batch 16, 256 px, base 32, and ragged ones.

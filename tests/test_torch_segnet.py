@@ -148,6 +148,30 @@ def test_unpool_gate_is_the_jax_gate():
     assert [gate(*c) for c in cases] == [True, False, False, False, False]
 
 
+# -- Conv's bias ------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_conv_bias_adds_after_the_rounding_as_jax_does(layout, group):
+    """A bf16 Conv with a bias, one node, bit-equal to the JAX lowering: the
+    conv rounds to bf16, then the bias adds in bf16 (added inside the conv,
+    before the rounding, hundreds of outputs land an ulp apart). Small
+    integer inputs and weights in eighths make every f32 sum exact, so the
+    two libraries' summation orders cannot tell the outputs apart (on
+    normal draws an output in 10^4 or 10^5 rounds to another bf16 there)."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(-3, 4, (2, 16, 32, 32)).astype(np.float32)
+    w = (rng.integers(-8, 9, (32, 16 // group, 3, 3)) / 8).astype(np.float32)
+    b = (rng.standard_normal(32) * 3).astype(np.float32)
+    attrs = {"kernel_shape": [3, 3], "pads": [1, 1, 1, 1], "group": group}
+    if layout == "NHWC":
+        x, w = x.transpose(0, 2, 3, 1).copy(), w.transpose(2, 3, 1, 0).copy()  # HWIO
+        attrs["data_layout"] = "NHWC"
+    got, want = _one_op("Conv", {"x": x}, attrs, {"w": w, "b": b}, compute_dtype="bfloat16")
+    assert got[0].shape == want[0].shape and np.isfinite(got[0]).all()
+    assert np.array_equal(got[0], want[0])
+
+
 # -- graphs ----------------------------------------------------------------------
 
 def test_segnet_builder_matches_jax():
@@ -196,11 +220,11 @@ def test_small_segnet_compile_matches_jax():
 def test_small_segnet_bf16_matches_jax():
     """bf16: where a pool window's two largest values lie within a bf16
     rounding of each other, the rounding picks the index, and the unpooled
-    value moves inside its window; the two packages round their convs'
-    bias adds differently, so each bf16 run lies as far from the other as
-    from f32 (about 4e-2 of the largest logit here). Bounds: the port's
-    bf16 error against the JAX f32 within 1.5x the JAX bf16's own, and the
-    two bf16 runs within twice that error of each other."""
+    value moves inside its window, so a sum taken in another order can move
+    it (the two packages' bf16 runs agree here, since Conv rounds before
+    its bias in both). Bounds: the port's bf16 error against the JAX f32
+    within 1.5x the JAX bf16's own, and the two bf16 runs within twice
+    that error of each other."""
     f32, want, got = _jax_logits("float32"), _jax_logits("bfloat16"), _port_logits("bfloat16")
     assert got.shape == want.shape and np.isfinite(got).all()
     err_jax = np.abs(want - f32).max()
