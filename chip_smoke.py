@@ -146,6 +146,20 @@ its number:
    routing in bf16 (ConvNeXt-T at batch 64, also under `use_pallas`;
    SD-UNet at 8); the fused ConvNeXt-T served at `max_batch=16`, and the
    cross-on SD-UNet with `buckets=(8,)`, short batches padded;
+13. (run right after 2) the ring kernels, W ranks of a `Mesh` on one card
+   (the slot transfers are on-card copies, not NVLink): (a)
+   `collective_matmul_ag`, `_rs` and `ring_attention_rdma` against their
+   plain versions at W 1, 2, 4 and 8 on odd shapes, f32 (TF32 off) within
+   1e-5 x max|plain| and bf16 within 1e-2, int8 `ag` equal with sums that
+   wrap; (b) the Megatron TP MLP at ViT-B/16's widths, batch 128, over 4
+   ranks (`tp_allgather_matmul`, tanh GELU, `tp_reducescatter_matmul`; 16
+   launches of each kernel) against the product in f32 on the card, timed
+   against the partitioner's form, and each kernel alone there; (c) each
+   GEMM alone at llama_1b's FFN widths, M 4096; (d)
+   `sequence_sharded_attention_rdma` at llama_1b's 16 heads of 128, B 1, N
+   32,768 over 4 ranks in bf16 (16 launches), held head by head to the
+   plain ring, SDPA over the full sequence as the yardstick, f32 at N 4096;
+   a profile of how much of the slot copies' time lies under a step kernel;
 6. printed last: each kernel's launches on its path, and the total time.
 
 Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
@@ -162,7 +176,9 @@ ConvNeXt-T forward 15 ConvNeXt blocks, an SD-UNet forward 5 ViT blocks and,
 with the cross branch on, 5 cross-attention blocks, a ResNet-50 int8-static
 forward 53 int8 convs; `dequant_conv`'s entry point, called at its four
 shapes, 4; the fused GEMMs' entry points 2 each (head, serving), blockdot's
-and patch's 8 each (ESRGAN x4's eight PixelConv shapes).
+and patch's 8 each (ESRGAN x4's eight PixelConv shapes); the Megatron pair
+over 4 ranks 16 all-gather and 16 reduce-scatter GEMM steps, the
+sequence-sharded ring attention 16 merge steps (a step a rank a launch).
 `FusedGenerator` replays a CUDA graph, whose launches the wrappers count
 once, at capture. The last three lines are the kernels'
 JSON line, the card's name and power limit, and `{"ok": true, "device":
@@ -239,6 +255,16 @@ CONVNEXT_BATCH, CONVNEXT_GATE_BATCH, CONVNEXT_FUSED = 64, 8, 15
 # batch 8.
 SD_UNET = dict(latent=32, base=128, ctx_dim=256, ctx_len=16, heads=8)
 SD_UNET_BATCH = 8
+# The ring kernels (phase 13): 4 ranks of a Mesh on one card; the Megatron
+# TP MLP at ViT-B/16's widths at batch 128 (197 tokens an image, dim 768,
+# MLP 3072); each GEMM alone at llama_1b's FFN widths (dim 2048, ffn 5632)
+# at M 4096; ring attention at llama_1b's heads (16 of 128) over a 32,768-
+# token sequence, and in f32 over 4,096.
+RING_W = 4
+MEGATRON = (VIT_BATCH * 197, 768, 3072)
+LLAMA_FFN = (4096, LLAMA_1B["dim"], LLAMA_1B["ffn"])
+RING_ATTN = (1, 16, 32768, 128)
+RING_ATTN_F32_N = 4096
 # Each kernel's launch counter: name -> (module under
 # smelter_tpu_torch/kernels, counter).
 KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
@@ -262,7 +288,10 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "dequant_matmul_int8_fused": ("int8_matmul", "fused_launches"),
            "dequant_matmul_int8_fused2": ("int8_matmul", "fused2_launches"),
            "pixel_conv_blockdot": ("pixel_conv", "blockdot_launches"),
-           "pixel_conv_patch": ("pixel_conv", "patch_launches")}
+           "pixel_conv_patch": ("pixel_conv", "patch_launches"),
+           "collective_matmul_ag": ("collective_matmul", "ag_launches"),
+           "collective_matmul_rs": ("collective_matmul", "rs_launches"),
+           "ring_attention_rdma": ("ring_attention_rdma", "launches")}
 
 REPORT: dict = {}
 
@@ -3904,6 +3933,312 @@ def phase_sd_unet(torch, np, stt) -> dict:
     return res
 
 
+# -- phase 13 --------------------------------------------------------------
+
+def _graph_of(torch, side, fn):
+    """One call of fn() captured as a CUDA graph on `side` (after a warm-up
+    call there)."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    return graph
+
+
+def _spans_overlap(torch, run) -> dict:
+    """One run() under torch.profiler: the slot copies on the card (device
+    events named Memcpy) and how much of their time lies under a kernel's
+    (the union of the other device events' intervals, in us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans: dict = {"kernel": [], "copy": []}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        side = "copy" if e.name.startswith("Memcpy") else (
+            None if e.name.startswith("Memset") else "kernel")
+        if side:
+            spans[side].append((float(e.time_range.start), float(e.time_range.end)))
+    union: list = []
+    for a, b in sorted(spans["kernel"]):
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    under = sum(max(0.0, min(b, ub) - max(a, ua)) for a, b in spans["copy"]
+                for ua, ub in union)
+    copy_us = sum(b - a for a, b in spans["copy"])
+    return {"kernels": len(spans["kernel"]), "copies": len(spans["copy"]),
+            "copy_us": copy_us, "copy_us_under_kernels": under,
+            "kernel_us": sum(b - a for a, b in union),
+            "overlap_share": under / copy_us if copy_us else 0.0}
+
+
+def phase_ring(torch, power_w: float, smi: str) -> dict:
+    """The ring kernels, W ranks on one card (a `Mesh` that repeats
+    cuda:0); the slot transfers are on-card copies, not NVLink. (a) each
+    kernel against its plain version at W 1, 2, 4 and 8 on odd shapes: f32
+    within 1e-5 x max|plain| (TF32 off), bf16 1e-2, int8 `ag` exact with
+    sums that wrap; (b) the Megatron TP MLP at ViT-B/16's widths, batch 128
+    (x 25,216 x 768, w1 768 x 3,072, w2 3,072 x 768, bf16, 4 ranks):
+    `tp_allgather_matmul`, tanh GELU on each shard, `tp_reducescatter_matmul`,
+    its launches counted (4 x 4 each), checked against the product computed
+    directly in f32 at the bf16 bound, timed against the partitioner's form
+    (cat of the shards and a matmul a rank; a matmul a rank, sum and split),
+    and each kernel alone there (rows 22-23); (c) each kernel alone at
+    llama_1b's FFN widths, M 4,096; (d) `sequence_sharded_attention_rdma` at
+    llama_1b's heads (H 16, D 128), B 1, N 32,768 over 4 ranks in bf16
+    (launches 4 x 4; row 24), checked head by head against the plain ring,
+    SDPA over the full sequence as the yardstick, and f32 at N 4,096; then a
+    profile of the slot copies against the step kernels in a replay of one
+    call's CUDA graph. Times are CUDA-graph replays, with the host cost of a
+    call (calls issued one by one) beside them."""
+    import torch.nn.functional as F
+
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+    from smelter_tpu_torch.kernels import ring_attention_rdma as ra
+    from smelter_tpu_torch.parallel import Mesh
+
+    gc.collect()  # the earlier phases' garbage and cached blocks stay out of the timings
+    torch.cuda.empty_cache()
+    side = torch.cuda.Stream()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    on_card = f"{RING_W} ranks on one card; transfers are on-card copies, not NVLink | {smi}"
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale).to(dtype)
+
+    def ring_of(W, axis="tp"):
+        return Mesh(["cuda:0"] * W, (axis,))
+
+    def err_of(got, ref, rel, label):
+        torch.cuda.synchronize()
+        err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+        scale = max(r.float().abs().max().item() for r in ref)
+        check(all(g.shape == r.shape and g.dtype == r.dtype for g, r in zip(got, ref))
+              and math.isfinite(err) and err <= rel * scale,
+              f"{label}: max-abs {err} > {rel} x {scale}")
+        return err
+
+    res: dict = {"label": on_card}
+    # (a) each kernel against its plain version, W 1-8, odd shapes
+    checks = []
+    for W in (1, 2, 4, 8):
+        ring = ring_of(W).rings("tp")[0]
+        for dtype, rel in ((f32, 1e-5), (bf16, 1e-2)):
+            xs = [randn(37, 70, dtype=dtype) for _ in range(W)]
+            ws = [randn(70, 33, dtype=dtype) for _ in range(W)]
+            e_ag = err_of(cm.collective_matmul_ag(xs, ws, ring),
+                          cm.collective_matmul_ag_plain(xs, ws, ring), rel, f"ag W {W} {dtype}")
+            xs = [randn(37 * W, 70, dtype=dtype) for _ in range(W)]
+            e_rs = err_of(cm.collective_matmul_rs(xs, ws, ring),
+                          cm.collective_matmul_rs_plain(xs, ws, ring), rel, f"rs W {W} {dtype}")
+            e_at = []
+            for D in (64, 128):
+                qs, ks, vs = ([randn(1, 2, 37, D, dtype=dtype) for _ in range(W)]
+                              for _ in range(3))
+                e_at.append(err_of(ra.ring_attention_rdma(qs, ks, vs, ring, scale=D ** -0.5),
+                                   ra.ring_attention_rdma_plain(qs, ks, vs, ring,
+                                                                scale=D ** -0.5),
+                                   rel, f"ring attention W {W} {dtype} D {D}"))
+            checks.append([W, str(dtype), e_ag, e_rs, max(e_at)])
+        xs = [torch.randint(-127, 128, (37, 200), device="cuda", generator=gen,
+                            dtype=torch.int8) for _ in range(W)]
+        ws = [torch.randint(-127, 128, (200, 33), device="cuda", generator=gen,
+                            dtype=torch.int8) for _ in range(W)]
+        got = cm.collective_matmul_ag(xs, ws, ring)
+        ref = cm.collective_matmul_ag_plain(xs, ws, ring)
+        torch.cuda.synchronize()
+        wrapped = max((x.double() @ w.double()).abs().max().item() for x, w in zip(xs, ws))
+        check(all(torch.equal(g, r) for g, r in zip(got, ref)) and wrapped > 127,
+              f"ag W {W} int8: outputs differ from the plain version (largest |sum| {wrapped})")
+        checks.append([W, "int8", "equal", f"largest |sum| {wrapped:.0f} (wraps)"])
+    res["checks"] = checks
+    say(13, f"(a) kernels vs plain at W 1, 2, 4, 8 (odd M, Nl, N/P): {checks} | {on_card}")
+
+    rows = {}
+    # (b) the Megatron TP MLP at ViT-B/16's widths, batch 128
+    M, D, Fd = MEGATRON
+    mesh = ring_of(RING_W)
+    ring = mesh.rings("tp")[0]
+    x, w1, w2 = randn(M, D), randn(D, Fd, scale=D ** -0.5), randn(Fd, D, scale=Fd ** -0.5)
+
+    def gelu(t):
+        return F.gelu(t, approximate="tanh")
+
+    def pair():
+        up = cm.tp_allgather_matmul(x, w1, mesh)
+        return cm.tp_reducescatter_matmul(up.map(gelu), w2, mesh)
+
+    _zero_counts()
+    down = pair()
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check_routed("Megatron pair", counts, {"collective_matmul_ag", "collective_matmul_rs"})
+    check(counts["collective_matmul_ag"] == RING_W ** 2
+          and counts["collective_matmul_rs"] == RING_W ** 2, f"Megatron pair launches {counts}")
+    res["megatron_launches"] = {k: counts[k] for k in ("collective_matmul_ag",
+                                                       "collective_matmul_rs")}
+    ref = gelu(x.float() @ w1.float()) @ w2.float()
+    got = down.full()
+    err = (got.float() - ref).abs().max().item()
+    check(got.shape == (M, D) and math.isfinite(err) and err <= 1e-2 * ref.abs().max().item(),
+          f"Megatron pair vs f32 on the card: max-abs {err} > 1e-2 x {ref.abs().max().item()}")
+    del ref, got, down
+    xs, w1s = mesh.shard(x, ("tp", None)), mesh.shard(w1, (None, "tp"))
+    w2s = mesh.shard(w2, ("tp", None))
+    acts = [gelu(o) for o in cm.collective_matmul_ag(xs, w1s, ring)]
+
+    def lib_ag(xs_, ws_):  # the partitioner's form: gather x, a matmul a rank
+        full = torch.cat(xs_)
+        return [full @ w for w in ws_]
+
+    def lib_rs(xs_, ws_):  # a matmul a rank, the sum, the split
+        return list(torch.stack([a @ w for a, w in zip(xs_, ws_)]).sum(0).chunk(len(xs_)))
+
+    def gemm_row(name, fn, plain, lib, xs_, ws_, shape, rel=1e-2):
+        Mg, Kg, Ng = shape
+        err_ = err_of(fn(xs_, ws_, ring), plain(xs_, ws_, ring), rel, f"{name} {shape}")
+        b_ms, b_by = bound((Mg * Kg + Kg * Ng + Mg * Ng) * 2, 2 * Mg * Ng * Kg, "bf16", power_w)
+        ms = graph_ms(torch, side, lambda i: fn(xs_, ws_, ring), 10)
+        return dict(name=name, shape=list(shape), dtype="bf16", max_abs_err=err_,
+                    tolerance="1e-2 x max|plain| (bf16)", ms=ms,
+                    call_ms=time_ms(torch, lambda i: fn(xs_, ws_, ring), 10),
+                    plain_ms=graph_ms(torch, side, lambda i: plain(xs_, ws_, ring), 2,
+                                      replays=2),
+                    library_ms=graph_ms(torch, side, lambda i: lib(xs_, ws_), 10),
+                    bound_ms=b_ms, bound_by=b_by, flops=2 * Mg * Ng * Kg,
+                    tflops=2 * Mg * Ng * Kg / ms / 1e9, ranks=RING_W)
+
+    rows["ag"] = gemm_row("collective_matmul_ag", cm.collective_matmul_ag,
+                          cm.collective_matmul_ag_plain, lib_ag, xs, w1s, (M, D, Fd))
+    rows["rs"] = gemm_row("collective_matmul_rs", cm.collective_matmul_rs,
+                          cm.collective_matmul_rs_plain, lib_rs, acts, w2s, (M, Fd, D))
+
+    def lib_pair():
+        return lib_rs([gelu(o) for o in lib_ag(xs, w1s)], w2s)
+
+    b_ms = rows["ag"]["bound_ms"] + rows["rs"]["bound_ms"]
+    res["megatron"] = {"shape": [M, D, Fd], "max_abs_vs_f32": err,
+                       "ms": graph_ms(torch, side, lambda i: pair(), 5),
+                       "call_ms": time_ms(torch, lambda i: pair(), 5),
+                       "library_ms": graph_ms(torch, side, lambda i: lib_pair(), 5),
+                       "bound_ms": b_ms}
+    mg = res["megatron"]
+    say(13, f"(b) Megatron TP MLP, ViT-B/16 b128 ({M} x {D} -> {Fd} -> {D}, bf16): launches "
+            f"{res['megatron_launches']}, vs f32 on the card max-abs {err:.3g} | pair "
+            f"{mg['ms']:.4f} ms (host cost of a call {mg['call_ms']:.4f} ms), partitioner's "
+            f"form {mg['library_ms']:.4f} ms, bound {b_ms:.4f} ms | {on_card}")
+    del acts, xs, w1s, w2s
+
+    # (c) each kernel alone at llama_1b's FFN widths
+    Ml, Dl, Fl = LLAMA_FFN
+    xa, wa = mesh.shard(randn(Ml, Dl), ("tp", None)), mesh.shard(
+        randn(Dl, Fl, scale=Dl ** -0.5), (None, "tp"))
+    rows["ag_llama"] = gemm_row("collective_matmul_ag", cm.collective_matmul_ag,
+                                cm.collective_matmul_ag_plain, lib_ag, xa, wa, (Ml, Dl, Fl))
+    xr, wr = mesh.shard(randn(Ml, Fl), (None, "tp")), mesh.shard(
+        randn(Fl, Dl, scale=Fl ** -0.5), ("tp", None))
+    rows["rs_llama"] = gemm_row("collective_matmul_rs", cm.collective_matmul_rs,
+                                cm.collective_matmul_rs_plain, lib_rs, xr, wr, (Ml, Fl, Dl))
+    del xa, wa, xr, wr
+
+    # (d) sequence-sharded ring attention at llama_1b's heads
+    B, H, N, Dh = RING_ATTN
+    smesh = ring_of(RING_W, "sp")
+    sring = smesh.rings("sp")[0]
+    scale = Dh ** -0.5
+    q, k, v = (randn(B, H, N, Dh) for _ in range(3))
+    _zero_counts()
+    out = ra.sequence_sharded_attention_rdma(q, k, v, smesh, scale=scale)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check_routed("sequence_sharded_attention_rdma", counts, "ring_attention_rdma")
+    check(counts["ring_attention_rdma"] == RING_W ** 2, f"ring attention launches {counts}")
+    res["attention_launches"] = counts["ring_attention_rdma"]
+    qs, ks, vs = (smesh.shard(t, (None, None, "sp", None)) for t in (q, k, v))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()  # the plain ring a head at a time: its (Nl, Nl) f32 logits a step
+    refs = [ra.ring_attention_rdma_plain(*([t[:, h:h + 1] for t in s] for s in (qs, ks, vs)),
+                                         sring, scale=scale) for h in range(H)]
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max((o[:, h:h + 1].float() - r.float()).abs().max().item()
+              for h, ref in enumerate(refs) for o, r in zip(out.shards, ref))
+    top = max(r.float().abs().max().item() for ref in refs for r in ref)
+    check(math.isfinite(err) and err <= 1e-2 * top,
+          f"ring attention N {N} bf16: max-abs {err} > 1e-2 x {top}")
+    b_ms, b_by = bound(4 * B * H * N * Dh * 2, 4 * B * H * N * N * Dh, "bf16", power_w)
+    def attention(i):
+        return ra.ring_attention_rdma(qs, ks, vs, sring, scale=scale)
+
+    ms = graph_ms(torch, side, attention, 2, replays=2)
+    rows["attention"] = dict(
+        name="ring_attention_rdma", shape=[B, H, N, Dh], dtype="bf16", max_abs_err=err,
+        tolerance="1e-2 x max|plain| (bf16; p rounded to bf16 before p v)", ms=ms,
+        call_ms=time_ms(torch, attention, 2, warmup=1), plain_ms=plain_ms,
+        library_ms=graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 2, replays=2),
+        bound_ms=b_ms, bound_by=b_by, flops=4 * B * H * N * N * Dh,
+        tflops=4 * B * H * N * N * Dh / ms / 1e9, ranks=RING_W)
+    del out, refs
+    Nf = RING_ATTN_F32_N
+    qf, kf, vf = ([randn(B, H, Nf // RING_W, Dh, dtype=f32) for _ in range(RING_W)]
+                  for _ in range(3))
+    got = ra.ring_attention_rdma(qf, kf, vf, sring, scale=scale)
+    ref = ra.ring_attention_rdma_plain(qf, kf, vf, sring, scale=scale)
+    b32, _ = bound(4 * B * H * Nf * Dh * 4, {"f32": 4 * B * H * Nf * Nf * Dh}, None, power_w)
+    res["attention_f32"] = {
+        "shape": [B, H, Nf, Dh],
+        "max_abs_err": err_of(got, ref, 1e-5, f"ring attention N {Nf} f32"),
+        "ms": graph_ms(torch, side, lambda i: ra.ring_attention_rdma(
+            qf, kf, vf, sring, scale=scale), 2, replays=2),
+        "plain_ms": graph_ms(torch, side, lambda i: ra.ring_attention_rdma_plain(
+            qf, kf, vf, sring, scale=scale), 2, replays=2), "bound_ms": b32}
+    del got, ref, qf, kf, vf
+
+    # the slot copies against the step kernels, in a replay of one call's
+    # CUDA graph (no host launch cost between the steps)
+    xs, w1s = mesh.shard(x, ("tp", None)), mesh.shard(w1, (None, "tp"))
+    res["overlap"] = {
+        "ag": _spans_overlap(torch, _graph_of(
+            torch, side, lambda: cm.collective_matmul_ag(xs, w1s, ring)).replay),
+        "attention": _spans_overlap(torch, _graph_of(
+            torch, side, lambda: attention(0)).replay)}
+    for key, o in res["overlap"].items():
+        check(o["copies"] == 2 * RING_W * (RING_W - 1) // (2 if key == "ag" else 1)
+              and o["kernels"] >= RING_W ** 2,
+              f"ring {key} profile: {o['copies']} copies, {o['kernels']} kernels")
+    del xs, w1s, q, k, v, qs, ks, vs
+    for key, r in rows.items():
+        say(13, f"{r['name']} {r['shape']} ({key}): err {r['max_abs_err']:.3g} "
+                f"({r['tolerance']}) | kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s; "
+                f"host cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {on_card}")
+    a32 = res["attention_f32"]
+    say(13, f"ring_attention_rdma f32 {a32['shape']}: err {a32['max_abs_err']:.3g} (1e-5 x "
+            f"max|plain|) | kernel {a32['ms']:.4f} ms, plain {a32['plain_ms']:.4f} ms, bound "
+            f"{a32['bound_ms']:.4f} ms (f32 FMA peak) | {on_card}")
+    for key, o in res["overlap"].items():
+        say(13, f"profile {key}: {o['copies']} slot copies, {o['copy_us']:.1f} us, of which "
+                f"{o['copy_us_under_kernels']:.1f} us ({100 * o['overlap_share']:.1f} %) under "
+                f"a step kernel; {o['kernels']} kernels, {o['kernel_us']:.1f} us busy | "
+                f"{on_card}")
+    torch.cuda.empty_cache()
+    res["rows"] = rows
+    return res
+
+
 # -- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -3930,6 +4265,7 @@ def main() -> int:
     block_rows = phase_block_kernels(torch, np, power_w)
     conv_rows = phase_conv_kernels(torch, power_w)
     variant_rows = phase_variant_kernels(torch, power_w)
+    ring = REPORT["ring"] = phase_ring(torch, power_w, smi)
 
     main_path, ref_f32 = phase_main(torch, np, stt)
     REPORT["main_path"] = main_path
@@ -3970,7 +4306,9 @@ def main() -> int:
                 "cross_attn_block": sdu["cross"]["launches"]["cross_attn_block"],
                 "qlinear_conv": i8s["b128"]["launches"]["qlinear_conv"],
                 "dequant_conv": REPORT["dequant_conv_entry_launches"],
-                **REPORT["variant_entry_launches"]}
+                **REPORT["variant_entry_launches"],
+                **ring["megatron_launches"],
+                "ring_attention_rdma": ring["attention_launches"]}
     say(6, f"main-path launches {launches} | total {time.perf_counter() - t_start:.1f} s")
 
     # ResNet-50 kernels: one call at the head shape (its launches from the
@@ -4057,7 +4395,16 @@ def main() -> int:
                                        "forward"),
                "pixel_conv_patch": ("smelter_tpu_torch/csrc/pixel_conv.cu",
                                     "smelter_tpu/kernels/pixel_conv.py:487",
-                                    per_forward(variant_rows, "pixel_conv_patch"), "forward")}
+                                    per_forward(variant_rows, "pixel_conv_patch"), "forward"),
+               "collective_matmul_ag": ("smelter_tpu_torch/csrc/collective_matmul.cu",
+                                        "smelter_tpu/kernels/collective_matmul.py:148",
+                                        ring["rows"]["ag"], "call, 4 ranks on one card"),
+               "collective_matmul_rs": ("smelter_tpu_torch/csrc/collective_matmul.cu",
+                                        "smelter_tpu/kernels/collective_matmul.py:177",
+                                        ring["rows"]["rs"], "call, 4 ranks on one card"),
+               "ring_attention_rdma": ("smelter_tpu_torch/csrc/ring_attention.cu",
+                                       "smelter_tpu/kernels/ring_attention_rdma.py:120",
+                                       ring["rows"]["attention"], "call, 4 ranks on one card")}
     kernels = []
     for name, (src, replaces, r, per) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

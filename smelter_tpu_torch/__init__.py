@@ -16,3 +16,4 @@ from .runtime.config import Config  # noqa: F401
 from .runtime.executor import CompiledModel, Executor  # noqa: F401
 from .api import compile, serve  # noqa: F401,A001
 from .weights import params_from_numpy  # noqa: F401
+from .parallel import MeshPlan  # noqa: F401

@@ -81,22 +81,23 @@ constexpr int SB = BN + 8;  // halves per B row in shared memory (272 bytes)
 constexpr int A_STAGE = BM * SA, B_STAGE = BK * SB;
 constexpr int GEMM_SMEM = STAGES * (A_STAGE + B_STAGE) * 2;  // 75,776 bytes
 
-template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
-         const void* __restrict__ bias, int p_code, int act, const T* __restrict__ residual,
-         T* __restrict__ out, int M, int N, int K, int G, const void* __restrict__ scale) {
-  extern __shared__ __align__(16) uint16_t smem[];
+// The main loop of gemm_mma: acc = the warp's 32 x 64 sub-tile (rows wm,
+// columns wn of the block's 128 x 128 tile at (m0, n0)) of A (M, K) @ B over
+// all of K. VEC loads 16-byte chunks by cp.async (K, N and G multiples of 8,
+// A and B 16-byte aligned); otherwise each element is loaded on its own, for
+// any K, N, G and alignment.
+template <typename T, bool VEC>
+__device__ __forceinline__ void gemm_mma_mainloop(float (&acc)[2][8][4],
+                                                  const uint16_t* __restrict__ A,
+                                                  const uint16_t* __restrict__ Bw, int M, int N,
+                                                  int K, int G, int m0, int n0, uint16_t* smem) {
   uint16_t* As = smem;                     // [stage][m][k]
   uint16_t* Bs = smem + STAGES * A_STAGE;  // [stage][k][n]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int KT = (K + BK - 1) / BK;
 
-  float acc[2][8][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -110,17 +111,31 @@ gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
     for (int i = 0; i < BM * BK / 8 / GEMM_THREADS; ++i) {
       const int c = tid + i * GEMM_THREADS;
       const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const bool in = m0 + r < M && k0 + col < K;
-      cp_async16(&As[stage * A_STAGE + r * SA + col],
-                 in ? A + static_cast<size_t>(m0 + r) * K + k0 + col : A, in);
+      uint16_t* dst = &As[stage * A_STAGE + r * SA + col];
+      if constexpr (VEC) {
+        const bool in = m0 + r < M && k0 + col < K;
+        cp_async16(dst, in ? A + static_cast<size_t>(m0 + r) * K + k0 + col : A, in);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dst[j] = m0 + r < M && k0 + col + j < K
+                       ? A[static_cast<size_t>(m0 + r) * K + k0 + col + j] : uint16_t(0);
+      }
     }
 #pragma unroll
     for (int i = 0; i < BK * BN / 8 / GEMM_THREADS; ++i) {
       const int c = tid + i * GEMM_THREADS;
       const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const bool in = k0 + r < K && n0 + col < N;
-      cp_async16(&Bs[stage * B_STAGE + r * SB + col],
-                 in ? Bw + b_offset(k0 + r, n0 + col, K, G) : Bw, in);
+      uint16_t* dst = &Bs[stage * B_STAGE + r * SB + col];
+      if constexpr (VEC) {
+        const bool in = k0 + r < K && n0 + col < N;
+        cp_async16(dst, in ? Bw + b_offset(k0 + r, n0 + col, K, G) : Bw, in);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dst[j] = k0 + r < K && n0 + col + j < N ? Bw[b_offset(k0 + r, n0 + col + j, K, G)]
+                                                  : uint16_t(0);
+      }
     }
   };
 
@@ -158,6 +173,20 @@ gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
     }
   }
   cp_async_wait<0>();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
+         const void* __restrict__ bias, int p_code, int act, const T* __restrict__ residual,
+         T* __restrict__ out, int M, int N, int K, int G, const void* __restrict__ scale) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[2][8][4];
+  gemm_mma_mainloop<T, true>(acc, A, Bw, M, N, K, G, m0, n0, smem);
 
   // Epilogue: the bias in f32, the activation, the residual in f32, one rounding.
 #pragma unroll
@@ -193,15 +222,14 @@ gemm_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ Bw,
 // f32: register-tiled FMA in full f32, 4x4 outputs a thread.
 constexpr int FM = 64, FN = 64, FK = 16;
 
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32(const float* __restrict__ A, const float* __restrict__ Bw,
-         const void* __restrict__ bias, int p_code, int act, const float* __restrict__ residual,
-         float* __restrict__ out, int M, int N, int K, int G, const void* __restrict__ scale) {
+// The main loop of gemm_f32: acc[i][j] = output (m0 + 4 (tid / 16) + i,
+// n0 + 4 (tid % 16) + j) of A (M, K) @ B over all of K, any shapes.
+__device__ __forceinline__ void gemm_f32_mainloop(float (&acc)[4][4], const float* __restrict__ A,
+                                                  const float* __restrict__ Bw, int M, int N,
+                                                  int K, int G, int m0, int n0) {
   __shared__ float As[FK][FM + 4];  // [k][m]
   __shared__ float Bs[FK][FN + 4];  // [k][n]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
-  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -233,6 +261,16 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ Bw,
     }
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_f32(const float* __restrict__ A, const float* __restrict__ Bw,
+         const void* __restrict__ bias, int p_code, int act, const float* __restrict__ residual,
+         float* __restrict__ out, int M, int N, int K, int G, const void* __restrict__ scale) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
+  float acc[4][4];
+  gemm_f32_mainloop(acc, A, Bw, M, N, K, G, m0, n0);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;

@@ -1423,3 +1423,107 @@ def test_small_resnet_int8_static_on_the_card_matches_the_cpu(cuda):
     out = gq.output_names[0]
     ref, got = envs["cpu"][out], envs["cuda"][out]
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# -- the ring kernels: W ranks on one card ----------------------------------
+
+_RING_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+def _ring_on_card(W):
+    from smelter_tpu_torch.parallel import Mesh
+
+    return Mesh(["cuda:0"] * W, ("tp",)).rings("tp")[0]
+
+
+def _ring_shards(W, shape_x, shape_w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int8:
+        def draw(shape):
+            return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).cuda()
+    else:
+        def draw(shape):
+            return torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", dtype)
+    return [draw(shape_x) for _ in range(W)], [draw(shape_w) for _ in range(W)]
+
+
+def _agree(got, ref, dtype):
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if dtype == torch.int8:
+            assert torch.equal(g, r)
+        else:
+            err = (g.float() - r.float()).abs().max().item()
+            assert err <= _RING_TOL[dtype] * r.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8])
+@pytest.mark.parametrize("ml,k,nl", [(37, 70, 33), (64, 128, 96)])
+def test_collective_matmul_ag_matches_plain(cuda, W, dtype, ml, k, nl):
+    """Odd and aligned shard shapes; int8 exact, including sums that wrap."""
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+
+    ring = _ring_on_card(W)
+    xs, ws = _ring_shards(W, (ml, k), (k, nl), dtype, seed=W)
+    before = cm.ag_launches
+    got = cm.collective_matmul_ag(xs, ws, ring)
+    assert cm.ag_launches == before + W * W
+    _agree(got, cm.collective_matmul_ag_plain(xs, ws, ring), dtype)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mc,kl,n", [(37, 70, 33), (64, 128, 96)])
+def test_collective_matmul_rs_matches_plain(cuda, W, dtype, mc, kl, n):
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+
+    ring = _ring_on_card(W)
+    xs, ws = _ring_shards(W, (mc * W, kl), (kl, n), dtype, seed=10 + W)
+    before = cm.rs_launches
+    got = cm.collective_matmul_rs(xs, ws, ring)
+    assert cm.rs_launches == before + W * W
+    _agree(got, cm.collective_matmul_rs_plain(xs, ws, ring), dtype)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_ring_attention_rdma_matches_plain(cuda, W, dtype, D):
+    """B 2, H 3, odd Nl (37): each rank's output against the plain ring."""
+    from smelter_tpu_torch.kernels import ring_attention_rdma as ra
+
+    ring = _ring_on_card(W)
+    rng = np.random.default_rng(W * D)
+    qs, ks, vs = ([torch.from_numpy(rng.standard_normal((2, 3, 37, D), np.float32))
+                   .to("cuda", dtype) for _ in range(W)] for _ in range(3))
+    before = ra.launches
+    got = ra.ring_attention_rdma(qs, ks, vs, ring, scale=D ** -0.5)
+    assert ra.launches == before + W * W
+    _agree(got, ra.ring_attention_rdma_plain(qs, ks, vs, ring, scale=D ** -0.5), dtype)
+
+
+def test_ring_kernels_refuse_what_they_do_not_take(cuda):
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+    from smelter_tpu_torch.kernels import ring_attention_rdma as ra
+
+    ring = _ring_on_card(2)
+    xs, ws = _ring_shards(2, (8, 16), (16, 8), torch.bfloat16, seed=0)
+    with pytest.raises(TypeError):
+        cm.collective_matmul_ag(xs, [w.float() for w in ws], ring)
+    with pytest.raises(TypeError):
+        cm.collective_matmul_rs([x.to(torch.int8) for x in xs], [w.to(torch.int8) for w in ws],
+                                ring)
+    with pytest.raises(ValueError, match="does not split"):
+        cm.collective_matmul_rs([x[:7] for x in xs], ws, ring)
+    with pytest.raises(ValueError, match="contiguous"):
+        cm.collective_matmul_ag([x.t().contiguous().t() for x in xs], ws, ring)
+    with pytest.raises(ValueError, match="lie on"):
+        cm.collective_matmul_ag([xs[0], xs[1].cpu()], ws, ring)
+    qs = [torch.zeros(1, 2, 8, 48, device="cuda", dtype=torch.bfloat16)] * 2
+    with pytest.raises(ValueError, match="head dim 48"):
+        ra.ring_attention_rdma(qs, qs, qs, ring)
+    qs = [torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)] * 2
+    with pytest.raises(TypeError):
+        ra.ring_attention_rdma(qs, [q.float() for q in qs], qs, ring)

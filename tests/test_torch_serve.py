@@ -81,14 +81,17 @@ def test_import_and_cpu_compile_without_jax_protobuf_or_ml_dtypes(tmp_path):
         sys.modules["google.protobuf"] = None
         import numpy as np
         import smelter_tpu_torch as stt
+        import smelter_tpu_torch.kernels.collective_matmul
         import smelter_tpu_torch.kernels.convnext_block
         import smelter_tpu_torch.kernels.cross_attn_block
         import smelter_tpu_torch.kernels.dequant_conv
         import smelter_tpu_torch.kernels.qlinear_conv
         import smelter_tpu_torch.kernels.ragged_decode_attention
+        import smelter_tpu_torch.kernels.ring_attention_rdma
         import smelter_tpu_torch.models.convnext
         import smelter_tpu_torch.models.sd_unet
         import smelter_tpu_torch.ops.misc_ops
+        import smelter_tpu_torch.parallel
         import smelter_tpu_torch.passes.ragged_attention
         import smelter_tpu_torch.runtime.generate
         import smelter_tpu_torch.serving.decode_server  # noqa: F401
