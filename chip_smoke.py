@@ -16,7 +16,8 @@ its number:
    call, the plain versions' times, a PyTorch library call's time as a
    yardstick, and the least time the card could take (the bound):
    `dequant_matmul` and `int8_matmul` at the ResNet-50 head shape and at a
-   serving GEMM shape; `int4_matmul` at M = 8 for each N x K of llama_1b's
+   serving GEMM shape, `dequant_matmul` also at odd shapes in bf16, f16 and
+   with f32 out (two calls bit-equal); `int4_matmul` at M = 8 for each N x K of llama_1b's
    decode step, checked also at the prefill graphs' M of 64 and 256,
    `paged_decode_attention` at its decode shape (8 slots,
    int8 pools, positions spread over 0-511), and `ragged_decode_attention`
@@ -151,7 +152,7 @@ its number:
    `collective_matmul_ag`, `_rs` and `ring_attention_rdma` against their
    plain versions at W 1, 2, 4 and 8 on odd shapes, f32 (TF32 off) within
    1e-5 x max|plain| and bf16 within 1e-2, int8 `ag` equal with sums that
-   wrap; (b) the Megatron TP MLP at ViT-B/16's widths, batch 128, over 4
+   wrap and int8 `rs` equal with sums that clamp; (b) the Megatron TP MLP at ViT-B/16's widths, batch 128, over 4
    ranks (`tp_allgather_matmul`, tanh GELU, `tp_reducescatter_matmul`; 16
    launches of each kernel) against the product in f32 on the card, timed
    against the partitioner's form, and each kernel alone there; (c) each
@@ -476,6 +477,33 @@ def phase_kernels(torch, power_w: float) -> dict:
             plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         del sets, w_cm
+
+    # dequant_matmul's wgmma forms (kernels/wgmma_plan.py) at odd shapes, each
+    # dtype pair, two calls bit-equal
+    from smelter_tpu_torch.kernels import wgmma_plan
+
+    odd = []
+    for M, N, K in ((1, 8, 8), (7, 1001, 72), (129, 4096, 2056), (37, 100, 70), (300, 1001, 99),
+                    (1024, 4096, 2048)):
+        for dtype, out_dtype, rel in ((torch.bfloat16, None, 1e-2), (torch.float16, None, 2e-3),
+                                      (torch.bfloat16, torch.float32, 1e-5)):
+            x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+            w = torch.randint(-127, 128, (K, N), device="cuda", generator=gen, dtype=torch.int8)
+            s = torch.rand(N, device="cuda", generator=gen) * 0.02 + 1e-3
+            got = dm.dequant_matmul(x, w, s, out_dtype=out_dtype)
+            again = dm.dequant_matmul(x, w, s, out_dtype=out_dtype)
+            ref = dm.dequant_matmul_plain(x, w, s, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            form = wgmma_plan.plan(M, N, K, int8_b=True).form
+            check(torch.equal(got, again) and math.isfinite(err) and err <= rel * scale,
+                  f"dequant_matmul {M}x{N}x{K} {dtype}->{out_dtype} ({form}): max-abs {err} > "
+                  f"{rel} x {scale}, or two calls differ")
+            odd.append([M, N, K, str(dtype), str(out_dtype or dtype), form, err])
+    say(2, f"dequant_matmul at odd shapes vs plain (bf16 1e-2, f16 2e-3, f32 out 1e-5 x "
+           f"max|plain|; two calls bit-equal): {odd}")
+    REPORT["dequant_matmul_odd"] = odd
 
     for (name, label, kind), r in rows.items():
         say(2, f"{name} {label} {r['shape']} {kind}: err {r['max_abs_err']:.3g} "
@@ -3985,7 +4013,7 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
     cuda:0); the slot transfers are on-card copies, not NVLink. (a) each
     kernel against its plain version at W 1, 2, 4 and 8 on odd shapes: f32
     within 1e-5 x max|plain| (TF32 off), bf16 1e-2, int8 `ag` exact with
-    sums that wrap; (b) the Megatron TP MLP at ViT-B/16's widths, batch 128
+    sums that wrap, int8 `rs` exact with sums that clamp; (b) the Megatron TP MLP at ViT-B/16's widths, batch 128
     (x 25,216 x 768, w1 768 x 3,072, w2 3,072 x 768, bf16, 4 ranks):
     `tp_allgather_matmul`, tanh GELU on each shard, `tp_reducescatter_matmul`,
     its launches counted (4 x 4 each), checked against the product computed
@@ -3995,9 +4023,9 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
     llama_1b's FFN widths, M 4,096; (d) `sequence_sharded_attention_rdma` at
     llama_1b's heads (H 16, D 128), B 1, N 32,768 over 4 ranks in bf16
     (launches 4 x 4; row 24), checked head by head against the plain ring,
-    SDPA over the full sequence as the yardstick, and f32 at N 4,096; then a
-    profile of the slot copies against the step kernels in a replay of one
-    call's CUDA graph. Times are CUDA-graph replays, with the host cost of a
+    SDPA over the full sequence as the yardstick, and f32 at N 4,096 (f32
+    SDPA beside it); then a profile of the slot copies against the step
+    kernels in a replay of one call's CUDA graph. Times are CUDA-graph replays, with the host cost of a
     call (calls issued one by one) beside them."""
     import torch.nn.functional as F
 
@@ -4060,7 +4088,16 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
         wrapped = max((x.double() @ w.double()).abs().max().item() for x, w in zip(xs, ws))
         check(all(torch.equal(g, r) for g, r in zip(got, ref)) and wrapped > 127,
               f"ag W {W} int8: outputs differ from the plain version (largest |sum| {wrapped})")
-        checks.append([W, "int8", "equal", f"largest |sum| {wrapped:.0f} (wraps)"])
+        xs = [torch.randint(-127, 128, (37 * W, 200), device="cuda", generator=gen,
+                            dtype=torch.int8) for _ in range(W)]
+        got = cm.collective_matmul_rs(xs, ws, ring)
+        ref = cm.collective_matmul_rs_plain(xs, ws, ring)
+        torch.cuda.synchronize()
+        clamped = sum(int((r.abs() >= 127).sum()) for r in ref)
+        check(all(torch.equal(g, r) for g, r in zip(got, ref)) and clamped > 0,
+              f"rs W {W} int8: outputs differ from the plain version ({clamped} clamped)")
+        checks.append([W, "int8", "ag equal", f"largest |sum| {wrapped:.0f} (wraps)",
+                       "rs equal", f"{clamped} outputs clamped"])
     res["checks"] = checks
     say(13, f"(a) kernels vs plain at W 1, 2, 4, 8 (odd M, Nl, N/P): {checks} | {on_card}")
 
@@ -4197,14 +4234,17 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
     got = ra.ring_attention_rdma(qf, kf, vf, sring, scale=scale)
     ref = ra.ring_attention_rdma_plain(qf, kf, vf, sring, scale=scale)
     b32, _ = bound(4 * B * H * Nf * Dh * 4, {"f32": 4 * B * H * Nf * Nf * Dh}, None, power_w)
+    qc, kc, vc = (torch.cat(t, dim=2) for t in (qf, kf, vf))  # the full f32 sequence
     res["attention_f32"] = {
         "shape": [B, H, Nf, Dh],
         "max_abs_err": err_of(got, ref, 1e-5, f"ring attention N {Nf} f32"),
         "ms": graph_ms(torch, side, lambda i: ra.ring_attention_rdma(
             qf, kf, vf, sring, scale=scale), 2, replays=2),
         "plain_ms": graph_ms(torch, side, lambda i: ra.ring_attention_rdma_plain(
-            qf, kf, vf, sring, scale=scale), 2, replays=2), "bound_ms": b32}
-    del got, ref, qf, kf, vf
+            qf, kf, vf, sring, scale=scale), 2, replays=2),
+        "library_ms": graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
+            qc, kc, vc, scale=scale), 2, replays=2), "bound_ms": b32}
+    del got, ref, qf, kf, vf, qc, kc, vc
 
     # the slot copies against the step kernels, in a replay of one call's
     # CUDA graph (no host launch cost between the steps)
@@ -4227,7 +4267,8 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
                 f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {on_card}")
     a32 = res["attention_f32"]
     say(13, f"ring_attention_rdma f32 {a32['shape']}: err {a32['max_abs_err']:.3g} (1e-5 x "
-            f"max|plain|) | kernel {a32['ms']:.4f} ms, plain {a32['plain_ms']:.4f} ms, bound "
+            f"max|plain|) | kernel {a32['ms']:.4f} ms, plain {a32['plain_ms']:.4f} ms, library "
+            f"{a32['library_ms']:.4f} ms (f32 SDPA over the full sequence), bound "
             f"{a32['bound_ms']:.4f} ms (f32 FMA peak) | {on_card}")
     for key, o in res["overlap"].items():
         say(13, f"profile {key}: {o['copies']} slot copies, {o['copy_us']:.1f} us, of which "

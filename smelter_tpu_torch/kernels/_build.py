@@ -37,8 +37,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 # c_void_p, so ctypes never cuts them to 32 bits).
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    "dequant_matmul": ("smelter_dequant_matmul",
-                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "dequant_matmul": ("smelter_dequant_matmul", [_P] * 4 + [_I] * 10 + [_P]),
     "int8_matmul": ("smelter_int8_matmul",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "int8_matmul_fused": ("smelter_int8_matmul_fused", [_P] * 5 + [_I] * 7 + [_P]),
@@ -60,7 +59,7 @@ SIGNATURES = {
     "cross_attn_block": ("smelter_cross_attn_block", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     "qlinear_conv": ("smelter_qlinear_conv", [_P] * 5 + [_I] * 13 + [_P]),
     "dequant_conv": ("smelter_dequant_conv", [_P] * 4 + [_I] * 12 + [_P]),
-    "collective_matmul": ("smelter_collective_matmul", [_P] * 4 + [_I] * 5 + [_P]),
+    "collective_matmul": ("smelter_collective_matmul", [_P] * 4 + [_I] * 11 + [_P]),
     "ring_attention": ("smelter_ring_attention_step", [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P]),
 }
 
@@ -151,6 +150,22 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary (what a TMA
+    tensor map needs of its base)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+_sms: dict = {}
+
+
+def sms(device: torch.device) -> int:
+    """The card's streaming multiprocessors, read once a device."""
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
 
 
 def vmapped(*tensors) -> bool:

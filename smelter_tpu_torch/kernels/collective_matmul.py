@@ -14,7 +14,8 @@ reduce-scatter, the two halves of a Megatron tensor-parallel MLP.
   (i - s - 1) mod P to the f32 travelling sum it received and sends the
   sum on (f32 on the wire), so chunk c's partials are added in ring order
   from rank c + 1, and rank i ends holding chunk i, rounded once to x's
-  dtype. M must split evenly over the ranks.
+  dtype (int8: clamped, as the JAX kernel's `astype` of its f32 sum). M
+  must split evenly over the ranks.
 
 Replaces the Pallas kernels `smelter_tpu/kernels/collective_matmul.py::
 collective_matmul_ag` and `::collective_matmul_rs`, whose ring transfers
@@ -25,10 +26,14 @@ and a step of a rank is one launch of `csrc/collective_matmul.cu`:
 - What bounds it on an H100: the tensor cores; at ViT-B/16's MLP at batch
   128 over 4 ranks the pair does 238 GFLOP (241 us at 989 TFLOP/s dense
   bf16) against 86 MB of operands.
-- What the simple design does: csrc/gemm.cuh's mma.sync main loop with an
-  epilogue that rounds once (ag) or adds the received f32 sum (rs), int8 on
-  csrc/int8_gemm.cuh's m16n8k32 tiles; the copy of a step runs on its own
-  stream beside the other ranks' launches.
+- What the design does: a bf16/f16 `ag` step runs on the wgmma/TMA core
+  (`csrc/wgmma_gemm.cuh`), in the form `wgmma_plan.plan` picks from the
+  step's shape (the persistent TMA kernel, or a K split over a cluster);
+  the `rs` step runs csrc/gemm.cuh's mma.sync main loop with an epilogue
+  that adds the received f32 sum; int8 steps run csrc/int8_gemm.cuh's
+  m16n8k32 tiles (`ag` wraps, `rs` adds its int32 sum to the f32
+  travelling sum and saturates at the last step); the copy of a step runs
+  on its own stream beside the other ranks' launches.
 
 The per-shard entries take each rank's shards (in ring order) and the
 `Ring`; `tp_allgather_matmul` and `tp_reducescatter_matmul` take full
@@ -48,7 +53,8 @@ import torch
 
 from ..parallel.mesh import Mesh, ShardedTensor
 from ..parallel.ring import Ring
-from . import _build
+from ..utils.dtypes import saturating_cast
+from . import _build, wgmma_plan
 
 ag_launches = 0
 rs_launches = 0
@@ -63,6 +69,14 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.int8:
         return (x.double() @ w.double()).to(torch.int64).to(torch.int8)
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def _partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A rank's f32 partial of the reduce-scatter GEMM; for int8 the exact
+    integer sum rounded once to f32, as the kernel converts its int32 sum."""
+    if x.dtype == torch.int8:
+        return (x.double() @ w.double()).float()
+    return x.float() @ w.float()
 
 
 def _shapes(xs, ws, ring: Ring, what: str) -> None:
@@ -99,7 +113,7 @@ def collective_matmul_rs_plain(xs: Sequence[torch.Tensor], ws: Sequence[torch.Te
                                ring: Ring) -> list[torch.Tensor]:
     """The reduce-scatter GEMM's schedule and arithmetic in plain PyTorch:
     each chunk's f32 partials added in ring order, one rounding at the
-    end."""
+    end (for int8 a saturating cast, as the JAX kernel's `astype`)."""
     _shapes(xs, ws, ring, "collective_matmul_rs")
     W, (M, _), N = ring.size, xs[0].shape, ws[0].shape[1]
     if M % W:
@@ -109,13 +123,14 @@ def collective_matmul_rs_plain(xs: Sequence[torch.Tensor], ws: Sequence[torch.Te
 
     def step(s, i, held):
         c = (i - s - 1) % W
-        part = xs[i][c * mc:(c + 1) * mc].float() @ ws[i].float()
+        part = _partial(xs[i][c * mc:(c + 1) * mc], ws[i])
         if s == 0:
             held[0].copy_(part)
         else:
             held[0].add_(part)  # the received sum + this rank's partial
         if s == W - 1:
-            outs[i] = held[0].to(xs[i].dtype, copy=True)
+            outs[i] = (saturating_cast(held[0], torch.int8) if xs[i].dtype == torch.int8
+                       else held[0].to(xs[i].dtype, copy=True))
 
     ring.rotate([(torch.empty((mc, N), dtype=torch.float32, device=x.device),) for x in xs],
                 step, writes=True)
@@ -131,14 +146,22 @@ def _kernel_checks(xs, ws, dtypes, what: str) -> None:
         raise ValueError(f"{what}: shards must be contiguous")
 
 
-def _launch(lib, a, b, recv, out, what: str) -> None:
+_NO_PLAN = wgmma_plan.Plan("tma", 0, 0, 0, 0, 0, 0)  # what the kernels of rs, f32, int8 ignore
+
+
+def _launch(lib, a, b, recv, out, reduce: bool, what: str) -> None:
+    """One step: ag (`reduce` False: recv None, out in a's dtype; a 16-bit
+    step on its `wgmma_plan` plan) or rs."""
     M, K = a.shape
     N = b.shape[1]
+    p = (wgmma_plan.plan(M, N, K, int8_b=False, aligned=_build.aligned16(a, b),
+                         sms=_build.sms(a.device))
+         if not reduce and a.dtype in (torch.bfloat16, torch.float16) else _NO_PLAN)
     with torch.cuda.device(a.device):
         rc = lib.smelter_collective_matmul(
             a.data_ptr(), b.data_ptr(), None if recv is None else recv.data_ptr(),
             out.data_ptr(), M, N, K, _build.DTYPE_CODES[a.dtype], _build.DTYPE_CODES[out.dtype],
-            _build.stream_of(a))
+            int(reduce), p.code, p.bn, p.split, p.k_chunk, p.grid, _build.stream_of(a))
     _build.check(lib, rc, what)
 
 
@@ -168,7 +191,7 @@ def collective_matmul_ag(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     def step(s, i, held):
         global ag_launches
         src = (i - s) % W
-        _launch(lib, held[0], ws[i], None, outs[i][src * ml:(src + 1) * ml],
+        _launch(lib, held[0], ws[i], None, outs[i][src * ml:(src + 1) * ml], False,
                 "collective_matmul_ag")
         ag_launches += 1
 
@@ -179,11 +202,11 @@ def collective_matmul_ag(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
 def collective_matmul_rs(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
                          ring: Ring) -> list[torch.Tensor]:
     """Per-shard entry: rank i's x_i (M, K/P) and w_i (K/P, N) -> chunk i
-    (M/P, N) of the reduced product in x's dtype (f32, bf16, f16)."""
+    (M/P, N) of the reduced product in x's dtype (f32, bf16, f16, int8)."""
     if not _on_card(xs, ring, "collective_matmul_rs"):
         return collective_matmul_rs_plain(xs, ws, ring)
     _shapes(xs, ws, ring, "collective_matmul_rs")
-    _kernel_checks(xs, ws, _FLOATS, "collective_matmul_rs")
+    _kernel_checks(xs, ws, _FLOATS + (torch.int8,), "collective_matmul_rs")
     W, (M, _), N = ring.size, xs[0].shape, ws[0].shape[1]
     if M % W:
         raise ValueError(f"collective_matmul_rs: M {M} does not split over {W} ranks")
@@ -196,7 +219,7 @@ def collective_matmul_rs(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
         c = (i - s - 1) % W
         last = s == W - 1
         _launch(lib, xs[i][c * mc:(c + 1) * mc], ws[i], None if s == 0 else held[0],
-                outs[i] if last else held[0], "collective_matmul_rs")
+                outs[i] if last else held[0], True, "collective_matmul_rs")
         rs_launches += 1
 
     ring.rotate([(torch.empty((mc, N), dtype=torch.float32, device=x.device),) for x in xs],

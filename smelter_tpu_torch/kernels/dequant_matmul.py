@@ -5,17 +5,20 @@ w_q (K, N) int8 and scales (N,) f32; the sum runs in f32 and the scale is
 applied once after it, as the per-N scale commutes with the K sum.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/dequant_matmul.py::
-_dequant_matmul_impl`. The Hopper kernel is `csrc/dequant_matmul.cu`:
+_dequant_matmul_impl`. The Hopper kernel is `csrc/dequant_matmul.cu` on the
+wgmma/TMA core `csrc/wgmma_gemm.cuh`:
 
 - What bounds it on an H100: HBM at the ResNet-50 head (M 128, K 2048,
   N 1000: ~2.8 MB moved, ~0.85 us), the bf16 tensor cores at the serving
   GEMM (M 8192, K 4096, N 4096: ~275 GFLOP, ~278 us).
-- What the simple design does about it: W crosses HBM as int8 only and is
-  converted to the activation type on its way into shared memory;
-  mma.sync.m16n8k16 tiles of 128x128 per block, with the next K step loaded
-  into registers during the current one. f32 activations take a full-f32
-  FMA kernel. At the head the 8 output tiles leave most SMs idle; one
-  launch is one kernel, with no split-K or workspace.
+- What the design does about it: W crosses HBM as int8 only and is
+  converted exactly to the activation type on the chip. `wgmma_plan.plan`
+  picks the form from the shape: the persistent TMA kernel where there are
+  tiles enough to fill the card (the serving GEMM; W^T is wgmma's A operand,
+  converted in registers), else a K split over a cluster of up to 8 CTAs
+  summed in a fixed order through distributed shared memory (the head: 128
+  CTAs, not 8; W converted on its way into shared memory). f32 activations
+  take a full-f32 FMA kernel.
 
 `dequant_matmul` takes the plain PyTorch version for a tensor on the CPU or
 the `meta` device, and launches the kernel for a CUDA tensor or raises.
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, wgmma_plan
 
 launches = 0
 
@@ -83,12 +86,14 @@ def dequant_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    p = wgmma_plan.plan(M, N, K, int8_b=True, aligned=_build.aligned16(x, w_q),
+                        sms=_build.sms(x.device))
     lib = _build.library("dequant_matmul")
     with torch.cuda.device(x.device):
         rc = lib.smelter_dequant_matmul(
             x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, K,
             _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
-            _build.stream_of(x))
+            p.code, p.bn, p.split, p.k_chunk, p.grid, _build.stream_of(x))
     _build.check(lib, rc, "dequant_matmul")
     launches += 1
     return out

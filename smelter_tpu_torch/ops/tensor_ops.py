@@ -243,7 +243,7 @@ def gather(ctx: Ctx, node: Node):
 def cast(ctx: Ctx, node: Node):
     x = ctx.get(node.inputs[0])
     code = int(node.attr("to"))
-    ctx.set(node.outputs[0], x.to(dt.onnx_to_torch_dtype(code)))
+    ctx.set(node.outputs[0], dt.saturating_cast(x, dt.onnx_to_torch_dtype(code)))
     st = ctx.static(node.inputs[0], required=False)
     if st is not None:
         ctx.set_static(node.outputs[0], np.asarray(st).astype(dt.onnx_to_numpy_dtype(code)))
@@ -253,7 +253,7 @@ def cast(ctx: Ctx, node: Node):
 def cast_like(ctx: Ctx, node: Node):
     x = ctx.get(node.inputs[0])
     like = ctx.get(node.inputs[1])
-    ctx.set(node.outputs[0], x.to(like.dtype))
+    ctx.set(node.outputs[0], dt.saturating_cast(x, like.dtype))
 
 
 @register("ScatterND", since=11)

@@ -181,12 +181,12 @@ class MeshPlan:
                     devices=None) -> "MeshPlan":
         """tp defaults to the largest of 4, 2, 1 that divides the device
         count, as the JAX package chooses. Without `devices`, `n_devices`
-        ranks (default: one a visible card) on the visible cards in turn."""
+        ranks (default: one a visible card) on the visible cards in turn;
+        given `devices`, all of them, and `n_devices` is not read (the JAX
+        package's rule)."""
         if devices is None:
             n = n_devices if n_devices is not None else max(1, torch.cuda.device_count())
             devices = default_devices(n)
-        elif n_devices is not None:
-            devices = list(devices)[:n_devices]
         devices = list(devices)
         n = len(devices)
         if tp is None:

@@ -160,3 +160,23 @@ def itemsize(code: int) -> int:
     if code in _ONNX_TO_TORCH_ONLY:
         return _ONNX_TO_TORCH_ONLY[code].itemsize
     return onnx_to_numpy_dtype(code).itemsize
+
+
+# The integer types a float converts into by clamping, as XLA's convert
+# does: int32 clamps in float64, where its bounds are exact.
+_SATURATING = {torch.int8: torch.float32, torch.uint8: torch.float32,
+               torch.int16: torch.float32, torch.int32: torch.float64}
+
+
+def saturating_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x cast to `dtype` as the JAX package's `astype` lowers it (XLA's
+    convert): a float into int8, uint8, int16 or int32 is clamped to the
+    type's range, NaN goes to 0, and the rest truncates toward zero, on
+    every device. Every other cast is a plain `.to(dtype)` (an int into a
+    narrower int keeps its low bits, as in XLA)."""
+    wide = _SATURATING.get(dtype)
+    if wide is None or not x.is_floating_point():
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    y = torch.nan_to_num(x.to(wide), nan=0.0).clamp(info.min, info.max)
+    return y.to(dtype)

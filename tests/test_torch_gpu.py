@@ -58,6 +58,57 @@ def test_dequant_matmul_matches_plain(cuda, shape, dtype):
     assert err <= tol * ref.float().abs().max().item(), err
 
 
+# dequant_matmul's two wgmma forms (kernels/wgmma_plan.py): every M x N x K
+# of these lists, in bf16, against the plain version at 1e-2 of its largest
+# output, and bit-equal from call to call (the cluster form's K split is
+# summed in a fixed order). N 1000 is the head's 1000-byte W row, which TMA
+# cannot take.
+DQ_M, DQ_N, DQ_K = [1, 7, 128, 129, 8192], [8, 1000, 1001, 4096], [8, 72, 2048, 2056, 4096]
+_DQ_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}
+
+
+def _dequant_agrees(x, w, s, out_dtype=None):
+    got = dm.dequant_matmul(x, w, s, out_dtype=out_dtype)
+    again = dm.dequant_matmul(x, w, s, out_dtype=out_dtype)
+    ref = dm.dequant_matmul_plain(x, w, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, again)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= _DQ_TOL[got.dtype] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("m", DQ_M)
+@pytest.mark.parametrize("n", DQ_N)
+@pytest.mark.parametrize("k", DQ_K)
+def test_dequant_matmul_forms_match_plain(cuda, m, n, k):
+    x, w, s = _operands(m, n, k, torch.bfloat16, cuda, seed=m + n + k)
+    _dequant_agrees(x, w, s)
+
+
+@pytest.mark.parametrize("shape", [(128, 1000, 2048), (129, 1001, 72), (2048, 4096, 2048),
+                                   (8192, 4096, 4096)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_dequant_matmul_forms_each_dtype(cuda, shape, dtype, out_dtype):
+    m, n, k = shape
+    x, w, s = _operands(m, n, k, dtype, cuda)
+    _dequant_agrees(x, w, s, out_dtype)
+
+
+def test_dequant_matmul_unaligned_bases_take_the_cluster_form(cuda):
+    """Bases 8 bytes off a 16-byte boundary: no TMA map; the cluster form
+    with 8-byte loads of x's rows, then element loads."""
+    m, n, k = 2048, 4096, 2048
+    x, w, s = _operands(m, n, k, torch.bfloat16, cuda)
+    xo = torch.empty(m * k + 4, device=cuda, dtype=x.dtype)[4:].view(m, k)
+    xo.copy_(x)
+    wo = torch.empty(k * n + 8, device=cuda, dtype=w.dtype)[8:].view(k, n)
+    wo.copy_(w)
+    assert xo.data_ptr() % 16 == 8 and wo.data_ptr() % 16 == 8
+    _dequant_agrees(xo, wo, s)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_int8_matmul_exact(cuda, shape):
     m, n, k = shape
@@ -1425,6 +1476,23 @@ def test_small_resnet_int8_static_on_the_card_matches_the_cpu(cuda):
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("to", [torch.int8, torch.uint8, torch.int16, torch.int32])
+def test_saturating_cast_on_the_card_matches_the_cpu(cuda, dtype, to):
+    """Cast / CastLike's clamp (XLA's convert): CUDA's own float-to-int
+    conversion need not agree with the CPU's past the range, so the card
+    takes the same clamp first."""
+    from smelter_tpu_torch.utils.dtypes import saturating_cast
+
+    nan, inf = float("nan"), float("inf")
+    x = torch.tensor([1e3, -1e3, 300.0, 3e9, -3e9, nan, inf, -inf, 126.9, -128.7, -0.5, 0.0,
+                      65504.0, 2.5e38]).to(dtype)
+    x = torch.cat([x, torch.from_numpy(np.random.default_rng(0).standard_normal(4096) * 3e4)
+                   .to(dtype)])
+    got = saturating_cast(x.to(cuda), to)
+    assert got.dtype == to and torch.equal(got.cpu(), saturating_cast(x, to))
+
+
 # -- the ring kernels: W ranks on one card ----------------------------------
 
 _RING_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
@@ -1474,9 +1542,10 @@ def test_collective_matmul_ag_matches_plain(cuda, W, dtype, ml, k, nl):
 
 
 @pytest.mark.parametrize("W", [1, 2, 4, 8])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int8])
 @pytest.mark.parametrize("mc,kl,n", [(37, 70, 33), (64, 128, 96)])
 def test_collective_matmul_rs_matches_plain(cuda, W, dtype, mc, kl, n):
+    """int8 exact: the int32 sums, f32 on the wire, clamped at the end."""
     from smelter_tpu_torch.kernels import collective_matmul as cm
 
     ring = _ring_on_card(W)
@@ -1485,6 +1554,44 @@ def test_collective_matmul_rs_matches_plain(cuda, W, dtype, mc, kl, n):
     got = cm.collective_matmul_rs(xs, ws, ring)
     assert cm.rs_launches == before + W * W
     _agree(got, cm.collective_matmul_rs_plain(xs, ws, ring), dtype)
+
+
+# Both model widths of phase 13 (the full M over W ranks): ViT-B/16 b128's
+# MLP up (25,216 x 768 @ 768 x 3,072) and llama_1b's FFN (4,096 x 2,048 @
+# 2,048 x 5,632); their steps take the persistent TMA kernel.
+AG_WIDTHS = {"vit_b16": (25216, 768, 3072), "llama_1b": (4096, 2048, 5632)}
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("model", list(AG_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_collective_matmul_ag_at_model_widths(cuda, W, model, dtype):
+    """Against the plain version, and two calls bit-equal."""
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+
+    M, K, N = AG_WIDTHS[model]
+    ring = _ring_on_card(W)
+    xs, ws = _ring_shards(W, (M // W, K), (K, N // W), dtype, seed=W)
+    ws = [w * K ** -0.5 for w in ws]
+    got = cm.collective_matmul_ag(xs, ws, ring)
+    _agree(got, cm.collective_matmul_ag_plain(xs, ws, ring), dtype)
+    again = cm.collective_matmul_ag(xs, ws, ring)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_collective_matmul_ag_odd_shapes_repeat_bit_for_bit(cuda, W, dtype):
+    """Phase 13's odd shards (37 x 70 @ 70 x 33) take the cluster form, its
+    K split summed in a fixed order: two calls agree bit for bit."""
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+
+    ring = _ring_on_card(W)
+    xs, ws = _ring_shards(W, (37, 70), (70, 33), dtype, seed=30 + W)
+    got = cm.collective_matmul_ag(xs, ws, ring)
+    again = cm.collective_matmul_ag(xs, ws, ring)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _agree(got, cm.collective_matmul_ag_plain(xs, ws, ring), dtype)
 
 
 @pytest.mark.parametrize("W", [1, 2, 4, 8])
@@ -1512,9 +1619,8 @@ def test_ring_kernels_refuse_what_they_do_not_take(cuda):
     xs, ws = _ring_shards(2, (8, 16), (16, 8), torch.bfloat16, seed=0)
     with pytest.raises(TypeError):
         cm.collective_matmul_ag(xs, [w.float() for w in ws], ring)
-    with pytest.raises(TypeError):
-        cm.collective_matmul_rs([x.to(torch.int8) for x in xs], [w.to(torch.int8) for w in ws],
-                                ring)
+    with pytest.raises(TypeError):  # int8 x needs an int8 w
+        cm.collective_matmul_rs([x.to(torch.int8) for x in xs], ws, ring)
     with pytest.raises(ValueError, match="does not split"):
         cm.collective_matmul_rs([x[:7] for x in xs], ws, ring)
     with pytest.raises(ValueError, match="contiguous"):

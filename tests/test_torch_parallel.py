@@ -43,6 +43,10 @@ def _close(got, want, rel):
 
 
 def _operands(rng, shape_x, shape_w, dtype):
+    if dtype == "int8":
+        x = rng.integers(-127, 128, shape_x).astype(np.int8)
+        w = rng.integers(-127, 128, shape_w).astype(np.int8)
+        return x, w, x, w
     x = rng.standard_normal(shape_x).astype(np.float32)
     w = (rng.standard_normal(shape_w) * 0.3).astype(np.float32)
     if dtype == "bf16":
@@ -55,10 +59,20 @@ def _operands(rng, shape_x, shape_w, dtype):
                                   (8, None), (8, 1), (8, 2), (8, 4), (6, 2), (4, 1), (2, 2)])
 def test_meshplan_shapes_match_jax(n, tp):
     want = JaxMeshPlan.for_devices(n, tp=tp, devices=jax.devices()[:n])
-    got = MeshPlan.for_devices(n, tp=tp, devices=["cpu"] * 8)
+    got = MeshPlan.for_devices(n, tp=tp, devices=["cpu"] * n)
     assert got.mesh.shape == dict(want.mesh.shape)
     assert (got.tp_size, got.dp_size) == (want.tp_size, want.dp_size)
     assert got.mesh.axis_names == tuple(want.mesh.axis_names)
+
+
+@pytest.mark.parametrize("n_devices,given", [(2, 8), (4, 8), (8, 4), (1, 6)])
+def test_meshplan_reads_all_given_devices_as_jax(n_devices, given):
+    """Given `devices`, both packages take all of them and do not read
+    `n_devices`."""
+    want = JaxMeshPlan.for_devices(n_devices, devices=jax.devices()[:given])
+    got = MeshPlan.for_devices(n_devices, devices=["cpu"] * given)
+    assert got.mesh.shape == dict(want.mesh.shape)
+    assert got.mesh.size == given
 
 
 def test_meshplan_without_devices_needs_a_card():
@@ -123,15 +137,36 @@ def test_allgather_matmul_matches_jax(n, dtype):
 
 
 @pytest.mark.parametrize("n", WIDTHS)
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_reducescatter_matmul_matches_jax(n, dtype):
-    """Odd M/P (5), K/P (3) and N (7)."""
+    """Odd M/P (5), K/P (3) and N (7); int8 bit-equal, its sums past 127
+    saturating as the JAX kernel's cast does."""
     rng = np.random.default_rng(10 + n)
     jx, jw, x, w = _operands(rng, (5 * n, 3 * n), (3 * n, 7), dtype)
     jmesh, mesh = _meshes(n, "tp")
-    want = np.asarray(jcm.tp_reducescatter_matmul(jx, jw, jmesh)).astype(np.float32)
+    want = np.asarray(jcm.tp_reducescatter_matmul(jx, jw, jmesh))
     got = cm.tp_reducescatter_matmul(x, w, mesh)
-    _close(got.full().float().numpy(), want, 1e-5 if dtype == "f32" else 1e-2)
+    if dtype == "int8":
+        assert got.shards[0].dtype == torch.int8 and np.array_equal(got.numpy(), want)
+        assert np.abs(want).max() == 127 or want.min() == -128
+        return
+    _close(got.full().float().numpy(), want.astype(np.float32),
+           1e-5 if dtype == "f32" else 1e-2)
+
+
+def test_reducescatter_matmul_int8_saturates_as_jax():
+    """x (8, 64) and w (64, 6) int8 over 4 ranks: exact sums far past
+    127, which the JAX kernel's f32 sum and `astype` clamp to 127 / -128."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(-127, 128, (8, 64)).astype(np.int8)
+    w = rng.integers(-127, 128, (64, 6)).astype(np.int8)
+    jmesh, mesh = _meshes(4, "tp")
+    want = np.asarray(jcm.tp_reducescatter_matmul(x, w, jmesh))
+    got = cm.tp_reducescatter_matmul(x, w, mesh).numpy()
+    exact = x.astype(np.int64) @ w.astype(np.int64)
+    assert np.abs(exact).max() > 10_000
+    assert got.dtype == np.int8 and np.array_equal(got, want)
+    assert np.array_equal(got, np.clip(exact, -128, 127))
 
 
 @pytest.mark.parametrize("n", WIDTHS)
