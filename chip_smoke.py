@@ -1506,6 +1506,7 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
 
     from smelter_tpu_torch.kernels import dequant_conv as dc
     from smelter_tpu_torch.kernels import qlinear_conv as qc
+    from smelter_tpu_torch.kernels import wgmma_plan
 
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1592,7 +1593,10 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
         xl = [s_[0].permute(0, 3, 1, 2) for s_ in sets]  # NCHW views, channels-last
         wd = ((sets[0][1].float() * sets[0][2]).to(bf16).permute(3, 2, 0, 1)
               .contiguous(memory_format=cl))
+        plan = wgmma_plan.conv_plan(B, hw, hw, c, c, 3, 3, pads)
+        check(plan.form == "wgmma", f"dequant_conv {(hw, c)} takes the {plan.form} form")
         r = {"name": "dequant_conv", "shape": [B, hw, hw, c, c, 3], "calls_per_forward": 1,
+             "form": plan.form, "tile": [plan.bm, plan.bn], "tiles": plan.tiles,
              "bytes": nbytes, "ops": ops, "max_abs_err": err,
              "tolerance": f"1e-2 x max|plain| = {1e-2 * scale:.4g} (bf16)",
              "library": "F.conv2d channels-last bf16 on the dequantized weight"}
@@ -1628,6 +1632,10 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
     REPORT["dequant_conv_checks"] = checks
 
     for r in rows.values():
+        if r["name"] == "dequant_conv":
+            say(2, f"dequant_conv {r['shape']}: {r['form']} form, {r['tiles']} tiles of "
+                   f"{r['tile'][0]} x {r['tile'][1]} | kernel {r['ms']:.4f} ms, cuDNN "
+                   f"{r['library_ms']:.4f} ms")
         say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']}) | "
                f"kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), plain "
                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms ({r['library']}), "
@@ -4031,6 +4039,7 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
 
     from smelter_tpu_torch.kernels import collective_matmul as cm
     from smelter_tpu_torch.kernels import ring_attention_rdma as ra
+    from smelter_tpu_torch.kernels import wgmma_plan
     from smelter_tpu_torch.parallel import Mesh
 
     gc.collect()  # the earlier phases' garbage and cached blocks stay out of the timings
@@ -4144,6 +4153,10 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
     def gemm_row(name, fn, plain, lib, xs_, ws_, shape, rel=1e-2):
         Mg, Kg, Ng = shape
         err_ = err_of(fn(xs_, ws_, ring), plain(xs_, ws_, ring), rel, f"{name} {shape}")
+        step = ((Mg // RING_W, Ng // RING_W, Kg) if name == "collective_matmul_ag"
+                else (Mg // RING_W, Ng, Kg // RING_W))  # a rank's step (M, N, K)
+        form = wgmma_plan.plan(*step, int8_b=False).form
+        check(form == "tma", f"{name} {shape}: its steps take the {form} form")
         b_ms, b_by = bound((Mg * Kg + Kg * Ng + Mg * Ng) * 2, 2 * Mg * Ng * Kg, "bf16", power_w)
         ms = graph_ms(torch, side, lambda i: fn(xs_, ws_, ring), 10)
         return dict(name=name, shape=list(shape), dtype="bf16", max_abs_err=err_,
@@ -4153,7 +4166,8 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
                                       replays=2),
                     library_ms=graph_ms(torch, side, lambda i: lib(xs_, ws_), 10),
                     bound_ms=b_ms, bound_by=b_by, flops=2 * Mg * Ng * Kg,
-                    tflops=2 * Mg * Ng * Kg / ms / 1e9, ranks=RING_W)
+                    tflops=2 * Mg * Ng * Kg / ms / 1e9, ranks=RING_W, step=list(step),
+                    form=form)
 
     rows["ag"] = gemm_row("collective_matmul_ag", cm.collective_matmul_ag,
                           cm.collective_matmul_ag_plain, lib_ag, xs, w1s, (M, D, Fd))
@@ -4261,7 +4275,10 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
     del xs, w1s, q, k, v, qs, ks, vs
     for key, r in rows.items():
         say(13, f"{r['name']} {r['shape']} ({key}): err {r['max_abs_err']:.3g} "
-                f"({r['tolerance']}) | kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s; "
+                f"({r['tolerance']}) | "
+                + (f"steps of {r['step']} (M, N, K) in the {r['form']} form | " if "form" in r
+                   else "")
+                + f"kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s; "
                 f"host cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
                 f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {on_card}")

@@ -13,35 +13,38 @@
 // waits on another (W ranks may share one card).
 //
 // - ag step: out = the (M/P rows of the output for the shard in hand) =
-//   round(A @ B) in A's type. bf16/f16 run on csrc/wgmma_gemm.cuh, in the
-//   form kernels/wgmma_plan.py picks from the step's shape: the persistent
-//   TMA kernel (aligned shapes with tiles enough: ViT-B/16 b128's 6,304 x
-//   768 step makes 300 tiles of 128 x 128, llama_1b's 1,024 x 1,408 step
-//   88), or the cluster form (any shape; K split over up to 8 CTAs summed in a
-//   fixed order through distributed shared memory). int8 A and B sum in
-//   int32 on mma.sync m16n8k32 (csrc/int8_gemm.cuh) and the int32 sum is
-//   cast to int8, which wraps (keeps the low 8 bits), as the Pallas
-//   kernel's astype does.
+//   round(A @ B) in A's type.
 // - rs step: out = recv + A @ B, recv the f32 travelling sum received from
 //   the left-hand neighbour (nullptr at step 0), written in f32 to travel
-//   on, or, at the last step, rounded once to A's type. 16-bit types run
-//   csrc/gemm.cuh's main loop (mma.sync m16n8k16 on 128 x 128 tiles, a
-//   4-stage cp.async ring; element loads where K or N is not a multiple of
-//   8 or a pointer not 16-byte aligned). int8 sums in int32 on int8_gemm.cuh,
-//   converts the sum to f32 and adds it to the travelling sum; the last
-//   step clamps to [-128, 127] (NaN to 0) and truncates, as the JAX kernel's
-//   astype of its f32 sum does.
+//   on, or, at the last step, rounded once to A's type. recv and out are
+//   one buffer at the middle steps (the sum updated in place).
+// - bf16/f16 (both): csrc/wgmma_gemm.cuh, in the form kernels/wgmma_plan.py
+//   picks from the step's shape: the persistent TMA kernel gemm_tma
+//   (aligned shapes with tiles enough: ViT-B/16 b128's steps make 300 tiles
+//   of 128 x 128 over 4 ranks, llama_1b's ag step 88 and its rs step 128),
+//   or the cluster form (any shape; K split over up to 8 CTAs summed in a
+//   fixed order through distributed shared memory). The rs epilogue adds
+//   recv to the f32 sum and rounds once (the core's header says how).
+// - int8 A and B sum in int32 on mma.sync m16n8k32 (csrc/int8_gemm.cuh):
+//   ag casts the int32 sum to int8, which wraps (keeps the low 8 bits), as
+//   the Pallas kernel's astype does; rs converts the sum to f32 and adds it
+//   to the travelling sum, and its last step clamps to [-128, 127] (NaN to
+//   0) and truncates, as the JAX kernel's astype of its f32 sum does.
 // - f32 (both): csrc/gemm.cuh's register-tiled FMA loop in full f32 (no
 //   TF32).
 //
-// What bounds it on an H100: the tensor cores. At ViT-B/16's MLP at batch
-// 128 over 4 ranks (25,216 rows, 768 -> 3,072 -> 768) the pair does 238
-// GFLOP (241 us at 989 TFLOP/s dense bf16) against 86 MB of operands; the
-// ring's copies move another 116 MB (ag: 3 of the 4 x shards to each rank;
-// rs: 3 f32 partial sums of a chunk), which on one card are copies in the
-// same memory. The ag step on gemm.cuh's mma.sync loop, before the wgmma
-// core, ran at 83-107 TFLOP/s: 1.1074 ms a ViT-B/16 call, 0.9363 ms a
-// llama_1b one (NVIDIA H100 80GB HBM3, 700 W; PERF.md row 22).
+// What bounds it on an H100: the tensor cores for ag (ViT-B/16's MLP up at
+// batch 128 over 4 ranks: a step of 6,304 x 768 x 768, 7.4 GFLOP, 7.5 us
+// at 989 TFLOP/s dense bf16). rs's step at ViT-B/16 (6,304 x 768 x 768) is
+// bound by its epilogue's bytes: recv and out in f32 are 38.7 MB a step,
+// 11.6 us at 3.35 TB/s, more than its 7.5 us of tensor-core work; llama_1b's
+// (1,024 x 2,048 x 1,408) nearly so (16.8 MB, 5.0 us, against 6.0 us). So
+// gemm_tma brings each tile's recv into shared memory by TMA while the
+// tile's K loop runs, and the epilogue only adds and stores. On one card
+// the ring's slot copies move the same f32 sums again (3 a chunk).
+// Before the wgmma core the steps ran gemm.cuh's mma.sync loop at 83-107
+// TFLOP/s: ag 1.1074 ms a ViT-B/16 call, rs 1.4312 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md rows 22-23).
 #include <type_traits>
 
 #include "gemm.cuh"
@@ -52,39 +55,10 @@ namespace {
 
 using namespace smelter;
 
-// out[o] = [recv[o] +] v, one rounding to O. recv and out may be one buffer
-// (the travelling sum, updated in place), so neither is __restrict__.
-template <typename O>
-__device__ __forceinline__ void put(O* out, const float* recv, size_t o, float v) {
-  if (recv != nullptr) v = recv[o] + v;
-  store(&out[o], v);
-}
-
-template <typename T, typename O, bool VEC>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-step_mma(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
-         const float* recv, O* out, int M, int N, int K) {
-  extern __shared__ __align__(16) uint16_t smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[2][8][4];
-  gemm_mma_mainloop<T, VEC>(acc, A, B, M, N, K, N, m0, n0, smem);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + mi * 16 + g + h * 8;
-        if (row >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + wn + ni * 8 + t * 2 + j;
-          if (col < N) put(out, recv, static_cast<size_t>(row) * N + col, acc[mi][ni][h * 2 + j]);
-        }
-      }
+// out[o] = [recv[o] +] v. recv and out may be one buffer (the travelling
+// sum, updated in place), so neither is __restrict__.
+__device__ __forceinline__ void put(float* out, const float* recv, size_t o, float v) {
+  out[o] = recv != nullptr ? recv[o] + v : v;
 }
 
 __global__ void __launch_bounds__(GEMM_THREADS)
@@ -197,50 +171,21 @@ step_int8(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const floa
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <typename T, typename O, bool VEC>
-void launch_mma(const void* a, const void* b, const float* recv, void* out, int M, int N, int K,
-                cudaStream_t stream) {
-  static const cudaError_t smem_set = cudaFuncSetAttribute(
-      step_mma<T, O, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  (void)smem_set;  // a refusal shows as the launch's error
-  const dim3 grid(cdiv(N, BN), cdiv(M, BM));
-  step_mma<T, O, VEC><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b), recv,
-      static_cast<O*>(out), M, N, K);
-}
-
-template <typename T, typename O>
-void launch_16(const void* a, const void* b, const float* recv, void* out, int M, int N, int K,
-               cudaStream_t stream) {
-  if (K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(b))
-    launch_mma<T, O, true>(a, b, recv, out, M, N, K, stream);
-  else
-    launch_mma<T, O, false>(a, b, recv, out, M, N, K, stream);
-}
-
-// The ag step of a 16-bit type on the wgmma core, in the plan's form.
+// A 16-bit step on the wgmma core, in the plan's form: ag (recv nullptr,
+// out in T) or rs (out = [recv +] A @ B, f32 or T). The tma form's rs
+// epilogue moves recv and out in 16-byte chunks: both must be aligned.
 template <typename T>
-int launch_ag16(const void* a, const void* b, void* out, int M, int N, int K, int form, int bn,
-                int split, int k_chunk, int grid, cudaStream_t stream) {
-  const int o = std::is_same<T, __half>::value ? kF16 : kBF16;
-  if (form == wg::kFormTma && bn == 128)
-    return wg::launch_tma<T, 128>(a, b, out, o, M, N, K, grid, stream);
+int launch16(const void* a, const void* b, const float* recv, void* out, int out_dtype, int M,
+             int N, int K, int form, int bn, int split, int k_chunk, int grid,
+             cudaStream_t stream) {
+  if (form == wg::kFormTma && bn == 128 &&
+      (recv == nullptr || (aligned16(recv) && aligned16(out))))
+    return wg::launch_tma<T, 128>(a, b, recv, out, out_dtype, M, N, K, grid, stream);
   if (form == wg::kFormCluster && bn == wg::CL_BN && split >= 1 && split <= 8 && k_chunk > 0 &&
       k_chunk % wg::BK == 0)
-    return wg::launch_cluster<T, false>(a, b, nullptr, out, o, M, N, K, split, k_chunk, stream);
+    return wg::launch_cluster<T, false>(a, b, nullptr, recv, out, out_dtype, M, N, K, split,
+                                        k_chunk, stream);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The rs step of a 16-bit type (out f32, the travelling sum, or T at the
-// last step) on gemm.cuh's main loop.
-template <typename T>
-int launch_rs16(const void* a, const void* b, const float* recv, void* out, int M, int N, int K,
-                int out_dtype, cudaStream_t stream) {
-  if (out_dtype == kF32)
-    launch_16<T, float>(a, b, recv, out, M, N, K, stream);
-  else
-    launch_16<T, T>(a, b, recv, out, M, N, K, stream);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE>
@@ -263,9 +208,9 @@ extern "C" const char* smelter_error_string(int code) {
 
 // a (M, K) and b (K, N) row-major in in_dtype (f32, bf16, f16 or int8);
 // recv (M, N) f32 or nullptr; out (M, N) row-major in out_dtype. reduce 0
-// (ag): out in in_dtype, no recv; form, bn, split, k_chunk and grid are
-// kernels/wgmma_plan.py's plan for a 16-bit step. reduce 1 (rs): out f32
-// (the travelling sum) or in_dtype (the last step). Returns a cudaError_t
+// (ag): out in in_dtype, no recv. reduce 1 (rs): out f32 (the travelling
+// sum) or in_dtype (the last step). form, bn, split, k_chunk and grid are
+// kernels/wgmma_plan.py's plan for a 16-bit step. Returns a cudaError_t
 // code.
 extern "C" int smelter_collective_matmul(const void* a, const void* b, const void* recv,
                                          void* out, int M, int N, int K, int in_dtype,
@@ -287,13 +232,11 @@ extern "C" int smelter_collective_matmul(const void* a, const void* b, const voi
       return static_cast<int>(cudaGetLastError());
     }
     case kBF16:
-      return reduce == 0 ? launch_ag16<__nv_bfloat16>(a, b, out, M, N, K, form, bn, split,
-                                                       k_chunk, grid, st)
-                         : launch_rs16<__nv_bfloat16>(a, b, r, out, M, N, K, out_dtype, st);
+      return launch16<__nv_bfloat16>(a, b, r, out, out_dtype, M, N, K, form, bn, split, k_chunk,
+                                     grid, st);
     case kF16:
-      return reduce == 0 ? launch_ag16<__half>(a, b, out, M, N, K, form, bn, split, k_chunk,
-                                               grid, st)
-                         : launch_rs16<__half>(a, b, r, out, M, N, K, out_dtype, st);
+      return launch16<__half>(a, b, r, out, out_dtype, M, N, K, form, bn, split, k_chunk, grid,
+                              st);
     case kI8:
       if (reduce == 0) return launch_int8<kWrap>(a, b, nullptr, out, M, N, K, st);
       return travel ? launch_int8<kTravel>(a, b, r, out, M, N, K, st)

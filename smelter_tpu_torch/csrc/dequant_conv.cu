@@ -13,18 +13,44 @@
 //
 // What bounds it on an H100: at ResNet-50's stride-1 3x3 convs at batch 128
 // in bf16 (3.0e10 operations each, 0.030 ms at 989 TFLOP/s) the bytes tie
-// with the tensor cores at 56 x 56 x 64 and the tensor cores bound the
-// smaller maps; f32 takes the CUDA cores (67 TFLOP/s; no TF32).
+// with the tensor cores at 56 x 56 x 64 (103 MB, 0.031 ms at 3.35 TB/s)
+// and the tensor cores bound the smaller maps; f32 takes the CUDA cores (67
+// TFLOP/s; no TF32).
 //
-// Design, simple first: for 16-bit x, one 128x128 output tile per block of
-// 8 warps, each a 32x64 sub-tile of mma.sync.m16n8k16 with f32
-// accumulators. Per K step of 32 the block gathers A's 128 rows into shared
-// memory ([m][k], zeros in the padding) and converts the int8 weight tile,
-// [k][n] as HWIO lies, to x's type on its way there; fragments by ldmatrix
-// (B transposed). The next step's tiles are loaded into registers while the
-// tensor cores work. f32 x takes a register-tiled FMA kernel over 64x64
-// tiles on the same loader. One launch is one kernel.
+// Design: kernels/wgmma_plan.py::conv_plan picks one of two forms for
+// 16-bit x, by shape alone, before the launch:
+//
+// - wgmma (C_in % 64 == 0, C_out % 16 == 0, aligned bases; all of
+//   ResNet-50's stride-1 3x3 convs): csrc/wgmma_gemm.cuh's persistent,
+//   warp-specialised gemm_tma_ra with an im2col tensor map of x. The TMA
+//   unit gathers A itself: a box is 128 consecutive output pixels x 64
+//   channels of one tap (the tap is the load's im2col offset, the padding
+//   its zero fill, rows and images crossed by its own walk), landing in the
+//   128-byte-swizzled K-major layout wgmma reads, so no thread computes a
+//   pixel's address or spends registers on A. That route was taken over a
+//   producer warpgroup gathering 16-byte chunks with cp.async: one thread
+//   issues a step's loads, and the other producer threads idle. The int8
+//   HWIO weight is [k][co] with co fastest; it lands by TMA as it lies and
+//   is W^T's register A operand, each consumer converting its fragment's
+//   bytes exactly, so the im2col tile is wgmma's K-major B and the
+//   epilogue is the core's acc * s[co] in f32, rounded once; W never goes
+//   back to shared memory in 16 bits (the core's header counts the bytes).
+//   BN follows C_out: 64 (C_out 64: two 128-pixel boxes a tile, one a
+//   consumer warpgroup, sharing the W box) or 128.
+// - mma (every other stride-1 shape: C_in 3, C_in 37, unaligned bases):
+//   one 128x128 output tile per block of 8 warps, each a 32x64 sub-tile of
+//   mma.sync.m16n8k16 with f32 accumulators. Per K step of 32 the block
+//   gathers A's 128 rows into shared memory ([m][k], zeros in the padding)
+//   and converts the int8 weight tile, [k][n] as HWIO lies, to x's type on
+//   its way there; fragments by ldmatrix (B transposed). The next step's
+//   tiles are loaded into registers while the tensor cores work. It took
+//   0.9940 ms for ResNet-50's four stride-1 3x3 convs at b128 (NVIDIA H100
+//   80GB HBM3, 700 W; PERF.md row 5).
+//
+// f32 x takes a register-tiled FMA kernel over 64x64 tiles on the mma
+// form's loader. One launch is one kernel.
 #include "implicit_conv.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -217,6 +243,23 @@ dequant_conv_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// The wgmma form: tiles of bn (64 or 128) output channels on `grid` CTAs.
+template <typename T>
+int launch_wgmma(const void* x, const void* w, const float* s, void* out, int N, int H, int W,
+                 int Cin, int Ho, int Wo, int Cout, int kh, int kw, int ph, int pw, int bn,
+                 int grid, cudaStream_t st) {
+  if (Cin % 64 != 0 || Cout % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bn == 128)
+    return wg::launch_conv_ra<T, 128>(x, w, s, out, N, H, W, Cin, Ho, Wo, Cout, kh, kw, ph, pw,
+                                      grid, st);
+  if (bn == 64)
+    return wg::launch_conv_ra<T, 64>(x, w, s, out, N, H, W, Cin, Ho, Wo, Cout, kh, kw, ph, pw,
+                                     grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" const char* smelter_error_string(int code) {
@@ -225,33 +268,46 @@ extern "C" const char* smelter_error_string(int code) {
 
 // x (N, H, W, C_in) in dtype (kF32, kBF16, kF16); w (kh, kw, C_in, C_out)
 // int8; s (C_out,) f32; out (N, Ho, Wo, C_out) in dtype. All contiguous;
-// ph, pw the top and left pads. Returns a cudaError_t code.
+// ph, pw the top and left pads. form, bn and grid are
+// kernels/wgmma_plan.py::conv_plan's (form 1: wgmma, 16-bit x only; 0: the
+// mma.sync kernel, or the FMA kernel for f32). Returns a cudaError_t code.
 extern "C" int smelter_dequant_conv(const void* x, const void* w, const void* s, void* out,
                                     int N, int H, int W, int Cin, int Ho, int Wo, int Cout,
-                                    int kh, int kw, int ph, int pw, int dtype, void* stream) {
+                                    int kh, int kw, int ph, int pw, int dtype, int form, int bn,
+                                    int grid, void* stream) {
   const ConvGeom g = conv_geom(N, H, W, Cin, Ho, Wo, kh, kw, 1, 1, ph, pw);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* wq = static_cast<const int8_t*>(w);
   const auto* sc = static_cast<const float*>(s);
+  if (form == 1) {
+    if (dtype == kBF16)
+      return launch_wgmma<__nv_bfloat16>(x, w, sc, out, N, H, W, Cin, Ho, Wo, Cout, kh, kw, ph,
+                                         pw, bn, grid, st);
+    if (dtype == kF16)
+      return launch_wgmma<__half>(x, w, sc, out, N, H, W, Cin, Ho, Wo, Cout, kh, kw, ph, pw, bn,
+                                  grid, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (form != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool f32 = dtype == kF32;
   const int n_tiles = cdiv(Cout, f32 ? FN : BN);
   const long long blocks = static_cast<long long>(n_tiles) * cdiv(g.M, f32 ? FM : BM);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>(blocks);
+  const unsigned grid_mma = static_cast<unsigned>(blocks);
   const bool x_vec = Cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool w_vec = Cout % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const auto* xh = static_cast<const uint16_t*>(x);
   switch (dtype) {
     case kF32:
-      dequant_conv_f32<<<grid, THREADS, 0, st>>>(static_cast<const float*>(x), wq, sc,
-                                                 static_cast<float*>(out), g, Cout, n_tiles);
+      dequant_conv_f32<<<grid_mma, THREADS, 0, st>>>(static_cast<const float*>(x), wq, sc,
+                                                     static_cast<float*>(out), g, Cout, n_tiles);
       break;
     case kBF16:
-      dequant_conv_mma<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+      dequant_conv_mma<__nv_bfloat16><<<grid_mma, THREADS, 0, st>>>(
           xh, wq, sc, static_cast<__nv_bfloat16*>(out), g, Cout, n_tiles, x_vec, w_vec);
       break;
     case kF16:
-      dequant_conv_mma<__half><<<grid, THREADS, 0, st>>>(
+      dequant_conv_mma<__half><<<grid_mma, THREADS, 0, st>>>(
           xh, wq, sc, static_cast<__half*>(out), g, Cout, n_tiles, x_vec, w_vec);
       break;
     default:

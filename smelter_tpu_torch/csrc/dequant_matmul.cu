@@ -111,7 +111,8 @@ int run16(const void* x, const int8_t* w, const float* s, void* out, int out_dty
     return wg::launch_tma_ra<T>(x, w, s, out, out_dtype, M, N, K, grid, stream);
   if (form == wg::kFormCluster && bn == wg::CL_BN && split >= 1 && split <= 8 && k_chunk > 0 &&
       k_chunk % wg::BK == 0)
-    return wg::launch_cluster<T, true>(x, w, s, out, out_dtype, M, N, K, split, k_chunk, stream);
+    return wg::launch_cluster<T, true>(x, w, s, nullptr, out, out_dtype, M, N, K, split,
+                                          k_chunk, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

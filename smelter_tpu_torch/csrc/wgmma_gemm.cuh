@@ -2,7 +2,8 @@
 // accumulators, TMA loads (cp.async.bulk.tensor) into a ring of shared-memory
 // stages guarded by mbarriers, and thread-block clusters that sum a K split
 // through distributed shared memory. Raw PTX in the style of common.cuh.
-// Three kernels, shared by csrc/dequant_matmul.cu and csrc/collective_matmul.cu:
+// Three kernels, shared by csrc/dequant_matmul.cu, csrc/collective_matmul.cu
+// and csrc/dequant_conv.cu:
 //
 // gemm_tma (the "tma" form, 16-bit A and B): a persistent, warp-specialised
 //   kernel. Tiles of BM 128 x BN 128 (a template parameter) walk K in steps
@@ -21,18 +22,44 @@
 //   16-byte global strides: K % 8 == 0 for A, N % 8 (bf16 B) or N % 16 (int8
 //   W) and 16-byte aligned bases; the plan also keeps every box inside its
 //   matrix (M >= BM, K >= BK, N >= BN).
+//   With an f32 `recv` (collective_matmul_rs's travelling sum) the kernel
+//   computes out = recv + A @ B. Those bytes bound the step where K is short
+//   (ViT-B/16's MLP down over 4 ranks: 7.4 GFLOP, 7.5 us at 989 TFLOP/s,
+//   against 38.7 MB of recv and out, 11.6 us at 3.35 TB/s), and loads of
+//   recv in the epilogue stall every SM at once, so a second producer
+//   thread brings each tile's recv (128 x 128 f32, 64 KB, in place of the
+//   sub-tiles and one stage) into shared memory by TMA while the tile's K
+//   loop runs, a tile ahead at most (its own full/empty mbarriers). The
+//   epilogue adds the f32 accumulators into it there, then stores the sums
+//   in 16-byte chunks, rounded once to out's type. (A TMA store of the f32
+//   sums, tried too, gained too little to keep a second store path.) recv
+//   and out may be one buffer (the sum updated in place): a tile's recv is
+//   read before its out is written, and tiles are disjoint.
 //
-// gemm_tma_ra (the "tma" form for an int8 B, dequant_matmul's W): the same
-//   pipeline with the product transposed. The int8 W box (64 x 128 bytes,
-//   128-byte swizzled) is W^T's A operand: each consumer thread loads its
-//   bytes of mma.m16n8k16's A fragment (4 rows x 2 words a load, no bank
-//   conflict) and converts them in registers (two register sets, one per
-//   step in flight); the x box is B, K-major. The accumulator is out^T, 64 W
-//   columns x 128 x rows a warpgroup; two steps' groups overlap, each with
-//   its own register set. W never goes back to shared memory in
-//   16 bits: a K step moves 64 KB through shared memory (TMA 24, W loads 8,
-//   wgmma's B 32), where converting W into a 16-bit B tile there moves 96 KB
-//   (TMA 24, conversion 24, wgmma 48).
+// gemm_tma_ra (the "tma" form for an int8 B: dequant_matmul's W, and
+//   dequant_conv's HWIO weight): the same pipeline with the product
+//   transposed. The int8 W box (64 K rows of WC bytes, WC 128 with the
+//   128-byte swizzle or 64 with the 64-byte one) is W^T's A operand: each
+//   consumer thread loads its bytes of mma.m16n8k16's A fragment (4 rows x 2
+//   words a load, no bank conflict) and converts them in registers (two
+//   register sets, one per step in flight); the x box is B, K-major. The
+//   accumulator is out^T, 64 W columns x 128 x rows a warpgroup: with WC
+//   128 the two consumers split the W columns of one x box, with WC 64
+//   (C_out 64) they take one x box each, so no tile is half empty. Two
+//   steps' groups overlap, each with its own register set. W never goes
+//   back to shared memory in 16 bits: a K step moves 64 KB through shared
+//   memory (TMA 24, W loads 8, wgmma's B 32), where converting W into a
+//   16-bit B tile there moves 96 KB (TMA 24, conversion 24, wgmma 48).
+//   x comes from a 2-D map (a matrix) or, for a stride-1 conv, from an
+//   im2col map of the NHWC input (cuTensorMapEncodeIm2col): a box is 128
+//   consecutive output pixels x 64 channels of one tap, the tap (ky, kx) is
+//   the load's im2col offset, rows and images are crossed by the TMA unit's
+//   own walk of the pixels, and the padding is its zero fill. With C % 64 ==
+//   0 a K step of 64 lies inside one tap. The epilogue multiplies by the
+//   scales in f32 and, for a 16-bit out, rounds once and stores each 8 x 8
+//   block transposed (stmatrix.trans) into a staging tile in shared memory,
+//   whence rows go out in 16-byte chunks; out^T's own layout would store 2
+//   bytes a thread. An f32 out is stored from the accumulators.
 //
 // gemm_cluster (the "cluster" form): any shape and alignment. A 128 x 64
 //   output tile a CTA, 256 threads (two consumer warpgroups, no producer);
@@ -43,8 +70,9 @@
 //   each CTA writes its f32 partial tile to its own shared memory, and after
 //   a cluster barrier CTA rank r sums rows [r BM / S, (r + 1) BM / S) of all
 //   S partials in rank order 0..S-1 through distributed shared memory,
-//   applies the epilogue and stores. One launch, no global workspace, and
-//   the sum's order is fixed, so two calls agree bit for bit.
+//   applies the epilogue (the scales, or recv's add) and stores. One launch,
+//   no global workspace, and the sum's order is fixed, so two calls agree
+//   bit for bit.
 //
 // Shared-memory layouts (what wgmma's descriptors read):
 //   K-major with the 128-byte swizzle (A; x as gemm_tma_ra's B): row r of 64
@@ -55,6 +83,8 @@
 //     columns x BK rows, 8 KB apart (LBO); row k of an atom at k * 128 bytes,
 //     chunk c (columns 8c..8c+7) at ((c ^ (k & 7)) * 16); SBO 1024 (8 rows of
 //     K), K advanced 16 rows by adding 2048 bytes.
+//   int8 W box of 64-byte rows (the 64-byte swizzle): row k at k * 64, chunk
+//     c at ((c ^ ((k >> 1) & 3)) * 16).
 //   int8 -> bf16/f16 is exact: s8 + 128 as the low byte of a float 2^23
 //     (bf16: then - (2^23 + 128) and cvt.rn.bf16x2), or of a half 1024 (f16:
 //     then - 1152 in f16x2).
@@ -62,11 +92,14 @@
 // Sizes (bytes): tma form, a stage = A 16,384 + B (bf16: BN x 128; int8:
 // BN x 64); gemm_tma adds 32,768 for the epilogue's two 64 x 64 sub-tiles:
 //   BN 128 bf16: 6 stages, 230,496
-//   BN 128 int8: 8 stages, 197,760
+//   BN 128 bf16 with recv (its 65,536-byte tile in place of the sub-tiles):
+//     5 stages, 230,496
+//   BN 128 int8 (and 32,768 for its staged 16-bit output): 8 stages, 230,528
+//   WC 64 int8 (two x boxes a stage): 5 stages, 218,192
 // Cluster form: 3 stages of 16,384 + 8,192 and 1 KB for alignment, 74,752;
 // the f32 partials (128 x 72 floats, 36,864) reuse the stages.
 // smelter_tpu_torch/kernels/wgmma_plan.py mirrors these numbers and picks
-// the form, BN and S for a shape.
+// the form, BN and S for a shape (plan), and a conv's form (conv_plan).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -128,6 +161,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// One TMA im2col load: the box of the map's pixels (128 output pixels from
+// the one whose window starts at input column w, row h of image n) x its
+// channels from c, each pixel read at (w + ow, h + oh): the tap's offset.
+__device__ __forceinline__ void tma_load_im2col(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                int c, int w, int h, int n, uint16_t ow,
+                                                uint16_t oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(n),
+      "h"(ow), "h"(oh)
       : "memory");
 }
 // Orders this thread's generic-proxy shared-memory writes before later
@@ -386,8 +432,29 @@ __device__ __forceinline__ void put(void* out, int out_dtype, size_t o, float v)
     store(static_cast<__half*>(out) + o, v);
 }
 
+// v0 (low half) and v1 rounded once to the 16-bit type `out_dtype` names.
+__device__ __forceinline__ uint32_t pack2(int out_dtype, float v0, float v1) {
+  if (out_dtype == kBF16) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  const __half2 h = __floats2half2_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Four 8x8 b16 matrices in mma's accumulator layout (thread 4g + t holds
+// row g, columns 2t and 2t + 1 of each) stored transposed: lane 8i + q
+// names the address of row q of matrix i's transpose (column q of matrix i).
+__device__ __forceinline__ void stmatrix_x4_trans(void* smem, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(smem)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // gemm_tma's epilogue stages each warpgroup's output in 64 x 64 sub-tiles
@@ -403,26 +470,14 @@ __device__ __forceinline__ uint8_t* epi_at(uint8_t* epi, int es, int r, int c) {
   const int b = c * es;
   return epi + r * 64 * es + ((((b >> 4) ^ (r & 7))) << 4) + (b & 15);
 }
-// Sub-tile element (r, c) = v, in the output type.
-__device__ __forceinline__ void epi_put(uint8_t* epi, int out_dtype, int r, int c, float v) {
-  uint8_t* p = epi_at(epi, elem_bytes(out_dtype), r, c);
-  if (out_dtype == kF32)
-    *reinterpret_cast<float*>(p) = v;
-  else if (out_dtype == kBF16)
-    *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16(v);
-  else
-    *reinterpret_cast<__half*>(p) = __float2half(v);
-}
 // Sub-tile elements (r, c), (r, c + 1) = v0, v1; c even.
 __device__ __forceinline__ void epi_put2(uint8_t* epi, int out_dtype, int r, int c, float v0,
                                          float v1) {
   uint8_t* p = epi_at(epi, elem_bytes(out_dtype), r, c);
   if (out_dtype == kF32)
     *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-  else if (out_dtype == kBF16)
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
   else
-    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v0, v1);
+    *reinterpret_cast<uint32_t*>(p) = pack2(out_dtype, v0, v1);
 }
 // The sub-tile to out rows [row0, row0 + 64) x columns [col0, col0 + 64),
 // masked at M and N, by the warpgroup's 128 threads (t its thread).
@@ -443,35 +498,48 @@ __device__ __forceinline__ void epi_flush(const uint8_t* epi, void* out, int out
     }
   }
 }
-
 // -- the tma form -------------------------------------------------------------
 
-template <int BN>
+// RECV: out = recv + A @ B with an f32 recv (M, N). A second producer
+// thread brings each tile's recv into shared memory by TMA (boxes of 64
+// rows x 32 f32 columns, the 128-byte swizzle) while the tile's K loop
+// runs; the epilogue adds the f32 accumulators into it there and flushes
+// the sums. The tile takes the shared memory of the epilogue's sub-tiles
+// and of one stage.
+template <int BN, bool RECV>
 struct TmaCfg {
   static constexpr int THREADS = 128 * (CONSUMERS + 1);
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int B_BYTES = BK * BN * 2;
-  static constexpr int FIT = (SMEM_BUDGET - 1024 - CONSUMERS * EPI_WG) / (A_BYTES + B_BYTES);
+  static constexpr int EPI = RECV ? BM * BN * 4 : CONSUMERS * EPI_WG;
+  static constexpr int FIT = (SMEM_BUDGET - 1024 - EPI) / (A_BYTES + B_BYTES);
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int SMEM =
-      1024 + STAGES * (A_BYTES + B_BYTES) + CONSUMERS * EPI_WG + 16 * STAGES;
+      1024 + STAGES * (A_BYTES + B_BYTES) + EPI + 16 * STAGES + (RECV ? 16 : 0);
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
+constexpr int RECV_BOX = 64 * 32 * 4;  // one recv box: 64 rows of 128 bytes
 
-// out (M, N) = A (M, K) @ B, A a (M, K) T map (box 64 x 128, swizzled), B a
-// (K, N) T map (box 64 x 64, swizzled); out in the type `out_dtype` names.
-template <typename T, int BN>
-__global__ void __launch_bounds__(TmaCfg<BN>::THREADS, 1)
+// out (M, N) = [recv +] A (M, K) @ B, A a (M, K) T map (box 64 x 128,
+// swizzled), B a (K, N) T map (box 64 x 64, swizzled); with RECV, map_r an
+// f32 (M, N) map of recv (box 32 x 64, swizzled); out in the type
+// `out_dtype` names. recv and out may be one buffer: a tile's recv is read
+// (by TMA) before its out is written, and tiles are disjoint.
+template <typename T, int BN, bool RECV>
+__global__ void __launch_bounds__(TmaCfg<BN, RECV>::THREADS, 1)
 gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-         void* __restrict__ out, int out_dtype, int M, int N, int K) {
-  using Cfg = TmaCfg<BN>;
+         const __grid_constant__ CUtensorMap map_r, void* out, int out_dtype, int M, int N,
+         int K) {
+  using Cfg = TmaCfg<BN, RECV>;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sa = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sb = sa + STAGES * Cfg::A_BYTES;
-  uint8_t* se = sb + STAGES * Cfg::B_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(se + CONSUMERS * EPI_WG);
+  uint8_t* se = sb + STAGES * Cfg::B_BYTES;  // epilogue sub-tiles, or the recv tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(se + Cfg::EPI);
   uint64_t* empty = full + STAGES;
+  uint64_t* rfull = empty + STAGES;  // RECV: the tile's recv landed / was flushed
+  uint64_t* rempty = rfull + 1;
   const int nt = div_up(N, BN), tiles = div_up(M, BM) * nt, KT = div_up(K, BK);
 
   if (threadIdx.x == 0) {
@@ -479,11 +547,15 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS);
     }
+    if constexpr (RECV) {
+      mbar_init(rfull, 1);
+      mbar_init(rempty, CONSUMERS);
+    }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every load
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every stage's loads
     if (threadIdx.x == 0) {
       int stage = 0, phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -502,14 +574,25 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
           }
         }
       }
+    } else if (RECV && threadIdx.x == 32) {  // and one the recv tiles', a tile ahead at most
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+        const int m0 = (tile / nt) * BM, n0 = (tile % nt) * BN;
+        mbar_wait(rempty, (it & 1) ^ 1);
+        mbar_expect_tx(rfull, Cfg::EPI);
+#pragma unroll
+        for (int b = 0; b < (BM / 64) * (BN / 32); ++b)
+          tma_load_2d(se + b * RECV_BOX, &map_r, rfull, n0 + (b % (BN / 32)) * 32,
+                      m0 + (b / (BN / 32)) * 64);
+      }
     }
     return;
   }
 
   const int ct = threadIdx.x - 128, wgi = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
   float acc[BN / 2];
-  int stage = 0, phase = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  int stage = 0, phase = 0, it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
     const int m0 = (tile / nt) * BM, n0 = (tile % nt) * BN;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -535,20 +618,58 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
       if (prev1 >= 0) mbar_arrive(&empty[prev1]);
     }
     // acc[4j + 2h + e] = out (row 16 warp + g + 8h, column 8j + 2t + e)
-    uint8_t* epi = se + wgi * EPI_WG;
     const int g = lane >> 2, t = lane & 3;
+    if constexpr (RECV) {
+      // recv + acc in place, in f32: the warpgroup's 64 rows are boxes
+      // wgi (BN / 32) .. of 64 rows x 32 columns (row r at r * 128 bytes,
+      // 16-byte chunk c at (c ^ (r & 7)) * 16)
+      uint8_t* rt = se + wgi * (BN / 32) * RECV_BOX;
+      mbar_wait(rfull, it & 1);
 #pragma unroll
-    for (int c = 0; c < BN / 64; ++c) {
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int i = 4 * (8 * c + jj) + 2 * h;
-          epi_put2(epi, out_dtype, warp * 16 + g + 8 * h, 8 * jj + 2 * t, acc[i], acc[i + 1]);
+          const int r = warp * 16 + g + 8 * h, col = 8 * j + 2 * t;
+          float2* p = reinterpret_cast<float2*>(rt + (col >> 5) * RECV_BOX + r * 128 +
+                                                ((((col & 31) >> 2) ^ (r & 7)) << 4) +
+                                                ((col & 3) << 2));
+          const float2 v = *p;
+          *p = make_float2(v.x + acc[4 * j + 2 * h], v.y + acc[4 * j + 2 * h + 1]);
         }
       named_sync(1 + wgi, 128);
-      epi_flush(epi, out, out_dtype, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
+      // the sums to out, 16-byte chunks of f32 (8 bytes of T): a warp a row
+      const int row0 = m0 + wgi * 64;
+      for (int q = ct & 127; q < 64 * (BN / 4); q += 128) {
+        const int r = q / (BN / 4), cq = q % (BN / 4), row = row0 + r, col = n0 + cq * 4;
+        if (row >= M || col >= N) continue;
+        const float4 s = *reinterpret_cast<const float4*>(
+            rt + (cq >> 3) * RECV_BOX + r * 128 + (((cq & 7) ^ (r & 7)) << 4));
+        if (out_dtype == kF32)
+          *reinterpret_cast<float4*>(static_cast<float*>(out) + static_cast<size_t>(row) * N +
+                                     col) = s;
+        else
+          *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + static_cast<size_t>(row) * N +
+                                    col) =
+              make_uint2(pack2(out_dtype, s.x, s.y), pack2(out_dtype, s.z, s.w));
+      }
+      fence_proxy_async();  // these reads before the next tile's TMA writes
       named_sync(1 + wgi, 128);
+      if ((ct & 127) == 0) mbar_arrive(rempty);
+    } else {
+      uint8_t* epi = se + wgi * EPI_WG;
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * (8 * c + jj) + 2 * h;
+            epi_put2(epi, out_dtype, warp * 16 + g + 8 * h, 8 * jj + 2 * t, acc[i], acc[i + 1]);
+          }
+        named_sync(1 + wgi, 128);
+        epi_flush(epi, out, out_dtype, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
+        named_sync(1 + wgi, 128);
+      }
     }
   }
 }
@@ -572,31 +693,57 @@ __device__ __forceinline__ uint32_t i8_pair<__half>(uint32_t lo, uint32_t hi) {
   return r;
 }
 
-constexpr int RA_BW = 128;                  // W columns a tile: two warpgroups of 64
-constexpr int RA_W_BYTES = BK * RA_BW;      // the int8 W box, 128-byte swizzled
-constexpr int RA_A_BYTES = BM * BK * 2;     // the x box
-constexpr int RA_STAGES_FIT = (SMEM_BUDGET - 1024) / (RA_A_BYTES + RA_W_BYTES);
-constexpr int RA_STAGES = RA_STAGES_FIT > 8 ? 8 : RA_STAGES_FIT;
-constexpr int RA_SMEM = 1024 + RA_STAGES * (RA_A_BYTES + RA_W_BYTES) + 16 * RA_STAGES;
+constexpr int RA_BW = 128;  // W columns of dequant_matmul's tile: two warpgroups of 64
+
+// gemm_tma_ra's tile: WC W columns (128, or 64 for C_out 64) x XR x rows
+// (one 128-row x box both consumers read, or one box each).
+// The epilogue stages a warpgroup's 16-bit output (128 x rows x 64 W
+// columns) in shared memory: 16 KB each.
+constexpr int RA_EPI_WG = BM * 64 * 2;
+
+template <int WC>
+struct RaCfg {
+  static_assert(WC == 128 || WC == 64, "W tiles of 128 or 64 columns");
+  static constexpr int XR = WC == 128 ? BM : 2 * BM;
+  static constexpr int W_BYTES = BK * WC;    // the int8 W box, swizzled
+  static constexpr int X_BYTES = XR * BK * 2;
+  static constexpr int EPI = CONSUMERS * RA_EPI_WG;
+  static constexpr int FIT = (SMEM_BUDGET - 1024 - EPI) / (X_BYTES + W_BYTES);
+  static constexpr int STAGES = FIT > 8 ? 8 : FIT;
+  static constexpr int SMEM = 1024 + STAGES * (X_BYTES + W_BYTES) + EPI + 16 * STAGES;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// The implicit-GEMM view of a stride-1 conv for gemm_tma_ra's im2col form:
+// x row m is output pixel (n, i, j) = (m / hw, (m % hw) / Wo, m % Wo), whose
+// window starts at input row i - pt, column j - pl; K step kt reads
+// channels [c0, c0 + 64) of tap (ky, kx), kt BK = (ky kw + kx) C + c0 (K
+// runs over (ky, kx, c), c fastest, as an HWIO weight's rows do).
+struct Im2col {
+  int hw, Wo, pt, pl, kw, C;
+};
 
 // out (M, N) = x (M, K) @ W (K, N) * scales, computed as its transpose: each
 // consumer warpgroup's wgmma takes 64 W columns as its A operand, converted
 // from the int8 box straight into mma.m16n8k16's A-fragment registers, and
-// the x tile (128 rows, K-major in shared memory) as B; its accumulator is
-// out^T (64 W columns x 128 x rows). W is never written back to shared
-// memory in 16 bits.
-template <typename T>
+// 128 x rows (K-major in shared memory) as B; its accumulator is out^T (64
+// W columns x 128 x rows). W is never written back to shared memory in 16
+// bits. IM2COL: x is the im2col view `geo` of an NHWC map (M output
+// pixels); otherwise a (M, K) matrix.
+template <typename T, int WC, bool IM2COL>
 __global__ void __launch_bounds__(128 * (CONSUMERS + 1), 1)
 gemm_tma_ra(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
-            const float* __restrict__ scales, void* __restrict__ out, int out_dtype, int M,
-            int N, int K) {
-  constexpr int STAGES = RA_STAGES;
+            Im2col geo, const float* __restrict__ scales, void* __restrict__ out, int out_dtype,
+            int M, int N, int K) {
+  using Cfg = RaCfg<WC>;
+  constexpr int STAGES = Cfg::STAGES, XR = Cfg::XR;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sx = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sw = sx + STAGES * RA_A_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sw + STAGES * RA_W_BYTES);
+  uint8_t* sw = sx + STAGES * Cfg::X_BYTES;
+  uint8_t* se = sw + STAGES * Cfg::W_BYTES;  // the epilogue's staged output
+  uint64_t* full = reinterpret_cast<uint64_t*>(se + Cfg::EPI);
   uint64_t* empty = full + STAGES;
-  const int nt = div_up(N, RA_BW), tiles = div_up(M, BM) * nt, KT = div_up(K, BK);
+  const int nt = div_up(N, WC), tiles = div_up(M, XR) * nt, KT = div_up(K, BK);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -611,12 +758,35 @@ gemm_tma_ra(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
     if (threadIdx.x == 0) {
       int stage = 0, phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / nt) * BM, n0 = (tile % nt) * RA_BW;
+        const int m0 = (tile / nt) * XR, n0 = (tile % nt) * WC;
+        int px[XR / BM][3] = {};  // each x box's first pixel: window column, row, image
+        if constexpr (IM2COL) {
+#pragma unroll
+          for (int b = 0; b < XR / BM; ++b) {
+            const int m = m0 + b * BM, n = m / geo.hw, r = m - n * geo.hw, i = r / geo.Wo;
+            px[b][0] = r - i * geo.Wo - geo.pl;
+            px[b][1] = i - geo.pt;
+            px[b][2] = n;
+          }
+        }
+        // x boxes that start past the last row are not loaded: their rows'
+        // outputs are never stored
+        const int boxes = min(XR / BM, div_up(M - m0, BM));
         for (int kt = 0; kt < KT; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], RA_A_BYTES + RA_W_BYTES);
-          tma_load_2d(sx + stage * RA_A_BYTES, &map_x, &full[stage], kt * BK, m0);
-          tma_load_2d(sw + stage * RA_W_BYTES, &map_w, &full[stage], n0, kt * BK);
+          mbar_expect_tx(&full[stage], boxes * BM * BK * 2 + Cfg::W_BYTES);
+          uint8_t* x = sx + stage * Cfg::X_BYTES;
+          if constexpr (IM2COL) {
+            const int k0 = kt * BK, tap = k0 / geo.C, ky = tap / geo.kw;
+            for (int b = 0; b < boxes; ++b)
+              tma_load_im2col(x + b * BM * BK * 2, &map_x, &full[stage], k0 - tap * geo.C,
+                              px[b][0], px[b][1], px[b][2],
+                              static_cast<uint16_t>(tap - ky * geo.kw), static_cast<uint16_t>(ky));
+          } else {
+            for (int b = 0; b < boxes; ++b)
+              tma_load_2d(x + b * BM * BK * 2, &map_x, &full[stage], kt * BK, m0 + b * BM);
+          }
+          tma_load_2d(sw + stage * Cfg::W_BYTES, &map_w, &full[stage], n0, kt * BK);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -629,17 +799,22 @@ gemm_tma_ra(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
 
   const int ct = threadIdx.x - 128, wgi = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int nr = wgi * 64 + warp * 16 + g;  // this thread's first W column in the tile
-  float acc[RA_BW / 2];
+  // this thread's first W column in the tile, and its warpgroup's first x row
+  const int nr = (WC == 128 ? wgi * 64 : 0) + warp * 16 + g;
+  const int xr = WC == 128 ? 0 : wgi * BM;
+  float acc[64];
   uint32_t ra0[BK / 16][4], ra1[BK / 16][4];  // A fragments of two steps in flight
   int stage = 0, phase = 0;
 
-  // One K step: W's fragments from the int8 box (bytes (k, n) of a 128-byte
+  // One K step: W's fragments from the int8 box (bytes (k, n) of a WC-byte
   // swizzled row: 4 rows x 2 words a load, no bank conflict), then four
   // wgmma k16 on them.
   auto step = [&](uint32_t (&a)[BK / 16][4], const uint8_t* w, const uint8_t* x) {
     auto byte = [&](int k, int n) -> uint32_t {
-      return w[k * 128 + (((n >> 4) ^ (k & 7)) << 4) + (n & 15)];
+      if constexpr (WC == 128)
+        return w[k * 128 + (((n >> 4) ^ (k & 7)) << 4) + (n & 15)];
+      else
+        return w[k * 64 + (((n >> 4) ^ ((k >> 1) & 3)) << 4) + (n & 15)];
     };
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -657,14 +832,14 @@ gemm_tma_ra(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
   };
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / nt) * BM, n0 = (tile % nt) * RA_BW;
+    const int m0 = (tile / nt) * XR, n0 = (tile % nt) * WC;
 #pragma unroll
-    for (int i = 0; i < RA_BW / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     int prev = -1;
     for (int kt = 0; kt < KT; ++kt) {
       mbar_wait(&full[stage], phase);
-      const uint8_t* w = sw + stage * RA_W_BYTES;
-      const uint8_t* x = sx + stage * RA_A_BYTES;
+      const uint8_t* w = sw + stage * Cfg::W_BYTES;
+      const uint8_t* x = sx + stage * Cfg::X_BYTES + xr * BK * 2;
       if (kt & 1)
         step(ra1, w, x);
       else
@@ -680,22 +855,58 @@ gemm_tma_ra(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
     wgmma_wait<0>();
     fence_regs(acc);
     if (prev >= 0 && (ct & 127) == 0) mbar_arrive(&empty[prev]);
-    // acc[4j + 2h + e] = out^T (W column nr + 8h, x row 8j + 2t + e); for a
-    // fixed (j, h, e) a warp stores 4 rows of 16 contiguous bytes
+    // acc[4j + 2h + e] = out^T (W column nr + 8h, x row 8j + 2t + e)
+    if (out_dtype != kF32) {
+      // 16-bit out (N % 8 == 0, the plans'): acc * s rounded once, each 8 x 8
+      // block stored transposed by stmatrix into the warpgroup's staging
+      // tile (x row r's 64 W columns at r * 128 bytes, 16-byte chunk c at
+      // (c ^ (r & 7)) * 16), then 16-byte stores, a warp 4 rows of 128 bytes
+      uint8_t* stg = se + wgi * RA_EPI_WG;
+      const float s0 = n0 + nr < N ? scales[n0 + nr] : 0.f;
+      const float s1 = n0 + nr + 8 < N ? scales[n0 + nr + 8] : 0.f;
+      const int mi = lane >> 3, q = lane & 7;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + nr + 8 * h;
-      if (col >= N) continue;
-      const float sc = scales[col];
+      for (int jp = 0; jp < BM / 16; ++jp) {
+        uint32_t r[4];
 #pragma unroll
-      for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = m0 + 8 * j + 2 * t + e;
-          if (row < M)
-            put(out, out_dtype, static_cast<size_t>(row) * N + col,
-                __fmul_rn(acc[4 * j + 2 * h + e], sc));
+        for (int m = 0; m < 4; ++m) {  // matrix m: x rows 8 (2 jp + m / 2).., W columns 8 (m & 1)..
+          const int i = 4 * (2 * jp + (m >> 1)) + 2 * (m & 1);
+          const float sc = (m & 1) ? s1 : s0;
+          r[m] = pack2(out_dtype, __fmul_rn(acc[i], sc), __fmul_rn(acc[i + 1], sc));
         }
+        const int row = 8 * (2 * jp + (mi >> 1)) + q;
+        stmatrix_x4_trans(stg + row * 128 + (((warp * 2 + (mi & 1)) ^ (row & 7)) << 4), r[0],
+                          r[1], r[2], r[3]);
+      }
+      named_sync(1 + wgi, 128);
+      const int col0 = n0 + (WC == 128 ? wgi * 64 : 0);
+#pragma unroll
+      for (int i = 0; i < BM * 8 / 128; ++i) {
+        const int qq = (ct & 127) + i * 128, r = qq >> 3, c = qq & 7;
+        const int row = m0 + xr + r, col = col0 + c * 8;
+        if (row < M && col < N)
+          *reinterpret_cast<uint4*>(static_cast<uint16_t*>(out) + static_cast<size_t>(row) * N +
+                                    col) =
+              *reinterpret_cast<const uint4*>(stg + r * 128 + ((c ^ (r & 7)) << 4));
+      }
+      named_sync(1 + wgi, 128);
+    } else {
+      // f32 out: for a fixed (j, h, e) a warp stores 4 rows of 32 contiguous bytes
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + nr + 8 * h;
+        if (col >= N) continue;
+        const float sc = scales[col];
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = m0 + xr + 8 * j + 2 * t + e;
+            if (row < M)
+              put(out, out_dtype, static_cast<size_t>(row) * N + col,
+                  __fmul_rn(acc[4 * j + 2 * h + e], sc));
+          }
+      }
     }
   }
 }
@@ -708,16 +919,18 @@ constexpr int CL_SMEM = 1024 + CL_STAGES * (CL_A + CL_B);
 constexpr int CL_PART = CL_BN + 8;  // floats a row of the f32 partial tile
 static_assert(BM * CL_PART * 4 <= CL_STAGES * (CL_A + CL_B), "partials do not fit the stages");
 
-// out (M, N) = A (M, K) @ B [* scales] for any shape: A (M, K) row-major in T;
-// B (K, N) row-major, T or (INT8_B) int8. Grid (N / 64, M / 128, S), a
-// cluster of (1, 1, S); CTA z takes K rows [z k_chunk, (z + 1) k_chunk).
-// A_VEC / B_VEC: 16-byte (int8: 8-byte) loads, when K (N) and the base
-// allow; otherwise one element at a time.
+// out (M, N) = [recv +] A (M, K) @ B [* scales] for any shape: A (M, K)
+// row-major in T; B (K, N) row-major, T or (INT8_B) int8; recv (M, N) f32
+// or nullptr, which may alias out (the same thread reads and writes an
+// element). Grid (N / 64, M / 128, S), a cluster of (1, 1, S); CTA z takes
+// K rows [z k_chunk, (z + 1) k_chunk). A_VEC / B_VEC: 16-byte (int8:
+// 8-byte) loads, when K (N) and the base allow; otherwise one element at a
+// time.
 template <typename T, bool INT8_B>
 __global__ void __launch_bounds__(CL_THREADS)
 gemm_cluster(const uint16_t* __restrict__ A, const void* __restrict__ Bv,
-             const float* __restrict__ scales, void* __restrict__ out, int out_dtype, int M,
-             int N, int K, int k_chunk, bool a_vec, bool b_vec) {
+             const float* __restrict__ scales, const float* recv, void* out, int out_dtype,
+             int M, int N, int K, int k_chunk, bool a_vec, bool b_vec) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   cg::cluster_group cluster = cg::this_cluster();
@@ -841,8 +1054,11 @@ gemm_cluster(const uint16_t* __restrict__ A, const void* __restrict__ Bv,
     const int row = m0 + r, col = n0 + c;
     float v = 0.f;
     for (int q = 0; q < S; ++q) v += cluster.map_shared_rank(part, q)[r * CL_PART + c];
-    if (row < M && col < N)
-      put(out, out_dtype, static_cast<size_t>(row) * N + col, scaled(v, scales, col));
+    if (row < M && col < N) {
+      const size_t o = static_cast<size_t>(row) * N + col;
+      v = scaled(v, scales, col);
+      put(out, out_dtype, o, recv != nullptr ? recv[o] + v : v);
+    }
   }
   cluster.sync();  // no rank leaves while another still reads its partial
 }
@@ -853,39 +1069,63 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// -lcuda at build time).
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+// The CUDA 12.0 version of the entry point `name`, found through the
+// runtime (no -lcuda at build time); nullptr where it is missing.
+static void* entry_point(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
+  cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &found);
 #else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+  cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
+  return found == cudaDriverEntryPointSuccess ? p : nullptr;
 }
 
 // A map of the row-major (rows, cols) matrix at `base`, boxes of (box_rows,
-// box_cols); `swizzle`: the 128-byte swizzle. Returns a cudaError_t code.
+// box_cols), swizzled as `swizzle` says. Returns a cudaError_t code.
 static int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
                     int elem_bytes, int rows, int cols, int box_rows, int box_cols,
-                    bool swizzle) {
-  const EncodeTiled fn = encode_tiled();
+                    CUtensorMapSwizzle swizzle) {
+  static const auto fn = reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The im2col map of a stride-1 conv's NHWC input x (N, H, W, C) in T: boxes
+// of 128 output pixels x 64 channels (128 bytes, the 128-byte swizzle).
+// The bounding box of window starts runs from (-pl, -pt) to (Wo - 1 - pl,
+// Ho - 1 - pt), its corners given as offsets from the map's first and last
+// pixel, W first; positions outside the map read as zeros (the padding).
+static int make_im2col_map(CUtensorMap* map, const void* x, CUtensorMapDataType type, int N,
+                           int H, int W, int C, int Ho, int Wo, int pt, int pl) {
+  static const auto fn =
+      reinterpret_cast<EncodeIm2col>(entry_point("cuTensorMapEncodeIm2col"));
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(C) * 2 * W,
+                                 static_cast<cuuint64_t>(C) * 2 * W * H};
+  const int lower[2] = {-pl, -pt};
+  const int upper[2] = {Wo - W - pl, Ho - H - pt};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, type, 4, const_cast<void*>(x), dims, strides, lower, upper, BK, BM,
+                        step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -895,21 +1135,51 @@ constexpr CUtensorMapDataType map_type() {
                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-// The tma form on `grid` CTAs: a (M, K) and b (K, N) in T. Returns a
-// cudaError_t code.
+// The tma form on `grid` CTAs: a (M, K) and b (K, N) in T; recv (M, N) f32
+// or nullptr. Returns a cudaError_t code.
 template <typename T, int BN>
-static int launch_tma(const void* a, const void* b, void* out, int out_dtype, int M, int N,
-                      int K, int grid, cudaStream_t stream) {
-  using Cfg = TmaCfg<BN>;
-  CUtensorMap map_a, map_b;
-  int rc = make_map(&map_a, a, map_type<T>(), 2, M, K, BM, BK, true);
-  if (rc == 0) rc = make_map(&map_b, b, map_type<T>(), 2, K, N, BK, ATOM, true);
+static int launch_tma(const void* a, const void* b, const float* recv, void* out, int out_dtype,
+                      int M, int N, int K, int grid, cudaStream_t stream) {
+  CUtensorMap map_a, map_b, map_r;
+  int rc = make_map(&map_a, a, map_type<T>(), 2, M, K, BM, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0) rc = make_map(&map_b, b, map_type<T>(), 2, K, N, BK, ATOM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0 && recv != nullptr)
+    rc = make_map(&map_r, recv, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, N, 64, 32,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  if (recv != nullptr) {
+    using Cfg = TmaCfg<BN, true>;
+    static const cudaError_t smem_set = cudaFuncSetAttribute(
+        gemm_tma<T, BN, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    (void)smem_set;  // a refusal shows as the launch's error
+    gemm_tma<T, BN, true><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
+        map_a, map_b, map_r, out, out_dtype, M, N, K);
+  } else {
+    using Cfg = TmaCfg<BN, false>;
+    static const cudaError_t smem_set = cudaFuncSetAttribute(
+        gemm_tma<T, BN, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    (void)smem_set;
+    gemm_tma<T, BN, false><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
+        map_a, map_b, map_a, out, out_dtype, M, N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gemm_tma_ra on `grid` CTAs once its maps are made; w (K, N) int8.
+template <typename T, int WC, bool IM2COL>
+static int launch_ra(const CUtensorMap& map_x, const void* w, Im2col geo, const float* scales,
+                     void* out, int out_dtype, int M, int N, int K, int grid,
+                     cudaStream_t stream) {
+  using Cfg = RaCfg<WC>;
+  CUtensorMap map_w;
+  const int rc = make_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, BK, WC,
+                          WC == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
   if (rc != 0) return rc;
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      gemm_tma<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
-  (void)smem_set;  // a refusal shows as the launch's error
-  gemm_tma<T, BN><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(map_a, map_b, out, out_dtype, M, N,
-                                                            K);
+      gemm_tma_ra<T, WC, IM2COL>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+  (void)smem_set;
+  gemm_tma_ra<T, WC, IM2COL><<<grid, 128 * (CONSUMERS + 1), Cfg::SMEM, stream>>>(
+      map_x, map_w, geo, scales, out, out_dtype, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -917,22 +1187,34 @@ static int launch_tma(const void* a, const void* b, void* out, int out_dtype, in
 template <typename T>
 static int launch_tma_ra(const void* x, const void* w, const float* scales, void* out,
                          int out_dtype, int M, int N, int K, int grid, cudaStream_t stream) {
-  CUtensorMap map_x, map_w;
-  int rc = make_map(&map_x, x, map_type<T>(), 2, M, K, BM, BK, true);
-  if (rc == 0) rc = make_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, BK, RA_BW, true);
+  CUtensorMap map_x;
+  const int rc = make_map(&map_x, x, map_type<T>(), 2, M, K, BM, BK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc != 0) return rc;
-  static const cudaError_t smem_set = cudaFuncSetAttribute(
-      gemm_tma_ra<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, RA_SMEM);
-  (void)smem_set;
-  gemm_tma_ra<T><<<grid, 128 * (CONSUMERS + 1), RA_SMEM, stream>>>(map_x, map_w, scales, out,
-                                                                 out_dtype, M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ra<T, RA_BW, false>(map_x, w, Im2col{}, scales, out, out_dtype, M, N, K, grid,
+                                    stream);
 }
 
-// The cluster form with a K split of `split` CTAs of `k_chunk` rows each.
+// A stride-1 conv on gemm_tma_ra's im2col form: x (N, H, W, C) in T, w
+// (kh kw C, Cout) int8 (HWIO), out (N Ho Wo, Cout) in T; tiles of WC
+// output channels, `grid` CTAs. C % 64 == 0, Cout % 16 == 0, both bases
+// 16-byte aligned (the plan's checks).
+template <typename T, int WC>
+static int launch_conv_ra(const void* x, const void* w, const float* scales, void* out, int N,
+                          int H, int W, int C, int Ho, int Wo, int Cout, int kh, int kw, int pt,
+                          int pl, int grid, cudaStream_t stream) {
+  CUtensorMap map_x;
+  const int rc = make_im2col_map(&map_x, x, map_type<T>(), N, H, W, C, Ho, Wo, pt, pl);
+  if (rc != 0) return rc;
+  const int o = std::is_same<T, __half>::value ? kF16 : kBF16;
+  return launch_ra<T, WC, true>(map_x, w, Im2col{Ho * Wo, Wo, pt, pl, kw, C}, scales, out, o,
+                                N * Ho * Wo, Cout, kh * kw * C, grid, stream);
+}
+
+// The cluster form with a K split of `split` CTAs of `k_chunk` rows each;
+// recv (M, N) f32 or nullptr.
 template <typename T, bool INT8_B>
-static int launch_cluster(const void* a, const void* b, const float* scales, void* out,
-                          int out_dtype, int M, int N, int K, int split, int k_chunk,
+static int launch_cluster(const void* a, const void* b, const float* scales, const float* recv,
+                          void* out, int out_dtype, int M, int N, int K, int split, int k_chunk,
                           cudaStream_t stream) {
   static const cudaError_t smem_set = cudaFuncSetAttribute(
       gemm_cluster<T, INT8_B>, cudaFuncAttributeMaxDynamicSharedMemorySize, CL_SMEM);
@@ -952,7 +1234,7 @@ static int launch_cluster(const void* a, const void* b, const float* scales, voi
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_cluster<T, INT8_B>,
-                                           static_cast<const uint16_t*>(a), b, scales, out,
+                                           static_cast<const uint16_t*>(a), b, scales, recv, out,
                                            out_dtype, M, N, K, k_chunk, a_vec, b_vec);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -23,17 +23,21 @@ are `make_async_remote_copy` inside the kernel. The port's ring is
 `parallel/ring.py` (slot copies on a comm stream, ordered by CUDA events)
 and a step of a rank is one launch of `csrc/collective_matmul.cu`:
 
-- What bounds it on an H100: the tensor cores; at ViT-B/16's MLP at batch
-  128 over 4 ranks the pair does 238 GFLOP (241 us at 989 TFLOP/s dense
-  bf16) against 86 MB of operands.
-- What the design does: a bf16/f16 `ag` step runs on the wgmma/TMA core
-  (`csrc/wgmma_gemm.cuh`), in the form `wgmma_plan.plan` picks from the
-  step's shape (the persistent TMA kernel, or a K split over a cluster);
-  the `rs` step runs csrc/gemm.cuh's mma.sync main loop with an epilogue
-  that adds the received f32 sum; int8 steps run csrc/int8_gemm.cuh's
-  m16n8k32 tiles (`ag` wraps, `rs` adds its int32 sum to the f32
-  travelling sum and saturates at the last step); the copy of a step runs
-  on its own stream beside the other ranks' launches.
+- What bounds it on an H100: the tensor cores for `ag`; at ViT-B/16's MLP
+  at batch 128 over 4 ranks the pair does 238 GFLOP (241 us at 989
+  TFLOP/s dense bf16) against 86 MB of operands. An `rs` step there is
+  bound by its epilogue's bytes instead: the f32 travelling sum read and
+  written (38.7 MB a step, 11.6 us at 3.35 TB/s) outweighs its 7.5 us of
+  tensor-core work, and at llama_1b nearly so.
+- What the design does: a bf16/f16 step of either runs on the wgmma/TMA
+  core (`csrc/wgmma_gemm.cuh`), in the form `wgmma_plan.plan` picks from
+  the step's shape (the persistent TMA kernel, or a K split over a
+  cluster); `rs`'s epilogue adds the received f32 sum to the f32 product
+  and rounds once, each tile's recv brought into shared memory by TMA
+  while its K loop runs; int8 steps run csrc/int8_gemm.cuh's m16n8k32
+  tiles (`ag` wraps, `rs` adds its int32 sum to the f32 travelling sum and
+  saturates at the last step); the copy of a step runs on its own stream
+  beside the other ranks' launches.
 
 The per-shard entries take each rank's shards (in ring order) and the
 `Ring`; `tp_allgather_matmul` and `tp_reducescatter_matmul` take full
@@ -146,17 +150,20 @@ def _kernel_checks(xs, ws, dtypes, what: str) -> None:
         raise ValueError(f"{what}: shards must be contiguous")
 
 
-_NO_PLAN = wgmma_plan.Plan("tma", 0, 0, 0, 0, 0, 0)  # what the kernels of rs, f32, int8 ignore
+_NO_PLAN = wgmma_plan.Plan("tma", 0, 0, 0, 0, 0, 0)  # what the f32 and int8 kernels ignore
 
 
 def _launch(lib, a, b, recv, out, reduce: bool, what: str) -> None:
-    """One step: ag (`reduce` False: recv None, out in a's dtype; a 16-bit
-    step on its `wgmma_plan` plan) or rs."""
+    """One step: ag (`reduce` False: recv None, out in a's dtype) or rs
+    (out = [recv +] a @ b); a 16-bit step on its `wgmma_plan` plan, whose
+    tma form needs a and b aligned, and for rs recv and out too (its
+    epilogue moves them in 16-byte chunks)."""
     M, K = a.shape
     N = b.shape[1]
-    p = (wgmma_plan.plan(M, N, K, int8_b=False, aligned=_build.aligned16(a, b),
+    ops = (a, b) if not reduce else tuple(t for t in (a, b, recv, out) if t is not None)
+    p = (wgmma_plan.plan(M, N, K, int8_b=False, aligned=_build.aligned16(*ops),
                          sms=_build.sms(a.device))
-         if not reduce and a.dtype in (torch.bfloat16, torch.float16) else _NO_PLAN)
+         if a.dtype in (torch.bfloat16, torch.float16) else _NO_PLAN)
     with torch.cuda.device(a.device):
         rc = lib.smelter_collective_matmul(
             a.data_ptr(), b.data_ptr(), None if recv is None else recv.data_ptr(),

@@ -19,22 +19,26 @@ XLA's conv outside Mosaic's alignment rule (C_out % 128, (tile_h * W_out) %
 stride-1 shape. The TPU tiling arguments (`tile_h`, `block_cout`) and
 `interpret` have no counterpart. No path of the JAX package reaches this
 kernel; nor does one of the port's. The Hopper kernel is
-`csrc/dequant_conv.cu` on the implicit-GEMM tile loader of
-`csrc/implicit_conv.cuh`:
+`csrc/dequant_conv.cu`:
 
 - What bounds it on an H100: at ResNet-50's four stride-1 3x3 convs at
   batch 128 in bf16, each 3.0e10 operations (0.030 ms at 989 TFLOP/s), the
   bytes tie with the tensor cores at 56 x 56 x 64 (103 MB, 0.031 ms at
   3.35 TB/s) and the tensor cores bound the three smaller maps. f32 runs on
   CUDA cores (67 TFLOP/s), since TF32 would break the 1e-5 bound.
-- What the simple design does about it: an implicit GEMM, M = N * H_o * W_o
-  output pixels, N = C_out, K = kh * kw * C_in, on mma.sync m16n8k16 with
-  f32 accumulators over 128 x 128 tiles. A's rows are gathered 16 bytes at
-  a time from the NHWC input, zeros where the padding lies; the int8 weight
-  tile ([k][n], HWIO as it lies) is converted to x's dtype on its way to
-  shared memory, and read by ldmatrix.trans. The next K step loads into
-  registers while the tensor cores work. f32 takes a register-tiled FMA
-  kernel on the same loader.
+- What the design does about it: an implicit GEMM, M = N * H_o * W_o
+  output pixels, N = C_out, K = kh * kw * C_in, with f32 accumulators, in
+  the form `wgmma_plan.conv_plan` picks from the shape before the launch.
+  "wgmma" (C_in % 64 == 0, C_out % 16 == 0, aligned bases: ResNet-50's
+  convs) runs the wgmma/TMA core `csrc/wgmma_gemm.cuh`'s persistent
+  `gemm_tma_ra`: the TMA unit gathers A through an im2col map of x (128
+  pixels x 64 channels of one tap a box, the padding its zero fill), the
+  int8 weight lands as it lies and is converted exactly into wgmma's
+  register operand, and 64- or 128-channel tiles follow C_out. "mma"
+  (every other shape: C_in 3, odd channel counts, unaligned bases) runs
+  mma.sync m16n8k16 over 128 x 128 tiles, A gathered 16 bytes at a time
+  from the NHWC input and the weight converted on its way to shared
+  memory. f32 takes a register-tiled FMA kernel on the same loader.
 
 A CPU or `meta` tensor takes the plain version (`dequant_conv_plain`); a
 CUDA tensor launches the kernel or raises. `launches` counts kernel
@@ -46,12 +50,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, wgmma_plan
 from .qlinear_conv import pad_arg
 
 launches = 0
 
 _X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_FMA = wgmma_plan.ConvPlan("mma", 64, 64, 0, 1, 0, 0)  # f32 x: the FMA kernel, its own grid
 
 
 def dequant_conv_plain(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
@@ -100,11 +105,14 @@ def dequant_conv(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
     if n == 0:
         return out
     lib = _build.library("dequant_conv")
+    p = (wgmma_plan.conv_plan(n, h, wd, cin, cout, kh, kw, ((ph0, ph1), (pw0, pw1)),
+                              aligned=_build.aligned16(x, w_q), sms=_build.sms(x.device))
+         if x.dtype != torch.float32 else _FMA)
     with torch.cuda.device(x.device):
         rc = lib.smelter_dequant_conv(
             x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
             n, h, wd, cin, ho, wo, cout, kh, kw, ph0, pw0, _build.DTYPE_CODES[x.dtype],
-            _build.stream_of(x))
+            p.code, p.bn, p.grid, _build.stream_of(x))
     _build.check(lib, rc, "dequant_conv")
     launches += 1
     return out

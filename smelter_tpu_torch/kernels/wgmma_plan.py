@@ -12,6 +12,11 @@ The header's two forms (its comment gives the same numbers):
 - "cluster": 128 x 64 tiles, K split over a cluster of S <= 8 CTAs (the
   portable cluster size), S = min(8, SMs / tiles, K steps), each CTA a
   `k_chunk` (a multiple of BK) of K; any shape and alignment.
+
+`conv_plan` picks `dequant_conv`'s kernel for a 16-bit stride-1 conv the
+same way: "wgmma" (`gemm_tma_ra` with an im2col map of x) where the TMA
+maps can describe it, else "mma" (`csrc/dequant_conv.cu`'s mma.sync
+implicit GEMM, any shape).
 """
 
 from __future__ import annotations
@@ -51,15 +56,23 @@ def cdiv(a: int, b: int) -> int:
 EPI = CONSUMERS * 64 * 64 * 4  # gemm_tma's epilogue sub-tiles, one a warpgroup
 
 
-def tma_stages(bn: int, int8_b: bool) -> int:
-    """Stages of the tma form: as many as fit the budget, at most 8."""
-    stage = BM * BK * 2 + BK * bn * (1 if int8_b else 2)
-    return min(8, (SMEM_BUDGET - 1024 - (0 if int8_b else EPI)) // stage)
+def tma_stages(bn: int, int8_b: bool, recv: bool = False) -> int:
+    """Stages of the tma form: as many as fit the budget, at most 8. An
+    int8 B takes gemm_tma_ra (`ra_stages`); `recv`: gemm_tma's f32 recv
+    tile (BM x bn) in place of the epilogue's sub-tiles."""
+    if int8_b:
+        return ra_stages(bn)
+    epi = BM * bn * 4 if recv else EPI
+    return min(8, (SMEM_BUDGET - 1024 - epi) // (BM * BK * 2 + BK * bn * 2))
 
 
-def tma_smem(bn: int, int8_b: bool) -> int:
-    stage = BM * BK * 2 + BK * bn * (1 if int8_b else 2)
-    return 1024 + tma_stages(bn, int8_b) * (stage + 16) + (0 if int8_b else EPI)
+def tma_smem(bn: int, int8_b: bool, recv: bool = False) -> int:
+    """Bytes: alignment, the stages and their two mbarriers each, the
+    epilogue, and with recv its two mbarriers."""
+    if int8_b:
+        return ra_smem(bn)
+    epi = BM * bn * 4 + 16 if recv else EPI
+    return 1024 + tma_stages(bn, False, recv) * (BM * BK * 2 + BK * bn * 2 + 16) + epi
 
 
 CLUSTER_SMEM = 1024 + CL_STAGES * (BM * BK * 2 + BK * CL_BN * 2)
@@ -67,9 +80,11 @@ CLUSTER_SMEM = 1024 + CL_STAGES * (BM * BK * 2 + BK * CL_BN * 2)
 
 def plan(M: int, N: int, K: int, *, int8_b: bool, aligned: bool = True,
          sms: int = SMS) -> Plan:
-    """The form, tile and split for out (M, N) = A (M, K) @ B (K, N), A
-    16-bit, B int8 (`int8_b`) or 16-bit. `aligned`: both bases 16-byte
-    aligned."""
+    """The form, tile and split for out (M, N) = [recv +] A (M, K) @ B (K,
+    N), A 16-bit, B int8 (`int8_b`) or 16-bit. `aligned`: every base
+    16-byte aligned. (With recv, collective_matmul_rs's f32 sum, gemm_tma
+    takes `tma_smem(bn, False, recv=True)`: the same bytes, one stage
+    fewer.)"""
     mt = cdiv(M, BM)
     strides_ok = K % 8 == 0 and N % (16 if int8_b else 8) == 0
     tiles = mt * cdiv(N, TMA_BN)
@@ -82,3 +97,65 @@ def plan(M: int, N: int, K: int, *, int8_b: bool, aligned: bool = True,
     per = cdiv(steps, split) if steps else 1
     split = cdiv(steps, per) if steps else 1
     return Plan("cluster", BM, CL_BN, split, per * BK, tiles * split, CLUSTER_SMEM)
+
+
+RA_EPI = CONSUMERS * BM * 64 * 2  # gemm_tma_ra's staged 16-bit output, a warpgroup's each
+
+
+# gemm_tma_ra's tiles a W width (WC): x rows a tile, and stages of an x box
+# (or two) and a W box.
+def ra_rows(wc: int) -> int:
+    return BM if wc == 128 else 2 * BM
+
+
+def ra_stages(wc: int) -> int:
+    stage = ra_rows(wc) * BK * 2 + BK * wc
+    return min(8, (SMEM_BUDGET - 1024 - RA_EPI) // stage)
+
+
+def ra_smem(wc: int) -> int:
+    stage = ra_rows(wc) * BK * 2 + BK * wc
+    return 1024 + ra_stages(wc) * (stage + 16) + RA_EPI
+
+
+IM2COL_CORNER = (-128, 127)  # the corner offsets a 4-D im2col map can hold
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    form: str        # "wgmma" (gemm_tma_ra on an im2col map) or "mma"
+    bm: int          # output pixels a tile
+    bn: int          # output channels a tile
+    tiles: int
+    split: int       # CTAs along K; 1 (no form splits a conv's K)
+    grid: int        # CTAs launched
+    smem: int        # dynamic shared memory a CTA, bytes
+
+    @property
+    def code(self) -> int:
+        """The form's code in `csrc/dequant_conv.cu`'s entry point."""
+        return {"mma": 0, "wgmma": 1}[self.form]
+
+
+def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int, pads, *,
+              aligned: bool = True, sms: int = SMS) -> ConvPlan:
+    """`dequant_conv`'s kernel for 16-bit x (N, H, W, C_in), an int8 HWIO
+    weight (kh, kw, C_in, C_out), stride 1, pads ((top, bottom), (left,
+    right)); `aligned`: x's and w's bases 16-byte aligned. The wgmma form
+    needs C_in % 64 == 0 (a K step inside one tap, 128-byte pixel rows),
+    C_out % 16 == 0 (the int8 W map's row stride), C_out >= 64, at least
+    one tile of pixels, pads >= 0 and corner offsets the im2col map can
+    hold; it takes BN 128 where C_out % 128 == 0, else 64 (C_out 64:
+    256-pixel tiles, not half-empty 128-column ones)."""
+    (pt, pb), (pl, pr) = pads
+    ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
+    M = n * ho * wo
+    lo, hi = IM2COL_CORNER
+    corners = (-pl, -pt, wo - w - pl, ho - h - pt)
+    bn = 128 if c_out % 128 == 0 else 64
+    if (aligned and c_in % 64 == 0 and c_out % 16 == 0 and c_out >= 64 and M >= ra_rows(bn)
+            and min(pt, pb, pl, pr) >= 0 and all(lo <= c <= hi for c in corners)):
+        tiles = cdiv(M, ra_rows(bn)) * cdiv(c_out, bn)
+        return ConvPlan("wgmma", ra_rows(bn), bn, tiles, 1, min(tiles, sms), ra_smem(bn))
+    tiles = cdiv(M, 128) * cdiv(c_out, 128)
+    return ConvPlan("mma", 128, 128, tiles, 1, tiles, 0)

@@ -1373,6 +1373,80 @@ def test_dequant_conv_matches_plain(cuda, geom, dtype):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# (N, H, W, C_in, C_out, k, (ph0, ph1), (pw0, pw1)) that take the wgmma form
+# beyond ResNet-50's: uneven pads on a map that is not square (BN 128 and
+# BN 64), 5x5 with C_in 64, and M 300 with 256-pixel tiles, whose last
+# tile's second box starts past the last pixel.
+DCONV_WGMMA_GEOMS = [(2, 9, 13, 64, 128, 3, (0, 2), (1, 0)),
+                     (3, 10, 15, 128, 64, 3, (2, 0), (0, 1)),
+                     (2, 12, 12, 64, 128, 5, (2, 2), (2, 2)),
+                     (3, 10, 10, 64, 64, 3, (1, 1), (1, 1))]
+RESNET_DCONV = [(8, 56, 56, 64, 64), (8, 28, 28, 128, 128), (8, 14, 14, 256, 256),
+                (8, 7, 7, 512, 512)]
+
+
+def _dconv_case(geom, dtype, device, unaligned=False, seed=3):
+    n, h, w, cin, cout, k, ph, pw = geom
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin), np.float32)).to(device, dtype)
+    if unaligned:  # the same values 2 bytes past a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
+        assert x.data_ptr() % 16 != 0
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8)).to(device)
+    s = torch.from_numpy(rng.uniform(1e-3, 1e-2, cout).astype(np.float32)).to(device)
+    return x, wq, s, (ph, pw)
+
+
+def _dconv_agrees(x, wq, s, pads):
+    from smelter_tpu_torch.kernels import dequant_conv as dc
+
+    torch.backends.cudnn.allow_tf32 = False
+    before = dc.launches
+    got = dc.dequant_conv(x, wq, s, pads=pads)
+    torch.cuda.synchronize()
+    assert dc.launches == before + 1
+    ref = dc.dequant_conv_plain(x, wq, s, pads=pads)
+    assert got.dtype == x.dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item(), err
+    torch.backends.cudnn.allow_tf32 = True
+    return got
+
+
+@pytest.mark.parametrize("shape", RESNET_DCONV)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("form", ["wgmma", "mma"])
+def test_dequant_conv_resnet_shapes_in_both_forms(cuda, shape, dtype, form):
+    """ResNet-50's four stride-1 3x3 convs at batch 8: aligned bases take
+    the wgmma form (BN 64 at C_out 64, else 128), x 2 bytes off a 16-byte
+    boundary the mma.sync form; both within 1e-2 of the largest plain
+    output, and two calls bit-equal."""
+    from smelter_tpu_torch.kernels import dequant_conv as dc
+    from smelter_tpu_torch.kernels import wgmma_plan as wp
+
+    n, h, w, cin, cout = shape
+    geom = (n, h, w, cin, cout, 3, (1, 1), (1, 1))
+    x, wq, s, pads = _dconv_case(geom, dtype, cuda, unaligned=form == "mma")
+    p = wp.conv_plan(n, h, w, cin, cout, 3, 3, pads, aligned=form == "wgmma")
+    assert p.form == form and (form == "mma" or p.bn == (64 if cout == 64 else 128))
+    got = _dconv_agrees(x, wq, s, pads)
+    assert torch.equal(got, dc.dequant_conv(x, wq, s, pads=pads))
+
+
+@pytest.mark.parametrize("geom", DCONV_WGMMA_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dequant_conv_wgmma_form_edges(cuda, geom, dtype):
+    """Uneven pads, a 5x5 kernel and a last box past the last pixel on the
+    wgmma form: within 1e-2 of the largest plain output."""
+    from smelter_tpu_torch.kernels import wgmma_plan as wp
+
+    n, h, w, cin, cout, k, ph, pw = geom
+    assert wp.conv_plan(n, h, w, cin, cout, k, k, (ph, pw)).form == "wgmma"
+    _dconv_agrees(*_dconv_case(geom, dtype, cuda))
+
+
 def test_conv_kernels_raise_on_bad_operands(cuda):
     """A CUDA tensor of a form the kernels or QLinearConv's lowering do not
     take raises; it never falls back to a plain version."""
@@ -1592,6 +1666,113 @@ def test_collective_matmul_ag_odd_shapes_repeat_bit_for_bit(cuda, W, dtype):
     again = cm.collective_matmul_ag(xs, ws, ring)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _agree(got, cm.collective_matmul_ag_plain(xs, ws, ring), dtype)
+
+
+# Both model widths of phase 13 for rs (the full x over W ranks): ViT-B/16
+# b128's MLP down (25,216 x 3,072 @ 3,072 x 768) and llama_1b's FFN down
+# (4,096 x 5,632 @ 5,632 x 2,048); over 4 ranks their steps take the
+# persistent TMA kernel.
+RS_WIDTHS = {"vit_b16": (25216, 3072, 768), "llama_1b": (4096, 5632, 2048)}
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("model", list(RS_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_collective_matmul_rs_at_model_widths(cuda, W, model, dtype):
+    """Against the plain version, and two calls bit-equal; at 4 ranks each
+    step takes the tma form."""
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+    from smelter_tpu_torch.kernels import wgmma_plan as wp
+
+    M, K, N = RS_WIDTHS[model]
+    if W == 4:
+        assert wp.plan(M // W, N, K // W, int8_b=False).form == "tma"
+    ring = _ring_on_card(W)
+    xs, ws = _ring_shards(W, (M, K // W), (K // W, N), dtype, seed=40 + W)
+    ws = [w * K ** -0.5 for w in ws]
+    got = cm.collective_matmul_rs(xs, ws, ring)
+    _agree(got, cm.collective_matmul_rs_plain(xs, ws, ring), dtype)
+    again = cm.collective_matmul_rs(xs, ws, ring)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_collective_matmul_rs_odd_shapes_repeat_bit_for_bit(cuda, W, dtype):
+    """Phase 13's odd shards (37 W x 70 @ 70 x 33) take the cluster form:
+    two calls agree bit for bit, and with the plain version."""
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+    from smelter_tpu_torch.kernels import wgmma_plan as wp
+
+    assert wp.plan(37, 33, 70, int8_b=False).form == "cluster"
+    ring = _ring_on_card(W)
+    xs, ws = _ring_shards(W, (37 * W, 70), (70, 33), dtype, seed=50 + W)
+    got = cm.collective_matmul_rs(xs, ws, ring)
+    again = cm.collective_matmul_rs(xs, ws, ring)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _agree(got, cm.collective_matmul_rs_plain(xs, ws, ring), dtype)
+
+
+# One rs step's shapes (M, N, K) in each form of the wgmma core.
+RS_STEP_FORMS = {"tma": (1024, 1152, 768), "cluster": (37, 33, 70)}
+
+
+@pytest.mark.parametrize("form", list(RS_STEP_FORMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_rs_step_recv_may_alias_out(cuda, form, dtype):
+    """out = recv + a @ b in f32 with out and recv one buffer (the ring's
+    middle steps) equals the step with two buffers, bit for bit."""
+    from smelter_tpu_torch.kernels import _build
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+    from smelter_tpu_torch.kernels import wgmma_plan as wp
+
+    M, N, K = RS_STEP_FORMS[form]
+    assert wp.plan(M, N, K, int8_b=False).form == form
+    rng = np.random.default_rng(60)
+    a = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal((K, N), np.float32)).to(cuda, dtype)
+    recv = torch.from_numpy(rng.standard_normal((M, N), np.float32) * 8).to(cuda)
+    lib = _build.library("collective_matmul")
+    apart = torch.empty_like(recv)
+    cm._launch(lib, a, b, recv, apart, True, "rs step")
+    held = recv.clone()
+    cm._launch(lib, a, b, held, held, True, "rs step")
+    torch.cuda.synchronize()
+    assert torch.equal(held, apart)
+    ref = recv + a.float() @ b.float()
+    assert (apart - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("form", list(RS_STEP_FORMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_rs_last_step_rounds_once(cuda, form, dtype):
+    """Integer-valued shards keep every f32 sum exact, so the last step's
+    output must equal the plain version's f32 sum rounded once; rounding
+    the step's own product to x's type before the add (twice) differs."""
+    from smelter_tpu_torch.kernels import collective_matmul as cm
+
+    W = 4
+    M, N, K = RS_STEP_FORMS[form]
+    r = int((3e4 / (W * K) ** 0.5) ** 0.5)  # sums about 1e4: past both types' integers
+    rng = np.random.default_rng(61)
+    xs = [torch.from_numpy(rng.integers(-r, r + 1, (M * W, K)).astype(np.float32))
+          .to(cuda, dtype) for _ in range(W)]
+    ws = [torch.from_numpy(rng.integers(-r, r + 1, (K, N)).astype(np.float32)).to(cuda, dtype)
+          for _ in range(W)]
+    ring = _ring_on_card(W)
+    got = cm.collective_matmul_rs(xs, ws, ring)
+    torch.cuda.synchronize()
+    twice = 0
+    for i in range(W):
+        rows = slice(i * M, (i + 1) * M)
+        parts = [xs[j][rows].double() @ ws[j].double() for j in range(W)]
+        exact = sum(parts)
+        assert exact.abs().max().item() < 2 ** 24  # every f32 partial sum exact
+        assert torch.equal(got[i], exact.float().to(dtype))
+        recv = (exact - parts[i]).float()  # rank i adds chunk i's last partial
+        twice += int((recv + parts[i].float().to(dtype).float()).to(dtype)
+                     .ne(exact.float().to(dtype)).sum())
+    assert twice > 0
 
 
 @pytest.mark.parametrize("W", [1, 2, 4, 8])
