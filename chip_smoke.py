@@ -26,7 +26,10 @@ its number:
    `fused_layer_norm` and `residual_layer_norm` over ViT-B/16's batch-128
    activations (25,216 rows of 768) and `vit_attention_block` at B 128,
    N 197, D 768, 12 heads (and in f32 at batch 8), plus small shapes for
-   pre_ln=0, both mask forms and head dim 32; `pixel_conv_rowdot` (bf16,
+   pre_ln=0, both mask forms and head dim 32, and its time split by launch
+   (one torch.profiler session in a process of its own: `chip_smoke.py
+   --vit-split`) at ViT-B/16 b128 and SD-UNet's two shapes, on the earlier
+   mma.sync kernels and on the wgmma cores; `pixel_conv_rowdot` (bf16,
    and f32 at batch 1) and `pixel_conv_rowdot_q` (int8 and bf16 out) at
    each of ESRGAN x4's PixelConv shapes at batch 8, `max_unpool2x2` at
    SegNet's three unpools at batch 16, and, on (B, H, N, hd) views of
@@ -973,6 +976,7 @@ def phase_vit_kernels(torch, np, power_w: float) -> dict:
                                                      for k, v in odd.items()))
     say(2, "vit_attention_block at small shapes vs plain: "
            + "; ".join(f"{k} {v:.3g}" for k, v in small.items()))
+    rows["vit_attention_block"]["split"] = phase_vit_split()
     REPORT["vit_kernels"] = list(rows.values())
     return rows
 
@@ -1918,6 +1922,103 @@ def _profile(torch, run, steps: int = 3):
         side = kernels if on_card else ops
         side[e.key] = side.get(e.key, 0.0) + t / (1e3 * steps)  # us in all -> ms a step
     return kernels, ops, n_kernels / steps
+
+
+VIT_LAUNCHES = ["layer norm", "QKV GEMM", "attention", "projection"]
+# the split's shapes: (B, N, D, heads, eps), ViT-B/16 b128 and SD-UNet's two
+VIT_SPLIT_SHAPES = {
+    "ViT-B/16 b128": (VIT_BATCH, (VIT_B16["image_size"] // VIT_B16["patch"]) ** 2 + 1,
+                      VIT_B16["dim"], VIT_B16["heads"], 1e-6),
+    "SD-UNet hd 16 N 1024 b8": (SD_UNET_BATCH, 1024, 128, 8, 1e-5),
+    "SD-UNet hd 32 N 256 b8": (SD_UNET_BATCH, 256, 256, 8, 1e-5)}
+
+
+def vit_split_all(torch, np, calls: int = 6) -> dict:
+    """vit_attention_block's launches (pre-LN on, bf16) at VIT_SPLIT_SHAPES
+    on two routes: "legacy" (every launch on the earlier mma.sync kernels)
+    and "plan" (the wrapper's forms). One torch.profiler session holds
+    `calls` calls of each (shape, route); its device kernels in start order
+    are cut into calls at each LayerNorm kernel and keyed by their
+    attention kernel's name (which names the route and the head dim), so a
+    call the trace holds only in part (the profiler may miss a kernel) is
+    left out; at least half the calls must be whole. Then each (shape,
+    route) is timed by graph replay. Calls the launch sequence directly:
+    the launch counter does not move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from smelter_tpu_torch.kernels import vit_block as vb
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = []  # (label, route, forms, call)
+    for label, (B, N, D, H, eps) in VIT_SPLIT_SHAPES.items():
+        args, _ = _vit_case(torch, np, gen, B, N, D, H, torch.bfloat16, torch.bfloat16)
+        for route in ("legacy", "plan"):
+            forms = (vb.plans(B, N, D, H, torch.bfloat16, sms=sms) if route == "plan"
+                     else vb.legacy_plans())
+
+            def call(i=0, args=args, forms=forms, H=H, eps=eps):
+                return vb._launch(*args, None, forms, heads=H, scale=None, eps=eps,
+                                  residual=False, pre_ln=True, mask_filter=-10000.0)
+
+            call()
+            runs.append((label, route, forms, call))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for *_, call in runs:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+    spans = sorted((float(e.time_range.start), float(e.time_range.end), e.name)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not e.name.startswith(("Memcpy", "Memset")))
+    starts = [i for i, sp in enumerate(spans) if "layer_norm" in sp[2]]
+    by_attention: dict = {}
+    for i, j in zip(starts, starts[1:] + [len(spans)]):
+        if j - i == len(VIT_LAUNCHES):
+            by_attention.setdefault(spans[i + 2][2], []).append(spans[i:j])
+    check(len(by_attention) == len(runs), f"launch split: {len(by_attention)} kinds of call "
+                                          f"for {len(runs)} runs")
+    out: dict = {}
+    for (label, route, forms, call), group in zip(runs, by_attention.values()):
+        check(2 * len(group) >= calls, f"launch split {label} {route}: {len(group)} whole calls "
+                                       f"of {calls} in the trace")
+        split = {lab: {"ms": sum(c[k][1] - c[k][0] for c in group) / (1e3 * len(group)),
+                       "kernel": group[0][k][2]} for k, lab in enumerate(VIT_LAUNCHES)}
+        out.setdefault(label, []).append({
+            "route": route, "forms": [f.form for f in forms], "whole_calls": len(group),
+            "ms": graph_ms(torch, torch.cuda.Stream(), call, 10), "split": split})
+    return out
+
+
+def _vit_split_child() -> int:
+    """`chip_smoke.py --vit-split`: vit_split_all's result as one JSON line."""
+    import numpy as np
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    print(json.dumps(vit_split_all(torch, np)))
+    return 0
+
+
+def phase_vit_split() -> dict:
+    """vit_split_all in a process of its own (`chip_smoke.py --vit-split`),
+    so that its profiler session leaves this process's untouched; prints
+    phase 2's lines of the per-launch split, before (legacy) and after."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--vit-split"],
+                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    check(proc.returncode == 0, f"the launch split's process failed: {proc.stderr[-2000:]}")
+    splits = json.loads(proc.stdout.strip().splitlines()[-1])
+    for label, runs in splits.items():
+        say(2, f"vit_attention_block {label} by launch (torch.profiler; before/after this "
+               f"slice's cores): " + "; ".join(
+                   f"{r['route']} ({' / '.join(r['forms'])}) {r['ms']:.4f} ms: "
+                   + ", ".join(f"{k} {v['ms']:.4f}" for k, v in r["split"].items())
+                   for r in runs))
+    REPORT["vit_split"] = splits
+    return splits
 
 
 def _counters() -> dict:
@@ -4037,6 +4138,7 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
     call (calls issued one by one) beside them."""
     import torch.nn.functional as F
 
+    from smelter_tpu_torch.kernels import attention_plan
     from smelter_tpu_torch.kernels import collective_matmul as cm
     from smelter_tpu_torch.kernels import ring_attention_rdma as ra
     from smelter_tpu_torch.kernels import wgmma_plan
@@ -4240,7 +4342,9 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
         library_ms=graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
             q, k, v, scale=scale), 2, replays=2),
         bound_ms=b_ms, bound_by=b_by, flops=4 * B * H * N * N * Dh,
-        tflops=4 * B * H * N * N * Dh / ms / 1e9, ranks=RING_W)
+        tflops=4 * B * H * N * N * Dh / ms / 1e9, ranks=RING_W,
+        form=attention_plan.ring_plan(N // RING_W, B * H, Dh, sixteen_bit=True).form)
+    check(rows["attention"]["form"] == "streaming", "ring attention: not the streaming form")
     del out, refs
     Nf = RING_ATTN_F32_N
     qf, kf, vf = ([randn(B, H, Nf // RING_W, Dh, dtype=f32) for _ in range(RING_W)]
@@ -4276,8 +4380,8 @@ def phase_ring(torch, power_w: float, smi: str) -> dict:
     for key, r in rows.items():
         say(13, f"{r['name']} {r['shape']} ({key}): err {r['max_abs_err']:.3g} "
                 f"({r['tolerance']}) | "
-                + (f"steps of {r['step']} (M, N, K) in the {r['form']} form | " if "form" in r
-                   else "")
+                + (f"steps of {r['step']} (M, N, K) in the {r['form']} form | " if "step" in r
+                   else f"steps in the {r['form']} form | " if "form" in r else "")
                 + f"kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s; "
                 f"host cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
@@ -4482,4 +4586,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_vit_split_child() if sys.argv[1:] == ["--vit-split"] else main())

@@ -7,31 +7,38 @@
 // (~4.5 MB at ViT-B) in VMEM and runs the whole block in one program per
 // image. One ViT-B image is 197 x 768 bf16 = 302 KB, more than the 227 KB
 // of shared memory a block can have, so the function is computed here as a
-// fixed sequence of this library's own launches, all on the caller's stream
-// (the Python wrapper counts the call once):
+// fixed sequence of four launches, all on the caller's stream (the Python
+// wrapper counts the call once):
 //
 //   1. pre-LN (skipped when pre_ln is 0): csrc/layer_norm.cuh, one warp a
 //      row, xn rounded to x's type as the Pallas kernel rounds it;
 //   2. the QKV product xn (M, D) @ the packed weight (3 n_groups, D, G)
 //      with G = group * hd, read in place as a (D, 3D) matrix whose column
-//      block j is weight block j (csrc/gemm.cuh): mma.sync bf16/f16
-//      tiles of 128 x 128 with f32 accumulators, fed by a 4-stage
-//      cp.async ring, the f32 bias added and the sum rounded to x's type
-//      (q, k and v are each rounded, as in the Pallas kernel);
-//   3. attention, one block of 4 warps per (image, head, 64 query rows):
-//      Q in shared memory, K and V streamed through it 64 keys (32 at hd
-//      128) at a time, so shared memory does not grow with N. Two passes
-//      over the keys: the first takes each row's max and sum of exp in f32
-//      (scores in f32 times scale plus the additive mask; keys past N are
-//      -inf, not zero), the second forms p = exp(s - max) / sum in f32
-//      (the fast exp and one reciprocal a row: p is rounded to 8 or 11
-//      bits next), rounds p to x's type and accumulates p V in f32 on
-//      mma.sync; the
-//      head outputs land side by side at column h * hd, rounded to x's
-//      type (the Pallas kernel's concatenated attention output);
-//   4. the output projection attn (M, D) @ w_proj (D, D), the same GEMM,
-//      with the f32 bias and, for residual=1, x added in f32.
+//      block j is weight block j: csrc/wgmma_gemm.cuh's gemm_tma (wgmma fed
+//      by TMA, the weight through a 3-D map, G % 64 == 0) with its block
+//      epilogue, the f32 bias added and the sum rounded to x's type (q, k
+//      and v are each rounded, as in the Pallas kernel);
+//   3. attention: csrc/wgmma_attention.cuh's attn_norm, the Pallas kernel's
+//      order (each row's exact max and sum of exp(s - max) over all keys,
+//      then p = exp(s - max) / sum rounded to x's type before p v, sums in
+//      f32; keys past N are -inf, not zero): 128 query rows of an (image,
+//      head) a work item, Q, K and V by TMA through 3-D maps of the (B, N,
+//      3 D) product, one pass over the keys for N <= 256 (a second
+//      128-key tile's scores meet the first tile's exps, staged in shared
+//      memory), else K and V resident there for a second pass; the head
+//      outputs land side by side at column h * hd, rounded to x's type (the
+//      Pallas kernel's concatenated attention output);
+//   4. the output projection attn (M, D) @ w_proj (D, D) on gemm_tma, the
+//      f32 bias and, for residual=1, x added in f32 (x + (acc + b)) and
+//      rounded once.
 //
+// smelter_tpu_torch/kernels/attention_plan.py and wgmma_plan.py choose each
+// launch's form from the shape; what the new forms do not take keeps this
+// file's earlier kernels: a GEMM whose shape gemm_tma's maps cannot describe
+// (M < 128, N < 128, G % 64 != 0) takes csrc/gemm.cuh (mma.sync tiles of
+// 128 x 128, a 4-stage cp.async ring), and attention whose resident K and V
+// exceed shared memory (hd 64 past 768 keys, hd 128 past 384) takes
+// attention_mma below (mma.sync, two passes over K from device memory).
 // f32 activations take FMA kernels in full f32 (no TF32) for both products
 // and a warp-per-query-row attention kernel, which also serves head dims
 // other than 16, 32, 64 and 128.
@@ -39,11 +46,13 @@
 // What bounds it on an H100: at ViT-B/16's batch 128 (B 128, N 197, D 768,
 // 12 heads of 64) a call does B (6 N D^2 + 4 N^2 D + 2 N D^2) = 134.2
 // GFLOP, about 136 us at 989 TFLOP/s dense bf16, against ~80 MB of x,
-// weights and output (about 24 us at 3.35 TB/s): the tensor cores. The
-// simple design above keeps mma.sync's rate at best; xn, q/k/v and the
-// attention output cross device memory between the launches (~270 MB at
-// ViT-B). No TMA or wgmma yet.
+// weights and output (about 24 us at 3.35 TB/s): the tensor cores. The two
+// products are 89 % of the operations; on mma.sync they took 0.75 of the
+// call's 1.03 ms and attention 0.26 (experiments/torch_vit_block_split.py),
+// which is why both moved to wgmma. xn, q/k/v and the attention output
+// still cross device memory between the launches (~270 MB at ViT-B).
 #include "gemm.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -300,11 +309,37 @@ void attention(const T* qkv, const float* keep, const int* lens, int mask_kind, 
                                                      N, D, hd, group, scale);
 }
 
+// The launches' forms, as the wrapper's plans give them: a GEMM's 1 is
+// gemm_tma (on `grid` CTAs), 0 csrc/gemm.cuh; attention's 1 is attn_norm
+// (`tiles` key tiles an item, `buffers` items in flight, `grid` CTAs), 0
+// attention_mma / attention_rows.
+struct Forms {
+  int qkv, qkv_grid, proj, proj_grid, attn, tiles, buffers, attn_grid;
+};
+
+template <typename T>
+int attention_norm(const T* qkv, const float* keep, const int* lens, int mask_kind,
+                   float filter, T* attn, int B, int N, int D, int heads, int group,
+                   float scale, const Forms& f, cudaStream_t stream) {
+  const int hd = D / heads;
+#define SMELTER_ATTN_NORM(HD_)                                                                \
+  if (hd == HD_)                                                                              \
+    return wa::launch_norm<T, HD_>(qkv, keep, lens, mask_kind, filter, attn, B, N, D, heads,  \
+                                   group, scale, f.tiles, f.buffers, f.attn_grid, stream);
+  SMELTER_ATTN_NORM(16)
+  SMELTER_ATTN_NORM(32)
+  SMELTER_ATTN_NORM(64)
+  SMELTER_ATTN_NORM(128)
+#undef SMELTER_ATTN_NORM
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int run(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, const void* bqkv,
         const void* wp, const void* bp, const void* mask, int mask_kind, const void* residual,
         void* xn, void* qkv, void* attn, void* out, int B, int N, int D, int heads, int group,
-        int pre_ln, float scale, float eps, float filter, int p_code, cudaStream_t stream) {
+        int pre_ln, float scale, float eps, float filter, int p_code, const Forms& f,
+        cudaStream_t stream) {
   const int M = B * N;
   const int hd = D / heads;
   const T* a = static_cast<const T*>(x);
@@ -315,17 +350,43 @@ int run(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, con
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gemm<T>(a, static_cast<const T*>(wqkv), bqkv, p_code, kActNone, nullptr, static_cast<T*>(qkv),
-          M, 3 * D, D, group * hd, stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  attention<T>(static_cast<const T*>(qkv), mask_kind == kKeep2d ? static_cast<const float*>(mask)
-                                                                 : nullptr,
-               mask_kind == kLen1d ? static_cast<const int*>(mask) : nullptr, mask_kind, filter,
-               static_cast<T*>(attn), B, N, D, heads, group, scale, stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gemm<T>(static_cast<const T*>(attn), static_cast<const T*>(wp), bp, p_code, kActNone,
-          static_cast<const T*>(residual), static_cast<T*>(out), M, D, D, D, stream);
-  return static_cast<int>(cudaGetLastError());
+  const float* keep = mask_kind == kKeep2d ? static_cast<const float*>(mask) : nullptr;
+  const int* lens = mask_kind == kLen1d ? static_cast<const int*>(mask) : nullptr;
+  if constexpr (std::is_same<T, float>::value) {
+    gemm<T>(a, static_cast<const T*>(wqkv), bqkv, p_code, kActNone, nullptr,
+            static_cast<T*>(qkv), M, 3 * D, D, group * hd, stream);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    attention<T>(static_cast<const T*>(qkv), keep, lens, mask_kind, filter,
+                 static_cast<T*>(attn), B, N, D, heads, group, scale, stream);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    gemm<T>(static_cast<const T*>(attn), static_cast<const T*>(wp), bp, p_code, kActNone,
+            static_cast<const T*>(residual), static_cast<T*>(out), M, D, D, D, stream);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    int rc = 0;
+    if (f.qkv)
+      rc = wg::launch_tma_block<T>(a, wqkv, group * hd, bqkv, p_code == kF32, nullptr, qkv, M,
+                                   3 * D, D, f.qkv_grid, stream);
+    else
+      gemm<T>(a, static_cast<const T*>(wqkv), bqkv, p_code, kActNone, nullptr,
+              static_cast<T*>(qkv), M, 3 * D, D, group * hd, stream);
+    if (rc != 0 || (err = cudaGetLastError()) != cudaSuccess)
+      return rc != 0 ? rc : static_cast<int>(err);
+    if (f.attn)
+      rc = attention_norm<T>(static_cast<const T*>(qkv), keep, lens, mask_kind, filter,
+                             static_cast<T*>(attn), B, N, D, heads, group, scale, f, stream);
+    else
+      attention<T>(static_cast<const T*>(qkv), keep, lens, mask_kind, filter,
+                   static_cast<T*>(attn), B, N, D, heads, group, scale, stream);
+    if (rc != 0 || (err = cudaGetLastError()) != cudaSuccess)
+      return rc != 0 ? rc : static_cast<int>(err);
+    if (f.proj)
+      return wg::launch_tma_block<T>(attn, wp, 0, bp, p_code == kF32, residual, out, M, D, D,
+                                     f.proj_grid, stream);
+    gemm<T>(static_cast<const T*>(attn), static_cast<const T*>(wp), bp, p_code, kActNone,
+            static_cast<const T*>(residual), static_cast<T*>(out), M, D, D, D, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace
@@ -340,14 +401,17 @@ extern "C" const char* smelter_error_string(int code) {
 // (mask_kind 1), (B,) int32 valid lengths (2) or nullptr (0); residual
 // (B, N, D) in x_dtype or nullptr; scratch xn (B N, D), qkv (B N, 3 D), attn
 // (B N, D) and out (B, N, D) in x_dtype, all 16-byte aligned. D % 8 == 0,
-// D <= 4096, hd % 8 == 0.
+// D <= 4096, hd % 8 == 0. The eight form arguments are Forms' fields (the
+// wrapper's plans; all 0 for f32).
 // Returns a cudaError_t code.
 extern "C" int smelter_vit_block(const void* x, const void* ln_g, const void* ln_b,
                                  const void* wqkv, const void* bqkv, const void* wp,
                                  const void* bp, const void* mask, const void* residual, void* xn,
                                  void* qkv, void* attn, void* out, int B, int N, int D, int heads,
                                  int group, int pre_ln, int mask_kind, float scale, float eps,
-                                 float mask_filter, int x_dtype, int p_dtype, void* stream) {
+                                 float mask_filter, int x_dtype, int p_dtype, int qkv_form,
+                                 int qkv_grid, int proj_form, int proj_grid, int attn_form,
+                                 int attn_tiles, int attn_buffers, int attn_grid, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (misaligned(x) || misaligned(wqkv) || misaligned(wp) || misaligned(xn) ||
@@ -357,20 +421,24 @@ extern "C" int smelter_vit_block(const void* x, const void* ln_g, const void* ln
       (D / heads) > ROWS_HD_MAX || heads % group != 0 ||
       (p_dtype != kF32 && p_dtype != x_dtype) || mask_kind < kNoMask || mask_kind > kLen1d)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Forms f{qkv_form, qkv_grid, proj_form, proj_grid, attn_form, attn_tiles, attn_buffers,
+                attn_grid};
+  if (x_dtype == kF32 && (f.qkv || f.proj || f.attn))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   switch (x_dtype) {
     case kF32:
       return run<float>(x, ln_g, ln_b, wqkv, bqkv, wp, bp, mask, mask_kind, residual, xn, qkv,
                         attn, out, B, N, D, heads, group, pre_ln, scale, eps, mask_filter,
-                        p_dtype, st);
+                        p_dtype, f, st);
     case kBF16:
       return run<__nv_bfloat16>(x, ln_g, ln_b, wqkv, bqkv, wp, bp, mask, mask_kind, residual, xn,
                                 qkv, attn, out, B, N, D, heads, group, pre_ln, scale, eps,
-                                mask_filter, p_dtype, st);
+                                mask_filter, p_dtype, f, st);
     case kF16:
       return run<__half>(x, ln_g, ln_b, wqkv, bqkv, wp, bp, mask, mask_kind, residual, xn, qkv,
                          attn, out, B, N, D, heads, group, pre_ln, scale, eps, mask_filter,
-                         p_dtype, st);
+                         p_dtype, f, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

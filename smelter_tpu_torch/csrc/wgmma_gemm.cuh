@@ -35,6 +35,11 @@
 //   sums, tried too, gained too little to keep a second store path.) recv
 //   and out may be one buffer (the sum updated in place): a tile's recv is
 //   read before its out is written, and tiles are disjoint.
+//   The block epilogues (template-chosen: runtime flags there made cicc
+//   take minutes) serve csrc/vit_block.cu's projections: an f32 or 16-bit
+//   bias added to the f32 sums, kEpiBiasRes also the residual x (x + (acc +
+//   b), staged in f32), one rounding; kEpiQkv reads B, the packed QKV
+//   weight (3 n_groups, K, G), in place through a 3-D map (G % 64 == 0).
 //
 // gemm_tma_ra (the "tma" form for an int8 B: dequant_matmul's W, and
 //   dequant_conv's HWIO weight): the same pipeline with the product
@@ -163,6 +168,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// One TMA load of the box at (c0 innermost, c1, c2) of a 3-D map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 // One TMA im2col load: the box of the map's pixels (128 output pixels from
 // the one whose window starts at input column w, row h of image n) x its
 // channels from c, each pixel read at (w + ow, h + oh): the tap's offset.
@@ -198,11 +212,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// A shared-memory matrix descriptor with the 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+// A shared-memory matrix descriptor; layout type 1 is the 128-byte swizzle,
+// 2 the 64-byte and 3 the 32-byte one.
+__device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo, uint32_t sbo,
+                                         uint64_t layout = 1) {
   return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 __device__ __forceinline__ uint32_t a_offset(int r, int c) {  // K-major A, 16-byte chunk c of row r
   return r * 128 + ((c ^ (r & 7)) << 4);
@@ -498,6 +514,61 @@ __device__ __forceinline__ void epi_flush(const uint8_t* epi, void* out, int out
     }
   }
 }
+// gemm_tma's epilogues: kEpiNone stores A @ B [+ recv] in the type
+// `out_dtype` names; the block epilogues of csrc/vit_block.cu's projections
+// add an f32 bias (kEpiBias; kEpiQkv also reads B, the packed QKV weight,
+// through a 3-D map) and, kEpiBiasRes, the residual x in f32, x + (acc + b)
+// as the Pallas kernel orders it (smelter_tpu/kernels/vit_block.py), and
+// round once to out's type T.
+enum Epilogue : int { kEpiNone = 0, kEpiQkv = 1, kEpiBias = 2, kEpiBiasRes = 3 };
+
+// The block epilogues' operands: bias (N,) in f32 (bias_f32) or T; residual
+// (M, N) in T (kEpiBiasRes); group, kEpiQkv's block width: B is (N / group,
+// K, group), column n of the (K, N) product column n % group of block n /
+// group (group % 64 == 0, so an atom never straddles blocks).
+struct BlockEpi {
+  const void* bias;
+  int bias_f32;
+  const void* residual;
+  int group;
+};
+
+template <typename T>
+__device__ __forceinline__ float bias_at(const void* p, int f32, int i) {
+  if (f32) return static_cast<const float*>(p)[i];
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  else
+    return __half2float(static_cast<const __half*>(p)[i]);
+}
+// A T value's bits (the low half of v) in f32.
+template <typename T>
+__device__ __forceinline__ float t_bits(uint32_t v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __uint_as_float((v & 0xFFFFu) << 16);
+  else
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(v)));
+}
+// The f32 sub-tile (staged as epi_put2 stages kF32) to out rows [row0, row0 +
+// 64) x columns [col0, col0 + 64) of out in T, each sum added to the
+// residual's element in f32 and rounded once: 16-byte chunks of 4 sums, 8
+// bytes of out and of the residual each. N % 4 == 0.
+template <typename T>
+__device__ __forceinline__ void epi_flush_res(const uint8_t* epi, void* out, const void* residual,
+                                              int M, int N, int row0, int col0, int t) {
+  constexpr int code = std::is_same<T, __nv_bfloat16>::value ? kBF16 : kF16;
+  for (int q = t; q < 64 * 16; q += 128) {
+    const int r = q >> 4, cq = q & 15, row = row0 + r, col = col0 + cq * 4;
+    if (row >= M || col >= N) continue;
+    const float4 s = *reinterpret_cast<const float4*>(epi + r * 256 + ((cq ^ (r & 7)) << 4));
+    const size_t o = static_cast<size_t>(row) * N + col;
+    const uint2 x = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(residual) + o);
+    *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + o) =
+        make_uint2(pack2(code, t_bits<T>(x.x) + s.x, t_bits<T>(x.x >> 16) + s.y),
+                   pack2(code, t_bits<T>(x.y) + s.z, t_bits<T>(x.y >> 16) + s.w));
+  }
+}
+
 // -- the tma form -------------------------------------------------------------
 
 // RECV: out = recv + A @ B with an f32 recv (M, N). A second producer
@@ -521,15 +592,17 @@ struct TmaCfg {
 constexpr int RECV_BOX = 64 * 32 * 4;  // one recv box: 64 rows of 128 bytes
 
 // out (M, N) = [recv +] A (M, K) @ B, A a (M, K) T map (box 64 x 128,
-// swizzled), B a (K, N) T map (box 64 x 64, swizzled); with RECV, map_r an
-// f32 (M, N) map of recv (box 32 x 64, swizzled); out in the type
-// `out_dtype` names. recv and out may be one buffer: a tile's recv is read
-// (by TMA) before its out is written, and tiles are disjoint.
-template <typename T, int BN, bool RECV>
+// swizzled), B a (K, N) T map (box 64 x 64, swizzled) or, kEpiQkv, the
+// packed weight's 3-D map (box 64 x 64 x 1); with RECV, map_r an f32 (M,
+// N) map of recv (box 32 x 64, swizzled); out in the type `out_dtype` names.
+// recv and out may be one buffer: a tile's recv is read (by TMA) before its
+// out is written, and tiles are disjoint. EPI (without RECV): a block
+// epilogue of `epi`'s operands, out in T.
+template <typename T, int BN, bool RECV, int EPI = kEpiNone>
 __global__ void __launch_bounds__(TmaCfg<BN, RECV>::THREADS, 1)
 gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
          const __grid_constant__ CUtensorMap map_r, void* out, int out_dtype, int M, int N,
-         int K) {
+         int K, BlockEpi epi) {
   using Cfg = TmaCfg<BN, RECV>;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -566,8 +639,14 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
           tma_load_2d(sa + stage * Cfg::A_BYTES, &map_a, &full[stage], kt * BK, m0);
           uint8_t* b = sb + stage * Cfg::B_BYTES;
 #pragma unroll
-          for (int j = 0; j < BN / ATOM; ++j)
-            tma_load_2d(b + j * BK * 128, &map_b, &full[stage], n0 + j * ATOM, kt * BK);
+          for (int j = 0; j < BN / ATOM; ++j) {
+            const int n = n0 + j * ATOM;
+            if constexpr (EPI == kEpiQkv)
+              tma_load_3d(b + j * BK * 128, &map_b, &full[stage], n % epi.group, kt * BK,
+                          n / epi.group);
+            else
+              tma_load_2d(b + j * BK * 128, &map_b, &full[stage], n, kt * BK);
+          }
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -655,8 +734,35 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
       fence_proxy_async();  // these reads before the next tile's TMA writes
       named_sync(1 + wgi, 128);
       if ((ct & 127) == 0) mbar_arrive(rempty);
+    } else if constexpr (EPI != kEpiNone) {
+      // acc + bias in f32, staged as the f32 sums (kEpiBiasRes, the
+      // residual added at the flush) or rounded once to T
+      constexpr int code = std::is_same<T, __nv_bfloat16>::value ? kBF16 : kF16;
+      constexpr int stg_dtype = EPI == kEpiBiasRes ? kF32 : code;
+      uint8_t* stg = se + wgi * EPI_WG;
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = n0 + 64 * c + 8 * jj + 2 * t;
+          const float b0 = col < N ? bias_at<T>(epi.bias, epi.bias_f32, col) : 0.f;
+          const float b1 = col < N ? bias_at<T>(epi.bias, epi.bias_f32, col + 1) : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * (8 * c + jj) + 2 * h;
+            epi_put2(stg, stg_dtype, warp * 16 + g + 8 * h, 8 * jj + 2 * t, acc[i] + b0,
+                     acc[i + 1] + b1);
+          }
+        }
+        named_sync(1 + wgi, 128);
+        if constexpr (EPI == kEpiBiasRes)
+          epi_flush_res<T>(stg, out, epi.residual, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
+        else
+          epi_flush(stg, out, code, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
+        named_sync(1 + wgi, 128);
+      }
     } else {
-      uint8_t* epi = se + wgi * EPI_WG;
+      uint8_t* epi_ = se + wgi * EPI_WG;
 #pragma unroll
       for (int c = 0; c < BN / 64; ++c) {
 #pragma unroll
@@ -664,10 +770,10 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = 4 * (8 * c + jj) + 2 * h;
-            epi_put2(epi, out_dtype, warp * 16 + g + 8 * h, 8 * jj + 2 * t, acc[i], acc[i + 1]);
+            epi_put2(epi_, out_dtype, warp * 16 + g + 8 * h, 8 * jj + 2 * t, acc[i], acc[i + 1]);
           }
         named_sync(1 + wgi, 128);
-        epi_flush(epi, out, out_dtype, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
+        epi_flush(epi_, out, out_dtype, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
         named_sync(1 + wgi, 128);
       }
     }
@@ -1105,6 +1211,25 @@ static int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A map of the 3-D tensor at `base`: dims (d0 innermost, d1, d2) elements,
+// d1 and d2 strided by s1 and s2 bytes, boxes of (b0, b1, 1); positions past
+// the dims read as zeros. Returns a cudaError_t code.
+static int make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int d0,
+                       int d1, int d2, long long s1, long long s2, int b0, int b1,
+                       CUtensorMapSwizzle swizzle) {
+  static const auto fn = reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1), static_cast<cuuint64_t>(s2)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The im2col map of a stride-1 conv's NHWC input x (N, H, W, C) in T: boxes
 // of 128 output pixels x 64 channels (128 bytes, the 128-byte swizzle).
 // The bounding box of window starts runs from (-pl, -pt) to (Wo - 1 - pl,
@@ -1153,16 +1278,56 @@ static int launch_tma(const void* a, const void* b, const float* recv, void* out
         gemm_tma<T, BN, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
     (void)smem_set;  // a refusal shows as the launch's error
     gemm_tma<T, BN, true><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
-        map_a, map_b, map_r, out, out_dtype, M, N, K);
+        map_a, map_b, map_r, out, out_dtype, M, N, K, BlockEpi{});
   } else {
     using Cfg = TmaCfg<BN, false>;
     static const cudaError_t smem_set = cudaFuncSetAttribute(
         gemm_tma<T, BN, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
     (void)smem_set;
     gemm_tma<T, BN, false><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
-        map_a, map_b, map_a, out, out_dtype, M, N, K);
+        map_a, map_b, map_a, out, out_dtype, M, N, K, BlockEpi{});
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tma form with a block epilogue on `grid` CTAs: out (M, N) in T =
+// [residual +] (a (M, K) @ b + bias); b a (K, N) matrix, or with group > 0
+// the packed (N / group, K, group) weight (group % 64 == 0); bias f32
+// (bias_f32) or T, residual T or nullptr. The plan's checks: 16-byte
+// aligned bases, K % 8 == 0, N % 8 == 0, M >= BM, K >= BK, N >= 128.
+template <typename T, int EPI>
+static int launch_block_epi(const CUtensorMap& map_a, const CUtensorMap& map_b, void* out,
+                            int M, int N, int K, const BlockEpi& epi, int grid,
+                            cudaStream_t stream) {
+  using Cfg = TmaCfg<128, false>;
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      gemm_tma<T, 128, false, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+  (void)smem_set;
+  const int o = std::is_same<T, __half>::value ? kF16 : kBF16;
+  gemm_tma<T, 128, false, EPI><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
+      map_a, map_b, map_a, out, o, M, N, K, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int launch_tma_block(const void* a, const void* b, int group, const void* bias,
+                            int bias_f32, const void* residual, void* out, int M, int N, int K,
+                            int grid, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  int rc = make_map(&map_a, a, map_type<T>(), 2, M, K, BM, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = group > 0 ? make_map_3d(&map_b, b, map_type<T>(), group, K, N / group,
+                                 static_cast<long long>(group) * 2,
+                                 static_cast<long long>(group) * K * 2, ATOM, BK,
+                                 CU_TENSOR_MAP_SWIZZLE_128B)
+                   : make_map(&map_b, b, map_type<T>(), 2, K, N, BK, ATOM,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  const BlockEpi epi{bias, bias_f32, residual, group};
+  if (group > 0) return launch_block_epi<T, kEpiQkv>(map_a, map_b, out, M, N, K, epi, grid, stream);
+  if (residual != nullptr)
+    return launch_block_epi<T, kEpiBiasRes>(map_a, map_b, out, M, N, K, epi, grid, stream);
+  return launch_block_epi<T, kEpiBias>(map_a, map_b, out, M, N, K, epi, grid, stream);
 }
 
 // gemm_tma_ra on `grid` CTAs once its maps are made; w (K, N) int8.

@@ -48,7 +48,7 @@ SIGNATURES = {
     "ragged_decode_attention": ("smelter_ragged_decode_attention",
                                 [_P] * 7 + [_I] * 7 + [_F, _I, _I, _I, _P]),
     "layer_norm": ("smelter_layer_norm", [_P] * 6 + [_I, _I, _F, _I, _I, _P]),
-    "vit_block": ("smelter_vit_block", [_P] * 13 + [_I] * 7 + [_F] * 3 + [_I, _I, _P]),
+    "vit_block": ("smelter_vit_block", [_P] * 13 + [_I] * 7 + [_F] * 3 + [_I] * 10 + [_P]),
     "pixel_conv": ("smelter_pixel_conv",
                    [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_F, _I, _F, _I, _I, _P]),
     "max_unpool": ("smelter_max_unpool2x2", [_P] * 3 + [_I] * 3 + [_P]),

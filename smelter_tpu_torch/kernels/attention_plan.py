@@ -1,0 +1,117 @@
+"""Which form of `csrc/wgmma_attention.cuh` an attention call takes, from its
+shape alone.
+
+A pure function of the shape and a few flags, so the CPU tests can check it;
+the header's constants (`StreamCfg`, `NormCfg`) give the same sizes. Both
+forms run CTAs of two consumer warpgroups (64 query rows each, 128 a CTA)
+and a producer warpgroup, one CTA an SM, at most 227 KB of shared memory,
+and tiles of 128 keys (the scores of a tile, 64 registers a thread, beside
+P and the output in a thread's 168):
+
+- "streaming" (`ring_attention_rdma`'s bf16/f16 step, hd 32, 64, 128): K and
+  V stream through a ring of `stages` stages of 128-key tiles, as many as
+  fit beside Q, at most 4.
+- "one_pass" and "resident" (`vit_attention_block`'s attention, bf16/f16, hd
+  16, 32, 64, 128): a work item (128 query rows of one image and head) takes
+  Q and all its keys' K and V into one buffer at once, in `tiles` tiles of
+  `key_tile` keys. Up to two tiles (N <= 256): one pass over K, the first
+  tile's exps staged in shared memory (64 KB a CTA) while the second's
+  scores take the registers. More: K and V resident, a second pass
+  recomputes the scores from shared memory. `stages` buffers (two where
+  they fit) let the producer fill the next item's while the consumers work;
+  the grid is persistent.
+- "mma": what the new forms do not take (a ViT block whose K and V exceed
+  shared memory: hd 64 past 768 keys, hd 128 past 384; f32) keeps the
+  earlier kernels of `csrc/vit_block.cu`.
+
+The choice is made by shape and stated conditions, never by catching a
+failure.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+WG_ROWS, CONSUMERS = 64, 2
+Q_ROWS = WG_ROWS * CONSUMERS   # query rows a CTA
+SMEM_LIMIT = 232_448           # 227 KB, what one block may have on an H100
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+KEY_TILE = 128
+STREAM_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    form: str        # "streaming", "one_pass", "resident" or "mma"
+    consumers: int   # consumer warpgroups a CTA (0 for "mma")
+    key_tile: int    # keys a tile: the scores' wgmma N
+    tiles: int       # key tiles an item holds at once (one_pass / resident)
+    stages: int      # ring stages (streaming) or item buffers (one_pass / resident)
+    grid: int        # CTAs launched (0: the launch computes it)
+    smem: int        # dynamic shared memory a CTA, bytes
+
+    @property
+    def code(self) -> int:
+        """The form's code in `csrc/vit_block.cu`'s entry point (1: the
+        new core's normalised form)."""
+        return 0 if self.form == "mma" else 1
+
+
+MMA = AttnPlan("mma", 0, 0, 0, 0, 0, 0)
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stream_stages(hd: int) -> int:
+    """attn_stream's stages: as many as fit beside Q and its barrier, at
+    most 4 (StreamCfg::STAGES)."""
+    fixed = 1024 + Q_ROWS * hd * 2 + 8
+    return min(4, (SMEM_LIMIT - fixed) // (2 * KEY_TILE * hd * 2 + 16))
+
+
+def stream_smem(hd: int) -> int:
+    return 1024 + Q_ROWS * hd * 2 + 8 + stream_stages(hd) * (2 * KEY_TILE * hd * 2 + 16)
+
+
+def norm_buffer(hd: int, tiles: int) -> int:
+    """One work item's bytes: Q, then its K tiles, then its V tiles."""
+    return Q_ROWS * hd * 2 + 2 * tiles * KEY_TILE * hd * 2
+
+
+STAGED = CONSUMERS * WG_ROWS * KEY_TILE * 4  # two tiles: the first's f32 exps
+
+
+def norm_smem(hd: int, tiles: int, buffers: int) -> int:
+    """NormCfg::smem: alignment, the buffers and two mbarriers each, and
+    with two tiles the staged exps."""
+    return 1024 + buffers * (norm_buffer(hd, tiles) + 16) + (STAGED if tiles == 2 else 0)
+
+
+def ring_plan(Nq: int, BH: int, hd: int, *, sixteen_bit: bool) -> AttnPlan:
+    """A ring step of q (BH, Nq, hd): "streaming" for a 16-bit type at hd
+    32, 64 or 128, else "mma" (the f32 kernel, or the wrapper raises)."""
+    if not sixteen_bit or hd not in STREAM_HEAD_DIMS:
+        return MMA
+    return AttnPlan("streaming", CONSUMERS, KEY_TILE, 1, stream_stages(hd),
+                    cdiv(Nq, Q_ROWS) * BH, stream_smem(hd))
+
+
+def vit_plan(B: int, N: int, heads: int, hd: int, *, sixteen_bit: bool,
+             sms: int = SMS) -> AttnPlan:
+    """`vit_attention_block`'s attention at B images of N tokens, `heads`
+    heads of hd: the form, its tiles and buffers, the persistent grid. The
+    operands' strides (3 D and D elements a row) are 16-byte multiples
+    whenever hd % 8 == 0, which the wrapper requires."""
+    if not sixteen_bit or hd not in HEAD_DIMS or N < 1:
+        return MMA
+    tiles = cdiv(N, KEY_TILE)
+    staged = STAGED if tiles == 2 else 0
+    buffers = min(2, (SMEM_LIMIT - 1024 - staged) // (norm_buffer(hd, tiles) + 16))
+    if buffers < 1:
+        return MMA
+    items = B * heads * cdiv(N, Q_ROWS)
+    return AttnPlan("one_pass" if tiles <= 2 else "resident", CONSUMERS, KEY_TILE, tiles, buffers,
+                    min(items, sms), norm_smem(hd, tiles, buffers))

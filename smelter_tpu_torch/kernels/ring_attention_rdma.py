@@ -15,11 +15,15 @@ CUDA events); a merge step of a rank is one launch of
 
 - What bounds it on an H100: the tensor cores, 4 B H N^2 D operations (8.8
   TFLOP at llama_1b's 16 heads of 128, N 32,768: 8.9 ms at 989 TFLOP/s
-  dense bf16).
-- What the simple design does: csrc/attention.cuh's tile loop on mma.sync
-  for 16-bit types (p rounded to q's type before p v, as in
-  `flash_attention`; bound 1e-2 of the largest output), full f32 on the FMA
-  units for f32; head dims 32, 64 and 128, others raise.
+  dense bf16), and close behind them the exponentials (one a score).
+- What the design does: 16-bit types take `csrc/wgmma_attention.cuh`'s
+  streaming form (`attention_plan.ring_plan`): a CTA takes 128 query rows of
+  a (b, h), a producer thread brings Q once and K and V in 128-key tiles by
+  TMA into a ring of stages behind mbarriers, two consumer warpgroups run
+  S = Q K^T and P V on wgmma (P rounded to q's type before P V, as in
+  `flash_attention`; bound 1e-2 of the largest output) and hide each
+  other's softmax; f32 takes full f32 on the FMA units; head dims 32, 64 and
+  128, others raise.
 
 `ring_attention_rdma_plain` is the same merge in plain PyTorch: the plain
 SPMD ring of `parallel/ring_attention.py`, whose algebra the Pallas kernel

@@ -17,14 +17,24 @@ _vit_block_impl`. The Hopper kernel is `csrc/vit_block.cu`:
 
 - What bounds it on an H100: the tensor cores. At ViT-B/16's batch 128 (B
   128, N 197, D 768, 12 heads) a call does 134.2 GFLOP (~136 us at 989
-  TFLOP/s dense bf16) against ~80 MB of operands and output.
-- What the simple design does about it: the Pallas kernel keeps an image
-  and all weights in VMEM; a ViT-B image alone (302 KB in bf16) exceeds a
-  block's shared memory, so one call is a fixed sequence of the library's
-  own launches (pre-LN, the QKV GEMM, attention with K and V streamed
-  through shared memory, the projection GEMM), on mma.sync with f32
-  accumulators. Intermediates (xn, q/k/v, the attention output) go through
-  device memory in scratch the wrapper allocates.
+  TFLOP/s dense bf16) against ~80 MB of operands and output; the two
+  projections are 89 % of it (on mma.sync they took 0.75 of 1.03 ms,
+  attention 0.26: `experiments/torch_vit_block_split.py`).
+- What the design does about it: the Pallas kernel keeps an image and all
+  weights in VMEM; a ViT-B image alone (302 KB in bf16) exceeds a block's
+  shared memory, so one call is a fixed sequence of four launches: pre-LN;
+  the QKV product on `csrc/wgmma_gemm.cuh`'s `gemm_tma` (wgmma fed by TMA,
+  the packed weight read in place through a 3-D map, the f32 bias added in
+  the epilogue); attention on `csrc/wgmma_attention.cuh`'s normalised form
+  (wgmma for Q K^T and for P V, Q, K and V by TMA, one pass over the keys
+  up to 256 of them, else K and V resident in shared memory); the output
+  projection on `gemm_tma` with the bias and the residual added in f32 and
+  one rounding. `plans` picks each launch's form from the shape
+  (`wgmma_plan.block_plan`, `attention_plan.vit_plan`); what the new forms
+  do not take, and f32, keep `csrc/gemm.cuh`'s mma.sync or FMA GEMM and
+  the file's mma.sync or warp-per-row attention. Intermediates (xn, q/k/v,
+  the attention output) go through device memory in scratch the wrapper
+  allocates.
 
 On a CPU or `meta` tensor `vit_attention_block` takes the plain version
 (`vit_attention_block_plain`), and on a CUDA tensor it launches the kernel
@@ -38,7 +48,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, attention_plan, wgmma_plan
 from .layer_norm import layer_norm_plain
 
 launches = 0
@@ -129,25 +139,34 @@ def _check(x, params, wqkv, w_proj, mask, heads: int) -> None:
         raise ValueError("vit_attention_block: x and the weights must be 16-byte aligned")
 
 
-def vit_attention_block(x, ln_g, ln_b, wqkv_packed, bqkv_packed, w_proj, b_proj, mask=None,
-                        *, heads: int, scale: float | None = None, eps: float = 1e-5,
-                        residual: bool = False, pre_ln: bool = True,
-                        mask_filter: float = -10000.0) -> torch.Tensor:
-    """The block on x (B, N, D); returns (B, N, D) in x's dtype. scale None
-    or 0 means 1/sqrt(hd)."""
-    global launches
-    kw = dict(heads=heads, scale=scale, eps=eps, residual=residual, pre_ln=pre_ln,
-              mask_filter=mask_filter)
-    if x.device.type in ("cpu", "meta"):
-        return vit_attention_block_plain(x, ln_g, ln_b, wqkv_packed, bqkv_packed, w_proj,
-                                         b_proj, mask, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"vit_attention_block: no kernel for device {x.device}")
-    params = (ln_g, ln_b, bqkv_packed, b_proj)
-    _check(x, params, wqkv_packed, w_proj, mask, heads)
+def legacy_plans():
+    """Every launch on the earlier kernels: csrc/gemm.cuh's GEMM and the
+    file's mma.sync (f32: warp-per-row) attention, as f32 always runs."""
+    mma = wgmma_plan.Plan("mma", wgmma_plan.BM, wgmma_plan.TMA_BN, 1, 0, 0, 0)
+    return mma, mma, attention_plan.MMA
+
+
+def plans(B: int, N: int, D: int, heads: int, dtype, *, sms: int = wgmma_plan.SMS):
+    """The forms of the QKV product, the output projection and attention for
+    x (B, N, D) of `dtype` (bases 16-byte aligned, as the wrapper requires)."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        return legacy_plans()
+    hd = D // heads
+    M = B * N
+    return (wgmma_plan.block_plan(M, 3 * D, D, group=head_group(heads, hd) * hd, sms=sms),
+            wgmma_plan.block_plan(M, D, D, sms=sms),
+            attention_plan.vit_plan(B, N, heads, hd, sixteen_bit=True, sms=sms))
+
+
+def _launch(x, ln_g, ln_b, wqkv_packed, bqkv_packed, w_proj, b_proj, mask, forms, *,
+            heads: int, scale, eps: float, residual: bool, pre_ln: bool,
+            mask_filter: float) -> torch.Tensor:
+    """The kernel sequence on checked operands, each launch on the form
+    `forms` (qkv, proj, attn) gives it."""
     B, N, D = x.shape
     hd = D // heads
     M = B * N
+    qkv_p, proj_p, attn_p = forms
     out = torch.empty_like(x)
     xn = torch.empty((M, D), dtype=x.dtype, device=x.device) if pre_ln else None
     qkv = torch.empty((M, 3 * D), dtype=x.dtype, device=x.device)
@@ -162,7 +181,30 @@ def vit_attention_block(x, ln_g, ln_b, wqkv_packed, bqkv_packed, w_proj, b_proj,
             None if xn is None else xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
             out.data_ptr(), B, N, D, heads, head_group(heads, hd), int(bool(pre_ln)), kind,
             float(scale if scale else 1.0 / math.sqrt(hd)), float(eps), float(mask_filter),
-            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[ln_g.dtype], _build.stream_of(x))
+            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[ln_g.dtype],
+            qkv_p.code, qkv_p.grid, proj_p.code, proj_p.grid, attn_p.code, attn_p.tiles,
+            attn_p.stages, attn_p.grid, _build.stream_of(x))
     _build.check(lib, rc, "vit_attention_block")
+    return out
+
+
+def vit_attention_block(x, ln_g, ln_b, wqkv_packed, bqkv_packed, w_proj, b_proj, mask=None,
+                        *, heads: int, scale: float | None = None, eps: float = 1e-5,
+                        residual: bool = False, pre_ln: bool = True,
+                        mask_filter: float = -10000.0) -> torch.Tensor:
+    """The block on x (B, N, D); returns (B, N, D) in x's dtype. scale None
+    or 0 means 1/sqrt(hd)."""
+    global launches
+    kw = dict(heads=heads, scale=scale, eps=eps, residual=residual, pre_ln=pre_ln,
+              mask_filter=mask_filter)
+    if x.device.type in ("cpu", "meta"):
+        return vit_attention_block_plain(x, ln_g, ln_b, wqkv_packed, bqkv_packed, w_proj,
+                                         b_proj, mask, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"vit_attention_block: no kernel for device {x.device}")
+    _check(x, (ln_g, ln_b, bqkv_packed, b_proj), wqkv_packed, w_proj, mask, heads)
+    B, N, D = x.shape
+    forms = plans(B, N, D, heads, x.dtype, sms=_build.sms(x.device))
+    out = _launch(x, ln_g, ln_b, wqkv_packed, bqkv_packed, w_proj, b_proj, mask, forms, **kw)
     launches += 1
     return out

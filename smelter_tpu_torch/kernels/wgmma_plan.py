@@ -13,6 +13,11 @@ The header's two forms (its comment gives the same numbers):
   portable cluster size), S = min(8, SMs / tiles, K steps), each CTA a
   `k_chunk` (a multiple of BK) of K; any shape and alignment.
 
+`block_plan` picks each projection of `vit_attention_block` the same way:
+"tma" (`gemm_tma` with the block epilogue: bias, residual, one rounding;
+the packed QKV weight through a 3-D map) where its maps can describe the
+GEMM, else "mma" (`csrc/gemm.cuh`).
+
 `conv_plan` picks `dequant_conv`'s kernel for a 16-bit stride-1 conv the
 same way: "wgmma" (`gemm_tma_ra` with an im2col map of x) where the TMA
 maps can describe it, else "mma" (`csrc/dequant_conv.cu`'s mma.sync
@@ -46,7 +51,7 @@ class Plan:
     @property
     def code(self) -> int:
         """The form's code in the header's `Form` enum."""
-        return {"tma": 1, "cluster": 2}[self.form]
+        return {"mma": 0, "tma": 1, "cluster": 2}[self.form]
 
 
 def cdiv(a: int, b: int) -> int:
@@ -97,6 +102,23 @@ def plan(M: int, N: int, K: int, *, int8_b: bool, aligned: bool = True,
     per = cdiv(steps, split) if steps else 1
     split = cdiv(steps, per) if steps else 1
     return Plan("cluster", BM, CL_BN, split, per * BK, tiles * split, CLUSTER_SMEM)
+
+
+def block_plan(M: int, N: int, K: int, *, group: int = 0, aligned: bool = True,
+               sms: int = SMS) -> Plan:
+    """`vit_attention_block`'s projection out (M, N) = A (M, K) @ B + bias [+
+    residual], A and B 16-bit: B a (K, N) matrix, or (`group` > 0) the
+    packed QKV weight (N / group, K, group). "tma" on min(tiles, sms) CTAs
+    where TMA can read it: 16-byte aligned bases and strides (K % 8, N %
+    8), no box larger than its matrix (M >= BM, K >= BK, N >= 128) and
+    group % 64 == 0 (an atom of 64 columns inside one block). Unlike `plan`
+    it needs no number of tiles: the alternative, "mma" (`csrc/gemm.cuh`),
+    tiles the same 128 x 128."""
+    tiles = cdiv(M, BM) * cdiv(N, TMA_BN)
+    if (aligned and K % 8 == 0 and N % 8 == 0 and M >= BM and K >= BK and N >= TMA_BN
+            and group % ATOM == 0):
+        return Plan("tma", BM, TMA_BN, 1, K, min(tiles, sms), tma_smem(TMA_BN, False))
+    return Plan("mma", BM, TMA_BN, 1, K, tiles, 0)
 
 
 RA_EPI = CONSUMERS * BM * 64 * 2  # gemm_tma_ra's staged 16-bit output, a warpgroup's each

@@ -567,6 +567,47 @@ def test_vit_attention_block_forms(cuda, geom, dtype, form):
     _vit_check(args, mask, **kw)
 
 
+# The attention core's forms (kernels/attention_plan.py): one pass over one
+# or two 128-key tiles (N <= 256), two passes over more resident tiles, and
+# today's kernel past shared memory (hd 64 at N 1,024, hd 128 at N 577 and
+# 1,024), at every head dim; the projections on gemm_tma (M >= 128) or
+# gemm.cuh (N 1 and 63: M < 128).
+# (heads, D) a head dim: group widths of 128, as SD-UNet's and ViT's.
+CORE_HEADS = {16: (8, 128), 32: (4, 128), 64: (2, 128), 128: (2, 256)}
+CORE_NS = [1, 63, 64, 65, 197, 256, 257, 577, 1024]
+
+
+@pytest.mark.parametrize("hd", sorted(CORE_HEADS))
+@pytest.mark.parametrize("N", CORE_NS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_vit_attention_block_core_forms(cuda, hd, N, dtype):
+    """Each of pre_ln 0/1, residual 0/1 and no mask, keep flags or valid
+    lengths against the plain version (1e-2 x max|plain|)."""
+    H, D = CORE_HEADS[hd]
+    args = _vit_operands(2, N, D, H, dtype, cuda)
+    masks = _masks(2, N, cuda)
+    for pre_ln in (True, False):
+        for residual in (False, True):
+            for mask in (None, masks["keep2d"], masks["len1d"]):
+                _vit_check(args, mask, heads=H, eps=1e-6, pre_ln=pre_ln, residual=residual)
+
+
+@pytest.mark.parametrize("geom", [(2, 197, 768, 12), (8, 256, 256, 8), (2, 300, 512, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("p_dtype", ["f32", "x"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_vit_attention_block_gemm_epilogue(cuda, geom, dtype, p_dtype, residual):
+    """gemm_tma's block epilogue with an f32 and a 16-bit bias, with and
+    without the residual (x + (acc + b), one rounding)."""
+    B, N, D, H = geom
+    from smelter_tpu_torch.kernels import vit_block as vb
+
+    assert [p.form for p in vb.plans(B, N, D, H, dtype)[:2]] == ["tma", "tma"]
+    args = _vit_operands(B, N, D, H, dtype, cuda, p_dtype=torch.float32 if p_dtype == "f32"
+                         else dtype)
+    _vit_check(args, heads=H, eps=1e-6, residual=residual)
+
+
 def test_vit_attention_block_raises_on_bad_operands(cuda):
     from smelter_tpu_torch.kernels import vit_block as vb
 
@@ -1785,6 +1826,27 @@ def test_ring_attention_rdma_matches_plain(cuda, W, dtype, D):
     ring = _ring_on_card(W)
     rng = np.random.default_rng(W * D)
     qs, ks, vs = ([torch.from_numpy(rng.standard_normal((2, 3, 37, D), np.float32))
+                   .to("cuda", dtype) for _ in range(W)] for _ in range(3))
+    before = ra.launches
+    got = ra.ring_attention_rdma(qs, ks, vs, ring, scale=D ** -0.5)
+    assert ra.launches == before + W * W
+    _agree(got, ra.ring_attention_rdma_plain(qs, ks, vs, ring, scale=D ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_ring_attention_rdma_streaming_tiles(cuda, W, dtype, D):
+    """The streaming form over Nl 300 (two full 128-key tiles and a ragged
+    one, 128-row CTAs, the last part-empty), B 2, H 3: the f32 state
+    carried across W steps, each rank's output against the plain ring."""
+    from smelter_tpu_torch.kernels import attention_plan as ap
+    from smelter_tpu_torch.kernels import ring_attention_rdma as ra
+
+    assert ap.ring_plan(300, 6, D, sixteen_bit=True).form == "streaming"
+    ring = _ring_on_card(W)
+    rng = np.random.default_rng(W * D + 1)
+    qs, ks, vs = ([torch.from_numpy(rng.standard_normal((2, 3, 300, D), np.float32) * 2)
                    .to("cuda", dtype) for _ in range(W)] for _ in range(3))
     before = ra.launches
     got = ra.ring_attention_rdma(qs, ks, vs, ring, scale=D ** -0.5)
