@@ -1183,7 +1183,10 @@ def phase_encoder_kernels(torch, power_w: float) -> dict:
                 for _ in range(_copies(nbytes))]
         n = len(sets)
         r = {"name": name, "shape": [B, H, Nq, Nk, hd], "calls_per_forward": calls,
-             "path": path, "library": "F.scaled_dot_product_attention on the same views"}
+             "path": path, "library": "F.scaled_dot_product_attention on the same views",
+             "form": mod.plan(*sets[0], torch.empty_like(sets[0][0])).form}
+        check(r["form"] == ("one_pass" if mod is sa else "streaming"),
+              f"{name} {path}: plan {r['form']}, not csrc/wgmma_attention.cuh's form")
         # bf16: p is rounded to bf16 before p V in the kernel (both kernels)
         # and not in flash's plain version; sums in other orders: 1e-2
         r["max_abs_err"], r["tolerance"] = err_of(fn(*sets[0], scale=scale),
@@ -1203,6 +1206,9 @@ def phase_encoder_kernels(torch, power_w: float) -> dict:
         r = next(r for k, r in rows.items() if k[0] == name)
         r[f"f32_b{B}_err"], r["f32_tolerance"] = err_of(
             fn(*args, scale=0.125), plain_fn(*args, scale=0.125), 1e-5, f"{name} f32 b{B}")
+        r["f32_form"] = (sa if name == "short_attention" else fa).plan(
+            *args, torch.empty_like(args[0])).form
+        check(r["f32_form"] == "mma", f"{name} f32: plan {r['f32_form']}, not the f32 kernel")
 
     # -- mlp_block ---------------------------------------------------------
     def mlp_args(B, N, dtype, seed):
@@ -1258,10 +1264,12 @@ def phase_encoder_kernels(torch, power_w: float) -> dict:
     for r in rows.values():
         f32 = "; ".join(f"{k[:-4]} err {v:.3g} ({r['f32_tolerance']})"
                         for k, v in r.items() if k.startswith("f32_b") and k.endswith("_err"))
+        form = (f" | {r['form']} form (f32: {r['f32_form']})" if "f32_form" in r else
+                f" | {r['form']} form" if "form" in r else "")
         say(2, f"{r['name']} {r['path']} {r['shape']} bf16: err {r['max_abs_err']:.3g} "
-               f"({r['tolerance']}){'; ' + f32 if f32 else ''} | kernel {r['ms']:.4f} ms (host "
-               f"cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
-               f"{r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
+               f"({r['tolerance']}){'; ' + f32 if f32 else ''}{form} | kernel {r['ms']:.4f} ms "
+               f"(host cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+               f"library {r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
                f"({r['bound_by']}, {r['bytes']} bytes, {r['flops']:.4g} operations) = "
                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
                f"{r['flops'] / r['ms'] / 1e9:.1f} TF/s | {r['calls_per_forward']} calls a "
@@ -4522,10 +4530,10 @@ def main() -> int:
                "max_unpool2x2": ("smelter_tpu_torch/csrc/max_unpool.cu",
                                  "smelter_tpu/kernels/max_unpool.py:78",
                                  per_forward(image_rows, "max_unpool2x2"), "forward"),
-               "short_attention": ("smelter_tpu_torch/csrc/attention_short.cu",
+               "short_attention": ("smelter_tpu_torch/csrc/wgmma_attention.cuh",
                                    "smelter_tpu/kernels/attention_short.py:74",
                                    encoder_rows[("short_attention", "224 px b128")], "call"),
-               "flash_attention": ("smelter_tpu_torch/csrc/flash_attention.cu",
+               "flash_attention": ("smelter_tpu_torch/csrc/wgmma_attention.cuh",
                                    "smelter_tpu/kernels/flash_attention.py:93",
                                    encoder_rows[("flash_attention", "384 px b64")], "call"),
                "mlp_block": ("smelter_tpu_torch/csrc/mlp_block.cu",

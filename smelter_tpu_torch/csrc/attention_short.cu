@@ -3,31 +3,44 @@
 //
 // Replaces the Pallas kernel smelter_tpu/kernels/attention_short.py::
 // short_attention, which holds the whole (N, N) score matrix of a group of
-// heads in VMEM so that QK^T, the softmax and PV run back to back. Here one
-// block of 4 warps takes a (batch, head, 64 query rows) and keeps those
-// rows' scores over every key in shared memory, 64 x 512 f32 (128 KB) at
-// most: K streams through a 64-key tile and mma.sync writes the f32 scores
-// into the rows; each warp then takes the exact softmax of its 16 rows in
-// place (max, exp, sum, divide; each thread on the score elements its MMA
-// fragments held) and writes p, rounded to the operands' 16-bit type, over
-// the first half of each row's own bytes; V then streams through the same
-// tile and mma.sync accumulates p V in f32.
+// heads in VMEM so that QK^T, the softmax and PV run back to back. Two forms,
+// chosen by kernels/attention_plan.py::short_plan and passed in as `form`:
+//
+// 1: bf16/f16 at hd 16, 32, 64, 128 whose strides and bases a TMA map takes
+//   (and K and V fit shared memory: hd 128 to 384 keys): the normalised form
+//   of csrc/wgmma_attention.cuh (attn_norm on kViews), the Pallas kernel's
+//   order. Persistent CTAs, one an SM, take work items of 128 query rows of
+//   one (batch, head); a producer thread brings Q and all the head's K and V
+//   into shared memory through 4-D tensor maps of the (B, H, N, hd) views,
+//   two consumer warpgroups run S = Q K^T and P V on wgmma (one pass over up
+//   to 256 keys, the first 128-key tile's exps staged in shared memory; two
+//   passes over resident K and V past that), and the output goes out
+//   through out's strides.
+// 0: everything else keeps this file's kernels. One block of 4 warps takes
+//   a (batch, head, 64 query rows) and keeps those rows' scores over every
+//   key in shared memory, 64 x 512 f32 (128 KB) at most: K streams through
+//   a 64-key tile and mma.sync writes the f32 scores into the rows; each
+//   warp then takes the exact softmax of its 16 rows in place and writes p,
+//   rounded to the operands' 16-bit type, over the first half of each row's
+//   own bytes; V then streams through the same tile and mma.sync
+//   accumulates p V in f32. f32 (in full f32), other head dims and rows not
+//   16-byte aligned take csrc/attention.cuh's warp-per-row kernel, with
+//   exp, the division and the same rounding of p.
 //
 // Arithmetic, as the Pallas kernel's: scores in f32 times scale; key
-// columns past N are -1e30; p = exp(s - max) / sum in f32, then rounded to
-// v's type before PV, whose sum runs in f32; out in q's type. The fast exp
-// (ex2.approx) and one reciprocal of the sum a row stand for exp and the
-// division: p is rounded to 8 or 11 bits next. Other operands (f32 in full
-// f32, other head dims, rows not 16-byte aligned) take csrc/attention.cuh's
-// warp-per-row kernel, with exp, the division and the same rounding of p.
+// columns past N are -1e30 (the wgmma form's -inf); p = exp(s - max) / sum
+// in f32, then rounded to v's type before PV, whose sum runs in f32; out in
+// q's type. The fast exp (ex2.approx) and one reciprocal of the sum a row
+// stand for exp and the division: p is rounded to 8 or 11 bits next.
 //
 // What bounds it on an H100: at ViT-B/16 224 px (B 128, H 12, N 197, hd 64)
 // a call does 4 B H N^2 hd = 15.3 GFLOP (15 us at 989 TFLOP/s dense bf16)
-// against 155 MB of q, k, v and out (46 us at 3.35 TB/s): the bytes. Each
-// block reads its head's K and V once per query tile (4 tiles at N 197,
-// mostly from L2) and the score rows never leave the SM. mma.sync, no
-// wgmma; the last query tile of a head runs mostly empty at N 197.
+// against 155 MB of q, k, v and out (46 us at 3.35 TB/s): the bytes. The
+// wgmma form reads each head's K and V once per 128-row item (twice at N
+// 197, the second mostly from L2) and the scores never leave the SM; its
+// 128-key tiles and 128-row items pad 197 keys and rows to 256.
 #include "attention.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -189,6 +202,20 @@ void launch(const void* q, const void* k, const void* v, void* o, const Strides 
   launch_rows<T, true>(q, k, v, o, s, B, H, N, N, hd, scale, stream);
 }
 
+// The normalised form of csrc/wgmma_attention.cuh at head dim hd.
+template <typename T>
+int launch_norm(const void* q, const void* k, const void* v, void* o, const wa::View (&vw)[4],
+                int B, int H, int N, int hd, float scale, int tiles, int buffers, int grid,
+                cudaStream_t stream) {
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto norm = hd == 16   ? wa::launch_norm_views<T, 16>
+                    : hd == 32 ? wa::launch_norm_views<T, 32>
+                    : hd == 64 ? wa::launch_norm_views<T, 64>
+                               : wa::launch_norm_views<T, 128>;
+  return norm(q, k, v, o, vw, B, H, N, scale, tiles, buffers, grid, stream);
+}
+
 }  // namespace
 
 extern "C" const char* smelter_error_string(int code) {
@@ -197,16 +224,28 @@ extern "C" const char* smelter_error_string(int code) {
 
 // q, k, v and out (B, H, N, hd) in x_dtype, each addressed by its (batch,
 // head, row) element strides with a contiguous head dim. N <= 512,
-// hd <= 256. Returns a cudaError_t code.
+// hd <= 256. form: kernels/attention_plan.py::short_plan's code (1: the
+// normalised form of csrc/wgmma_attention.cuh, with the plan's tiles,
+// buffers and grid; 0: this file's kernels). Returns a cudaError_t code.
 extern "C" int smelter_short_attention(const void* q, const void* k, const void* v, void* out,
                                        int B, int H, int N, int hd, int qsb, int qsh, int qsn,
                                        int ksb, int ksh, int ksn, int vsb, int vsh, int vsn,
                                        int osb, int osh, int osn, float scale, int x_dtype,
+                                       int form, int tiles, int buffers, int grid,
                                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (hd <= 0 || hd > ROWS_HD_MAX || N > SHORT_N_MAX)
+  if (hd <= 0 || hd > ROWS_HD_MAX || N > SHORT_N_MAX || form < 0 || form > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || N == 0) return 0;
+  if (form == 1) {
+    const wa::View vw[4] = {{qsb, qsh, qsn}, {ksb, ksh, ksn}, {vsb, vsh, vsn}, {osb, osh, osn}};
+    if (x_dtype == kBF16)
+      return launch_norm<__nv_bfloat16>(q, k, v, out, vw, B, H, N, hd, scale, tiles, buffers,
+                                        grid, st);
+    if (x_dtype == kF16)
+      return launch_norm<__half>(q, k, v, out, vw, B, H, N, hd, scale, tiles, buffers, grid, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Strides s[4] = {{qsb, qsh, qsn}, {ksb, ksh, ksn}, {vsb, vsh, vsn}, {osb, osh, osn}};
   const void* const ptrs[4] = {q, k, v, out};
   const bool mma = mma_path(x_dtype, hd, ptrs, s);

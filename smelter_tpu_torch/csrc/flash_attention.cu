@@ -3,32 +3,44 @@
 //
 // Replaces the Pallas kernel smelter_tpu/kernels/flash_attention.py::
 // _flash_attention_impl, whose grid walks the KV tiles of one query tile in
-// order with a running max, sum and rescaled f32 accumulator in VMEM. Here
-// the KV sweep is a loop inside one block of 4 warps a (batch, head, 64
-// query rows): the Q tile's fragments stay in registers, K and V arrive 64
-// keys at a time through a two-stage cp.async ring in shared memory (the
-// next tile loads while the tensor cores work on this one), and each warp
-// keeps its 16 rows' max, sum and f32 accumulator in registers, so nothing
-// of the (Nq, Nk) scores reaches device memory.
+// order with a running max, sum and rescaled f32 accumulator in VMEM. Two
+// forms, chosen by kernels/attention_plan.py::flash_plan and passed in as
+// `form`:
 //
-// Arithmetic, as the Pallas kernel's: scores q k^T in f32 (mma.sync on the
-// 16-bit operands with f32 accumulation, which is exact products summed in
-// f32), times scale; keys past Nk are -inf and their V rows zeros; per KV
-// tile m_new = max(m, max_j s), p = exp(s - m_new), l = exp(m - m_new) l +
-// sum_j p, acc = exp(m - m_new) acc + p V; out = acc / l in q's type. One
-// deviation: p meets V on the tensor cores rounded to the operands' 16-bit
-// type (the Pallas kernel keeps it in f32); the sum l is taken over the f32
-// p. The fast exp (ex2.approx) stands for exp. Other operands (f32 in full
-// f32, other head dims, rows not 16-byte aligned) take csrc/attention.cuh's
-// warp-per-row kernel with f32 p.
+// 1: bf16/f16 at hd 32, 64, 128 whose strides and bases a TMA map takes: the
+//   streaming form of csrc/wgmma_attention.cuh (attn_stream) in one call, a
+//   step that is both the ring's first and last, so no f32 state touches
+//   device memory. A CTA takes 128 query rows of one (batch, head): a
+//   producer thread brings Q once and K and V in 128-key tiles through 4-D
+//   tensor maps of the (B, H, N, hd) views into a ring of stages, two
+//   consumer warpgroups run S = Q K^T and P V on wgmma with the running max,
+//   sum and f32 accumulator in registers (at hd <= 64 the next tile's scores
+//   and softmax overlap this tile's P V), and out = acc / l goes out through
+//   out's strides. Grid (Nq / 128, B H).
+// 0: everything else keeps this file's kernels: the KV sweep is a loop
+//   inside one block of 4 warps a (batch, head, 64 query rows), the Q
+//   tile's fragments in registers, K and V 64 keys at a time through a
+//   two-stage cp.async ring, mma.sync with f32 accumulation (hd 16); f32
+//   (in full f32), other head dims and rows not 16-byte aligned take
+//   csrc/attention.cuh's warp-per-row kernel with f32 p.
+//
+// Arithmetic, as the Pallas kernel's: scores q k^T in f32 (exact products of
+// the 16-bit operands summed in f32), times scale; keys past Nk are -inf
+// and their V rows zeros; per KV tile m_new = max(m, max_j s), p = exp(s -
+// m_new), l = exp(m - m_new) l + sum_j p, acc = exp(m - m_new) acc + p V;
+// out = acc / l in q's type. One deviation: p meets V on the tensor cores
+// rounded to the operands' 16-bit type (the Pallas kernel keeps it in f32);
+// the sum l is taken over the f32 p. The fast exp (ex2.approx) stands for
+// exp; the wgmma form folds a positive scale into its exponent.
 //
 // What bounds it on an H100: at ViT-B/16 384 px (B 64, H 12, N 577, hd 64)
 // a call does 4 B H N^2 hd = 65.5 GFLOP (66 us at 989 TFLOP/s dense bf16)
 // against 227 MB of q, k, v and out (68 us at 3.35 TB/s): the bytes, by a
-// hair; at B 2, H 12, N 4096 the tensor cores (103 GFLOP, 104 us). The
-// design reads q, k and v once per query tile (k and v again for each of
-// the Nq / 64 query tiles, mostly from L2) and runs mma.sync, not wgmma.
+// hair; at B 2, H 12, N 4096 the tensor cores (103 GFLOP, 104 us), with the
+// exponentials as long: a score takes one exp and 2 hd multiply-adds, and
+// at hd 64 an SM's 16 exps a clock keep pace with its 2,048 multiply-adds.
 #include "attention.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -153,6 +165,20 @@ void launch(const void* q, const void* k, const void* v, void* o, const Strides 
   launch_rows<T, false>(q, k, v, o, s, B, H, Nq, Nk, hd, scale, stream);
 }
 
+// One call on the streaming form of csrc/wgmma_attention.cuh (no f32
+// state: the first and the last step at once) at head dim hd.
+template <typename T>
+int launch_stream(const void* q, const void* k, const void* v, void* o,
+                  const wa::View (&vw)[4], int B, int H, int Nq, int Nk, int hd, float scale,
+                  cudaStream_t stream) {
+  if (hd != 32 && hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const auto step = hd == 32   ? wa::launch_stream<T, 32>
+                    : hd == 64 ? wa::launch_stream<T, 64>
+                               : wa::launch_stream<T, 128>;
+  return step(q, k, v, nullptr, nullptr, nullptr, o, vw, B, H, Nq, Nk, scale, true, true,
+              stream);
+}
+
 }  // namespace
 
 extern "C" const char* smelter_error_string(int code) {
@@ -161,15 +187,26 @@ extern "C" const char* smelter_error_string(int code) {
 
 // q (B, H, Nq, hd), k and v (B, H, Nk, hd) and out (B, H, Nq, hd), all in
 // x_dtype, each addressed by its (batch, head, row) element strides with a
-// contiguous head dim. hd <= 256. Returns a cudaError_t code.
+// contiguous head dim. hd <= 256. form: kernels/attention_plan.py::
+// flash_plan's code (1: the streaming form of csrc/wgmma_attention.cuh; 0:
+// this file's kernels). Returns a cudaError_t code.
 extern "C" int smelter_flash_attention(const void* q, const void* k, const void* v, void* out,
                                        int B, int H, int Nq, int Nk, int hd, int qsb, int qsh,
                                        int qsn, int ksb, int ksh, int ksn, int vsb, int vsh,
                                        int vsn, int osb, int osh, int osn, float scale,
-                                       int x_dtype, void* stream) {
+                                       int x_dtype, int form, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (hd <= 0 || hd > ROWS_HD_MAX || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 0 || hd > ROWS_HD_MAX || Nk <= 0 || form < 0 || form > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || Nq == 0) return 0;
+  if (form == 1) {
+    const wa::View vw[4] = {{qsb, qsh, qsn}, {ksb, ksh, ksn}, {vsb, vsh, vsn}, {osb, osh, osn}};
+    if (x_dtype == kBF16)
+      return launch_stream<__nv_bfloat16>(q, k, v, out, vw, B, H, Nq, Nk, hd, scale, st);
+    if (x_dtype == kF16)
+      return launch_stream<__half>(q, k, v, out, vw, B, H, Nq, Nk, hd, scale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Strides s[4] = {{qsb, qsh, qsn}, {ksb, ksh, ksn}, {vsb, vsh, vsn}, {osb, osh, osn}};
   const void* const ptrs[4] = {q, k, v, out};
   const bool mma = mma_path(x_dtype, hd, ptrs, s);

@@ -143,11 +143,10 @@ template <typename T>
 int launch_16(const void* q, const void* k, const void* v, float* m, float* l, float* acc,
               void* out, int BH, int Nq, int Nk, int hd, float scale, bool first, bool last,
               cudaStream_t st) {
-  if (hd == 32)
-    return wa::launch_stream<T, 32>(q, k, v, m, l, acc, out, BH, Nq, Nk, scale, first, last, st);
-  if (hd == 64)
-    return wa::launch_stream<T, 64>(q, k, v, m, l, acc, out, BH, Nq, Nk, scale, first, last, st);
-  return wa::launch_stream<T, 128>(q, k, v, m, l, acc, out, BH, Nq, Nk, scale, first, last, st);
+  const auto step = hd == 32   ? wa::launch_ring_step<T, 32>
+                    : hd == 64 ? wa::launch_ring_step<T, 64>
+                               : wa::launch_ring_step<T, 128>;
+  return step(q, k, v, m, l, acc, out, BH, Nq, Nk, scale, first, last, st);
 }
 
 template <int PER>

@@ -4,31 +4,38 @@
 // mbarriers. Raw PTX in the style of csrc/wgmma_gemm.cuh, whose helpers
 // (mbarriers, TMA loads and maps, wgmma fences) it shares. Two kernels:
 //
-// attn_stream (csrc/ring_attention.cu's bf16/f16 merge step): a CTA takes
-//   128 query rows of one (batch, head) and streams K and V through a ring
-//   of stages in key tiles of KT 128; the f32 state (m, l, acc) of its rows
-//   is read from device memory at the start (not at the first step) and
-//   written at the end (out = acc / l in q's type at the last step). Per
-//   tile, in the algebra of the Pallas ring kernel: s = q k^T * scale,
-//   m_new = max(m, max_j s), alpha = exp(m - m_new), p = exp(s - m_new),
-//   l = alpha l + sum_j p over the f32 p, acc = alpha acc + p v with p
-//   rounded to the operands' 16-bit type.
-// attn_norm (csrc/vit_block.cu's attention): the Pallas ViT kernel's order
-//   (smelter_tpu/kernels/vit_block.py): each row's exact max and sum of
-//   exp(s - max) over all keys first, then p = exp(s - max) / sum rounded to
-//   x's type before p v. A work item is 128 query rows of one (image, head);
-//   its Q and every 128-key tile of its K and V come into one buffer of
-//   shared memory at once. Up to 256 keys the form takes one pass over K:
-//   one tile's row of scores sits in the warpgroup's accumulators, and with
-//   two the first tile's exps (against its own row max) wait in shared
-//   memory (64 KB a CTA) while the second's scores fill the registers, p =
-//   e exp(m0 - m) / l then. With more tiles K and V stay resident and a
-//   second pass recomputes S from shared memory, never reading device
-//   memory again. The CTAs are
-//   persistent (one an SM) and the producer fills the next item's buffer
-//   (two buffers where they fit) while the consumers work. Keys past N are
-//   -inf; the additive mask is ORT's key padding (mask_add: keep flags or
-//   valid lengths).
+// attn_stream (csrc/ring_attention.cu's bf16/f16 merge step, and
+//   csrc/flash_attention.cu's bf16/f16 call as a step that is both the first
+//   and the last, so no f32 state touches device memory): a CTA takes 128
+//   query rows of one (batch, head) and streams K and V through a ring of
+//   stages in key tiles of KT 128; a ring step's f32 state (m, l, acc) of
+//   its rows is read from device memory at the start (not at the first
+//   step) and written at the end (out = acc / l in q's type at the last
+//   step, through out's strides). Per tile, in the algebra of the Pallas
+//   flash and ring kernels: s = q k^T * scale, m_new = max(m, max_j s), alpha
+//   = exp(m - m_new), p = exp(s - m_new), l = alpha l + sum_j p over the f32
+//   p, acc = alpha acc + p v with p rounded to the operands' 16-bit type. A
+//   positive scale is folded into the exponent (the row max of the unscaled
+//   scores times scale), which spares a multiply of every score. At hd <=
+//   64 tile j + 1's scores and softmax overlap tile j's P V.
+// attn_norm (csrc/vit_block.cu's attention, csrc/attention_short.cu's
+//   bf16/f16 call): the Pallas ViT and short-attention kernels' order
+//   (smelter_tpu/kernels/vit_block.py, attention_short.py): each row's exact
+//   max and sum of exp(s - max) over all keys first, then p = exp(s - max) /
+//   sum rounded to x's type before p v. A work item is 128 query rows of one
+//   (image, head); its Q and every 128-key tile of its K and V come into one
+//   buffer of shared memory at once. Up to 256 keys the form takes one pass
+//   over K: one tile's row of scores sits in the warpgroup's accumulators,
+//   and with two the first tile's exps (against its own row max) wait in
+//   shared memory (64 KB a CTA) while the second's scores fill the
+//   registers, p = e exp(m0 - m) / l then. With more tiles K and V stay
+//   resident and a second pass recomputes S from shared memory, never
+//   reading device memory again. The CTAs are persistent (one an SM) and
+//   the producer fills the next item's buffer (two buffers where they fit)
+//   while the consumers work. Keys past N are -inf; the additive mask is
+//   ORT's key padding (mask_add: keep flags or valid lengths). The
+//   operands' source is a template parameter (NormSrc): the ViT block's
+//   packed QKV product or short_attention's three (B, H, N, hd) views.
 //
 // The block: warpgroups 0 and 1 are consumers of 64 query rows each,
 // warpgroup 2 the producer, one thread of which issues every TMA load; a
@@ -40,7 +47,8 @@
 // Each tile's P V is waited for before the loop goes on: one still in
 // flight across the loop's back edge made ptxas serialize every wgmma of
 // the loop (its warning C7515); the two consumer warpgroups overlap each
-// other's softmax and products instead.
+// other's softmax and products, and attn_stream at hd <= 64 issues the next
+// tile's scores beside P V and waits for both within the iteration.
 //
 // Shared memory (what the wgmma descriptors read): a tile of R rows x hd
 // columns is stored as hd / 64 parts (hd 128: two) of R rows of the swizzle
@@ -49,9 +57,14 @@
 // that swizzle. Q and K are K-major operands (descriptor SBO = 8 rows, a
 // k16 step 32 bytes further along the row); V is the MN-major B operand of P
 // V (SBO = 8 key rows, LBO = one part, a k16 step 16 rows further).
-// Operands are read through 3-D maps: q, k, v (BH, N, hd) for the ring, and
-// the (B, N, 3 D) QKV product for the ViT block, head h at column 3 pair G +
+// Operands are read through 4-D maps (hd, N, H, B) of their element
+// strides for attn_stream and short_attention (so the (B, H, N, hd) views
+// of (B, N, H, hd) tensors a graph hands over are read in place; the ring's
+// packed (BH, N, hd) shards are B 1, H = BH), and through 3-D maps of the
+// (B, N, 3 D) QKV product for the ViT block, head h at column 3 pair G +
 // {0, G, 2 G} + hl hd (G = group hd); a box that runs past N reads zeros.
+// A map needs its base 16-byte aligned and each stride a 16-byte multiple
+// (view_ok; kernels/attention_plan.py checks the same before launch).
 //
 // What bounds it on an H100: the tensor cores for the ring (B 1, H 16, N
 // 32,768, hd 128 over 4 ranks: 8.8 TFLOP, 8.9 ms at 989 TFLOP/s dense
@@ -60,8 +73,11 @@
 // which the two consumer warpgroups hide from each other. ViT-B/16's
 // attention (15.3 GFLOP at B 128) is small beside its projections; its 197
 // keys fill two 128-key tiles 77 %, and 197 query rows two 128-row items
-// as much. mma.sync, which this replaces for 16-bit types, kept the tensor
-// cores at about a fifth of their rate.
+// as much. Skipping the exps of key blocks and warps wholly past N made
+// both forms slower on the card (a branch around the softmax cost the
+// registers and the schedule more than the skipped work), so padded keys
+// and rows are computed and masked. mma.sync, which this replaces for
+// 16-bit types, kept the tensor cores at about a fifth of their rate.
 // smelter_tpu_torch/kernels/attention_plan.py mirrors the sizes below and
 // picks the form.
 #pragma once
@@ -81,6 +97,7 @@ using wg::mbar_init;
 using wg::mbar_wait;
 using wg::smem_u32;
 using wg::tma_load_3d;
+using wg::tma_load_4d;
 using wg::wgmma_commit;
 using wg::wgmma_fence;
 using wg::wgmma_wait;
@@ -288,16 +305,83 @@ struct StreamCfg {
   static_assert(STAGES >= 2, "two stages at least");
 };
 
-// One rank's step: q (BH, Nq, hd), k and v (BH, Nk, hd) through 3-D maps
-// (boxes of 128 rows for q, KT for k and v); m, l (BH, Nq) and acc
-// (BH, Nq, hd) f32, read unless `first`, written unless `last`; out (BH, Nq,
-// hd) in T, written when `last`. Grid (Nq / 128, BH).
-template <typename T, int HD>
+// Operand element strides (batch, head, row; the head dim contiguous).
+struct View {
+  long long b, h, n;
+};
+
+// One tile's online softmax, o aside: s = s * scale (keys past Nk -inf),
+// m_new = max(m, max_j s), alpha = exp(m - m_new), s = exp(s - m_new), l =
+// alpha l + sum_j s. FOLD (scale > 0): s stays unscaled, its row max times
+// scale is the scaled max (rounding is monotonic), and the exponent takes
+// the scale, s (scale log2 e) - m log2 e: no multiply of the whole tile.
+template <bool FOLD>
+__device__ __forceinline__ void online_max_sum(float (&s)[KT / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float scale, int Nk, int c0) {
+  const int t = threadIdx.x & 3;
+  if (c0 + KT <= Nk) {
+    if (!FOLD) {
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) s[i] *= scale;
+    }
+  } else {  // the ragged last tile
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) {
+      const int key = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      s[i] = key < Nk ? (FOLD ? s[i] : s[i] * scale) : -INFINITY;
+    }
+  }
+  const float c = FOLD ? scale * LOG2E : LOG2E;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < KT / 8; ++jj)
+      mx = fmaxf(mx, fmaxf(s[4 * jj + 2 * h], s[4 * jj + 2 * h + 1]));
+    mx = quad_max(mx);
+    const float mn = fmaxf(m[h], FOLD ? mx * scale : mx);  // finite: a tile holds a key below Nk
+    alpha[h] = ex2((m[h] - mn) * LOG2E);
+    const float mb = mn * LOG2E;
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < KT / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * jj + 2 * h + e;
+        s[i] = ex2(fmaf(s[i], c, -mb));
+        sum += s[i];
+      }
+    l[h] = alpha[h] * l[h] + quad_sum(sum);
+    m[h] = mn;
+  }
+}
+
+// o *= alpha, each row half by its own.
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      o[4 * n + 2 * h] *= alpha[h];
+      o[4 * n + 2 * h + 1] *= alpha[h];
+    }
+}
+
+// q (B, H, Nq, hd), k and v (B, H, Nk, hd) through 4-D maps (hd, N, H, B)
+// of their strides (boxes of 128 rows for q, KT for k and v). A ring step
+// (B 1, H = BH, packed operands) reads m, l (BH, Nq) and acc (BH, Nq, hd)
+// f32 unless `first` and writes them unless `last`; with `last` the output
+// out = acc / l in T goes through out's element strides `os`. One call of
+// flash_attention is a step with both set: no state is read or written.
+// FOLD: scale > 0, folded into the exponent (online_max_sum). Grid (Nq /
+// 128, B H).
+template <typename T, int HD, bool FOLD>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_stream(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
             const __grid_constant__ CUtensorMap map_v, float* __restrict__ m_g,
             float* __restrict__ l_g, float* __restrict__ acc_g, uint16_t* __restrict__ out,
-            int Nq, int Nk, float scale, int first, int last) {
+            View os, int H, int Nq, int Nk, float scale, int first, int last) {
   using G = Geo<HD>;
   using Cfg = StreamCfg<HD>;
   constexpr int STAGES = Cfg::STAGES;
@@ -307,7 +391,8 @@ attn_stream(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
   uint64_t* qfull = reinterpret_cast<uint64_t*>(skv + STAGES * 2 * Cfg::KV_BYTES);
   uint64_t* full = qfull + 1;
   uint64_t* empty = full + STAGES;
-  const int bh = blockIdx.y, q0 = blockIdx.x * Q_ROWS, tiles = (Nk + KT - 1) / KT;
+  const int bh = blockIdx.y, hi = bh % H, bi = bh / H;
+  const int q0 = blockIdx.x * Q_ROWS, tiles = (Nk + KT - 1) / KT;
 
   if (threadIdx.x == 0) {
     mbar_init(qfull, 1);
@@ -324,7 +409,7 @@ attn_stream(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
       mbar_expect_tx(qfull, Cfg::Q_BYTES);
 #pragma unroll
       for (int p = 0; p < G::PARTS; ++p)
-        tma_load_3d(sq + p * Q_ROWS * G::RB, &map_q, qfull, p * G::PART_COLS, q0, bh);
+        tma_load_4d(sq + p * Q_ROWS * G::RB, &map_q, qfull, p * G::PART_COLS, q0, hi, bi);
       int stage = 0, phase = 0;
       for (int j = 0; j < tiles; ++j) {
         mbar_wait(&empty[stage], phase ^ 1);
@@ -332,9 +417,10 @@ attn_stream(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
         uint8_t* kb = skv + stage * 2 * Cfg::KV_BYTES;
 #pragma unroll
         for (int p = 0; p < G::PARTS; ++p) {
-          tma_load_3d(kb + p * KT * G::RB, &map_k, &full[stage], p * G::PART_COLS, j * KT, bh);
-          tma_load_3d(kb + Cfg::KV_BYTES + p * KT * G::RB, &map_v, &full[stage],
-                      p * G::PART_COLS, j * KT, bh);
+          tma_load_4d(kb + p * KT * G::RB, &map_k, &full[stage], p * G::PART_COLS, j * KT, hi,
+                      bi);
+          tma_load_4d(kb + Cfg::KV_BYTES + p * KT * G::RB, &map_v, &full[stage],
+                      p * G::PART_COLS, j * KT, hi, bi);
         }
         if (++stage == STAGES) {
           stage = 0;
@@ -350,7 +436,7 @@ attn_stream(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
   const bool leader = (threadIdx.x & 127) == 0;
   // the thread's rows (h = 0, 1) and their f32 state
   int rows[2];
-  float m[2], l[2], o[HD / 2];
+  float m[2], l[2], o[HD / 2], alpha[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rows[h] = q0 + wgi * WG_ROWS + warp * 16 + g + 8 * h;
@@ -371,79 +457,98 @@ attn_stream(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
   for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
   mbar_wait(qfull, 0);
   int stage = 0, phase = 0;
-  for (int j = 0; j < tiles; ++j) {
-    mbar_wait(&full[stage], phase);
-    const uint8_t* kb = skv + stage * 2 * Cfg::KV_BYTES;
+  if constexpr (HD <= 64) {
+    // Pipelined: tile j + 1's scores and tile j's P V are issued together,
+    // and tile j + 1's softmax runs while P V (its A fragments p and its
+    // accumulator o untouched) is in flight; o takes tile j + 1's alpha once
+    // P V is waited for. Nothing is in flight across the loop's back edge
+    // (ptxas's C7515). s, p and o take hd / 2 + 96 registers a thread
+    // together, which fits at hd 64, not at 128.
+    uint32_t p[KT / 16][4];
+    mbar_wait(&full[0], 0);
     wgmma_fence();
-    scores<T, HD>(s, sq, Q_ROWS, wgi * WG_ROWS, kb);
+    scores<T, HD>(s, sq, Q_ROWS, wgi * WG_ROWS, skv);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    const int c0 = j * KT;
-    if (c0 + KT <= Nk) {
-#pragma unroll
-      for (int i = 0; i < KT / 2; ++i) s[i] *= scale;
-    } else {  // the ragged last tile
-#pragma unroll
-      for (int i = 0; i < KT / 2; ++i) {
-        const int key = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        s[i] = key < Nk ? s[i] * scale : -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < KT / 8; ++jj)
-        mx = fmaxf(mx, fmaxf(s[4 * jj + 2 * h], s[4 * jj + 2 * h + 1]));
-      const float mn = fmaxf(m[h], quad_max(mx));  // finite: a tile holds a key below Nk
-      const float alpha = ex2((m[h] - mn) * LOG2E), mb = mn * LOG2E;
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < KT / 8; ++jj)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * jj + 2 * h + e;
-          s[i] = ex2(fmaf(s[i], LOG2E, -mb));
-          sum += s[i];
-        }
-      l[h] = alpha * l[h] + quad_sum(sum);
-      m[h] = mn;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        o[4 * n + 2 * h] *= alpha;
-        o[4 * n + 2 * h + 1] *= alpha;
-      }
-    }
-    // P V waited for at once: a P V still in flight across the loop's back
-    // edge makes ptxas serialize every wgmma of the loop (its C7515)
-    uint32_t p[KT / 16][4];
+    online_max_sum<FOLD>(s, m, l, alpha, scale, Nk, 0);
+    rescale<HD>(o, alpha);
     to_fragments<T>(p, s);
-    wgmma_fence();
-    pv<T, HD>(o, p, kb + Cfg::KV_BYTES, 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    fence_u32(p);
-    if (leader) mbar_arrive(&empty[stage]);  // the tile's K and V are read
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
+    for (int j = 0; j < tiles; ++j) {
+      const uint8_t* kb = skv + stage * 2 * Cfg::KV_BYTES;
+      const int next = stage + 1 == STAGES ? 0 : stage + 1;
+      const int next_phase = next != 0 ? phase : phase ^ 1;
+      const uint8_t* nkb = skv + next * 2 * Cfg::KV_BYTES;
+      if (j + 1 < tiles) {
+        mbar_wait(&full[next], next_phase);
+        wgmma_fence();
+        scores<T, HD>(s, sq, Q_ROWS, wgi * WG_ROWS, nkb);
+        wgmma_commit();
+        pv<T, HD>(o, p, kb + Cfg::KV_BYTES, 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the scores (committed first) are in
+        fence_regs(s);
+        online_max_sum<FOLD>(s, m, l, alpha, scale, Nk, (j + 1) * KT);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_u32(p);
+        if (leader) mbar_arrive(&empty[stage]);  // tile j's K and V are read
+        rescale<HD>(o, alpha);
+        to_fragments<T>(p, s);
+      } else {
+        wgmma_fence();
+        pv<T, HD>(o, p, kb + Cfg::KV_BYTES, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_u32(p);
+        if (leader) mbar_arrive(&empty[stage]);
+      }
+      stage = next;
+      phase = next_phase;
+    }
+  } else {
+    for (int j = 0; j < tiles; ++j) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* kb = skv + stage * 2 * Cfg::KV_BYTES;
+      wgmma_fence();
+      scores<T, HD>(s, sq, Q_ROWS, wgi * WG_ROWS, kb);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      online_max_sum<FOLD>(s, m, l, alpha, scale, Nk, j * KT);
+      rescale<HD>(o, alpha);
+      // P V waited for at once: a P V still in flight across the loop's back
+      // edge makes ptxas serialize every wgmma of the loop (its C7515)
+      uint32_t p[KT / 16][4];
+      to_fragments<T>(p, s);
+      wgmma_fence();
+      pv<T, HD>(o, p, kb + Cfg::KV_BYTES, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_u32(p);
+      if (leader) mbar_arrive(&empty[stage]);  // the tile's K and V are read
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = rows[h];
     if (row >= Nq) continue;
-    const size_t at = static_cast<size_t>(bh) * Nq + row;
     if (last) {
       const float inv = 1.f / l[h];
+      uint16_t* dst = out + bi * os.b + hi * os.h + row * os.n + t * 2;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(out + at * HD + n * 8 + t * 2) =
+        *reinterpret_cast<uint32_t*>(dst + n * 8) =
             pack16<T>(o[4 * n + 2 * h] * inv, o[4 * n + 2 * h + 1] * inv);
       continue;
     }
+    const size_t at = static_cast<size_t>(bh) * Nq + row;
     if (t == 0) {
       m_g[at] = m[h];
       l_g[at] = l[h];
@@ -505,18 +610,27 @@ __device__ __forceinline__ void mask_tile(float (&s)[KT / 2], float scale, const
     }
 }
 
-// attn (B N, D) = per head softmax(q k^T * scale + mask) v, each head's
-// output at columns h hd, from qkv (B, N, 3 D) through two 3-D maps of it
-// (boxes of 128 rows for Q, KT for K and V). Work item i: image i / (heads
-// rb), head (i / rb) % heads, row block i % rb (rb = N / 128); `tiles` key
-// tiles resident an item, `buffers` items in flight. Grid: at most one CTA
-// an SM.
-template <typename T, int HD>
+// The operands of the normalised form, chosen at compile time (a runtime
+// flag in the loop made cicc take minutes in gemm_tma):
+// kPackedQkv: the ViT block's qkv (B, N, 3 D) through two 3-D maps (hd
+//   columns at 3 pair G + {0, G, 2 G} + hl hd, G = group hd; map_k serves K
+//   and V);
+// kViews: short_attention's q, k and v (B, H, N, hd) through a 4-D map
+//   (hd, N, H, B) each.
+enum NormSrc : int { kPackedQkv = 0, kViews = 1 };
+
+// Per head: out = softmax(q k^T * scale + mask) v, boxes of 128 rows for Q
+// and KT for K and V. Work item i: image i / (heads rb), head (i / rb) %
+// heads, row block i % rb (rb = N / 128); `tiles` key tiles resident an
+// item, `buffers` items in flight. The output goes through its element
+// strides `os` (the ViT block's attn (B N, D), head h at columns h hd: N D,
+// hd, D). Grid: at most one CTA an SM.
+template <typename T, int HD, int SRC>
 __global__ void __launch_bounds__(THREADS, 1)
-attn_norm(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_kv,
-          const float* __restrict__ keep, const int* __restrict__ lens, int mask_kind,
-          float filter, uint16_t* __restrict__ attn, int B, int N, int D, int heads, int group,
-          float scale, int tiles, int buffers) {
+attn_norm(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+          const __grid_constant__ CUtensorMap map_v, const float* __restrict__ keep,
+          const int* __restrict__ lens, int mask_kind, float filter, uint16_t* __restrict__ out,
+          View os, int B, int N, int heads, int group, float scale, int tiles, int buffers) {
   using G = Geo<HD>;
   using Cfg = NormCfg<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -543,24 +657,39 @@ attn_norm(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       int buf = 0, phase = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const int r = item % rb, h = (item / rb) % heads, b = item / (rb * heads);
-        const int qc = 3 * (h / group) * G_ + (h % group) * HD;
         mbar_wait(&empty[buf], phase ^ 1);
         mbar_expect_tx(&full[buf], buf_bytes);
         uint8_t* qb = sb + buf * buf_bytes;
         uint8_t* kb = qb + Cfg::Q_BYTES;
         uint8_t* vb = kb + tiles * Cfg::KV_BYTES;
+        if constexpr (SRC == kViews) {
 #pragma unroll
-        for (int p = 0; p < G::PARTS; ++p)
-          tma_load_3d(qb + p * Q_ROWS * G::RB, &map_q, &full[buf], qc + p * G::PART_COLS,
-                      r * Q_ROWS, b);
-        for (int tt = 0; tt < tiles; ++tt)
+          for (int p = 0; p < G::PARTS; ++p)
+            tma_load_4d(qb + p * Q_ROWS * G::RB, &map_q, &full[buf], p * G::PART_COLS,
+                        r * Q_ROWS, h, b);
+          for (int tt = 0; tt < tiles; ++tt)
 #pragma unroll
-          for (int p = 0; p < G::PARTS; ++p) {
-            tma_load_3d(kb + tt * Cfg::KV_BYTES + p * KT * G::RB, &map_kv, &full[buf],
-                        qc + G_ + p * G::PART_COLS, tt * KT, b);
-            tma_load_3d(vb + tt * Cfg::KV_BYTES + p * KT * G::RB, &map_kv, &full[buf],
-                        qc + 2 * G_ + p * G::PART_COLS, tt * KT, b);
-          }
+            for (int p = 0; p < G::PARTS; ++p) {
+              tma_load_4d(kb + tt * Cfg::KV_BYTES + p * KT * G::RB, &map_k, &full[buf],
+                          p * G::PART_COLS, tt * KT, h, b);
+              tma_load_4d(vb + tt * Cfg::KV_BYTES + p * KT * G::RB, &map_v, &full[buf],
+                          p * G::PART_COLS, tt * KT, h, b);
+            }
+        } else {
+          const int qc = 3 * (h / group) * G_ + (h % group) * HD;
+#pragma unroll
+          for (int p = 0; p < G::PARTS; ++p)
+            tma_load_3d(qb + p * Q_ROWS * G::RB, &map_q, &full[buf], qc + p * G::PART_COLS,
+                        r * Q_ROWS, b);
+          for (int tt = 0; tt < tiles; ++tt)
+#pragma unroll
+            for (int p = 0; p < G::PARTS; ++p) {
+              tma_load_3d(kb + tt * Cfg::KV_BYTES + p * KT * G::RB, &map_k, &full[buf],
+                          qc + G_ + p * G::PART_COLS, tt * KT, b);
+              tma_load_3d(vb + tt * Cfg::KV_BYTES + p * KT * G::RB, &map_v, &full[buf],
+                          qc + 2 * G_ + p * G::PART_COLS, tt * KT, b);
+            }
+        }
         if (++buf == buffers) {
           buf = 0;
           phase ^= 1;
@@ -758,7 +887,7 @@ attn_norm(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r * Q_ROWS + wgi * WG_ROWS + warp * 16 + g + 8 * hh;
       if (row >= N) continue;
-      uint16_t* dst = attn + (static_cast<size_t>(b) * N + row) * D + h * HD + t * 2;
+      uint16_t* dst = out + b * os.b + h * os.h + row * os.n + t * 2;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<uint32_t*>(dst + n * 8) =
@@ -769,33 +898,89 @@ attn_norm(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
 
 // -- host side ----------------------------------------------------------------
 
-// One ring step on the streaming form; q, k, v, out 16-byte aligned, hd 32,
-// 64 or 128. Returns a cudaError_t code.
+// The 4-D map (hd, N, H, B) of a (B, H, N, hd) operand at its element
+// strides, boxes of `rows` rows of one part.
+template <typename T, int HD>
+static int view_map(CUtensorMap* map, const void* base, const View& v, int B, int H, int N,
+                    int rows) {
+  using G = Geo<HD>;
+  return wg::make_map_4d(map, base, wg::map_type<T>(), HD, N, H, B, v.n * 2, v.h * 2, v.b * 2,
+                         G::PART_COLS, rows, G::SWIZZLE);
+}
+
+// Whether the 4-D maps take a (B, H, N, hd) operand: its base 16-byte
+// aligned, each stride a positive 16-byte multiple below 2^40 (the plans'
+// condition, checked again here before any map is encoded).
+inline bool view_ok(const void* base, const View& v) {
+  const auto ok = [](long long s) { return s > 0 && s % 8 == 0 && s < (1LL << 39); };
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ok(v.b) && ok(v.h) && ok(v.n);
+}
+
+// The streaming form over (B, H, N, hd) operands at element strides q, k,
+// v and out; m, l, acc the ring's f32 state (nullptr when first and last).
+// hd 32, 64 or 128. Returns a cudaError_t code.
 template <typename T, int HD>
 static int launch_stream(const void* q, const void* k, const void* v, float* m, float* l,
-                         float* acc, void* out, int BH, int Nq, int Nk, float scale, bool first,
-                         bool last, cudaStream_t stream) {
-  using G = Geo<HD>;
+                         float* acc, void* out, const View (&vw)[4], int B, int H, int Nq,
+                         int Nk, float scale, bool first, bool last, cudaStream_t stream) {
   using Cfg = StreamCfg<HD>;
-  const auto type = wg::map_type<T>();
-  const long long row = static_cast<long long>(HD) * 2;
+  if (!view_ok(q, vw[0]) || !view_ok(k, vw[1]) || !view_ok(v, vw[2]) ||
+      (!(first && last) && (m == nullptr || l == nullptr || acc == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
-  int rc = wg::make_map_3d(&mq, q, type, HD, Nq, BH, row, row * Nq, G::PART_COLS, Q_ROWS,
-                           G::SWIZZLE);
-  if (rc == 0)
-    rc = wg::make_map_3d(&mk, k, type, HD, Nk, BH, row, row * Nk, G::PART_COLS, KT,
-                         G::SWIZZLE);
-  if (rc == 0)
-    rc = wg::make_map_3d(&mv, v, type, HD, Nk, BH, row, row * Nk, G::PART_COLS, KT,
-                         G::SWIZZLE);
+  int rc = view_map<T, HD>(&mq, q, vw[0], B, H, Nq, Q_ROWS);
+  if (rc == 0) rc = view_map<T, HD>(&mk, k, vw[1], B, H, Nk, KT);
+  if (rc == 0) rc = view_map<T, HD>(&mv, v, vw[2], B, H, Nk, KT);
   if (rc != 0) return rc;
-  static const cudaError_t smem_set = cudaFuncSetAttribute(
-      attn_stream<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
-  (void)smem_set;  // a refusal shows as the launch's error
-  const dim3 grid((Nq + Q_ROWS - 1) / Q_ROWS, BH);
-  attn_stream<T, HD><<<grid, THREADS, Cfg::SMEM, stream>>>(
-      mq, mk, mv, m, l, acc, static_cast<uint16_t*>(out), Nq, Nk, scale, first, last);
+  const dim3 grid((Nq + Q_ROWS - 1) / Q_ROWS, B * H);
+  if (scale > 0.f) {
+    static const cudaError_t smem_set = cudaFuncSetAttribute(
+        attn_stream<T, HD, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    (void)smem_set;  // a refusal shows as the launch's error
+    attn_stream<T, HD, true><<<grid, THREADS, Cfg::SMEM, stream>>>(
+        mq, mk, mv, m, l, acc, static_cast<uint16_t*>(out), vw[3], H, Nq, Nk, scale, first,
+        last);
+  } else {
+    static const cudaError_t smem_set = cudaFuncSetAttribute(
+        attn_stream<T, HD, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    (void)smem_set;
+    attn_stream<T, HD, false><<<grid, THREADS, Cfg::SMEM, stream>>>(
+        mq, mk, mv, m, l, acc, static_cast<uint16_t*>(out), vw[3], H, Nq, Nk, scale, first,
+        last);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One ring step on the streaming form: q (BH, Nq, hd), k, v (BH, Nk, hd)
+// and out packed, 16-byte aligned, hd 32, 64 or 128.
+template <typename T, int HD>
+static int launch_ring_step(const void* q, const void* k, const void* v, float* m, float* l,
+                            float* acc, void* out, int BH, int Nq, int Nk, float scale,
+                            bool first, bool last, cudaStream_t stream) {
+  const View qv{1LL * BH * Nq * HD, 1LL * Nq * HD, HD}, kv{1LL * BH * Nk * HD, 1LL * Nk * HD, HD};
+  const View vw[4] = {qv, kv, kv, qv};
+  return launch_stream<T, HD>(q, k, v, m, l, acc, out, vw, 1, BH, Nq, Nk, scale, first, last,
+                              stream);
+}
+
+template <typename T, int HD, int SRC>
+static int launch_norm_kernel(const CUtensorMap& mq, const CUtensorMap& mk,
+                              const CUtensorMap& mv, const float* keep, const int* lens,
+                              int mask_kind, float filter, void* out, const View& os, int B,
+                              int N, int heads, int group, float scale, int tiles, int buffers,
+                              int grid, cudaStream_t stream) {
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      attn_norm<T, HD, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  (void)smem_set;
+  attn_norm<T, HD, SRC><<<grid, THREADS, NormCfg<HD>::smem(tiles, buffers), stream>>>(
+      mq, mk, mv, keep, lens, mask_kind, filter, static_cast<uint16_t*>(out), os, B, N, heads,
+      group, scale, tiles, buffers);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a plan's tiles and buffers fit shared memory and cover N keys.
+inline bool norm_fits(int smem, int N, int tiles, int buffers) {
+  return tiles >= 1 && buffers >= 1 && smem <= SMEM_LIMIT && (N + KT - 1) / KT == tiles;
 }
 
 // The ViT block's attention on the normalised form: qkv (B N, 3 D) and attn
@@ -807,9 +992,7 @@ static int launch_norm(const void* qkv, const float* keep, const int* lens, int 
                        float filter, void* attn, int B, int N, int D, int heads, int group,
                        float scale, int tiles, int buffers, int grid, cudaStream_t stream) {
   using G = Geo<HD>;
-  using Cfg = NormCfg<HD>;
-  const int smem = Cfg::smem(tiles, buffers);
-  if (tiles < 1 || buffers < 1 || smem > SMEM_LIMIT || (N + KT - 1) / KT != tiles)
+  if (!norm_fits(NormCfg<HD>::smem(tiles, buffers), N, tiles, buffers))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto type = wg::map_type<T>();
   const long long row = 3LL * D * 2;
@@ -820,13 +1003,30 @@ static int launch_norm(const void* qkv, const float* keep, const int* lens, int 
     rc = wg::make_map_3d(&mkv, qkv, type, 3 * D, N, B, row, row * N, G::PART_COLS, KT,
                          G::SWIZZLE);
   if (rc != 0) return rc;
-  static const cudaError_t smem_set = cudaFuncSetAttribute(
-      attn_norm<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-  (void)smem_set;
-  attn_norm<T, HD><<<grid, THREADS, smem, stream>>>(mq, mkv, keep, lens, mask_kind, filter,
-                                                    static_cast<uint16_t*>(attn), B, N, D,
-                                                    heads, group, scale, tiles, buffers);
-  return static_cast<int>(cudaGetLastError());
+  const View os{1LL * N * D, HD, D};
+  return launch_norm_kernel<T, HD, kPackedQkv>(mq, mkv, mkv, keep, lens, mask_kind, filter,
+                                               attn, os, B, N, heads, group, scale, tiles,
+                                               buffers, grid, stream);
+}
+
+// short_attention on the normalised form: q, k, v and out (B, H, N, hd) in
+// T at element strides vw (q, k, v, out), no mask; `tiles`, `buffers` and
+// `grid` the plan's. Returns a cudaError_t code.
+template <typename T, int HD>
+static int launch_norm_views(const void* q, const void* k, const void* v, void* out,
+                             const View (&vw)[4], int B, int H, int N, float scale, int tiles,
+                             int buffers, int grid, cudaStream_t stream) {
+  if (!norm_fits(NormCfg<HD>::smem(tiles, buffers), N, tiles, buffers) || !view_ok(q, vw[0]) ||
+      !view_ok(k, vw[1]) || !view_ok(v, vw[2]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  int rc = view_map<T, HD>(&mq, q, vw[0], B, H, N, Q_ROWS);
+  if (rc == 0) rc = view_map<T, HD>(&mk, k, vw[1], B, H, N, KT);
+  if (rc == 0) rc = view_map<T, HD>(&mv, v, vw[2], B, H, N, KT);
+  if (rc != 0) return rc;
+  return launch_norm_kernel<T, HD, kViews>(mq, mk, mv, nullptr, nullptr, kNoMask, 0.f, out,
+                                           vw[3], B, N, H, 1, scale, tiles, buffers, grid,
+                                           stream);
 }
 
 }  // namespace

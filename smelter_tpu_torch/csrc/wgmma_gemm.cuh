@@ -177,6 +177,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// One TMA load of the box at (c0 innermost, c1, c2, c3) of a 4-D map.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
 // One TMA im2col load: the box of the map's pixels (128 output pixels from
 // the one whose window starts at input column w, row h of image n) x its
 // channels from c, each pixel read at (w + ow, h + oh): the tap's offset.
@@ -1225,6 +1235,29 @@ static int make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType t
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1), 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A map of the 4-D tensor at `base`: dims (d0 innermost, d1, d2, d3)
+// elements, d1, d2 and d3 strided by s1, s2 and s3 bytes in any order (a
+// (B, H, N, hd) view of a (B, N, H, hd) tensor has s2 < s1), boxes of (b0,
+// b1, 1, 1); positions past the dims read as zeros. The base must be
+// 16-byte aligned and each stride a 16-byte multiple below 2^40, which the
+// callers' plans check before launch. Returns a cudaError_t code.
+static int make_map_4d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int d0,
+                       int d1, int d2, int d3, long long s1, long long s2, long long s3, int b0,
+                       int b1, CUtensorMapSwizzle swizzle) {
+  static const auto fn = reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s1), static_cast<cuuint64_t>(s2),
+                                 static_cast<cuuint64_t>(s3)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

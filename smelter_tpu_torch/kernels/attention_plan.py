@@ -1,36 +1,45 @@
 """Which form of `csrc/wgmma_attention.cuh` an attention call takes, from its
-shape alone.
+shape and stated conditions alone.
 
-A pure function of the shape and a few flags, so the CPU tests can check it;
-the header's constants (`StreamCfg`, `NormCfg`) give the same sizes. Both
-forms run CTAs of two consumer warpgroups (64 query rows each, 128 a CTA)
-and a producer warpgroup, one CTA an SM, at most 227 KB of shared memory,
-and tiles of 128 keys (the scores of a tile, 64 registers a thread, beside
-P and the output in a thread's 168):
+Pure functions of the shape, the strides and a few flags, so the CPU tests
+can check them; the header's constants (`StreamCfg`, `NormCfg`) give the
+same sizes. Both forms run CTAs of two consumer warpgroups (64 query rows
+each, 128 a CTA) and a producer warpgroup, one CTA an SM, at most 227 KB of
+shared memory, and tiles of 128 keys (the scores of a tile, 64 registers a
+thread, beside P and the output in a thread's 168):
 
-- "streaming" (`ring_attention_rdma`'s bf16/f16 step, hd 32, 64, 128): K and
-  V stream through a ring of `stages` stages of 128-key tiles, as many as
-  fit beside Q, at most 4.
-- "one_pass" and "resident" (`vit_attention_block`'s attention, bf16/f16, hd
-  16, 32, 64, 128): a work item (128 query rows of one image and head) takes
-  Q and all its keys' K and V into one buffer at once, in `tiles` tiles of
-  `key_tile` keys. Up to two tiles (N <= 256): one pass over K, the first
-  tile's exps staged in shared memory (64 KB a CTA) while the second's
-  scores take the registers. More: K and V resident, a second pass
-  recomputes the scores from shared memory. `stages` buffers (two where
-  they fit) let the producer fill the next item's while the consumers work;
-  the grid is persistent.
-- "mma": what the new forms do not take (a ViT block whose K and V exceed
-  shared memory: hd 64 past 768 keys, hd 128 past 384; f32) keeps the
-  earlier kernels of `csrc/vit_block.cu`.
+- "streaming" (`ring_attention_rdma`'s bf16/f16 step, `flash_attention`'s
+  bf16/f16 call; hd 32, 64, 128): K and V stream through a ring of
+  `stages` stages of 128-key tiles, as many as fit beside Q, at most 4; a
+  CTA takes 128 query rows of one (batch, head).
+- "one_pass" and "resident" (`vit_attention_block`'s attention and
+  `short_attention`'s bf16/f16 call; hd 16, 32, 64, 128): a work item (128
+  query rows of one image and head) takes Q and all its keys' K and V into
+  one buffer at once, in `tiles` tiles of `key_tile` keys. Up to two tiles
+  (N <= 256): one pass over K, the first tile's exps staged in shared
+  memory (64 KB a CTA) while the second's scores take the registers. More:
+  K and V resident, a second pass recomputes the scores from shared memory.
+  `stages` buffers (two where they fit) let the producer fill the next
+  item's while the consumers work; the grid is persistent.
+- "mma": what the new forms do not take keeps the earlier kernels: f32 (the
+  warp-per-row kernels), head dims outside the form's set, operands whose
+  strides or bases a TMA map cannot take, and K and V past shared memory
+  (hd 64 past 768 keys, hd 128 past 384): `csrc/vit_block.cu`'s,
+  `csrc/attention_short.cu`'s and `csrc/flash_attention.cu`'s own kernels.
 
-The choice is made by shape and stated conditions, never by catching a
-failure.
+`short_attention` and `flash_attention` read q, k and v through 4-D maps
+(hd, N, H, B) of their element strides, so the (B, H, N, hd) views of (B, N,
+H, hd) tensors a graph hands over are read in place. A map needs its base
+16-byte aligned and each stride a positive 16-byte multiple below 2^40
+(`views_ok`). The choice is made by shape and these conditions, never by
+catching a failure.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 WG_ROWS, CONSUMERS = 64, 2
 Q_ROWS = WG_ROWS * CONSUMERS   # query rows a CTA
@@ -39,6 +48,7 @@ SMS = 132                      # streaming multiprocessors of an H100 SXM
 KEY_TILE = 128
 STREAM_HEAD_DIMS = (32, 64, 128)
 HEAD_DIMS = (16, 32, 64, 128)
+MAX_GRID_Y = 65_535            # a launch's grid.y: the streaming form's B H
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +63,9 @@ class AttnPlan:
 
     @property
     def code(self) -> int:
-        """The form's code in `csrc/vit_block.cu`'s entry point (1: the
-        new core's normalised form)."""
+        """The form's code in the entry points of `csrc/vit_block.cu`,
+        `attention_short.cu` and `flash_attention.cu` (1: the new core's
+        form, 0: the file's earlier kernels)."""
         return 0 if self.form == "mma" else 1
 
 
@@ -99,13 +110,19 @@ def ring_plan(Nq: int, BH: int, hd: int, *, sixteen_bit: bool) -> AttnPlan:
                     cdiv(Nq, Q_ROWS) * BH, stream_smem(hd))
 
 
-def vit_plan(B: int, N: int, heads: int, hd: int, *, sixteen_bit: bool,
-             sms: int = SMS) -> AttnPlan:
-    """`vit_attention_block`'s attention at B images of N tokens, `heads`
-    heads of hd: the form, its tiles and buffers, the persistent grid. The
-    operands' strides (3 D and D elements a row) are 16-byte multiples
-    whenever hd % 8 == 0, which the wrapper requires."""
-    if not sixteen_bit or hd not in HEAD_DIMS or N < 1:
+def views_ok(strides, *, aligned: bool = True) -> bool:
+    """Whether 4-D TMA maps take 16-bit operands of these (batch, head, row)
+    element strides (one triple an operand): bases 16-byte aligned, each
+    stride a positive 16-byte multiple below 2^40 bytes."""
+    return aligned and all(0 < 2 * s < 2 ** 40 and 2 * s % 16 == 0
+                           for triple in strides for s in triple)
+
+
+def _norm_plan(B: int, N: int, heads: int, hd: int, sms: int) -> AttnPlan:
+    """The normalised form for B images of N tokens, `heads` heads of hd
+    (16-bit): one pass or resident tiles, buffers, the persistent grid; MMA
+    where K and V do not fit."""
+    if hd not in HEAD_DIMS or N < 1:
         return MMA
     tiles = cdiv(N, KEY_TILE)
     staged = STAGED if tiles == 2 else 0
@@ -115,3 +132,37 @@ def vit_plan(B: int, N: int, heads: int, hd: int, *, sixteen_bit: bool,
     items = B * heads * cdiv(N, Q_ROWS)
     return AttnPlan("one_pass" if tiles <= 2 else "resident", CONSUMERS, KEY_TILE, tiles, buffers,
                     min(items, sms), norm_smem(hd, tiles, buffers))
+
+
+def vit_plan(B: int, N: int, heads: int, hd: int, *, sixteen_bit: bool,
+             sms: int = SMS) -> AttnPlan:
+    """`vit_attention_block`'s attention at B images of N tokens, `heads`
+    heads of hd: the form, its tiles and buffers, the persistent grid. The
+    operands' strides (3 D and D elements a row) are 16-byte multiples
+    whenever hd % 8 == 0, which the wrapper requires."""
+    return _norm_plan(B, N, heads, hd, sms) if sixteen_bit else MMA
+
+
+def short_plan(B: int, H: int, N: int, hd: int, strides, dtype, *, aligned: bool = True,
+               sms: int = SMS) -> AttnPlan:
+    """`short_attention` over q, k, v and out (B, H, N, hd) of `dtype` at
+    `strides` (their (batch, head, row) element strides, in that order;
+    `aligned`: every base 16-byte aligned): the normalised form for bf16/f16
+    at hd 16, 32, 64, 128 where TMA takes the strides and K and V fit
+    shared memory (N <= 512 everywhere but hd 128, to 384), else "mma"."""
+    if dtype not in (torch.bfloat16, torch.float16) or not views_ok(strides, aligned=aligned):
+        return MMA
+    return _norm_plan(B, N, H, hd, sms)
+
+
+def flash_plan(B: int, H: int, Nq: int, Nk: int, hd: int, strides, dtype, *,
+               aligned: bool = True) -> AttnPlan:
+    """`flash_attention` over q, out (B, H, Nq, hd) and k, v (B, H, Nk, hd)
+    of `dtype` at `strides` (q, k, v, out, as `short_plan`'s): the streaming
+    form, one CTA a (128 query rows, batch, head), for bf16/f16 at hd 32, 64,
+    128 where TMA takes the strides (and B H fits the grid's y), else
+    "mma"."""
+    if dtype not in (torch.bfloat16, torch.float16) or not views_ok(strides, aligned=aligned) \
+            or Nq < 1 or Nk < 1 or B * H > MAX_GRID_Y:
+        return MMA
+    return ring_plan(Nq, B * H, hd, sixteen_bit=True)

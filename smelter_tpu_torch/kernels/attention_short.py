@@ -2,26 +2,31 @@
 hd) q, k and v with N <= 512, whole score rows on chip.
 
 Arithmetic follows the Pallas kernel: f32 scores times scale, key columns
-past N at -1e30 (the kernel pads N to its tile), an exact softmax (max,
-exp, divide by the sum) in f32, p rounded to v's dtype before p V, whose
-sum runs in f32, and the output in q's dtype. The Hopper kernel's 16-bit
-path takes the fast exp and multiplies by the sum's reciprocal; p is
-rounded to 8 or 11 bits next.
+past N at -1e30 (the kernel pads N to its tile; the Hopper kernels -inf),
+an exact softmax (max, exp, divide by the sum) in f32, p rounded to v's
+dtype before p V, whose sum runs in f32, and the output in q's dtype. The
+Hopper kernels' 16-bit paths take the fast exp and multiply by the sum's
+reciprocal; p is rounded to 8 or 11 bits next.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/attention_short.py::
-short_attention`. The Hopper kernel is `csrc/attention_short.cu` on the
-pieces of `csrc/attention.cuh`:
+short_attention`. The Hopper kernel is `csrc/attention_short.cu`:
 
 - What bounds it on an H100: the bytes. At ViT-B/16 224 px (B 128, H 12,
   N 197, hd 64) a call moves 155 MB of q, k, v and out (46 us at 3.35
   TB/s) for 15.3 GFLOP.
-- What the simple design does about it: one block of 4 warps a (batch,
-  head, 64 query rows) holds those rows' f32 scores over every key in
-  shared memory (128 KB at N 512), takes the softmax there and writes p
-  over the scores, so the (N, N) matrix never reaches device memory; K and
-  V stream through one 64-key tile; mma.sync with f32 accumulation. f32 (in
-  full f32), other head dims and unaligned rows take a warp-per-query-row
-  kernel.
+- What the design does about it: bf16/f16 at hd 16, 32, 64, 128 run the
+  normalised form of `csrc/wgmma_attention.cuh`, the Pallas kernel's order
+  (each row's exact max and sum over all keys, then p = e / sum rounded
+  before p V): a persistent CTA an SM takes work items of 128 query rows of
+  one (batch, head), a producer thread brings Q and all the head's K and V
+  into shared memory by TMA through 4-D maps of their strides (the next
+  item's while the consumers work), two consumer warpgroups run S = Q K^T
+  and P V on wgmma, one pass over up to 256 keys (the first 128-key tile's
+  exps staged in shared memory), two passes over resident K and V past that;
+  the output goes out through q's strides. `attention_plan.short_plan` picks
+  the form; what it does not take (f32 in full f32, other head dims, strides
+  or bases a TMA map cannot take, hd 128 past 384 keys) keeps the file's
+  mma.sync kernel or its warp-per-query-row kernel.
 
 Operands are read through their strides and the output takes q's, as
 `kernels/flash_attention.py` describes. On a CPU or `meta` tensor
@@ -34,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, attention_plan
 from .flash_attention import check_operands, strided
 
 launches = 0
@@ -50,6 +55,16 @@ def short_attention_plain(q, k, v, *, scale: float) -> torch.Tensor:
     return torch.einsum("bhnm,bhmd->bhnd", p.float(), v.float()).to(q.dtype)
 
 
+def plan(q, k, v, out) -> attention_plan.AttnPlan:
+    """The form `short_attention` takes for these CUDA operands (each with a
+    contiguous last axis) and its output."""
+    B, H, N, hd = q.shape
+    strides = [[t.stride(0), t.stride(1), t.stride(2)] for t in (q, k, v, out)]
+    return attention_plan.short_plan(B, H, N, hd, strides, q.dtype,
+                                     aligned=_build.aligned16(q, k, v, out),
+                                     sms=_build.sms(q.device))
+
+
 def short_attention(q, k, v, *, scale: float) -> torch.Tensor:
     """Attention over equal (B, H, N, hd) q, k, v with N <= 512; returns
     (B, H, N, hd) in q's dtype."""
@@ -63,12 +78,13 @@ def short_attention(q, k, v, *, scale: float) -> torch.Tensor:
                          f"equal, with N <= {MAX_N}")
     (q, qs), (k, ks), (v, vs) = strided(q), strided(k), strided(v)
     out = torch.empty_like(q)
+    form = plan(q, k, v, out)
     lib = _build.library("attention_short")
     with torch.cuda.device(q.device):
         rc = lib.smelter_short_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N, hd, *qs, *ks,
-            *vs, *strided(out)[1], float(scale), _build.DTYPE_CODES[q.dtype],
-            _build.stream_of(q))
+            *vs, *strided(out)[1], float(scale), _build.DTYPE_CODES[q.dtype], form.code,
+            form.tiles, form.stages, form.grid, _build.stream_of(q))
     _build.check(lib, rc, "short_attention")
     launches += 1
     return out

@@ -3,23 +3,28 @@ hd) and k, v (B, H, Nk, hd), non-causal; Nq and Nk may differ.
 
 Arithmetic follows the Pallas kernel: q, k and v in f32, f32 scores times
 scale, an f32 softmax whose sum is taken over the unrounded exponentials,
-p V in f32, the output in q's dtype. The Hopper kernel rounds p to the
+p V in f32, the output in q's dtype. The Hopper kernels round p to the
 16-bit operand type before p V (the Pallas kernel keeps it in f32): on the
 card a bf16 output differs from the plain version by a few bf16 steps.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/flash_attention.py::
-_flash_attention_impl`. The Hopper kernel is `csrc/flash_attention.cu` on
-the pieces of `csrc/attention.cuh`:
+_flash_attention_impl`. The Hopper kernel is `csrc/flash_attention.cu`:
 
 - What bounds it on an H100: at ViT-B/16 384 px (B 64, H 12, N 577, hd 64)
   the bytes by a hair (227 MB, 68 us at 3.35 TB/s, against 65.5 GFLOP);
   at B 2, H 12, N 4096 the tensor cores (103 GFLOP, 104 us).
-- What the simple design does about it: one block of 4 warps a (batch,
-  head, 64 query rows) keeps the running max, sum and f32 accumulator in
-  registers while K and V stream through a two-stage cp.async ring in
-  shared memory, so no score reaches device memory; mma.sync with f32
-  accumulation. f32 (in full f32), other head dims and unaligned rows take
-  a warp-per-query-row kernel.
+- What the design does about it: bf16/f16 at hd 32, 64, 128 run the
+  streaming form of `csrc/wgmma_attention.cuh` in one call (no f32 state in
+  device memory): a CTA takes 128 query rows of a (batch, head), a producer
+  thread brings Q once and K and V in 128-key tiles by TMA through 4-D maps
+  of their strides into a ring of stages, two consumer warpgroups run S = Q
+  K^T and P V on wgmma and keep the running max, sum and f32 accumulator in
+  registers, and the output goes out through q's strides. At hd <= 64 the
+  next tile's scores and softmax overlap this tile's P V; a positive scale
+  is folded into the exponent. `attention_plan.flash_plan` picks the form;
+  what it does not take (f32 in full f32, other head dims, strides or bases
+  a TMA map cannot take) keeps the file's mma.sync kernel (hd 16) or its
+  warp-per-query-row kernel.
 
 Operands are read through their strides (the head dim contiguous), so the
 (B, H, N, hd) views of (B, N, H, hd) tensors that a graph's Reshape ->
@@ -35,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, attention_plan
 
 launches = 0
 
@@ -80,6 +85,15 @@ def strided(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
     return t, st
 
 
+def plan(q, k, v, out) -> attention_plan.AttnPlan:
+    """The form `flash_attention` takes for these CUDA operands (each with a
+    contiguous last axis) and its output."""
+    B, H, Nq, hd = q.shape
+    strides = [[t.stride(0), t.stride(1), t.stride(2)] for t in (q, k, v, out)]
+    return attention_plan.flash_plan(B, H, Nq, k.shape[2], hd, strides, q.dtype,
+                                     aligned=_build.aligned16(q, k, v, out))
+
+
 def flash_attention(q, k, v, *, scale: float = 1.0) -> torch.Tensor:
     """Attention over q (B, H, Nq, hd), k and v (B, H, Nk, hd); returns (B,
     H, Nq, hd) in q's dtype."""
@@ -90,12 +104,13 @@ def flash_attention(q, k, v, *, scale: float = 1.0) -> torch.Tensor:
     (q, qs), (k, ks), (v, vs) = strided(q), strided(k), strided(v)
     out = torch.empty_like(q)
     B, H, Nq, hd = q.shape
+    form = plan(q, k, v, out)
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.smelter_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Nq, k.shape[2], hd,
             *qs, *ks, *vs, *strided(out)[1], float(scale), _build.DTYPE_CODES[q.dtype],
-            _build.stream_of(q))
+            form.code, _build.stream_of(q))
     _build.check(lib, rc, "flash_attention")
     launches += 1
     return out

@@ -1,14 +1,17 @@
 """The Hopper attention core's shape-to-form choice and addressing, checked
 without a card: `smelter_tpu_torch/kernels/attention_plan.py` (the form,
 tiles, stages or buffers, grid and shared memory of `csrc/
-wgmma_attention.cuh`'s two kernels) and `wgmma_plan.block_plan` (which of
+wgmma_attention.cuh`'s two kernels for `vit_attention_block`, the ring,
+`short_attention` and `flash_attention`, and the stride and alignment
+conditions of its 4-D maps) and `wgmma_plan.block_plan` (which of
 `vit_attention_block`'s projections run `gemm_tma`'s block epilogue); a
 numpy replay of the TMA boxes the producers ask for (the packed QKV
-weight's 3-D map, the per-image map of the (B, N, 3 D) QKV product), each
-landing on the element `csrc/vit_block.cu`'s earlier kernels address, with
-zeros past the matrix; and a numpy model of the normalised softmax orders
-(one pass over one or two 128-key tiles, two passes over resident tiles)
-through the whole block, against `vit_attention_block_plain`."""
+weight's 3-D map, the per-image map of the (B, N, 3 D) QKV product, the
+(hd, N, H, B) maps of (B, H, N, hd) views and contiguous tensors), each
+landing on the element the earlier kernels address, with zeros past the
+matrix; and a numpy model of the normalised softmax orders (one pass over
+one or two 128-key tiles, two passes over resident tiles) through the
+whole block, against `vit_attention_block_plain`."""
 
 import re
 from pathlib import Path
@@ -311,3 +314,169 @@ def test_normalised_orders_match_the_plain_block(N, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item(), err
+
+
+# -- short_attention's and flash_attention's plans ----------------------------
+
+def _hf_strides(B, H, N, hd):
+    """The (batch, head, row) element strides of a (B, H, N, hd) view of a
+    (B, N, H, hd) tensor, for q, k, v and out (empty_like keeps them)."""
+    return [(N * H * hd, hd, H * hd)] * 4
+
+
+def _contiguous_strides(B, H, N, hd):
+    return [(H * N * hd, N * hd, hd)] * 4
+
+
+EDGE_NS = [1, 127, 128, 129, 200, 256, 257, 512]
+EDGE_HDS = [16, 32, 64, 80, 128]
+
+
+def test_short_and_flash_plans_at_the_paths_shapes():
+    """ViT-B/16 224 px b128 (HF views): one pass over two tiles on the
+    persistent grid; 384 px b64 and the auto-flash shapes: the streaming
+    form, one CTA a (128 rows, batch, head)."""
+    bf16 = torch.bfloat16
+    p = ap.short_plan(128, 12, 197, 64, _hf_strides(128, 12, 197, 64), bf16)
+    assert (p.form, p.code, p.tiles, p.stages, p.grid, p.smem) == (
+        "one_pass", 1, 2, 2, 132, 230_432)
+    assert p == ap.vit_plan(128, 197, 12, 64, sixteen_bit=True)  # the ViT block's attention
+    for B, N, grid in ((64, 577, 5 * 768), (2, 2048, 16 * 24), (2, 4096, 32 * 24)):
+        p = ap.flash_plan(B, 12, N, N, 64, _hf_strides(B, 12, N, 64), bf16)
+        assert (p.form, p.code, p.stages, p.grid, p.smem) == ("streaming", 1, 4, grid, 148_552)
+        assert p == ap.flash_plan(B, 12, N, N, 64, _contiguous_strides(B, 12, N, 64), bf16)
+    assert ap.short_plan(128, 12, 197, 64, _hf_strides(128, 12, 197, 64), bf16, sms=100).grid \
+        == 100
+
+
+@pytest.mark.parametrize("N", EDGE_NS)
+@pytest.mark.parametrize("hd", EDGE_HDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("layout", ["hf", "contiguous"])
+def test_short_plan_edges(N, hd, dtype, layout):
+    """The normalised form for 16-bit operands at hd 16, 32, 64, 128, one
+    pass up to 256 keys, resident tiles past that, where K and V fit (hd
+    128 to 384 keys); shared memory as the header sizes it, within 227 KB;
+    everything else "mma"."""
+    strides = (_hf_strides if layout == "hf" else _contiguous_strides)(2, 3, N, hd)
+    p = ap.short_plan(2, 3, N, hd, strides, dtype)
+    tiles = ap.cdiv(N, ap.KEY_TILE)
+    if dtype == torch.float32 or hd not in ap.HEAD_DIMS or (hd == 128 and N > 384):
+        assert p == ap.MMA and p.code == 0
+        return
+    assert p.form == ("one_pass" if N <= 256 else "resident") and p.code == 1
+    assert p.tiles == tiles and p.tiles * p.key_tile >= N > (p.tiles - 1) * p.key_tile
+    assert p.smem == ap.norm_smem(hd, tiles, p.stages) <= ap.SMEM_LIMIT
+    assert p.grid == min(2 * 3 * ap.cdiv(N, ap.Q_ROWS), ap.SMS)
+
+
+@pytest.mark.parametrize("Nq,Nk", [(n, n) for n in EDGE_NS] + [(1, 512), (577, 65), (129, 4096)])
+@pytest.mark.parametrize("hd", EDGE_HDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_flash_plan_edges(Nq, Nk, hd, dtype):
+    """The streaming form for 16-bit operands at hd 32, 64, 128 and any Nq,
+    Nk (Nq != Nk both ways): a grid of (Nq / 128, B H), the header's stages
+    and shared memory; f32, hd 16 and 80 "mma"."""
+    strides = [(Nq * 3 * hd, hd, 3 * hd), (Nk * 3 * hd, hd, 3 * hd), (Nk * 3 * hd, hd, 3 * hd),
+               (Nq * 3 * hd, hd, 3 * hd)]
+    p = ap.flash_plan(2, 3, Nq, Nk, hd, strides, dtype)
+    if dtype == torch.float32 or hd not in ap.STREAM_HEAD_DIMS:
+        assert p == ap.MMA and p.code == 0
+        return
+    assert (p.form, p.code, p.key_tile) == ("streaming", 1, ap.KEY_TILE)
+    assert p.grid == ap.cdiv(Nq, ap.Q_ROWS) * 6
+    assert p.stages == ap.stream_stages(hd) and p.smem == ap.stream_smem(hd) <= ap.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "out"])
+@pytest.mark.parametrize("bad", ["row", "head", "batch", "zero", "base"])
+def test_plans_refuse_what_tma_cannot_take(which, bad):
+    """A stride that is not a 16-byte multiple (an odd element count), a zero
+    stride, or a base off 16 bytes sends either call to "mma"; the rest of
+    the operands as the HF graph hands them over."""
+    B, H, N, hd = 2, 4, 197, 64
+    strides = [list(s) for s in _hf_strides(B, H, N, hd)]
+    i = "q k v out".split().index(which)
+    if bad == "zero":
+        strides[i][0] = 0
+    elif bad != "base":
+        strides[i]["batch head row".split().index(bad)] += 4  # 8 bytes: not a multiple of 16
+    aligned = bad != "base"
+    bf16 = torch.bfloat16
+    assert ap.short_plan(B, H, N, hd, strides, bf16, aligned=aligned) == ap.MMA
+    assert ap.flash_plan(B, H, N, N, hd, strides, bf16, aligned=aligned) == ap.MMA
+    assert ap.short_plan(B, H, N, hd, _hf_strides(B, H, N, hd), bf16).code == 1
+    assert not ap.views_ok(strides, aligned=aligned)
+    assert ap.views_ok([(2 ** 38, 8, 8)]) and not ap.views_ok([(2 ** 39, 8, 8)])
+
+
+def test_flash_plan_grid_limit():
+    """B H past a launch's grid.y keeps the earlier kernel's (Nq, H, B) grid."""
+    s = _contiguous_strides(1, 1, 64, 64)
+    assert ap.flash_plan(1, 65_535, 64, 64, 64, s, torch.bfloat16).form == "streaming"
+    assert ap.flash_plan(2, 65_535, 64, 64, 64, s, torch.bfloat16) == ap.MMA
+
+
+def test_views_and_entry_points_in_the_sources():
+    """The header's 4-D maps and view checks, and the entry points' form
+    arguments, as the wrappers pass them."""
+    csrc = Path(__file__).resolve().parents[1] / "smelter_tpu_torch" / "csrc"
+    gemm = (csrc / "wgmma_gemm.cuh").read_text()
+    assert "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier" in gemm
+    assert "static int make_map_4d(" in gemm
+    assert "return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ok(v.b) && ok(v.h) && ok(v.n);" \
+        in HEADER
+    assert "s > 0 && s % 8 == 0 && s < (1LL << 39)" in HEADER  # views_ok's, in elements
+    assert re.search(r"int x_dtype,\s+int form, int tiles, int buffers, int grid,",
+                     (csrc / "attention_short.cu").read_text())
+    assert re.search(r"int x_dtype, int form, void\* stream\)",
+                     (csrc / "flash_attention.cu").read_text())
+
+
+# -- the 4-D maps, replayed ---------------------------------------------------
+
+def _box4(flat, base, dims, strides, coords, box):
+    """What a TMA load of a 4-D map (dims d0 innermost .. d3, element
+    strides s1 .. s3 of dims 1 .. 3) over `flat` returns for the box (b0,
+    b1, 1, 1) at coords: zeros where it runs past a dim."""
+    (c0, c1, c2, c3), (b0, b1) = coords, box
+    out = np.zeros((b1, b0), flat.dtype)
+    for r in range(b1):
+        for d in range(b0):
+            if c1 + r < dims[1] and c0 + d < dims[0]:
+                out[r, d] = flat[base + c3 * strides[2] + c2 * strides[1] + (c1 + r) * strides[0]
+                                 + c0 + d]
+    return out
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("layout", ["hf", "contiguous"])
+@pytest.mark.parametrize("N", [1, 65, 197])
+def test_view_map_replay(hd, layout, N):
+    """attn_norm's kViews producer and attn_stream's: for each (image,
+    head), row block and key tile, the box of each part at (part columns,
+    row0, h, b) of the (hd, N, H, B) map at the view's strides is the
+    view's q, k or v, with zeros past N (never the next head's or image's
+    rows)."""
+    B, H = 2, 3
+    parts = 2 if hd > 64 else 1
+    pc = hd // parts
+    if layout == "hf":
+        t = torch.arange(B * N * H * hd, dtype=torch.int64).reshape(B, N, H, hd) + 1
+        view = t.permute(0, 2, 1, 3)
+    else:
+        view = torch.arange(B * H * N * hd, dtype=torch.int64).reshape(B, H, N, hd) + 1
+    flat = view.contiguous().numpy().ravel() if layout == "contiguous" else t.numpy().ravel()
+    sb, sh, sn = view.stride(0), view.stride(1), view.stride(2)
+    assert ap.views_ok([(sb, sh, sn)])
+    dims = (hd, N, H, B)
+    ref = view.numpy()
+    for b in range(B):
+        for h in range(H):
+            for rows in (ap.Q_ROWS, ap.KEY_TILE):
+                for r0 in range(0, N, rows):
+                    tile = np.concatenate([_box4(flat, 0, dims, (sn, sh, sb), (p * pc, r0, h, b),
+                                                 (pc, rows)) for p in range(parts)], axis=1)
+                    live = min(rows, N - r0)
+                    assert np.array_equal(tile[:live], ref[b, h, r0:r0 + live])
+                    assert (tile[live:] == 0).all()

@@ -982,6 +982,192 @@ def test_short_attention_matches_plain(cuda, geom, dtype, layout):
                      hd ** -0.5, 1e-2)
 
 
+# The wgmma attention core's forms for short_attention and flash_attention
+# (kernels/attention_plan.py): at the edges of a 128-key tile and a 128-row
+# block, every head dim, both layouts the graph hands over and Nq != Nk.
+CORE_EDGE_NS = [1, 127, 128, 129, 200, 256, 257, 512]
+
+
+def _views(B, H, N, hd, dtype, device, seed, layout):
+    t = _bnhd(B, H, N, hd, dtype, device, seed)
+    return t.contiguous() if layout == "contiguous" else t
+
+
+@pytest.mark.parametrize("N", CORE_EDGE_NS)
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["bnhd", "contiguous"])
+def test_short_attention_core_forms(cuda, N, hd, dtype, layout):
+    """The normalised form (one pass to 256 keys, resident tiles past that)
+    against the plain version, 1e-2 x max|plain|; hd 128 past 384 keys
+    keeps the mma.sync kernel."""
+    from smelter_tpu_torch.kernels import attention_short as sa
+
+    q, k, v = (_views(2, 3, N, hd, dtype, cuda, s, layout) for s in (3, 4, 5))
+    form = sa.plan(q, k, v, torch.empty_like(q)).form
+    assert form == ("mma" if hd == 128 and N > 384 else "one_pass" if N <= 256 else "resident")
+    _attention_check(sa.short_attention, sa.short_attention_plain, (sa, "launches"), q, k, v,
+                     hd ** -0.5, 1e-2)
+
+
+@pytest.mark.parametrize("Nq,Nk", [(n, n) for n in CORE_EDGE_NS] + [(1, 512), (577, 65),
+                                                                    (129, 1000), (300, 2)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["bnhd", "contiguous"])
+def test_flash_attention_core_forms(cuda, Nq, Nk, hd, dtype, layout):
+    """The streaming form in one call against the plain version, 1e-2 x
+    max|plain| (p rounded to the operands' type before p V)."""
+    from smelter_tpu_torch.kernels import flash_attention as fa
+
+    q = _views(2, 3, Nq, hd, dtype, cuda, 0, layout)
+    k, v = (_views(2, 3, Nk, hd, dtype, cuda, s, layout) for s in (1, 2))
+    assert fa.plan(q, k, v, torch.empty_like(q)).form == "streaming"
+    _attention_check(fa.flash_attention, fa.flash_attention_plain, (fa, "launches"), q, k, v,
+                     hd ** -0.5, 1e-2)
+
+
+def _unaligned(B, H, N, hd, dtype, device, seed):
+    """(B, H, N, hd) views whose base lies 8 bytes off 16."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.standard_normal(B * N * H * hd + 4, np.float32)).to(device,
+                                                                                   dtype)
+    return flat[4:].view(B, N, H, hd).permute(0, 2, 1, 3)
+
+
+def _odd_rows(B, H, N, hd, dtype, device, seed):
+    """(B, H, N, hd) views of a (B, N, H, hd + 4) tensor: rows 8 bytes off a
+    16-byte multiple apart."""
+    return _bnhd(B, H, N, hd + 4, dtype, device, seed)[..., :hd]
+
+
+# (case, kernel, function, dtype, builder, B, H, Nq, Nk, hd): what the plans
+# send to "mma", and the kernel each still launches
+MMA_CASES = [
+    ("f32", "short", torch.float32, _bnhd, 2, 3, 197, 197, 64, "attention_rows"),
+    ("f32", "flash", torch.float32, _bnhd, 2, 3, 577, 300, 64, "attention_rows"),
+    ("hd16", "flash", torch.bfloat16, _bnhd, 2, 3, 200, 129, 16, "flash_mma"),
+    ("hd80", "short", torch.bfloat16, _bnhd, 1, 2, 100, 100, 80, "attention_rows"),
+    ("hd80", "flash", torch.float16, _bnhd, 1, 2, 100, 70, 80, "attention_rows"),
+    ("hd128 N512", "short", torch.bfloat16, _bnhd, 1, 2, 512, 512, 128, "short_mma"),
+    ("unaligned", "short", torch.bfloat16, _unaligned, 1, 2, 197, 197, 64, "attention_rows"),
+    ("unaligned", "flash", torch.bfloat16, _unaligned, 1, 2, 197, 197, 64, "attention_rows"),
+    ("odd rows", "short", torch.float16, _odd_rows, 1, 3, 197, 197, 64, "attention_rows"),
+    ("odd rows", "flash", torch.bfloat16, _odd_rows, 1, 3, 130, 257, 64, "attention_rows"),
+]
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=[f"{c[0]}-{c[1]}" for c in MMA_CASES])
+def test_attention_mma_plans_keep_their_kernels(cuda, case):
+    """Every "mma" case of short_plan and flash_plan stays within its bound
+    on the file's earlier kernels (f32 1e-5, 16-bit 1e-2 x max|plain|);
+    test_attention_forms_launch_their_kernels names the kernels."""
+    from smelter_tpu_torch.kernels import attention_short as sa
+    from smelter_tpu_torch.kernels import flash_attention as fa
+
+    _, which, dtype, build, B, H, Nq, Nk, hd, kernel = case
+    mod = sa if which == "short" else fa
+    fn = sa.short_attention if which == "short" else fa.flash_attention
+    plain = sa.short_attention_plain if which == "short" else fa.flash_attention_plain
+    q = build(B, H, Nq, hd, dtype, cuda, 0)
+    k, v = (build(B, H, Nk, hd, dtype, cuda, s) for s in (1, 2))
+    assert mod.plan(q, k, v, torch.empty_like(q)).form == "mma"
+    before = mod.launches
+    got = fn(q, k, v, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    ref = plain(q, k, v, scale=hd ** -0.5)
+    assert got.shape == ref.shape and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+PATH_CASES = [("short", 128, 197), ("flash", 64, 577), ("flash", 2, 2048), ("flash", 2, 4096)]
+
+
+def _case_call(which, dtype, build, B, H, Nq, Nk, hd, device):
+    """The wrapper call of one case on fresh operands."""
+    from smelter_tpu_torch.kernels import attention_short as sa
+    from smelter_tpu_torch.kernels import flash_attention as fa
+
+    fn = sa.short_attention if which == "short" else fa.flash_attention
+    q = build(B, H, Nq, hd, dtype, device, 0)
+    k, v = (build(B, H, Nk, hd, dtype, device, s) for s in (1, 2))
+    return lambda: fn(q, k, v, scale=hd ** -0.5)
+
+
+def _profile_cases(device="cuda"):
+    """The kernel each of MMA_CASES and PATH_CASES launches, in order, from
+    one torch.profiler session (each call launches one kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [_case_call(c[1], c[2], c[3], *c[4:9], device) for c in MMA_CASES] + [
+        _case_call(w, torch.bfloat16, _bnhd, B, 12, N, N, 64, device) for w, B, N in PATH_CASES]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                     key=lambda e: e.time_range.start)
+    return [e.name for e in kernels]
+
+
+def test_attention_forms_launch_their_kernels(cuda):
+    """Each "mma" case launches its file's earlier kernel (mma.sync or
+    warp-per-row) and never the wgmma core; at the paths' shapes (ViT-B/16
+    224 px b128 and 384 px b64 in the HF layout, the auto-flash shapes) each
+    call launches one kernel of csrc/wgmma_attention.cuh. The profile runs
+    in a process of its own: several torch.profiler sessions in one process
+    lose kernels."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import test_torch_gpu as t; "
+            "print('NAMES ' + json.dumps(t._profile_cases()))")
+    proc = subprocess.run([sys.executable, "-c", code, str(here)], cwd=here.parent,
+                          capture_output=True, text=True, timeout=600, check=False)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("NAMES ")]
+    assert proc.returncode == 0 and lines, proc.stderr[-3000:]
+    names = json.loads(lines[-1][len("NAMES "):])
+    assert len(names) == len(MMA_CASES) + len(PATH_CASES), names
+    for case, name in zip(MMA_CASES, names):
+        assert case[-1] in name and "attn_" not in name, (case[:2], name)
+    for (which, _, _), name in zip(PATH_CASES, names[len(MMA_CASES):]):
+        assert ("attn_norm" if which == "short" else "attn_stream") in name, (which, name)
+
+
+@pytest.mark.parametrize("which,B,N", PATH_CASES)
+def test_attention_paths_run_the_wgmma_core(cuda, which, B, N):
+    """At the paths' shapes each call takes the wgmma core's form and
+    matches its plain version."""
+    from smelter_tpu_torch.kernels import attention_short as sa
+    from smelter_tpu_torch.kernels import flash_attention as fa
+
+    mod = sa if which == "short" else fa
+    fn = sa.short_attention if which == "short" else fa.flash_attention
+    plain = sa.short_attention_plain if which == "short" else fa.flash_attention_plain
+    q, k, v = (_bnhd(B, 12, N, 64, torch.bfloat16, cuda, s) for s in (0, 1, 2))
+    assert mod.plan(q, k, v, torch.empty_like(q)).form == (
+        "one_pass" if which == "short" else "streaming")
+    _attention_check(fn, plain, (mod, "launches"), q, k, v, 0.125, 1e-2)
+
+
+@pytest.mark.parametrize("geom", [(128, 197, 768, 12), (8, 1024, 128, 8), (8, 256, 256, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_vit_attention_block_at_the_paths_shapes(cuda, geom, dtype):
+    """ViT-B/16 at b128 and SD-UNet's two blocks at b8, on the attention
+    core the short form shares, against the plain version."""
+    B, N, D, H = geom
+    _vit_check(_vit_operands(B, N, D, H, dtype, cuda), heads=H, eps=1e-6)
+
+
 def test_attention_kernels_raise_on_bad_operands(cuda):
     from smelter_tpu_torch.kernels import attention_short as sa
     from smelter_tpu_torch.kernels import flash_attention as fa
