@@ -453,14 +453,19 @@ def phase_kernels(torch, power_w: float) -> dict:
             xq, sr = im.quantize_rows(x)
             sets.append((xq, w, sr, s))
         xq, w, sr, s = sets[0]
+        form = im.plan(xq, w).form  # wgmma_plan.int8_plan: "tma" or "cluster"
         acc = im.int8_matmul(xq, w, sr, s, out_dtype=torch.int32)
         check(torch.equal(acc, im.int8_matmul_plain(xq, w, sr, s, out_dtype=torch.int32)),
-              f"int8_matmul {label}: int32 sums differ from the plain version")
+              f"int8_matmul {label} ({form} form): int32 sums differ from the plain version")
+        for out_dtype in (torch.float32, torch.float16):
+            check(torch.equal(im.int8_matmul(xq, w, sr, s, out_dtype=out_dtype),
+                              im.int8_matmul_plain(xq, w, sr, s, out_dtype=out_dtype)),
+                  f"int8_matmul {label} ({form} form): {out_dtype} outputs differ")
         got = im.int8_matmul(xq, w, sr, s, out_dtype=torch.bfloat16)
         ref = im.int8_matmul_plain(xq, w, sr, s, out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        check(torch.equal(got, ref), f"int8_matmul {label}: outputs differ ({err})")
+        check(torch.equal(got, ref), f"int8_matmul {label} ({form} form): outputs differ ({err})")
         n = len(sets)
         ms = graph_ms(torch, side, lambda i: im.int8_matmul(*sets[i % n]), iters)
         call_ms = time_ms(torch, lambda i: im.int8_matmul(*sets[i % n]), iters)
@@ -475,7 +480,7 @@ def phase_kernels(torch, power_w: float) -> dict:
         nbytes = M * K + K * N + M * 4 + N * 4 + M * N * 2
         b_ms, b_by = bound(nbytes, 2 * M * N * K, "int8", power_w)
         rows[("int8_matmul", label, "int8")] = dict(
-            name="int8_matmul", shape=[M, K, N], dtype="int8->bf16", max_abs_err=err,
+            name="int8_matmul", shape=[M, K, N], dtype="int8->bf16", max_abs_err=err, form=form,
             tolerance="int32 sums exact, outputs equal", ms=ms, call_ms=call_ms,
             plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
@@ -509,7 +514,8 @@ def phase_kernels(torch, power_w: float) -> dict:
     REPORT["dequant_matmul_odd"] = odd
 
     for (name, label, kind), r in rows.items():
-        say(2, f"{name} {label} {r['shape']} {kind}: err {r['max_abs_err']:.3g} "
+        form = f" ({r['form']} form)" if "form" in r else ""
+        say(2, f"{name} {label} {r['shape']} {kind}{form}: err {r['max_abs_err']:.3g} "
                f"({r['tolerance']}) | kernel {r['ms']:.4f} ms (host cost of a call "
                f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1035,6 +1041,8 @@ def phase_image_kernels(torch, power_w: float) -> dict:
                  "calls_per_forward": calls, "bytes": nbytes, "flops": flops}
             if dtype == bf16:
                 kw = dict(alpha=0.2)
+                p = pc.plan(sets[0][0], sets[0][1])  # wgmma_plan.pixel_plan
+                r["form"] = p.form + (" resident-weight" if p.resident else "")
                 call = lambda i: pc.pixel_conv_rowdot(*sets[i % n], **kw)  # noqa: E731
                 plain = lambda i: pc.pixel_conv_rowdot_plain(*sets[i % n], **kw)  # noqa: E731
                 # bf16 outputs of f32 sums in other orders: 1e-2 of the largest
@@ -1114,7 +1122,8 @@ def phase_image_kernels(torch, power_w: float) -> dict:
     for r in rows.values():
         lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
         extra = f"; f32 b1 err {r['f32_b1_err']:.3g} (1e-5 x max)" if "f32_b1_err" in r else ""
-        say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']})"
+        form = f" ({r['form']} form)" if "form" in r else ""
+        say(2, f"{r['name']} {r['shape']}{form}: err {r['max_abs_err']:.3g} ({r['tolerance']})"
                f"{extra} | kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), "
                f"plain {r['plain_ms']:.4f} ms, library {lib} ({r['library']}), bound "
                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
@@ -4497,7 +4506,7 @@ def main() -> int:
     sources = {"dequant_matmul": ("smelter_tpu_torch/csrc/dequant_matmul.cu",
                                   "smelter_tpu/kernels/dequant_matmul.py:104",
                                   rows[("dequant_matmul", "head", "bf16")], "call"),
-               "int8_matmul": ("smelter_tpu_torch/csrc/int8_matmul.cu",
+               "int8_matmul": ("smelter_tpu_torch/csrc/wgmma_gemm.cuh",
                                "smelter_tpu/kernels/int8_matmul.py:125",
                                rows[("int8_matmul", "head", "int8")], "call"),
                "int4_matmul": ("smelter_tpu_torch/csrc/int4_matmul.cu",
@@ -4520,7 +4529,7 @@ def main() -> int:
                "vit_attention_block": ("smelter_tpu_torch/csrc/vit_block.cu",
                                        "smelter_tpu/kernels/vit_block.py:147",
                                        vit_rows["vit_attention_block"], "call"),
-               "pixel_conv_rowdot": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+               "pixel_conv_rowdot": ("smelter_tpu_torch/csrc/wgmma_conv.cuh",
                                      "smelter_tpu/kernels/pixel_conv.py:140",
                                      per_forward(image_rows, "pixel_conv_rowdot"), "forward"),
                "pixel_conv_rowdot_q": ("smelter_tpu_torch/csrc/pixel_conv.cu",

@@ -26,6 +26,17 @@ __device__ __forceinline__ uint32_t load_byte(const int8_t* p) {
   return static_cast<uint32_t>(static_cast<uint8_t>(*p));
 }
 
+// r[i] holds bytes (k + i, n .. n + 3) of a row-major int8 matrix; col[j]
+// gets bytes (k .. k + 3, n + j).
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  col[0] = __byte_perm(t0, t2, 0x5410);
+  col[1] = __byte_perm(t0, t2, 0x7632);
+  col[2] = __byte_perm(t1, t3, 0x5410);
+  col[3] = __byte_perm(t1, t3, 0x7632);
+}
+
 // The weight tile [k0, k0 + BK) x [n0, n0 + BN) of a (K, N) row-major int8
 // matrix, NB 4x4 byte blocks a thread, zero outside [0, K) x [0, N). `load`
 // fills registers (so the next step's loads can be in flight while the
@@ -64,13 +75,8 @@ struct WTile {
       const int c = tid + b * THREADS;
       const int kb = c / (BN / 4), nb = c % (BN / 4);
       const int word = kb ^ ((nb >> 1) & 15);  // rows nb * 4 .. + 3 share n / 8
-      // r[b][i] holds bytes (k+i, n..n+3); col[j] gets bytes (k..k+3, n+j).
-      const uint32_t t0 = __byte_perm(r[b][0], r[b][1], 0x5140);
-      const uint32_t t1 = __byte_perm(r[b][0], r[b][1], 0x7362);
-      const uint32_t t2 = __byte_perm(r[b][2], r[b][3], 0x5140);
-      const uint32_t t3 = __byte_perm(r[b][2], r[b][3], 0x7362);
-      const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                               __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+      uint32_t col[4];
+      transpose4x4(r[b], col);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         *reinterpret_cast<uint32_t*>(&Bs[(nb * 4 + j) * SK + word * 4]) = col[j];

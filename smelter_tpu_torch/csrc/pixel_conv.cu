@@ -17,30 +17,40 @@
 // do ~4.7 TFLOP and move ~16 GB, ~4.7 ms of bf16 tensor-core time and ~4.9
 // ms of HBM time at the data sheet's peaks. int8 halves both.
 //
-// Design, simple first: an implicit GEMM per block of RB = 2 (or 4) output
-// rows x TW = 128 pixels x 64 output channels (M = output channels, N = pixels,
-// K = the 9 taps x C_in). Input channels stream in chunks of 64 bytes (32
-// bf16 or 64 int8 channels): the block stages the RB + 2 input rows of the
-// chunk, pixels w0-1 .. w0+TW, transposed to [row][pixel][channel] in
-// shared memory, so that the dx shift of a tap is a shift of whole staged
-// rows and both operands come through ldmatrix (no transposed loads). The
-// weights arrive as [3][3][C_out][C_in] (weights.py packs the graph's once)
-// and are staged as [tap][co][channel]. 4 * RB warps, each 32 pixels of one
-// output row x all 64 channels (32 where C_out <= 32), run mma.sync
-// m16n8k16 (bf16/f16, f32 accumulators) or m16n8k32 (int8, int32
-// accumulators) over the 9 taps.
-// Rows 80 bytes apart put the 8 rows of an ldmatrix in distinct banks. The
-// epilogue: the f32 path adds the bias, applies LeakyReLU and rounds once;
+// Design. 16-bit rowdot where kernels/wgmma_plan.py::pixel_plan takes the
+// shape (C_out 32 or 64, 16-byte pixel chunks; all of ESRGAN's): the
+// persistent, warp-specialised wgmma implicit GEMM of csrc/wgmma_conv.cuh
+// (pixels on M, C_out on N; TMA in, a K-major copy made by the producer
+// warpgroup so that the dx taps are 16-byte offsets, the weight resident in
+// shared memory where it fits, TMA out), form 1 or 2 below.
+//
+// Everything else (f32, other C_out, strides TMA cannot take, rowdot_q,
+// blockdot's `tall` tile and patch's NCHW strides) takes form 0, an
+// implicit GEMM on mma.sync per block of RB = 2 (or 4) output rows x TW =
+// 128 pixels x 64 output channels (M = output channels, N = pixels, K = the
+// 9 taps x C_in). Input channels stream in chunks of 64 bytes (32 bf16 or
+// 64 int8 channels): the block stages the RB + 2 input rows of the chunk,
+// pixels w0-1 .. w0+TW, transposed to [row][pixel][channel] in shared
+// memory, so that the dx shift of a tap is a shift of whole staged rows and
+// both operands come through ldmatrix (no transposed loads). The weights
+// arrive as [3][3][C_out][C_in] (weights.py packs the graph's once) and are
+// staged as [tap][co][channel]. 4 * RB warps, each 32 pixels of one output
+// row x all 64 channels (32 where C_out <= 32), run mma.sync m16n8k16
+// (bf16/f16, f32 accumulators) or m16n8k32 (int8, int32 accumulators) over
+// the 9 taps. Rows 80 bytes apart put the 8 rows of an ldmatrix in distinct
+// banks. Ragged H, W, C_in and C_out are masked; it loads and computes in
+// turn (no cp.async, TMA or wgmma). f32 takes an FMA kernel in full f32 (no
+// TF32), of R = 1 (or 4) output rows a block. RB 4 / R 4 halve the weight
+// staging a pixel and cut the rows staged per output row from 2 to 1.5.
+//
+// Epilogues: the float paths add the bias, apply LeakyReLU and round once;
 // the int8 path converts the exact int32 sum, multiplies by the scale and
 // adds the bias in two roundings (__fmul_rn, __fadd_rn: no contraction),
 // applies LeakyReLU and requantizes half to even, clipped to [-127, 127].
-// Ragged H, W, C_in and C_out are masked; no cp.async double buffering,
-// TMA or wgmma yet. f32 takes an FMA kernel in full f32 (no TF32), of R = 1
-// (or 4) output rows a block. RB 4 / R 4 halve the weight staging a pixel
-// and cut the rows staged per output row from 2 to 1.5.
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma_conv.cuh"
 
 namespace {
 
@@ -435,13 +445,18 @@ extern "C" const char* smelter_error_string(int code) {
 // for int8 x, else unused; out (B, H, Cout, W) at strides (osb, osh, osc)
 // in out_dtype: x's dtype for float x; for int8 x int8 when requant, else
 // f32, bf16 or f16. tall: 4 output rows a block (float x only) instead of
-// 2 (1 for f32). Returns a cudaError_t code.
+// 2 (1 for f32). form 1: the wgmma kernel of csrc/wgmma_conv.cuh on `grid`
+// CTAs with `stages` stages, each bringing its weights; form 2: the same
+// with the weight resident (16-bit x, Cout 32 or 64;
+// kernels/wgmma_plan.py::pixel_plan checks the rest); form 0 the mma.sync /
+// FMA kernels above. Returns a cudaError_t code.
 extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias,
                                   const void* scales, void* out, int B, int H, int Cin, int W,
                                   int Cout, long long xsb, long long xsh, long long xsc,
                                   long long osb, long long osh, long long osc, int x_dtype,
                                   int bias_dtype, int out_dtype, float alpha, int has_alpha,
-                                  float inv_sy, int requant, int tall, void* stream) {
+                                  float inv_sy, int requant, int tall, int form, int grid,
+                                  int stages, void* stream) {
   const Epilogue ep{bias, bias_dtype, static_cast<const float*>(scales), alpha, has_alpha,
                     inv_sy};
   const Conv c{x, w, out, B, H, Cin, W, Cout, {xsb, xsh, xsc}, {osb, osh, osc}};
@@ -449,6 +464,27 @@ extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias
   if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0) return 0;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (bias_dtype != kF32 && bias_dtype != x_dtype) return bad;
+  if (form == 1 || form == 2) {
+    if (tall || out_dtype != x_dtype || grid <= 0) return bad;
+    const wg::PixelEpi pe{bias, bias_dtype == kF32, alpha, has_alpha};
+    auto run = [&](auto launch) {
+      return launch(x, w, out, pe, B, H, Cin, W, xsb, xsh, xsc, osb, osh, osc, grid, stages, st);
+    };
+    const bool bf = x_dtype == kBF16, res = form == 2;
+    if (x_dtype != kBF16 && x_dtype != kF16) return bad;
+    if (Cout == 64)
+      return res ? (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 64, true>)
+                       : run(wg::launch_pixel_wgmma<__half, 64, true>))
+                 : (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 64, false>)
+                       : run(wg::launch_pixel_wgmma<__half, 64, false>));
+    if (Cout == 32)
+      return res ? (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 32, true>)
+                       : run(wg::launch_pixel_wgmma<__half, 32, true>))
+                 : (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 32, false>)
+                       : run(wg::launch_pixel_wgmma<__half, 32, false>));
+    return bad;
+  }
+  if (form != 0) return bad;
   switch (x_dtype) {
     case kF32:
       return out_dtype == kF32 ? launch_f32(c, ep, tall, st) : bad;

@@ -1,9 +1,10 @@
-// The port's Hopper GEMM core (sm_90a): wgmma.mma_async with f32
-// accumulators, TMA loads (cp.async.bulk.tensor) into a ring of shared-memory
-// stages guarded by mbarriers, and thread-block clusters that sum a K split
-// through distributed shared memory. Raw PTX in the style of common.cuh.
-// Three kernels, shared by csrc/dequant_matmul.cu, csrc/collective_matmul.cu
-// and csrc/dequant_conv.cu:
+// The port's Hopper GEMM core (sm_90a): wgmma.mma_async with f32 (int8:
+// s32) accumulators, TMA loads (cp.async.bulk.tensor) into a ring of
+// shared-memory stages guarded by mbarriers, and thread-block clusters that
+// sum a K split through distributed shared memory. Raw PTX in the style of
+// common.cuh. Five kernels, shared by csrc/dequant_matmul.cu,
+// csrc/collective_matmul.cu, csrc/dequant_conv.cu, csrc/vit_block.cu and
+// csrc/int8_matmul.cu (csrc/wgmma_conv.cuh builds pixel_conv's on them):
 //
 // gemm_tma (the "tma" form, 16-bit A and B): a persistent, warp-specialised
 //   kernel. Tiles of BM 128 x BN 128 (a template parameter) walk K in steps
@@ -79,6 +80,20 @@
 //   no global workspace, and the sum's order is fixed, so two calls agree
 //   bit for bit.
 //
+// gemm_tma_s8 and gemm_cluster_s8 (int8 x (M, K) and W (K, N), int32 sums,
+//   csrc/int8_matmul.cu): the same two forms on wgmma's .s32.s8.s8 shapes,
+//   K steps of S8_BK = 128 bytes. 8-bit wgmma reads shared-memory operands
+//   K-major only, and W (K, N) row-major is not. The tma form takes W^T as
+//   the register A operand of m64n128k32 (tiles of 128 W columns x 128 x
+//   rows; x's TMA box, K-major, is B): each consumer thread gathers its
+//   fragment bytes from the TMA-loaded W box with 2-byte loads (A row g of a
+//   warp is W column 2g, row g + 8 column 2g + 1) and byte permutes, in a
+//   row order rotated by its lane so that no two lanes of a load share a
+//   bank; its epilogue stores two adjacent columns a thread from the
+//   accumulators (no staging). The cluster form transposes W into [n][k] on
+//   its way into shared memory (4 x 4 byte blocks) and runs SS m64n64k32;
+//   its partials are int32, summed in rank order.
+//
 // Shared-memory layouts (what wgmma's descriptors read):
 //   K-major with the 128-byte swizzle (A; x as gemm_tma_ra's B): row r of 64
 //     halves at r * 128 bytes, its 16-byte chunk c at ((c ^ (r & 7)) * 16);
@@ -103,8 +118,11 @@
 //   WC 64 int8 (two x boxes a stage): 5 stages, 218,192
 // Cluster form: 3 stages of 16,384 + 8,192 and 1 KB for alignment, 74,752;
 // the f32 partials (128 x 72 floats, 36,864) reuse the stages.
+// int8 tma form: a stage = x box 16,384 + W box 16,384: 7 stages, 230,512;
+// int8 cluster form: 3 stages of 16,384 + 8,192, 74,752 (int32 partials).
 // smelter_tpu_torch/kernels/wgmma_plan.py mirrors these numbers and picks
-// the form, BN and S for a shape (plan), and a conv's form (conv_plan).
+// the form, BN and S for a shape (plan; int8_plan for the int8 forms), and a
+// conv's form (conv_plan).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -113,6 +131,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "int8_gemm.cuh"
 
 namespace smelter {
 namespace wg {
@@ -1179,6 +1198,355 @@ gemm_cluster(const uint16_t* __restrict__ A, const void* __restrict__ Bv,
   cluster.sync();  // no rank leaves while another still reads its partial
 }
 
+// -- int8: x (M, K) and W (K, N) int8, exact int32 sums ------------------------
+
+constexpr int S8_BK = 128;  // K bytes a step: one 128-byte swizzled row
+constexpr int S8_BOX = BM * S8_BK;  // a 128 x 128-byte x or W box, 16,384 bytes
+constexpr int S8_FIT = (SMEM_BUDGET - 1024) / (2 * S8_BOX);
+constexpr int S8_STAGES = S8_FIT > 8 ? 8 : S8_FIT;
+constexpr int S8_SMEM = 1024 + S8_STAGES * (2 * S8_BOX + 16);
+static_assert(S8_SMEM <= 232448, "more shared memory than a block may have");
+constexpr int S8_CL_A = BM * S8_BK, S8_CL_B = CL_BN * S8_BK;
+constexpr int S8_CL_SMEM = 1024 + CL_STAGES * (S8_CL_A + S8_CL_B);
+static_assert(BM * CL_PART * 4 <= CL_STAGES * (S8_CL_A + S8_CL_B), "partials do not fit the stages");
+
+// D (64 x 128, s32) += A (64 x 32 s8, four registers a thread: mma.m16n8k32's
+// A fragment for each warp's 16 rows) * B (32 x 128 s8, shared, K-major).
+__device__ __forceinline__ void mma_s8_rs_m64n128k32(int (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 64, s32) += A (64 x 32 s8, shared, K-major) * B (32 x 64 s8,
+// shared, K-major).
+__device__ __forceinline__ void mma_s8_ss_m64n64k32(int (&d)[32], uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Elements o and o + 1 (o even) of one row, columns of scales sc0 and sc1,
+// as one 4-byte (16-bit OutT) or 8-byte store.
+template <typename OutT>
+__device__ __forceinline__ void put_s8_pair(OutT* out, size_t o, int v0, int v1, float sr,
+                                            float sc0, float sc1) {
+  if constexpr (std::is_same<OutT, int>::value) {
+    *reinterpret_cast<int2*>(out + o) = make_int2(v0, v1);
+  } else {
+    const float f0 = __fmul_rn(__fmul_rn(__int2float_rn(v0), sr), sc0);
+    const float f1 = __fmul_rn(__fmul_rn(__int2float_rn(v1), sr), sc1);
+    if constexpr (std::is_same<OutT, float>::value)
+      *reinterpret_cast<float2*>(out + o) = make_float2(f0, f1);
+    else
+      *reinterpret_cast<uint32_t*>(out + o) =
+          pack2(std::is_same<OutT, __half>::value ? kF16 : kBF16, f0, f1);
+  }
+}
+
+// The tma form for int8: out (M, N) = float(x @ W) * s_row * s_col, computed
+// as its transpose on wgmma.m64n128k32.s32.s8.s8. A tile is 128 W columns
+// (64 a consumer warpgroup, W^T its register A operand) x 128 x rows (the x
+// box, K-major, wgmma's B). A K step is 128 bytes: an x box of 128 rows x
+// 128 K bytes and a W box of 128 K rows x 128 columns, both by TMA with the
+// 128-byte swizzle. 8-bit wgmma reads shared operands K-major only, and W
+// (K, N) row-major is not, so each consumer thread builds its A fragment from
+// the W box: A row g of a warp is W column 2g of the warp's 16, row g + 8
+// column 2g + 1, so one 2-byte load of a K row gives both rows' bytes, and
+// byte permutes gather 4 K rows into a register. Lane t reads its 4 K rows in
+// the order 4t + ((i + t) & 3): the 4 t-lanes then hit 4 distinct swizzled
+// chunks (rows 8 apart share one), and a permute by t restores the K order.
+// The same pairing makes the epilogue's stores 4 bytes (16-bit out) or 8
+// (f32, int32) of two adjacent columns a thread, whole 32-byte sectors a warp.
+template <typename OutT>
+__global__ void __launch_bounds__(128 * (CONSUMERS + 1), 1)
+gemm_tma_s8(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+            const float* __restrict__ s_row, const float* __restrict__ s_col,
+            OutT* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sx = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sw = sx + S8_STAGES * S8_BOX;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sw + S8_STAGES * S8_BOX);
+  uint64_t* empty = full + S8_STAGES;
+  const int nt = div_up(N, RA_BW), tiles = div_up(M, BM) * nt, KT = div_up(K, S8_BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S8_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every load
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / nt) * BM, n0 = (tile % nt) * RA_BW;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], 2 * S8_BOX);
+          tma_load_2d(sx + stage * S8_BOX, &map_x, &full[stage], kt * S8_BK, m0);
+          tma_load_2d(sw + stage * S8_BOX, &map_w, &full[stage], n0, kt * S8_BK);
+          if (++stage == S8_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int ct = threadIdx.x - 128, wgi = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nb = wgi * 64 + warp * 16 + 2 * g;  // this thread's W column pair in the tile
+  uint32_t rot = 0;  // byte i <- byte (i - t) & 3: undoes the rotated row order
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rot |= static_cast<uint32_t>((i - t) & 3) << (4 * i);
+  int acc[64];
+  uint32_t ra0[S8_BK / 32][4], ra1[S8_BK / 32][4];  // A fragments of two steps in flight
+  int stage = 0, phase = 0;
+
+  auto step = [&](uint32_t (&a)[S8_BK / 32][4], const uint8_t* w, const uint8_t* x) {
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t h[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = kk * 32 + half * 16 + 4 * t + ((i + t) & 3);
+          h[i] = *reinterpret_cast<const uint16_t*>(w + k * 128 + (((nb >> 4) ^ (k & 7)) << 4) +
+                                                   (nb & 15));
+        }
+        const uint32_t p01 = __byte_perm(h[0], h[1], 0x5410), p23 = __byte_perm(h[2], h[3], 0x5410);
+        a[kk][2 * half] = __byte_perm(__byte_perm(p01, p23, 0x6420), 0, rot);      // column nb
+        a[kk][2 * half + 1] = __byte_perm(__byte_perm(p01, p23, 0x7531), 0, rot);  // nb + 1
+      }
+    wgmma_fence();
+    const uint64_t db = desc(x, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk) mma_s8_rs_m64n128k32(acc, a[kk], db + 2 * kk);
+    wgmma_commit();
+  };
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / nt) * BM, n0 = (tile % nt) * RA_BW;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    int prev = -1;
+    for (int kt = 0; kt < KT; ++kt) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* w = sw + stage * S8_BOX;
+      const uint8_t* x = sx + stage * S8_BOX;
+      if (kt & 1)
+        step(ra1, w, x);
+      else
+        step(ra0, w, x);
+      wgmma_wait<1>();  // the step before retired: its stage and registers are free
+      if (prev >= 0 && (ct & 127) == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == S8_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (prev >= 0 && (ct & 127) == 0) mbar_arrive(&empty[prev]);
+    // acc[4j + 2h + e] = the sum for W column n0 + nb + h, x row m0 + 8j + 2t + e
+    const int col = n0 + nb;
+    if (col >= N) continue;  // N % 16 == 0: col + 1 < N with it
+    const float sc0 = s_col[col], sc1 = s_col[col + 1];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = m0 + 8 * j + 2 * t + e;
+        if (row < M)
+          put_s8_pair(out, static_cast<size_t>(row) * N + col, acc[4 * j + e],
+                      acc[4 * j + 2 + e], s_row[row], sc0, sc1);
+      }
+  }
+}
+
+// The cluster form for int8, any shape: a 128 x 64 tile a CTA, two consumer
+// warpgroups of 64 rows; x and W go global -> registers -> shared (the next
+// two steps' loads in flight), W transposed to [n][k] on its way (4 x 4 byte
+// blocks through byte permutes), both read K-major by wgmma.m64n64k32 s8.
+// The K range is split over a cluster of S <= 8 CTAs; the int32 partials are
+// summed in rank order through distributed shared memory and the epilogue
+// runs once. X_VEC: 16-byte loads of x's rows (K % 16, aligned base);
+// W_VEC: 4-byte loads of W's rows (N % 4, aligned base); otherwise bytes.
+template <typename OutT>
+__global__ void __launch_bounds__(CL_THREADS)
+gemm_cluster_s8(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ s_row, const float* __restrict__ s_col, OutT* out,
+                int M, int N, int K, int k_chunk, bool x_vec, bool w_vec) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * CL_BN;
+  const int k_begin = blockIdx.z * k_chunk, k_end = min(K, k_begin + k_chunk);
+  const int steps = k_end > k_begin ? div_up(k_end - k_begin, S8_BK) : 0;
+
+  constexpr int A_CH = BM * S8_BK / 16 / CL_THREADS;         // 16-byte x chunks a thread: 4
+  constexpr int W_BL = S8_BK * CL_BN / 16 / CL_THREADS;      // 4 x 4 W blocks a thread: 2
+  uint4 ra0[A_CH], ra1[A_CH];
+  uint32_t rw0[W_BL][4], rw1[W_BL][4];
+  auto load = [&](uint4 (&ra)[A_CH], uint32_t (&rw)[W_BL][4], int k0) {
+#pragma unroll
+    for (int i = 0; i < A_CH; ++i) {
+      const int q = tid + i * CL_THREADS, gm = m0 + (q >> 3), gk = k0 + (q & 7) * 16;
+      const int8_t* p = x + static_cast<size_t>(gm) * K + gk;
+      if (x_vec && gm < M && gk + 16 <= k_end) {
+        ra[i] = *reinterpret_cast<const uint4*>(p);
+      } else {
+        uint32_t e[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (gm < M && gk + j < k_end)
+            e[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(p[j])) << (8 * (j & 3));
+        ra[i] = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < W_BL; ++b) {
+      const int q = tid + b * CL_THREADS;
+      const int gk = k0 + (q >> 4) * 4, gn = n0 + (q & 15) * 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int8_t* p = w + static_cast<size_t>(gk + i) * N + gn;
+        const bool row_in = gk + i < k_end;
+        if (w_vec && row_in && gn + 4 <= N) {
+          rw[b][i] = *reinterpret_cast<const uint32_t*>(p);
+        } else {
+          rw[b][i] = 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (row_in && gn + j < N)
+              rw[b][i] |= static_cast<uint32_t>(static_cast<uint8_t>(p[j])) << (8 * j);
+        }
+      }
+    }
+  };
+  auto stash = [&](const uint4 (&ra)[A_CH], const uint32_t (&rw)[W_BL][4], int stage) {
+    uint8_t* a = sm + stage * (S8_CL_A + S8_CL_B);
+    uint8_t* b = a + S8_CL_A;
+#pragma unroll
+    for (int i = 0; i < A_CH; ++i) {
+      const int q = tid + i * CL_THREADS;
+      *reinterpret_cast<uint4*>(a + a_offset(q >> 3, q & 7)) = ra[i];
+    }
+#pragma unroll
+    for (int bb = 0; bb < W_BL; ++bb) {
+      const int q = tid + bb * CL_THREADS, k = (q >> 4) * 4, n = (q & 15) * 4;
+      uint32_t col[4];
+      i8::transpose4x4(rw[bb], col);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)  // W^T row n + j, K-major, 128-byte swizzled
+        *reinterpret_cast<uint32_t*>(b + a_offset(n + j, k >> 4) + (k & 15)) = col[j];
+    }
+  };
+
+  int acc[CL_BN / 2];
+#pragma unroll
+  for (int i = 0; i < CL_BN / 2; ++i) acc[i] = 0;
+  auto step = [&](int s, uint4 (&ra)[A_CH], uint32_t (&rw)[W_BL][4]) {
+    const int stage = s % CL_STAGES;
+    stash(ra, rw, stage);
+    fence_proxy_async();
+    __syncthreads();  // every thread has passed step s - 1's wait: step s - 3's stage is free
+    if (s + 2 < steps) load(ra, rw, k_begin + (s + 2) * S8_BK);  // in flight for two steps
+    const uint8_t* a = sm + stage * (S8_CL_A + S8_CL_B);
+    const uint64_t da = desc(a + wgi * 64 * S8_BK, 16, 1024), db = desc(a + S8_CL_A, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk) mma_s8_ss_m64n64k32(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+  };
+  if (steps > 0) load(ra0, rw0, k_begin);
+  if (steps > 1) load(ra1, rw1, k_begin + S8_BK);
+  for (int s = 0; s < steps; s += 2) {
+    step(s, ra0, rw0);
+    if (s + 1 < steps) step(s + 1, ra1, rw1);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncthreads();  // every warpgroup is done with the stages: they hold the partials now
+
+  int* part = reinterpret_cast<int*>(sm);
+  {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < CL_BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wgi * 64 + warp * 16 + g + 8 * h;
+        *reinterpret_cast<int2*>(&part[r * CL_PART + 8 * j + 2 * t]) =
+            make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+  }
+  cluster.sync();  // every rank's partial is written
+  const int r0 = rank * BM / S, r1 = (rank + 1) * BM / S;
+  for (int e = tid; e < (r1 - r0) * CL_BN; e += CL_THREADS) {
+    const int r = r0 + e / CL_BN, c = e % CL_BN;
+    const int row = m0 + r, col = n0 + c;
+    int v = 0;
+    for (int q = 0; q < S; ++q) v += cluster.map_shared_rank(part, q)[r * CL_PART + c];
+    if (row < M && col < N)
+      i8::epilogue(out + static_cast<size_t>(row) * N + col, v, s_row[row], s_col[col]);
+  }
+  cluster.sync();  // no rank leaves while another still reads its partial
+}
+
 // -- host side ----------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1243,19 +1611,21 @@ static int make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType t
 // A map of the 4-D tensor at `base`: dims (d0 innermost, d1, d2, d3)
 // elements, d1, d2 and d3 strided by s1, s2 and s3 bytes in any order (a
 // (B, H, N, hd) view of a (B, N, H, hd) tensor has s2 < s1), boxes of (b0,
-// b1, 1, 1); positions past the dims read as zeros. The base must be
-// 16-byte aligned and each stride a 16-byte multiple below 2^40, which the
-// callers' plans check before launch. Returns a cudaError_t code.
+// b1, b2, b3); positions past the dims read as zeros (a store skips them).
+// The base must be 16-byte aligned and each stride a 16-byte multiple below
+// 2^40, which the callers' plans check before launch. Returns a cudaError_t
+// code.
 static int make_map_4d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int d0,
                        int d1, int d2, int d3, long long s1, long long s2, long long s3, int b0,
-                       int b1, CUtensorMapSwizzle swizzle) {
+                       int b1, CUtensorMapSwizzle swizzle, int b2 = 1, int b3 = 1) {
   static const auto fn = reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
                               static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s1), static_cast<cuuint64_t>(s2),
                                  static_cast<cuuint64_t>(s3)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1),
+                             static_cast<cuuint32_t>(b2), static_cast<cuuint32_t>(b3)};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -1434,6 +1804,54 @@ static int launch_cluster(const void* a, const void* b, const float* scales, con
   const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_cluster<T, INT8_B>,
                                            static_cast<const uint16_t*>(a), b, scales, recv, out,
                                            out_dtype, M, N, K, k_chunk, a_vec, b_vec);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The int8 tma form on `grid` CTAs: x (M, K) and w (K, N) int8, both
+// 16-byte aligned, K % 16 == 0, N % 16 == 0 (the plan's checks).
+template <typename OutT>
+static int launch_tma_s8(const void* x, const void* w, const float* s_row, const float* s_col,
+                         void* out, int M, int N, int K, int grid, cudaStream_t stream) {
+  CUtensorMap map_x, map_w;
+  int rc = make_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, BM, S8_BK,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = make_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, S8_BK, RA_BW,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      gemm_tma_s8<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, S8_SMEM);
+  (void)smem_set;
+  gemm_tma_s8<OutT><<<grid, 128 * (CONSUMERS + 1), S8_SMEM, stream>>>(
+      map_x, map_w, s_row, s_col, static_cast<OutT*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 cluster form with a K split of `split` CTAs of `k_chunk` rows each.
+template <typename OutT>
+static int launch_cluster_s8(const int8_t* x, const int8_t* w, const float* s_row,
+                             const float* s_col, void* out, int M, int N, int K, int split,
+                             int k_chunk, cudaStream_t stream) {
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      gemm_cluster_s8<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, S8_CL_SMEM);
+  (void)smem_set;
+  const bool x_vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool w_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cdiv(N, CL_BN), cdiv(M, BM), split);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = S8_CL_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, gemm_cluster_s8<OutT>, x, w, s_row, s_col,
+                         static_cast<OutT*>(out), M, N, K, k_chunk, x_vec, w_vec);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 

@@ -38,8 +38,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "dequant_matmul": ("smelter_dequant_matmul", [_P] * 4 + [_I] * 10 + [_P]),
-    "int8_matmul": ("smelter_int8_matmul",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "int8_matmul": ("smelter_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),
     "int8_matmul_fused": ("smelter_int8_matmul_fused", [_P] * 5 + [_I] * 7 + [_P]),
     "int4_matmul": ("smelter_int4_matmul",
                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -50,7 +49,7 @@ SIGNATURES = {
     "layer_norm": ("smelter_layer_norm", [_P] * 6 + [_I, _I, _F, _I, _I, _P]),
     "vit_block": ("smelter_vit_block", [_P] * 13 + [_I] * 7 + [_F] * 3 + [_I] * 10 + [_P]),
     "pixel_conv": ("smelter_pixel_conv",
-                   [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_F, _I, _F, _I, _I, _P]),
+                   [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_F, _I, _F] + [_I] * 5 + [_P]),
     "max_unpool": ("smelter_max_unpool2x2", [_P] * 3 + [_I] * 3 + [_P]),
     "flash_attention": ("smelter_flash_attention", [_P] * 4 + [_I] * 17 + [_F, _I, _I, _P]),
     "attention_short": ("smelter_short_attention",

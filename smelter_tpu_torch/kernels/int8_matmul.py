@@ -6,18 +6,22 @@ puts float activations in front of it: `quantize_rows` (plain PyTorch, as it
 was plain XLA) quantizes each row to int8 with its own scale.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/int8_matmul.py::
-_int8_matmul_impl`. The Hopper kernel is `csrc/int8_matmul.cu`:
+_int8_matmul_impl`. The Hopper kernel is `csrc/int8_matmul.cu` on the int8
+forms of the wgmma/TMA core `csrc/wgmma_gemm.cuh`:
 
 - What bounds it on an H100: HBM at the ResNet-50 head (M 128, K 2048,
   N 1000: ~2.6 MB moved, ~0.77 us), the int8 tensor cores at the serving
   GEMM (M 8192, K 4096, N 4096: ~275 GOP, ~139 us).
-- What the simple design does about it: mma.sync.m16n8k32 on 128x128 tiles
-  with the int32 sum in registers, so the K loop does no float work; the
-  (K, N) row-major weight tile is transposed into the B fragment's [n][k]
-  layout in shared memory, per tile, so weights need no second copy. The
-  next K step loads into registers during the current one. At the head the
-  8 output tiles leave most SMs idle; one launch is one kernel, with no
-  split-K or workspace.
+- What the design does about it: `wgmma_plan.int8_plan` picks the form
+  from the shape. Where there are tiles enough to fill the card (the
+  serving GEMM) the persistent TMA kernel runs the product transposed on
+  wgmma.m64n128k32 s8: 8-bit wgmma reads shared operands K-major only, so
+  W^T is its register operand, gathered from the TMA-loaded W box with
+  2-byte loads and byte permutes, and x's box is B. Otherwise (the head's
+  16 tiles; any unaligned shape) a K split over a cluster of up to 8 CTAs,
+  W transposed on its way into shared memory, the int32 partials summed in
+  rank order through distributed shared memory: 128 CTAs at the head, not
+  16. The int32 sum is exact and the scales multiply it once, after it.
 
 `dequant_matmul_int8_fused` and `dequant_matmul_int8_fused2` compute
 `dequant_matmul_int8`'s function in one kernel that quantizes x as it
@@ -41,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, wgmma_plan
 
 launches = 0
 fused_launches = 0
@@ -109,15 +113,23 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, row_scales: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     if M == 0 or N == 0:
         return out
+    p = plan(x_q, w_q)
     lib = _build.library("int8_matmul")
     with torch.cuda.device(x_q.device):
         rc = lib.smelter_int8_matmul(
             x_q.data_ptr(), w_q.data_ptr(), row_scales.data_ptr(),
             col_scales.data_ptr(), out.data_ptr(), M, N, K,
-            _build.DTYPE_CODES[out_dtype], _build.stream_of(x_q))
+            _build.DTYPE_CODES[out_dtype], p.code, p.split, p.k_chunk, p.grid,
+            _build.stream_of(x_q))
     _build.check(lib, rc, "int8_matmul")
     launches += 1
     return out
+
+
+def plan(x_q: torch.Tensor, w_q: torch.Tensor) -> wgmma_plan.Plan:
+    """The wgmma form `int8_matmul` launches for these (CUDA) operands."""
+    return wgmma_plan.int8_plan(x_q.shape[0], w_q.shape[1], x_q.shape[1],
+                                aligned=_build.aligned16(x_q, w_q), sms=_build.sms(x_q.device))
 
 
 def int32_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:

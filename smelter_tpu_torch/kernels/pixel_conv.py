@@ -26,15 +26,25 @@ rowdot's device code on NCHW with no layout copy:
   C_in 64-192, C_out 32/64) the bf16 tensor cores and HBM nearly tie: about
   4.7 TFLOP and 16 GB over the 349 convs of a forward, ~4.7 ms and ~4.9 ms at
   the data sheet's peaks; int8 halves both.
-- What the simple design does about it: an implicit GEMM per pair of output
-  rows with mma.sync (m16n8k16 bf16/f16, m16n8k32 s8), the input rows staged
-  in shared memory transposed to [pixel][channel] so that the dx taps are
-  row offsets, both operands read by ldmatrix. f32 takes a full-f32 FMA
-  kernel (no TF32). `pixel_conv_blockdot` takes 4 output rows a block
-  (rowdot 2; f32 4 against 1), as the Pallas variant takes one dot a block
-  of rows: fewer staged input rows and weight chunks a pixel. The Pallas
-  kernels' `rows` (a TPU tiling) is accepted and not read, and H need not
-  divide into it.
+- 16-bit `pixel_conv_rowdot` runs the wgmma form (`csrc/wgmma_conv.cuh`)
+  where `wgmma_plan.pixel_plan` takes the shape (C_out 32 or 64, rows of
+  16-byte pixel chunks; ESRGAN's eight shapes): a persistent,
+  warp-specialised implicit GEMM with the pixels on M and C_out on N. TMA
+  brings each K step's 16 channels of 6 input rows into shared memory; the
+  producer warpgroup transposes them into a K-major copy, so that the dx
+  taps are 16-byte offsets of wgmma's A operand (an MN-major operand, or a
+  TMA box, cannot start one pixel off); the weight stays resident in shared
+  memory where it fits, else comes a step at a time; the output leaves by a
+  TMA store. Two consumer warpgroups of two output rows run wgmma m64n32 or
+  m64n64 over the 9 taps.
+- Everything else (f32, which keeps a full-f32 FMA kernel, no TF32; other
+  C_out; strides or bases TMA cannot take; `pixel_conv_rowdot_q`,
+  `pixel_conv_blockdot` and `pixel_conv_patch`) runs the mma.sync implicit
+  GEMM: a block of 2 (blockdot: 4) output rows x 128 pixels x 64 channels,
+  the input rows staged in shared memory transposed to [pixel][channel] so
+  that the dx taps are row offsets, both operands read by ldmatrix
+  (m16n8k16 bf16/f16, m16n8k32 s8). The Pallas kernels' `rows` (a TPU
+  tiling) is accepted and not read, and H need not divide into it.
 
 The kernel reads the weight as [3, 3, C_out, C_in]: `weights.params_from_numpy`
 stores the graph's PixelConv weights so (an OIHW view over that buffer),
@@ -53,7 +63,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, wgmma_plan
 
 launches = 0
 q_launches = 0
@@ -139,9 +149,10 @@ def _check(x, w, vecs, what: str, cin_dim: int = 2):
 
 
 def _launch(x, wp, bias, scales, out, alpha, inv_sy: float, requant: bool, *,
-            dims=None, x_strides=None, out_strides=None, tall: bool = False):
+            dims=None, x_strides=None, out_strides=None, tall: bool = False, p=None):
     """dims (B, H, C_in, W, C_out) and the (batch, row, channel) element
-    strides of x and out; by default those of contiguous NHCW maps."""
+    strides of x and out; by default those of contiguous NHCW maps. p: a
+    `wgmma_plan.PixelPlan` (default: the mma.sync / FMA kernels)."""
     if dims is None:
         dims = tuple(x.shape) + (out.shape[2],)
         x_strides, out_strides = x.stride()[:3], out.stride()[:3]
@@ -153,7 +164,8 @@ def _launch(x, wp, bias, scales, out, alpha, inv_sy: float, requant: bool, *,
             *dims, *x_strides, *out_strides, _build.DTYPE_CODES[x.dtype],
             _build.DTYPE_CODES[bias.dtype], _build.DTYPE_CODES[out.dtype],
             0.0 if alpha is None else float(alpha), int(alpha is not None), float(inv_sy),
-            int(requant), int(tall), _build.stream_of(x))
+            int(requant), int(tall), 0 if p is None else p.code, 0 if p is None else p.grid,
+            0 if p is None else p.stages, _build.stream_of(x))
     _build.check(lib, rc, "pixel_conv")
 
 
@@ -168,12 +180,25 @@ def _float_operands(x, w, bias, what: str, cin_dim: int = 2):
     return bias.contiguous()
 
 
+def plan(x, w, out=None, wp=None) -> wgmma_plan.PixelPlan:
+    """The kernel `pixel_conv_rowdot` launches for NHCW x (B, H, C_in, W) and
+    w (C_out, C_in, 3, 3); `out` and `wp` (the packed weight) join the
+    alignment check where given."""
+    B, H, C, W = x.shape
+    bases = [t for t in (x, out, wp) if t is not None]
+    return wgmma_plan.pixel_plan(B, H, W, C, w.shape[0], x.stride()[:3],
+                                 str(x.dtype).replace("torch.", ""),
+                                 aligned=_build.aligned16(*bases), sms=_build.sms(x.device))
+
+
 def _nhcw(x, w, bias, alpha, tall: bool, what: str) -> torch.Tensor:
     bias = _float_operands(x, w, bias, what)
     x = x.contiguous()
     out = torch.empty((x.shape[0], x.shape[1], w.shape[0], x.shape[3]), dtype=x.dtype,
                       device=x.device)
-    _launch(x, _packed_weight(w.to(x.dtype)), bias, None, out, alpha, 1.0, False, tall=tall)
+    wp = _packed_weight(w.to(x.dtype))
+    _launch(x, wp, bias, None, out, alpha, 1.0, False, tall=tall,
+            p=None if tall else plan(x, w, out, wp))
     return out
 
 

@@ -22,6 +22,15 @@ GEMM, else "mma" (`csrc/gemm.cuh`).
 same way: "wgmma" (`gemm_tma_ra` with an im2col map of x) where the TMA
 maps can describe it, else "mma" (`csrc/dequant_conv.cu`'s mma.sync
 implicit GEMM, any shape).
+
+`int8_plan` picks `int8_matmul`'s form among the header's int8 forms:
+"tma" (`gemm_tma_s8`, W^T the register operand of wgmma s8) for aligned
+shapes with tiles enough, else "cluster" (`gemm_cluster_s8`, a K split).
+
+`pixel_plan` picks 16-bit `pixel_conv_rowdot`'s kernel: "wgmma"
+(`csrc/wgmma_conv.cuh`, the weight resident in shared memory where it
+fits) where its TMA boxes can read the maps, else "mma" (the mma.sync or
+f32 kernel of `csrc/pixel_conv.cu`).
 """
 
 from __future__ import annotations
@@ -104,6 +113,40 @@ def plan(M: int, N: int, K: int, *, int8_b: bool, aligned: bool = True,
     return Plan("cluster", BM, CL_BN, split, per * BK, tiles * split, CLUSTER_SMEM)
 
 
+S8_BK = 128                   # K bytes a step of the int8 forms
+S8_BOX = BM * S8_BK           # an x box or a W box of the int8 tma form
+
+
+def int8_stages() -> int:
+    """Stages of the int8 tma form: an x box and a W box each, as many as
+    fit the budget, at most 8 (its epilogue stores from the accumulators)."""
+    return min(8, (SMEM_BUDGET - 1024) // (2 * S8_BOX))
+
+
+INT8_TMA_SMEM = 1024 + int8_stages() * (2 * S8_BOX + 16)
+INT8_CLUSTER_SMEM = 1024 + CL_STAGES * (BM * S8_BK + CL_BN * S8_BK)
+
+
+def int8_plan(M: int, N: int, K: int, *, aligned: bool = True, sms: int = SMS) -> Plan:
+    """The form, tile and split of `int8_matmul`'s out (M, N) = x (M, K) @ W
+    (K, N), both int8. "tma" (`gemm_tma_s8`: 128 W columns x 128 x rows a
+    tile, W^T wgmma's register operand) where TMA can read both operands:
+    16-byte aligned bases (`aligned`) and row strides (K % 16, N % 16), no
+    box larger than its matrix (M, K, N >= 128), and tiles enough to fill
+    half the card; else "cluster" (`gemm_cluster_s8`, any shape: 128 x 64
+    tiles, K split over S <= 8 CTAs in steps of 128 bytes)."""
+    tiles = cdiv(M, BM) * cdiv(N, TMA_BN)
+    if (aligned and K % 16 == 0 and N % 16 == 0 and min(M, K, N) >= BM
+            and tiles >= sms // 2):
+        return Plan("tma", BM, TMA_BN, 1, K, min(tiles, sms), INT8_TMA_SMEM)
+    tiles = cdiv(M, BM) * cdiv(N, CL_BN)
+    steps = cdiv(K, S8_BK)
+    split = max(1, min(MAX_CLUSTER, sms // max(tiles, 1), steps))
+    per = cdiv(steps, split) if steps else 1
+    split = cdiv(steps, per) if steps else 1
+    return Plan("cluster", BM, CL_BN, split, per * S8_BK, tiles * split, INT8_CLUSTER_SMEM)
+
+
 def block_plan(M: int, N: int, K: int, *, group: int = 0, aligned: bool = True,
                sms: int = SMS) -> Plan:
     """`vit_attention_block`'s projection out (M, N) = A (M, K) @ B + bias [+
@@ -181,3 +224,100 @@ def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int, p
         return ConvPlan("wgmma", ra_rows(bn), bn, tiles, 1, min(tiles, sms), ra_smem(bn))
     tiles = cdiv(M, 128) * cdiv(c_out, 128)
     return ConvPlan("mma", 128, 128, tiles, 1, tiles, 0)
+
+
+# pixel_conv_rowdot's wgmma form (csrc/wgmma_conv.cuh): tiles of PC_R output
+# rows x PC_PX pixels, K steps of PC_CK channels; a stage holds the x box of
+# the step's PC_R + 2 input rows (PC_RAWPX pixels), the producer's K-major
+# copy of it (PC_XPX pixel rows of 8 channels, two channel groups; padded to
+# 1 KB) and, unless the weight is resident, the 9 taps' weights, behind
+# three mbarriers.
+PC_PX, PC_CK, PC_RW, PC_XPX, PC_RAWPX = 64, 16, 2, 72, 80
+PC_R = CONSUMERS * PC_RW
+PC_XROWS = PC_R + 2
+PC_COUT = (32, 64)        # the form's C_out (wgmma's N)
+PC_RES_STAGES = 4         # stages the resident weight must leave room for
+_MAX_STRIDE = 1 << 40     # TMA's largest global stride, bytes
+
+
+def pixel_stage(c_out: int, resident: bool = False) -> int:
+    raw = PC_XROWS * PC_CK * PC_RAWPX * 2
+    copy = cdiv(PC_XROWS * 2 * PC_XPX * 16, 1024) * 1024
+    return raw + copy + (0 if resident else 9 * c_out * PC_CK * 2)
+
+
+def pixel_epi(c_out: int) -> int:
+    return CONSUMERS * PC_RW * c_out * 128
+
+
+def pixel_stages(c_out: int) -> int:
+    return min(8, (SMEM_BUDGET - 1024 - pixel_epi(c_out)) // pixel_stage(c_out))
+
+
+def pixel_smem(c_out: int) -> int:
+    return 1024 + pixel_stages(c_out) * (pixel_stage(c_out) + 24) + pixel_epi(c_out)
+
+
+def pixel_resident(c_in: int, c_out: int) -> int:
+    """The resident weight's bytes: [64-channel chunk][tap][C_out][64
+    channels], and a chunk's mbarrier."""
+    return cdiv(c_in, 64) * (9 * c_out * 128 + 8)
+
+
+def pixel_resident_stages(c_in: int, c_out: int) -> int:
+    """Stages of x alone beside the resident weight, at most 8."""
+    free = SMEM_BUDGET - 1024 - pixel_epi(c_out) - pixel_resident(c_in, c_out)
+    return max(0, min(8, free // (pixel_stage(c_out, True) + 24)))
+
+
+def pixel_resident_smem(c_in: int, c_out: int) -> int:
+    return (1024 + pixel_resident_stages(c_in, c_out) * (pixel_stage(c_out, True) + 24)
+            + pixel_epi(c_out) + pixel_resident(c_in, c_out))
+
+
+@dataclasses.dataclass(frozen=True)
+class PixelPlan:
+    form: str        # "wgmma" (csrc/wgmma_conv.cuh) or "mma" (pixel_conv.cu's mma.sync / FMA)
+    rows: int        # output rows a tile
+    px: int          # output pixels a tile
+    stages: int
+    tiles: int
+    grid: int        # CTAs launched (mma: one a block of its own tiling; not read)
+    smem: int        # dynamic shared memory a CTA, bytes (mma: 0, its own)
+    resident: bool = False  # wgmma: the whole weight kept in shared memory
+
+    @property
+    def code(self) -> int:
+        """The form's code in `csrc/pixel_conv.cu`'s entry point: 0 mma, 1
+        wgmma with the weights a stage, 2 wgmma with the weight resident."""
+        return 0 if self.form == "mma" else 2 if self.resident else 1
+
+
+def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: str, *,
+               aligned: bool = True, sms: int = SMS) -> PixelPlan:
+    """`pixel_conv_rowdot`'s kernel for x (B, H, C_in, W) NHCW at element
+    strides `x_strides` (batch, row, channel; W contiguous) in `dtype`
+    ("bfloat16", "float16" or "float32"), out contiguous NHCW; `aligned`:
+    x's, the packed weight's and out's bases 16-byte aligned. The wgmma form
+    takes 16-bit x, C_out 32 or 64, strides TMA can take (x's strides and W
+    multiples of 8 elements, which also makes out's rows TMA strides; the
+    weight's rows read in groups of 8 channels: C_in % 8 == 0), and no box
+    larger than its tensor (x's box: W >= 80 pixels, H >= PC_R + 2 rows,
+    C_in >= 16 channels); f32 keeps its full-f32 FMA kernel and the rest the
+    mma.sync kernel. The weight stays resident where it leaves room for 4
+    stages of x (with 3, ESRGAN's 160 -> 32 conv ran slower than with its
+    weights brought a stage at a time)."""
+    strides_ok = (all(s % 8 == 0 and 0 < 2 * s < _MAX_STRIDE for s in x_strides)
+                  and w % 8 == 0 and c_in % 8 == 0)
+    if (dtype in ("bfloat16", "float16") and c_out in PC_COUT and aligned and strides_ok
+            and w >= PC_RAWPX and h >= PC_XROWS and c_in >= PC_CK and b >= 1):
+        tiles = b * cdiv(h, PC_R) * cdiv(w, PC_PX)
+        if pixel_resident_stages(c_in, c_out) >= PC_RES_STAGES:
+            return PixelPlan("wgmma", PC_R, PC_PX, pixel_resident_stages(c_in, c_out), tiles,
+                             min(tiles, sms), pixel_resident_smem(c_in, c_out), True)
+        return PixelPlan("wgmma", PC_R, PC_PX, pixel_stages(c_out), tiles, min(tiles, sms),
+                         pixel_smem(c_out))
+    rows, px = (1, 64) if dtype == "float32" else (2, 128)  # pixel_conv.cu's blocks
+    tiles = b * cdiv(h, rows) * cdiv(w, px)
+    return PixelPlan("mma", rows, px, 0, tiles, tiles * cdiv(c_out, 64), 0)
+

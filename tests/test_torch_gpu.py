@@ -718,6 +718,186 @@ def test_pixel_conv_rowdot_q_sums_past_f32_integers(cuda):
     assert torch.equal(got, pc.pixel_conv_rowdot_q_plain(xq, wq, sc, bias, **kw))
 
 
+# -- the wgmma forms of int8_matmul and pixel_conv_rowdot ---------------------------
+
+# int8_plan's test shapes (M, N, K): the tma form where the plan takes it
+# (aligned strides, 128-row boxes, tiles enough), the cluster form elsewhere
+INT8_FORM_SHAPES = [(m, n, k) for m in (1, 17, 128, 129, 8192) for n in (8, 16, 1000, 4096)
+                    for k in (16, 32, 100, 2048)] + [(8192, 4096, 4096), (2000, 1040, 272)]
+
+
+def _int8_operands(m, n, k, device, seed=0):
+    rng = np.random.default_rng(seed)
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(device)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).to(device)
+    sr = torch.from_numpy(rng.uniform(1e-3, 1e-2, (m, 1)).astype(np.float32)).to(device)
+    sc = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32)).to(device)
+    return xq, wq, sr, sc
+
+
+def _int8_equal_in_every_dtype(xq, wq, sr, sc):
+    for dt in (torch.int32, torch.float32, torch.bfloat16, torch.float16):
+        before = im.launches
+        got = im.int8_matmul(xq, wq, sr, sc, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert im.launches == before + 1
+        assert got.dtype == dt and torch.equal(got, im.int8_matmul_plain(xq, wq, sr, sc,
+                                                                          out_dtype=dt)), dt
+
+
+@pytest.mark.parametrize("shape", INT8_FORM_SHAPES)
+def test_int8_matmul_forms_equal_plain(cuda, shape):
+    """Exact int32 sums and the same two f32 multiplies: bit-equal to the
+    plain version in every output type, in the form int8_plan picks."""
+    m, n, k = shape
+    xq, wq, sr, sc = _int8_operands(m, n, k, cuda, seed=m + n + k)
+    p = im.plan(xq, wq)
+    assert p.form == ("tma" if (k % 16 == 0 and n % 16 == 0 and min(m, n, k) >= 128
+                                and -(-m // 128) * -(-n // 128) >= 66) else "cluster")
+    _int8_equal_in_every_dtype(xq, wq, sr, sc)
+
+
+def test_int8_matmul_unaligned_bases_take_the_cluster_form(cuda):
+    """Bases 8 bytes off a 16-byte boundary: no TMA map; the cluster form
+    with byte loads of x's rows and 4-byte loads of W's."""
+    m, n, k = 2048, 4096, 2048
+    xq, wq, sr, sc = _int8_operands(m, n, k, cuda)
+    xo = torch.empty(m * k + 8, device=cuda, dtype=torch.int8)[8:].view(m, k)
+    xo.copy_(xq)
+    wo = torch.empty(k * n + 8, device=cuda, dtype=torch.int8)[8:].view(k, n)
+    wo.copy_(wq)
+    assert xo.data_ptr() % 16 == 8 and im.plan(xo, wo).form == "cluster"
+    assert im.plan(xq, wq).form == "tma"
+    _int8_equal_in_every_dtype(xo, wo, sr, sc)
+
+
+# pixel_conv_rowdot at PIXEL_SHAPES plus C_in 96 and 160 and ESRGAN's last
+# two map sizes, in both 16-bit types: the wgmma form where pixel_plan takes
+# it, the mma.sync kernel elsewhere
+PIXEL_FORM_SHAPES = PIXEL_SHAPES + [(1, 16, 96, 128, 32), (1, 16, 160, 128, 32),
+                                    (2, 7, 160, 88, 64), (1, 8, 64, 256, 64)]
+
+
+@pytest.mark.parametrize("shape", PIXEL_FORM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("alpha", [None, 0.0, 0.2])
+def test_pixel_conv_rowdot_forms_match_plain(cuda, shape, dtype, alpha):
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b = _pixel_operands(*shape, cuda, seed=shape[2])
+    x = x.to(dtype)
+    B, H, C, W, co = shape
+    form = pc.plan(x, w).form
+    assert form == ("wgmma" if co in (32, 64) and W % 8 == 0 and W >= 80 and H >= 6
+                    and C % 8 == 0 and C >= 16 else "mma")
+    before = pc.launches
+    got = pc.pixel_conv_rowdot(x, w, b, alpha=alpha)
+    again = pc.pixel_conv_rowdot(x, w, b, alpha=alpha)
+    torch.cuda.synchronize()
+    assert pc.launches == before + 2 and torch.equal(got, again)
+    ref = pc.pixel_conv_rowdot_plain(x, w, b, alpha=alpha)
+    assert got.dtype == dtype and got.shape == ref.shape
+    tol = {torch.bfloat16: 1e-2, torch.float16: 2e-3}[dtype]
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), (form, err)
+
+
+def test_pixel_conv_rowdot_wgmma_form_at_esrgans_shapes(cuda):
+    """ESRGAN x4's eight PixelConv shapes at batch 2, bf16, LeakyReLU 0.2,
+    a bf16 bias (the executor's operands: the packed weight's OIHW view)."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = [(2, 128, 64 + 32 * i, 128, 32 if i < 4 else 64) for i in range(5)] + [
+        (2, s, 64, s, 64) for s in (128, 256, 512)]
+    for shape in shapes:
+        x, w, b = _pixel_operands(*shape, cuda, seed=7)
+        x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        packed = w.permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+        assert pc.plan(x, packed).form == "wgmma"
+        got = pc.pixel_conv_rowdot(x, packed, b, alpha=0.2)
+        ref = pc.pixel_conv_rowdot_plain(x, w, b, alpha=0.2)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 1e-2 * ref.float().abs().max().item(), (shape, err)
+
+
+# (name, call builder, the kernel it launches): what each form of the two
+# plans launches, and every "mma" case of pixel_plan on its earlier kernel
+def _form_cases(device):
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    def int8_call(m, n, k):
+        ops = _int8_operands(m, n, k, device)
+        return lambda: im.int8_matmul(*ops)
+
+    def pixel_call(shape, dtype):
+        x, w, b = _pixel_operands(*shape, device)
+        x = x.to(dtype)
+        wp = w.to(dtype).permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+        return lambda: pc.pixel_conv_rowdot(x, wp, b, alpha=0.2)
+
+    bf16 = torch.bfloat16
+    return [
+        ("int8 head", int8_call(128, 1000, 2048), "gemm_cluster_s8"),
+        ("int8 serving", int8_call(8192, 4096, 4096), "gemm_tma_s8"),
+        ("int8 odd", int8_call(37, 100, 70), "gemm_cluster_s8"),
+        ("pixel trunk", pixel_call((2, 128, 64, 128, 32), bf16), "pixel_conv_wgmma"),
+        ("pixel 512 px", pixel_call((1, 16, 64, 512, 64), torch.float16), "pixel_conv_wgmma"),
+        ("pixel f32", pixel_call((1, 16, 64, 128, 32), torch.float32), "pixel_conv_f32"),
+        ("pixel W 100", pixel_call((2, 7, 16, 100, 8), bf16), "pixel_conv_mma"),
+        ("pixel C_out 72", pixel_call((2, 5, 24, 37, 72), bf16), "pixel_conv_mma"),
+        ("pixel H 3", pixel_call((1, 3, 16, 128, 32), bf16), "pixel_conv_mma"),
+        ("pixel W 64", pixel_call((1, 9, 16, 64, 32), bf16), "pixel_conv_mma"),
+        ("pixel C_in 8", pixel_call((1, 9, 8, 128, 32), bf16), "pixel_conv_mma"),
+        ("pixel C_in 5", pixel_call((1, 9, 5, 64, 32), bf16), "pixel_conv_mma"),
+    ]
+
+
+def _profile_form_cases(device="cuda"):
+    """The kernels of csrc/wgmma_gemm.cuh's int8 forms and of pixel_conv.cu
+    that each of _form_cases launches, from one torch.profiler session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = _form_cases(device)
+    for _, call, _ in cases:
+        call()
+    torch.cuda.synchronize()
+    names = []
+    for _, call, _ in cases:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names.append([e.name for e in prof.events() if e.device_type.name == "CUDA"
+                      and ("pixel_conv" in e.name or "_s8" in e.name)])
+    return names
+
+
+def test_int8_and_pixel_forms_launch_their_kernels(cuda):
+    """The head and odd int8 shapes launch the cluster form, the serving
+    GEMM the tma form; 16-bit pixel convs the plan takes launch
+    csrc/wgmma_conv.cuh's kernel, and every "mma" case (f32, W % 8, C_out
+    outside {32, 64}, H < 6, W < 80, C_in % 8, C_in < 16) its earlier kernel. The profile runs in a
+    process of its own (several torch.profiler sessions in one process lose
+    kernels)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import test_torch_gpu as t; "
+            "print('NAMES ' + json.dumps(t._profile_form_cases()))")
+    proc = subprocess.run([sys.executable, "-c", code, str(here)], cwd=here.parent,
+                          capture_output=True, text=True, timeout=600, check=False)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("NAMES ")]
+    assert proc.returncode == 0 and lines, proc.stderr[-3000:]
+    names = json.loads(lines[-1][len("NAMES "):])
+    for (case, _, kernel), got in zip(_form_cases("meta"), names):
+        assert len(got) == 1 and kernel in got[0], (case, got)
+
+
 # -- pixel_conv_blockdot, pixel_conv_patch ------------------------------------------
 
 @pytest.mark.parametrize("shape", PIXEL_SHAPES + [(1, 7, 24, 100, 40)])
