@@ -30,14 +30,17 @@ its number:
    (one torch.profiler session in a process of its own: `chip_smoke.py
    --vit-split`) at ViT-B/16 b128 and SD-UNet's two shapes, on the earlier
    mma.sync kernels and on the wgmma cores; `pixel_conv_rowdot` (bf16,
-   and f32 at batch 1) and `pixel_conv_rowdot_q` (int8 and bf16 out) at
-   each of ESRGAN x4's PixelConv shapes at batch 8, `max_unpool2x2` at
+   and f32 at batch 1) and `pixel_conv_rowdot_q` (int8 and bf16 out, on
+   its int8 wgmma form; one int8 conv at W 72, which the plan keeps on
+   mma.sync, too) at each of ESRGAN x4's PixelConv shapes at batch 8, each
+   with its form, `max_unpool2x2` at
    SegNet's three unpools at batch 16, and, on (B, H, N, hd) views of
    (B, N, H, hd) tensors as the HF-layout ViT hands them over,
    `short_attention` at ViT-B/16 224 px (B 128, H 12, N 197, hd 64; f32 at
    batch 8), `flash_attention` at 384 px (B 64, N 577) and at N 2048 and
    4096 (B 2; small in f32), and `mlp_block` at 25,216 rows of 768 with F
-   3072 (f32 at batch 8, plus a small pre_ln=0 / tanh case); the image
+   3072 (FC1 and FC2 on gemm_tma; f32 at batch 8 on its FMA kernel, plus a
+   small pre_ln=0 / tanh case); the image
    models' block kernels: `convnext_block` at ConvNeXt-T's three fused
    stages at batch 64 (f32 at batch 2), `cross_attn_block` at SD-UNet's
    two shapes at batch 8 with k/v per image and shared, and
@@ -515,6 +518,8 @@ def phase_kernels(torch, power_w: float) -> dict:
 
     for (name, label, kind), r in rows.items():
         form = f" ({r['form']} form)" if "form" in r else ""
+        if "bf16_out_form" in r:
+            form = f" ({r['form']} form; bf16 out: {r['bf16_out_form']})"
         say(2, f"{name} {label} {r['shape']} {kind}{form}: err {r['max_abs_err']:.3g} "
                f"({r['tolerance']}) | kernel {r['ms']:.4f} ms (host cost of a call "
                f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
@@ -1067,6 +1072,12 @@ def phase_image_kernels(torch, power_w: float) -> dict:
                 kw = dict(alpha=0.2, inv_sy=0.5, requant=True)
                 call = lambda i: pc.pixel_conv_rowdot_q(*sets[i % n], **kw)  # noqa: E731
                 plain = lambda i: pc.pixel_conv_rowdot_q_plain(*sets[i % n], **kw)  # noqa: E731
+                # wgmma_plan.pixel_plan, int8 out and bf16 out
+                p8, p16 = (pc.plan(sets[0][0], sets[0][1], out_dtype=od) for od in (i8, bf16))
+                r["form"] = p8.form + (" resident-weight" if p8.resident else "")
+                r["bf16_out_form"] = p16.form + (" resident-weight" if p16.resident else "")
+                check(p8.form == p16.form == "wgmma",
+                      f"{name} {shape}: plans {p8.form}/{p16.form}, not the int8 wgmma form")
                 got, ref = call(0), plain(0)
                 torch.cuda.synchronize()
                 check(torch.equal(got, ref), f"{name} {shape}: int8 outputs differ")
@@ -1087,6 +1098,24 @@ def phase_image_kernels(torch, power_w: float) -> dict:
             r["bound_ms"], r["bound_by"] = bound(nbytes, flops, kind, power_w)
             rows[(name, cin, cout, side_px)] = r
             del sets, xl, wl
+
+    # rowdot_q at a shape the plan keeps on mma.sync (W 72: narrower than the
+    # int8 form's 96-pixel box), int8 and bf16 out, equal to the plain version
+    mshape = (B, 16, 64, 72)
+    xm = torch.randint(-127, 128, mshape, device="cuda", generator=gen, dtype=i8)
+    wm = torch.randint(-127, 128, (32, 64, 3, 3), device="cuda", generator=gen, dtype=i8)
+    mops = (xm, wm, torch.rand(32, device="cuda", generator=gen) * 1e-4,
+            torch.randn(32, device="cuda", generator=gen))
+    mform = pc.plan(xm, wm, out_dtype=i8).form
+    check(mform == "mma", f"pixel_conv_rowdot_q {list(mshape)}: plan {mform}, not mma.sync")
+    for kw in (dict(alpha=0.2, inv_sy=0.5, requant=True),
+               dict(alpha=0.2, requant=False, out_dtype=bf16)):
+        check(torch.equal(pc.pixel_conv_rowdot_q(*mops, **kw),
+                          pc.pixel_conv_rowdot_q_plain(*mops, **kw)),
+              f"pixel_conv_rowdot_q {list(mshape)} (mma form): outputs differ")
+    say(2, f"pixel_conv_rowdot_q {list(mshape) + [32]} ({mform} form): int8 and bf16 outputs "
+           f"equal the plain version")
+    REPORT["rowdot_q_mma_check"] = {"shape": list(mshape) + [32], "form": mform, "equal": True}
 
     for shape in SEGNET_UNPOOLS:
         Bs, C, h, w = shape
@@ -1123,6 +1152,8 @@ def phase_image_kernels(torch, power_w: float) -> dict:
         lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
         extra = f"; f32 b1 err {r['f32_b1_err']:.3g} (1e-5 x max)" if "f32_b1_err" in r else ""
         form = f" ({r['form']} form)" if "form" in r else ""
+        if "bf16_out_form" in r:
+            form = f" ({r['form']} form; bf16 out: {r['bf16_out_form']})"
         say(2, f"{r['name']} {r['shape']}{form}: err {r['max_abs_err']:.3g} ({r['tolerance']})"
                f"{extra} | kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), "
                f"plain {r['plain_ms']:.4f} ms, library {lib} ({r['library']}), bound "
@@ -1236,9 +1267,11 @@ def phase_encoder_kernels(torch, power_w: float) -> dict:
     nbytes = 2 * (2 * M * D + 2 * D * Fh) + 4 * (3 * D + Fh)
     sets = [mlp_args(B, N, bf16, 10 + i) for i in range(_copies(nbytes))]
     n = len(sets)
+    fc1, fc2 = mb.plans(M, D, Fh, bf16)
     r = {"name": "mlp_block", "shape": [M, D, Fh], "calls_per_forward": 12,
-         "path": "224 px b128",
+         "path": "224 px b128", "form": f"FC1 {fc1.form}, FC2 {fc2.form}",
          "library": "F.layer_norm, torch.addmm, F.gelu, torch.addmm, the residual add"}
+    check(fc1.form == fc2.form == "tma", f"mlp_block {[M, D, Fh]}: {r['form']}, not gemm_tma")
 
     lib_params = [[t.to(bf16) for t in (g, b, b1, b2)] for _, g, b, _, b1, _, b2 in sets]
 
@@ -1260,6 +1293,8 @@ def phase_encoder_kernels(torch, power_w: float) -> dict:
     r["f32_b8_err"], r["f32_tolerance"] = err_of(mb.mlp_block(*args, **kw),
                                                  mb.mlp_block_plain(*args, **kw), 1e-5,
                                                  "mlp_block f32 b8")
+    r["f32_form"] = mb.plans(8 * N, D, Fh, f32)[0].form
+    check(r["f32_form"] == "mma", f"mlp_block f32: plan {r['f32_form']}, not the f32 kernel")
     small = {}
     for dtype, rel in ((bf16, 1e-2), (f32, 1e-5)):
         args = mlp_args(2, 50, dtype, 31)
@@ -4532,7 +4567,7 @@ def main() -> int:
                "pixel_conv_rowdot": ("smelter_tpu_torch/csrc/wgmma_conv.cuh",
                                      "smelter_tpu/kernels/pixel_conv.py:140",
                                      per_forward(image_rows, "pixel_conv_rowdot"), "forward"),
-               "pixel_conv_rowdot_q": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+               "pixel_conv_rowdot_q": ("smelter_tpu_torch/csrc/wgmma_conv_s8.cuh",
                                        "smelter_tpu/kernels/pixel_conv.py:269",
                                        per_forward(image_rows, "pixel_conv_rowdot_q"),
                                        "forward"),

@@ -82,6 +82,29 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(addr));
 }
 
+// Activations of the GEMM epilogues (csrc/gemm.cuh, csrc/wgmma_gemm.cuh),
+// in f32: GELU's exact form as the Pallas MLP kernel spells it
+// (smelter_tpu/kernels/mlp_block.py::_mlp_kernel: the Abramowitz-Stegun
+// 7.1.26 polynomial over exp), or the tanh form.
+enum Activation : int { kActNone = 0, kActGeluExact = 1, kActGeluTanh = 2 };
+
+__device__ __forceinline__ float activate(float h, int act) {
+  if (act == kActGeluTanh)
+    return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
+  if (act == kActGeluExact) {
+    const float z = h * 0.7071067811865476f;
+    const float az = fabsf(z);
+    const float t = 1.f / (1.f + 0.3275911f * az);
+    const float poly =
+        t * (0.254829592f +
+             t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+    const float erf_abs = 1.f - poly * expf(-az * az);
+    const float erf = z > 0.f ? erf_abs : (z < 0.f ? -erf_abs : 0.f);
+    return 0.5f * h * (1.f + erf);
+  }
+  return h;
+}
+
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace smelter

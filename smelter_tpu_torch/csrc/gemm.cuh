@@ -22,25 +22,6 @@
 
 namespace smelter {
 
-enum Activation : int { kActNone = 0, kActGeluExact = 1, kActGeluTanh = 2 };
-
-__device__ __forceinline__ float activate(float h, int act) {
-  if (act == kActGeluTanh)
-    return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
-  if (act == kActGeluExact) {
-    const float z = h * 0.7071067811865476f;
-    const float az = fabsf(z);
-    const float t = 1.f / (1.f + 0.3275911f * az);
-    const float poly =
-        t * (0.254829592f +
-             t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-    const float erf_abs = 1.f - poly * expf(-az * az);
-    const float erf = z > 0.f ? erf_abs : (z < 0.f ? -erf_abs : 0.f);
-    return 0.5f * h * (1.f + erf);
-  }
-  return h;
-}
-
 __device__ __forceinline__ size_t b_offset(int k, int n, int K, int G) {
   return static_cast<size_t>(n / G) * K * G + static_cast<size_t>(k) * G + (n % G);
 }

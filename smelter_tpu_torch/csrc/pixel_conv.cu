@@ -22,10 +22,14 @@
 // persistent, warp-specialised wgmma implicit GEMM of csrc/wgmma_conv.cuh
 // (pixels on M, C_out on N; TMA in, a K-major copy made by the producer
 // warpgroup so that the dx taps are 16-byte offsets, the weight resident in
-// shared memory where it fits, TMA out), form 1 or 2 below.
+// shared memory where it fits, TMA out), form 1 or 2 below. rowdot_q with
+// int8 or 16-bit out where the plan takes the shape (also C_out 32 or 64;
+// 16-pixel chunks: all of ESRGAN's) runs the same design on int8 wgmma
+// (csrc/wgmma_conv_s8.cuh: K steps of 32 channels, exact int32 sums, the
+// epilogue below).
 //
-// Everything else (f32, other C_out, strides TMA cannot take, rowdot_q,
-// blockdot's `tall` tile and patch's NCHW strides) takes form 0, an
+// Everything else (f32, other C_out, strides TMA cannot take, rowdot_q
+// with f32 out, blockdot's `tall` tile and patch's NCHW strides) takes form 0, an
 // implicit GEMM on mma.sync per block of RB = 2 (or 4) output rows x TW =
 // 128 pixels x 64 output channels (M = output channels, N = pixels, K = the
 // 9 taps x C_in). Input channels stream in chunks of 64 bytes (32 bf16 or
@@ -50,7 +54,7 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "wgmma_conv.cuh"
+#include "wgmma_conv_s8.cuh"
 
 namespace {
 
@@ -106,14 +110,12 @@ template <typename OutT, typename Acc>
 __device__ __forceinline__ void finish(const Epilogue& ep, Acc v, int c, OutT* p) {
   float f;
   if constexpr (std::is_same<Acc, int>::value) {
-    f = __fadd_rn(__fmul_rn(__int2float_rn(v), ep.scales[c]), bias_at(ep, c));
+    f = wg::q_dequant(v, ep.scales[c], bias_at(ep, c), ep.alpha, ep.has_alpha);
   } else {
-    f = __fadd_rn(v, bias_at(ep, c));
+    f = leaky(ep, __fadd_rn(v, bias_at(ep, c)));
   }
-  f = leaky(ep, f);
   if constexpr (std::is_same<OutT, int8_t>::value) {
-    const int q = __float2int_rn(__fmul_rn(f, ep.inv_sy));
-    *p = static_cast<int8_t>(max(-127, min(127, q)));
+    *p = wg::q_requant(f, ep.inv_sy);
   } else {
     store(p, f);
   }
@@ -445,11 +447,12 @@ extern "C" const char* smelter_error_string(int code) {
 // for int8 x, else unused; out (B, H, Cout, W) at strides (osb, osh, osc)
 // in out_dtype: x's dtype for float x; for int8 x int8 when requant, else
 // f32, bf16 or f16. tall: 4 output rows a block (float x only) instead of
-// 2 (1 for f32). form 1: the wgmma kernel of csrc/wgmma_conv.cuh on `grid`
-// CTAs with `stages` stages, each bringing its weights; form 2: the same
-// with the weight resident (16-bit x, Cout 32 or 64;
-// kernels/wgmma_plan.py::pixel_plan checks the rest); form 0 the mma.sync /
-// FMA kernels above. Returns a cudaError_t code.
+// 2 (1 for f32). form 1: the wgmma kernel of csrc/wgmma_conv.cuh (16-bit x)
+// or csrc/wgmma_conv_s8.cuh (int8 x; out int8, bf16 or f16) on `grid` CTAs
+// with `stages` stages, each bringing its weights; form 2: the same with the
+// weight resident (Cout 32 or 64; kernels/wgmma_plan.py::pixel_plan checks
+// the rest); form 0 the mma.sync / FMA kernels above. Returns a cudaError_t
+// code.
 extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias,
                                   const void* scales, void* out, int B, int H, int Cin, int W,
                                   int Cout, long long xsb, long long xsh, long long xsc,
@@ -464,6 +467,28 @@ extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias
   if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0) return 0;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (bias_dtype != kF32 && bias_dtype != x_dtype) return bad;
+  if ((form == 1 || form == 2) && x_dtype == kI8) {
+    // requant: int8 out; else bf16 / f16 out (f32 out keeps form 0)
+    if (tall || grid <= 0 || scales == nullptr || bias_dtype != kF32) return bad;
+    if (requant ? out_dtype != kI8 : (out_dtype != kBF16 && out_dtype != kF16)) return bad;
+    const wg::PixelQEpi qe{static_cast<const float*>(scales), static_cast<const float*>(bias),
+                           alpha, has_alpha, inv_sy, out_dtype};
+    auto run = [&](auto launch) {
+      return launch(x, w, out, qe, B, H, Cin, W, xsb, xsh, xsc, osb, osh, osc, grid, stages, st);
+    };
+    const bool q8 = requant != 0, res = form == 2;
+    if (Cout == 64)
+      return res ? (q8 ? run(wg::launch_pixel_wgmma_s8<64, true, true>)
+                       : run(wg::launch_pixel_wgmma_s8<64, true, false>))
+                 : (q8 ? run(wg::launch_pixel_wgmma_s8<64, false, true>)
+                       : run(wg::launch_pixel_wgmma_s8<64, false, false>));
+    if (Cout == 32)
+      return res ? (q8 ? run(wg::launch_pixel_wgmma_s8<32, true, true>)
+                       : run(wg::launch_pixel_wgmma_s8<32, true, false>))
+                 : (q8 ? run(wg::launch_pixel_wgmma_s8<32, false, true>)
+                       : run(wg::launch_pixel_wgmma_s8<32, false, false>));
+    return bad;
+  }
   if (form == 1 || form == 2) {
     if (tall || out_dtype != x_dtype || grid <= 0) return bad;
     const wg::PixelEpi pe{bias, bias_dtype == kF32, alpha, has_alpha};

@@ -3,8 +3,9 @@
 // shared-memory stages guarded by mbarriers, and thread-block clusters that
 // sum a K split through distributed shared memory. Raw PTX in the style of
 // common.cuh. Five kernels, shared by csrc/dequant_matmul.cu,
-// csrc/collective_matmul.cu, csrc/dequant_conv.cu, csrc/vit_block.cu and
-// csrc/int8_matmul.cu (csrc/wgmma_conv.cuh builds pixel_conv's on them):
+// csrc/collective_matmul.cu, csrc/dequant_conv.cu, csrc/vit_block.cu,
+// csrc/mlp_block.cu and csrc/int8_matmul.cu (csrc/wgmma_conv.cuh and
+// csrc/wgmma_conv_s8.cuh build pixel_conv's on them):
 //
 // gemm_tma (the "tma" form, 16-bit A and B): a persistent, warp-specialised
 //   kernel. Tiles of BM 128 x BN 128 (a template parameter) walk K in steps
@@ -37,10 +38,12 @@
 //   and out may be one buffer (the sum updated in place): a tile's recv is
 //   read before its out is written, and tiles are disjoint.
 //   The block epilogues (template-chosen: runtime flags there made cicc
-//   take minutes) serve csrc/vit_block.cu's projections: an f32 or 16-bit
-//   bias added to the f32 sums, kEpiBiasRes also the residual x (x + (acc +
-//   b), staged in f32), one rounding; kEpiQkv reads B, the packed QKV
-//   weight (3 n_groups, K, G), in place through a 3-D map (G % 64 == 0).
+//   take minutes) serve csrc/vit_block.cu's projections and csrc/
+//   mlp_block.cu's FC1 and FC2: an f32 or 16-bit bias added to the f32
+//   sums, kEpiBiasRes also the residual x (x + (acc + b), staged in f32),
+//   kEpiBiasGelu / kEpiBiasGeluTanh GELU of the biased sum in f32, one
+//   rounding; kEpiQkv reads B, the packed QKV weight (3 n_groups, K, G), in
+//   place through a 3-D map (G % 64 == 0).
 //
 // gemm_tma_ra (the "tma" form for an int8 B: dequant_matmul's W, and
 //   dequant_conv's HWIO weight): the same pipeline with the product
@@ -113,7 +116,7 @@
 // BN x 64); gemm_tma adds 32,768 for the epilogue's two 64 x 64 sub-tiles:
 //   BN 128 bf16: 6 stages, 230,496
 //   BN 128 bf16 with recv (its 65,536-byte tile in place of the sub-tiles):
-//     5 stages, 230,496
+//     5 stages, 230,496; the GELU epilogues' f32 tile the same
 //   BN 128 int8 (and 32,768 for its staged 16-bit output): 8 stages, 230,528
 //   WC 64 int8 (two x boxes a stage): 5 stages, 218,192
 // Cluster form: 3 stages of 16,384 + 8,192 and 1 KB for alignment, 74,752;
@@ -544,12 +547,28 @@ __device__ __forceinline__ void epi_flush(const uint8_t* epi, void* out, int out
   }
 }
 // gemm_tma's epilogues: kEpiNone stores A @ B [+ recv] in the type
-// `out_dtype` names; the block epilogues of csrc/vit_block.cu's projections
-// add an f32 bias (kEpiBias; kEpiQkv also reads B, the packed QKV weight,
-// through a 3-D map) and, kEpiBiasRes, the residual x in f32, x + (acc + b)
-// as the Pallas kernel orders it (smelter_tpu/kernels/vit_block.py), and
-// round once to out's type T.
-enum Epilogue : int { kEpiNone = 0, kEpiQkv = 1, kEpiBias = 2, kEpiBiasRes = 3 };
+// `out_dtype` names; the block epilogues of csrc/vit_block.cu's and
+// csrc/mlp_block.cu's products add an f32 bias (kEpiBias; kEpiQkv also
+// reads B, the packed QKV weight, through a 3-D map) and, kEpiBiasRes, the
+// residual x in f32, x + (acc + b) as the Pallas kernels order it
+// (smelter_tpu/kernels/vit_block.py, mlp_block.py), or apply GELU to acc + b
+// in f32 (kEpiBiasGelu the exact form, kEpiBiasGeluTanh the tanh form:
+// `activate`, as csrc/gemm.cuh's epilogue), and round once to out's type T.
+enum Epilogue : int {
+  kEpiNone = 0,
+  kEpiQkv = 1,
+  kEpiBias = 2,
+  kEpiBiasRes = 3,
+  kEpiBiasGelu = 4,
+  kEpiBiasGeluTanh = 5
+};
+// A block epilogue's activation.
+__host__ __device__ constexpr int epi_act(int epi) {
+  return epi == kEpiBiasGelu ? kActGeluExact : epi == kEpiBiasGeluTanh ? kActGeluTanh : kActNone;
+}
+// Whether gemm_tma stores a block epilogue's tile under the next tile's K
+// loop (the GELU epilogues: see gemm_tma).
+__host__ __device__ constexpr bool epi_deferred(int epi) { return epi_act(epi) != kActNone; }
 
 // The block epilogues' operands: bias (N,) in f32 (bias_f32) or T; residual
 // (M, N) in T (kEpiBiasRes); group, kEpiQkv's block width: B is (N / group,
@@ -600,22 +619,24 @@ __device__ __forceinline__ void epi_flush_res(const uint8_t* epi, void* out, con
 
 // -- the tma form -------------------------------------------------------------
 
-// RECV: out = recv + A @ B with an f32 recv (M, N). A second producer
-// thread brings each tile's recv into shared memory by TMA (boxes of 64
-// rows x 32 f32 columns, the 128-byte swizzle) while the tile's K loop
-// runs; the epilogue adds the f32 accumulators into it there and flushes
-// the sums. The tile takes the shared memory of the epilogue's sub-tiles
-// and of one stage.
-template <int BN, bool RECV>
+// TILE: a whole BM x BN f32 tile in shared memory (and RECV's two
+// mbarriers), in place of the epilogue's sub-tiles and one stage: RECV's (out = recv + A @
+// B with an f32 recv (M, N): a second producer thread brings each tile's
+// recv into shared memory by TMA, boxes of 64 rows x 32 f32 columns with the
+// 128-byte swizzle, while the tile's K loop runs; the epilogue adds the f32
+// accumulators into it there and flushes the sums), or the GELU epilogues'
+// (the consumers stage acc + bias there and store it, GELU applied, under
+// the next tile's K loop).
+template <int BN, bool TILE>
 struct TmaCfg {
   static constexpr int THREADS = 128 * (CONSUMERS + 1);
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int B_BYTES = BK * BN * 2;
-  static constexpr int EPI = RECV ? BM * BN * 4 : CONSUMERS * EPI_WG;
+  static constexpr int EPI = TILE ? BM * BN * 4 : CONSUMERS * EPI_WG;
   static constexpr int FIT = (SMEM_BUDGET - 1024 - EPI) / (A_BYTES + B_BYTES);
   static constexpr int STAGES = FIT > 8 ? 8 : FIT;
   static constexpr int SMEM =
-      1024 + STAGES * (A_BYTES + B_BYTES) + EPI + 16 * STAGES + (RECV ? 16 : 0);
+      1024 + STAGES * (A_BYTES + B_BYTES) + EPI + 16 * STAGES + (TILE ? 16 : 0);
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 constexpr int RECV_BOX = 64 * 32 * 4;  // one recv box: 64 rows of 128 bytes
@@ -626,18 +647,27 @@ constexpr int RECV_BOX = 64 * 32 * 4;  // one recv box: 64 rows of 128 bytes
 // N) map of recv (box 32 x 64, swizzled); out in the type `out_dtype` names.
 // recv and out may be one buffer: a tile's recv is read (by TMA) before its
 // out is written, and tiles are disjoint. EPI (without RECV): a block
-// epilogue of `epi`'s operands, out in T.
+// epilogue of `epi`'s operands, out in T. The GELU epilogues' arithmetic
+// (exp, a division, ~40 instructions a value) stalled the tensor cores
+// between tiles for as long as FC1's K loop at ViT-B/16 (K 768), and three
+// idle producer warps given it ran slower still (latency-bound), so each
+// consumer warpgroup stages its rows' acc + bias in f32 into the TILE (a
+// 16-byte chunk c of row r at (c ^ ((r & 3) << 1)) * 16: no bank conflicts
+// either way) and stores them, GELU applied and rounded, a slice after each
+// K step's wgmma group of the next tile, while the tensor cores run it.
 template <typename T, int BN, bool RECV, int EPI = kEpiNone>
-__global__ void __launch_bounds__(TmaCfg<BN, RECV>::THREADS, 1)
+__global__ void __launch_bounds__(TmaCfg<BN, RECV || epi_deferred(EPI)>::THREADS, 1)
 gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
          const __grid_constant__ CUtensorMap map_r, void* out, int out_dtype, int M, int N,
          int K, BlockEpi epi) {
-  using Cfg = TmaCfg<BN, RECV>;
+  constexpr bool DEFER = epi_deferred(EPI);
+  static_assert(!(DEFER && RECV), "a recv tile or a GELU tile, not both");
+  using Cfg = TmaCfg<BN, RECV || DEFER>;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sa = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sb = sa + STAGES * Cfg::A_BYTES;
-  uint8_t* se = sb + STAGES * Cfg::B_BYTES;  // epilogue sub-tiles, or the recv tile
+  uint8_t* se = sb + STAGES * Cfg::B_BYTES;  // epilogue sub-tiles, or the recv or GELU tile
   uint64_t* full = reinterpret_cast<uint64_t*>(se + Cfg::EPI);
   uint64_t* empty = full + STAGES;
   uint64_t* rfull = empty + STAGES;  // RECV: the tile's recv landed / was flushed
@@ -700,6 +730,29 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
   const int ct = threadIdx.x - 128, wgi = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
   float acc[BN / 2];
   int stage = 0, phase = 0, it = 0;
+  // DEFER: the warpgroup's staged rows of the last tile (at pend_m0,
+  // pend_n0; none while pend_m0 < 0), `done` of this thread's DEFER_ITEMS
+  // 16-byte chunks of them stored, DEFER_STEP after each K step's wgmma
+  // group and the rest after the K loop (at ViT-B/16's FC1, 12 K steps, 2 a
+  // step ran faster than 1 or 4, than all 16 after one step and than an
+  // even spread)
+  constexpr int DEFER_ITEMS = 64 * (BN / 4) / 128, DEFER_STEP = 2;
+  int pend_m0 = -1, pend_n0 = 0, done = 0;
+  const auto deferred_store = [&](int upto) {
+    constexpr int code = std::is_same<T, __nv_bfloat16>::value ? kBF16 : kF16;
+    for (; done < upto; ++done) {
+      const int q = (ct & 127) + 128 * done, r = q / (BN / 4), cq = q % (BN / 4);
+      const int row = pend_m0 + wgi * 64 + r, col = pend_n0 + cq * 4;
+      if (row >= M || col >= N) continue;
+      const float4 v = *reinterpret_cast<const float4*>(
+          se + (wgi * 64 + r) * (BN * 4) + ((cq ^ ((r & 3) << 1)) << 4));
+      constexpr int act = epi_act(EPI);
+      *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + static_cast<size_t>(row) * N +
+                                col) =
+          make_uint2(pack2(code, activate(v.x, act), activate(v.y, act)),
+                     pack2(code, activate(v.z, act), activate(v.w, act)));
+    }
+  };
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
     const int m0 = (tile / nt) * BM, n0 = (tile % nt) * BN;
 #pragma unroll
@@ -710,6 +763,9 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
       wgmma_fence();
       mma_bk<T, BN>(acc, sa + stage * Cfg::A_BYTES + wgi * 64 * 128, sb + stage * Cfg::B_BYTES);
       wgmma_commit();
+      if constexpr (DEFER) {
+        if (pend_m0 >= 0) deferred_store(min(DEFER_ITEMS, DEFER_STEP * (kt + 1)));
+      }
       wgmma_wait<2>();  // two steps back has retired: its stage is free
       if (prev2 >= 0 && (ct & 127) == 0) mbar_arrive(&empty[prev2]);
       prev2 = prev1;
@@ -718,6 +774,9 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
         stage = 0;
         phase ^= 1;
       }
+    }
+    if constexpr (DEFER) {
+      if (pend_m0 >= 0) deferred_store(DEFER_ITEMS);
     }
     wgmma_wait<0>();
     fence_regs(acc);
@@ -763,6 +822,29 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
       fence_proxy_async();  // these reads before the next tile's TMA writes
       named_sync(1 + wgi, 128);
       if ((ct & 127) == 0) mbar_arrive(rempty);
+    } else if constexpr (DEFER) {
+      // acc + bias in f32 into the warpgroup's rows of the tile, once all
+      // its threads have stored the last one's: row r = this thread's
+      // accumulator row, f32 columns 8j + 2t, + 1 in 16-byte chunk 2j + (t
+      // >> 1), swizzled; stored under the next tile's K loop (or below)
+      named_sync(1 + wgi, 128);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float b0 = col < N ? bias_at<T>(epi.bias, epi.bias_f32, col) : 0.f;
+        const float b1 = col < N ? bias_at<T>(epi.bias, epi.bias_f32, col + 1) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wgi * 64 + warp * 16 + g + 8 * h, cq = 2 * j + (t >> 1);
+          *reinterpret_cast<float2*>(se + r * (BN * 4) + ((cq ^ ((r & 3) << 1)) << 4) +
+                                     (t & 1) * 8) =
+              make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+        }
+      }
+      named_sync(1 + wgi, 128);
+      pend_m0 = m0;
+      pend_n0 = n0;
+      done = 0;
     } else if constexpr (EPI != kEpiNone) {
       // acc + bias in f32, staged as the f32 sums (kEpiBiasRes, the
       // residual added at the flush) or rounded once to T
@@ -806,6 +888,9 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
         named_sync(1 + wgi, 128);
       }
     }
+  }
+  if constexpr (DEFER) {
+    if (pend_m0 >= 0) deferred_store(DEFER_ITEMS);  // the last tile's
   }
 }
 
@@ -1702,7 +1787,7 @@ template <typename T, int EPI>
 static int launch_block_epi(const CUtensorMap& map_a, const CUtensorMap& map_b, void* out,
                             int M, int N, int K, const BlockEpi& epi, int grid,
                             cudaStream_t stream) {
-  using Cfg = TmaCfg<128, false>;
+  using Cfg = TmaCfg<128, epi_deferred(EPI)>;
   static const cudaError_t smem_set = cudaFuncSetAttribute(
       gemm_tma<T, 128, false, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   (void)smem_set;
@@ -1731,6 +1816,26 @@ static int launch_tma_block(const void* a, const void* b, int group, const void*
   if (residual != nullptr)
     return launch_block_epi<T, kEpiBiasRes>(map_a, map_b, out, M, N, K, epi, grid, stream);
   return launch_block_epi<T, kEpiBias>(map_a, map_b, out, M, N, K, epi, grid, stream);
+}
+
+// The tma form with bias and GELU in the epilogue (csrc/mlp_block.cu's
+// FC1) on `grid` CTAs: out (M, N) in T = activate(a (M, K) @ b (K, N) +
+// bias, act), act kActGeluExact or kActGeluTanh; bias f32 (bias_f32) or T.
+// The plan's checks as launch_tma_block's.
+template <typename T>
+static int launch_tma_gelu(const void* a, const void* b, const void* bias, int bias_f32, int act,
+                           void* out, int M, int N, int K, int grid, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  int rc = make_map(&map_a, a, map_type<T>(), 2, M, K, BM, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = make_map(&map_b, b, map_type<T>(), 2, K, N, BK, ATOM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  const BlockEpi epi{bias, bias_f32, nullptr, 0};
+  if (act == kActGeluExact)
+    return launch_block_epi<T, kEpiBiasGelu>(map_a, map_b, out, M, N, K, epi, grid, stream);
+  if (act == kActGeluTanh)
+    return launch_block_epi<T, kEpiBiasGeluTanh>(map_a, map_b, out, M, N, K, epi, grid, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // gemm_tma_ra on `grid` CTAs once its maps are made; w (K, N) int8.

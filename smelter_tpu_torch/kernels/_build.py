@@ -54,7 +54,7 @@ SIGNATURES = {
     "flash_attention": ("smelter_flash_attention", [_P] * 4 + [_I] * 17 + [_F, _I, _I, _P]),
     "attention_short": ("smelter_short_attention",
                         [_P] * 4 + [_I] * 16 + [_F] + [_I] * 5 + [_P]),
-    "mlp_block": ("smelter_mlp_block", [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P]),
+    "mlp_block": ("smelter_mlp_block", [_P] * 10 + [_I] * 6 + [_F] + [_I] * 6 + [_P]),
     "convnext_block": ("smelter_convnext_block", [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P]),
     "cross_attn_block": ("smelter_cross_attn_block", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     "qlinear_conv": ("smelter_qlinear_conv", [_P] * 5 + [_I] * 13 + [_P]),

@@ -11,18 +11,22 @@ added in f32; one rounding to x's dtype. pre_ln False feeds x to FC1 as it
 is.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/mlp_block.py::mlp_block`.
-The Hopper kernel is `csrc/mlp_block.cu` on `csrc/gemm.cuh`:
+The Hopper kernel is `csrc/mlp_block.cu`:
 
 - What bounds it on an H100: the tensor cores. At ViT-B/16's batch 128
   (25,216 rows, D 768, F 3072) a call does 238 GFLOP (241 us at 989 TFLOP/s
   dense bf16) against ~87 MB of x, weights and output.
-- What the simple design does about it: the Pallas kernel keeps an image's
-  f32 hidden tile in VMEM; at ViT-B one image's is 2.4 MB, ten times a
-  block's shared memory, so one call is a fixed sequence of the library's
-  own launches (the pre-LN, FC1 with its bias and GELU in the epilogue, FC2
-  with its bias and the residual in the epilogue) on mma.sync with f32
-  accumulators; xn and the hidden h go through device memory in scratch the
-  wrapper allocates.
+- What the design does about it: the Pallas kernel keeps an image's f32
+  hidden tile in VMEM; at ViT-B one image's is 2.4 MB, ten times a block's
+  shared memory, so one call is a fixed sequence of the library's own
+  launches: the pre-LN (`csrc/layer_norm.cuh`), FC1 with its bias and GELU
+  in the epilogue, FC2 with its bias and the residual in the epilogue; xn
+  and the hidden h go through device memory in scratch the wrapper
+  allocates. FC1 and FC2 run on the wgmma GEMM core (`gemm_tma` of
+  `csrc/wgmma_gemm.cuh`, TMA loads, wgmma, one persistent CTA an SM) where
+  `plans` says "tma" (`wgmma_plan.block_plan`: 16-bit x and shapes its TMA
+  maps can read), else on `csrc/gemm.cuh`'s mma.sync GEMM; f32 on its
+  full-f32 FMA kernel (no TF32).
 
 On a CPU or `meta` tensor `mlp_block` takes the plain version
 (`mlp_block_plain`); on a CUDA tensor it launches the kernel sequence or
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, wgmma_plan
 from .layer_norm import layer_norm_plain
 
 launches = 0
@@ -99,19 +103,30 @@ def _check(x, params, w1, w2, pre_ln: bool) -> None:
         raise ValueError("mlp_block: x and the weights must be 16-byte aligned")
 
 
-def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5, approximate: bool = False,
-              residual: bool = True, pre_ln: bool = True) -> torch.Tensor:
-    """The MLP on x (..., D); returns x's shape and dtype."""
-    global launches
-    kw = dict(eps=eps, approximate=approximate, residual=residual, pre_ln=pre_ln)
-    if x.device.type in ("cpu", "meta"):
-        return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp_block: no kernel for device {x.device}")
-    params = (ln_g, ln_b, b1, b2)
-    _check(x, params, w1, w2, pre_ln)
+def legacy_plans():
+    """FC1 and FC2 on `csrc/gemm.cuh` (mma.sync; f32: the full-f32 FMA
+    kernel)."""
+    mma = wgmma_plan.Plan("mma", wgmma_plan.BM, wgmma_plan.TMA_BN, 1, 0, 0, 0)
+    return mma, mma
+
+
+def plans(M: int, D: int, F: int, dtype, *, sms: int = wgmma_plan.SMS):
+    """The forms of FC1 (M, F) = xn @ w1 and FC2 (M, D) = h @ w2 for rows of
+    `dtype` (bases 16-byte aligned, as the wrapper requires): "tma" or
+    "mma" each (`wgmma_plan.block_plan`); f32 always "mma"."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        return legacy_plans()
+    return (wgmma_plan.block_plan(M, F, D, gelu=True, sms=sms),
+            wgmma_plan.block_plan(M, D, F, sms=sms))
+
+
+def _launch(x, ln_g, ln_b, w1, b1, w2, b2, forms, *, eps: float, approximate: bool,
+            residual: bool, pre_ln: bool) -> torch.Tensor:
+    """The kernel sequence on checked operands, FC1 and FC2 on the forms
+    `forms` gives them."""
     D, F = w1.shape
     M = x.numel() // D
+    fc1, fc2 = forms
     out = torch.empty_like(x)
     xn = torch.empty((M, D), dtype=x.dtype, device=x.device) if pre_ln else None
     h = torch.empty((M, F), dtype=x.dtype, device=x.device)
@@ -122,7 +137,24 @@ def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5, approximate: 
             w2.data_ptr(), b2.data_ptr(), None if xn is None else xn.data_ptr(), h.data_ptr(),
             out.data_ptr(), M, D, F, int(bool(pre_ln)), 2 if approximate else 1,
             int(bool(residual)), float(eps), _build.DTYPE_CODES[x.dtype],
-            _build.DTYPE_CODES[b1.dtype], _build.stream_of(x))
+            _build.DTYPE_CODES[b1.dtype], fc1.code, fc1.grid, fc2.code, fc2.grid,
+            _build.stream_of(x))
     _build.check(lib, rc, "mlp_block")
+    return out
+
+
+def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5, approximate: bool = False,
+              residual: bool = True, pre_ln: bool = True) -> torch.Tensor:
+    """The MLP on x (..., D); returns x's shape and dtype."""
+    global launches
+    kw = dict(eps=eps, approximate=approximate, residual=residual, pre_ln=pre_ln)
+    if x.device.type in ("cpu", "meta"):
+        return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_block: no kernel for device {x.device}")
+    _check(x, (ln_g, ln_b, b1, b2), w1, w2, pre_ln)
+    D, F = w1.shape
+    forms = plans(x.numel() // D, D, F, x.dtype, sms=_build.sms(x.device))
+    out = _launch(x, ln_g, ln_b, w1, b1, w2, b2, forms, **kw)
     launches += 1
     return out

@@ -37,8 +37,15 @@ rowdot's device code on NCHW with no layout copy:
   memory where it fits, else comes a step at a time; the output leaves by a
   TMA store. Two consumer warpgroups of two output rows run wgmma m64n32 or
   m64n64 over the 9 taps.
+- `pixel_conv_rowdot_q` with int8 or 16-bit out runs the same design on
+  int8 wgmma (`csrc/wgmma_conv_s8.cuh`) where `pixel_plan` takes the shape
+  (also C_out 32 or 64; rows of 16-pixel chunks, C_in % 16; ESRGAN's eight
+  shapes): K steps of 32 channels summed exactly in int32, a 96-pixel x box
+  (its first pixel 16-byte aligned) transposed by the producer warps into
+  16-channel rows, the weight resident where it fits, and the epilogue below
+  before a TMA store of int8 or 16-bit rows.
 - Everything else (f32, which keeps a full-f32 FMA kernel, no TF32; other
-  C_out; strides or bases TMA cannot take; `pixel_conv_rowdot_q`,
+  C_out; strides or bases TMA cannot take; rowdot_q with f32 out,
   `pixel_conv_blockdot` and `pixel_conv_patch`) runs the mma.sync implicit
   GEMM: a block of 2 (blockdot: 4) output rows x 128 pixels x 64 channels,
   the input rows staged in shared memory transposed to [pixel][channel] so
@@ -180,15 +187,22 @@ def _float_operands(x, w, bias, what: str, cin_dim: int = 2):
     return bias.contiguous()
 
 
-def plan(x, w, out=None, wp=None) -> wgmma_plan.PixelPlan:
-    """The kernel `pixel_conv_rowdot` launches for NHCW x (B, H, C_in, W) and
-    w (C_out, C_in, 3, 3); `out` and `wp` (the packed weight) join the
+def _name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def plan(x, w, out=None, wp=None, *, out_dtype=None) -> wgmma_plan.PixelPlan:
+    """The kernel `pixel_conv_rowdot` (int8 x: `pixel_conv_rowdot_q`)
+    launches for NHCW x (B, H, C_in, W) and w (C_out, C_in, 3, 3), out in
+    out's dtype, else `out_dtype`, else x's (rowdot_q: int8 under requant,
+    else its out_dtype); `out` and `wp` (the packed weight) join the
     alignment check where given."""
     B, H, C, W = x.shape
     bases = [t for t in (x, out, wp) if t is not None]
-    return wgmma_plan.pixel_plan(B, H, W, C, w.shape[0], x.stride()[:3],
-                                 str(x.dtype).replace("torch.", ""),
-                                 aligned=_build.aligned16(*bases), sms=_build.sms(x.device))
+    od = out.dtype if out is not None else out_dtype or x.dtype
+    return wgmma_plan.pixel_plan(B, H, W, C, w.shape[0], x.stride()[:3], _name(x.dtype),
+                                 out_dtype=_name(od), aligned=_build.aligned16(*bases),
+                                 sms=_build.sms(x.device))
 
 
 def _nhcw(x, w, bias, alpha, tall: bool, what: str) -> torch.Tensor:
@@ -267,7 +281,8 @@ def pixel_conv_rowdot_q(x, w_q, scales, bias, *, alpha=None, inv_sy: float = 1.0
     x = x.contiguous()
     out = torch.empty((x.shape[0], x.shape[1], w_q.shape[0], x.shape[3]),
                       dtype=torch.int8 if requant else out_dtype, device=x.device)
-    _launch(x, _packed_weight(w_q), bias.float().contiguous(), scales.float().contiguous(), out,
-            alpha, inv_sy, requant)
+    wp = _packed_weight(w_q)
+    _launch(x, wp, bias.float().contiguous(), scales.float().contiguous(), out, alpha, inv_sy,
+            requant, p=plan(x, w_q, out, wp))
     q_launches += 1
     return out

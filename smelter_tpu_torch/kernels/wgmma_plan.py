@@ -36,6 +36,7 @@ f32 kernel of `csrc/pixel_conv.cu`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 BM, BK, ATOM = 128, 64, 64
 CONSUMERS = 2
@@ -147,20 +148,22 @@ def int8_plan(M: int, N: int, K: int, *, aligned: bool = True, sms: int = SMS) -
     return Plan("cluster", BM, CL_BN, split, per * S8_BK, tiles * split, INT8_CLUSTER_SMEM)
 
 
-def block_plan(M: int, N: int, K: int, *, group: int = 0, aligned: bool = True,
-               sms: int = SMS) -> Plan:
-    """`vit_attention_block`'s projection out (M, N) = A (M, K) @ B + bias [+
-    residual], A and B 16-bit: B a (K, N) matrix, or (`group` > 0) the
-    packed QKV weight (N / group, K, group). "tma" on min(tiles, sms) CTAs
-    where TMA can read it: 16-byte aligned bases and strides (K % 8, N %
-    8), no box larger than its matrix (M >= BM, K >= BK, N >= 128) and
-    group % 64 == 0 (an atom of 64 columns inside one block). Unlike `plan`
-    it needs no number of tiles: the alternative, "mma" (`csrc/gemm.cuh`),
-    tiles the same 128 x 128."""
+def block_plan(M: int, N: int, K: int, *, group: int = 0, gelu: bool = False,
+               aligned: bool = True, sms: int = SMS) -> Plan:
+    """`vit_attention_block`'s projections and `mlp_block`'s FC1 and FC2:
+    out (M, N) = A (M, K) @ B + bias [+ residual, or GELU (`gelu`)], A and B
+    16-bit: B a (K, N) matrix, or (`group` > 0) the packed QKV weight (N /
+    group, K, group). "tma" on min(tiles, sms) CTAs where TMA can read it:
+    16-byte aligned bases and strides (K % 8, N % 8), no box larger than its
+    matrix (M >= BM, K >= BK, N >= 128) and group % 64 == 0 (an atom of 64
+    columns inside one block); the GELU epilogue's hand-off tile takes the
+    recv tile's bytes. Unlike `plan` it needs no number of tiles: the
+    alternative, "mma" (`csrc/gemm.cuh`), tiles the same 128 x 128."""
     tiles = cdiv(M, BM) * cdiv(N, TMA_BN)
     if (aligned and K % 8 == 0 and N % 8 == 0 and M >= BM and K >= BK and N >= TMA_BN
             and group % ATOM == 0):
-        return Plan("tma", BM, TMA_BN, 1, K, min(tiles, sms), tma_smem(TMA_BN, False))
+        return Plan("tma", BM, TMA_BN, 1, K, min(tiles, sms),
+                    tma_smem(TMA_BN, False, recv=gelu))
     return Plan("mma", BM, TMA_BN, 1, K, tiles, 0)
 
 
@@ -231,8 +234,13 @@ def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int, p
 # the step's PC_R + 2 input rows (PC_RAWPX pixels), the producer's K-major
 # copy of it (PC_XPX pixel rows of 8 channels, two channel groups; padded to
 # 1 KB) and, unless the weight is resident, the 9 taps' weights, behind
-# three mbarriers.
+# three mbarriers. The int8 form of pixel_conv_rowdot_q
+# (csrc/wgmma_conv_s8.cuh) has the same tiles and stages on 8-bit operands:
+# K steps of PQ_CK channels, an x box of PQ_RAWPX pixels, a copy of PC_XPX
+# rows of 16 channels, the resident weight in chunks of PQ_CHUNK channels,
+# and int8 (or 16-bit) staging.
 PC_PX, PC_CK, PC_RW, PC_XPX, PC_RAWPX = 64, 16, 2, 72, 80
+PQ_CK, PQ_RAWPX, PQ_CHUNK = 32, 96, 64
 PC_R = CONSUMERS * PC_RW
 PC_XROWS = PC_R + 2
 PC_COUT = (32, 64)        # the form's C_out (wgmma's N)
@@ -240,44 +248,56 @@ PC_RES_STAGES = 4         # stages the resident weight must leave room for
 _MAX_STRIDE = 1 << 40     # TMA's largest global stride, bytes
 
 
-def pixel_stage(c_out: int, resident: bool = False) -> int:
-    raw = PC_XROWS * PC_CK * PC_RAWPX * 2
+def pixel_stage(c_out: int, resident: bool = False, int8: bool = False) -> int:
+    """A stage's bytes: the x box, its copy (padded to 1 KB) and, unless
+    the weight is resident, the step's weights."""
+    if int8:
+        raw, ck = PC_XROWS * PQ_CK * PQ_RAWPX, PQ_CK
+    else:
+        raw, ck = PC_XROWS * PC_CK * PC_RAWPX * 2, PC_CK * 2
     copy = cdiv(PC_XROWS * 2 * PC_XPX * 16, 1024) * 1024
-    return raw + copy + (0 if resident else 9 * c_out * PC_CK * 2)
+    return raw + copy + (0 if resident else 9 * c_out * ck)
 
 
-def pixel_epi(c_out: int) -> int:
-    return CONSUMERS * PC_RW * c_out * 128
+def pixel_epi(c_out: int, out_bytes: int = 2) -> int:
+    """The staging tiles: 2 warpgroups x 2 rows x C_out rows of 64 pixels."""
+    return CONSUMERS * PC_RW * c_out * 64 * out_bytes
 
 
-def pixel_stages(c_out: int) -> int:
-    return min(8, (SMEM_BUDGET - 1024 - pixel_epi(c_out)) // pixel_stage(c_out))
+def pixel_stages(c_out: int, int8: bool = False, out_bytes: int = 2) -> int:
+    return min(8, (SMEM_BUDGET - 1024 - pixel_epi(c_out, out_bytes))
+               // pixel_stage(c_out, False, int8))
 
 
-def pixel_smem(c_out: int) -> int:
-    return 1024 + pixel_stages(c_out) * (pixel_stage(c_out) + 24) + pixel_epi(c_out)
+def pixel_smem(c_out: int, int8: bool = False, out_bytes: int = 2) -> int:
+    return (1024 + pixel_stages(c_out, int8, out_bytes) * (pixel_stage(c_out, False, int8) + 24)
+            + pixel_epi(c_out, out_bytes))
 
 
-def pixel_resident(c_in: int, c_out: int) -> int:
-    """The resident weight's bytes: [64-channel chunk][tap][C_out][64
-    channels], and a chunk's mbarrier."""
-    return cdiv(c_in, 64) * (9 * c_out * 128 + 8)
+def pixel_resident(c_in: int, c_out: int, int8: bool = False) -> int:
+    """The resident weight's bytes: [chunk][tap][C_out][128 bytes of
+    channels] (int8: 64 bytes), and a chunk's mbarrier."""
+    row = PQ_CHUNK if int8 else 128
+    return cdiv(c_in, row // (1 if int8 else 2)) * (9 * c_out * row + 8)
 
 
-def pixel_resident_stages(c_in: int, c_out: int) -> int:
+def pixel_resident_stages(c_in: int, c_out: int, int8: bool = False,
+                          out_bytes: int = 2) -> int:
     """Stages of x alone beside the resident weight, at most 8."""
-    free = SMEM_BUDGET - 1024 - pixel_epi(c_out) - pixel_resident(c_in, c_out)
-    return max(0, min(8, free // (pixel_stage(c_out, True) + 24)))
+    free = (SMEM_BUDGET - 1024 - pixel_epi(c_out, out_bytes)
+            - pixel_resident(c_in, c_out, int8))
+    return max(0, min(8, free // (pixel_stage(c_out, True, int8) + 24)))
 
 
-def pixel_resident_smem(c_in: int, c_out: int) -> int:
-    return (1024 + pixel_resident_stages(c_in, c_out) * (pixel_stage(c_out, True) + 24)
-            + pixel_epi(c_out) + pixel_resident(c_in, c_out))
+def pixel_resident_smem(c_in: int, c_out: int, int8: bool = False, out_bytes: int = 2) -> int:
+    return (1024 + pixel_resident_stages(c_in, c_out, int8, out_bytes)
+            * (pixel_stage(c_out, True, int8) + 24) + pixel_epi(c_out, out_bytes)
+            + pixel_resident(c_in, c_out, int8))
 
 
 @dataclasses.dataclass(frozen=True)
 class PixelPlan:
-    form: str        # "wgmma" (csrc/wgmma_conv.cuh) or "mma" (pixel_conv.cu's mma.sync / FMA)
+    form: str        # "wgmma" (csrc/wgmma_conv{,_s8}.cuh) or "mma" (pixel_conv.cu's own)
     rows: int        # output rows a tile
     px: int          # output pixels a tile
     stages: int
@@ -293,31 +313,60 @@ class PixelPlan:
         return 0 if self.form == "mma" else 2 if self.resident else 1
 
 
+_OUT_BYTES = {"int8": 1, "bfloat16": 2, "float16": 2, "float32": 4}
+
+
+# Cached: the wrappers plan every call (349 an ESRGAN forward), and the
+# pure-Python plan held the int8-pixel forward's host walk.
+@functools.lru_cache(maxsize=1024)
 def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: str, *,
-               aligned: bool = True, sms: int = SMS) -> PixelPlan:
-    """`pixel_conv_rowdot`'s kernel for x (B, H, C_in, W) NHCW at element
-    strides `x_strides` (batch, row, channel; W contiguous) in `dtype`
-    ("bfloat16", "float16" or "float32"), out contiguous NHCW; `aligned`:
-    x's, the packed weight's and out's bases 16-byte aligned. The wgmma form
-    takes 16-bit x, C_out 32 or 64, strides TMA can take (x's strides and W
-    multiples of 8 elements, which also makes out's rows TMA strides; the
-    weight's rows read in groups of 8 channels: C_in % 8 == 0), and no box
-    larger than its tensor (x's box: W >= 80 pixels, H >= PC_R + 2 rows,
-    C_in >= 16 channels); f32 keeps its full-f32 FMA kernel and the rest the
-    mma.sync kernel. The weight stays resident where it leaves room for 4
-    stages of x (with 3, ESRGAN's 160 -> 32 conv ran slower than with its
-    weights brought a stage at a time)."""
-    strides_ok = (all(s % 8 == 0 and 0 < 2 * s < _MAX_STRIDE for s in x_strides)
-                  and w % 8 == 0 and c_in % 8 == 0)
-    if (dtype in ("bfloat16", "float16") and c_out in PC_COUT and aligned and strides_ok
-            and w >= PC_RAWPX and h >= PC_XROWS and c_in >= PC_CK and b >= 1):
+               out_dtype: str | None = None, aligned: bool = True,
+               sms: int = SMS) -> PixelPlan:
+    """`pixel_conv_rowdot`'s (and `pixel_conv_rowdot_q`'s) kernel for x (B,
+    H, C_in, W) NHCW at element strides `x_strides` (batch, row, channel; W
+    contiguous) in `dtype` ("bfloat16", "float16", "float32" or, for
+    rowdot_q, "int8"), out contiguous NHCW in `out_dtype` (default x's;
+    rowdot_q: "int8" under requant, else its float type); `aligned`: x's,
+    the packed weight's and out's bases 16-byte aligned.
+
+    16-bit x: the wgmma form takes C_out 32 or 64, strides TMA can take
+    (x's strides and W multiples of 8 elements, which also makes out's rows
+    TMA strides; the weight's rows read in groups of 8 channels: C_in % 8
+    == 0), and no box larger than its tensor (x's box: W >= 80 pixels, H >=
+    PC_R + 2 rows, C_in >= 16 channels); f32 keeps its full-f32 FMA kernel
+    and the rest the mma.sync kernel.
+
+    int8 x: the int8 wgmma form takes int8 or 16-bit out, C_out 32 or 64,
+    16-byte strides (x's strides, W and C_in multiples of 16) and boxes
+    inside their tensors (W >= 96 pixels, H >= 6 rows, C_in >= 32); f32 out
+    and the rest keep the mma.sync kernel.
+
+    The weight stays resident where it leaves room for 4 stages of x (with
+    3, ESRGAN's 160 -> 32 conv ran slower than with its weights brought a
+    stage at a time); int8 also needs C_in >= 64 (the chunk's box)."""
+    out_dtype = out_dtype or dtype
+    int8 = dtype == "int8"
+    ob = _OUT_BYTES[out_dtype]
+    if int8:
+        strides_ok = (all(s % 16 == 0 and 0 < s < _MAX_STRIDE for s in x_strides)
+                      and w % 16 == 0 and c_in % 16 == 0)
+        ok = (out_dtype in ("int8", "bfloat16", "float16") and strides_ok
+              and w >= PQ_RAWPX and c_in >= PQ_CK)
+        res_ok = c_in >= PQ_CHUNK
+    else:
+        strides_ok = (all(s % 8 == 0 and 0 < 2 * s < _MAX_STRIDE for s in x_strides)
+                      and w % 8 == 0 and c_in % 8 == 0)
+        ok = (dtype in ("bfloat16", "float16") and out_dtype == dtype and strides_ok
+              and w >= PC_RAWPX and c_in >= PC_CK)
+        res_ok = True
+    if ok and c_out in PC_COUT and aligned and h >= PC_XROWS and b >= 1:
         tiles = b * cdiv(h, PC_R) * cdiv(w, PC_PX)
-        if pixel_resident_stages(c_in, c_out) >= PC_RES_STAGES:
-            return PixelPlan("wgmma", PC_R, PC_PX, pixel_resident_stages(c_in, c_out), tiles,
-                             min(tiles, sms), pixel_resident_smem(c_in, c_out), True)
-        return PixelPlan("wgmma", PC_R, PC_PX, pixel_stages(c_out), tiles, min(tiles, sms),
-                         pixel_smem(c_out))
+        res_stages = pixel_resident_stages(c_in, c_out, int8, ob)
+        if res_ok and res_stages >= PC_RES_STAGES:
+            return PixelPlan("wgmma", PC_R, PC_PX, res_stages, tiles, min(tiles, sms),
+                             pixel_resident_smem(c_in, c_out, int8, ob), True)
+        return PixelPlan("wgmma", PC_R, PC_PX, pixel_stages(c_out, int8, ob), tiles,
+                         min(tiles, sms), pixel_smem(c_out, int8, ob))
     rows, px = (1, 64) if dtype == "float32" else (2, 128)  # pixel_conv.cu's blocks
     tiles = b * cdiv(h, rows) * cdiv(w, px)
     return PixelPlan("mma", rows, px, 0, tiles, tiles * cdiv(c_out, 64), 0)
-

@@ -63,9 +63,11 @@ def _host_tensor(arr) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         return arr
     arr = np.asarray(arr)
-    if not arr.flags.writeable:
-        arr = arr.copy()  # torch.from_numpy wants writable memory
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        # torch.from_numpy wants writable memory; a C-order copy keeps the
+        # shape (np.ascontiguousarray makes a 0-d array 1-d)
+        arr = np.array(arr, copy=True, order="C")
+    return torch.from_numpy(arr)
 
 
 def params_from_numpy(arrays: dict, device, graph: Graph | None = None

@@ -718,6 +718,97 @@ def test_pixel_conv_rowdot_q_sums_past_f32_integers(cuda):
     assert torch.equal(got, pc.pixel_conv_rowdot_q_plain(xq, wq, sc, bias, **kw))
 
 
+# -- pixel_conv_rowdot_q's int8 wgmma form -------------------------------------------
+
+# (B, H, C_in, W, C_out): ESRGAN x4's eight PixelConv shapes at batch 2, then
+# edges of the int8 form (a ragged row block and pixel tile, the smallest
+# boxes, C_in past the last 32-channel step, a resident weight whose last
+# chunk is half zeros) and shapes the plan keeps on mma.sync (W 80 and 72,
+# H 5, C_in 24, C_out 48)
+Q_ESRGAN = [(2, 128, 64 + 32 * i, 128, 32 if i < 4 else 64) for i in range(5)] + [
+    (2, s, 64, s, 64) for s in (128, 256, 512)]
+Q_EDGES = [(2, 7, 48, 112, 32), (1, 6, 32, 96, 64), (1, 9, 208, 160, 32), (3, 10, 64, 144, 64),
+           (2, 8, 96, 80, 32), (1, 8, 64, 72, 32), (1, 5, 64, 128, 64), (2, 8, 24, 128, 32),
+           (1, 8, 64, 128, 48)]
+Q_OUTS = {"int8": (True, torch.int8), "bf16": (False, torch.bfloat16),
+          "f16": (False, torch.float16), "f32": (False, torch.float32)}
+
+
+def _q_operands(B, H, Cin, W, Cout, device, seed=0):
+    """int8 x and w (the executor's layout: an OIHW view of the packed
+    [3][3][C_out][C_in] weight), per-channel scales and an f32 bias."""
+    rng = np.random.default_rng(seed)
+    xq = torch.from_numpy(rng.integers(-127, 128, (B, H, Cin, W), dtype=np.int8)).to(device)
+    wq = torch.from_numpy(rng.integers(-127, 128, (Cout, Cin, 3, 3), dtype=np.int8)).to(device)
+    wq = wq.permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+    sc = torch.from_numpy((rng.uniform(1e-4, 1e-3, Cout) / np.sqrt(Cin)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(Cout).astype(np.float32))
+    return xq, wq, sc.to(device), bias.to(device)
+
+
+# int8 and bf16 out everywhere, f16 and f32 out at the first ESRGAN shape and the edges
+Q_CASES = [(shape, out) for shape in Q_ESRGAN + Q_EDGES for out in Q_OUTS
+           if out in ("int8", "bf16") or shape not in Q_ESRGAN[1:]]
+
+
+@pytest.mark.parametrize("shape,out", Q_CASES)
+def test_pixel_conv_rowdot_q_forms_equal_plain(cuda, shape, out):
+    """Both forms, each out type, LeakyReLU and linear: outputs equal to the
+    plain version's and from call to call; the plan takes the int8 wgmma
+    form exactly where its boxes and strides can read the maps (int8 or
+    16-bit out)."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    B, H, C, W, co = shape
+    requant, out_dtype = Q_OUTS[out]
+    xq, wq, sc, bias = _q_operands(*shape, cuda, seed=C + W)
+    form = pc.plan(xq, wq, out_dtype=out_dtype).form
+    assert form == ("wgmma" if co in (32, 64) and W % 16 == 0 and W >= 96 and H >= 6
+                    and C % 16 == 0 and C >= 32 and out != "f32" else "mma"), form
+    for alpha in (None, 0.2):
+        kw = dict(alpha=alpha, inv_sy=40.0, requant=requant, out_dtype=out_dtype)
+        before = pc.q_launches
+        got = pc.pixel_conv_rowdot_q(xq, wq, sc, bias, **kw)
+        again = pc.pixel_conv_rowdot_q(xq, wq, sc, bias, **kw)
+        torch.cuda.synchronize()
+        assert pc.q_launches == before + 2
+        ref = pc.pixel_conv_rowdot_q_plain(xq, wq, sc, bias, **kw)
+        assert got.dtype == out_dtype and torch.equal(got, ref) and torch.equal(got, again)
+        if requant:
+            assert torch.unique(got).numel() > 50  # the requant's levels are in use
+
+
+def test_wgmma_forms_raise_rather_than_fall_back(cuda):
+    """A launch its form cannot take raises and writes nothing: the int8
+    conv's wgmma plan on an x one byte off a 16-byte boundary (no tensor map
+    takes it) or with f32 out (no such form), and mlp_block's tma plans on
+    an x two bytes off."""
+    from smelter_tpu_torch.kernels import mlp_block as mb
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    xq, wq, sc, bias = _q_operands(1, 8, 64, 128, 32, cuda)
+    p = pc.plan(xq, wq, out_dtype=torch.int8)
+    assert p.form == "wgmma"
+    buf = torch.zeros(xq.numel() + 1, dtype=torch.int8, device=cuda)
+    x_off = buf[1:].view(xq.shape)
+    x_off.copy_(xq)
+    wp = pc._packed_weight(wq)
+    for x, out_dtype in ((x_off, torch.int8), (xq, torch.float32)):
+        out = torch.full((1, 8, 32, 128), 7, dtype=out_dtype, device=cuda)
+        with pytest.raises(RuntimeError):
+            pc._launch(x, wp, bias, sc, out, 0.2, 1.0, out_dtype == torch.int8, p=p)
+        torch.cuda.synchronize()
+        assert (out == 7).all()
+    args = _mlp_operands_gpu(1, 197, 768, 3072, torch.bfloat16, cuda)
+    forms = mb.plans(197, 768, 3072, torch.bfloat16)
+    assert [f.form for f in forms] == ["tma", "tma"]
+    xb = torch.zeros(args[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    x_off = xb[1:].view(args[0].shape)
+    with pytest.raises(RuntimeError):
+        mb._launch(x_off, *args[1:], forms, eps=1e-6, approximate=False, residual=True,
+                   pre_ln=True)
+
+
 # -- the wgmma forms of int8_matmul and pixel_conv_rowdot ---------------------------
 
 # int8_plan's test shapes (M, N, K): the tma form where the plan takes it
@@ -838,8 +929,26 @@ def _form_cases(device):
         wp = w.to(dtype).permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
         return lambda: pc.pixel_conv_rowdot(x, wp, b, alpha=0.2)
 
+    def q_call(shape, out):
+        ops = _q_operands(*shape, device)
+        requant, out_dtype = Q_OUTS[out]
+        return lambda: pc.pixel_conv_rowdot_q(*ops, alpha=0.2, requant=requant,
+                                              out_dtype=out_dtype)
+
+    def mlp_call(geom):
+        from smelter_tpu_torch.kernels import mlp_block as mb
+
+        ops = _mlp_operands_gpu(*geom, torch.bfloat16, device)
+        return lambda: mb.mlp_block(*ops)
+
     bf16 = torch.bfloat16
     return [
+        ("q trunk int8", q_call((2, 128, 64, 128, 32), "int8"), "pixel_conv_wgmma_s8"),
+        ("q 192 -> 64 bf16", q_call((1, 16, 192, 128, 64), "bf16"), "pixel_conv_wgmma_s8"),
+        ("q f32 out", q_call((1, 16, 64, 128, 32), "f32"), "pixel_conv_mma"),
+        ("q W 72", q_call((1, 16, 64, 72, 32), "int8"), "pixel_conv_mma"),
+        ("mlp ViT-B/16", mlp_call((1, 197, 768, 3072)), ("gemm_tma", "gemm_tma")),
+        ("mlp M 21", mlp_call((3, 7, 136, 264)), ("gemm_mma", "gemm_mma")),
         ("int8 head", int8_call(128, 1000, 2048), "gemm_cluster_s8"),
         ("int8 serving", int8_call(8192, 4096, 4096), "gemm_tma_s8"),
         ("int8 odd", int8_call(37, 100, 70), "gemm_cluster_s8"),
@@ -870,7 +979,7 @@ def _profile_form_cases(device="cuda"):
             call()
             torch.cuda.synchronize()
         names.append([e.name for e in prof.events() if e.device_type.name == "CUDA"
-                      and ("pixel_conv" in e.name or "_s8" in e.name)])
+                      and ("pixel_conv" in e.name or "gemm" in e.name)])
     return names
 
 
@@ -878,7 +987,11 @@ def test_int8_and_pixel_forms_launch_their_kernels(cuda):
     """The head and odd int8 shapes launch the cluster form, the serving
     GEMM the tma form; 16-bit pixel convs the plan takes launch
     csrc/wgmma_conv.cuh's kernel, and every "mma" case (f32, W % 8, C_out
-    outside {32, 64}, H < 6, W < 80, C_in % 8, C_in < 16) its earlier kernel. The profile runs in a
+    outside {32, 64}, H < 6, W < 80, C_in % 8, C_in < 16) its earlier
+    kernel; int8 convs the plan takes (int8 or bf16 out) launch
+    csrc/wgmma_conv_s8.cuh's, f32 out and W 72 the mma.sync kernel;
+    mlp_block at ViT-B/16 runs FC1 and FC2 on gemm_tma, at M 21 on
+    gemm.cuh. The profile runs in a
     process of its own (several torch.profiler sessions in one process lose
     kernels)."""
     import json
@@ -895,7 +1008,8 @@ def test_int8_and_pixel_forms_launch_their_kernels(cuda):
     assert proc.returncode == 0 and lines, proc.stderr[-3000:]
     names = json.loads(lines[-1][len("NAMES "):])
     for (case, _, kernel), got in zip(_form_cases("meta"), names):
-        assert len(got) == 1 and kernel in got[0], (case, got)
+        want = kernel if isinstance(kernel, tuple) else (kernel,)
+        assert len(got) == len(want) and all(k in g for k, g in zip(want, got)), (case, got)
 
 
 # -- pixel_conv_blockdot, pixel_conv_patch ------------------------------------------
@@ -1424,6 +1538,37 @@ def test_mlp_block_raises_on_bad_operands(cuda):
         mb.mlp_block(xs, g[:60], b[:60], w1[:60], b1, w2[:, :60], b2[:60])
     with pytest.raises(TypeError):  # params of mixed dtypes
         mb.mlp_block(x, g.bfloat16(), b, w1, b1, w2, b2)
+
+
+# (B, N, D, F): ViT-B/16 at batch 8 and SD-UNet-like widths, where both
+# products take gemm_tma
+MLP_TMA_GEOMS = [(8, 197, 768, 3072), (2, 1024, 320, 1280), (2, 256, 640, 2560)]
+
+
+@pytest.mark.parametrize("geom", MLP_TMA_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("form", ["default", "post_ln_tanh", "no_residual", "bf16_params"])
+def test_mlp_block_tma_form_matches_plain(cuda, geom, dtype, form):
+    """FC1 and FC2 on gemm_tma (16-bit) or the full-f32 kernel (f32), as
+    `mlp_block.plans` says: f32 within 1e-5 of the largest output, 16-bit
+    within 1e-2; two calls equal."""
+    from smelter_tpu_torch.kernels import mlp_block as mb
+
+    B, N, D, F = geom
+    forms = [p.form for p in mb.plans(B * N, D, F, dtype)]
+    assert forms == (["mma"] * 2 if dtype == torch.float32 else ["tma"] * 2)
+    p_dtype = dtype if form == "bf16_params" else torch.float32
+    args = _mlp_operands_gpu(B, N, D, F, dtype, cuda, p_dtype, seed=D)
+    kw = dict(eps=1e-6, pre_ln=form != "post_ln_tanh", approximate=form == "post_ln_tanh",
+              residual=form != "no_residual")
+    got = mb.mlp_block(*args, **kw)
+    again = mb.mlp_block(*args, **kw)
+    torch.cuda.synchronize()
+    ref = mb.mlp_block_plain(*args, **kw)
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
 
 
 def test_hf_vit_on_the_card_matches_the_cpu(cuda):
