@@ -46,8 +46,11 @@ its number:
    two shapes at batch 8 with k/v per image and shared, and
    `vit_attention_block` at SD-UNet's self-attention (hd 16 over 1024
    tokens, hd 32 over 256); `qlinear_conv` (int8 outputs equal to the
-   plain version's; cuDNN's bf16 conv as the yardstick) at each of
-   ResNet-50's 23 distinct conv shapes at batch 128, and `dequant_conv`'s
+   plain version's, with and without its Relu epilogue; cuDNN's bf16 conv
+   as the yardstick) at each of ResNet-50's 23 distinct conv shapes at
+   batch 128, each on its wgmma form, and `int8_join` (int8 and f32 out
+   equal to the plain version's) at ResNet-50's four join shapes at batch
+   128 against its bytes bound, and `dequant_conv`'s
    entry point at ResNet-50's four stride-1 3x3 shapes at batch 128 in bf16
    (its launches: no path of either package reaches it), held there to its
    plain version and in f32 and bf16 at small and odd shapes; and the
@@ -74,10 +77,13 @@ its number:
    batches of 8; (a) batch 8 in f32, the same quantized graph on the CPU
    and on the card: every int8 edge before the global pool equal, the
    head's within one step in 1 % of its elements, logits within 1e-3;
-   (b) batch 128 in bf16 (53 `qlinear_conv` launches a forward): top-1
-   against the CPU's f32-compute run, images/s, idle share, peak memory,
-   profile, layout copies a forward; (c) `serve(..., max_batch=16)`
-   answering 32 threaded requests within the bf16 bound;
+   the card's node-by-node walk and its fused walk (every int8 edge it
+   makes, the chain ends among them, equal to the CPU's); (b) batch 128
+   in bf16 (53 `qlinear_conv` launches a forward, all on the wgmma forms,
+   and 16 `int8_join`, no Relu launched): top-1 against the CPU's
+   f32-compute run, images/s, idle share, peak memory, profile, layout
+   copies a forward; (c) `serve(..., max_batch=16)` answering 32 threaded
+   requests within the bf16 bound;
 5. the paged decode serving path at llama_1b's full width and depth (vocab
    32000, dim 2048, 16 heads, 8 KV heads, ffn 5632, 24 layers; random
    weights from a seed), int4-g128 weights, int8 KV pools of 128-row pages,
@@ -181,7 +187,7 @@ unpools, an HF-layout ViT-B/16 forward 12 short or flash attentions or 12
 MLPs, a one-node attention graph at N >= 2048 one flash attention, a fused
 ConvNeXt-T forward 15 ConvNeXt blocks, an SD-UNet forward 5 ViT blocks and,
 with the cross branch on, 5 cross-attention blocks, a ResNet-50 int8-static
-forward 53 int8 convs; `dequant_conv`'s entry point, called at its four
+forward 53 int8 convs and 16 residual joins; `dequant_conv`'s entry point, called at its four
 shapes, 4; the fused GEMMs' entry points 2 each (head, serving), blockdot's
 and patch's 8 each (ESRGAN x4's eight PixelConv shapes); the Megatron pair
 over 4 ranks 16 all-gather and 16 reduce-scatter GEMM steps, the
@@ -291,6 +297,7 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "convnext_block": ("convnext_block", "launches"),
            "cross_attn_block": ("cross_attn_block", "launches"),
            "qlinear_conv": ("qlinear_conv", "launches"),
+           "int8_join": ("int8_join", "launches"),
            "dequant_conv": ("dequant_conv", "launches"),
            "dequant_matmul_int8_fused": ("int8_matmul", "fused_launches"),
            "dequant_matmul_int8_fused2": ("int8_matmul", "fused2_launches"),
@@ -1548,10 +1555,19 @@ def resnet50_convs(size: int = RESNET_IMAGE) -> dict:
     return convs
 
 
+# ResNet-50's residual joins at batch 128: (C, map side, int8 out) -> calls
+# a forward (the last stage's last join writes the f32 edge the pool reads).
+RESNET_JOINS = {(256, 56, True): 3, (512, 28, True): 4, (1024, 14, True): 6,
+                (2048, 7, True): 2, (2048, 7, False): 1}
+
+
 def phase_conv_kernels(torch, power_w: float) -> dict:
     """qlinear_conv at each distinct conv shape of ResNet-50 at batch 128
-    (int8 outputs equal to the plain version's; the library yardstick is
-    cuDNN's bf16 channels-last conv, since PyTorch has no int8 conv), and
+    on its wgmma form (int8 outputs equal to the plain version's, with and
+    without the Relu epilogue; the library yardstick is cuDNN's bf16
+    channels-last conv, since PyTorch has no int8 conv); int8_join at
+    ResNet-50's join shapes at batch 128 (int8 or f32 out equal to the
+    plain version's; no single library call computes it); and
     dequant_conv: first its own entry point called at ResNet-50's four
     stride-1 3x3 shapes at batch 128 in bf16 (its launches: no path of
     either package reaches it), then against its plain version there
@@ -1561,6 +1577,7 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
     import torch.nn.functional as F
 
     from smelter_tpu_torch.kernels import dequant_conv as dc
+    from smelter_tpu_torch.kernels import int8_join as ij
     from smelter_tpu_torch.kernels import qlinear_conv as qc
     from smelter_tpu_torch.kernels import wgmma_plan
 
@@ -1590,21 +1607,29 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
             sets.append((x, w, m, b))
         n = len(sets)
         kw = dict(stride=(s, s), pads=((p, p), (p, p)))
+        plan = wgmma_plan.qconv_plan(B, h, h, cin, cout, k, k, s, s, kw["pads"])
+        check(plan.form in ("gemm", "im2col"),
+              f"qlinear_conv {(cin, cout, k, s, h)} takes the {plan.form} form")
         call = lambda i: qc.qlinear_conv(*sets[i % n], **kw)  # noqa: E731
         plain = lambda i: qc.qlinear_conv_plain(*sets[i % n], **kw)  # noqa: E731
         got, ref = call(0), plain(0)
+        relu_got = qc.qlinear_conv(*sets[0], relu=True, **kw)
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f"qlinear_conv {(cin, cout, k, s, h)}: int8 outputs "
                                      "differ from the plain version")
+        check(torch.equal(relu_got, torch.relu(ref)),
+              f"qlinear_conv {(cin, cout, k, s, h)}: the Relu epilogue differs from the plain")
         check(got.is_contiguous(memory_format=cl), "qlinear_conv output not channels-last")
         xl = [s_[0].to(bf16) for s_ in sets]
         wl = [s_[1].to(bf16) for s_ in sets]
         r = {"name": "qlinear_conv", "shape": [B, cin, h, h, cout, k, s],
+             "form": plan.form, "tile": [wgmma_plan.BM, plan.bn], "k_step": plan.bk,
+             "c_in_read": plan.c_in, "tiles": plan.tiles,
              "calls_per_forward": calls, "bytes": nbytes, "ops": ops, "max_abs_err": 0.0,
              "tolerance": "int8 outputs equal",
              "int8_levels_used": int(torch.unique(got).numel()),
              "library": "F.conv2d channels-last bf16 (PyTorch has no int8 conv)"}
-        del got, ref
+        del got, ref, relu_got
         r["ms"] = graph_ms(torch, side, call, 10)
         r["call_ms"] = time_ms(torch, call, 10)
         r["plain_ms"] = graph_ms(torch, side, plain, 2, replays=2)
@@ -1613,6 +1638,37 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
         r["bound_ms"], r["bound_by"] = bound(nbytes, ops, "int8", power_w)
         rows[("qlinear_conv", cin, cout, k, s, h)] = r
         del sets, xl, wl
+
+    # int8_join at ResNet-50's join shapes: a conv's int8 output and the
+    # block's int8 carry, channels-last, in int8 or (the last join) f32
+    for (c, hw, q8), calls in RESNET_JOINS.items():
+        el = B * c * hw * hw
+        nbytes = el * (3 if q8 else 6)
+        sets = []
+        for _ in range(_copies(nbytes)):
+            a, b_ = (torch.randint(-128, 128, (B, c, hw, hw), device="cuda", generator=gen,
+                                   dtype=i8).contiguous(memory_format=cl) for _ in range(2))
+            sets.append((a, b_))
+        n = len(sets)
+        s_a, s_b, inv = 0.0371, 0.0517, (1 / 0.0643 if q8 else None)
+        call = lambda i: ij.int8_join(*sets[i % n], s_a, s_b, inv)  # noqa: E731
+        plain = lambda i: ij.int8_join_plain(*sets[i % n], s_a, s_b, inv)  # noqa: E731
+        got, ref = call(0), plain(0)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"int8_join {(c, hw, q8)}: outputs differ from the plain")
+        check(got.stride() == sets[0][0].stride(), "int8_join output not in its inputs' layout")
+        r = {"name": "int8_join", "shape": [B, c, hw, hw], "out": "int8" if q8 else "f32",
+             "calls_per_forward": calls, "bytes": nbytes, "ops": 7 * el, "max_abs_err": 0.0,
+             "tolerance": "outputs equal",
+             "library": "none: no single PyTorch call computes the chain"}
+        del got, ref
+        r["ms"] = graph_ms(torch, side, call, 10)
+        r["call_ms"] = time_ms(torch, call, 10)
+        r["plain_ms"] = graph_ms(torch, side, plain, 3)
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = bound(nbytes, 7 * el, "f32", power_w)
+        rows[("int8_join", c, hw, q8)] = r
+        del sets
 
     # dequant_conv: its entry point once at each of ResNet-50's stride-1 3x3
     # shapes (its launches), then the checks and times at those shapes
@@ -1688,6 +1744,17 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
     REPORT["dequant_conv_checks"] = checks
 
     for r in rows.values():
+        if r["name"] == "int8_join":
+            say(2, f"int8_join {r['shape']} {r['out']} out: equal to the plain version | kernel "
+                   f"{r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), plain "
+                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+                   f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {r['calls_per_forward']} "
+                   "a forward")
+            continue
+        if r["name"] == "qlinear_conv":
+            say(2, f"qlinear_conv {r['shape']}: {r['form']} form, {r['tiles']} tiles of "
+                   f"{r['tile'][0]} x {r['tile'][1]}, K steps of {r['k_step']} bytes over "
+                   f"{r['c_in_read']} channels")
         if r["name"] == "dequant_conv":
             say(2, f"dequant_conv {r['shape']}: {r['form']} form, {r['tiles']} tiles of "
                    f"{r['tile'][0]} x {r['tile'][1]} | kernel {r['ms']:.4f} ms, cuDNN "
@@ -1698,10 +1765,13 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = "
                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
                f"{r['ops'] / r['ms'] / 1e9:.1f} TOP/s | {r['calls_per_forward']} a forward")
-    fw = per_forward({k: v for k, v in rows.items() if k[0] == "qlinear_conv"}, "qlinear_conv")
+    fw = per_forward(rows, "qlinear_conv")
+    fj = per_forward(rows, "int8_join")
     say(2, f"qlinear_conv over a ResNet-50 b128 forward's 53 calls: kernel {fw['ms']:.3f} ms, "
            f"plain {fw['plain_ms']:.3f} ms, cuDNN bf16 {fw['library_ms']:.3f} ms, bound "
-           f"{fw['bound_ms']:.3f} ms; dequant_conv small checks (max-abs / max): "
+           f"{fw['bound_ms']:.3f} ms; int8_join over its 16: kernel {fj['ms']:.3f} ms, plain "
+           f"{fj['plain_ms']:.3f} ms, bound {fj['bound_ms']:.3f} ms ({fj['bound_by']}); "
+           "dequant_conv small checks (max-abs / max): "
            + ", ".join(f"{c[:4]} {c[4][6:]} {c[5]:.2g}" for c in checks))
     torch.backends.cudnn.allow_tf32 = True
     REPORT["conv_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
@@ -2222,7 +2292,7 @@ def phase_serve(torch, np, stt) -> dict:
 
 # -- phase 12 --------------------------------------------------------------
 
-_PORT_QCONV_KERNEL = re.compile(r"qlinear_conv_mma")
+_PORT_QCONV_KERNEL = re.compile(r"qlinear_conv_mma|qconv_wgmma|int8_join_kernel")
 
 
 def phase_int8_static(torch, np, stt, ref_f32) -> dict:
@@ -2231,17 +2301,22 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
     (a) batch 8 in f32 on the CPU and on the card, the same quantized graph:
     every int8 edge up to the global pool equal, the head's within one step
     in at most 1 % of its elements (the pool's mean sums in another order),
-    the logits within 1e-3 of the largest; the CPU's bf16 run gives the bf16
-    bound (3x its error, as phase 8); (b) batch 128 in bf16 against the
-    CPU's f32-compute run of the graph: top-1 agreement at least 0.99 on the
-    rows whose top-2 gap exceeds twice the max-abs error; 53 qlinear_conv
-    launches a forward and no other port kernel; images/s, idle share, peak
+    the logits within 1e-3 of the largest, for the card's node-by-node walk
+    and for its fused walk (`runtime/chains.py`: 33 conv + Relu, 16 joins),
+    whose chain ends are among the edges checked; the CPU's bf16 run gives
+    the bf16 bound (3x its error, as phase 8); (b) batch 128 in bf16 against
+    the CPU's f32-compute run of the graph: top-1 agreement at least 0.99 on
+    the rows whose top-2 gap exceeds twice the max-abs error; 53
+    qlinear_conv launches a forward, all on the wgmma forms, 16 int8_join,
+    no other port kernel and no Relu kernel; images/s, idle share, peak
     memory, profile, layout copies a forward; top-1 against phase 3's float
     reference (information only); (c) serve(..., max_batch=16) answering
     32 threaded requests within the bf16 bound of the direct forward."""
     import copy
 
+    from smelter_tpu_torch.ir.graph import Node
     from smelter_tpu_torch.kernels import qlinear_conv as qc
+    from smelter_tpu_torch.runtime import chains
     from smelter_tpu_torch.runtime.executor import CompiledModel, Executor
 
     onnx_path = ROOT / "build" / "chip_smoke" / "resnet50_b128.onnx"
@@ -2273,6 +2348,12 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
         want[(ci, co, k, s)] = want.get((ci, co, k, s), 0) + n
     check(convs == want and ops.get("QLinearMatMul") == 1,
           f"int8-static graph: QLinearConvs {convs} are not ResNet-50's {want} ({ops})")
+    groups = chains.groups(gq)
+    n_join = sum(isinstance(grp, chains.Join) for grp in groups)
+    alone = [st.op_type for st in chains.plan(gq) if isinstance(st, Node)]
+    check(n_join == 16 and len(groups) == 49 and "Relu" not in alone,
+          f"int8-static walk: {len(groups)} groups, {n_join} joins; a Relu walks alone")
+    res["groups"] = {"conv_relu": len(groups) - n_join, "join": n_join}
     say(12, f"ResNet-50 int8-static compiled in {res['compile_s']:.1f} s (calibrated on the card "
             f"with 2 batches of 8): {ops}")
 
@@ -2288,23 +2369,33 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
     _zero_counts()
     got8 = CompiledModel(copy.deepcopy(gq), stt.Config(device="cuda"))(x8)[0]
     launches = _counts()
-    _check_routed("int8-static b8 f32", launches, "qlinear_conv")
-    check(launches["qlinear_conv"] == 53, f"int8-static b8: {launches}")
+    _check_routed("int8-static b8 f32", launches, {"qlinear_conv", "int8_join"})
+    check(launches["qlinear_conv"] == 53 and launches["int8_join"] == 16,
+          f"int8-static b8: {launches}")
     ex = Executor(copy.deepcopy(gq), stt.Config(device="cuda"))
-    env = ex.build_fn(return_all_edges=True)(ex.cast_params(ex.init_params()), x8)
+    prm = ex.cast_params(ex.init_params())
+    env = ex.build_fn(return_all_edges=True)(prm, x8)
     # the Transposes around the pool stay views: no layout copy there
     check(all(env[nd.outputs[0]].data_ptr() == env[nd.inputs[0]].data_ptr()
               for nd in gq.nodes if nd.op_type == "Transpose"), "a Transpose copied its input")
     edges_gpu = {k: v.cpu().numpy() for k, v in env.items() if isinstance(v, torch.Tensor)
                  and v.dtype == torch.int8 and k not in gq.initializers}
-    del ex, env
+    env = ex.build_fn(return_all_edges=True, fuse=True)(prm, x8)
+    fused_gpu = {k: v.cpu().numpy() for k, v in env.items() if isinstance(v, torch.Tensor)
+                 and v.dtype == torch.int8 and k not in gq.initializers}
+    del ex, env, prm
     check(set(edges_cpu) == set(edges_gpu) and len(edges_cpu) >= 100,
           f"int8 edges differ in name ({len(edges_cpu)}, {len(edges_gpu)})")
+    ends = {grp.last.outputs[0] for grp in groups
+            if not (isinstance(grp, chains.Join) and grp.quant is None)}
+    check(len(ends) == 48 and ends <= set(fused_gpu) <= set(edges_cpu),
+          f"fused walk: {len(ends)} int8 chain ends, {len(fused_gpu)} int8 edges")
     pool = next(i for i, nd in enumerate(gq.nodes) if nd.op_type == "GlobalAveragePool")
     before_pool = {o for nd in gq.nodes[:pool] for o in nd.outputs}
     pre = [k for k in edges_cpu if k in before_pool]
     post = [k for k in edges_cpu if k not in before_pool]
     pre_flips = sum(int((edges_cpu[k] != edges_gpu[k]).sum()) for k in pre)
+    fused_flips = sum(int((edges_cpu[k] != fused_gpu[k]).sum()) for k in pre if k in fused_gpu)
     pre_el = sum(edges_cpu[k].size for k in pre)
     post_el = sum(edges_cpu[k].size for k in post)
     post_flips = sum(int((edges_cpu[k] != edges_gpu[k]).sum()) for k in post)
@@ -2312,6 +2403,8 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
                      for k in post] or [0])
     check(pre_flips == 0, f"int8-static b8: {pre_flips} of {pre_el} int8 elements before the "
                           "pool differ between the CPU and the card")
+    check(fused_flips == 0, f"int8-static b8: {fused_flips} int8 elements of the card's fused "
+                            "walk before the pool differ from the CPU's")
     check(post_step <= 1 and post_flips <= 0.01 * post_el,
           f"int8-static b8: {post_flips} of {post_el} head int8 elements differ, by up to "
           f"{post_step}")
@@ -2321,14 +2414,16 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
     check(got8.shape == (8, 1000) and np.isfinite(got8).all(), "int8-static b8 logits")
     check(err8 <= 1e-3 * scale8, f"int8-static b8 f32: max-abs {err8} > 1e-3 x {scale8}")
     res["gate_a"] = {"int8_edges": len(edges_cpu), "elements_before_pool": pre_el,
-                     "flips_before_pool": pre_flips, "head_elements": post_el,
+                     "flips_before_pool": pre_flips, "fused_walk_int8_edges": len(fused_gpu),
+                     "fused_walk_flips_before_pool": fused_flips, "head_elements": post_el,
                      "head_flips": post_flips, "max_abs_err": err8, "max_abs_ref": scale8,
                      "cpu_bf16_max_abs_err": err_cpu16, "cpu_s": cpu_s}
     say(12, f"(a) batch 8 f32, CPU vs card: {len(edges_cpu)} int8 edges, {pre_flips} of "
-            f"{pre_el} elements before the pool differ (bound 0), {post_flips} of {post_el} "
+            f"{pre_el} elements before the pool differ (bound 0; the fused walk's "
+            f"{len(fused_gpu)} int8 edges: {fused_flips}), {post_flips} of {post_el} "
             f"after it (bound 1 step, 1 %); logits max-abs {err8:.3g} (bound "
             f"{1e-3 * scale8:.3g}); CPU bf16 vs f32 {err_cpu16:.3g} | CPU runs {cpu_s:.1f} s")
-    del cpu, edges_cpu, edges_gpu
+    del cpu, edges_cpu, edges_gpu, fused_gpu
     bound16_rel = 3 * err_cpu16 / scale8
 
     # (b) batch 128, bf16 compute, against the CPU's f32-compute run
@@ -2336,12 +2431,17 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
     refq = CompiledModel(copy.deepcopy(gq), stt.Config(device="cpu"))(x)[0]
     res["cpu_b128_s"] = time.perf_counter() - t0
     xg = torch.from_numpy(x).cuda()
-    copies = qc.layout_copies
+    copies, forms = qc.layout_copies, dict(qc.forms)
     model.run_device(xg)
     torch.cuda.synchronize()
     res["layout_copies_a_forward"] = qc.layout_copies - copies
+    res["forms_a_forward"] = {k: v - forms[k] for k, v in qc.forms.items()}
+    check(res["forms_a_forward"] == {"mma": 0, "gemm": 33, "im2col": 20},
+          f"int8-static b128: qlinear_conv forms {res['forms_a_forward']}")
     r = _image_forward(torch, np, model, xg, "int8-static b128", RESNET_BATCH,
-                       {"qlinear_conv": 53}, 20, port_re=_PORT_QCONV_KERNEL)
+                       {"qlinear_conv": 53, "int8_join": 16}, 20, port_re=_PORT_QCONV_KERNEL)
+    relu_ms = {k: v for k, v in r["host_ops_ms"].items() if "relu" in k.lower()}
+    check(not relu_ms, f"int8-static b128: Relu kernels ran ({relu_ms})")
     got = r.pop("out")
     check(got.shape == (RESNET_BATCH, 1000) and np.isfinite(got).all(), "int8-static logits")
     err = float(np.abs(got - refq).max())
@@ -2357,13 +2457,15 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
               "top1_vs_phase3_float": _top1(got, ref_f32),
               "max_abs_vs_phase3_float": float(np.abs(got - ref_f32).max()),
               "cpu_b128_s": res["cpu_b128_s"],
-              "layout_copies_a_forward": res["layout_copies_a_forward"]})
+              "layout_copies_a_forward": res["layout_copies_a_forward"],
+              "qlinear_conv_forms_a_forward": res["forms_a_forward"]})
     res["b128"] = r
     _say_run(f"(b) ResNet-50 int8-static b{RESNET_BATCH} bf16", r,
              f" | vs the CPU's f32-compute run: top-1 {agree:.4f} ({agree_clear:.4f} on "
              f"{int(clear.sum())} rows with a top-2 gap over 2 x {err:.3g}) | vs phase 3's "
              f"float reference (not gated): top-1 {r['top1_vs_phase3_float']:.4f} | layout "
-             f"copies a forward {res['layout_copies_a_forward']}", phase=12)
+             f"copies a forward {res['layout_copies_a_forward']} | qlinear_conv forms "
+             f"{res['forms_a_forward']}", phase=12)
 
     # (c) the server on the quantized graph
     xs = x[:32]
@@ -2388,7 +2490,7 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
     finally:
         server.shutdown()
     launches = _counts()
-    _check_routed("int8-static server", launches, "qlinear_conv")
+    _check_routed("int8-static server", launches, {"qlinear_conv", "int8_join"})
     check(all(v is not None for v in results), "int8-static server left requests unanswered")
     errs = [float(np.abs(results[i] - direct[i]).max()) for i in range(len(xs))]
     check(stats["requests"] == 32 and stats["errors"] == 0, f"int8-static server stats {stats}")
@@ -3240,7 +3342,7 @@ def _image_forward(torch, np, model, xg, label: str, batch: int, routed: dict,
             "port_kernel_ms": sum(ours.values()),
             "top_kernels_ms": sorted(per.items(), key=lambda kv: -kv[1])[:8],
             "top_host_ops_ms": sorted(by_op.items(), key=lambda kv: -kv[1])[:8],
-            "out": out}
+            "host_ops_ms": by_op, "out": out}
 
 
 def _say_run(label: str, r: dict, extra: str = "", phase: int = 9) -> None:
@@ -4519,6 +4621,7 @@ def main() -> int:
                 "convnext_block": cnx["fuse_convnext_block"]["launches"]["convnext_block"],
                 "cross_attn_block": sdu["cross"]["launches"]["cross_attn_block"],
                 "qlinear_conv": i8s["b128"]["launches"]["qlinear_conv"],
+                "int8_join": i8s["b128"]["launches"]["int8_join"],
                 "dequant_conv": REPORT["dequant_conv_entry_launches"],
                 **REPORT["variant_entry_launches"],
                 **ring["megatron_launches"],
@@ -4537,7 +4640,9 @@ def main() -> int:
     # forward at batch 128); dequant_conv: the sum over its entry point's four
     # calls at ResNet-50's stride-1 3x3 shapes at batch 128, bf16.
     # pixel_conv_rowdot_q has no library call (null); qlinear_conv's is
-    # cuDNN's bf16 conv (PyTorch has no int8 conv).
+    # cuDNN's bf16 conv (PyTorch has no int8 conv); int8_join (the 16 joins
+    # of that forward; it stands in for XLA's fusion of the chain, no
+    # pallas_call) has none.
     sources = {"dequant_matmul": ("smelter_tpu_torch/csrc/dequant_matmul.cu",
                                   "smelter_tpu/kernels/dequant_matmul.py:104",
                                   rows[("dequant_matmul", "head", "bf16")], "call"),
@@ -4589,9 +4694,12 @@ def main() -> int:
                "cross_attn_block": ("smelter_tpu_torch/csrc/cross_attn_block.cu",
                                     "smelter_tpu/kernels/vit_block.py:295",
                                     per_forward(block_rows, "cross_attn_block"), "forward"),
-               "qlinear_conv": ("smelter_tpu_torch/csrc/qlinear_conv.cu",
+               "qlinear_conv": ("smelter_tpu_torch/csrc/wgmma_qconv.cuh",
                                 "smelter_tpu/ops/quant_ops.py:260",
                                 per_forward(conv_rows, "qlinear_conv"), "forward"),
+               "int8_join": ("smelter_tpu_torch/csrc/int8_join.cu",
+                             "smelter_tpu/quant/static_quant.py:234",
+                             per_forward(conv_rows, "int8_join"), "forward"),
                "dequant_conv": ("smelter_tpu_torch/csrc/dequant_conv.cu",
                                 "smelter_tpu/kernels/dequant_conv.py:103",
                                 per_forward(conv_rows, "dequant_conv"), "four calls"),

@@ -57,7 +57,8 @@ SIGNATURES = {
     "mlp_block": ("smelter_mlp_block", [_P] * 10 + [_I] * 6 + [_F] + [_I] * 6 + [_P]),
     "convnext_block": ("smelter_convnext_block", [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P]),
     "cross_attn_block": ("smelter_cross_attn_block", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
-    "qlinear_conv": ("smelter_qlinear_conv", [_P] * 5 + [_I] * 13 + [_P]),
+    "qlinear_conv": ("smelter_qlinear_conv", [_P] * 5 + [_I] * 18 + [_P]),
+    "int8_join": ("smelter_int8_join", [_P] * 3 + [_L] + [_F] * 3 + [_I] * 2 + [_P]),
     "dequant_conv": ("smelter_dequant_conv", [_P] * 4 + [_I] * 15 + [_P]),
     "collective_matmul": ("smelter_collective_matmul", [_P] * 4 + [_I] * 11 + [_P]),
     "ring_attention": ("smelter_ring_attention_step", [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P]),

@@ -27,6 +27,11 @@ implicit GEMM, any shape).
 "tma" (`gemm_tma_s8`, W^T the register operand of wgmma s8) for aligned
 shapes with tiles enough, else "cluster" (`gemm_cluster_s8`, a K split).
 
+`qconv_plan` picks `qlinear_conv`'s kernel: "gemm" (a 1x1 stride-1 conv
+on 2-D TMA maps) or "im2col" (any kernel and stride on an im2col map), the
+wgmma forms of `csrc/wgmma_qconv.cuh`, where the maps can read the conv,
+else "mma" (`csrc/qlinear_conv.cu`'s mma.sync kernel, any shape).
+
 `pixel_plan` picks 16-bit `pixel_conv_rowdot`'s kernel: "wgmma"
 (`csrc/wgmma_conv.cuh`, the weight resident in shared memory where it
 fits) where its TMA boxes can read the maps, else "mma" (the mma.sync or
@@ -227,6 +232,104 @@ def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int, p
         return ConvPlan("wgmma", ra_rows(bn), bn, tiles, 1, min(tiles, sms), ra_smem(bn))
     tiles = cdiv(M, 128) * cdiv(c_out, 128)
     return ConvPlan("mma", 128, 128, tiles, 1, tiles, 0)
+
+
+# qlinear_conv's wgmma forms (csrc/wgmma_qconv.cuh): tiles of 128 output
+# pixels x QC_BN channels (64 where C_out < 128), K steps of the largest of
+# 128, 64, 32 bytes that divides C_in, as many stages as fit (at most 16)
+# beside the epilogue's tiles. An input of fewer than QC_PAD_BELOW channels
+# (an RGB stem) is read unfolded: a copy whose pixel (i, j) holds the kw
+# input pixels of output column j's window side by side, kw x C_in
+# channels zero-padded to a multiple of QC_PAD_TO, so the conv becomes a
+# kh x 1 conv (stride (sh, 1)) over that copy by a weight laid out alike.
+QC_BN = 128
+QC_MAX_STAGES = 16
+QC_PAD_BELOW = 16
+QC_PAD_TO = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class QconvPlan:
+    form: str        # "gemm", "im2col" (csrc/wgmma_qconv.cuh) or "mma" (qlinear_conv.cu's)
+    c_in: int        # the channels the kernel reads: C_in, or the unfolded copy's
+    bk: int          # K bytes a step (wgmma forms)
+    bn: int          # output channels a tile
+    tiles: int
+    grid: int        # CTAs launched
+    stages: int      # (wgmma forms; 0 for mma)
+    smem: int        # dynamic shared memory a CTA, bytes (mma: 0, static)
+    unfold: bool = False  # read the unfolded copy (a kh x 1 conv over it)
+
+    @property
+    def code(self) -> int:
+        """The form's code in `csrc/qlinear_conv.cu`'s entry point."""
+        return {"mma": 0, "gemm": 1, "im2col": 2}[self.form]
+
+
+def qconv_epi(bn: int) -> int:
+    """The epilogue's bytes: the int8 staging tiles (a warpgroup's 64 rows
+    of bn bytes) and each warpgroup's f32 multipliers and addends."""
+    return CONSUMERS * 64 * bn + CONSUMERS * 2 * bn * 4
+
+
+def qconv_stages(bk: int, bn: int) -> int:
+    return min(QC_MAX_STAGES, (SMEM_BUDGET - 1024 - qconv_epi(bn)) // (BM * bk + bn * bk + 16))
+
+
+def qconv_smem(bk: int, bn: int) -> int:
+    return 1024 + qconv_stages(bk, bn) * (BM * bk + bn * bk + 16) + qconv_epi(bn)
+
+
+def _qconv_wgmma(n, h, w, c_in, c_out, kh, kw, sh, sw, pads, sms) -> QconvPlan | None:
+    """A wgmma form for the conv as the kernel reads it, or None."""
+    (pt, pb), (pl, pr) = pads
+    ho, wo = (h + pt + pb - kh) // sh + 1, (w + pl + pr - kw) // sw + 1
+    lo, hi = IM2COL_CORNER
+    corners = (-pl, -pt, (wo - 1) * sw - pl - (w - 1), (ho - 1) * sh - pt - (h - 1))
+    gemm = kh == kw == 1 and sh == sw == 1 and pt == pb == pl == pr == 0
+    im2col = (min(pt, pb, pl, pr) >= 0 and 1 <= sh <= 8 and 1 <= sw <= 8
+              and kh <= 256 and kw <= 256 and all(lo <= c <= hi for c in corners))
+    if not (c_in % 32 == 0 and c_out % 16 == 0 and c_out >= 64 and ho >= 1 and wo >= 1
+            and n * ho * wo >= BM and (gemm or im2col)):
+        return None
+    bk = 128 if c_in % 128 == 0 else 64 if c_in % 64 == 0 else 32
+    bn = QC_BN if c_out >= QC_BN else 64
+    tiles = cdiv(n * ho * wo, BM) * cdiv(c_out, bn)
+    return QconvPlan("gemm" if gemm else "im2col", c_in, bk, bn, tiles, min(tiles, sms),
+                     qconv_stages(bk, bn), qconv_smem(bk, bn))
+
+
+# Cached: the wrapper plans every call (53 a ResNet-50 forward).
+@functools.lru_cache(maxsize=1024)
+def qconv_plan(n: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int, sh: int,
+               sw: int, pads, *, aligned: bool = True, sms: int = SMS) -> QconvPlan:
+    """`qlinear_conv`'s kernel for int8 x (N, H, W, C_in) channels-last, an
+    OHWI int8 weight (C_out, kh, kw, C_in), strides (sh, sw), pads ((top,
+    bottom), (left, right)); `aligned`: x's and w's bases 16-byte aligned.
+
+    The wgmma forms take C_in % 32 == 0, C_out % 16 == 0 and >= 64
+    (16-byte output rows; no weight box past C_out), at least 128 output
+    pixels (no pixel box larger than the map), and: "gemm" a 1x1 stride-1
+    conv without pads; "im2col" pads >= 0, strides 1-8, taps up to 256 a
+    side and window corners the im2col map can hold. C_in < 16 (an RGB
+    stem) is read unfolded (`unfold`: a kh x 1 conv with stride (sh, 1) and
+    no side pads over Wo columns of kw x C_in channels padded to a multiple
+    of 32, fresh copies that need no alignment). The rest, and bases that
+    are not 16-byte aligned, keep the mma.sync kernel."""
+    (pt, pb), (pl, pr) = pads
+    if c_in < QC_PAD_BELOW:
+        wo = (w + pl + pr - kw) // sw + 1
+        c_unf = cdiv(kw * c_in, QC_PAD_TO) * QC_PAD_TO
+        plan = _qconv_wgmma(n, h, wo, c_unf, c_out, kh, 1, sh, 1, ((pt, pb), (0, 0)), sms)
+        if plan is not None:
+            return dataclasses.replace(plan, unfold=True)
+    elif aligned:
+        plan = _qconv_wgmma(n, h, w, c_in, c_out, kh, kw, sh, sw, pads, sms)
+        if plan is not None:
+            return plan
+    ho, wo = (h + pt + pb - kh) // sh + 1, (w + pl + pr - kw) // sw + 1
+    tiles = cdiv(n * ho * wo, 128) * cdiv(c_out, 128)
+    return QconvPlan("mma", c_in, 64, 128, tiles, tiles, 0, 0)
 
 
 # pixel_conv_rowdot's wgmma form (csrc/wgmma_conv.cuh): tiles of PC_R output

@@ -25,6 +25,7 @@ import torch
 
 from ..ir.errors import NotSupportedError
 from ..ir.graph import Node
+from ..kernels import qlinear_conv as qc
 from . import padding as P
 from .registry import Ctx, register
 
@@ -60,8 +61,10 @@ def dequantize_linear(ctx: Ctx, node: Node):
     s = _shaped(ctx.get(node.inputs[1]), x, axis, block).float()
     y = x.float() * s
     if len(node.inputs) > 2 and node.inputs[2]:
-        zp = _shaped(ctx.get(node.inputs[2]), x, axis, block)
-        y = y - zp.float() * s
+        zp_c = ctx.static(node.inputs[2], required=False)
+        if zp_c is None or np.any(zp_c):  # y - 0 * s is y: a zero point of zeros adds nothing
+            zp = _shaped(ctx.get(node.inputs[2]), x, axis, block)
+            y = y - zp.float() * s
     ctx.set(node.outputs[0], y)
 
 
@@ -181,11 +184,15 @@ def qlinear_conv(ctx: Ctx, node: Node):
     the JAX package's compiled epilogue computes it. Either layout: NCHW
     with an OIHW weight (what the rewrite emits), or data_layout=NHWC with
     an HWIO weight."""
-    from ..kernels.qlinear_conv import qlinear_conv as conv
+    ctx.set(node.outputs[0], qlinear_conv_out(ctx, node))
+
+
+def _qconv_spec(ctx: Ctx, node: Node, x, w) -> tuple:
+    """What QLinearConv's lowering works out from the node, its static
+    inputs and the operands' types and shapes: the layout, strides, pads and
+    folded constants; raises for the forms the port does not take."""
     from .nn import _conv_attrs, _layout
 
-    x = ctx.get(node.inputs[0])
-    w = ctx.get(node.inputs[3])
     x_s, x_z, w_s, w_z, y_s, y_z, b_q = _static_inputs(ctx, node, (1, 2, 4, 5, 6, 7, 8))
     _symmetric_int8(node, (x_z, w_z, y_z), x, w)
     rank = x.ndim - 2
@@ -202,5 +209,27 @@ def qlinear_conv(ctx: Ctx, node: Node):
     pads = P.resolve_pads(node, tuple(x.shape[2:]), tuple(w.shape[2:]), strides, dilations)
     m, b = ctx.memo((id(node), x.device),
                     lambda: _fold(x_s, w_s, y_s, b_q, w.shape[0], x.device))
-    y = conv(x, w, m, b, stride=strides, pads=pads)
-    ctx.set(node.outputs[0], y.permute(0, 2, 3, 1) if nhwc else y)
+    return nhwc, strides, pads, m, b
+
+
+def qlinear_conv_out(ctx: Ctx, node: Node, relu: bool = False):
+    """QLinearConv's int8 output; `relu` folds an int8 Relu of it into the
+    epilogue (the walk's plan, `runtime/chains.py`). The node's static work
+    (checks, pads, folded constants) is done once per forward function and
+    input type and shape, the unfolded weight where the kernel reads one (an
+    RGB stem's) once per weight tensor: the walk's host time is the step's
+    on the card."""
+    x = ctx.get(node.inputs[0])
+    w = w_param = ctx.get(node.inputs[3])
+    nhwc, strides, pads, m, b = ctx.memo(
+        (id(node), x.device, x.dtype, tuple(x.shape), w.dtype, tuple(w.shape)),
+        lambda: _qconv_spec(ctx, node, x, w))
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)  # (N, C, H, W) view, channels-last
+        w = w.permute(3, 2, 0, 1)  # HWIO -> OIHW view
+    w_padded = None
+    if x.device.type == "cuda":  # the memo holds the param, so its id names it
+        w_padded = ctx.memo((id(node), id(w_param)),
+                            lambda: (w_param, qc.padded_weight(w)))[1]
+    y = qc.qlinear_conv(x, w, m, b, stride=strides, pads=pads, relu=relu, w_padded=w_padded)
+    return y.permute(0, 2, 3, 1) if nhwc else y

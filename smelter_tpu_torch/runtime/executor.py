@@ -8,6 +8,11 @@ Weights are a dict of tensors resident on the device, inputs positional.
 Shape inference falls out of the same walk on the `meta` device, which
 stands in for `jax.eval_shape`: the lowerings are the shape oracle, and
 every kernel wrapper takes its plain version for `meta` tensors.
+
+The forward function walks the plan of `runtime/chains.py`: runs of nodes
+that XLA would fuse under the JAX package's jit (an int8-static network's
+conv + Relu and residual joins) as one call each. A walk that returns every
+edge walks node by node unless asked to fuse.
 """
 
 from __future__ import annotations
@@ -18,10 +23,11 @@ import numpy as np
 import torch
 
 from ..ir.errors import ShapeError, UnresolvedDimError
-from ..ir.graph import Graph, TensorType
+from ..ir.graph import Graph, Node, TensorType
 from ..ops import ALL_OPS_LOADED  # noqa: F401  (forces op registration)
 from ..ops.registry import Ctx, lower_node
 from ..utils import dtypes as dt
+from . import chains
 from .config import Config
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -163,9 +169,15 @@ class Executor:
 
     def build_fn(self, return_all_edges: bool = False,
                  device: str | torch.device | None = None,
-                 donate: tuple[str, ...] | frozenset[str] = ()) -> Callable:
+                 donate: tuple[str, ...] | frozenset[str] = (),
+                 fuse: bool | None = None) -> Callable:
         """fn(params, *inputs) -> outputs, computing on `device` (default:
         the executor's). `params` come as `cast_params` gives them.
+
+        `fuse` (default: not `return_all_edges`) walks the plan of
+        `runtime/chains.py`, whose groups make no inner edges; without it
+        the walk is node by node and every edge is made (calibration reads
+        them all).
 
         `donate` names inputs the caller gives away, as JAX's buffer
         donation does: lowerings may update them in place (ScatterND's cache
@@ -183,6 +195,9 @@ class Executor:
         if unknown:
             raise ValueError(f"donated names {sorted(unknown)} are not graph inputs")
         memo: dict = {}  # the lowerings' folded constants, kept across calls
+        if fuse is None:
+            fuse = not return_all_edges
+        steps = chains.plan(graph) if fuse else list(graph.nodes)
 
         def fn(params: dict[str, Any], *inputs):
             if len(inputs) != len(input_names):
@@ -201,8 +216,11 @@ class Executor:
                             f"{cd if x.dtype.is_floating_point else x.dtype}")
                     env[name] = x
                 ctx = Ctx(graph, env, config, device=dev, donated=donated, memo=memo)
-                for node in graph.nodes:
-                    lower_node(ctx, node)
+                for step in steps:
+                    if isinstance(step, Node):
+                        lower_node(ctx, step)
+                    else:
+                        step.run(ctx)
                 if return_all_edges:
                     return dict(env)
                 return tuple(env[o] for o in output_names)

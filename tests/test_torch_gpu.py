@@ -1842,17 +1842,20 @@ def _qconv_operands(geom, device, seed=0, channels_last=True):
 @pytest.mark.parametrize("channels_last", [True, False])
 def test_qlinear_conv_equals_plain(cuda, geom, bias, channels_last):
     """One launch, int8 outputs bit-equal to the plain version, channels-last;
-    an input in another memory format is copied once (layout_copies)."""
+    an input in another memory format, or one the plan reads unfolded (C_in
+    3 on a wgmma form), is copied once (layout_copies)."""
     from smelter_tpu_torch.kernels import qlinear_conv as qc
+    from smelter_tpu_torch.kernels import wgmma_plan
 
     x, wq, m, b = _qconv_operands(geom, cuda, channels_last=channels_last)
-    _, _, _, _, _, k, s, p = geom
+    n, cin, h, w, cout, k, s, p = geom
     kw = dict(stride=(s, s), pads=((p, p), (p, p)))
+    unfold = wgmma_plan.qconv_plan(n, h, w, cin, cout, k, k, s, s, kw["pads"]).unfold
     before, copies = qc.launches, qc.layout_copies
     got = qc.qlinear_conv(x, wq, m, b if bias else None, **kw)
     torch.cuda.synchronize()
     assert qc.launches == before + 1
-    assert qc.layout_copies == copies + (0 if channels_last else 1)
+    assert qc.layout_copies == copies + (0 if channels_last and not unfold else 1)
     ref = qc.qlinear_conv_plain(x, wq, m, b if bias else None, **kw)
     assert got.dtype == torch.int8 and got.shape == ref.shape
     assert got.is_contiguous(memory_format=torch.channels_last)
@@ -1889,6 +1892,200 @@ def test_qlinear_conv_sums_past_f32_integers_and_rounds_one_fma(cuda):
     acc = torch.tensor([c[0] for c in cases], dtype=torch.float32)
     fused = torch.round((acc.double() * ms.double() + bs.double()).float())
     assert torch.equal(torch.diagonal(got[:, :, 0, 0]).float(), fused)
+
+
+# -- qlinear_conv's wgmma forms; the residual join ----------------------------
+
+def _resnet50_conv_shapes(size: int = 224) -> list:
+    """ResNet-50 v1.5's distinct convs: (C_in, C_out, k, stride, H_in)."""
+    shapes = {(3, 64, 7, 2, size)}
+    h, cin = size // 4, 64
+    for width, blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)):
+        for i in range(blocks):
+            s = stride if i == 0 else 1
+            h_out = (h - 1) // s + 1
+            shapes |= {(cin, width, 1, 1, h), (width, width, 3, s, h),
+                       (width, 4 * width, 1, 1, h_out)}
+            if i == 0:
+                shapes.add((cin, 4 * width, 1, s, h))
+            cin, h = 4 * width, h_out
+    return sorted(shapes)
+
+
+def _qconv_form_check(cuda, x, wq, m, b, stride, pads, relu, form):
+    """One launch on the plan's `form`, int8 output equal to the plain
+    version's, channels-last."""
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+    from smelter_tpu_torch.kernels import wgmma_plan
+
+    n, cin, h, w = x.shape
+    cout, _, kh, kw = wq.shape
+    plan = wgmma_plan.qconv_plan(n, h, w, cin, cout, kh, kw, *stride, pads)
+    assert plan.form == form
+    before, by_form = qc.launches, dict(qc.forms)
+    got = qc.qlinear_conv(x, wq, m, b, stride=stride, pads=pads, relu=relu)
+    torch.cuda.synchronize()
+    assert qc.launches == before + 1 and qc.forms[form] == by_form[form] + 1
+    ref = qc.qlinear_conv_plain(x, wq, m, b, stride=stride, pads=pads, relu=relu)
+    assert got.shape == ref.shape and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ref)
+    assert len(torch.unique(ref)) > 40  # the grid, not a clip
+
+
+@pytest.mark.parametrize("shape", _resnet50_conv_shapes())
+@pytest.mark.parametrize("relu", [False, True])
+def test_qlinear_conv_wgmma_forms_at_resnet50_shapes(cuda, shape, relu):
+    """Each of ResNet-50's 23 distinct convs at batch 4 on its wgmma form
+    (1x1 stride 1 "gemm", the rest "im2col", the stem on its unfolded copy),
+    with and without the Relu epilogue, equal to the plain version."""
+    cin, cout, k, s, h = shape
+    x, wq, m, b = _qconv_operands((4, cin, h, h, cout, k, s, k // 2), cuda)
+    form = "gemm" if k == 1 and s == 1 else "im2col"
+    _qconv_form_check(cuda, x, wq, m, b, (s, s), ((k // 2, k // 2),) * 2, relu, form)
+
+
+# (N, C_in, H, W, C_out, k, stride, pads, form): the stem at an odd map, C_in
+# 24 (mma.sync), odd H at stride 2 with C_out 192, C_out 80 (a 16-channel
+# last tile), C_in 96 (K steps of 32), 5 channels unfolded on a 1x1, uneven
+# pads at stride 2.
+QCONV_ODD = [(2, 3, 37, 45, 64, 7, 2, ((3, 3), (3, 3)), "im2col"),
+             (2, 24, 15, 15, 64, 3, 1, ((1, 1), (1, 1)), "mma"),
+             (2, 64, 15, 17, 192, 3, 2, ((1, 1), (1, 1)), "im2col"),
+             (2, 128, 13, 11, 80, 1, 1, ((0, 0), (0, 0)), "gemm"),
+             (3, 96, 9, 9, 128, 3, 1, ((1, 1), (1, 1)), "im2col"),
+             (2, 5, 14, 14, 96, 1, 1, ((0, 0), (0, 0)), "gemm"),
+             (3, 64, 16, 15, 64, 3, 2, ((0, 1), (1, 0)), "im2col")]
+
+
+@pytest.mark.parametrize("geom", QCONV_ODD)
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("bias", [True, False])
+def test_qlinear_conv_forms_at_odd_shapes(cuda, geom, relu, bias):
+    n, cin, h, w, cout, k, s, pads, form = geom
+    x, wq, m, b = _qconv_operands((n, cin, h, w, cout, k, s, 0), cuda)
+    _qconv_form_check(cuda, x, wq, m, b if bias else None, (s, s), pads, relu, form)
+
+
+def test_qlinear_conv_takes_a_folded_padded_weight(cuda):
+    """The stem with the weight unfolded once (`padded_weight`, as the fold
+    makes it) equals the call that unfolds it itself and the plain
+    version."""
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+
+    x, wq, m, b = _qconv_operands((2, 3, 64, 64, 64, 7, 2, 3), cuda, channels_last=False)
+    kw = dict(stride=(2, 2), pads=((3, 3), (3, 3)))
+    wpad = qc.padded_weight(wq)
+    got = qc.qlinear_conv(x, wq, m, b, w_padded=wpad, **kw)
+    assert torch.equal(got, qc.qlinear_conv(x, wq, m, b, **kw))
+    assert torch.equal(got, qc.qlinear_conv_plain(x, wq, m, b, **kw))
+    with pytest.raises(ValueError):  # not the unfolded weight
+        qc.qlinear_conv(x, wq, m, b, w_padded=wq, **kw)
+
+
+JOIN_SHAPES = [(2, 256, 56, 56), (2, 512, 28, 28), (2, 1024, 14, 14), (2, 2048, 7, 7),
+               (3, 5, 7, 9), (1, 1, 1, 17)]
+
+
+def _join_operands(shape, device, seed=0):
+    rng = np.random.default_rng(seed)
+    a, b = (torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(device)
+            .contiguous(memory_format=torch.channels_last) for _ in range(2))
+    s_a, s_b, s_y = (float(v) for v in rng.uniform(0.01, 0.08, 3).astype(np.float32))
+    return a, b, s_a, s_b, float(np.float32(1 / np.float64(np.float32(s_y))))
+
+
+@pytest.mark.parametrize("shape", JOIN_SHAPES)
+@pytest.mark.parametrize("out", ["int8", "f32"])
+def test_int8_join_equals_plain(cuda, shape, out):
+    """The join kernel at ResNet-50's four join shapes (batch 2) and odd
+    sizes (a tail past the 16-element chunks): one launch, equal to the
+    plain version, in the inputs' channels-last layout."""
+    from smelter_tpu_torch.kernels import int8_join as ij
+
+    a, b, s_a, s_b, inv = _join_operands(shape, cuda)
+    inv = inv if out == "int8" else None
+    before, copies = ij.launches, ij.layout_copies
+    got = ij.int8_join(a, b, s_a, s_b, inv)
+    torch.cuda.synchronize()
+    assert ij.launches == before + 1 and ij.layout_copies == copies
+    ref = ij.int8_join_plain(a, b, s_a, s_b, inv)
+    assert got.dtype == (torch.int8 if inv is not None else torch.float32)
+    assert got.stride() == a.stride() and torch.equal(got, ref)
+
+
+def test_int8_join_misaligned_and_mixed_layouts(cuda):
+    """Bases off 16 bytes take the kernel's scalar loop; inputs of two
+    layouts are brought to one (a counted copy); both equal the plain
+    version."""
+    from smelter_tpu_torch.kernels import int8_join as ij
+
+    a, b, s_a, s_b, inv = _join_operands((2, 64, 9, 11), cuda, seed=1)
+    flat_a = torch.cat([a.new_zeros(1), a.flatten()])[1:]
+    flat_b = torch.cat([b.new_zeros(3), b.flatten()])[3:]
+    assert flat_a.data_ptr() % 16 and flat_b.data_ptr() % 16
+    for f32 in (False, True):
+        inv_ = None if f32 else inv
+        got = ij.int8_join(flat_a, flat_b, s_a, s_b, inv_)
+        assert torch.equal(got, ij.int8_join_plain(flat_a, flat_b, s_a, s_b, inv_))
+    copies = ij.layout_copies
+    got = ij.int8_join(a, b.contiguous(), s_a, s_b, inv)
+    assert ij.layout_copies == copies + 1
+    assert torch.equal(got, ij.int8_join_plain(a, b, s_a, s_b, inv))
+
+
+def test_int8_join_raises_on_bad_operands(cuda):
+    """What the kernel does not take raises on the card; nothing falls back
+    to the plain version."""
+    from smelter_tpu_torch.kernels import int8_join as ij
+
+    a, b, s_a, s_b, inv = _join_operands((2, 16, 4, 4), cuda)
+    before = ij.launches
+    with pytest.raises(TypeError):
+        ij.int8_join(a.to(torch.float16), b, s_a, s_b, inv)
+    with pytest.raises(ValueError):
+        ij.int8_join(a, b[:, :8], s_a, s_b, inv)
+    with pytest.raises(ValueError):
+        ij.int8_join(a, b.cpu(), s_a, s_b, inv)
+    assert ij.launches == before
+
+
+def test_small_resnet_int8_static_fused_walk_on_the_card(cuda):
+    """The port's small ResNet at width 64 and 64 px (its convs on the wgmma
+    forms and, at the last stage's 2 x 2 maps, mma.sync) quantized on the
+    CPU: the card's fused walk launches one qlinear_conv a QLinearConv and
+    one int8_join a join, and every int8 edge it makes, the chain ends
+    among them, equals the CPU's node-by-node walk."""
+    import copy
+
+    import smelter_tpu_torch as stt
+    from smelter_tpu_torch.kernels import int8_join as ij
+    from smelter_tpu_torch.kernels import qlinear_conv as qc
+    from smelter_tpu_torch.models import resnet50
+    from smelter_tpu_torch.runtime import chains
+    from smelter_tpu_torch.runtime.executor import Executor
+
+    g, _, shape = resnet50.build(batch=2, image_size=64, layers=(1, 1, 1, 1), width=64,
+                                 num_classes=16)
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    gq = stt.compile(g, quant="int8-static", calibration_data=[(x,)], device="cpu").graph
+    n_conv = sum(n.op_type == "QLinearConv" for n in gq.nodes)
+    joins = sum(isinstance(grp, chains.Join) for grp in chains.groups(gq))
+    assert joins == 4
+    ex = Executor(copy.deepcopy(gq), stt.Config(device="cpu"))
+    ref = ex.build_fn(return_all_edges=True)(ex.cast_params(ex.init_params()), x)
+    ex = Executor(copy.deepcopy(gq), stt.Config(device="cuda"))
+    before, j_before, by_form = qc.launches, ij.launches, dict(qc.forms)
+    env = ex.build_fn(return_all_edges=True, fuse=True)(ex.cast_params(ex.init_params()), x)
+    torch.cuda.synchronize()
+    assert qc.launches == before + n_conv and ij.launches == j_before + joins
+    assert qc.forms["gemm"] > by_form["gemm"] and qc.forms["im2col"] > by_form["im2col"]
+    int8 = [k for k, v in env.items() if isinstance(v, torch.Tensor)
+            and v.dtype == torch.int8 and k not in gq.initializers]
+    assert len(int8) >= 20
+    for k in int8:
+        assert torch.equal(env[k].cpu(), ref[k]), k
+    out = gq.output_names[0]
+    assert (env[out].cpu() - ref[out]).abs().max() <= 1e-5 * ref[out].abs().max()
 
 
 # (N, H, W, C_in, C_out, k, (ph0, ph1), (pw0, pw1)): ResNet-50's stride-1
