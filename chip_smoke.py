@@ -22,7 +22,8 @@ its number:
    `paged_decode_attention` at its decode shape (8 slots,
    int8 pools, positions spread over 0-511), and `ragged_decode_attention`
    at the static-cache step's (8 slots over a 512-row int8 cache), at the
-   speculative chunk c 5 of one slot at row 511, and over 4096 rows;
+   speculative chunk c 5 of one slot at row 511, over 4096 rows, and at
+   FusedGenerator's one slot at row 280 (its split-KV kernels);
    `fused_layer_norm` and `residual_layer_norm` over ViT-B/16's batch-128
    activations (25,216 rows of 768) and `vit_attention_block` at B 128,
    N 197, D 768, 12 heads (and in f32 at batch 8), plus small shapes for
@@ -42,7 +43,9 @@ its number:
    3072 (FC1 and FC2 on gemm_tma; f32 at batch 8 on its FMA kernel, plus a
    small pre_ln=0 / tanh case); the image
    models' block kernels: `convnext_block` at ConvNeXt-T's three fused
-   stages at batch 64 (f32 at batch 2), `cross_attn_block` at SD-UNet's
+   stages at batch 64 (f32 at batch 2), each stage's time split by launch
+   (depthwise + LN, FC1, FC2; `chip_smoke.py --convnext-split` in a process
+   of its own), `cross_attn_block` at SD-UNet's
    two shapes at batch 8 with k/v per image and shared, and
    `vit_attention_block` at SD-UNet's self-attention (hd 16 over 1024
    tokens, hd 32 over 256); `qlinear_conv` (int8 outputs equal to the
@@ -758,8 +761,8 @@ def _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, cal
 def phase_ragged_kernel(torch, power_w: float) -> dict:
     """ragged_decode_attention at the shapes of the static-cache decode path:
     8 slots spread over a 512-row cache (the DecodeServer's step, 24 calls),
-    the speculative chunk c 5 of one slot at its last row, and a 4096-row
-    cache."""
+    the speculative chunk c 5 of one slot at its last row, a 4096-row cache,
+    and FusedGenerator's one slot at row 280 of 512."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     side = torch.cuda.Stream()
     spread = [0, 73, 127, 128, 292, 365, 438, 511]
@@ -767,7 +770,8 @@ def phase_ragged_kernel(torch, power_w: float) -> dict:
     for label, B, c, L, pos, calls in (
             ("b8_l512", SLOTS, 1, 512, spread, LLAMA_1B["layers"]),
             ("c5_b1_pos511", 1, 5, 512, [511], 0),
-            ("b8_l4096", SLOTS, 1, 4096, [p * 8 for p in spread[:-1]] + [4095], 0)):
+            ("b8_l4096", SLOTS, 1, 4096, [p * 8 for p in spread[:-1]] + [4095], 0),
+            ("b1_l512_pos280", 1, 1, 512, [280], 0)):
         for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
             r = _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, calls)
             rows[(label, r["dtype"])] = r
@@ -1425,6 +1429,11 @@ def phase_block_kernels(torch, np, power_w: float) -> dict:
         torch.backends.cudnn.allow_tf32 = True
         rows[("convnext_block", path)] = r
 
+    splits = phase_convnext_split()
+    for r, split in zip((r for r in rows.values() if r["name"] == "convnext_block"),
+                        splits.values()):
+        r["split"] = split
+
     # -- cross_attn_block --------------------------------------------------
     S, H = SD_UNET["ctx_len"], SD_UNET["heads"]
     for N, D, calls in ((1024, 128, 2), (256, 256, 3)):
@@ -2021,9 +2030,10 @@ def _top1(a, b) -> float:
     return float((a.argmax(1) == b.argmax(1)).mean())
 
 
-def _profile(torch, run, steps: int = 3):
+def _profile(torch, run, steps: int = 3, counts: dict | None = None):
     """Device ms a step by kernel and by the host op that launched it, and
-    device kernels a step, over `steps` calls of run() (torch.profiler)."""
+    device kernels a step, over `steps` calls of run() (torch.profiler);
+    `counts`, where given, receives each device kernel's launches a step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2034,6 +2044,8 @@ def _profile(torch, run, steps: int = 3):
     for e in prof.key_averages():
         on_card = str(getattr(e, "device_type", "")).endswith("CUDA")
         n_kernels += e.count if on_card else 0
+        if on_card and counts is not None:
+            counts[e.key] = counts.get(e.key, 0) + e.count / steps
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
@@ -2114,25 +2126,11 @@ def vit_split_all(torch, np, calls: int = 6) -> dict:
     return out
 
 
-def _vit_split_child() -> int:
-    """`chip_smoke.py --vit-split`: vit_split_all's result as one JSON line."""
-    import numpy as np
-    import torch
-
-    check(torch.cuda.is_available(), "no CUDA card")
-    sys.path.insert(0, str(ROOT))
-    print(json.dumps(vit_split_all(torch, np)))
-    return 0
-
-
 def phase_vit_split() -> dict:
     """vit_split_all in a process of its own (`chip_smoke.py --vit-split`),
     so that its profiler session leaves this process's untouched; prints
     phase 2's lines of the per-launch split, before (legacy) and after."""
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--vit-split"],
-                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
-    check(proc.returncode == 0, f"the launch split's process failed: {proc.stderr[-2000:]}")
-    splits = json.loads(proc.stdout.strip().splitlines()[-1])
+    splits = _split_in_child("--vit-split")
     for label, runs in splits.items():
         say(2, f"vit_attention_block {label} by launch (torch.profiler; before/after this "
                f"slice's cores): " + "; ".join(
@@ -2140,6 +2138,123 @@ def phase_vit_split() -> dict:
                    + ", ".join(f"{k} {v['ms']:.4f}" for k, v in r["split"].items())
                    for r in runs))
     REPORT["vit_split"] = splits
+    return splits
+
+
+CONVNEXT_LAUNCHES = ["dw_ln", "FC1", "FC2"]
+CONVNEXT_STAGES = ((56, 96), (28, 192), (14, 384))  # ConvNeXt-T's fused stages (side, C)
+
+
+def convnext_split_all(torch, calls: int = 6) -> dict:
+    """convnext_block's launches (bf16, batch CONVNEXT_BATCH) at the three
+    fused stages on the wrapper's forms. One torch.profiler session holds
+    `calls` calls of each stage, stages apart by a marker kernel; each
+    stage's device kernels in start order are cut into calls at each
+    depthwise kernel, and a call the trace holds only in part (the profiler
+    may miss a kernel) is left out; at least half the calls must be whole.
+    Then each stage is timed by graph replay. Calls the launch sequence
+    directly: the launch counter does not move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from smelter_tpu_torch.kernels import convnext_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, s=1.0, dtype=bf16):
+        return (torch.randn(*shape, device="cuda", generator=gen) * s).to(dtype)
+
+    runs = []  # (label, forms, call, M, C)
+    B = CONVNEXT_BATCH
+    for k, (hw, C) in enumerate(CONVNEXT_STAGES):
+        Fh, M = 4 * C, B * hw * hw
+        args = (rnd(B, hw, hw, C), rnd(7, 7, 1, C, s=1 / 7), rnd(C, s=0.1, dtype=f32),
+                1 + rnd(C, s=0.1, dtype=f32), rnd(C, s=0.1, dtype=f32),
+                rnd(C, Fh, s=C ** -0.5), rnd(Fh, s=0.1, dtype=f32), rnd(Fh, C, s=Fh ** -0.5),
+                rnd(C, s=0.1, dtype=f32), 0.5 + rnd(C, s=0.1, dtype=f32))
+        forms = cb.plans(M, C, Fh, bf16, sms=sms)
+
+        def call(i=0, args=args, forms=forms):
+            return cb._launch(*args, forms, eps=1e-6)
+
+        call()
+        runs.append((f"stage {k + 1} {hw}x{hw}x{C} b{B}", forms, call, M, C))
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for *_, call, _, _ in runs:
+            for _ in range(calls):
+                call()
+            marker.add_(1)
+        torch.cuda.synchronize()
+    spans = sorted((float(e.time_range.start), float(e.time_range.end), e.name)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not e.name.startswith(("Memcpy", "Memset")))
+    segments, cur = [], []
+    for sp in spans:
+        if "dw_ln" in sp[2] or "gemm" in sp[2]:
+            cur.append(sp)
+        else:
+            segments.append(cur)
+            cur = []
+    check(len(segments) == len(runs), f"convnext split: {len(segments)} stages in the trace")
+    out: dict = {}
+    for (label, forms, call, M, C), seg in zip(runs, segments):
+        starts = [i for i, sp in enumerate(seg) if "dw_ln" in sp[2]]
+        group = [seg[i:j] for i, j in zip(starts, starts[1:] + [len(seg)])
+                 if j - i == len(CONVNEXT_LAUNCHES)]
+        check(2 * len(group) >= calls, f"convnext split {label}: {len(group)} whole calls of "
+                                       f"{calls} in the trace")
+        split = {lab: {"ms": sum(c[k][1] - c[k][0] for c in group) / (1e3 * len(group)),
+                       "kernel": group[0][k][2]} for k, lab in enumerate(CONVNEXT_LAUNCHES)}
+        for lab in ("FC1", "FC2"):  # 8 M C^2 flops each
+            split[lab]["tflops"] = 8 * M * C * C / (split[lab]["ms"] * 1e9)
+        out[label] = {"forms": [f.form for f in forms], "whole_calls": len(group),
+                      "ms": graph_ms(torch, torch.cuda.Stream(), call, 5), "split": split}
+    return out
+
+
+def _split_child(which: str) -> int:
+    """`chip_smoke.py --vit-split` / `--convnext-split`: the split's result
+    as one JSON line."""
+    import numpy as np
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA card")
+    sys.path.insert(0, str(ROOT))
+    print(json.dumps(vit_split_all(torch, np) if which == "--vit-split"
+                     else convnext_split_all(torch)))
+    return 0
+
+
+def _split_in_child(which: str) -> dict:
+    """The split in a process of its own, so that its profiler session
+    leaves this process's untouched."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), which],
+                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    check(proc.returncode == 0, f"the launch split's process failed: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_convnext_split() -> dict:
+    """convnext_split_all in a child process; prints phase 2's lines of the
+    per-launch split."""
+    splits = _split_in_child("--convnext-split")
+    total = 0.0
+    for k, (label, r) in enumerate(splits.items()):
+        calls = CONVNEXT["depths"][k]
+        total += calls * sum(v["ms"] for v in r["split"].values())
+        say(2, f"convnext_block {label} by launch (torch.profiler, {r['whole_calls']} whole "
+               f"calls; FC1/FC2 {' / '.join(r['forms'])}): {r['ms']:.4f} ms a call (graph "
+               f"replay) = " + ", ".join(
+                   f"{lab} {v['ms']:.4f}" + (f" ({v['tflops']:.0f} TF/s)" if "tflops" in v
+                                             else "")
+                   for lab, v in r["split"].items()) + f" | {calls} calls a forward")
+    say(2, f"convnext_block: a ConvNeXt-T b{CONVNEXT_BATCH} forward's {CONVNEXT_FUSED} calls "
+           f"by launch sum to {total:.4f} ms")
+    REPORT["convnext_split"] = splits
     return splits
 
 
@@ -2985,6 +3100,9 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
     graph = gen._graph(False, 0)
     kernels, _, n_k = _profile(torch, graph.replay, steps=20)
     busy = sum(kernels.values())
+    ragged_ms = sum(v for k, v in kernels.items() if "::split_chunk<" in k
+                    or "::split_combine<" in k)
+    check(ragged_ms > 0, f"FusedGenerator's replay shows no split-KV kernel: {list(kernels)[:8]}")
     pf_prompt = [int(t) for t in np.random.default_rng(5).integers(
         1, LLAMA_1B["vocab"] - 1, BUCKETS[0])]
     t = time.perf_counter()
@@ -2995,13 +3113,15 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
                     "n_hi": n_hi, "device_busy_ms_per_token": busy,
                     "idle_share": max(0.0, 1 - busy / (1e3 * per_tok)) if n_k else None,
                     "kernels_per_token_profiled": n_k, "step_launches": gen.step_launches,
+                    "ragged_device_ms_per_token": ragged_ms,
                     "replays": gen.replays, "prefill64_plus_16_s": pf_s,
                     "tokens_equal_generator": 64}
     r = res["fused"]
     say(7, f"(b) FusedGenerator (CUDA graph of the step, one replay a token): "
            f"{r['tok_s']:.1f} tok/s, {r['ms_per_token']:.3f} ms a token (K-differenced n_new "
            f"{n_lo}->{n_hi}, best of {reps}), profiled device busy {busy:.3f} ms a token "
-           f"({n_k:.0f} kernels), idle share "
+           f"({n_k:.0f} kernels; ragged_decode_attention's split-KV kernels {ragged_ms:.4f} "
+           f"ms of it), idle share "
            + (f"{100 * r['idle_share']:.1f}%" if r["idle_share"] is not None else "not measured")
            + f" | 64 tokens equal Generator's | a replay launches {gen.step_launches['greedy']}"
            f" | prefill 64 + 16 tokens in {pf_s:.3f} s")
@@ -3333,10 +3453,12 @@ def _image_forward(torch, np, model, xg, label: str, batch: int, routed: dict,
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(torch, lambda i: model.run_device(xg), iters, warmup=1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per, by_op, n_k = _profile(torch, lambda: model.run_device(xg), steps=2)
+    counts: dict = {}
+    per, by_op, n_k = _profile(torch, lambda: model.run_device(xg), steps=2, counts=counts)
     busy = sum(per.values())
     ours = {k: v for k, v in per.items() if port_re.search(k)}
     return {"launches": launches, "step_ms": step_ms, "images_per_s": batch * 1e3 / step_ms,
+            "kernel_counts": counts,
             "peak_mem_gb": peak_gb, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / step_ms), "kernels_per_forward": n_k,
             "port_kernel_ms": sum(ours.values()),
@@ -3945,10 +4067,10 @@ def phase_hf_vit(torch, np, stt, zoo, zoo_bound16: float) -> dict:
 
 # The symbols of the block kernels and of the kernels they share (csrc/
 # convnext_block.cu, cross_attn_block.cu, vit_block.cu, gemm.cuh,
-# layer_norm.cuh), as the profiler names them.
-_PORT_BLOCK_KERNEL = re.compile(r"(smelter|\(anonymous namespace\))::(gemm_mma|gemm_f32|dw_ln|"
-                                r"xattn_mma|xattn_f32|attention_mma|attention_rows|"
-                                r"layer_norm_rows)[<(]")
+# wgmma_gemm.cuh, layer_norm.cuh), as the profiler names them.
+_PORT_BLOCK_KERNEL = re.compile(r"(smelter|\(anonymous namespace\))::(gemm_mma|gemm_f32|gemm_tma|"
+                                r"dw_ln|dw_ln_staged|xattn_mma|xattn_f32|attention_mma|"
+                                r"attention_rows|layer_norm_rows)[<(]")
 
 
 def _convnext_graph(torch, batch: int):
@@ -4132,6 +4254,20 @@ def phase_convnext(torch, np, stt) -> dict:
         ("fuse_convnext_block", _prepared(stt, g, fuse_convnext=True), cfg16),
         ("use_pallas", default, stt.Config(compute_dtype="bfloat16", use_pallas=True))),
         x, "(b) ConvNeXt-T", CONVNEXT_BATCH))
+    # the fused forward's profile: each block's FC1 and FC2 on gemm_tma
+    # (stage 1's FC2 N 96 too), its depthwise step on dw_ln_staged, and no
+    # mma.sync GEMM
+    counts = res["fuse_convnext_block"]["kernel_counts"]
+    by = {name: sum(n for k, n in counts.items() if re.search(pat, k))
+          for name, pat in (("gemm_tma", r"::gemm_tma<"), ("gemm_mma", r"::gemm_mma<"),
+                            ("dw_ln_staged", r"::dw_ln_staged<"), ("dw_ln", r"::dw_ln<"))}
+    check(by["gemm_mma"] == 0 and by["dw_ln"] == 0 and by["gemm_tma"] > 0
+          and by["dw_ln_staged"] > 0,
+          f"(b) ConvNeXt-T fuse_convnext_block's kernels a forward: {by}")
+    res["fuse_convnext_block"]["block_kernels"] = by
+    say(11, f"(b) ConvNeXt-T fuse_convnext_block's block kernels a forward (torch.profiler; "
+            f"{CONVNEXT_FUSED} blocks: {2 * CONVNEXT_FUSED} gemm_tma, {CONVNEXT_FUSED} "
+            f"dw_ln_staged expected): {by}")
     bound16 = res["gates"]["fused"]["bf16_limit"]
     del g, default
 
@@ -4746,4 +4882,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(_vit_split_child() if sys.argv[1:] == ["--vit-split"] else main())
+    sys.exit(_split_child(sys.argv[1]) if sys.argv[1:] in (["--vit-split"], ["--convnext-split"])
+             else main())

@@ -3,7 +3,7 @@
 // through a page table) and the contiguous one (ragged_decode_attention.cu:
 // a block is a run of a slot's own cache rows). The two differ only in
 // where block j of slot b starts and how many of its rows exist; a `Rows`
-// policy answers both, and everything else is this one kernel.
+// policy answers both.
 //
 // q (B, kvh, g*c, hd); K/V rows of kvh*hd elements in q's dtype, or int8
 // with one scale a row (f32 or q's dtype). Query row i (chunk offset i % c)
@@ -13,20 +13,41 @@
 // scored nor added, which is what zeroing them before p @ v does in the
 // Pallas kernels.
 //
-// Design, simple first: one block of 8 warps per (KV head, slot). The block
-// walks the slot's live row blocks in order with a streaming softmax in f32
-// (running max, sum and rescale factor per query row, as the Pallas kernels
-// keep them in scratch), so shared memory holds one row block's scores and
-// the query rows, whatever the cache length. On each row block a warp takes
-// every 8th row, and its 32 lanes split the row's head dims, so each row is
-// one coalesced load of hd elements; a warp keeps 8 rows' loads in flight.
-// Scores: each lane's partial dot with the query rows (in shared memory),
-// summed across the warp with shuffles and scaled by the row's K scale. One
-// warp per query row then takes the block's max and sum. p @ v: each warp
-// adds p * v * (V scale) of its rows into its own accumulators (lane = head
-// dims), rescaled per block; at the end the 8 warps' sums are added in warp
-// order, so the result does not depend on timing. No tensor cores: at
-// g*c <= 8 query rows a step there is nothing for them to do.
+// Two kernels:
+//
+// `attention` (the paged kernel's): one block of 8 warps per (KV head,
+// slot). The block walks the slot's live row blocks in order with a
+// streaming softmax in f32 (running max, sum and rescale factor per query
+// row, as the Pallas kernels keep them in scratch), so shared memory holds
+// one row block's scores and the query rows, whatever the cache length. On
+// each row block a warp takes every 8th row, and its 32 lanes split the
+// row's head dims, so each row is one coalesced load of hd elements; a warp
+// keeps 8 rows' loads in flight. Scores: each lane's partial dot with the
+// query rows (in shared memory), summed across the warp with shuffles and
+// scaled by the row's K scale. One warp per query row then takes the
+// block's max and sum. p @ v: each warp adds p * v * (V scale) of its rows
+// into its own accumulators (lane = head dims), rescaled per block; at the
+// end the 8 warps' sums are added in warp order, so the result does not
+// depend on timing. No tensor cores: at g*c <= 8 query rows a step there is
+// nothing for them to do.
+//
+// `split_chunk` + `split_combine` (the contiguous kernel's, split-KV or
+// "flash-decoding"): the bytes bound the step, and one block per (KV head,
+// slot) left most SMs idle (llama_1b: 64 blocks on 132 SMs; one slot, 8)
+// while each block's row blocks ran in series. Here a block of 4 warps
+// takes one (row block, KV head, slot), so the grid grows with the cache
+// length and not with pos (a captured CUDA graph replays at any position):
+// a block wholly past the frontier reads nothing and writes a neutral
+// partial. Each warp takes U = 32 / GCP rows a step (GCP: g*c padded to 4
+// or 8), lanes over the head dims, K and V of the step loaded together;
+// its 32 partial dots (U rows x GCP query rows) are summed across the
+// lanes by a transposed butterfly (31 shuffles leave lane u GCP + i with
+// the score of row u and query row i), so the streaming softmax runs one
+// (row, query row) a lane, and p @ v takes each p by a shuffle. The 4 warps'
+// states are merged in warp order into the block's partial (running max,
+// sum, f32 sums over hd) in the scratch the wrapper allocates; the second
+// kernel merges a slot's partials in block order and divides. Only the
+// order of sums differs from `attention`'s; two calls agree bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -280,6 +301,271 @@ attention(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __restr
   }
   QT* ob = out + (static_cast<size_t>(b) * kvh + h) * gc * HD;
   for (int i = tid; i < gc * HD; i += THREADS) store(&ob[i], q_s[i] / l_s[i / HD]);
+}
+
+// -- split-KV -------------------------------------------------------------------
+
+constexpr int SPLIT_WARPS = 4, SPLIT_THREADS = 32 * SPLIT_WARPS;
+
+// N elements of a cache row at p as floats: int8 four bytes at a time
+// through the float 2^23 trick (s8 + 128 as the low byte of 0x4B000000,
+// then - (2^23 + 128): exact, and full-rate where a conversion is not).
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* p, float (&f)[N]) {
+  load_vec<T, N>(p, f);
+}
+template <>
+__device__ __forceinline__ void load_row<int8_t, 4>(const int8_t* p, float (&f)[4]) {
+  const uint32_t w = __ldg(reinterpret_cast<const unsigned*>(p)) ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+template <>
+__device__ __forceinline__ void load_row<int8_t, 8>(const int8_t* p, float (&f)[8]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7540 + i % 4)) - 8388736.f;
+}
+
+// A row's scale, f32 or q's type QT.
+template <typename QT>
+__device__ __forceinline__ float scale_at(const void* s, int f32, size_t i) {
+  return f32 ? __ldg(static_cast<const float*>(s) + i) : to_f(static_cast<const QT*>(s)[i]);
+}
+
+// v[t] summed over the warp's 32 lanes for every t at once: lane L ends
+// with the sum of v[L] in v[0]. Each round (lane bit O) halves the values a
+// lane holds, keeping the half its lane bit names and adding its partner's
+// copy of it; the order of every sum is fixed.
+template <int O>
+__device__ __forceinline__ void warp_sum_transposed(float (&v)[32], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int t = 0; t < O; ++t) {
+    const float keep = up ? v[t + O] : v[t];
+    const float give = up ? v[t] : v[t + O];
+    v[t] = keep + __shfl_xor_sync(0xffffffffu, give, O);
+  }
+  if constexpr (O > 1) warp_sum_transposed<O / 2>(v, lane);
+}
+
+// Pass 1: block (j, h, b) attends query rows (b, h) over row block j of
+// slot b; part_acc (B, kvh, nblk, gc, HD) and part_ml (B, kvh, nblk, gc, 2)
+// receive its f32 sums, running max and sum (a neutral partial -inf, 0, 0
+// where the block lies wholly past the frontier). GCP: gc rounded up to 4
+// or 8 (U = 32 / GCP rows a warp's step).
+template <typename QT, typename KT, int HD, int GCP, typename Rows>
+__global__ void __launch_bounds__(SPLIT_THREADS, HD <= 128 ? 4 : 1)
+split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __restrict__ vp,
+            const void* __restrict__ ksp, const void* __restrict__ vsp, int scale_f32,
+            const long long* __restrict__ pos, float* __restrict__ part_acc,
+            float* __restrict__ part_ml, Rows src, int kvh, int gc, int c, int nblk,
+            float scale) {
+  constexpr bool QUANT = sizeof(KT) == 1;
+  constexpr int EPL = HD / 32, U = 32 / GCP;
+  __shared__ float s_m[SPLIT_WARPS][GCP], s_l[SPLIT_WARPS][GCP];
+  __shared__ float s_acc[SPLIT_WARPS][GCP][HD];
+  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long p = pos[b];
+  const long long last = p + c - 1;  // the frontier: last row written
+  const size_t part = (static_cast<size_t>(b) * kvh + h) * nblk + j;
+  const int live = j < src.blocks(b, last) ? src.rows(j, last) : 0;
+  if (live <= 0) {  // wholly past the frontier
+    for (int e = threadIdx.x; e < gc * HD; e += SPLIT_THREADS) part_acc[part * gc * HD + e] = 0.f;
+    for (int i = threadIdx.x; i < gc; i += SPLIT_THREADS) {
+      part_ml[(part * gc + i) * 2] = -CUDART_INF_F;
+      part_ml[(part * gc + i) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+  const int kvd = kvh * HD, d0 = lane * EPL;
+  const size_t base = src.first_row(b, j);                          // flat row of row 0
+  const long long lo = static_cast<long long>(j) * src.block_rows;  // its row in the sequence
+  const int my_u = lane / GCP, my_i = lane % GCP;  // the (row, query row) this lane scores
+
+  float qf[GCP][EPL], acc[GCP][EPL];
+  const QT* qb = q + (static_cast<size_t>(b) * kvh + h) * gc * HD + d0;
+#pragma unroll
+  for (int i = 0; i < GCP; ++i) {
+    if (i < gc) {
+      load_vec<QT, EPL>(qb + i * HD, qf[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qf[i][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
+  }
+  float m_run = -CUDART_INF_F, l_run = 0.f;  // of query row my_i
+
+  for (int r0 = warp * U; r0 < live; r0 += SPLIT_WARPS * U) {
+    float kf[U][EPL], vf[U][EPL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r0 + u < live) {
+        const size_t row = (base + r0 + u) * kvd + h * HD + d0;
+        load_row<KT, EPL>(kp + row, kf[u]);
+        load_row<KT, EPL>(vp + row, vf[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.f;
+      }
+    }
+    const int r = r0 + my_u;  // this lane's row in the block
+    float ks = 1.f, vs = 0.f;
+    if (r < live) {
+      ks = QUANT ? scale_at<QT>(ksp, scale_f32, base + r) : 1.f;
+      vs = QUANT ? scale_at<QT>(vsp, scale_f32, base + r) : 1.f;
+    }
+    float dot[32];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < GCP; ++i) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) d = fmaf(qf[i][e], kf[u][e], d);
+        dot[u * GCP + i] = d;
+      }
+    warp_sum_transposed<16>(dot, lane);
+    const float dsum = dot[0];
+    const bool valid = r < live && my_i < gc && lo + r <= p + my_i % c;
+    const float s = valid ? dsum * ks * scale : -CUDART_INF_F;
+    // the streaming softmax of query row my_i over the step's U rows: its
+    // lanes are my_i, my_i + GCP, ...
+    float mx = s;
+#pragma unroll
+    for (int o = GCP; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m_run, mx);
+    const float pr = valid ? expf(s - m_new) : 0.f;
+    const float alpha = m_new == -CUDART_INF_F ? 1.f : expf(m_run - m_new);
+    float psum = pr;
+#pragma unroll
+    for (int o = GCP; o < 32; o <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
+    l_run = alpha * l_run + psum;
+    m_run = m_new;
+    const float pw = pr * vs;
+#pragma unroll
+    for (int i = 0; i < GCP; ++i) {
+      const float a = __shfl_sync(0xffffffffu, alpha, i);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[i][e] *= a;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < GCP; ++i) {
+        const float w = __shfl_sync(0xffffffffu, pw, u * GCP + i);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(w, vf[u][e], acc[i][e]);
+      }
+  }
+
+  // the warps' states, merged in warp order into the block's partial
+  if (lane < GCP) {
+    s_m[warp][lane] = m_run;
+    s_l[warp][lane] = l_run;
+  }
+#pragma unroll
+  for (int i = 0; i < GCP; ++i)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) s_acc[warp][i][d0 + e] = acc[i][e];
+  __syncthreads();
+  for (int e = threadIdx.x; e < gc * HD; e += SPLIT_THREADS) {
+    const int i = e / HD, d = e % HD;
+    float M = -CUDART_INF_F;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) M = fmaxf(M, s_m[w][i]);
+    float sum = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float f = s_m[w][i] == -CUDART_INF_F ? 0.f : expf(s_m[w][i] - M);
+      sum += s_acc[w][i][d] * f;
+      l += s_l[w][i] * f;
+    }
+    part_acc[part * gc * HD + e] = sum;
+    if (d == 0) {
+      part_ml[(part * gc + i) * 2] = M;
+      part_ml[(part * gc + i) * 2 + 1] = l;
+    }
+  }
+}
+
+// Pass 2: block (h, b) merges slot b's nblk partials of KV head h in block
+// order and writes out (B, kvh, gc, hd) in QT.
+template <typename QT>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+              QT* __restrict__ out, int kvh, int gc, int hd, int nblk) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t first = (static_cast<size_t>(b) * kvh + h) * nblk;  // partial of block 0
+  for (int e = threadIdx.x; e < gc * hd; e += SPLIT_THREADS) {
+    const int i = e / hd;
+    float M = -CUDART_INF_F;
+    for (int j = 0; j < nblk; ++j) M = fmaxf(M, part_ml[((first + j) * gc + i) * 2]);
+    float sum = 0.f, l = 0.f;
+    for (int j = 0; j < nblk; ++j) {
+      const float m = part_ml[((first + j) * gc + i) * 2];
+      const float f = m == -CUDART_INF_F ? 0.f : expf(m - M);
+      sum += part_acc[(first + j) * gc * hd + e] * f;
+      l += part_ml[((first + j) * gc + i) * 2 + 1] * f;
+    }
+    store(&out[(static_cast<size_t>(b) * kvh + h) * gc * hd + e], sum / l);
+  }
+}
+
+// Both passes on the caller's stream: scratch holds B kvh nblk gc (hd + 2)
+// floats. Float K/V hold q's type; int8 ones take scales in f32
+// (scale_f32) or q's type.
+template <typename QT, typename KT, int HD, typename Rows>
+int launch_split_hd(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                    int scale_f32, const long long* pos, void* out, float* scratch,
+                    const Rows& src, int B, int kvh, int gc, int c, int nblk, float scale,
+                    cudaStream_t stream) {
+  float* part_acc = scratch;
+  float* part_ml = scratch + static_cast<size_t>(B) * kvh * nblk * gc * HD;
+  const dim3 grid(nblk, kvh, B);
+  const auto* qq = static_cast<const QT*>(q);
+  const auto* kk = static_cast<const KT*>(k);
+  const auto* vv = static_cast<const KT*>(v);
+  if (gc <= 4)
+    split_chunk<QT, KT, HD, 4, Rows><<<grid, SPLIT_THREADS, 0, stream>>>(
+        qq, kk, vv, ks, vs, scale_f32, pos, part_acc, part_ml, src, kvh, gc, c, nblk, scale);
+  else
+    split_chunk<QT, KT, HD, 8, Rows><<<grid, SPLIT_THREADS, 0, stream>>>(
+        qq, kk, vv, ks, vs, scale_f32, pos, part_acc, part_ml, src, kvh, gc, c, nblk, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_combine<QT><<<dim3(kvh, B), SPLIT_THREADS, 0, stream>>>(
+      part_acc, part_ml, static_cast<QT*>(out), kvh, gc, HD, nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename Rows>
+int launch_split(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
+                 const void* ks, const void* vs, const void* pos, void* out, void* scratch,
+                 const Rows& src, int B, int kvh, int hd, int gc, int c, int nblk, float scale,
+                 cudaStream_t st) {
+  const auto* p = static_cast<const long long*>(pos);
+  auto* sc = static_cast<float*>(scratch);
+  const int f32 = scale_dtype == kF32;
+#define SMELTER_SPLIT(HD_)                                                                    \
+  return kv_dtype == kI8                                                                      \
+             ? launch_split_hd<QT, int8_t, HD_>(q, k, v, ks, vs, f32, p, out, sc, src, B, kvh, \
+                                                gc, c, nblk, scale, st)                       \
+             : launch_split_hd<QT, QT, HD_>(q, k, v, ks, vs, f32, p, out, sc, src, B, kvh, gc, \
+                                            c, nblk, scale, st)
+  switch (hd) {
+    case 64: SMELTER_SPLIT(64);
+    case 128: SMELTER_SPLIT(128);
+    case 256: SMELTER_SPLIT(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SMELTER_SPLIT
 }
 
 // Shared memory of a launch: the query rows, one row block's scores, and

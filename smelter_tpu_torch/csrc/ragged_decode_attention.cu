@@ -16,11 +16,12 @@
 // and query row) are far below the tensor-core rate.
 //
 // The Pallas kernel streams the cache in row blocks through VMEM with the
-// block index clamped at the frontier; here the same streaming softmax runs
-// in decode_attention.cuh's kernel (one block of 8 warps per (KV head,
-// slot)), with a row block of 128 cache rows standing where the paged kernel
-// has a page. Shared memory holds one block's scores, so it does not grow
-// with L.
+// block index clamped at the frontier; here decode_attention.cuh's split-KV
+// kernels run over blocks of `block_rows` cache rows (ContiguousRows): one
+// CUDA block per (row block, KV head, slot) writes a partial softmax state,
+// a second launch merges a slot's partials in block order. The wrapper
+// picks block_rows from (B, kvh, L) alone, so that the grid fills the card
+// at one slot as at eight and never depends on pos.
 #include "decode_attention.cuh"
 
 using namespace smelter;
@@ -31,19 +32,33 @@ extern "C" const char* smelter_error_string(int code) {
 
 // q (B, kvh, gc, hd) and out in q_dtype (f32 or bf16); k/v (B, L, kvh*hd) in
 // q_dtype or int8 (kv_dtype) with scales (B, L, 1) in f32 or q_dtype
-// (scale_dtype); pos (B,) int64. All contiguous, 16-byte aligned. Needs hd
-// in {64, 128, 256}, gc <= 8 and 1 <= block_rows (the wrapper checks).
+// (scale_dtype); pos (B,) int64; scratch of B kvh nblk gc (hd + 2) floats,
+// nblk = ceil(L / block_rows). All contiguous, 16-byte aligned. Needs hd in
+// {64, 128, 256}, gc <= 8 (the wrapper checks). Two launches.
 // Returns a cudaError_t code.
 extern "C" int smelter_ragged_decode_attention(const void* q, const void* k, const void* v,
                                                const void* ks, const void* vs, const void* pos,
-                                               void* out, int B, int L, int kvh, int hd, int gc,
-                                               int c, int block_rows, float scale, int q_dtype,
-                                               int kv_dtype, int scale_dtype, void* stream) {
+                                               void* out, void* scratch, int B, int L, int kvh,
+                                               int hd, int gc, int c, int block_rows,
+                                               float scale, int q_dtype, int kv_dtype,
+                                               int scale_dtype, void* stream) {
   using decode_attention::GC_MAX;
   if (gc < 1 || gc > GC_MAX || c < 1 || gc % c || L < 1 || block_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || kvh == 0) return 0;
   const decode_attention::ContiguousRows src{L, block_rows};
-  return decode_attention::dispatch_q(q_dtype, kv_dtype, scale_dtype, q, k, v, ks, vs, pos, out,
-                                      src, B, kvh, hd, gc, c, scale, stream);
+  const int nblk = cdiv(L, block_rows);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (q_dtype) {
+    case kF32:
+      return decode_attention::launch_split<float>(kv_dtype, scale_dtype, q, k, v, ks, vs, pos,
+                                                   out, scratch, src, B, kvh, hd, gc, c, nblk,
+                                                   scale, st);
+    case kBF16:
+      return decode_attention::launch_split<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, ks,
+                                                           vs, pos, out, scratch, src, B, kvh,
+                                                           hd, gc, c, nblk, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

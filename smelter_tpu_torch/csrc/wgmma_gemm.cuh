@@ -43,7 +43,11 @@
 //   sums, kEpiBiasRes also the residual x (x + (acc + b), staged in f32),
 //   kEpiBiasGelu / kEpiBiasGeluTanh GELU of the biased sum in f32, one
 //   rounding; kEpiQkv reads B, the packed QKV weight (3 n_groups, K, G), in
-//   place through a 3-D map (G % 64 == 0).
+//   place through a 3-D map (G % 64 == 0). csrc/convnext_block.cu's FC2
+//   takes kEpiBiasScaleRes, x + gamma (acc + b) with a per-column layer
+//   scale; its N may be as narrow as one 64-column box (ConvNeXt-T's C 96:
+//   the tile's second box lies partly past N, TMA fills it with zeros, and
+//   the stores stop at N).
 //
 // gemm_tma_ra (the "tma" form for an int8 B: dequant_matmul's W, and
 //   dequant_conv's HWIO weight): the same pipeline with the product
@@ -554,13 +558,18 @@ __device__ __forceinline__ void epi_flush(const uint8_t* epi, void* out, int out
 // (smelter_tpu/kernels/vit_block.py, mlp_block.py), or apply GELU to acc + b
 // in f32 (kEpiBiasGelu the exact form, kEpiBiasGeluTanh the tanh form:
 // `activate`, as csrc/gemm.cuh's epilogue), and round once to out's type T.
+// kEpiBiasScaleRes (csrc/convnext_block.cu's FC2) takes a per-column scale
+// too: x + gamma (acc + b), as the Pallas ConvNeXt kernel orders it
+// (smelter_tpu/kernels/convnext_block.py), each f32 operation rounded on
+// its own (__fadd_rn, __fmul_rn: nothing contracted into an FMA).
 enum Epilogue : int {
   kEpiNone = 0,
   kEpiQkv = 1,
   kEpiBias = 2,
   kEpiBiasRes = 3,
   kEpiBiasGelu = 4,
-  kEpiBiasGeluTanh = 5
+  kEpiBiasGeluTanh = 5,
+  kEpiBiasScaleRes = 6
 };
 // A block epilogue's activation.
 __host__ __device__ constexpr int epi_act(int epi) {
@@ -571,14 +580,16 @@ __host__ __device__ constexpr int epi_act(int epi) {
 __host__ __device__ constexpr bool epi_deferred(int epi) { return epi_act(epi) != kActNone; }
 
 // The block epilogues' operands: bias (N,) in f32 (bias_f32) or T; residual
-// (M, N) in T (kEpiBiasRes); group, kEpiQkv's block width: B is (N / group,
-// K, group), column n of the (K, N) product column n % group of block n /
-// group (group % 64 == 0, so an atom never straddles blocks).
+// (M, N) in T (kEpiBiasRes, kEpiBiasScaleRes); group, kEpiQkv's block width:
+// B is (N / group, K, group), column n of the (K, N) product column n %
+// group of block n / group (group % 64 == 0, so an atom never straddles
+// blocks); scale (N,) in the bias's type (kEpiBiasScaleRes).
 struct BlockEpi {
   const void* bias;
   int bias_f32;
   const void* residual;
   int group;
+  const void* scale;
 };
 
 template <typename T>
@@ -612,8 +623,10 @@ __device__ __forceinline__ void epi_flush_res(const uint8_t* epi, void* out, con
     const size_t o = static_cast<size_t>(row) * N + col;
     const uint2 x = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(residual) + o);
     *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + o) =
-        make_uint2(pack2(code, t_bits<T>(x.x) + s.x, t_bits<T>(x.x >> 16) + s.y),
-                   pack2(code, t_bits<T>(x.y) + s.z, t_bits<T>(x.y >> 16) + s.w));
+        make_uint2(pack2(code, __fadd_rn(t_bits<T>(x.x), s.x),
+                         __fadd_rn(t_bits<T>(x.x >> 16), s.y)),
+                   pack2(code, __fadd_rn(t_bits<T>(x.y), s.z),
+                         __fadd_rn(t_bits<T>(x.y >> 16), s.w)));
   }
 }
 
@@ -846,10 +859,11 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
       pend_n0 = n0;
       done = 0;
     } else if constexpr (EPI != kEpiNone) {
-      // acc + bias in f32, staged as the f32 sums (kEpiBiasRes, the
-      // residual added at the flush) or rounded once to T
+      // acc + bias in f32 (kEpiBiasScaleRes: times the scale), staged as
+      // the f32 sums (the residual added at the flush) or rounded once to T
       constexpr int code = std::is_same<T, __nv_bfloat16>::value ? kBF16 : kF16;
-      constexpr int stg_dtype = EPI == kEpiBiasRes ? kF32 : code;
+      constexpr bool RES = EPI == kEpiBiasRes || EPI == kEpiBiasScaleRes;
+      constexpr int stg_dtype = RES ? kF32 : code;
       uint8_t* stg = se + wgi * EPI_WG;
 #pragma unroll
       for (int c = 0; c < BN / 64; ++c) {
@@ -858,15 +872,25 @@ gemm_tma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
           const int col = n0 + 64 * c + 8 * jj + 2 * t;
           const float b0 = col < N ? bias_at<T>(epi.bias, epi.bias_f32, col) : 0.f;
           const float b1 = col < N ? bias_at<T>(epi.bias, epi.bias_f32, col + 1) : 0.f;
+          float g0 = 1.f, g1 = 1.f;
+          if constexpr (EPI == kEpiBiasScaleRes) {
+            g0 = col < N ? bias_at<T>(epi.scale, epi.bias_f32, col) : 0.f;
+            g1 = col < N ? bias_at<T>(epi.scale, epi.bias_f32, col + 1) : 0.f;
+          }
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = 4 * (8 * c + jj) + 2 * h;
-            epi_put2(stg, stg_dtype, warp * 16 + g + 8 * h, 8 * jj + 2 * t, acc[i] + b0,
-                     acc[i + 1] + b1);
+            if constexpr (EPI == kEpiBiasScaleRes)
+              epi_put2(stg, kF32, warp * 16 + g + 8 * h, 8 * jj + 2 * t,
+                       __fmul_rn(__fadd_rn(acc[i], b0), g0),
+                       __fmul_rn(__fadd_rn(acc[i + 1], b1), g1));
+            else
+              epi_put2(stg, stg_dtype, warp * 16 + g + 8 * h, 8 * jj + 2 * t, acc[i] + b0,
+                       acc[i + 1] + b1);
           }
         }
         named_sync(1 + wgi, 128);
-        if constexpr (EPI == kEpiBiasRes)
+        if constexpr (RES)
           epi_flush_res<T>(stg, out, epi.residual, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
         else
           epi_flush(stg, out, code, M, N, m0 + wgi * 64, n0 + 64 * c, ct & 127);
@@ -1816,6 +1840,23 @@ static int launch_tma_block(const void* a, const void* b, int group, const void*
   if (residual != nullptr)
     return launch_block_epi<T, kEpiBiasRes>(map_a, map_b, out, M, N, K, epi, grid, stream);
   return launch_block_epi<T, kEpiBias>(map_a, map_b, out, M, N, K, epi, grid, stream);
+}
+
+// csrc/convnext_block.cu's FC2 on `grid` CTAs: out (M, N) in T = residual
+// + scale * (a (M, K) @ b (K, N) + bias), bias and scale f32 (bias_f32) or
+// T. The plan (wgmma_plan.layer_scale_plan) checks the shape: as
+// launch_tma_block's, but N >= 64 (one box of B inside the matrix).
+template <typename T>
+static int launch_tma_scale_res(const void* a, const void* b, const void* bias,
+                                const void* scale, int bias_f32, const void* residual,
+                                void* out, int M, int N, int K, int grid, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  int rc = make_map(&map_a, a, map_type<T>(), 2, M, K, BM, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = make_map(&map_b, b, map_type<T>(), 2, K, N, BK, ATOM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  const BlockEpi epi{bias, bias_f32, residual, 0, scale};
+  return launch_block_epi<T, kEpiBiasScaleRes>(map_a, map_b, out, M, N, K, epi, grid, stream);
 }
 
 // The tma form with bias and GELU in the epilogue (csrc/mlp_block.cu's

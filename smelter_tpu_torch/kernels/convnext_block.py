@@ -16,18 +16,22 @@ uses erf.)
 Replaces the Pallas kernel `smelter_tpu/kernels/convnext_block.py::
 convnext_block`. The Hopper kernel is `csrc/convnext_block.cu`:
 
-- What bounds it on an H100: the tensor cores. At ConvNeXt-T's batch 64 a
-  stage-1 call (56 x 56 x 96) does 29.6 GFLOP in FC1 and FC2 (~30 us at 989
-  TFLOP/s dense bf16) and 1.9 GFLOP of depthwise taps on the CUDA cores,
-  against ~77 MB of x, weights and output (~23 us at 3.35 TB/s).
-- What the simple design does about it: the Pallas kernel keeps one padded
-  image and both weights in VMEM; the padded stage-1 image alone is 738 KB,
-  three times a block's shared memory, so one call is a fixed sequence of
-  the library's own launches (the depthwise conv and LayerNorm over row
-  tiles with the 3-row halo read through the cache, FC1 with b1 and GELU in
-  the epilogue, FC2 with b2, gamma and the residual in the epilogue), on
-  mma.sync with f32 accumulators. xn and the hidden h go through device
-  memory in scratch the wrapper allocates.
+- What bounds it on an H100: the tensor cores for FC1 and FC2 (at
+  ConvNeXt-T's batch 64 a stage-1 call does 29.6 GFLOP there, ~30 us at 989
+  TFLOP/s dense bf16) and the CUDA cores for the depthwise taps (0.94 G f32
+  FMAs, ~28 us at 67 TFLOP/s), against ~77 MB of x, weights and output (~23
+  us at 3.35 TB/s).
+- What the design does about it: the Pallas kernel keeps one padded image
+  and both weights in VMEM; the padded stage-1 image alone is 738 KB, three
+  times a block's shared memory, so one call is a fixed sequence of the
+  library's own launches. The depthwise conv and LayerNorm read each input
+  row (and its halo) into shared memory once and sum the taps in registers
+  (`dw_ln_staged`; more than 384 channels read through the cache); FC1 (b1
+  and GELU in the epilogue) and FC2 (b2, gamma and the
+  residual in the epilogue) run on the wgmma GEMM core (`gemm_tma` of
+  `csrc/wgmma_gemm.cuh`) where `plans` says "tma", else on `csrc/gemm.cuh`'s
+  mma.sync GEMM; f32 on its full-f32 FMA kernel. xn and the hidden h go
+  through device memory in scratch the wrapper allocates.
 
 On a CPU or `meta` tensor `convnext_block` takes the plain version
 (`convnext_block_plain`); on a CUDA tensor it launches the kernel sequence
@@ -39,13 +43,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, wgmma_plan
 from .mlp_block import gelu_kernel_form
 
 launches = 0
 
 _X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_MAX_C = 3072  # channels of the depthwise step's f32 tile (48 KB at 4 pixels)
+_MAX_C = 3072  # channels of the cache-read depthwise step's f32 tile (48 KB at 4 pixels)
 
 
 def convnext_block_plain(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, *,
@@ -97,6 +101,47 @@ def _check(x, dw_w, w1, w2, params) -> None:
         raise ValueError("convnext_block: x and the weights must be 16-byte aligned")
 
 
+def legacy_plans():
+    """FC1 and FC2 on `csrc/gemm.cuh` (mma.sync; f32: the full-f32 FMA
+    kernel)."""
+    mma = wgmma_plan.Plan("mma", wgmma_plan.BM, wgmma_plan.TMA_BN, 1, 0, 0, 0)
+    return mma, mma
+
+
+def plans(M: int, C: int, F: int, dtype, *, sms: int = wgmma_plan.SMS):
+    """The forms of FC1 (M, F) = xn @ w1 (`wgmma_plan.block_plan` with the
+    GELU epilogue) and FC2 (M, C) = h @ w2 (`wgmma_plan.layer_scale_plan`)
+    for rows of `dtype` (bases 16-byte aligned, as the wrapper requires):
+    "tma" or "mma" each; f32 always "mma"."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        return legacy_plans()
+    return (wgmma_plan.block_plan(M, F, C, gelu=True, sms=sms),
+            wgmma_plan.layer_scale_plan(M, C, F, sms=sms))
+
+
+def _launch(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, forms, *,
+            eps: float) -> torch.Tensor:
+    """The kernel sequence on checked operands, FC1 and FC2 on the forms
+    `forms` gives them."""
+    B, H, W, C = x.shape
+    F_ = w1.shape[1]
+    M = B * H * W
+    fc1, fc2 = forms
+    out = torch.empty_like(x)
+    xn = torch.empty((M, C), dtype=x.dtype, device=x.device)
+    h = torch.empty((M, F_), dtype=x.dtype, device=x.device)
+    lib = _build.library("convnext_block")
+    with torch.cuda.device(x.device):
+        rc = lib.smelter_convnext_block(
+            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            xn.data_ptr(), h.data_ptr(), out.data_ptr(), B, H, W, C, F_, float(eps),
+            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dw_b.dtype], fc1.code, fc1.grid,
+            fc2.code, fc2.grid, _build.stream_of(x))
+    _build.check(lib, rc, "convnext_block")
+    return out
+
+
 def convnext_block(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, *,
                    eps: float = 1e-6) -> torch.Tensor:
     """The block on x (B, H, W, C); returns x's shape and dtype."""
@@ -108,18 +153,7 @@ def convnext_block(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, *,
     params = (dw_b, ln_g, ln_b, b1, b2, gamma)
     _check(x, dw_w, w1, w2, params)
     B, H, W, C = x.shape
-    F_ = w1.shape[1]
-    M = B * H * W
-    out = torch.empty_like(x)
-    xn = torch.empty((M, C), dtype=x.dtype, device=x.device)
-    h = torch.empty((M, F_), dtype=x.dtype, device=x.device)
-    lib = _build.library("convnext_block")
-    with torch.cuda.device(x.device):
-        rc = lib.smelter_convnext_block(
-            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-            xn.data_ptr(), h.data_ptr(), out.data_ptr(), B, H, W, C, F_, float(eps),
-            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dw_b.dtype], _build.stream_of(x))
-    _build.check(lib, rc, "convnext_block")
+    forms = plans(B * H * W, C, w1.shape[1], x.dtype, sms=_build.sms(x.device))
+    out = _launch(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, forms, eps=eps)
     launches += 1
     return out

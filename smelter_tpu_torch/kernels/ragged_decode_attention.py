@@ -8,16 +8,20 @@ attends rows <= pos[b] + i % c, with a streaming softmax in f32.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/ragged_decode_attention.py::
 ragged_decode_attention` (its batched `_batched`). The Hopper kernel is
-`csrc/ragged_decode_attention.cu`, the kernel of `csrc/decode_attention.cuh`
-with contiguous row blocks:
+`csrc/ragged_decode_attention.cu`, the split-KV kernels of
+`csrc/decode_attention.cuh` over contiguous row blocks:
 
 - What bounds it on an H100: the live K/V bytes, (pos + c) rows of K and V
   a slot; ~4 MB a step at llama_1b's shape with 8 slots over 0-511.
-- What the simple design does about it: one block of 8 warps per (KV head,
-  slot) reads only the rows up to the frontier, once, each row as one
-  coalesced load by a warp, in blocks of 128 rows (so shared memory does not
-  grow with L), and never reads a row past the frontier: a reused slot's
-  stale rows are neither scored nor added.
+- What the design does about it: the cache is cut into blocks of
+  `split_plan` rows, so that (row block, KV head, slot) gives a few hundred
+  CUDA blocks at one slot as at eight; each reads only its rows up to the
+  frontier, K and V of a warp's rows in flight together, and writes a
+  partial softmax state (running max, sum, f32 sums) into scratch the
+  wrapper allocates; a second launch merges each slot's partials in block
+  order. A block past the frontier reads nothing (a reused slot's stale
+  rows are neither scored nor added). The grid depends on (B, kvh, L), never
+  on pos, so a captured decode step replays right at any position.
 
 On a CPU or `meta` tensor `ragged_decode_attention` takes the plain version
 (`ragged_decode_attention_reference`, the dense masked attention), and on a
@@ -26,7 +30,8 @@ goes through a `torch.library` custom op whose vmap rule folds the vmapped
 axis into the op's own slot axis, so a batch-1 decode step vmapped over
 slots (the DecodeServer) launches the kernel once for all slots, as the
 Pallas kernel's `custom_vmap` folds JAX's vmap onto its slot-batched grid.
-`launches` counts kernel launches and nothing else.
+`launches` counts calls that launched the kernels (two CUDA launches), once
+a call.
 """
 
 from __future__ import annotations
@@ -42,7 +47,20 @@ launches = 0
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 _GC_MAX = 8
-_BLOCK_ROWS = 128  # cache rows a block of the kernel scores at a time
+_SPLIT_ROWS = 32        # a row block is a multiple of this: one step of 4 warps x 8 rows
+_SPLIT_BLOCKS = 8 * 132  # CUDA blocks to aim for: eight an SM of an H100
+_SPLIT_MAX = 256         # row blocks a slot at most (the merge walks them in order)
+
+
+def split_plan(B: int, kvh: int, L: int) -> tuple[int, int]:
+    """(rows a block, blocks a slot) of the split kernel for B slots, kvh KV
+    heads and caches of L rows: about _SPLIT_BLOCKS CUDA blocks in all, at
+    least one row block a slot, at most one per _SPLIT_ROWS rows and
+    _SPLIT_MAX, whatever the positions."""
+    want = -(-_SPLIT_BLOCKS // max(1, B * kvh))
+    blocks = max(1, min(want, -(-L // _SPLIT_ROWS), _SPLIT_MAX))
+    rows = -(-(-(-L // blocks)) // _SPLIT_ROWS) * _SPLIT_ROWS
+    return rows, -(-L // rows)
 
 
 def ragged_decode_attention_reference(q, k, v, pos, k_scale=None, v_scale=None, *,
@@ -103,8 +121,8 @@ def _check(q, k, v, pos, k_scale, v_scale, c: int, kv_heads: int) -> None:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("ragged_decode_attention: operands must be contiguous, on one "
                              "device")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:  # rows are read in vectors
-        raise ValueError("ragged_decode_attention: the caches must be 16-byte aligned")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:  # read in vectors
+        raise ValueError("ragged_decode_attention: q and the caches must be 16-byte aligned")
 
 
 def _launch(q, k, v, pos, k_scale, v_scale, c: int, kv_heads: int,
@@ -114,13 +132,17 @@ def _launch(q, k, v, pos, k_scale, v_scale, c: int, kv_heads: int,
     bsz, kvh, gc, hd = q.shape
     L = k.shape[1]
     quant = k_scale is not None
+    rows, nblk = split_plan(bsz, kvh, L)
     out = torch.empty_like(q)
+    scratch = torch.empty(bsz * kvh * nblk * gc * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     lib = _build.library("ragged_decode_attention")
     with torch.cuda.device(q.device):
         rc = lib.smelter_ragged_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None, pos.data_ptr(), out.data_ptr(), bsz, L,
-            kvh, hd, gc, c, min(_BLOCK_ROWS, L), float(scale), _build.DTYPE_CODES[q.dtype],
+            v_scale.data_ptr() if quant else None, pos.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), bsz, L, kvh, hd, gc, c, rows, float(scale),
+            _build.DTYPE_CODES[q.dtype],
             _build.DTYPE_CODES[k.dtype], _build.DTYPE_CODES[k_scale.dtype] if quant else 0,
             _build.stream_of(q))
     _build.check(lib, rc, "ragged_decode_attention")

@@ -16,7 +16,8 @@ The header's two forms (its comment gives the same numbers):
 `block_plan` picks each projection of `vit_attention_block` the same way:
 "tma" (`gemm_tma` with the block epilogue: bias, residual, one rounding;
 the packed QKV weight through a 3-D map) where its maps can describe the
-GEMM, else "mma" (`csrc/gemm.cuh`).
+GEMM, else "mma" (`csrc/gemm.cuh`); `layer_scale_plan` picks
+`convnext_block`'s FC2 alike, down to N 64.
 
 `conv_plan` picks `dequant_conv`'s kernel for a 16-bit stride-1 conv the
 same way: "wgmma" (`gemm_tma_ra` with an im2col map of x) where the TMA
@@ -169,6 +170,19 @@ def block_plan(M: int, N: int, K: int, *, group: int = 0, gelu: bool = False,
             and group % ATOM == 0):
         return Plan("tma", BM, TMA_BN, 1, K, min(tiles, sms),
                     tma_smem(TMA_BN, False, recv=gelu))
+    return Plan("mma", BM, TMA_BN, 1, K, tiles, 0)
+
+
+def layer_scale_plan(M: int, N: int, K: int, *, aligned: bool = True, sms: int = SMS) -> Plan:
+    """`convnext_block`'s FC2: out (M, N) = x + gamma (A (M, K) @ B (K, N) +
+    bias), A and B 16-bit (`gemm_tma` with kEpiBiasScaleRes). As
+    `block_plan`, but N from one 64-column box (ConvNeXt-T's C 96): a
+    128-column tile's second box lies partly or wholly past N, TMA fills it
+    with zeros and the stores stop at N, where 64-column tiles would read A
+    twice; else "mma" (`csrc/gemm.cuh`)."""
+    tiles = cdiv(M, BM) * cdiv(N, TMA_BN)
+    if aligned and K % 8 == 0 and N % 8 == 0 and M >= BM and K >= BK and N >= ATOM:
+        return Plan("tma", BM, TMA_BN, 1, K, min(tiles, sms), tma_smem(TMA_BN, False))
     return Plan("mma", BM, TMA_BN, 1, K, tiles, 0)
 
 

@@ -353,6 +353,64 @@ def test_ragged_decode_attention_reads_only_live_rows(cuda, c):
         assert torch.equal(got, ref)
 
 
+# The split kernel at the decode paths' shapes (llama_1b: 8 KV heads, hd
+# 128, int8 caches, bf16 q): (label, B, g, c, L, positions)
+RAGGED_PATH_CASES = [
+    ("b8_l512", 8, 4, 1, 512, [0, 73, 127, 128, 292, 365, 438, 511]),
+    ("c5_b1_pos511", 1, 1, 5, 512, [511]),
+    ("b8_l4096", 8, 4, 1, 4096, [0, 584, 1016, 1024, 2336, 2920, 3504, 4095]),
+    ("b1_l512_pos280", 1, 4, 1, 512, [280]),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_PATH_CASES, ids=[c[0] for c in RAGGED_PATH_CASES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_split_at_the_path_shapes(cuda, case, dtype):
+    """Against the plain version with NaN in every row past each frontier
+    (the scales carry it for int8), bit-equal from call to call, and equal
+    to the call on clean caches."""
+    from smelter_tpu_torch.kernels import ragged_decode_attention as rda
+
+    _, B, g, c, L, pos = case
+    kvh, hd = 8, 128
+    q, k, v, pos, ks, vs = _ragged_operands(B, kvh, g, c, hd, L, True, dtype, dtype, cuda,
+                                            seed=11, pos=pos)
+    clean = _ragged_check(q, k, v, pos, ks, vs, c, kvh, hd)
+    stale = torch.arange(L, device=cuda)[None] > (pos + c - 1)[:, None]
+    ks2 = torch.where(stale[..., None], float("nan"), ks)
+    vs2 = torch.where(stale[..., None], float("nan"), vs)
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    got = rda.ragged_decode_attention(q, k, v, pos, ks2, vs2, **kw)
+    again = rda.ragged_decode_attention(q, k, v, pos, ks2, vs2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, clean)
+
+
+def test_ragged_split_graph_replays_at_any_position(cuda):
+    """A CUDA graph of one call, captured at one position and replayed after
+    pos changes in place (as FusedGenerator replays its step), equals an
+    eager call at the new positions: the grid does not depend on pos."""
+    from smelter_tpu_torch.kernels import ragged_decode_attention as rda
+
+    B, kvh, g, c, hd, L = 2, 8, 4, 1, 128, 512
+    q, k, v, pos, ks, vs = _ragged_operands(B, kvh, g, c, hd, L, True, torch.bfloat16,
+                                            torch.bfloat16, cuda, seed=12, pos=[3, 40])
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rda.ragged_decode_attention(q, k, v, pos, ks, vs, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = rda.ragged_decode_attention(q, k, v, pos, ks, vs, **kw)
+    for new in ([3, 40], [280, 0], [511, 200], [31, 32]):
+        pos.copy_(torch.tensor(new, dtype=torch.int64, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, rda.ragged_decode_attention(q, k, v, pos, ks, vs, **kw)), new
+
+
 def test_vmap_rules_launch_once_for_all_slots(cuda):
     """torch.func.vmap of a per-slot call over 5 slots launches each kernel
     once (the vmap rules fold the slot axis), with the per-slot results."""
@@ -1682,6 +1740,23 @@ def test_convnext_block_matches_plain(cuda, geom, dtype, p_dtype):
     torch.cuda.synchronize()
     assert cb.launches == before + 1
     _close_to_plain(got, cb.convnext_block_plain(*args, eps=1e-6), dtype)
+
+
+@pytest.mark.parametrize("geom", [(64, 56, 56, 96), (64, 28, 28, 192), (64, 14, 14, 384)])
+def test_convnext_block_stages_at_batch_64(cuda, geom):
+    """ConvNeXt-T's three fused stages at the path's batch: FC1 and FC2 on
+    gemm_tma (stage 1's FC2 N 96 too), against the plain version, and two
+    calls bit-equal."""
+    from smelter_tpu_torch.kernels import convnext_block as cb
+
+    B, H, W, C = geom
+    assert [p.form for p in cb.plans(B * H * W, C, 4 * C, torch.bfloat16)] == ["tma", "tma"]
+    args = _cnx_operands(*geom, torch.bfloat16, cuda)
+    got = cb.convnext_block(*args, eps=1e-6)
+    again = cb.convnext_block(*args, eps=1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close_to_plain(got, cb.convnext_block_plain(*args, eps=1e-6), torch.bfloat16)
 
 
 def test_convnext_block_raises_on_bad_operands(cuda):
