@@ -17,10 +17,12 @@ its number:
    yardstick, and the least time the card could take (the bound):
    `dequant_matmul` and `int8_matmul` at the ResNet-50 head shape and at a
    serving GEMM shape, `dequant_matmul` also at odd shapes in bf16, f16 and
-   with f32 out (two calls bit-equal); `int4_matmul` at M = 8 for each N x K of llama_1b's
-   decode step, checked also at the prefill graphs' M of 64 and 256,
-   `paged_decode_attention` at its decode shape (8 slots,
-   int8 pools, positions spread over 0-511), and `ragged_decode_attention`
+   with f32 out (two calls bit-equal); `int4_matmul` at M = 8 and at M = 1
+   (FusedGenerator's single stream) for each N x K of llama_1b's decode
+   step, each on its wgmma form, with the step's sums, checked also at the
+   prefill graphs' M of 64 and 256, `paged_decode_attention` at its decode
+   shape (8 slots, int8 pools, positions spread over 0-511; its split plan
+   named, two calls bit-equal), and `ragged_decode_attention`
    at the static-cache step's (8 slots over a 512-row int8 cache), at the
    speculative chunk c 5 of one slot at row 511, over 4096 rows, and at
    FusedGenerator's one slot at row 280 (its split-KV kernels);
@@ -539,46 +541,83 @@ def phase_kernels(torch, power_w: float) -> dict:
     return rows
 
 
-def phase_decode_kernels(torch, power_w: float) -> dict:
-    """int4_matmul at each decode GEMM of llama_1b (M = 8 slots, bf16 x) and
-    paged_decode_attention at its decode shape, against their plain
-    versions, with device, host, plain, library and bound times."""
+def _int4_case(torch, side, power_w, i4, sets, M, N, K) -> dict:
+    """int4_matmul at (M, K, N) on the operand copies `sets` (x, pk, sc)
+    against its plain version (f32 out within 1e-5 of max|plain|, bf16 out
+    within 1e-2), and timed in bf16 out: the kernel and the plain version by
+    graph replay, the host cost of a call, the library yardstick (bf16
+    torch.matmul on the dequantized weight) and the bytes bound."""
+    bf16 = torch.bfloat16
+    n = len(sets)
+    x, pk, sc = sets[0]
+    errs = {}
+    for out_dtype, rel in ((torch.float32, 1e-5), (bf16, 1e-2)):
+        got = i4.int4_matmul(x, pk, sc, group=GROUP, out_dtype=out_dtype)
+        ref = i4.int4_matmul_plain(x, pk, sc, group=GROUP, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(got.shape == (M, N) and math.isfinite(err) and err <= rel * scale,
+              f"int4_matmul M {M} N {N} K {K} {out_dtype}: max-abs {err} > {rel} x {scale}")
+        errs[str(out_dtype).split(".")[-1]] = (err, f"{rel} x max|plain| = {rel * scale:.4g}")
+
+    def call(i):
+        return i4.int4_matmul(*sets[i % n], group=GROUP, out_dtype=bf16)
+
+    nbytes = M * K * 2 + K * N // 2 + K // GROUP * N * 4 + M * N * 2
+    ms = graph_ms(torch, side, call, 20)
+    call_ms = time_ms(torch, call, 20)
+    plain_ms = graph_ms(torch, side, lambda i: i4.int4_matmul_plain(
+        *sets[i % n], group=GROUP, out_dtype=bf16), 5)
+    w_deq = [(i4.unpack_int4_half(pk_).float() * sc_.repeat_interleave(GROUP, 0)).to(bf16)
+             for _, pk_, sc_ in sets]
+    lib_ms = graph_ms(torch, side, lambda i: torch.matmul(sets[i % n][0], w_deq[i % n]), 20)
+    del w_deq
+    b_ms, b_by = bound(nbytes, 2 * M * N * K, "bf16", power_w)
+    return dict(shape=[M, K, N], max_abs_err=errs["float32"][0], tolerance=errs["float32"][1],
+                bf16_out_err=errs["bfloat16"][0], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library="bf16 torch.matmul on the dequantized weight",
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+
+
+def phase_decode_kernels(torch, power_w: float, smi: str) -> dict:
+    """int4_matmul at each decode GEMM of llama_1b (M = 8 slots and M = 1,
+    FusedGenerator's single stream; bf16 x) and paged_decode_attention at
+    its decode shape, against their plain versions, with device, host,
+    plain, library and bound times."""
     import torch.nn.functional as F
 
     from smelter_tpu_torch.kernels import int4_matmul as i4
     from smelter_tpu_torch.kernels import paged_decode_attention as pda
+    from smelter_tpu_torch.kernels.wgmma_plan import int4_plan
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     side = torch.cuda.Stream()
     bf16 = torch.bfloat16
     rows = {}
-    M = SLOTS
     for (N, K), calls in DECODE_GEMMS.items():
-        nbytes = M * K * 2 + K * N // 2 + K // GROUP * N * 4 + M * N * 2
-        sets = []
-        for _ in range(_copies(nbytes)):
-            x = torch.randn(M, K, device="cuda", generator=gen).to(bf16)
+        plan = int4_plan(N, K, GROUP)
+        check(plan.form == "wgmma", f"int4_matmul N {N} K {K}: plan {plan}, not the wgmma form")
+        weights = []
+        for _ in range(_copies(K * N // 2 + K // GROUP * N * 4)):
             pk = torch.randint(-128, 128, (K // 2, N), device="cuda", generator=gen,
                                dtype=torch.int8)
             sc = torch.rand(K // GROUP, N, device="cuda", generator=gen) * 0.02 + 1e-3
-            sets.append((x, pk, sc))
-        n = len(sets)
-        x, pk, sc = sets[0]
-        errs = {}
-        # f32 out: the same bf16 products summed in another order, 1e-5;
-        # bf16 out (the path's type): both sums round to 8 bits, 1e-2.
-        for out_dtype, rel in ((torch.float32, 1e-5), (bf16, 1e-2)):
-            got = i4.int4_matmul(x, pk, sc, group=GROUP, out_dtype=out_dtype)
-            ref = i4.int4_matmul_plain(x, pk, sc, group=GROUP, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            check(got.shape == (M, N) and math.isfinite(err) and err <= rel * scale,
-                  f"int4_matmul N {N} K {K} {out_dtype}: max-abs {err} > {rel} x {scale}")
-            errs[str(out_dtype).split(".")[-1]] = (err, f"{rel} x max|plain| = {rel * scale:.4g}")
-        # the prefill graphs' M (64 and 256 prompt rows, many M tiles) with
-        # the same tolerances; device time of the bf16 call
+            weights.append((pk, sc))
+        forms = dict(i4.forms)
+        for M, key in ((SLOTS, "int4_matmul"), (1, "int4_matmul_m1")):
+            sets = [(torch.randn(M, K, device="cuda", generator=gen).to(bf16), pk, sc)
+                    for pk, sc in weights]
+            r = _int4_case(torch, side, power_w, i4, sets, M, N, K)
+            rows[(key, N, K)] = dict(r, name=key, calls_per_step=calls, form=plan.form,
+                                     plan=f"{plan.chunks} K chunks a tile, {plan.items} items "
+                                          f"on {plan.grid} CTAs")
+            del sets
+        check(i4.forms["mma"] == forms["mma"], f"int4_matmul N {N} K {K}: an mma.sync launch")
+        # the prefill graphs' M (64 and 256 prompt rows, several 32-row
+        # passes) with the same tolerances; device time of the bf16 call
         prefill = {}
+        pk, sc = weights[0]
         for m in BUCKETS:
             xm = torch.randn(m, K, device="cuda", generator=gen).to(bf16)
             for out_dtype, rel in ((torch.float32, 1e-5), (bf16, 1e-2)):
@@ -592,26 +631,9 @@ def phase_decode_kernels(torch, power_w: float) -> dict:
                       f"{rel} x {scale}")
                 prefill[f"m{m}_{str(out_dtype).split('.')[-1]}_err"] = err
             prefill[f"m{m}_ms"] = graph_ms(torch, side, lambda i: i4.int4_matmul(
-                xm, *sets[i % n][1:], group=GROUP, out_dtype=bf16), 10)
-
-        def call(i):
-            return i4.int4_matmul(*sets[i % n], group=GROUP, out_dtype=bf16)
-
-        ms = graph_ms(torch, side, call, 20)
-        call_ms = time_ms(torch, call, 20)
-        plain_ms = graph_ms(torch, side, lambda i: i4.int4_matmul_plain(
-            *sets[i % n], group=GROUP, out_dtype=bf16), 5)
-        w_deq = [(i4.unpack_int4_half(pk_).float() * sc_.repeat_interleave(GROUP, 0)).to(bf16)
-                 for _, pk_, sc_ in sets]
-        lib_ms = graph_ms(torch, side, lambda i: torch.matmul(sets[i % n][0], w_deq[i % n]), 20)
-        b_ms, b_by = bound(nbytes, 2 * M * N * K, "bf16", power_w)
-        rows[("int4_matmul", N, K)] = dict(
-            name="int4_matmul", shape=[M, K, N], calls_per_step=calls,
-            max_abs_err=errs["float32"][0], tolerance=errs["float32"][1], bf16_out_err=errs["bfloat16"][0], ms=ms,
-            call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-            library="bf16 torch.matmul on the dequantized weight", bound_ms=b_ms, bound_by=b_by,
-            bytes=nbytes, prefill_m=prefill)
-        del sets, w_deq
+                xm, *weights[i % len(weights)], group=GROUP, out_dtype=bf16), 10)
+        rows[("int4_matmul", N, K)]["prefill_m"] = prefill
+        del weights
 
     # paged_decode_attention: 8 slots, 8 KV heads of 128 (g 2), int8 pools
     # of 128-row pages, 4 pages a slot, positions spread over 0-511.
@@ -635,12 +657,14 @@ def phase_decode_kernels(torch, power_w: float) -> dict:
             sets.append((q, k, v, table, pos, ks, vs))
         n = len(sets)
         got = pda.paged_decode_attention(*sets[0], **kw)
+        again = pda.paged_decode_attention(*sets[0], **kw)
         ref = pda.paged_decode_attention_plain(*sets[0], **kw)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         check(got.shape == sets[0][0].shape and math.isfinite(err) and err <= rel * scale,
               f"paged_decode_attention {kind}: max-abs {err} > {rel} x {scale}")
+        check(torch.equal(got, again), f"paged_decode_attention {kind}: two calls differ")
         if dtype != bf16:
             rows[("paged_decode_attention", "f32")] = dict(max_abs_err=err,
                                                             tolerance=f"{rel} x {scale:.4g}")
@@ -666,8 +690,10 @@ def phase_decode_kernels(torch, power_w: float) -> dict:
         lib_ms = graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
             *dense[i % n], attn_mask=mask, scale=kw["scale"]), 50)
         b_ms, b_by = bound(nbytes, 4 * kvh * g * c * hd * live, "bf16", power_w)
+        split_rows, _, nblk = pda.paged_split_plan(SLOTS, kvh, NPG, PAGE)
         rows[("paged_decode_attention", "bf16")] = dict(
             name="paged_decode_attention", shape=[SLOTS, kvh, g * c, hd, PAGE, NPG],
+            plan=f"{split_rows} rows a block, {nblk} blocks a slot, {SLOTS * kvh * nblk} CTAs",
             calls_per_step=LLAMA_1B["layers"], live_rows=live, max_abs_err=err,
             tolerance=f"{rel} x max|plain| = {rel * scale:.4g}", ms=ms, call_ms=call_ms,
             plain_ms=plain_ms, library_ms=lib_ms,
@@ -677,20 +703,28 @@ def phase_decode_kernels(torch, power_w: float) -> dict:
 
     for key, r in rows.items():
         if "ms" not in r:
-            say(2, f"paged_decode_attention f32: err {r['max_abs_err']:.3g} ({r['tolerance']})")
+            say(2, f"paged_decode_attention f32: err {r['max_abs_err']:.3g} ({r['tolerance']}), "
+                   "two calls bit-equal")
             continue
-        say(2, f"{r['name']} {r['shape']} bf16: err {r['max_abs_err']:.3g} "
+        what = (f"{r['form']} form, {r['plan']}" if "form" in r
+                else f"split-KV: {r['plan']}; two calls bit-equal")
+        say(2, f"{r['name']} {r['shape']} bf16 ({what}): err {r['max_abs_err']:.3g} "
                f"({r['tolerance']}) | kernel {r['ms']:.4f} ms (host cost of a call "
                f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
                f"{r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.5f} ms "
                f"({r['bound_by']}, {r['bytes']} bytes) = {100 * r['bound_ms'] / r['ms']:.1f}% "
-               f"of bound | "
-               f"{r['calls_per_step']} calls a step")
+               f"of bound | {r['calls_per_step']} calls a step | {smi}")
         if "prefill_m" in r:
             p = r["prefill_m"]
             say(2, "  at the prefill's M: " + "; ".join(
                 f"M {m} err f32 {p[f'm{m}_float32_err']:.3g}, bf16 {p[f'm{m}_bfloat16_err']:.3g}"
                 f", kernel {p[f'm{m}_ms']:.4f} ms" for m in BUCKETS))
+    for key, m in (("int4_matmul", SLOTS), ("int4_matmul_m1", 1)):
+        st = per_step(rows, key)
+        say(2, f"int4_matmul at M {m}, a step's {7 * LLAMA_1B['layers'] + 1} calls: kernel "
+               f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, library "
+               f"{st['library_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms ({st['bound_by']}) = "
+               f"{100 * st['bound_ms'] / st['ms']:.1f}% of bound | {smi}")
     REPORT["decode_kernels"] = [dict(r, case=str(k)) for k, r in rows.items()]
     return rows
 
@@ -2764,7 +2798,7 @@ def phase_paged(torch, np, stt) -> dict:
     step_ms = time_ms(torch, lambda i: fn(params, *dev_in), 10)
     kernels, ops, n_kernels = _profile(torch, lambda: fn(params, *dev_in))
     busy = sum(kernels.values())
-    ours = {k: v for k, v in kernels.items() if "int4_matmul" in k or "paged_attention" in k}
+    ours = {k: v for k, v in kernels.items() if "int4_matmul" in k or "decode_attention::" in k}
     res["step"] = {"step_ms": step_ms, "device_busy_ms": busy,
                    "idle_share": max(0.0, 1 - busy / step_ms), "port_kernel_ms": ours,
                    "top_kernels_ms": sorted(kernels.items(), key=lambda kv: -kv[1])[:10],
@@ -4709,7 +4743,7 @@ def main() -> int:
     smi, power_w = phase_environment(torch)
     rows = phase_kernels(torch, power_w)
 
-    decode_rows = phase_decode_kernels(torch, power_w)
+    decode_rows = phase_decode_kernels(torch, power_w, smi)
     ragged_rows = phase_ragged_kernel(torch, power_w)
     vit_rows = phase_vit_kernels(torch, np, power_w)
     image_rows = phase_image_kernels(torch, power_w)

@@ -1,9 +1,9 @@
-// GQA decode attention over a KV cache walked in row blocks, shared by the
-// paged kernel (paged_decode_attention.cu: a block is a pool page found
-// through a page table) and the contiguous one (ragged_decode_attention.cu:
-// a block is a run of a slot's own cache rows). The two differ only in
-// where block j of slot b starts and how many of its rows exist; a `Rows`
-// policy answers both.
+// GQA decode attention over a KV cache walked in row blocks (split-KV, or
+// "flash-decoding"), shared by the paged kernel (paged_decode_attention.cu:
+// a block is a run of rows of a pool page found through a page table) and
+// the contiguous one (ragged_decode_attention.cu: a block is a run of a
+// slot's own cache rows). The two differ only in where block j of slot b
+// starts and how many of its rows exist; a `Rows` policy answers both.
 //
 // q (B, kvh, g*c, hd); K/V rows of kvh*hd elements in q's dtype, or int8
 // with one scale a row (f32 or q's dtype). Query row i (chunk offset i % c)
@@ -13,41 +13,23 @@
 // scored nor added, which is what zeroing them before p @ v does in the
 // Pallas kernels.
 //
-// Two kernels:
-//
-// `attention` (the paged kernel's): one block of 8 warps per (KV head,
-// slot). The block walks the slot's live row blocks in order with a
-// streaming softmax in f32 (running max, sum and rescale factor per query
-// row, as the Pallas kernels keep them in scratch), so shared memory holds
-// one row block's scores and the query rows, whatever the cache length. On
-// each row block a warp takes every 8th row, and its 32 lanes split the
-// row's head dims, so each row is one coalesced load of hd elements; a warp
-// keeps 8 rows' loads in flight. Scores: each lane's partial dot with the
-// query rows (in shared memory), summed across the warp with shuffles and
-// scaled by the row's K scale. One warp per query row then takes the
-// block's max and sum. p @ v: each warp adds p * v * (V scale) of its rows
-// into its own accumulators (lane = head dims), rescaled per block; at the
-// end the 8 warps' sums are added in warp order, so the result does not
-// depend on timing. No tensor cores: at g*c <= 8 query rows a step there is
-// nothing for them to do.
-//
-// `split_chunk` + `split_combine` (the contiguous kernel's, split-KV or
-// "flash-decoding"): the bytes bound the step, and one block per (KV head,
-// slot) left most SMs idle (llama_1b: 64 blocks on 132 SMs; one slot, 8)
-// while each block's row blocks ran in series. Here a block of 4 warps
-// takes one (row block, KV head, slot), so the grid grows with the cache
-// length and not with pos (a captured CUDA graph replays at any position):
-// a block wholly past the frontier reads nothing and writes a neutral
-// partial. Each warp takes U = 32 / GCP rows a step (GCP: g*c padded to 4
-// or 8), lanes over the head dims, K and V of the step loaded together;
-// its 32 partial dots (U rows x GCP query rows) are summed across the
-// lanes by a transposed butterfly (31 shuffles leave lane u GCP + i with
-// the score of row u and query row i), so the streaming softmax runs one
-// (row, query row) a lane, and p @ v takes each p by a shuffle. The 4 warps'
-// states are merged in warp order into the block's partial (running max,
-// sum, f32 sums over hd) in the scratch the wrapper allocates; the second
-// kernel merges a slot's partials in block order and divides. Only the
-// order of sums differs from `attention`'s; two calls agree bit for bit.
+// What bounds it: the live K/V bytes, while one CUDA block per (KV head,
+// slot) would leave most SMs idle (llama_1b: 64 blocks on 132 SMs; one
+// slot, 8) with each block's row blocks in series. So `split_chunk` runs a
+// block of 4 warps per (row block, KV head, slot), and the grid grows with
+// the cache's length and not with pos (a captured CUDA graph replays at any
+// position): a block wholly past the frontier reads nothing and writes a
+// neutral partial. Each warp takes U = 32 / GCP rows a step (GCP: g*c
+// padded to 4 or 8), lanes over the head dims, K and V of the step loaded
+// together; its 32 partial dots (U rows x GCP query rows) are summed across
+// the lanes by a transposed butterfly (31 shuffles leave lane u GCP + i
+// with the score of row u and query row i), so the streaming softmax in
+// f32 runs one (row, query row) a lane, and p @ v takes each p by a
+// shuffle. The 4 warps' states are merged in warp order into the block's
+// partial (running max, sum, f32 sums over hd) in the scratch the wrapper
+// allocates; `split_combine` merges a slot's partials in block order and
+// divides. Every sum's order is fixed, so two calls agree bit for bit. No
+// tensor cores: at g*c <= 8 query rows there is nothing for them to do.
 #pragma once
 
 #include "common.cuh"
@@ -57,9 +39,7 @@
 namespace smelter {
 namespace decode_attention {
 
-constexpr int THREADS = 256, WARPS = THREADS / 32;
-constexpr int GC_MAX = 8;     // query rows a block holds (g * c)
-constexpr int IN_FLIGHT = 8;  // rows a warp loads before it uses them
+constexpr int GC_MAX = 8;  // query rows a block holds (g * c)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -98,30 +78,28 @@ __device__ __forceinline__ void load_vec(const T* p, float (&f)[N]) {
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// Rows policies. `block_rows` is the rows of one block; `blocks(b, last)`
+// how many blocks slot b reads for the frontier row `last`; `first_row(b,
+// j)` the flat row index (into the (rows, kvh*hd) K/V and the (rows,)
+// scales) of block j's row 0, which is row j*block_rows of the slot's
+// sequence; `rows(j, last)` how many of block j's rows exist up to the
+// frontier.
 
-// Rows policies. `block_rows` is the rows of one block (the shared-memory
-// score row's length); `blocks(b, last)` how many blocks slot b reads for
-// the frontier row `last`; `first_row(b, j)` the flat row index (into the
-// (rows, kvh*hd) K/V and the (rows,) scales) of block j's row 0;
-// `rows(j, last)` how many of block j's rows exist up to the frontier.
-
-// A pool of (P, ps) rows shared by all slots; block j of slot b is pool page
-// table[b, j] (clamped into the pool), j < npg.
+// A pool of (P, ps) rows shared by all slots, each page cut into `split`
+// blocks of block_rows = ps / split rows: block j of slot b is the
+// (j % split)-th run of page table[b, j / split] (clamped into the pool),
+// j < npg * split.
 struct PagedRows {
   const int* table;
-  int P, npg, block_rows;
+  int P, npg, ps, split, block_rows;
   __device__ int blocks(int, long long last) const {
     if (last < 0) return 0;
-    return static_cast<int>(min(last / block_rows, static_cast<long long>(npg - 1))) + 1;
+    const long long jmax = static_cast<long long>(npg) * split - 1;
+    return static_cast<int>(min(last / block_rows, jmax)) + 1;
   }
   __device__ size_t first_row(int b, int j) const {
-    const int page = min(max(table[b * npg + j], 0), P - 1);
-    return static_cast<size_t>(page) * block_rows;
+    const int page = min(max(table[b * npg + j / split], 0), P - 1);
+    return static_cast<size_t>(page) * ps + static_cast<size_t>(j % split) * block_rows;
   }
   __device__ int rows(int j, long long last) const {
     return static_cast<int>(
@@ -147,161 +125,6 @@ struct ContiguousRows {
                                 static_cast<long long>(L) - lo));
   }
 };
-
-template <typename QT, typename KT, typename ST, int HD, typename Rows>
-__global__ void __launch_bounds__(THREADS)
-attention(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __restrict__ vp,
-          const ST* __restrict__ ksp, const ST* __restrict__ vsp, const long long* __restrict__ pos,
-          QT* __restrict__ out, Rows src, int kvh, int gc, int c, float scale) {
-  constexpr bool QUANT = sizeof(KT) == 1;
-  constexpr int EPL = HD / 32;  // head dims a lane owns
-  const int br = src.block_rows;
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [gc][HD]: the query rows, at the end the output
-  float* s_s = q_s + gc * HD;      // [gc][br]: scores, then probabilities
-  float* m_s = s_s + gc * br;      // [gc] running max
-  float* l_s = m_s + gc;           // [gc] running sum
-  float* a_s = l_s + gc;           // [gc] this block's rescale factor
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kvd = kvh * HD, d0 = lane * EPL;
-  const long long p = pos[b];
-  const long long last = p + c - 1;  // the frontier: last row written
-  const int nblk = src.blocks(b, last);
-
-  const QT* qb = q + (static_cast<size_t>(b) * kvh + h) * gc * HD;
-  for (int i = tid; i < gc * HD; i += THREADS) q_s[i] = to_f(qb[i]);
-  for (int i = tid; i < gc; i += THREADS) {
-    m_s[i] = -CUDART_INF_F;
-    l_s[i] = 0.f;
-  }
-  float acc[GC_MAX][EPL];
-#pragma unroll
-  for (int i = 0; i < GC_MAX; ++i)
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
-  __syncthreads();
-
-  for (int j = 0; j < nblk; ++j) {
-    const size_t base = src.first_row(b, j);            // flat row of the block's row 0
-    const long long lo = static_cast<long long>(j) * br;  // its row in the sequence
-    const int live = src.rows(j, last);
-    const KT* kblk = kp + base * kvd + h * HD + d0;
-    const KT* vblk = vp + base * kvd + h * HD + d0;
-
-    // Scores: warp per row, lanes over the head dims.
-    for (int r0 = warp; r0 < br; r0 += WARPS * IN_FLIGHT) {
-      float kv[IN_FLIGHT][EPL];
-      float ks[IN_FLIGHT];
-#pragma unroll
-      for (int u = 0; u < IN_FLIGHT; ++u) {
-        const int r = r0 + u * WARPS;
-        if (r < live) {
-          load_vec(kblk + static_cast<size_t>(r) * kvd, kv[u]);
-          ks[u] = QUANT ? to_f(ksp[base + r]) : 1.f;
-        } else {
-          ks[u] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < IN_FLIGHT; ++u) {
-        const int r = r0 + u * WARPS;  // the same in every lane
-        if (r >= br) break;
-#pragma unroll
-        for (int i = 0; i < GC_MAX; ++i) {
-          if (i >= gc) break;
-          float dot = 0.f;
-          if (r < live) {
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) dot = fmaf(q_s[i * HD + d0 + e], kv[u][e], dot);
-          }
-          dot = warp_sum(dot);
-          if (lane == 0)
-            s_s[i * br + r] =
-                (r < live && lo + r <= p + i % c) ? dot * ks[u] * scale : -CUDART_INF_F;
-        }
-      }
-    }
-    __syncthreads();
-
-    // Softmax statistics: one warp per query row.
-    for (int i = warp; i < gc; i += WARPS) {
-      float* row = s_s + i * br;
-      float mx = -CUDART_INF_F;
-      for (int r = lane; r < br; r += 32) mx = fmaxf(mx, row[r]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[i], m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int r = lane; r < br; r += 32) {
-        const float e = expf(row[r] - m_new);
-        row[r] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[i] = alpha * l_s[i] + sum;
-        m_s[i] = m_new;
-        a_s[i] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // p @ v: warp per row, lanes over the head dims; only live rows are read.
-#pragma unroll
-    for (int i = 0; i < GC_MAX; ++i) {
-      if (i >= gc) break;
-      const float a = a_s[i];
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[i][e] *= a;
-    }
-    for (int r0 = warp; r0 < live; r0 += WARPS * IN_FLIGHT) {
-      float vv[IN_FLIGHT][EPL];
-      float vs[IN_FLIGHT];
-#pragma unroll
-      for (int u = 0; u < IN_FLIGHT; ++u) {
-        const int r = r0 + u * WARPS;
-        if (r < live) {
-          load_vec(vblk + static_cast<size_t>(r) * kvd, vv[u]);
-          vs[u] = QUANT ? to_f(vsp[base + r]) : 1.f;
-        } else {
-          vs[u] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < IN_FLIGHT; ++u) {
-        const int r = r0 + u * WARPS;
-        if (r >= live) break;
-#pragma unroll
-        for (int i = 0; i < GC_MAX; ++i) {
-          if (i >= gc) break;
-          const float pw = s_s[i * br + r] * vs[u];
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(pw, vv[u][e], acc[i][e]);
-        }
-      }
-    }
-    __syncthreads();  // s_s is rewritten by the next block
-  }
-
-  // The warps' sums, added in warp order into q_s (no longer read).
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int i = 0; i < GC_MAX; ++i) {
-        if (i >= gc) break;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          q_s[i * HD + d0 + e] = (w == 0 ? 0.f : q_s[i * HD + d0 + e]) + acc[i][e];
-      }
-    }
-    __syncthreads();
-  }
-  QT* ob = out + (static_cast<size_t>(b) * kvh + h) * gc * HD;
-  for (int i = tid; i < gc * HD; i += THREADS) store(&ob[i], q_s[i] / l_s[i / HD]);
-}
 
 // -- split-KV -------------------------------------------------------------------
 
@@ -566,70 +389,6 @@ int launch_split(int kv_dtype, int scale_dtype, const void* q, const void* k, co
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SMELTER_SPLIT
-}
-
-// Shared memory of a launch: the query rows, one row block's scores, and
-// three per-row statistics, in floats.
-inline size_t smem_bytes(int gc, int hd, int block_rows) {
-  return (static_cast<size_t>(gc) * (hd + block_rows) + 3 * gc) * sizeof(float);
-}
-
-template <typename QT, typename KT, typename ST, typename Rows>
-int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const long long* pos, void* out, const Rows& src, int B, int kvh, int hd, int gc,
-           int c, float scale, cudaStream_t stream) {
-  const dim3 grid(kvh, B);
-  const size_t smem = smem_bytes(gc, hd, src.block_rows);
-  const auto* qq = static_cast<const QT*>(q);
-  const auto* kk = static_cast<const KT*>(k);
-  const auto* vv = static_cast<const KT*>(v);
-  const auto* kss = static_cast<const ST*>(ks);
-  const auto* vss = static_cast<const ST*>(vs);
-  auto* o = static_cast<QT*>(out);
-#define SMELTER_ATTN(HD_)                                                                   \
-  attention<QT, KT, ST, HD_, Rows><<<grid, THREADS, smem, stream>>>(qq, kk, vv, kss, vss,  \
-                                                                    pos, o, src, kvh, gc,  \
-                                                                    c, scale)
-  switch (hd) {
-    case 64: SMELTER_ATTN(64); break;
-    case 128: SMELTER_ATTN(128); break;
-    case 256: SMELTER_ATTN(256); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SMELTER_ATTN
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Float K/V hold q's type; scales are f32 or q's type.
-template <typename QT, typename Rows>
-int dispatch(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
-             const void* ks, const void* vs, const long long* pos, void* out, const Rows& src,
-             int B, int kvh, int hd, int gc, int c, float scale, cudaStream_t st) {
-  if (kv_dtype != kI8)
-    return launch<QT, QT, QT>(q, k, v, ks, vs, pos, out, src, B, kvh, hd, gc, c, scale, st);
-  if (scale_dtype == kF32)
-    return launch<QT, int8_t, float>(q, k, v, ks, vs, pos, out, src, B, kvh, hd, gc, c, scale,
-                                     st);
-  return launch<QT, int8_t, QT>(q, k, v, ks, vs, pos, out, src, B, kvh, hd, gc, c, scale, st);
-}
-
-template <typename Rows>
-int dispatch_q(int q_dtype, int kv_dtype, int scale_dtype, const void* q, const void* k,
-               const void* v, const void* ks, const void* vs, const void* pos, void* out,
-               const Rows& src, int B, int kvh, int hd, int gc, int c, float scale,
-               void* stream) {
-  const auto* p = static_cast<const long long*>(pos);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
-    case kF32:
-      return dispatch<float>(kv_dtype, scale_dtype, q, k, v, ks, vs, p, out, src, B, kvh, hd,
-                             gc, c, scale, st);
-    case kBF16:
-      return dispatch<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, ks, vs, p, out, src, B,
-                                     kvh, hd, gc, c, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace decode_attention

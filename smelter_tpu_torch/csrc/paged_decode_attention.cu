@@ -15,9 +15,13 @@
 // 0-511 that is about 4 MB a step, ~1.2 us at 3.35 TB/s; the flops (4 per
 // cached element and query row) are far below the tensor-core rate.
 //
-// The kernel is decode_attention.cuh's, with a page as its row block: one
-// block of 8 warps per (KV head, slot) walks the slot's live pages with a
-// streaming softmax in f32 (the design is described there).
+// The kernels are decode_attention.cuh's split-KV pair over PagedRows: a
+// page is cut into `split` blocks of ps / split rows (the wrapper's
+// `paged_split_plan`, from (B, kvh, npg, ps) alone), one CUDA block of 4
+// warps per (row block, KV head, slot) writes a partial softmax state, and
+// a second launch merges each slot's partials in block order. At llama_1b's
+// shape that is 32-row blocks, 16 a slot, 1,024 CUDA blocks (one slot: 128)
+// where one block per (KV head, slot) gave 64 (one slot: 8).
 #include "decode_attention.cuh"
 
 using namespace smelter;
@@ -28,21 +32,35 @@ extern "C" const char* smelter_error_string(int code) {
 
 // q (B, kvh, gc, hd) and out in q_dtype (f32 or bf16); k/v pools
 // (P, ps, kvh*hd) in q_dtype or int8 (kv_dtype) with scale pools (P, ps, 1)
-// in f32 or q_dtype (scale_dtype); table
-// (B, npg) int32; pos (B,) int64. All contiguous, 16-byte aligned. Needs
-// hd in {64, 128, 256} and gc <= 8 (the wrapper checks). Returns a
-// cudaError_t code.
+// in f32 or q_dtype (scale_dtype); table (B, npg) int32; pos (B,) int64;
+// scratch of B kvh (npg split) gc (hd + 2) floats. All contiguous, 16-byte
+// aligned. Needs hd in {64, 128, 256}, gc <= 8 and split dividing ps (the
+// wrapper checks). Two launches. Returns a cudaError_t code.
 extern "C" int smelter_paged_decode_attention(const void* q, const void* k, const void* v,
                                               const void* ks, const void* vs, const void* table,
-                                              const void* pos, void* out, int B, int P, int ps,
-                                              int kvh, int hd, int gc, int c, int npg,
-                                              float scale, int q_dtype, int kv_dtype,
-                                              int scale_dtype, void* stream) {
+                                              const void* pos, void* out, void* scratch, int B,
+                                              int P, int ps, int kvh, int hd, int gc, int c,
+                                              int npg, int split, float scale, int q_dtype,
+                                              int kv_dtype, int scale_dtype, void* stream) {
   using decode_attention::GC_MAX;
-  if (gc < 1 || gc > GC_MAX || c < 1 || gc % c || ps < 1 || npg < 1 || P < 1)
+  if (gc < 1 || gc > GC_MAX || c < 1 || gc % c || ps < 1 || npg < 1 || P < 1 || split < 1 ||
+      ps % split)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || kvh == 0) return 0;
-  const decode_attention::PagedRows src{static_cast<const int*>(table), P, npg, ps};
-  return decode_attention::dispatch_q(q_dtype, kv_dtype, scale_dtype, q, k, v, ks, vs, pos, out,
-                                      src, B, kvh, hd, gc, c, scale, stream);
+  const decode_attention::PagedRows src{static_cast<const int*>(table), P, npg, ps, split,
+                                        ps / split};
+  const int nblk = npg * split;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (q_dtype) {
+    case kF32:
+      return decode_attention::launch_split<float>(kv_dtype, scale_dtype, q, k, v, ks, vs, pos,
+                                                   out, scratch, src, B, kvh, hd, gc, c, nblk,
+                                                   scale, st);
+    case kBF16:
+      return decode_attention::launch_split<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, ks,
+                                                           vs, pos, out, scratch, src, B, kvh,
+                                                           hd, gc, c, nblk, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

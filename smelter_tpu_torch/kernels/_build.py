@@ -40,10 +40,9 @@ SIGNATURES = {
     "dequant_matmul": ("smelter_dequant_matmul", [_P] * 4 + [_I] * 10 + [_P]),
     "int8_matmul": ("smelter_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),
     "int8_matmul_fused": ("smelter_int8_matmul_fused", [_P] * 5 + [_I] * 7 + [_P]),
-    "int4_matmul": ("smelter_int4_matmul",
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "int4_matmul": ("smelter_int4_matmul", [_P] * 6 + [_I] * 9 + [_P]),
     "paged_decode_attention": ("smelter_paged_decode_attention",
-                               [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P]),
+                               [_P] * 9 + [_I] * 9 + [_F, _I, _I, _I, _P]),
     "ragged_decode_attention": ("smelter_ragged_decode_attention",
                                 [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P]),
     "layer_norm": ("smelter_layer_norm", [_P] * 6 + [_I, _I, _F, _I, _I, _P]),

@@ -8,40 +8,62 @@ is row r of pool page `table[b, j]`. A slot's query rows (GQA layout
 pools `(P, ps, 1)`.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/paged_decode_attention.py::
-paged_decode_attention`. The Hopper kernel is
-`csrc/paged_decode_attention.cu`, the kernel of `csrc/decode_attention.cuh`
-with a page as its row block:
+paged_decode_attention`. The Hopper kernels are
+`csrc/paged_decode_attention.cu`, the split-KV pair of
+`csrc/decode_attention.cuh` over blocks of pool rows:
 
 - What bounds it on an H100: the live K/V bytes, ceil((pos+c)/ps) pages a
   slot and of the last page only the rows up to the frontier; ~4 MB a step
   at llama_1b's shape with positions spread over 0-511.
-- What the simple design does about it: one block of 8 warps per (KV head,
-  slot) reads only those rows, once, each row as one coalesced load by a
-  warp, with a streaming softmax in f32, and never gathers a slot's cache
-  out of the pool.
+- What the design does about it: `paged_split_plan` cuts each page into
+  blocks of a multiple of 32 rows (a whole page where ps is not one), so
+  that (row block, KV head, slot) gives about 8 x 132 CUDA blocks; each
+  reads only its rows up to the frontier, from the page the table names,
+  and writes a partial softmax state (running max, sum, f32 sums) into
+  scratch the wrapper allocates; a second launch merges each slot's
+  partials in block order. No slot's cache is ever gathered out of the
+  pool. The plan reads (B, kvh, npg, ps), never pos or the table, so a
+  captured step replays right at any position.
 
 Beside it, in plain PyTorch: `paged_cache_update` (not a kernel in the JAX
 package either: a c-row scatter) and `paged_gather_reference`, which with
 the dense masked `ragged_decode_attention_reference`
 (`kernels/ragged_decode_attention.py`) are the plain version of the
-attention. `paged_decode_attention` takes the plain version
-for a tensor on the CPU or the `meta` device, and launches the kernel for a
-CUDA tensor or raises. `launches` counts kernel launches and nothing else.
+attention. `paged_gather_reference` clamps a table entry into the pool, as
+the kernels (and the Pallas kernel's block fetch) do. `paged_decode_attention`
+takes the plain version for a tensor on the CPU or the `meta` device, and
+launches the kernels for a CUDA tensor or raises. `launches` counts calls
+that launched the kernels (two CUDA launches), once a call.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
-from .ragged_decode_attention import ragged_decode_attention_reference
+from .ragged_decode_attention import _SPLIT_BLOCKS, _SPLIT_ROWS, ragged_decode_attention_reference
 
 launches = 0
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 _GC_MAX = 8
-_SMEM_MAX = 48 * 1024
+
+
+@functools.lru_cache(maxsize=256)  # planned on every call of a decode step
+def paged_split_plan(B: int, kvh: int, npg: int, ps: int) -> tuple[int, int, int]:
+    """(rows a block, blocks a page, blocks a slot) of the split kernel for
+    B slots, kvh KV heads and npg pages of ps rows a slot: the fewest blocks
+    a page that reach about _SPLIT_BLOCKS CUDA blocks in all, each block a
+    multiple of _SPLIT_ROWS rows that divides the page (the whole page where
+    ps is not a multiple of _SPLIT_ROWS), whatever the positions and the
+    table."""
+    units = ps // _SPLIT_ROWS if ps % _SPLIT_ROWS == 0 else 1
+    want = -(-_SPLIT_BLOCKS // max(1, B * kvh * npg))
+    split = next((d for d in range(1, units + 1) if units % d == 0 and d >= want), units)
+    return ps // split, split, npg * split
 
 
 def paged_cache_update(pool: torch.Tensor, page_table: torch.Tensor, pos: torch.Tensor,
@@ -69,7 +91,7 @@ def paged_gather_reference(pool: torch.Tensor, page_table: torch.Tensor,
     version only; the kernel never does this)."""
     P_, ps, kvd = pool.shape
     lrow = torch.arange(n_rows, device=pool.device)
-    pg = page_table.long()[:, lrow // ps]  # (B, n)
+    pg = page_table.long()[:, lrow // ps].clamp(0, P_ - 1)  # (B, n)
     idx = pg * ps + (lrow % ps)[None]
     return pool.reshape(P_ * ps, kvd)[idx]
 
@@ -111,8 +133,6 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, pos, k_scale=None, v_s
     if hd not in _HEAD_DIMS or gc > _GC_MAX or gc % c:
         raise ValueError(f"paged_decode_attention: head dim {hd} (of {_HEAD_DIMS}) and "
                          f"g*c {gc} (at most {_GC_MAX}, a multiple of c {c}) not taken")
-    if (gc * (hd + ps) + 3 * gc) * 4 > _SMEM_MAX:
-        raise ValueError(f"paged_decode_attention: page size {ps} too large for g*c {gc}")
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"paged_decode_attention: q {q.dtype} not taken")
     if quant:
@@ -132,16 +152,19 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, pos, k_scale=None, v_s
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("paged_decode_attention: operands must be contiguous, on one "
                              "device")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:  # rows are read in vectors
-        raise ValueError("paged_decode_attention: the pools must be 16-byte aligned")
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:  # vectors
+        raise ValueError("paged_decode_attention: q and the pools must be 16-byte aligned")
+    _, split, nblk = paged_split_plan(bsz, kvh, npg, ps)
     out = torch.empty_like(q)
+    scratch = torch.empty(bsz * kvh * nblk * gc * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     lib = _build.library("paged_decode_attention")
     with torch.cuda.device(q.device):
         rc = lib.smelter_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(), bsz, P_, ps, kvh, hd, gc, c,
-            npg, float(scale), _build.DTYPE_CODES[q.dtype],
+            table.data_ptr(), pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), bsz, P_, ps,
+            kvh, hd, gc, c, npg, split, float(scale), _build.DTYPE_CODES[q.dtype],
             _build.DTYPE_CODES[k_pool.dtype],
             _build.DTYPE_CODES[k_scale.dtype] if quant else 0, _build.stream_of(q))
     _build.check(lib, rc, "paged_decode_attention")

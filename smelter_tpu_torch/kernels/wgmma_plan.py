@@ -33,6 +33,12 @@ on 2-D TMA maps) or "im2col" (any kernel and stride on an im2col map), the
 wgmma forms of `csrc/wgmma_qconv.cuh`, where the maps can read the conv,
 else "mma" (`csrc/qlinear_conv.cu`'s mma.sync kernel, any shape).
 
+`int4_plan` picks `int4_matmul`'s kernel (`csrc/int4_matmul.cu`) from
+(N, K, group) alone: "wgmma" (the TMA-fed weight stream, W^T the register
+operand of wgmma m64n8k16) where its maps can read the weight (N % 128,
+group % 64), with the K split into whole groups that fills the card; else
+"mma" (the mma.sync kernel, any shape the wrapper takes).
+
 `pixel_plan` picks 16-bit `pixel_conv_rowdot`'s kernel: "wgmma"
 (`csrc/wgmma_conv.cuh`, the weight resident in shared memory where it
 fits) where its TMA boxes can read the maps, else "mma" (the mma.sync or
@@ -487,3 +493,65 @@ def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: 
     rows, px = (1, 64) if dtype == "float32" else (2, 128)  # pixel_conv.cu's blocks
     tiles = b * cdiv(h, rows) * cdiv(w, px)
     return PixelPlan("mma", rows, px, 0, tiles, tiles * cdiv(c_out, 64), 0)
+
+
+# -- int4_matmul (csrc/int4_matmul.cu's wgmma form) ---------------------------
+
+I4_ROWS = 64     # packed rows a stage: the W box's rows
+I4_COLS = 128    # W columns a tile: the W box's columns
+I4_MT = 8        # x rows a slab: the wgmma's n
+I4_STAGE = I4_ROWS * I4_COLS + 2 * I4_MT * I4_ROWS * 2 + 2 * I4_COLS * 4
+I4_STAGES = 8
+I4_CTAS = 2      # CTAs an SM
+I4_SMEM = 1024 + I4_STAGES * (I4_STAGE + 16) + 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Int4Plan:
+    form: str     # "wgmma" or "mma"
+    tiles: int    # tiles of I4_COLS W columns (wgmma); of 32 (mma)
+    chunks: int   # K chunks a tile, each of whole groups (wgmma); 1 (mma)
+    items: int    # tiles x chunks (the work units at M <= 8; one a slab of 8 rows at more)
+    grid: int     # CTAs of the persistent wgmma kernel at M <= 8 (I4_CTAS an SM); tiles (mma)
+    smem: int     # dynamic shared memory a CTA, bytes
+
+    @property
+    def code(self) -> int:
+        """The form's code at the entry point (`form`)."""
+        return {"mma": 0, "wgmma": 1}[self.form]
+
+    def chunk_groups(self, ngh: int, chunk: int) -> range:
+        """The packed-row groups of K chunk `chunk` of a tile, in order."""
+        return range(chunk * ngh // self.chunks, (chunk + 1) * ngh // self.chunks)
+
+    def whole(self, M: int) -> bool:
+        """Whether a work unit walks a tile's K chunks itself, folding their
+        partials in chunk order (where the (tile, 8-row slab) pairs cover
+        three quarters of the card: at llama_1b's shapes q/o and down at M
+        64, not k/v at 64 or gate/up at 16), rather than one chunk a unit
+        summed by the last behind a counter. Either way a row's arithmetic
+        is the same: this picks who adds, not the order."""
+        return (self.form == "wgmma" and self.chunks > 1
+                and self.tiles * cdiv(M, I4_MT) >= 3 * SMS // 4)
+
+
+@functools.lru_cache(maxsize=256)
+def int4_plan(N: int, K: int, group: int) -> Int4Plan:
+    """`int4_matmul`'s kernel for a (K/2, N) packed weight in groups of
+    `group` rows a half, whatever M: "wgmma" where the TMA maps can read
+    the weight in 64-row x 128-column boxes (N % 128, group % 64, K %
+    (2 group)), else "mma". The wgmma form splits each tile's ngh = K / 2 /
+    group groups into `chunks` runs of whole groups; it takes the split
+    with the fewest groups on the busiest of SMS CTAs (waves x groups an
+    item), the fewest chunks among equals (each chunk beyond one costs a
+    partial's store and sum)."""
+    if N <= 0 or K <= 0 or group <= 0 or K % (2 * group):
+        raise ValueError(f"int4_plan: K {K} is not a whole number of groups of {group} a half")
+    if N % I4_COLS or group % I4_ROWS:
+        tiles = cdiv(N, 32)
+        return Int4Plan("mma", tiles, 1, tiles, tiles, 0)
+    tiles, ngh = N // I4_COLS, K // 2 // group
+    chunks = min(range(1, ngh + 1),
+                 key=lambda c: (cdiv(tiles * c, SMS) * cdiv(ngh, c), c))
+    items = tiles * chunks
+    return Int4Plan("wgmma", tiles, chunks, items, min(items, I4_CTAS * SMS), I4_SMEM)

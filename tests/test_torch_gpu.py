@@ -141,10 +141,15 @@ def test_wrappers_raise_on_bad_operands(cuda):
         im.int8_matmul(x, w, s[:16].reshape(16, 1), s)
 
 
-# int4_matmul: (M, K, N, group) at the llama_1b decode shapes (M 8) and
-# small ragged ones (M not a multiple of 16, several M tiles).
+# int4_matmul: (M, K, N, group) at the llama_1b decode shapes (M 8, and 1
+# for a single stream; the wgmma form) and small ragged ones (M not a
+# multiple of 16, several M tiles; N 32/96 and group 32 keep the mma.sync
+# kernel, (8, 256, 128, 64) takes the wgmma form with two K chunks).
+LLAMA_INT4 = [(2048, 1024), (2048, 2048), (2048, 5632), (5632, 2048), (2048, 32000)]  # (K, N)
 INT4_SHAPES = [(8, 2048, 1024, 128), (8, 2048, 2048, 128), (8, 5632, 2048, 128),
-               (8, 2048, 5632, 128), (1, 64, 32, 32), (37, 512, 96, 64), (130, 256, 128, 32)]
+               (8, 2048, 5632, 128), (8, 2048, 32000, 128), (1, 2048, 1024, 128),
+               (1, 2048, 32000, 128), (1, 64, 32, 32), (37, 512, 96, 64), (130, 256, 128, 32),
+               (8, 256, 128, 64), (37, 256, 128, 64)]
 
 
 def _int4_operands(m, k, n, group, dtype, device, seed=0):
@@ -161,14 +166,21 @@ def _int4_operands(m, k, n, group, dtype, device, seed=0):
                                              (torch.float32, torch.float32),
                                              (torch.bfloat16, torch.bfloat16)])
 def test_int4_matmul_matches_plain(cuda, shape, dtype, out_dtype):
+    from smelter_tpu_torch.kernels.wgmma_plan import int4_plan
+
     m, k, n, group = shape
     x, pk, s = _int4_operands(m, k, n, group, dtype, cuda)
-    before = i4.launches
+    form = int4_plan(n, k, group).form
+    before, forms = i4.launches, dict(i4.forms)
     got = i4.int4_matmul(x, pk, s, group=group, out_dtype=out_dtype)
+    again = i4.int4_matmul(x, pk, s, group=group, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert i4.launches == before + 1
+    assert i4.launches == before + 2 and i4.forms[form] == forms[form] + 2
+    if (k, n) in LLAMA_INT4:
+        assert form == "wgmma"
     ref = i4.int4_matmul_plain(x, pk, s, group=group, out_dtype=out_dtype)
     assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, again)  # K chunks summed in a fixed order
     # f32: the same bf16 products summed in another order; a bf16 output
     # rounds both sums to 8 mantissa bits.
     tol = 1e-5 if out_dtype == torch.float32 else 1e-2
@@ -176,13 +188,16 @@ def test_int4_matmul_matches_plain(cuda, shape, dtype, out_dtype):
     assert err <= tol * ref.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("m", [8, 37])
-def test_int4_matmul_rows_do_not_depend_on_the_batch(cuda, m):
-    x, pk, s = _int4_operands(m, 2048, 1024, 128, torch.bfloat16, cuda, seed=3)
+@pytest.mark.parametrize("m", [1, 8, 37, 130, 256])
+@pytest.mark.parametrize("k,n", LLAMA_INT4)
+def test_int4_matmul_rows_do_not_depend_on_the_batch(cuda, m, k, n):
+    x, pk, s = _int4_operands(m, k, n, 128, torch.bfloat16, cuda, seed=3)
+    before = i4.forms["wgmma"]
     full = i4.int4_matmul(x, pk, s, group=128)
-    for r in (0, 5, m - 1):
+    for r in sorted({0, 5 % m, m - 1}):
         one = i4.int4_matmul(x[r:r + 1].contiguous(), pk, s, group=128)
         assert torch.equal(one[0], full[r])
+    assert i4.forms["wgmma"] == before + 1 + len({0, 5 % m, m - 1})
 
 
 def _paged_operands(B, kvh, g, c, hd, ps, npg, quant, dtype, scale_dtype, device, seed=0):
@@ -208,8 +223,11 @@ def _paged_operands(B, kvh, g, c, hd, ps, npg, quant, dtype, scale_dtype, device
     return q, k, v, table, pos, ks, vs
 
 
-@pytest.mark.parametrize("geom", [(8, 8, 2, 1, 128, 128, 4), (3, 2, 2, 2, 128, 32, 3),
-                                  (2, 4, 4, 1, 64, 16, 5), (2, 1, 2, 4, 256, 32, 2)])
+# geometries (B, kvh, g, c, hd, ps, npg): llama_1b's step (32-row blocks, 4
+# a page), two slots of 128-row pages (4 a page), whole pages of 32 and 16
+@pytest.mark.parametrize("geom", [(8, 8, 2, 1, 128, 128, 4), (2, 2, 2, 1, 128, 128, 3),
+                                  (3, 2, 2, 2, 128, 32, 3), (2, 4, 4, 1, 64, 16, 5),
+                                  (2, 1, 2, 4, 256, 32, 2)])
 @pytest.mark.parametrize("quant,dtype,scale_dtype", [
     (True, torch.bfloat16, torch.bfloat16), (True, torch.float32, torch.float32),
     (True, torch.bfloat16, torch.float32), (False, torch.float32, None),
@@ -221,14 +239,39 @@ def test_paged_decode_attention_matches_plain(cuda, geom, quant, dtype, scale_dt
     kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
     before = pda.launches
     got = pda.paged_decode_attention(q, k, v, table, pos, ks, vs, **kw)
+    again = pda.paged_decode_attention(q, k, v, table, pos, ks, vs, **kw)
     torch.cuda.synchronize()
-    assert pda.launches == before + 1
+    assert pda.launches == before + 2
+    assert torch.equal(got, again)  # partials merged in a fixed order
     ref = pda.paged_decode_attention_plain(q, k, v, table, pos, ks, vs, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     # f32: the streaming softmax sums in another order; bf16 output: 8 bits.
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_paged_split_graph_replays_at_any_position(cuda):
+    """A captured paged call replays right after pos moves: the split plan
+    reads the shapes only."""
+    B, kvh, g, c, hd, ps, npg = 2, 8, 2, 1, 128, 128, 4
+    q, k, v, table, pos, ks, vs = _paged_operands(B, kvh, g, c, hd, ps, npg, True,
+                                                  torch.bfloat16, torch.bfloat16, cuda, seed=9)
+    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+    assert pda.paged_split_plan(B, kvh, npg, ps)[0] == 32
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pda.paged_decode_attention(q, k, v, table, pos, ks, vs, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = pda.paged_decode_attention(q, k, v, table, pos, ks, vs, **kw)
+    for new in ([3, 40], [280, 0], [511, 200], [31, 32]):
+        pos.copy_(torch.tensor(new, dtype=torch.int64, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, pda.paged_decode_attention(q, k, v, table, pos, ks, vs, **kw))
 
 
 def test_paged_decode_attention_reads_only_live_rows(cuda):
