@@ -48,7 +48,8 @@ its number:
    stages at batch 64 (f32 at batch 2), each stage's time split by launch
    (depthwise + LN, FC1, FC2; `chip_smoke.py --convnext-split` in a process
    of its own), `cross_attn_block` at SD-UNet's
-   two shapes at batch 8 with k/v per image and shared, and
+   two shapes at batch 8 with k/v per image and shared (its wgmma form's
+   grid and clusters, and its mma.sync form timed beside it), and
    `vit_attention_block` at SD-UNet's self-attention (hd 16 over 1024
    tokens, hd 32 over 256); `qlinear_conv` (int8 outputs equal to the
    plain version's, with and without its Relu epilogue; cuDNN's bf16 conv
@@ -66,8 +67,9 @@ its number:
    `dequant_matmul_int8_reference` on `torch._int_mm` as the yardstick),
    `pixel_conv_blockdot` (NHCW) and `pixel_conv_patch` (flat NCHW) at each
    of ESRGAN x4's PixelConv shapes at batch 8 in bf16 and at batch 1 in
-   f32, then small odd shapes, and a profile showing one kernel a `patch`
-   call (no layout copy);
+   f32 (blockdot's tile as its plan chose it, and both wgmma tiles, 8 rows
+   and 4, timed beside it), then small odd shapes, and a profile showing one
+   kernel a `patch` call (no layout copy);
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -206,6 +208,7 @@ of every number goes to `build/chip_smoke/report.json`.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -1501,6 +1504,18 @@ def phase_block_kernels(torch, np, power_w: float) -> dict:
         timed(r, lambda i: xa.cross_attn_block(*sets[i % n], heads=H),
               lambda i: xa.cross_attn_block_plain(*sets[i % n], heads=H), lib, nbytes,
               {"bf16": B * (4 * N * D * D + 4 * N * S * D)}, 20)
+        p = xa.plan(sets[0][0], sets[0][2], H)
+        check(p.form == "wgmma" and p.ctas >= 128, f"cross_attn_block {path}: plan {p}")
+        # the mma.sync form (one block a 64-row tile), the design it replaces,
+        # on the same inputs in this run
+        mma = dataclasses.replace(p, form="mma")
+        err_of(xa._launch(*sets[0], H, None, mma), xa.cross_attn_block_plain(*sets[0], heads=H),
+               1e-2, f"cross_attn_block {path} mma.sync form")
+        r["mma_form_ms"] = graph_ms(torch, side, lambda i: xa._launch(*sets[i % n], H, None, mma),
+                                    20)
+        r["form"] = (f"{p.form} form: grid {list(p.grid)} = {p.ctas} CTAs of 64 rows x "
+                     f"{p.heads} heads, clusters of {p.cluster}, {p.smem} bytes of shared "
+                     f"memory; mma.sync form {r['mma_form_ms']:.4f} ms")
         del sets, lib_b
         for bk in (1, B):  # shared and per-image k/v, bf16 and f32
             for dtype, rel in ((bf16, 1e-2), (f32, 1e-5)):
@@ -1564,6 +1579,7 @@ def phase_block_kernels(torch, np, power_w: float) -> dict:
                          if k.endswith("_err") and k != "max_abs_err")
         bk1 = (f"; Bk 1: kernel {r['bk1_ms']:.4f} ms (host cost {r['bk1_call_ms']:.4f}), plain "
                f"{r['bk1_plain_ms']:.4f}" if "bk1_ms" in r else "")
+        bk1 += f" | {r['form']}" if "form" in r else ""
         say(2, f"{r['name']} {r['path']} {r['shape']} bf16: err {r['max_abs_err']:.3g} "
                f"({r['tolerance']}); {f32s} ({r['f32_tolerance']}) | kernel {r['ms']:.4f} ms "
                f"(host cost of a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
@@ -1571,6 +1587,13 @@ def phase_block_kernels(torch, np, power_w: float) -> dict:
                f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} bytes, "
                f"{r['flops']:.4g} operations) = {100 * r['bound_ms'] / r['ms']:.1f}% of bound "
                f"| {r['calls_per_forward']} calls a forward{bk1}")
+    fw = per_forward(rows, "cross_attn_block")
+    fw["mma_form_ms"] = sum(r["mma_form_ms"] * r["calls_per_forward"] for r in rows.values()
+                            if r["name"] == "cross_attn_block")
+    say(2, f"cross_attn_block over an SD-UNet b8 forward's 5 calls: kernel {fw['ms']:.4f} ms "
+           f"(mma.sync form {fw['mma_form_ms']:.4f}), plain {fw['plain_ms']:.4f}, library "
+           f"{fw['library_ms']:.4f}, bound {fw['bound_ms']:.4f}")
+    REPORT["cross_attn_forward"] = fw
     REPORT["block_kernels"] = [dict(r) for r in rows.values()]
     return rows
 
@@ -1839,6 +1862,7 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
 
     from smelter_tpu_torch.kernels import int8_matmul as im
     from smelter_tpu_torch.kernels import pixel_conv as pc
+    from smelter_tpu_torch.kernels import wgmma_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1950,10 +1974,20 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
         x1, w1, b1 = sets[0][0][:1].float(), sets[0][1].float(), sets[0][2].float()
         kw = dict(alpha=0.2)
         for name in ("pixel_conv_blockdot", "pixel_conv_patch"):
+            tiles = {}
             if name == "pixel_conv_blockdot":
                 ops_ = sets
                 call = lambda i: pc.pixel_conv_blockdot(*ops_[i % n], **kw)  # noqa: E731
                 plain = lambda i: pc.pixel_conv_blockdot_plain(*ops_[i % n], **kw)  # noqa: E731
+                chosen = pc.plan(sets[0][0], sets[0][1], tall=True)
+                check(chosen.form == "wgmma", f"{name} {(cin, cout, px)}: plan {chosen}")
+                # both tile heights of the wgmma core, each on its own plan:
+                # the 8-row tile (where it fits) and the 4-row one (rowdot's)
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                tiles = {8: wgmma_plan.pixel_tall_plan(B, px, px, cin, cout, sms),
+                         4: pc.plan(sets[0][0], sets[0][1])}
+                check(tiles[8] is not None and tiles[4].rows == 4,
+                      f"{name} {(cin, cout, px)}: tile plans {tiles}")
                 f32_err = err_of(pc.pixel_conv_blockdot(x1, w1, b1, **kw),
                                  pc.pixel_conv_blockdot_plain(x1, w1, b1, **kw), 1e-5,
                                  f"{name} {(cin, cout, px)} f32 b1")
@@ -1981,6 +2015,23 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                  "bytes": nbytes, "flops": flops, "library": library, "f32_b1_err": f32_err,
                  "max_abs_err": err_of(call(0), plain(0), 1e-2, f"{name} {(cin, cout, px)} bf16"),
                  "tolerance": "1e-2 x max|plain| (bf16)"}
+            for height, p_ in tiles.items():
+                def forced(i, p_=p_):
+                    x_, w_, b_ = ops_[i % n]
+                    out = torch.empty(B, px, cout, px, dtype=bf16, device="cuda")
+                    pc._launch(x_, pc._packed_weight(w_), b_, None, out, 0.2, 1.0, False, p=p_)
+                    return out
+                err_of(forced(0), plain(0), 1e-2, f"{name} {(cin, cout, px)} {height}-row tile")
+                r[f"rows{height}_ms"] = graph_ms(torch, side, forced, 10)
+                r[f"rows{height}_plan"] = (f"{p_.stages} stages, "
+                                           f"{'resident' if p_.resident else 'streamed'} weight")
+            if tiles:
+                r["form"] = (f"{chosen.form} form, {chosen.rows}-row tiles x {chosen.px} px, "
+                             f"{chosen.stages} stages, "
+                             f"{'resident' if chosen.resident else 'streamed'} weight, grid "
+                             f"{chosen.grid} of {chosen.tiles} tiles; 8-row "
+                             f"{r['rows8_ms']:.4f} ms ({r['rows8_plan']}), 4-row "
+                             f"{r['rows4_ms']:.4f} ms ({r['rows4_plan']})")
             r["ms"] = graph_ms(torch, side, call, 10)
             r["call_ms"] = time_ms(torch, call, 10)
             r["plain_ms"] = graph_ms(torch, side, plain, 3)
@@ -2014,6 +2065,7 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
         extra = (f", dequant_matmul_int8 {r['two_pass_ms']:.4f} ms, "
                  f"{r['ops'] / r['ms'] / 1e9:.1f} TOP/s" if "two_pass_ms" in r
                  else f"; f32 b1 err {r['f32_b1_err']:.3g} (1e-5 x max)")
+        extra += f" | {r['form']}" if "form" in r else ""
         say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']}) | "
                f"kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), plain "
                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms ({r['library']})"
@@ -2022,9 +2074,17 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                "a forward")
     for name in ("pixel_conv_blockdot", "pixel_conv_patch"):
         fw = per_forward(rows, name)
-        say(2, f"{name} over an ESRGAN x4 b8 forward's 349 calls: kernel {fw['ms']:.3f} ms, "
-               f"plain {fw['plain_ms']:.3f} ms, library {fw['library_ms']:.3f} ms, bound "
-               f"{fw['bound_ms']:.3f} ms")
+        heights = ""
+        if name == "pixel_conv_blockdot":
+            for height in (8, 4):
+                fw[f"rows{height}_ms"] = sum(r[f"rows{height}_ms"] * r["calls_per_forward"]
+                                             for r in rows.values() if r["name"] == name)
+            heights = (f" (8-row tile everywhere {fw['rows8_ms']:.3f} ms, 4-row tile "
+                       f"{fw['rows4_ms']:.3f} ms)")
+            REPORT["blockdot_forward"] = fw
+        say(2, f"{name} over an ESRGAN x4 b8 forward's 349 calls: kernel {fw['ms']:.3f} ms"
+               f"{heights}, plain {fw['plain_ms']:.3f} ms, library {fw['library_ms']:.3f} ms, "
+               f"bound {fw['bound_ms']:.3f} ms")
     say(2, f"entry-point launches {REPORT['variant_entry_launches']}; one pixel_conv_patch "
            f"call: {n_kernels} kernel; small checks: {checks}")
     torch.backends.cudnn.allow_tf32 = True
@@ -4881,7 +4941,7 @@ def main() -> int:
                                               "smelter_tpu/kernels/int8_matmul.py:325",
                                               variant_rows[("dequant_matmul_int8_fused2",
                                                             "serving")], "call"),
-               "pixel_conv_blockdot": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+               "pixel_conv_blockdot": ("smelter_tpu_torch/csrc/wgmma_conv.cuh",
                                        "smelter_tpu/kernels/pixel_conv.py:377",
                                        per_forward(variant_rows, "pixel_conv_blockdot"),
                                        "forward"),

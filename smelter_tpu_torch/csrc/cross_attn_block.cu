@@ -4,34 +4,69 @@
 // Replaces the Pallas kernel smelter_tpu/kernels/vit_block.py::
 // cross_attn_block (body _xattn_kernel), which runs one program per image
 // with the image's (N, D) rows, both (D, D) weights and the image's k/v in
-// VMEM. Here one block of 4 warps takes one image's tile of 64 query rows,
-// so nothing of the block crosses device memory but its operands and its
-// output:
+// VMEM. The roundings are the Pallas kernel's: q rounded to x's type;
+// scores as f32 sums times scale; the softmax in f32 as exp(s - max) / sum;
+// p rounded; p v as f32 sums; the heads' outputs side by side, rounded; att
+// Wp as f32 sums plus bp in f32, one rounding.
 //
-//   1. the x tile (64, D) and this image's k and v for all heads (Bk = B:
-//      per image; Bk = 1: the one context for every image) land in shared
-//      memory, keys past S as zeros;
-//   2. q = x Wq on mma.sync (m16n8k16, f32 accumulators), Wq streamed
-//      through shared memory 64 columns at a time, q rounded to x's type
-//      into shared memory;
-//   3. per head, the warp's 16 rows score against the S keys on mma.sync,
-//      times scale, in f32 (keys padded to a multiple of 16 score -inf);
-//      the softmax in f32 in registers (exp(s - max) / sum, as the Pallas
-//      kernel spells it); p rounded to x's type; p v on mma.sync in f32;
-//      the head's output rounded to x's type into shared memory at columns
-//      h hd (the Pallas kernel's concatenated attention output);
-//   4. att Wp + bp, Wp streamed as Wq, bp added in f32, one rounding.
+// What bounds it on an H100: at SD-UNet's (B 8, N 1024, D 128, 8 heads of
+// 16, S 16) a call does B (4 N D^2 + 4 N S D) = 0.60 GFLOP (0.6 us at 989
+// TFLOP/s dense bf16) against 4.3 MB of x, weights, k, v and output (1.3
+// us at 3.35 TB/s); at (B 8, N 256, D 256, 8 heads of 32) 0.57 GFLOP and
+// 2.5 MB (0.74 us). Neither is reached: a call is latency, the launch and a
+// chain of dependent load -> product -> softmax -> product steps, so the
+// design's aim is to run that chain on the whole card, with its loads
+// issued at once.
 //
-// f32 activations take a CUDA-core kernel in full f32 (no TF32) with the
-// same four steps, one block for 16 query rows.
-//
-// What bounds it on an H100: at SD-UNet's (B 8, N 1024, D 128, 8 heads, S
-// 16) a call does B (4 N D^2 + 4 N S D) = 0.60 GFLOP (0.6 us at 989
-// TFLOP/s dense bf16) against 4.2 MB of x, weights, k, v and output (1.3
-// us at 3.35 TB/s): bytes, and at that size the launch itself. The design
-// reads each operand once a block and keeps q, p and the attention output
-// on chip. No TMA or wgmma yet.
+// The wgmma form (xattn_wgmma; 16-bit x at D % 64 == 0, where
+// kernels/attention_plan.py::cross_plan says "wgmma") takes one warpgroup
+// tile of 64 query rows of one image x one group of 64 / hd heads a CTA, so
+// a row tile is D / 64 CTAs: 128 CTAs at (N 256, D 256) where one CTA a row
+// tile gave 32, 256 at (N 1024, D 128). A group needs only Wq's 64
+// columns of its heads and its own k and v; for the output projection the
+// groups of a row tile share their attention outputs, and each takes the
+// output columns of its group, att Wp[:, group] (Wp's 64 columns).
+//   1. One thread issues every TMA load up front, on three mbarriers: the x
+//      tile (D / 64 boxes of 64 rows x 64 columns) with Wq's group columns
+//      (one box of D rows x 64), then the group's k and v (a box of S
+//      rounded up to SP rows x hd x its heads; rows past S and x's rows past
+//      N read as zeros), then Wp's group columns (one box of D rows x 64),
+//      all with the swizzle of their row width, so the weights' round trip
+//      overlaps x's and the first products.
+//   2. q = x Wq[:, group] on wgmma m64n64k16 (both operands from shared
+//      memory), rounded to T in registers: the scores' A fragments.
+//   3. Per head: the scores on wgmma m64nSPk16 (q from registers, k K-major;
+//      keys padded to SP score -inf), times scale; the softmax in f32 in
+//      registers (a row's max and sum over its thread quad); p rounded to
+//      T; p v on wgmma m64n(hd)k16 (p from registers, v MN-major); the
+//      head's output rounded to T: att Wp's A fragments. (Issuing up to 4
+//      heads' scores, then their p v, as one wgmma group each changed
+//      nothing on the card: these round trips are not what a call waits
+//      for.)
+//   4. The row tile's CTAs are one thread-block cluster (C = D / 64 CTAs,
+//      at most 4). Each writes its group's attention output (64 x 64, T)
+//      into its own shared memory, K-major with the 128-byte swizzle, as
+//      part g of the row tile's att (64 x D, over x, which a cluster
+//      barrier, arrived at once q is made, shows free everywhere), and in
+//      16-byte stores into the same part of every other rank's copy
+//      through distributed shared memory: 8 KB a rank, bf16.
+//   5. After a second cluster barrier each CTA computes its group's 64
+//      output columns over the whole of D: att (64 x D) Wp[:, group] on
+//      wgmma m64n64k16, both operands from shared memory (Wp's columns
+//      came by TMA in step 1), plus bp in f32, one rounding. No K split and
+//      no atomics: a row's sums are the same in any batch and at any
+//      position. (A K split of att Wp over the groups, the groups' f32
+//      partials summed in rank order through distributed shared memory,
+//      moved 64 KB a CTA at D 256 and spent 6.5 of a 13 us call pushing
+//      them; its sum pulled from the other ranks, 3-7 us.)
+// A 16-bit shape the plan declines (D not a multiple of 64) keeps the
+// mma.sync form (xattn_mma): one block of 4 warps a 64-row tile of one
+// image, the weights streamed through shared memory 64 columns at a time,
+// the same four steps on mma.sync m16n8k16. f32 activations take a
+// CUDA-core kernel in full f32 (no TF32) with the same four steps, one
+// block for 16 query rows.
 #include "gemm.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -332,6 +367,295 @@ xattn_f32(const float* __restrict__ x, const float* __restrict__ wq, const float
   }
 }
 
+// -- the wgmma form -----------------------------------------------------------
+
+namespace cg = cooperative_groups;
+using wg::desc;
+using wg::fence_regs;
+using wg::mbar_expect_tx;
+using wg::mbar_fence_init;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using wg::wgmma_wait;
+
+constexpr int XG_COLS = 64;   // a head group's columns: Wq's columns, Wp's rows
+constexpr int XG_ROWS = 64;   // query rows a CTA: the warpgroup's wgmma M
+constexpr int XG_THREADS = 128;
+
+// The wgmma form's shared memory, bytes: 1 KB of alignment; x (D / 64
+// parts of 64 rows x 128 bytes), Wq's and Wp's group columns (D rows x 128
+// bytes each), all with the 128-byte swizzle; the group's k and v (64 / hd heads x SP rows x hd, 128
+// SP bytes each); 3 mbarriers. The row tile's attention output (64 rows x
+// D, T) takes x's bytes once every CTA of the cluster has made q. Two CTAs
+// share an SM at D 256 (103 KB each at S <= 16).
+// kernels/attention_plan.py::cross_smem mirrors it.
+__host__ __device__ constexpr int xg_smem(int D, int SP) {
+  return 1024 + 3 * 128 * D + 2 * 128 * SP + 3 * 8;
+}
+
+// The cluster barrier in two halves: arrive (release: this CTA's earlier
+// shared-memory reads and writes are done) and wait (acquire: every CTA's
+// are). cluster.sync() is both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// Orders generic-proxy shared-memory stores, this CTA's and (through
+// distributed shared memory) other CTAs', with async-proxy reads (wgmma).
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
+}
+
+// x and out (B, N, D), wq and wp (D, D), k and v (Bk, heads, S, HD) through
+// the maps launch_wgmma makes; bp (D,) in p_code. Grid (D / 64 groups, N /
+// 64 row tiles, B), a cluster of the D / 64 groups of a row tile.
+template <typename T, int HD, int SP>
+__global__ void __launch_bounds__(XG_THREADS)
+xattn_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_wq,
+            const __grid_constant__ CUtensorMap map_wp, const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v, const void* __restrict__ bp, int p_code,
+            uint16_t* __restrict__ out, int N, int D, int heads, int S, int bk, float scale) {
+  using G = wa::Geo<HD>;
+  constexpr int GH = XG_COLS / HD;       // heads a group
+  constexpr int KV_BYTES = 128 * SP;     // GH heads x SP rows x HD halves
+  constexpr int QF = XG_COLS / 16;       // the group's k16 slices: q's and att's fragments
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sx = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* swq = sx + 128 * D;
+  uint8_t* swp = swq + 128 * D;
+  uint8_t* sk = swp + 128 * D;
+  uint8_t* sv = sk + KV_BYTES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sv + KV_BYTES);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int grp = blockIdx.x, q0 = blockIdx.y * XG_ROWS, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int parts = D / 64;
+  // bp at this thread's 16 output columns (64 grp + 8 j + 2 t + e), read
+  // now so that the loads' round trip hides under the TMA loads'
+  float bias[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      bias[2 * j + e] = param_at(bp, p_code, XG_COLS * grp + 8 * j + 2 * t + e);
+
+  // 1. every load at once
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar[0], 2 * 128 * D);
+    for (int p = 0; p < parts; ++p) wg::tma_load_3d(sx + p * 8192, &map_x, &bar[0], 64 * p, q0, b);
+    wg::tma_load_2d(swq, &map_wq, &bar[0], XG_COLS * grp, 0);
+    const int h0 = (bk > 1 ? b : 0) * heads + grp * GH;
+    mbar_expect_tx(&bar[1], 2 * KV_BYTES);
+    wg::tma_load_4d(sk, &map_k, &bar[1], 0, 0, h0, 0);
+    wg::tma_load_4d(sv, &map_v, &bar[1], 0, 0, h0, 0);
+    mbar_expect_tx(&bar[2], 128 * D);
+    wg::tma_load_2d(swp, &map_wp, &bar[2], XG_COLS * grp, 0);
+  }
+
+  // 2. q = x Wq[:, group], rounded to T: qa[f] is k16 slice f's A fragment
+  uint32_t qa[QF][4];
+  {
+    float acc[XG_COLS / 2];
+#pragma unroll
+    for (int i = 0; i < XG_COLS / 2; ++i) acc[i] = 0.f;
+    mbar_wait(&bar[0], 0);
+    wgmma_fence();
+    for (int p = 0; p < parts; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_m64n64k16<T>(acc, desc(sx + p * 8192 + kk * 32, 16, 1024),
+                             desc(swq + (64 * p + 16 * kk) * 128, 8192, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int f = 0; f < QF; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qa[f][i] = wa::pack16<T>(acc[8 * f + 2 * i], acc[8 * f + 2 * i + 1]);
+  }
+  cluster_arrive();  // this CTA is done with x: the others' att parts may land there
+
+  // 3. per head: scores, softmax, p v; the head's output rounded to T
+  uint32_t att[QF][4];
+  mbar_wait(&bar[1], 0);
+#pragma unroll
+  for (int hl = 0; hl < GH; ++hl) {
+    const uint8_t* kh = sk + hl * SP * G::RB;
+    const uint8_t* vh = sv + hl * SP * G::RB;
+    float s[SP / 2];
+#pragma unroll
+    for (int i = 0; i < SP / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wa::mma_rsk<T, SP>(s, qa[hl * (HD / 16) + kk],
+                         desc(kh + kk * 32, 16, G::SBO, G::LAYOUT), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    // s[4 j + 2 h + e]: row 16 warp + lane / 4 + 8 h, key 8 j + 2 t + e
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < SP / 2; ++i) {
+      const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+      s[i] = key < S ? s[i] * scale : -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mx[h] = wa::quad_max(mx[h]);
+#pragma unroll
+    for (int i = 0; i < SP / 2; ++i) {
+      s[i] = expf(s[i] - mx[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sum[h] = wa::quad_sum(sum[h]);
+    uint32_t pf[SP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < SP / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[kk][i] =
+            wa::pack16<T>(s[8 * kk + 2 * i] / sum[i & 1], s[8 * kk + 2 * i + 1] / sum[i & 1]);
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SP / 16; ++kk)
+      wa::mma_rs<T, HD>(o, pf[kk], desc(vh + kk * 16 * G::RB, SP * G::RB, G::SBO, G::LAYOUT),
+                        kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int f = 0; f < HD / 16; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        att[hl * (HD / 16) + f][i] = wa::pack16<T>(o[8 * f + 2 * i], o[8 * f + 2 * i + 1]);
+  }
+
+  // 4. The row tile's attention output (64 x D, T) in every rank's shared
+  // memory, over its x (which every rank has finished reading: the cluster
+  // barrier's arrive after q, its wait here), K-major with the 128-byte
+  // swizzle, part g from rank g: this CTA's part from its registers, then
+  // 16 bytes a thread to each other rank through distributed shared memory.
+  uint8_t* satt = sx + grp * 8192;
+  cluster_wait();
+#pragma unroll
+  for (int f = 0; f < QF; ++f)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = warp * 16 + (lane >> 2) + 8 * (i & 1);
+      const int col = 16 * f + 8 * (i >> 1) + 2 * t;
+      *reinterpret_cast<uint32_t*>(satt + wg::a_offset(row, col >> 3) + (col & 7) * 2) =
+          att[f][i];
+    }
+  __syncthreads();  // the part is whole
+  for (int q = 1; q < C; ++q) {
+    uint8_t* dst = cluster.map_shared_rank(satt, (rank + q) % C);
+#pragma unroll
+    for (int k = 0; k < 8192 / 16 / XG_THREADS; ++k) {
+      const int o = (tid + k * XG_THREADS) * 16;
+      *reinterpret_cast<uint4*>(dst + o) = *reinterpret_cast<const uint4*>(satt + o);
+    }
+  }
+  fence_proxy_async_cluster();  // the stores, before any rank's wgmma reads them
+  cluster.sync();               // every part has landed everywhere
+  fence_proxy_async_cluster();
+
+  // 5. out[:, group columns] = att Wp[:, group columns] (f32 sums over D on
+  // wgmma m64n64k16, both operands from shared memory) + bp in f32, one
+  // rounding. Each output column is summed by one CTA over the whole of D:
+  // no K split, so a row's result does not depend on its batch position.
+  {
+    float acc[XG_COLS / 2];
+#pragma unroll
+    for (int i = 0; i < XG_COLS / 2; ++i) acc[i] = 0.f;
+    mbar_wait(&bar[2], 0);
+    wgmma_fence();
+    for (int p = 0; p < parts; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_m64n64k16<T>(acc, desc(sx + p * 8192 + kk * 32, 16, 1024),
+                             desc(swp + (64 * p + 16 * kk) * 128, 8192, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // acc[4 j + 2 h + e]: row 16 warp + lane / 4 + 8 h, column 8 j + 2 t + e
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + warp * 16 + (lane >> 2) + 8 * h;
+      if (row >= N) continue;
+      uint16_t* o = out + (static_cast<size_t>(b) * N + row) * D + XG_COLS * grp + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) =
+            wa::pack16<T>(acc[4 * j + 2 * h] + bias[2 * j],
+                          acc[4 * j + 2 * h + 1] + bias[2 * j + 1]);
+    }
+  }
+}
+
+template <typename T, int HD, int SP>
+int launch_wgmma(const void* x, const void* wq, const void* k, const void* v, const void* wp,
+                 const void* bp, int p_code, void* out, int B, int N, int D, int heads, int S,
+                 int bk, float scale, cudaStream_t stream) {
+  using G = wa::Geo<HD>;
+  constexpr auto type = wg::map_type<T>();
+  CUtensorMap map_x, map_wq, map_wp, map_k, map_v;
+  const long long row = static_cast<long long>(D) * 2, head = static_cast<long long>(S) * HD * 2;
+  int rc = wg::make_map_3d(&map_x, x, type, D, N, B, row, row * N, 64, XG_ROWS,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = wg::make_map(&map_wq, wq, type, 2, D, D, D, XG_COLS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = wg::make_map(&map_wp, wp, type, 2, D, D, D, XG_COLS, CU_TENSOR_MAP_SWIZZLE_128B);
+  // k and v as (HD, S, Bk heads, 1): a box is SP rows of a group's heads
+  const int kvh = bk * heads;
+  if (rc == 0)
+    rc = wg::make_map_4d(&map_k, k, type, HD, S, kvh, 1, HD * 2, head, head * kvh, HD, SP,
+                         G::SWIZZLE, XG_COLS / HD);
+  if (rc == 0)
+    rc = wg::make_map_4d(&map_v, v, type, HD, S, kvh, 1, HD * 2, head, head * kvh, HD, SP,
+                         G::SWIZZLE, XG_COLS / HD);
+  if (rc != 0) return rc;
+  const int smem = xg_smem(D, SP);
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      xattn_wgmma<T, HD, SP>, cudaFuncAttributeMaxDynamicSharedMemorySize, xg_smem(XMAX_D, SP));
+  if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(D / XG_COLS, cdiv(N, XG_ROWS), B);
+  cfg.blockDim = dim3(XG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = D / XG_COLS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, xattn_wgmma<T, HD, SP>, map_x, map_wq, map_wp,
+                                           map_k, map_v, bp, p_code,
+                                           static_cast<uint16_t*>(out), N, D, heads, S, bk, scale);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 template <typename T, int HD, int SP>
 int launch_mma(const void* x, const void* wq, const void* k, const void* v, const void* wp,
                const void* bp, int p_code, void* out, int B, int N, int D, int heads, int S,
@@ -350,34 +674,45 @@ int launch_mma(const void* x, const void* wq, const void* k, const void* v, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// SP: S rounded up to 16, 32 or 64; wgmma: the wgmma form, else mma.sync.
+template <typename T, int HD, int SP>
+int launch_form(bool wgmma, const void* x, const void* wq, const void* k, const void* v,
+                const void* wp, const void* bp, int p_code, void* out, int B, int N, int D,
+                int heads, int S, int bk, float scale, cudaStream_t stream) {
+  return wgmma ? launch_wgmma<T, HD, SP>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
+                                         scale, stream)
+               : launch_mma<T, HD, SP>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
+                                       scale, stream);
+}
+
 template <typename T, int HD>
-int launch_hd(const void* x, const void* wq, const void* k, const void* v, const void* wp,
-              const void* bp, int p_code, void* out, int B, int N, int D, int heads, int S,
-              int bk, float scale, cudaStream_t stream) {
+int launch_hd(bool wgmma, const void* x, const void* wq, const void* k, const void* v,
+              const void* wp, const void* bp, int p_code, void* out, int B, int N, int D,
+              int heads, int S, int bk, float scale, cudaStream_t stream) {
   if (S <= 16)
-    return launch_mma<T, HD, 16>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
-                                 scale, stream);
+    return launch_form<T, HD, 16>(wgmma, x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S,
+                                  bk, scale, stream);
   if (S <= 32)
-    return launch_mma<T, HD, 32>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
-                                 scale, stream);
-  return launch_mma<T, HD, 64>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk, scale,
-                               stream);
+    return launch_form<T, HD, 32>(wgmma, x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S,
+                                  bk, scale, stream);
+  return launch_form<T, HD, 64>(wgmma, x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
+                                scale, stream);
 }
 
 template <typename T>
-int run(const void* x, const void* wq, const void* k, const void* v, const void* wp,
+int run(bool wgmma, const void* x, const void* wq, const void* k, const void* v, const void* wp,
         const void* bp, int p_code, void* out, int B, int N, int D, int heads, int S, int bk,
         float scale, cudaStream_t stream) {
   switch (D / heads) {
     case 16:
-      return launch_hd<T, 16>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk, scale,
-                              stream);
+      return launch_hd<T, 16>(wgmma, x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
+                              scale, stream);
     case 32:
-      return launch_hd<T, 32>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk, scale,
-                              stream);
+      return launch_hd<T, 32>(wgmma, x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
+                              scale, stream);
     default:
-      return launch_hd<T, 64>(x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk, scale,
-                              stream);
+      return launch_hd<T, 64>(wgmma, x, wq, k, v, wp, bp, p_code, out, B, N, D, heads, S, bk,
+                              scale, stream);
   }
 }
 
@@ -390,11 +725,14 @@ extern "C" const char* smelter_error_string(int code) {
 // x and out (B, N, D), wq and wp (D, D), k and v (Bk, heads, S, D / heads),
 // all row-major in x_dtype and 16-byte aligned; bp (D,) in p_dtype (f32 or
 // x_dtype); Bk 1 or B. Head dim 16, 32 or 64; S at most 64; D at most 256.
+// form 1: the wgmma form (16-bit x, D % 64 == 0: kernels/attention_plan.py::
+// cross_plan); form 0: the mma.sync form (16-bit x) or the f32 kernel.
 // Returns a cudaError_t code.
 extern "C" int smelter_cross_attn_block(const void* x, const void* wq, const void* k,
                                         const void* v, const void* wp, const void* bp,
                                         void* out, int B, int N, int D, int heads, int S, int bk,
-                                        float scale, int x_dtype, int p_dtype, void* stream) {
+                                        float scale, int x_dtype, int p_dtype, int form,
+                                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (misaligned(x) || misaligned(wq) || misaligned(k) || misaligned(v) || misaligned(wp) ||
@@ -403,6 +741,9 @@ extern "C" int smelter_cross_attn_block(const void* x, const void* wq, const voi
   const int hd = heads > 0 ? D / heads : 0;
   if (heads <= 0 || D % heads != 0 || (hd != 16 && hd != 32 && hd != 64) || D > XMAX_D ||
       S < 1 || S > XMAX_S || (bk != 1 && bk != B) || (p_dtype != kF32 && p_dtype != x_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((form != 0 && form != 1) ||
+      (form == 1 && (x_dtype == kF32 || D % XG_COLS != 0 || N > 65535 * XG_ROWS || B > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   switch (x_dtype) {
@@ -416,10 +757,11 @@ extern "C" int smelter_cross_attn_block(const void* x, const void* wq, const voi
       return static_cast<int>(cudaGetLastError());
     }
     case kBF16:
-      return run<__nv_bfloat16>(x, wq, k, v, wp, bp, p_dtype, out, B, N, D, heads, S, bk, scale,
-                                st);
+      return run<__nv_bfloat16>(form == 1, x, wq, k, v, wp, bp, p_dtype, out, B, N, D, heads, S,
+                                bk, scale, st);
     case kF16:
-      return run<__half>(x, wq, k, v, wp, bp, p_dtype, out, B, N, D, heads, S, bk, scale, st);
+      return run<__half>(form == 1, x, wq, k, v, wp, bp, p_dtype, out, B, N, D, heads, S, bk,
+                         scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

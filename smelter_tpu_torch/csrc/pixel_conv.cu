@@ -9,8 +9,9 @@
 // a row on the 128 MXU lanes, run one [3*C_out, 3*C_in] x [3*C_in, W] dot a
 // row and fold the dx taps with lane rolls of the partial sums; ::
 // pixel_conv_blockdot, which runs one dot a block of rows (here: the taller
-// tile, RB = 4 output rows a block); and ::pixel_conv_patch, which builds a
-// 9*C_in patch matrix of flat NCHW with lane rolls (here: NCHW strides).
+// tile, 8 output rows a wgmma tile, or RB = 4 in form 0); and ::
+// pixel_conv_patch, which builds a 9*C_in patch matrix of flat NCHW with
+// lane rolls (here: NCHW strides).
 //
 // What bounds it on an H100: ESRGAN's trunk convs (batch 8, 128 x 128, C_in
 // 64-192, C_out 32/64) sit near the ridge: the 349 convs of a bf16 forward
@@ -22,15 +23,20 @@
 // persistent, warp-specialised wgmma implicit GEMM of csrc/wgmma_conv.cuh
 // (pixels on M, C_out on N; TMA in, a K-major copy made by the producer
 // warpgroup so that the dx taps are 16-byte offsets, the weight resident in
-// shared memory where it fits, TMA out), form 1 or 2 below. rowdot_q with
-// int8 or 16-bit out where the plan takes the shape (also C_out 32 or 64;
-// 16-pixel chunks: all of ESRGAN's) runs the same design on int8 wgmma
-// (csrc/wgmma_conv_s8.cuh: K steps of 32 channels, exact int32 sums, the
-// epilogue below).
+// shared memory where it fits, TMA out), form 1 or 2 below, on tiles of 4
+// output rows. 16-bit blockdot takes the same core (pixel_plan(..., tall))
+// on the Pallas variant's taller row block: tiles of 8 output rows from 10
+// staged input rows (1.25 staged rows an output row against 1.5, and each K
+// step's box, copy and weights feed twice the products) at C_out 32 with
+// C_in >= 96 where the tile fits; the rest of its shapes the 4-row tile.
+// rowdot_q with int8 or 16-bit out where the plan takes the shape (also
+// C_out 32 or 64; 16-pixel chunks: all of ESRGAN's) runs the same design on
+// int8 wgmma (csrc/wgmma_conv_s8.cuh: K steps of 32 channels, exact int32
+// sums, the epilogue below).
 //
 // Everything else (f32, other C_out, strides TMA cannot take, rowdot_q
-// with f32 out, blockdot's `tall` tile and patch's NCHW strides) takes form 0, an
-// implicit GEMM on mma.sync per block of RB = 2 (or 4) output rows x TW =
+// with f32 out, and patch's NCHW strides) takes form 0, an implicit GEMM
+// on mma.sync per block of RB = 2 (blockdot: 4) output rows x TW =
 // 128 pixels x 64 output channels (M = output channels, N = pixels, K = the
 // 9 taps x C_in). Input channels stream in chunks of 64 bytes (32 bf16 or
 // 64 int8 channels): the block stages the RB + 2 input rows of the chunk,
@@ -435,6 +441,24 @@ int launch_f32(const Conv& c, const Epilogue& ep, bool tall, cudaStream_t stream
   return tall ? launch_f32_r<4>(c, ep, stream) : launch_f32_r<1>(c, ep, stream);
 }
 
+// The 16-bit wgmma form of RW output rows a consumer warpgroup, by type,
+// C_out (32 or 64) and whether the weight stays resident.
+template <int RW, typename Run>
+int run_pixel_wgmma(Run run, int x_dtype, int Cout, bool res) {
+  const bool bf = x_dtype == kBF16;
+  if (Cout == 64)
+    return res ? (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 64, true, RW>)
+                     : run(wg::launch_pixel_wgmma<__half, 64, true, RW>))
+               : (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 64, false, RW>)
+                     : run(wg::launch_pixel_wgmma<__half, 64, false, RW>));
+  if (Cout == 32)
+    return res ? (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 32, true, RW>)
+                     : run(wg::launch_pixel_wgmma<__half, 32, true, RW>))
+               : (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 32, false, RW>)
+                     : run(wg::launch_pixel_wgmma<__half, 32, false, RW>));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" const char* smelter_error_string(int code) {
@@ -446,20 +470,21 @@ extern "C" const char* smelter_error_string(int code) {
 // (Cout,) in bias_dtype (f32, or x's dtype for float x); scales (Cout,) f32
 // for int8 x, else unused; out (B, H, Cout, W) at strides (osb, osh, osc)
 // in out_dtype: x's dtype for float x; for int8 x int8 when requant, else
-// f32, bf16 or f16. tall: 4 output rows a block (float x only) instead of
-// 2 (1 for f32). form 1: the wgmma kernel of csrc/wgmma_conv.cuh (16-bit x)
-// or csrc/wgmma_conv_s8.cuh (int8 x; out int8, bf16 or f16) on `grid` CTAs
-// with `stages` stages, each bringing its weights; form 2: the same with the
-// weight resident (Cout 32 or 64; kernels/wgmma_plan.py::pixel_plan checks
-// the rest); form 0 the mma.sync / FMA kernels above. Returns a cudaError_t
-// code.
+// f32, bf16 or f16. form 1: the wgmma kernel of csrc/wgmma_conv.cuh (16-bit
+// x) or csrc/wgmma_conv_s8.cuh (int8 x; out int8, bf16 or f16) on `grid`
+// CTAs with `stages` stages, each bringing its weights, in tiles of
+// `tile_rows` output rows (16-bit: 4, or blockdot's 8; int8: 4); form 2: the
+// same with the weight resident (Cout 32 or 64; kernels/wgmma_plan.py::
+// pixel_plan checks the rest); form 0 the mma.sync / FMA kernels above,
+// where tall takes 4 output rows a block (float x only) instead of 2 (1 for
+// f32). Returns a cudaError_t code.
 extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias,
                                   const void* scales, void* out, int B, int H, int Cin, int W,
                                   int Cout, long long xsb, long long xsh, long long xsc,
                                   long long osb, long long osh, long long osc, int x_dtype,
                                   int bias_dtype, int out_dtype, float alpha, int has_alpha,
                                   float inv_sy, int requant, int tall, int form, int grid,
-                                  int stages, void* stream) {
+                                  int stages, int tile_rows, void* stream) {
   const Epilogue ep{bias, bias_dtype, static_cast<const float*>(scales), alpha, has_alpha,
                     inv_sy};
   const Conv c{x, w, out, B, H, Cin, W, Cout, {xsb, xsh, xsc}, {osb, osh, osc}};
@@ -469,7 +494,8 @@ extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias
   if (bias_dtype != kF32 && bias_dtype != x_dtype) return bad;
   if ((form == 1 || form == 2) && x_dtype == kI8) {
     // requant: int8 out; else bf16 / f16 out (f32 out keeps form 0)
-    if (tall || grid <= 0 || scales == nullptr || bias_dtype != kF32) return bad;
+    if (tall || tile_rows != wg::PC_R || grid <= 0 || scales == nullptr || bias_dtype != kF32)
+      return bad;
     if (requant ? out_dtype != kI8 : (out_dtype != kBF16 && out_dtype != kF16)) return bad;
     const wg::PixelQEpi qe{static_cast<const float*>(scales), static_cast<const float*>(bias),
                            alpha, has_alpha, inv_sy, out_dtype};
@@ -491,22 +517,15 @@ extern "C" int smelter_pixel_conv(const void* x, const void* w, const void* bias
   }
   if (form == 1 || form == 2) {
     if (tall || out_dtype != x_dtype || grid <= 0) return bad;
+    if (x_dtype != kBF16 && x_dtype != kF16) return bad;
     const wg::PixelEpi pe{bias, bias_dtype == kF32, alpha, has_alpha};
     auto run = [&](auto launch) {
       return launch(x, w, out, pe, B, H, Cin, W, xsb, xsh, xsc, osb, osh, osc, grid, stages, st);
     };
-    const bool bf = x_dtype == kBF16, res = form == 2;
-    if (x_dtype != kBF16 && x_dtype != kF16) return bad;
-    if (Cout == 64)
-      return res ? (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 64, true>)
-                       : run(wg::launch_pixel_wgmma<__half, 64, true>))
-                 : (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 64, false>)
-                       : run(wg::launch_pixel_wgmma<__half, 64, false>));
-    if (Cout == 32)
-      return res ? (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 32, true>)
-                       : run(wg::launch_pixel_wgmma<__half, 32, true>))
-                 : (bf ? run(wg::launch_pixel_wgmma<__nv_bfloat16, 32, false>)
-                       : run(wg::launch_pixel_wgmma<__half, 32, false>));
+    if (tile_rows == wg::PixelRows<wg::PC_RW>::R)
+      return run_pixel_wgmma<wg::PC_RW>(run, x_dtype, Cout, form == 2);
+    if (tile_rows == wg::PixelRows<wg::PC_TALL_RW>::R)
+      return run_pixel_wgmma<wg::PC_TALL_RW>(run, x_dtype, Cout, form == 2);
     return bad;
   }
   if (form != 0) return bad;

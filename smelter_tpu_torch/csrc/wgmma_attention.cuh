@@ -174,30 +174,39 @@ struct Geo {
   }
 
 // A from four registers a thread (mma.m16n8k16's A fragment of the warp's 16
-// rows), B MN-major from shared memory (O += P V).
-#define SMELTER_WA_RS(NN, REGS, OUT, I0, I1, I2, I3, IB, IP)                                   \
+// rows), B from shared memory: MN-major as rs_NN (O += P V; TB "1"), K-major
+// as rsk_NN (TB "0": csrc/cross_attn_block.cu's scores, q from registers).
+#define SMELTER_WA_RS(NAME, NN, TB, REGS, OUT, I0, I1, I2, I3, IB, IP)                         \
   template <typename T>                                                                        \
-  __device__ __forceinline__ void rs_##NN(float (&d)[NN / 2], const uint32_t (&a)[4],          \
-                                          uint64_t db, int scale_d) {                          \
+  __device__ __forceinline__ void NAME##_##NN(float (&d)[NN / 2], const uint32_t (&a)[4],      \
+                                              uint64_t db, int scale_d) {                      \
     if constexpr (std::is_same<T, __nv_bfloat16>::value)                                       \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                            \
                    "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32.bf16.bf16 {" REGS "}, {%" I0 \
-                   ", %" I1 ", %" I2 ", %" I3 "}, %" IB ", p, 1, 1, 1;\n}\n"                      \
+                   ", %" I1 ", %" I2 ", %" I3 "}, %" IB ", p, 1, 1, " TB ";\n}\n"                 \
                    : OUT                                                                       \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));       \
     else                                                                                       \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                            \
                    "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32.f16.f16 {" REGS "}, {%" I0  \
-                   ", %" I1 ", %" I2 ", %" I3 "}, %" IB ", p, 1, 1, 1;\n}\n"                      \
+                   ", %" I1 ", %" I2 ", %" I3 "}, %" IB ", p, 1, 1, " TB ";\n}\n"                 \
                    : OUT                                                                       \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));       \
   }
 
 SMELTER_WA_SS(128, SMELTER_WA_REGS64, SMELTER_WA_OUT64, "64", "65", "66")
-SMELTER_WA_RS(16, SMELTER_WA_REGS8, SMELTER_WA_OUT8, "8", "9", "10", "11", "12", "13")
-SMELTER_WA_RS(32, SMELTER_WA_REGS16, SMELTER_WA_OUT16, "16", "17", "18", "19", "20", "21")
-SMELTER_WA_RS(64, SMELTER_WA_REGS32, SMELTER_WA_OUT32, "32", "33", "34", "35", "36", "37")
-SMELTER_WA_RS(128, SMELTER_WA_REGS64, SMELTER_WA_OUT64, "64", "65", "66", "67", "68", "69")
+SMELTER_WA_RS(rs, 16, "1", SMELTER_WA_REGS8, SMELTER_WA_OUT8, "8", "9", "10", "11", "12", "13")
+SMELTER_WA_RS(rs, 32, "1", SMELTER_WA_REGS16, SMELTER_WA_OUT16, "16", "17", "18", "19", "20",
+              "21")
+SMELTER_WA_RS(rs, 64, "1", SMELTER_WA_REGS32, SMELTER_WA_OUT32, "32", "33", "34", "35", "36",
+              "37")
+SMELTER_WA_RS(rs, 128, "1", SMELTER_WA_REGS64, SMELTER_WA_OUT64, "64", "65", "66", "67", "68",
+              "69")
+SMELTER_WA_RS(rsk, 16, "0", SMELTER_WA_REGS8, SMELTER_WA_OUT8, "8", "9", "10", "11", "12", "13")
+SMELTER_WA_RS(rsk, 32, "0", SMELTER_WA_REGS16, SMELTER_WA_OUT16, "16", "17", "18", "19", "20",
+              "21")
+SMELTER_WA_RS(rsk, 64, "0", SMELTER_WA_REGS32, SMELTER_WA_OUT32, "32", "33", "34", "35", "36",
+              "37")
 
 #undef SMELTER_WA_SS
 #undef SMELTER_WA_RS
@@ -213,6 +222,18 @@ __device__ __forceinline__ void mma_rs(float (&d)[HD / 2], const uint32_t (&a)[4
     rs_64<T>(d, a, db, acc);
   else
     rs_128<T>(d, a, db, acc);
+}
+
+// d (64 x N) (+)= A (registers) B, B K-major: N = 16, 32 or 64.
+template <typename T, int N>
+__device__ __forceinline__ void mma_rsk(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                        int acc) {
+  if constexpr (N == 16)
+    rsk_16<T>(d, a, db, acc);
+  else if constexpr (N == 32)
+    rsk_32<T>(d, a, db, acc);
+  else
+    rsk_64<T>(d, a, db, acc);
 }
 
 template <int R>

@@ -48,7 +48,7 @@ SIGNATURES = {
     "layer_norm": ("smelter_layer_norm", [_P] * 6 + [_I, _I, _F, _I, _I, _P]),
     "vit_block": ("smelter_vit_block", [_P] * 13 + [_I] * 7 + [_F] * 3 + [_I] * 10 + [_P]),
     "pixel_conv": ("smelter_pixel_conv",
-                   [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_F, _I, _F] + [_I] * 5 + [_P]),
+                   [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_F, _I, _F] + [_I] * 6 + [_P]),
     "max_unpool": ("smelter_max_unpool2x2", [_P] * 3 + [_I] * 3 + [_P]),
     "flash_attention": ("smelter_flash_attention", [_P] * 4 + [_I] * 17 + [_F, _I, _I, _P]),
     "attention_short": ("smelter_short_attention",
@@ -56,7 +56,7 @@ SIGNATURES = {
     "mlp_block": ("smelter_mlp_block", [_P] * 10 + [_I] * 6 + [_F] + [_I] * 6 + [_P]),
     "convnext_block": ("smelter_convnext_block",
                        [_P] * 13 + [_I] * 5 + [_F, _I, _I] + [_I] * 4 + [_P]),
-    "cross_attn_block": ("smelter_cross_attn_block", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
+    "cross_attn_block": ("smelter_cross_attn_block", [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
     "qlinear_conv": ("smelter_qlinear_conv", [_P] * 5 + [_I] * 18 + [_P]),
     "int8_join": ("smelter_int8_join", [_P] * 3 + [_L] + [_F] * 3 + [_I] * 2 + [_P]),
     "dequant_conv": ("smelter_dequant_conv", [_P] * 4 + [_I] * 15 + [_P]),

@@ -27,6 +27,14 @@ thread, beside P and the output in a thread's 168):
   (hd 64 past 768 keys, hd 128 past 384): `csrc/vit_block.cu`'s,
   `csrc/attention_short.cu`'s and `csrc/flash_attention.cu`'s own kernels.
 
+`cross_plan` picks `cross_attn_block`'s kernel (`csrc/cross_attn_block.cu`):
+"wgmma" for 16-bit x with D a multiple of 64 (a CTA a 64-row tile x a group
+of 64 / hd heads, the D / 64 groups of a row tile one cluster sharing their
+attention outputs through distributed shared memory, each CTA then the
+output columns of its group), "mma" (one block of 4 warps a 64-row tile on
+mma.sync) for the other 16-bit shapes, "f32" (the CUDA-core kernel) for
+f32, "none" for what no kernel takes (the wrapper raises).
+
 `short_attention` and `flash_attention` read q, k and v through 4-D maps
 (hd, N, H, B) of their element strides, so the (B, H, N, hd) views of (B, N,
 H, hd) tensors a graph hands over are read in place. A map needs its base
@@ -38,6 +46,7 @@ catching a failure.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -166,3 +175,71 @@ def flash_plan(B: int, H: int, Nq: int, Nk: int, hd: int, strides, dtype, *,
             or Nq < 1 or Nk < 1 or B * H > MAX_GRID_Y:
         return MMA
     return ring_plan(Nq, B * H, hd, sixteen_bit=True)
+
+
+# -- cross_attn_block (csrc/cross_attn_block.cu) ------------------------------
+
+XG_COLS = 64               # a head group's columns of Wq, Wp and the output
+XG_ROWS = 64               # query rows a CTA (the wgmma form's M; the mma form's block)
+XF_ROWS = 16               # query rows a block of the f32 kernel
+CROSS_HEAD_DIMS = (16, 32, 64)
+CROSS_MAX_D, CROSS_MAX_S = 256, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossPlan:
+    form: str        # "wgmma", "mma", "f32" or "none"
+    groups: int      # head groups a row tile (wgmma: the cluster's CTAs), else 1
+    heads: int       # heads a group (wgmma: 64 / hd), else all
+    grid: tuple      # the launch's grid (x, y, z)
+    cluster: int     # CTAs a cluster (1: none)
+    smem: int        # dynamic shared memory a CTA, bytes (f32: 0, static)
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def code(self) -> int:
+        """The form's code in `smelter_cross_attn_block`: 1 wgmma, else 0."""
+        return 1 if self.form == "wgmma" else 0
+
+
+def cross_keys(S: int) -> int:
+    """SP: the keys a head's tile holds, S rounded up to 16, 32 or 64."""
+    return 16 if S <= 16 else 32 if S <= 32 else 64
+
+
+def cross_smem(D: int, S: int) -> int:
+    """xg_smem: alignment, x, Wq's and Wp's group columns (128 D bytes each;
+    the row tile's attention output takes x's once q is made), the group's k
+    and v (128 SP each), three mbarriers."""
+    return 1024 + 3 * 128 * D + 2 * 128 * cross_keys(S) + 3 * 8
+
+
+def cross_mma_smem(D: int, heads: int, S: int) -> int:
+    """xattn_smem_bytes: x and q tiles (64 rows of D + 8), a weight pass (D
+    rows of 72) and every head's k and v (SP rows of hd + 8), 16-bit."""
+    hd = D // heads
+    return (2 * XG_ROWS * (D + 8) + D * 72 + 2 * heads * cross_keys(S) * (hd + 8)) * 2
+
+
+# Cached: five calls an SD-UNet forward plan the same two shapes.
+@functools.lru_cache(maxsize=256)
+def cross_plan(B: int, N: int, D: int, heads: int, S: int, dtype) -> CrossPlan:
+    """`cross_attn_block`'s kernel for x (B, N, D) of `dtype`, `heads` heads
+    and S keys: the wgmma form for bf16/f16 at D % 64 == 0 (grid (D / 64,
+    N / 64, B), clusters of D / 64), the mma.sync form for other 16-bit
+    shapes, the f32 kernel for f32; "none" past what the kernels take (hd
+    16, 32 or 64, D <= 256, 1 <= S <= 64)."""
+    hd = D // heads if heads > 0 and D % heads == 0 else 0
+    if hd not in CROSS_HEAD_DIMS or D > CROSS_MAX_D or not 1 <= S <= CROSS_MAX_S:
+        return CrossPlan("none", 0, 0, (0, 0, 0), 1, 0)
+    if dtype == torch.float32:
+        return CrossPlan("f32", 1, heads, (cdiv(N, XF_ROWS), B, 1), 1, 0)
+    tiles = cdiv(N, XG_ROWS)
+    if D % XG_COLS == 0 and tiles <= MAX_GRID_Y and B <= MAX_GRID_Y:
+        groups = D // XG_COLS
+        return CrossPlan("wgmma", groups, XG_COLS // hd, (groups, tiles, B), groups,
+                         cross_smem(D, S))
+    return CrossPlan("mma", 1, heads, (tiles, B, 1), 1, cross_mma_smem(D, heads, S))

@@ -11,21 +11,33 @@ heads' outputs side by side rounded to x's dtype; att Wp in f32 with bp
 added in f32; one rounding.
 
 Replaces the Pallas kernel `smelter_tpu/kernels/vit_block.py::
-cross_attn_block`. The Hopper kernel is `csrc/cross_attn_block.cu`:
+cross_attn_block`. The Hopper kernels are `csrc/cross_attn_block.cu`'s:
 
-- What bounds it on an H100: bytes, and at SD-UNet's sizes the launch. At
-  (B 8, N 1024, D 128, 8 heads, S 16) a call does 0.60 GFLOP (0.6 us at 989
-  TFLOP/s dense bf16) against 4.2 MB of operands and output (1.3 us at 3.35
-  TB/s).
-- What the design does about it: one block takes 64 query rows of one image
-  with that image's k and v in shared memory; both projections run on
-  mma.sync with the weights streamed through shared memory, and q, p and
-  the attention output never leave the chip. Head dims 16, 32 and 64, S at
-  most 64 and D at most 256 are taken; anything else raises.
+- What bounds it on an H100: at SD-UNet's sizes not the bytes or the
+  operations but latency. At (B 8, N 1024, D 128, 8 heads, S 16) a call does
+  0.60 GFLOP (0.6 us at 989 TFLOP/s dense bf16) against 4.3 MB of operands
+  and output (1.3 us at 3.35 TB/s); at (B 8, N 256, D 256) 0.57 GFLOP and
+  2.5 MB (0.74 us). What is left is the launch and a chain of dependent
+  load -> product -> softmax -> product steps.
+- What the design does about it (the "wgmma" form, 16-bit x with D a
+  multiple of 64; `attention_plan.cross_plan`): a CTA takes 64 query rows
+  of one image x a group of 64 / hd heads, so the card holds D / 64 CTAs
+  a row tile (128 at (N 256, D 256), where one block a tile gave 32). One
+  thread brings x, Wq's and Wp's group columns and the group's k and v by
+  TMA at once; q, the scores and p v run on wgmma with q and p kept in
+  registers as A fragments; the row tile's CTAs form a cluster that shares
+  their attention outputs (bf16, 8 KB a CTA) through distributed shared
+  memory, and each CTA then computes its group's output columns over the
+  whole of D, adds bp in f32 and rounds once (no K split, no atomics: a
+  row's result does not depend on its batch position).
+- Other 16-bit shapes take the "mma" form (one block of 4 warps a 64-row
+  tile on mma.sync, the weights streamed through shared memory), f32 the
+  CUDA-core kernel in full f32. Head dims 16, 32 and 64, S at most 64 and D
+  at most 256 are taken; anything else raises.
 
 On a CPU or `meta` tensor `cross_attn_block` takes the plain version
 (`cross_attn_block_plain`); on a CUDA tensor it launches the kernel or
-raises. `launches` counts calls that launched it.
+raises. `launches` counts calls that launched it, `forms` the same by form.
 """
 
 from __future__ import annotations
@@ -34,9 +46,10 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, attention_plan
 
 launches = 0
+forms = {"wgmma": 0, "mma": 0, "f32": 0}
 
 _X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _HEAD_DIMS = (16, 32, 64)
@@ -93,6 +106,13 @@ def _check(x, wq, k, v, wp, bp, heads: int) -> None:
         raise ValueError("cross_attn_block: x, the weights, k and v must be 16-byte aligned")
 
 
+def plan(x, k, heads: int) -> attention_plan.CrossPlan:
+    """The kernel `cross_attn_block` launches for x (B, N, D) and k (Bk,
+    heads, S, hd)."""
+    B, N, D = x.shape
+    return attention_plan.cross_plan(B, N, D, heads, k.shape[2], x.dtype)
+
+
 def cross_attn_block(x, wq, k, v, wp, bp, *, heads: int,
                      scale: float | None = None) -> torch.Tensor:
     """The block on x (B, N, D); returns (B, N, D) in x's dtype. scale None
@@ -103,6 +123,15 @@ def cross_attn_block(x, wq, k, v, wp, bp, *, heads: int,
     if x.device.type != "cuda":
         raise ValueError(f"cross_attn_block: no kernel for device {x.device}")
     _check(x, wq, k, v, wp, bp, heads)
+    p = plan(x, k, heads)
+    out = _launch(x, wq, k, v, wp, bp, heads, scale, p)
+    launches += 1
+    forms[p.form] += 1
+    return out
+
+
+def _launch(x, wq, k, v, wp, bp, heads: int, scale, p) -> torch.Tensor:
+    """One launch of plan p's kernel on checked CUDA operands."""
     B, N, D = x.shape
     scale = scale if scale else 1.0 / math.sqrt(D // heads)
     out = torch.empty_like(x)
@@ -111,8 +140,7 @@ def cross_attn_block(x, wq, k, v, wp, bp, *, heads: int,
         rc = lib.smelter_cross_attn_block(
             x.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(), wp.data_ptr(),
             bp.data_ptr(), out.data_ptr(), B, N, D, heads, k.shape[2], k.shape[0],
-            float(scale), _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[bp.dtype],
+            float(scale), _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[bp.dtype], p.code,
             _build.stream_of(x))
     _build.check(lib, rc, "cross_attn_block")
-    launches += 1
     return out

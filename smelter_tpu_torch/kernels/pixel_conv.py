@@ -37,6 +37,16 @@ rowdot's device code on NCHW with no layout copy:
   memory where it fits, else comes a step at a time; the output leaves by a
   TMA store. Two consumer warpgroups of two output rows run wgmma m64n32 or
   m64n64 over the 9 taps.
+- 16-bit `pixel_conv_blockdot` runs the same core with the Pallas
+  variant's point, a taller row block, where `pixel_plan(..., tall=True)`
+  takes it: two consumer warpgroups of four output rows, 10 staged input
+  rows for 8 output rows (1.25 an output row against 1.5), so each K
+  step's box, copy and weights feed twice the products; its x boxes land
+  in a ring of their own, so that three to five stages fit; the rows leave
+  two a warpgroup at a time through the same staging tiles. The plan takes
+  it at C_out 32 with C_in >= 96, where it ran 3-7 % under the 4-row tile
+  on the card; the rest (C_out 64, where it ran slower; C_in 64; H below
+  its 10-row box) takes the 4-row tile.
 - `pixel_conv_rowdot_q` with int8 or 16-bit out runs the same design on
   int8 wgmma (`csrc/wgmma_conv_s8.cuh`) where `pixel_plan` takes the shape
   (also C_out 32 or 64; rows of 16-pixel chunks, C_in % 16; ESRGAN's eight
@@ -45,13 +55,13 @@ rowdot's device code on NCHW with no layout copy:
   16-channel rows, the weight resident where it fits, and the epilogue below
   before a TMA store of int8 or 16-bit rows.
 - Everything else (f32, which keeps a full-f32 FMA kernel, no TF32; other
-  C_out; strides or bases TMA cannot take; rowdot_q with f32 out,
-  `pixel_conv_blockdot` and `pixel_conv_patch`) runs the mma.sync implicit
-  GEMM: a block of 2 (blockdot: 4) output rows x 128 pixels x 64 channels,
-  the input rows staged in shared memory transposed to [pixel][channel] so
-  that the dx taps are row offsets, both operands read by ldmatrix
-  (m16n8k16 bf16/f16, m16n8k32 s8). The Pallas kernels' `rows` (a TPU
-  tiling) is accepted and not read, and H need not divide into it.
+  C_out; strides or bases TMA cannot take; rowdot_q with f32 out and
+  `pixel_conv_patch`) runs the mma.sync implicit GEMM: a block of 2
+  (blockdot: 4) output rows x 128 pixels x 64 channels, the input rows
+  staged in shared memory transposed to [pixel][channel] so that the dx
+  taps are row offsets, both operands read by ldmatrix (m16n8k16 bf16/f16,
+  m16n8k32 s8). The Pallas kernels' `rows` (a TPU tiling) is accepted and
+  not read, and H need not divide into it.
 
 The kernel reads the weight as [3, 3, C_out, C_in]: `weights.params_from_numpy`
 stores the graph's PixelConv weights so (an OIHW view over that buffer),
@@ -159,7 +169,9 @@ def _launch(x, wp, bias, scales, out, alpha, inv_sy: float, requant: bool, *,
             dims=None, x_strides=None, out_strides=None, tall: bool = False, p=None):
     """dims (B, H, C_in, W, C_out) and the (batch, row, channel) element
     strides of x and out; by default those of contiguous NHCW maps. p: a
-    `wgmma_plan.PixelPlan` (default: the mma.sync / FMA kernels)."""
+    `wgmma_plan.PixelPlan` (default: the mma.sync / FMA kernels); a wgmma
+    plan's tile height goes with it. tall: the mma.sync / FMA kernels' 4-row
+    blocks."""
     if dims is None:
         dims = tuple(x.shape) + (out.shape[2],)
         x_strides, out_strides = x.stride()[:3], out.stride()[:3]
@@ -172,7 +184,7 @@ def _launch(x, wp, bias, scales, out, alpha, inv_sy: float, requant: bool, *,
             _build.DTYPE_CODES[bias.dtype], _build.DTYPE_CODES[out.dtype],
             0.0 if alpha is None else float(alpha), int(alpha is not None), float(inv_sy),
             int(requant), int(tall), 0 if p is None else p.code, 0 if p is None else p.grid,
-            0 if p is None else p.stages, _build.stream_of(x))
+            0 if p is None else p.stages, 0 if p is None else p.rows, _build.stream_of(x))
     _build.check(lib, rc, "pixel_conv")
 
 
@@ -191,18 +203,19 @@ def _name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def plan(x, w, out=None, wp=None, *, out_dtype=None) -> wgmma_plan.PixelPlan:
-    """The kernel `pixel_conv_rowdot` (int8 x: `pixel_conv_rowdot_q`)
-    launches for NHCW x (B, H, C_in, W) and w (C_out, C_in, 3, 3), out in
-    out's dtype, else `out_dtype`, else x's (rowdot_q: int8 under requant,
-    else its out_dtype); `out` and `wp` (the packed weight) join the
-    alignment check where given."""
+def plan(x, w, out=None, wp=None, *, out_dtype=None, tall: bool = False
+         ) -> wgmma_plan.PixelPlan:
+    """The kernel `pixel_conv_rowdot` (int8 x: `pixel_conv_rowdot_q`; tall:
+    `pixel_conv_blockdot`) launches for NHCW x (B, H, C_in, W) and w (C_out,
+    C_in, 3, 3), out in out's dtype, else `out_dtype`, else x's (rowdot_q:
+    int8 under requant, else its out_dtype); `out` and `wp` (the packed
+    weight) join the alignment check where given."""
     B, H, C, W = x.shape
     bases = [t for t in (x, out, wp) if t is not None]
     od = out.dtype if out is not None else out_dtype or x.dtype
     return wgmma_plan.pixel_plan(B, H, W, C, w.shape[0], x.stride()[:3], _name(x.dtype),
                                  out_dtype=_name(od), aligned=_build.aligned16(*bases),
-                                 sms=_build.sms(x.device))
+                                 sms=_build.sms(x.device), tall=tall)
 
 
 def _nhcw(x, w, bias, alpha, tall: bool, what: str) -> torch.Tensor:
@@ -211,8 +224,8 @@ def _nhcw(x, w, bias, alpha, tall: bool, what: str) -> torch.Tensor:
     out = torch.empty((x.shape[0], x.shape[1], w.shape[0], x.shape[3]), dtype=x.dtype,
                       device=x.device)
     wp = _packed_weight(w.to(x.dtype))
-    _launch(x, wp, bias, None, out, alpha, 1.0, False, tall=tall,
-            p=None if tall else plan(x, w, out, wp))
+    p = plan(x, w, out, wp, tall=tall)
+    _launch(x, wp, bias, None, out, alpha, 1.0, False, tall=tall and p.code == 0, p=p)
     return out
 
 
@@ -228,8 +241,9 @@ def pixel_conv_rowdot(x, w, bias, *, alpha=None) -> torch.Tensor:
 
 
 def pixel_conv_blockdot(x, w, bias, *, alpha=None, rows: int = 16) -> torch.Tensor:
-    """`pixel_conv_rowdot`'s contract on a tile of 4 output rows (the
-    Pallas variant's one dot a row block); `rows` is not read."""
+    """`pixel_conv_rowdot`'s contract on a taller tile (the Pallas variant's
+    one dot a row block): `plan(..., tall=True)` picks 8 or 4 output rows;
+    `rows` is not read."""
     global blockdot_launches
     del rows
     if _device_ok(x):

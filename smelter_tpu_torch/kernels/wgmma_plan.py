@@ -42,7 +42,10 @@ group % 64), with the K split into whole groups that fills the card; else
 `pixel_plan` picks 16-bit `pixel_conv_rowdot`'s kernel: "wgmma"
 (`csrc/wgmma_conv.cuh`, the weight resident in shared memory where it
 fits) where its TMA boxes can read the maps, else "mma" (the mma.sync or
-f32 kernel of `csrc/pixel_conv.cu`).
+f32 kernel of `csrc/pixel_conv.cu`). With `tall` it picks
+`pixel_conv_blockdot`'s: the same core on a tile of 8 output rows
+(`pixel_tall_plan`) where that fits and the rule below takes it, else the
+4-row tile, else the 4-row mma.sync (f32: FMA) blocks.
 """
 
 from __future__ import annotations
@@ -362,39 +365,60 @@ def qconv_plan(n: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int, 
 # K steps of PQ_CK channels, an x box of PQ_RAWPX pixels, a copy of PC_XPX
 # rows of 16 channels, the resident weight in chunks of PQ_CHUNK channels,
 # and int8 (or 16-bit) staging.
+# blockdot's taller tile (PC_TALL_RW rows a consumer warpgroup) stages
+# PC_TALL_R + 2 input rows a step, lands its x boxes in a ring of
+# PC_RAW_SLOTS of their own (a stage: the copy and the weights), and stores
+# its rows PC_EPI_RW at a time through the same staging tiles.
 PC_PX, PC_CK, PC_RW, PC_XPX, PC_RAWPX = 64, 16, 2, 72, 80
+PC_TALL_RW, PC_EPI_RW, PC_TRANSPOSERS, PC_RAW_SLOTS = 4, 2, 96, 2
 PQ_CK, PQ_RAWPX, PQ_CHUNK = 32, 96, 64
 PC_R = CONSUMERS * PC_RW
 PC_XROWS = PC_R + 2
+PC_TALL_R = CONSUMERS * PC_TALL_RW
 PC_COUT = (32, 64)        # the form's C_out (wgmma's N)
 PC_RES_STAGES = 4         # stages the resident weight must leave room for
+PC_TALL_MIN_STAGES = 2    # the taller tile's: two stages of twice the work
 _MAX_STRIDE = 1 << 40     # TMA's largest global stride, bytes
 
 
-def pixel_stage(c_out: int, resident: bool = False, int8: bool = False) -> int:
-    """A stage's bytes: the x box, its copy (padded to 1 KB) and, unless
-    the weight is resident, the step's weights."""
-    if int8:
-        raw, ck = PC_XROWS * PQ_CK * PQ_RAWPX, PQ_CK
-    else:
-        raw, ck = PC_XROWS * PC_CK * PC_RAWPX * 2, PC_CK * 2
-    copy = cdiv(PC_XROWS * 2 * PC_XPX * 16, 1024) * 1024
+def pixel_box(rows: int = PC_R, int8: bool = False) -> int:
+    """A step's x box for a tile of `rows` output rows: rows + 2 input
+    rows of the step's channels."""
+    return (rows + 2) * (PQ_CK * PQ_RAWPX if int8 else PC_CK * PC_RAWPX * 2)
+
+
+def pixel_ring(rows: int = PC_R) -> int:
+    """The taller tile's ring of x boxes and its two mbarriers a slot (the
+    4-row tile keeps its box in each stage: 0)."""
+    return 0 if rows == PC_R else PC_RAW_SLOTS * (pixel_box(rows) + 16)
+
+
+def pixel_stage(c_out: int, resident: bool = False, int8: bool = False,
+                rows: int = PC_R) -> int:
+    """A stage's bytes for a tile of `rows` output rows: the x box (the
+    4-row tile's; the taller tile's lie in `pixel_ring`), its copy (padded
+    to 1 KB) and, unless the weight is resident, the step's weights."""
+    ck = PQ_CK if int8 else PC_CK * 2
+    copy = cdiv((rows + 2) * 2 * PC_XPX * 16, 1024) * 1024
+    raw = pixel_box(rows, int8) if rows == PC_R else 0
     return raw + copy + (0 if resident else 9 * c_out * ck)
 
 
 def pixel_epi(c_out: int, out_bytes: int = 2) -> int:
-    """The staging tiles: 2 warpgroups x 2 rows x C_out rows of 64 pixels."""
-    return CONSUMERS * PC_RW * c_out * 64 * out_bytes
+    """The staging tiles: 2 warpgroups x 2 rows x C_out rows of 64 pixels
+    (the taller tile stores its rows through them in turns)."""
+    return CONSUMERS * PC_EPI_RW * c_out * 64 * out_bytes
 
 
-def pixel_stages(c_out: int, int8: bool = False, out_bytes: int = 2) -> int:
-    return min(8, (SMEM_BUDGET - 1024 - pixel_epi(c_out, out_bytes))
-               // pixel_stage(c_out, False, int8))
+def pixel_stages(c_out: int, int8: bool = False, out_bytes: int = 2, rows: int = PC_R) -> int:
+    ring = pixel_box(rows) * PC_RAW_SLOTS if rows != PC_R else 0
+    return min(8, (SMEM_BUDGET - 1024 - pixel_epi(c_out, out_bytes) - ring)
+               // pixel_stage(c_out, False, int8, rows))
 
 
-def pixel_smem(c_out: int, int8: bool = False, out_bytes: int = 2) -> int:
-    return (1024 + pixel_stages(c_out, int8, out_bytes) * (pixel_stage(c_out, False, int8) + 24)
-            + pixel_epi(c_out, out_bytes))
+def pixel_smem(c_out: int, int8: bool = False, out_bytes: int = 2, rows: int = PC_R) -> int:
+    return (1024 + pixel_ring(rows) + pixel_stages(c_out, int8, out_bytes, rows)
+            * (pixel_stage(c_out, False, int8, rows) + 24) + pixel_epi(c_out, out_bytes))
 
 
 def pixel_resident(c_in: int, c_out: int, int8: bool = False) -> int:
@@ -405,16 +429,17 @@ def pixel_resident(c_in: int, c_out: int, int8: bool = False) -> int:
 
 
 def pixel_resident_stages(c_in: int, c_out: int, int8: bool = False,
-                          out_bytes: int = 2) -> int:
+                          out_bytes: int = 2, rows: int = PC_R) -> int:
     """Stages of x alone beside the resident weight, at most 8."""
     free = (SMEM_BUDGET - 1024 - pixel_epi(c_out, out_bytes)
-            - pixel_resident(c_in, c_out, int8))
-    return max(0, min(8, free // (pixel_stage(c_out, True, int8) + 24)))
+            - pixel_resident(c_in, c_out, int8) - pixel_ring(rows))
+    return max(0, min(8, free // (pixel_stage(c_out, True, int8, rows) + 24)))
 
 
-def pixel_resident_smem(c_in: int, c_out: int, int8: bool = False, out_bytes: int = 2) -> int:
-    return (1024 + pixel_resident_stages(c_in, c_out, int8, out_bytes)
-            * (pixel_stage(c_out, True, int8) + 24) + pixel_epi(c_out, out_bytes)
+def pixel_resident_smem(c_in: int, c_out: int, int8: bool = False, out_bytes: int = 2,
+                        rows: int = PC_R) -> int:
+    return (1024 + pixel_ring(rows) + pixel_resident_stages(c_in, c_out, int8, out_bytes, rows)
+            * (pixel_stage(c_out, True, int8, rows) + 24) + pixel_epi(c_out, out_bytes)
             + pixel_resident(c_in, c_out, int8))
 
 
@@ -439,12 +464,45 @@ class PixelPlan:
 _OUT_BYTES = {"int8": 1, "bfloat16": 2, "float16": 2, "float32": 4}
 
 
+def pixel_tall_plan(b: int, h: int, w: int, c_in: int, c_out: int,
+                    sms: int = SMS) -> PixelPlan | None:
+    """The 16-bit wgmma form on blockdot's tile of PC_TALL_R = 8 output rows
+    (10 staged input rows, 1.25 an output row against the 4-row tile's
+    1.5) for a shape `pixel_plan` takes in its 4-row form; None where it
+    does not fit: H below its 10-row box, or fewer than two stages. The
+    weight stays resident where that leaves as many stages as bringing it
+    a step at a time would."""
+    if h < PC_TALL_R + 2:
+        return None
+    tiles = b * cdiv(h, PC_TALL_R) * cdiv(w, PC_PX)
+    streamed = pixel_stages(c_out, rows=PC_TALL_R)
+    resident = pixel_resident_stages(c_in, c_out, rows=PC_TALL_R)
+    if resident >= max(streamed, PC_TALL_MIN_STAGES):
+        return PixelPlan("wgmma", PC_TALL_R, PC_PX, resident, tiles, min(tiles, sms),
+                         pixel_resident_smem(c_in, c_out, rows=PC_TALL_R), True)
+    if streamed >= PC_TALL_MIN_STAGES:
+        return PixelPlan("wgmma", PC_TALL_R, PC_PX, streamed, tiles, min(tiles, sms),
+                         pixel_smem(c_out, rows=PC_TALL_R))
+    return None
+
+
+def pixel_tall_takes(c_in: int, c_out: int) -> bool:
+    """Whether blockdot takes its 8-row tile (where it fits): C_out 32 with
+    C_in >= 96, six K steps a tile or more. Both tiles timed at ESRGAN x4's
+    eight shapes on an H100 (`experiments/torch_xattn_blockdot_timing.py`,
+    `chip_smoke.py`): the 8-row tile 3-7 % faster at 96, 128 and 160 -> 32;
+    within 2 % at 64 -> 32 (four K steps a tile, where its epilogue's two
+    turns weigh); 5-24 % slower at C_out 64 (3 stages against 4, and 128
+    accumulators a thread)."""
+    return c_out == 32 and c_in >= 96
+
+
 # Cached: the wrappers plan every call (349 an ESRGAN forward), and the
 # pure-Python plan held the int8-pixel forward's host walk.
 @functools.lru_cache(maxsize=1024)
 def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: str, *,
-               out_dtype: str | None = None, aligned: bool = True,
-               sms: int = SMS) -> PixelPlan:
+               out_dtype: str | None = None, aligned: bool = True, sms: int = SMS,
+               tall: bool = False) -> PixelPlan:
     """`pixel_conv_rowdot`'s (and `pixel_conv_rowdot_q`'s) kernel for x (B,
     H, C_in, W) NHCW at element strides `x_strides` (batch, row, channel; W
     contiguous) in `dtype` ("bfloat16", "float16", "float32" or, for
@@ -466,7 +524,12 @@ def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: 
 
     The weight stays resident where it leaves room for 4 stages of x (with
     3, ESRGAN's 160 -> 32 conv ran slower than with its weights brought a
-    stage at a time); int8 also needs C_in >= 64 (the chunk's box)."""
+    stage at a time); int8 also needs C_in >= 64 (the chunk's box).
+
+    tall (`pixel_conv_blockdot`, 16-bit x): `pixel_tall_plan`'s 8-row tile
+    where it fits and `pixel_tall_takes` the shape, else the 4-row plan above;
+    the rest takes the mma.sync kernel's 4-row blocks (f32: its FMA
+    kernel's 4-row blocks)."""
     out_dtype = out_dtype or dtype
     int8 = dtype == "int8"
     ob = _OUT_BYTES[out_dtype]
@@ -483,6 +546,10 @@ def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: 
               and w >= PC_RAWPX and c_in >= PC_CK)
         res_ok = True
     if ok and c_out in PC_COUT and aligned and h >= PC_XROWS and b >= 1:
+        if tall and not int8 and pixel_tall_takes(c_in, c_out):
+            p = pixel_tall_plan(b, h, w, c_in, c_out, sms)
+            if p is not None:
+                return p
         tiles = b * cdiv(h, PC_R) * cdiv(w, PC_PX)
         res_stages = pixel_resident_stages(c_in, c_out, int8, ob)
         if res_ok and res_stages >= PC_RES_STAGES:
@@ -491,6 +558,8 @@ def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: 
         return PixelPlan("wgmma", PC_R, PC_PX, pixel_stages(c_out, int8, ob), tiles,
                          min(tiles, sms), pixel_smem(c_out, int8, ob))
     rows, px = (1, 64) if dtype == "float32" else (2, 128)  # pixel_conv.cu's blocks
+    if tall:
+        rows = 4
     tiles = b * cdiv(h, rows) * cdiv(w, px)
     return PixelPlan("mma", rows, px, 0, tiles, tiles * cdiv(c_out, 64), 0)
 

@@ -7,6 +7,7 @@ producer asks of the TMA unit's im2col walk (each box's first pixel, each
 K step's tap and channels, zeros in the padding), multiplied out in
 float64, equals `dequant_conv_plain` exactly on integer-valued inputs."""
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -150,3 +151,153 @@ def test_im2col_replay_equals_plain_exactly(geom):
                              torch.ones(cout), pads=pads).numpy()
     M = got.shape[0]
     assert np.array_equal(got, ref.reshape(M, cout).astype(np.float64))
+
+
+# -- pixel_conv_blockdot's taller tile (wgmma_plan.pixel_plan(..., tall=True)) --
+
+CONV_HEADER = (Path(__file__).resolve().parents[1] / "smelter_tpu_torch" / "csrc"
+               / "wgmma_conv.cuh").read_text()
+# ESRGAN x4's eight PixelConv shapes at batch 8: (B, H, C_in, W, C_out)
+ESRGAN = [(8, 128, 64 + 32 * i, 128, 32 if i < 4 else 64) for i in range(5)] + [
+    (8, s, 64, s, 64) for s in (128, 256, 512)]
+
+
+def _strides(b, h, c, w):
+    return (h * c * w, c * w, w)
+
+
+@pytest.mark.parametrize("shape", ESRGAN)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_blockdot_plan_at_esrgans_shapes(shape, dtype):
+    """The 8-row tile where the plan's rule takes the shape (C_out 32, C_in
+    >= 96; else the 4-row tile): its stages and shared memory within the budget,
+    and every (image, row block, pixel tile) taken once by the persistent
+    CTAs."""
+    b, h, c, w, co = shape
+    p = wp.pixel_plan(b, h, w, c, co, _strides(b, h, c, w), dtype, tall=True)
+    rows = wp.PC_TALL_R if wp.pixel_tall_takes(c, co) else wp.PC_R
+    assert (p.form, p.rows, p.px) == ("wgmma", rows, wp.PC_PX)
+    assert p.code == (2 if p.resident else 1)
+    assert p.tiles == b * wp.cdiv(h, rows) * wp.cdiv(w, wp.PC_PX)
+    assert p.grid == min(p.tiles, wp.SMS)
+    want = (wp.pixel_resident_smem(c, co, rows=rows) if p.resident
+            else wp.pixel_smem(co, rows=rows))
+    assert p.smem == want <= wp.SMEM_LIMIT
+    assert p.smem - 1024 <= wp.SMEM_BUDGET
+    if rows == wp.PC_TALL_R:
+        assert p.stages >= wp.PC_TALL_MIN_STAGES
+        assert p == wp.pixel_tall_plan(b, h, w, c, co)
+    taken = sorted(t for cta in range(p.grid) for t in range(cta, p.tiles, p.grid))
+    assert taken == list(range(p.tiles))
+
+
+def test_blockdot_tall_tile_sizes_are_the_headers():
+    """A tall step stages 10 rows: the box 25,600 bytes in a ring of two
+    (and two mbarriers a slot), a stage its copy, 23,040 padded to 23,552,
+    and the weights; the header's table of stages and bytes; the 4-row
+    tile's own sizes unchanged."""
+    assert wp.pixel_box(wp.PC_TALL_R) == 10 * 16 * 80 * 2
+    assert wp.pixel_ring(wp.PC_TALL_R) == 2 * (25_600 + 16) and wp.pixel_ring() == 0
+    assert wp.pixel_stage(32, True, rows=wp.PC_TALL_R) == 23_552
+    assert wp.pixel_stage(64, rows=wp.PC_TALL_R) == 23_552 + 9 * 64 * 32
+    assert wp.pixel_stage(64) == 15_360 + 14_336 + 9 * 64 * 32
+    nums = dict(re.findall(r"constexpr int (PC_TALL_RW|PC_EPI_RW|PC_TRANSPOSERS) = (\d+);",
+                           CONV_HEADER))
+    assert {k: int(v) for k, v in nums.items()} == {
+        "PC_TALL_RW": wp.PC_TALL_RW, "PC_EPI_RW": wp.PC_EPI_RW,
+        "PC_TRANSPOSERS": wp.PC_TRANSPOSERS}
+    for co in (64, 32):
+        stages = wp.pixel_stages(co, rows=wp.PC_TALL_R)
+        assert re.search(rf"tall, C_out {co}: {stages} stages, "
+                         rf"{wp.pixel_smem(co, rows=wp.PC_TALL_R):,}", CONV_HEADER)
+    for c_in, co in ((64, 32), (64, 64)):
+        stages = wp.pixel_resident_stages(c_in, co, rows=wp.PC_TALL_R)
+        assert re.search(rf"tall, resident, C_in {c_in} -> C_out {co}: {stages} stages, "
+                         rf"{wp.pixel_resident_smem(c_in, co, rows=wp.PC_TALL_R):,}",
+                         CONV_HEADER)
+    # the producer's 96 transposers take whole units of the 10-row copy
+    assert (wp.PC_TALL_R + 2) * 2 * wp.PC_XPX % wp.PC_TRANSPOSERS == 0
+    assert wp.pixel_smem(64) == 226_400 and wp.pixel_stages(64) == 4
+
+
+BLOCKDOT_EDGES = [
+    # (B, H, C_in, W, C_out, dtype, form, rows)
+    (1, 16, 64, 128, 64, "float32", "mma", 4),    # f32: its FMA kernel's 4-row blocks
+    (1, 16, 64, 128, 40, "bfloat16", "mma", 4),   # C_out 40: mma.sync's 4-row blocks
+    (1, 16, 64, 64, 32, "bfloat16", "mma", 4),    # W 64: narrower than the 80-pixel box
+    (1, 16, 64, 72, 32, "float16", "mma", 4),
+    (2, 7, 64, 88, 32, "bfloat16", "wgmma", 4),   # H 7 < 10: the 4-row tile
+    (1, 9, 96, 136, 64, "bfloat16", "wgmma", 4),
+    (1, 5, 64, 128, 32, "bfloat16", "mma", 4),    # H 5: below the 4-row tile's box too
+    (2, 12, 96, 88, 32, "bfloat16", "wgmma", 8),  # H 12: one whole and one part 8-row tile
+    (1, 10, 128, 80, 32, "float16", "wgmma", 8),
+    (2, 12, 64, 88, 32, "bfloat16", "wgmma", 4),  # C_in 64: four K steps, the 4-row tile
+    (1, 12, 96, 136, 64, "bfloat16", "wgmma", 4),  # C_out 64: the 4-row tile
+]
+
+
+@pytest.mark.parametrize("case", BLOCKDOT_EDGES)
+def test_blockdot_plan_edges(case):
+    b, h, c, w, co, dtype, form, rows = case
+    p = wp.pixel_plan(b, h, w, c, co, _strides(b, h, c, w), dtype, tall=True)
+    assert (p.form, p.rows) == (form, rows)
+    assert (rows == wp.PC_TALL_R) == (form == "wgmma" and h >= wp.PC_TALL_R + 2
+                                      and wp.pixel_tall_takes(c, co))
+    if form == "mma":
+        assert p.code == 0 and p.smem == 0
+    else:
+        assert p.smem <= wp.SMEM_LIMIT
+        # rowdot's plan at the same shape keeps its 4-row tile
+        assert wp.pixel_plan(b, h, w, c, co, _strides(b, h, c, w), dtype).rows == wp.PC_R
+
+
+def _tall_replay(x, wt, rows: int) -> np.ndarray:
+    """The wgmma form's sums in float64 on tiles of `rows` output rows:
+    per K step of 16 channels the TMA box of rows + 2 input rows (zeros
+    outside the map) and the producer's K-major copy of pixel rows w0 - 1 ..
+    w0 + 70, then 9 taps x rows products from the copy at row offset dx."""
+    B, H, C, W = x.shape
+    co = wt.shape[0]
+    wpk = np.transpose(wt, (2, 3, 0, 1)).reshape(9, co, C)
+    xp = np.zeros((B, H + rows + 2, C, W + 72))
+    xp[:, 1:H + 1, :, 1:W + 1] = x  # row -1 and pixel -1 at index 0
+    out = np.full((B, H, co, W), np.nan)
+    for b in range(B):
+        for h0 in range(0, H, rows):
+            for w0 in range(0, W, wp.PC_PX):
+                acc = np.zeros((rows, wp.PC_PX, co))
+                for c0 in range(0, C, wp.PC_CK):
+                    n = min(wp.PC_CK, C - c0)
+                    # copy[r, p, ci] = x[h0 - 1 + r, c0 + ci, w0 - 1 + p]
+                    copy = xp[b, h0:h0 + rows + 2, c0:c0 + n, w0:w0 + wp.PC_XPX]
+                    copy = copy.transpose(0, 2, 1)
+                    for r in range(rows):
+                        for tap in range(9):
+                            dy, dx = divmod(tap, 3)
+                            a = copy[r + dy, dx:dx + wp.PC_PX]
+                            acc[r] += a @ wpk[tap, :, c0:c0 + n].T
+                for r in range(rows):
+                    if h0 + r < H:
+                        m = min(wp.PC_PX, W - w0)
+                        out[b, h0 + r, :, w0:w0 + m] = acc[r, :m].T
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 12, 24, 88, 32), (2, 10, 16, 80, 64),
+                                   (1, 17, 40, 136, 32)])
+def test_blockdot_tall_taps_equal_the_plain_conv(shape):
+    """Integer-valued inputs make every sum exact: the 8-row tile's walk
+    (ragged H, a part pixel tile, channels past C_in) equals the plain
+    version exactly and stores each output once."""
+    from smelter_tpu_torch.kernels.pixel_conv import pixel_conv_blockdot_plain
+
+    B, H, C, W, co = shape
+    rng = np.random.default_rng(4)
+    x = rng.integers(-4, 5, (B, H, C, W)).astype(np.float64)
+    wt = rng.integers(-3, 4, (co, C, 3, 3)).astype(np.float64)
+    p = wp.pixel_tall_plan(B, H, W, C, co)
+    assert p is not None and p.rows == wp.PC_TALL_R
+    got = _tall_replay(x, wt, p.rows)
+    want = pixel_conv_blockdot_plain(torch.from_numpy(x), torch.from_numpy(wt),
+                                     torch.zeros(co, dtype=torch.float64)).numpy()
+    assert not np.isnan(got).any() and np.array_equal(got, want)

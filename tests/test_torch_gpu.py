@@ -1119,9 +1119,10 @@ def test_int8_and_pixel_forms_launch_their_kernels(cuda):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("alpha", [None, 0.2])
 def test_pixel_conv_variants_match_plain(cuda, shape, dtype, alpha):
-    """blockdot (4 output rows a block) on NHCW and patch (rowdot's tile at
-    NCHW strides) on the flat NCHW map, each against its plain version, in
-    rowdot's tolerances; H 3, 5, 7 and 9 leave the 4-row block ragged."""
+    """blockdot (its taller tile: 8 or 4 output rows) on NHCW and patch
+    (rowdot's tile at NCHW strides) on the flat NCHW map, each against its
+    plain version, in rowdot's tolerances; H 3, 5, 7 and 9 leave the 4-row
+    block ragged."""
     from smelter_tpu_torch.kernels import pixel_conv as pc
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1146,6 +1147,43 @@ def test_pixel_conv_variants_match_plain(cuda, shape, dtype, alpha):
     assert got.dtype == dtype and got.shape == (B, Cout, H * W)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item(), err
+
+
+# blockdot's tall wgmma form: ESRGAN x4's eight PixelConv shapes at batch 8
+# (B, H, C_in, W, C_out), and ragged ones: H 12 (8-row tiles of 12 rows),
+# H 7 (below the 10-row box: the 4-row tile), W 88 and 136 (a part pixel
+# tile), C_out 64 (the 4-row tile)
+BLOCKDOT_ESRGAN = [(8, 128, 64 + 32 * i, 128, 32 if i < 4 else 64) for i in range(5)] + [
+    (8, s, 64, s, 64) for s in (128, 256, 512)]
+BLOCKDOT_RAGGED = [(2, 12, 96, 88, 32), (1, 12, 128, 136, 32), (1, 12, 96, 136, 64),
+                   (2, 7, 96, 88, 32), (1, 7, 64, 136, 64)]
+
+
+@pytest.mark.parametrize("shape", BLOCKDOT_ESRGAN + BLOCKDOT_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_pixel_conv_blockdot_wgmma_form(cuda, shape, dtype):
+    """16-bit blockdot on the wgmma conv core, on the tile height its plan
+    chose (8 rows where the 10-row box fits and the plan's rule takes the
+    shape, else 4), against the plain
+    version; one launch counted a call."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+    from smelter_tpu_torch.kernels import wgmma_plan as wp
+
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b = _pixel_operands(*shape, cuda)
+    x = x.to(dtype)
+    B, H, Cin, W, Cout = shape
+    p = pc.plan(x, w, tall=True)
+    assert p.form == "wgmma" and p.rows == (8 if H >= 10 and wp.pixel_tall_takes(Cin, Cout)
+                                            else 4)
+    before = pc.blockdot_launches
+    got = pc.pixel_conv_blockdot(x, w, b, alpha=0.2)
+    torch.cuda.synchronize()
+    assert pc.blockdot_launches == before + 1
+    ref = pc.pixel_conv_blockdot_plain(x, w, b, alpha=0.2)
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item(), err
 
 
 def test_pixel_conv_variants_raise_on_bad_operands(cuda):
@@ -1885,6 +1923,63 @@ def test_cross_attn_block_raises_on_bad_operands(cuda):
     with pytest.raises(TypeError):  # k not in x's dtype
         xa.cross_attn_block(x, wq, k.float(), v, wp, bp, heads=8)
     assert xa.launches == before
+
+
+# cross_attn_block's wgmma form at SD-UNet's two b8 shapes (hd 16 and 32),
+# 16 keys and 7 (keys padded to 16 score -inf)
+XATTN_SD = [(8, 1024, 128, 8), (8, 256, 256, 8)]
+
+
+@pytest.mark.parametrize("geom", XATTN_SD)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bk", ["B", 1])
+@pytest.mark.parametrize("S", [16, 7])
+def test_cross_attn_block_wgmma_form(cuda, geom, dtype, bk, S):
+    """The wgmma form (a CTA a 64-row tile x a head group, the groups'
+    partials of att Wp summed in a cluster) against the plain version, at
+    least 128 CTAs, and the same bits from call to call."""
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+
+    B, N, D, H = geom
+    args = _xattn_operands(B, N, D, H, S, B if bk == "B" else 1, dtype, cuda)
+    p = xa.plan(args[0], args[2], H)
+    assert p.form == "wgmma" and p.ctas >= 128 and p.cluster == D // 64
+    before, wg_before = xa.launches, xa.forms["wgmma"]
+    got = xa.cross_attn_block(*args, heads=H)
+    again = xa.cross_attn_block(*args, heads=H)
+    torch.cuda.synchronize()
+    assert xa.launches == before + 2 and xa.forms["wgmma"] == wg_before + 2
+    assert torch.equal(got, again)
+    _close_to_plain(got, xa.cross_attn_block_plain(*args, heads=H), dtype)
+
+
+@pytest.mark.parametrize("geom", XATTN_SD)
+def test_cross_attn_block_rows_do_not_depend_on_batch_position(cuda, geom):
+    """Image 3 alone (B 1) and inside B 8 (per-image k and v): equal bits,
+    so neither the cluster's sum nor the CTA order depends on the batch."""
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+
+    B, N, D, H = geom
+    x, wq, k, v, wp, bp = _xattn_operands(B, N, D, H, 16, B, torch.bfloat16, cuda, seed=5)
+    full = xa.cross_attn_block(x, wq, k, v, wp, bp, heads=H)
+    one = xa.cross_attn_block(x[3:4].contiguous(), wq, k[3:4].contiguous(),
+                              v[3:4].contiguous(), wp, bp, heads=H)
+    torch.cuda.synchronize()
+    assert torch.equal(full[3:4], one)
+
+
+def test_cross_attn_block_declined_shape_takes_the_mma_form(cuda):
+    """D 96 (3 heads of 32) is no multiple of 64: the plan declines it and
+    the mma.sync form runs, within the same tolerance."""
+    from smelter_tpu_torch.kernels import cross_attn_block as xa
+
+    args = _xattn_operands(2, 70, 96, 3, 16, 2, torch.bfloat16, cuda)
+    assert xa.plan(args[0], args[2], 3).form == "mma"
+    before = xa.forms["mma"]
+    got = xa.cross_attn_block(*args, heads=3)
+    torch.cuda.synchronize()
+    assert xa.forms["mma"] == before + 1
+    _close_to_plain(got, xa.cross_attn_block_plain(*args, heads=3), torch.bfloat16)
 
 
 def test_small_convnext_and_sd_unet_on_the_card_match_the_cpu(cuda):
