@@ -67,9 +67,11 @@ its number:
    `dequant_matmul_int8_reference` on `torch._int_mm` as the yardstick),
    `pixel_conv_blockdot` (NHCW) and `pixel_conv_patch` (flat NCHW) at each
    of ESRGAN x4's PixelConv shapes at batch 8 in bf16 and at batch 1 in
-   f32 (blockdot's tile as its plan chose it, and both wgmma tiles, 8 rows
-   and 4, timed beside it), then small odd shapes, and a profile showing one
-   kernel a `patch` call (no layout copy);
+   f32 (each on the tile its plan chose; blockdot's both wgmma tiles, 8
+   rows and 4, timed beside it; every patch call at batch 8 on the wgmma
+   form, the fused GEMM on the panel form at the serving GEMM and the
+   cluster form at the head, each call's form recorded), then small odd
+   shapes, and a profile showing one kernel a `patch` call (no layout copy);
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
    loaded back, and run through `compile(..., quant="int8")` on the card in
@@ -316,6 +318,8 @@ KERNELS = {"dequant_matmul": ("dequant_matmul", "launches"),
            "ring_attention_rdma": ("ring_attention_rdma", "launches")}
 
 REPORT: dict = {}
+_START = time.perf_counter()
+PHASE_END_S: dict = {}  # seconds from the start to each phase's last line
 
 
 class SmokeError(RuntimeError):
@@ -328,6 +332,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def say(phase, text: str) -> None:
+    PHASE_END_S[str(phase)] = round(time.perf_counter() - _START, 1)
     print(f"[{phase}] {text}", flush=True)
 
 
@@ -1907,19 +1912,36 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                 (("head", HEAD), ("serving", SERVING))}
     conv_ops = {key: conv_operands(*key)[0] for key in ESRGAN_CONVS}
     _zero_counts()
-    for x, w, s in gemm_ops.values():
+    for forms in (pc.patch_forms, im.fused_forms):
+        forms.update({k: 0 for k in forms})
+    gemm_forms, patch_forms = {}, {}
+    for label, (x, w, s) in gemm_ops.items():
         for fn in fused.values():
             fn(x, w, s)
+        p = im.fused_plan(x, w)
+        gemm_forms[label] = f"{p.form}, split {p.split}, k_chunk {p.k_chunk}, grid {p.grid}"
     for (cin, cout, px), (x, w, b) in conv_ops.items():
         pc.pixel_conv_blockdot(x, w, b, alpha=0.2)
-        pc.pixel_conv_patch(flat(x), w, b, width=px, alpha=0.2)
+        xf = flat(x)
+        p = pc.patch_plan(xf, w, px)
+        patch_forms[str((cin, cout, px))] = f"{p.form}, {p.rows} rows"
+        check(p.form == "wgmma", f"pixel_conv_patch {(cin, cout, px)} b{B}: plan {p}")
+        pc.pixel_conv_patch(xf, w, b, width=px, alpha=0.2)
     torch.cuda.synchronize()
     entry = _counts()
     expect = {"dequant_matmul_int8_fused": 2, "dequant_matmul_int8_fused2": 2,
               "pixel_conv_blockdot": len(ESRGAN_CONVS), "pixel_conv_patch": len(ESRGAN_CONVS)}
     _check_routed("variant entry points", entry, set(expect))
     check(all(entry[k] == n for k, n in expect.items()), f"variant launches {entry}")
+    # every ESRGAN shape's patch call launched the wgmma form; the fused
+    # GEMM the panel form at the serving GEMM and the cluster form at the head
+    check(pc.patch_forms == {"wgmma": len(ESRGAN_CONVS), "mma": 0},
+          f"pixel_conv_patch forms {pc.patch_forms}")
+    check(im.fused_forms == {"panel": 1, "cluster": 1, "revisit": 0},
+          f"fused forms {im.fused_forms}")
     REPORT["variant_entry_launches"] = {k: entry[k] for k in expect}
+    REPORT["variant_forms"] = {"pixel_conv_patch": patch_forms,
+                               "dequant_matmul_int8_fused": gemm_forms}
     del gemm_ops, conv_ops
 
     rows = {}
@@ -1938,6 +1960,10 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                           iters)
         plain_ms = graph_ms(torch, side, lambda i: im.dequant_matmul_int8_fused_plain(
             *sets[i % n]), 2, replays=2)
+        # the row scales stay plain PyTorch: their pass, timed apart
+        scales_ms = graph_ms(torch, side, lambda i: im.quantize_rows_scales(sets[i % n][0]),
+                             iters)
+        fp = im.fused_plan(x, w)
         b_ms, b_by = bound(nbytes, 2 * M * N * K, "int8", power_w)
         for name, fn in fused.items():
             got = fn(x, w, s)
@@ -1951,6 +1977,10 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                 ms=graph_ms(torch, side, lambda i, fn=fn: fn(*sets[i % n]), iters),
                 call_ms=time_ms(torch, lambda i, fn=fn: fn(*sets[i % n]), iters),
                 plain_ms=plain_ms, library_ms=lib_ms, two_pass_ms=two_pass_ms,
+                scales_ms=scales_ms,
+                form=(f"{fp.form} form, split {fp.split}, k_chunk {fp.k_chunk}, grid {fp.grid}"
+                      if name == "dequant_matmul_int8_fused"
+                      else "quantize-on-revisit, mma.sync"),
                 library="dequant_matmul_int8_reference (quantize_rows, torch._int_mm, "
                         "epilogue)", bound_ms=b_ms, bound_by=b_by, ops=2 * M * N * K,
                 calls_per_forward=1)
@@ -1998,6 +2028,10 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
             else:
                 ops_ = [(flat(x_), w_, b_) for x_, w_, b_ in sets]
                 kwp = dict(kw, width=px)
+                # the tile the plan chose is timed below; both heights are
+                # timed by experiments/torch_patch_fused_timing.py
+                chosen = pc.patch_plan(ops_[0][0], ops_[0][1], px)
+                check(chosen.form == "wgmma", f"{name} {(cin, cout, px)}: plan {chosen}")
                 call = lambda i: pc.pixel_conv_patch(*ops_[i % n], **kwp)  # noqa: E731
                 plain = lambda i: pc.pixel_conv_patch_plain(*ops_[i % n], **kwp)  # noqa: E731
                 f32_err = err_of(pc.pixel_conv_patch(flat(x1), w1, b1, **kwp),
@@ -2025,13 +2059,13 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                 r[f"rows{height}_ms"] = graph_ms(torch, side, forced, 10)
                 r[f"rows{height}_plan"] = (f"{p_.stages} stages, "
                                            f"{'resident' if p_.resident else 'streamed'} weight")
+            r["form"] = (f"{chosen.form} form, {chosen.rows}-row tiles x {chosen.px} px, "
+                         f"{chosen.stages} stages, "
+                         f"{'resident' if chosen.resident else 'streamed'} weight, grid "
+                         f"{chosen.grid} of {chosen.tiles} tiles")
             if tiles:
-                r["form"] = (f"{chosen.form} form, {chosen.rows}-row tiles x {chosen.px} px, "
-                             f"{chosen.stages} stages, "
-                             f"{'resident' if chosen.resident else 'streamed'} weight, grid "
-                             f"{chosen.grid} of {chosen.tiles} tiles; 8-row "
-                             f"{r['rows8_ms']:.4f} ms ({r['rows8_plan']}), 4-row "
-                             f"{r['rows4_ms']:.4f} ms ({r['rows4_plan']})")
+                r["form"] += (f"; 8-row {r['rows8_ms']:.4f} ms ({r['rows8_plan']}), 4-row "
+                              f"{r['rows4_ms']:.4f} ms ({r['rows4_plan']})")
             r["ms"] = graph_ms(torch, side, call, 10)
             r["call_ms"] = time_ms(torch, call, 10)
             r["plain_ms"] = graph_ms(torch, side, plain, 3)
@@ -2057,13 +2091,14 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
     xf = flat(x)
     kernels, _, n_kernels = _profile(torch, lambda: pc.pixel_conv_patch(xf, w, b, width=128,
                                                                        alpha=0.2), steps=1)
-    check(n_kernels == 1 and all(_PORT_IMAGE_KERNEL.search(k) for k in kernels),
+    check(n_kernels == 1 and all("pixel_conv_wgmma" in k for k in kernels),
           f"pixel_conv_patch ran {n_kernels} kernels: {sorted(kernels)}")
     REPORT["patch_kernels_a_call"] = {"kernels": n_kernels, "names": sorted(kernels)}
 
     for r in rows.values():
-        extra = (f", dequant_matmul_int8 {r['two_pass_ms']:.4f} ms, "
-                 f"{r['ops'] / r['ms'] / 1e9:.1f} TOP/s" if "two_pass_ms" in r
+        extra = (f", dequant_matmul_int8 {r['two_pass_ms']:.4f} ms, row scales' plain pass "
+                 f"{r['scales_ms']:.4f} ms, {r['ops'] / r['ms'] / 1e9:.1f} TOP/s"
+                 if "two_pass_ms" in r
                  else f"; f32 b1 err {r['f32_b1_err']:.3g} (1e-5 x max)")
         extra += f" | {r['form']}" if "form" in r else ""
         say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']}) | "
@@ -2081,7 +2116,7 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                                              for r in rows.values() if r["name"] == name)
             heights = (f" (8-row tile everywhere {fw['rows8_ms']:.3f} ms, 4-row tile "
                        f"{fw['rows4_ms']:.3f} ms)")
-            REPORT["blockdot_forward"] = fw
+        REPORT["blockdot_forward" if name == "pixel_conv_blockdot" else "patch_forward"] = fw
         say(2, f"{name} over an ESRGAN x4 b8 forward's 349 calls: kernel {fw['ms']:.3f} ms"
                f"{heights}, plain {fw['plain_ms']:.3f} ms, library {fw['library_ms']:.3f} ms, "
                f"bound {fw['bound_ms']:.3f} ms")
@@ -4945,7 +4980,7 @@ def main() -> int:
                                        "smelter_tpu/kernels/pixel_conv.py:377",
                                        per_forward(variant_rows, "pixel_conv_blockdot"),
                                        "forward"),
-               "pixel_conv_patch": ("smelter_tpu_torch/csrc/pixel_conv.cu",
+               "pixel_conv_patch": ("smelter_tpu_torch/csrc/wgmma_conv.cuh",
                                     "smelter_tpu/kernels/pixel_conv.py:487",
                                     per_forward(variant_rows, "pixel_conv_patch"), "forward"),
                "collective_matmul_ag": ("smelter_tpu_torch/csrc/collective_matmul.cu",
@@ -4964,6 +4999,8 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "per": per})
     REPORT["kernels"] = kernels
+    REPORT["phase_end_s"] = PHASE_END_S
+    print("seconds from the start to each phase's last line: " + json.dumps(PHASE_END_S))
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
     (out / "report.json").write_text(json.dumps(REPORT, indent=1, default=str))

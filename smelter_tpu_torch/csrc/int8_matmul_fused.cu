@@ -13,25 +13,395 @@
 // the int8 tensor cores (~139 us at 1,979 TOP/s); at the ResNet-50 head
 // (M 128, K 2048, N 1000) HBM (~2.8 MB, ~0.85 us at 3.35 TB/s).
 //
-// Design, simple first, on int8_gemm.cuh's tiles (mma.sync.m16n8k32, the
-// weight tile transposed to [n][k] in shared memory, 8 warps of 32 x 64):
-// - quantize-on-revisit (panel_rows 0): int8_matmul.cu's 128 x 128 output
-//   tile with another A loader, which reads the float x tile (bf16, f16 or
-//   f32), divides by s_row with IEEE division (__fdiv_rn: quantize_rows
-//   divides, no reciprocal), rounds half to even (__float2int_rn), clips to
-//   [-127, 127] and stores int8 [m][k]. Every output tile quantizes the A
-//   tiles it stages, so x is read once an N tile, mostly from L2.
-// - panel (panel_rows BM = 32, 64 or 128): a block quantizes the BM x K
-//   panel of its rows into shared memory once, then sweeps N tiles of
-//   64 x 8 * 32 / BM columns against it, so x crosses HBM once and is
-//   quantized once a block. The panel and one weight tile must fit in
-//   227 KB (the wrapper picks BM and refuses a longer K); where M / BM
-//   leaves SMs idle the N tiles split over grid.y, each split quantizing
-//   its own panel.
+// Design:
+// - dequant_matmul_int8_fused: three forms that kernels/wgmma_plan.py::
+//   fused_plan picks from the shape, two of them on the int8 wgmma core
+//   (csrc/wgmma_gemm.cuh):
+//   * panel (gemm_panel_qx; aligned shapes with work units enough to fill
+//     the card's clusters: the serving GEMM): the Pallas kernel's point, x read from device memory once as
+//     floats and quantized once, kept for every N tile. A CTA holds the
+//     quantized rows of a 128-row panel resident in shared memory; a 128 x
+//     4,096 int8 panel is 512 KB, so the panel's K is split over a cluster
+//     of S = 4 or 8 CTAs (rank r holds K bytes [r kc, (r + 1) kc), 128 KB at
+//     K 4,096 and S 4). The producer thread TMA-loads x's float boxes (64
+//     rows x 128 bf16/f16, or 32 rows x 128 f32: 16 KB, no swizzle) into the
+//     ring of W stages; the two consumer warpgroups divide each element by
+//     its row's scale (__fdiv_rn), round half to even, clip to [-127, 127]
+//     and write the bytes K-major with the 128-byte swizzle, the layout
+//     wgmma reads as its B operand. Then the cluster sweeps N tiles of 128 W
+//     columns against the panel as gemm_tma_s8 does: W's box (128 K rows x
+//     128 columns) by TMA, W^T wgmma.m64n128k32's register operand, the
+//     stage freed as soon as W is in registers. Rank r stores x rows
+//     [128 r / S, 128 (r + 1) / S) of each tile: every CTA adds the int32
+//     sums of the others' rows into their shared memory (64-bit adds of two
+//     biased sums through distributed shared memory, into two buffers a
+//     tile apart), keeps its own in registers, and after a cluster barrier
+//     applies the epilogue to its rows. Integer addition is exact in any
+//     order, so the result is bit for bit the two-pass path's. The clusters
+//     are persistent, as many as fit the card at once (30 of 4 on an H100
+//     SXM), each a run of (panel, N tile) units: one CTA a panel left 64
+//     panels in 3 waves. 0.752 ms at the serving GEMM, 8 ranks 1.121 (NVIDIA
+//     H100 80GB HBM3, 700 W; experiments/torch_patch_fused_timing.py). The
+//     exchange and its barrier take about a third of it (diagnostic builds
+//     without them); exchanging through device memory instead ran slower.
+//   * cluster (few output tiles, any alignment: the ResNet-50 head, whose N
+//     1,000 is no TMA stride): gemm_cluster_s8 of wgmma_gemm.cuh with x in
+//     its float type, which it quantizes as each 128 x 64 tile loads it. K
+//     split over up to 8 CTAs, int32 partials summed in rank order through
+//     distributed shared memory. Each N tile quantizes the x rows it stages.
+//   * revisit (int8_matmul_qx below, form 0): shapes the panel form turns
+//     down (K 4,097-4,480 or past 9,216, N % 16, an unaligned base) with
+//     tiles enough to fill the card without a K split. The cluster form on
+//     one rank took 5.01 ms at the serving GEMM against this kernel's 1.89
+//     (NVIDIA H100 80GB HBM3, 700 W; experiments/torch_patch_fused_timing.py).
+//     So no K is refused.
+// - dequant_matmul_int8_fused2, quantize-on-revisit (int8_matmul_qx):
+//   int8_gemm.cuh's 128 x 128 mma.sync.m16n8k32 tile with another A loader,
+//   which reads the float x tile (bf16, f16 or f32), divides by s_row with
+//   IEEE division (__fdiv_rn: quantize_rows divides, no reciprocal), rounds
+//   half to even (__float2int_rn), clips to [-127, 127] and stores int8
+//   [m][k]. Every output tile quantizes the A tiles it stages, so x is read
+//   once an N tile, mostly from L2. No cp.async, TMA or wgmma yet.
 // The epilogue is __fmul_rn(__fmul_rn(float(acc), s_row), s_col), then one
 // rounding to out_dtype, as the Pallas kernels do. M, N and K edges are
-// masked; no cp.async, TMA or wgmma yet.
-#include "int8_gemm.cuh"
+// masked (the TMA maps fill zeros past M and K).
+#include "wgmma_gemm.cuh"
+
+namespace smelter {
+namespace wg {
+namespace {
+
+template <typename T>
+constexpr CUtensorMapDataType x_map_type() {
+  return std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : map_type<T>();
+}
+
+// -- the panel form -----------------------------------------------------------
+
+constexpr int QP_SLOT = 16384;  // a ring slot: one x landing box or one W box
+constexpr int QP_THREADS = 128 * (CONSUMERS + 1);
+constexpr int QP_EX = 256;      // consumer threads: the exchange buffers' row length
+constexpr int QP_BIAS = 1 << 25;  // a sum's bias in the exchange: |sum| < 2^25 at k_chunk <= 1,152
+
+// Rows of an x landing box: 128 elements (S8_BK bytes once quantized) a row.
+template <typename T>
+__host__ __device__ constexpr int qp_box_rows() {
+  return QP_SLOT / (S8_BK * static_cast<int>(sizeof(T)));
+}
+// Bytes: alignment, the panel (kb K blocks of 128 rows x 128 bytes), the
+// ring and its two mbarriers a stage, the two exchange buffers of (64 / S)
+// int32 sums a consumer thread (in 64-bit pairs).
+__host__ __device__ constexpr int qp_smem(int S, int kb, int stages) {
+  return 1024 + kb * S8_BOX + stages * (QP_SLOT + 16) + 2 * (64 / S) * QP_EX * 4;
+}
+
+// The cluster barrier in two halves, for threads that reach it apart (the
+// producer thread between its loads): arrive (release) and wait (acquire).
+__device__ __forceinline__ void qp_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void qp_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// This CTA's shared address `addr` in rank q's shared memory (shared::cluster).
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int q) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(q));
+  return r;
+}
+// A 64-bit add into another CTA's shared memory, returning nothing.
+__device__ __forceinline__ void red_add_cluster(uint32_t addr, unsigned long long v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.add.u64 [%0], %1;\n" ::"r"(addr), "l"(v)
+               : "memory");
+}
+
+// out (M, N) = float(q(x) @ W) * s_row * s_col with q(x) quantized into a
+// resident panel. Grid (S, C): C persistent clusters of the S ranks; rank r
+// sums K [r k_chunk, (r + 1) k_chunk) (k_chunk a multiple of 128; past K
+// the maps read zeros). The work units, (128-row panel, N tile) with tiles
+// fastest, are split evenly over the clusters; a cluster quantizes a panel
+// when its run of units enters it (at most once, so a panel's x is read
+// and quantized once, or twice where two clusters share it). After unit
+// i's K loop a rank adds the sums of the other ranks' rows into their
+// buffer i & 1, keeps its own rows' in registers, and arrives on the
+// cluster barrier; after unit i + 1's K loop it waits there (every rank has
+// added unit i's sums, and has read and cleared its buffer (i + 1) & 1's
+// unit i - 1), stores unit i's rows and clears the buffer. Every thread of
+// the cluster arrives and waits once a unit and once before the first.
+template <typename T, typename OutT, int S>
+__global__ void __launch_bounds__(QP_THREADS, 1)
+gemm_panel_qx(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+              const float* __restrict__ s_row, const float* __restrict__ s_col,
+              OutT* __restrict__ out, int M, int N, int K, int k_chunk, int stages) {
+  static_assert(S == 4 || S == 8, "4 or 8 ranks");
+  constexpr int JR = 16 / S;       // 8-row groups of a tile a rank stores
+  constexpr int OWN = 4 * JR;      // sums a consumer thread holds for its rank's rows
+  constexpr int LR = qp_box_rows<T>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* panel = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int kb_n = k_chunk / S8_BK;
+  uint8_t* ring = panel + kb_n * S8_BOX;
+  // [2][OWN / 2][QP_EX]: pairs of sums, each biased by QP_BIAS, in one word
+  auto* xbuf = reinterpret_cast<unsigned long long*>(ring + stages * QP_SLOT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xbuf + OWN * QP_EX);
+  uint64_t* empty = full + stages;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int k0 = rank * k_chunk;
+  const int nt = div_up(N, RA_BW), boxes = kb_n * (BM / LR);
+  const long long units = static_cast<long long>(div_up(M, BM)) * nt;
+  const int u0 = static_cast<int>(units * blockIdx.y / gridDim.y);
+  const int u1 = static_cast<int>(units * (blockIdx.y + 1) / gridDim.y);
+  // unit u enters a new panel: the cluster's first unit, or the first of a panel
+  auto fresh = [&](int u) { return u == u0 || u % nt == 0; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);  // every consumer thread, once done reading
+    }
+    mbar_fence_init();
+  }
+  for (int i = static_cast<int>(threadIdx.x); i < OWN * QP_EX; i += QP_THREADS) xbuf[i] = 0ull;
+  __syncthreads();
+  qp_arrive();  // every rank's buffers are clear before any rank adds into them
+  qp_wait();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every load
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      auto load = [&](const CUtensorMap* map, int c0, int c1) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], QP_SLOT);
+        tma_load_2d(ring + stage * QP_SLOT, map, &full[stage], c0, c1);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      for (int u = u0; u < u1; ++u) {
+        const int m0 = u / nt * BM;
+        if (fresh(u))  // the panel's float boxes, K block by K block
+          for (int b = 0; b < boxes; ++b)
+            load(&map_x, k0 + (b / (BM / LR)) * S8_BK, m0 + (b % (BM / LR)) * LR);
+        for (int kb = 0; kb < kb_n; ++kb) load(&map_w, u % nt * RA_BW, k0 + kb * S8_BK);
+        if (u > u0) qp_wait();
+        qp_arrive();
+      }
+      if (u1 > u0) qp_wait();
+    } else {
+      for (int u = u0; u < u1; ++u) {
+        qp_arrive();
+        qp_wait();
+      }
+    }
+    return;
+  }
+
+  const int ct = threadIdx.x - 128, wgi = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  int stage = 0, phase = 0;
+  auto advance = [&] {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+
+  // the panel of rows m0..: each box's 8-element groups, 16 a row,
+  // consecutive threads along a row; each group's 8 bytes go to their
+  // swizzled place
+  auto quantize = [&](int m0) {
+    for (int b = 0; b < boxes; ++b) {
+      const int kb = b / (BM / LR), r0 = (b % (BM / LR)) * LR;
+      mbar_wait(&full[stage], phase);
+      const T* box = reinterpret_cast<const T*>(ring + stage * QP_SLOT);
+#pragma unroll
+      for (int i = 0; i < LR * 16 / QP_EX; ++i) {
+        const int c = ct + i * QP_EX, r = r0 + (c >> 4), kbyte = (c & 15) * 8;
+        const float s = m0 + r < M ? s_row[m0 + r] : 1.f;
+        alignas(16) T v[8];
+        const uint4* src = reinterpret_cast<const uint4*>(box + (c >> 4) * S8_BK + kbyte);
+#pragma unroll
+        for (int u = 0; u < static_cast<int>(sizeof(T)) / 2; ++u)
+          reinterpret_cast<uint4*>(v)[u] = src[u];
+        *reinterpret_cast<uint2*>(panel + kb * S8_BOX + r * 128 +
+                                  (((kbyte >> 4) ^ (r & 7)) << 4) + (kbyte & 15)) =
+            make_uint2(quant4(v, s), quant4(v + 4, s));
+      }
+      mbar_arrive(&empty[stage]);  // this thread's reads of the box are done
+      advance();
+    }
+    fence_proxy_async();  // the panel, before wgmma reads it
+    named_sync(3, 256);
+  };
+
+  const int nb = wgi * 64 + warp * 16 + 2 * g;  // this thread's W column pair in the tile
+  uint32_t rot = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rot |= static_cast<uint32_t>((i - t4) & 3) << (4 * i);
+  int acc[64], own[OWN];
+  uint32_t ra0[S8_BK / 32][4], ra1[S8_BK / 32][4];
+  uint32_t dst[S];  // each rank's exchange buffers, this thread's column (shared::cluster)
+#pragma unroll
+  for (int q = 0; q < S; ++q) dst[q] = mapa(smem_u32(xbuf + ct), q);
+
+  auto step = [&](uint32_t (&a)[S8_BK / 32][4], const uint8_t* w, const uint8_t* x) {
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t h[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = kk * 32 + half * 16 + 4 * t4 + ((i + t4) & 3);
+          h[i] = *reinterpret_cast<const uint16_t*>(w + k * 128 + (((nb >> 4) ^ (k & 7)) << 4) +
+                                                   (nb & 15));
+        }
+        const uint32_t p01 = __byte_perm(h[0], h[1], 0x5410), p23 = __byte_perm(h[2], h[3], 0x5410);
+        a[kk][2 * half] = __byte_perm(__byte_perm(p01, p23, 0x6420), 0, rot);
+        a[kk][2 * half + 1] = __byte_perm(__byte_perm(p01, p23, 0x7531), 0, rot);
+      }
+    wgmma_fence();
+    const uint64_t db = desc(x, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk) mma_s8_rs_m64n128k32(acc, a[kk], db + 2 * kk);
+    wgmma_commit();
+  };
+  // unit u's rows of this rank (its i-th unit): its own sums plus the S - 1
+  // others' (each word holds two sums, each biased by QP_BIAS once a
+  // sender), then clear
+  auto store = [&](int u, int i) {
+    unsigned long long* mine = xbuf + (i & 1) * (OWN / 2) * QP_EX + ct;
+    int sum[OWN];
+#pragma unroll
+    for (int p = 0; p < OWN / 2; ++p) {
+      const unsigned long long v = mine[p * QP_EX];
+      mine[p * QP_EX] = 0ull;
+      sum[2 * p] = own[2 * p] + static_cast<int>(static_cast<unsigned>(v) - (S - 1) * QP_BIAS);
+      sum[2 * p + 1] =
+          own[2 * p + 1] + static_cast<int>(static_cast<unsigned>(v >> 32) - (S - 1) * QP_BIAS);
+    }
+    const int col = u % nt * RA_BW + nb, m0 = u / nt * BM;
+    if (col < N) {  // N % 16 == 0: col + 1 < N with it
+      const float sc0 = s_col[col], sc1 = s_col[col + 1];
+#pragma unroll
+      for (int jj = 0; jj < JR; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = m0 + 8 * (rank * JR + jj) + 2 * t4 + e;
+          const int a0 = 4 * jj + e, a1 = a0 + 2;
+          if (row < M)
+            put_s8_pair(out, static_cast<size_t>(row) * N + col, sum[a0], sum[a1], s_row[row],
+                        sc0, sc1);
+        }
+    }
+  };
+
+  for (int u = u0; u < u1; ++u) {
+    const int i = u - u0;
+    if (fresh(u)) {
+      if (i > 0) named_sync(3, 256);  // both warpgroups are done with the last panel
+      quantize(u / nt * BM);
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0;
+    for (int kb = 0; kb < kb_n; ++kb) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* w = ring + stage * QP_SLOT;
+      if (kb & 1)
+        step(ra1, w, panel + kb * S8_BOX);
+      else
+        step(ra0, w, panel + kb * S8_BOX);
+      // W went into registers: its stage is free before the group retires
+      mbar_arrive(&empty[stage]);
+      wgmma_wait<1>();  // the step before retired: its registers are free
+      advance();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (i > 0) {
+      qp_wait();
+      store(u - 1, i - 1);
+    }
+    // acc[4j + 2h + e]: W column nb + h, x row 8j + 2t4 + e; rank j / JR
+    // stores it. A pair of sums goes as one 64-bit add, each half biased to
+    // [0, 2^26) (|sum| <= 127 * 128 * 1,152 < QP_BIAS), so that S - 1 of
+    // them never carry out of their 32 bits: the halves stay exact.
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; h += 2) {
+        const int q = j / JR, a = 4 * (j % JR) + h;
+        if (q == rank) {
+          own[a] = acc[4 * j + h];
+          own[a + 1] = acc[4 * j + h + 1];
+        } else {
+          const unsigned long long v =
+              static_cast<unsigned>(acc[4 * j + h] + QP_BIAS) |
+              static_cast<unsigned long long>(static_cast<unsigned>(acc[4 * j + h + 1] + QP_BIAS))
+                  << 32;
+          red_add_cluster(dst[q] + ((i & 1) * (OWN / 2) + a / 2) * QP_EX * 8, v);
+        }
+      }
+    qp_arrive();
+  }
+  if (u1 > u0) {
+    qp_wait();
+    store(u1 - 1, u1 - 1 - u0);
+  }
+}
+
+// The panel form: grid (S, C) in clusters of S, C = the clusters that fit
+// the card at once (cudaOccupancyMaxActiveClusters, read once a shared
+// memory size), at most one a unit; x (M, K) in T and w (K, N) int8, both
+// 16-byte aligned, K sizeof(T) % 16 == 0, N % 16 == 0, M, N, K >= 128 (the
+// plan's checks).
+template <typename T, typename OutT, int S>
+static int launch_panel_qx(const void* x, const void* w, const float* s_row, const float* s_col,
+                           void* out, int M, int N, int K, int k_chunk, int stages,
+                           cudaStream_t stream) {
+  const int smem = qp_smem(S, k_chunk / S8_BK, stages);
+  if (k_chunk <= 0 || k_chunk % S8_BK || k_chunk > 1152 || stages < 2 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  int rc = make_map(&map_x, x, x_map_type<T>(), sizeof(T), M, K, qp_box_rows<T>(), S8_BK,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc == 0)
+    rc = make_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, S8_BK, RA_BW,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      gemm_panel_qx<T, OutT, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  (void)smem_set;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, 1, 1);
+  cfg.blockDim = dim3(QP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int fit_smem = -1, fit = 0;  // co-resident clusters at shared memory fit_smem
+  if (fit_smem != smem) {
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&fit, gemm_panel_qx<T, OutT, S>, &cfg);
+    if (e != cudaSuccess || fit < 1) return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidValue);
+    fit_smem = smem;
+  }
+  cfg.gridDim.y = min(fit, cdiv(M, BM) * cdiv(N, RA_BW));
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_panel_qx<T, OutT, S>, map_x, map_w, s_row,
+                                           s_col, static_cast<OutT*>(out), M, N, K, k_chunk,
+                                           stages);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace wg
+}  // namespace smelter
 
 namespace {
 
@@ -40,20 +410,9 @@ using i8::BK;
 using i8::SK;
 
 constexpr int THREADS = 256;
-constexpr int SMEM_MAX = 232448;  // 227 KB, a block's dynamic shared memory on sm_90
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
-
-// The int8 byte of one activation at its row's scale, as quantize_rows.
-__device__ __forceinline__ uint32_t quant(float v, float s) {
-  const int q = __float2int_rn(__fdiv_rn(v, s));
-  return static_cast<uint32_t>(max(-127, min(127, q))) & 0xffu;
-}
+using wg::quant;
+using wg::to_f32;
 
 // VE = 16 / sizeof(T) activations (one 16-byte vector) of row `xr` from
 // column gk, zero past K.
@@ -136,63 +495,6 @@ int8_matmul_qx(const T* __restrict__ x, const int8_t* __restrict__ w,
   i8::store_tile(out, acc, s_row, s_col, M, N, m0 + wm, n0 + wn, lane);
 }
 
-// Panel: BM rows a block, quantized once into shared memory [BM][SP] (SP =
-// K rounded up to BK, plus 16 bytes), then N tiles of BN columns from this
-// split's share. Warps: BM / 32 over M x 8 * 32 / BM over N, each 32 x 64.
-template <typename T, typename OutT, int BM>
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_panel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ s_row, const float* __restrict__ s_col,
-                  OutT* __restrict__ out, int M, int N, int K, int tiles_per_split, bool x_vec,
-                  bool w_vec) {
-  constexpr int WM = BM / 32, WN = 8 / WM, BN = 64 * WN;
-  constexpr int VE = 16 / static_cast<int>(sizeof(T));
-  extern __shared__ __align__(16) int8_t smem[];
-  const int kp = max(1, (K + BK - 1) / BK) * BK, sp = kp + 16;  // K = 0: one step of zeros
-  int8_t* P = smem;            // [BM][sp]
-  int8_t* Bs = smem + BM * sp;  // [BN][SK]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp / WN) * 32, wn = (warp % WN) * 64;
-  const int m0 = blockIdx.x * BM;
-  const int ksteps = kp / BK;
-  const int nt0 = blockIdx.y * tiles_per_split;
-  const int nt1 = min((N + BN - 1) / BN, nt0 + tiles_per_split);
-  const int steps = max(0, nt1 - nt0) * ksteps;
-
-  i8::WTile<BN, THREADS> wt;
-  if (steps > 0) wt.load(w, K, N, 0, nt0 * BN, w_vec, tid);  // in flight during the panel
-
-  // the panel, zero past M and K
-  const int vrow = kp / VE;
-  for (int i = tid; i < BM * vrow; i += THREADS) {
-    const int r = i / vrow, gk = (i % vrow) * VE, gm = m0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    float s = 1.f;
-    if (gm < M) {
-      v = load_x(x + static_cast<size_t>(gm) * K, gk, K, x_vec);
-      s = s_row[gm];
-    }
-    quant_store<T>(&P[r * sp + gk], v, s);
-  }
-
-  int acc[2][8][4];
-  for (int s = 0; s < steps; ++s) {
-    const int nt = nt0 + s / ksteps, ks = s % ksteps;
-    if (ks == 0) i8::zero(acc);
-    wt.stash(Bs, tid);
-    __syncthreads();  // the first time also: the panel is complete
-    if (s + 1 < steps) {
-      const int ns = s + 1;
-      wt.load(w, K, N, (ns % ksteps) * BK, (nt0 + ns / ksteps) * BN, w_vec, tid);
-    }
-    i8::mma_step(acc, &P[wm * sp + ks * BK], sp, Bs, wn, lane);
-    __syncthreads();
-    if (ks == ksteps - 1)
-      i8::store_tile(out, acc, s_row, s_col, M, N, m0 + wm, nt * BN + wn, lane);
-  }
-}
-
 template <typename T>
 bool x_vector(const void* x, int K) {
   return K % (16 / static_cast<int>(sizeof(T))) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -210,40 +512,24 @@ int launch_qx(const void* x, const int8_t* w, const float* sr, const float* sc, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename OutT, int BM>
-int launch_panel(const void* x, const int8_t* w, const float* sr, const float* sc, void* out,
-                 int M, int N, int K, int n_split, cudaStream_t stream) {
-  constexpr int BN = 64 * 8 * 32 / BM;
-  const long long smem =
-      static_cast<long long>(BM) * ((K > 0 ? cdiv(K, BK) : 1) * BK + 16) +
-      static_cast<long long>(BN) * SK;
-  const int tiles = cdiv(N, BN);
-  if (smem > SMEM_MAX || n_split < 1 || n_split > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;  // per instantiation; setting it twice is harmless
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        int8_matmul_panel<T, OutT, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
-  const int per = cdiv(tiles, n_split);
-  const dim3 grid(cdiv(M, BM), cdiv(tiles, per));
-  const bool w_vec = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(w) % 4 == 0);
-  int8_matmul_panel<T, OutT, BM><<<grid, THREADS, static_cast<size_t>(smem), stream>>>(
-      static_cast<const T*>(x), w, sr, sc, static_cast<OutT*>(out), M, N, K, per,
-      x_vector<T>(x, K), w_vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// The form's kernel (form 0 quantize-on-revisit, 1 the panel form, 2 the
+// cluster form).
 template <typename T, typename OutT>
 int launch(const void* x, const int8_t* w, const float* sr, const float* sc, void* out, int M,
-           int N, int K, int panel_rows, int n_split, cudaStream_t st) {
-  switch (panel_rows) {
+           int N, int K, int form, int split, int k_chunk, int stages, cudaStream_t st) {
+  switch (form) {
     case 0: return launch_qx<T, OutT>(x, w, sr, sc, out, M, N, K, st);
-    case 32: return launch_panel<T, OutT, 32>(x, w, sr, sc, out, M, N, K, n_split, st);
-    case 64: return launch_panel<T, OutT, 64>(x, w, sr, sc, out, M, N, K, n_split, st);
-    case 128: return launch_panel<T, OutT, 128>(x, w, sr, sc, out, M, N, K, n_split, st);
+    case 1:
+      if (split == 4)
+        return wg::launch_panel_qx<T, OutT, 4>(x, w, sr, sc, out, M, N, K, k_chunk, stages, st);
+      if (split == 8)
+        return wg::launch_panel_qx<T, OutT, 8>(x, w, sr, sc, out, M, N, K, k_chunk, stages, st);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 2:
+      if (split < 1 || split > 8 || k_chunk <= 0 || k_chunk % wg::S8_BK)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return wg::launch_cluster_s8<OutT>(static_cast<const T*>(x), w, sr, sc, out, M, N, K,
+                                         split, k_chunk, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -251,10 +537,12 @@ int launch(const void* x, const int8_t* w, const float* sr, const float* sc, voi
 // out_dtype f32, or x's own type.
 template <typename T>
 int launch_x(const void* x, const int8_t* w, const float* sr, const float* sc, void* out, int M,
-             int N, int K, int x_dtype, int out_dtype, int panel_rows, int n_split,
-             cudaStream_t st) {
-  if (out_dtype == kF32) return launch<T, float>(x, w, sr, sc, out, M, N, K, panel_rows, n_split, st);
-  if (out_dtype == x_dtype) return launch<T, T>(x, w, sr, sc, out, M, N, K, panel_rows, n_split, st);
+             int N, int K, int x_dtype, int out_dtype, int form, int split, int k_chunk,
+             int stages, cudaStream_t st) {
+  if (out_dtype == kF32)
+    return launch<T, float>(x, w, sr, sc, out, M, N, K, form, split, k_chunk, stages, st);
+  if (out_dtype == x_dtype)
+    return launch<T, T>(x, w, sr, sc, out, M, N, K, form, split, k_chunk, stages, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -266,13 +554,16 @@ extern "C" const char* smelter_error_string(int code) {
 
 // x (M, K) row-major in x_dtype (f32, bf16, f16); w_q (K, N) int8
 // row-major; s_row (M,) f32 (max(absmax, 1e-30) / 127 of each row); s_col
-// (N,) f32; out (M, N) row-major in out_dtype (f32 or x_dtype). panel_rows
-// 0 runs quantize-on-revisit, 32/64/128 the panel schedule with N tiles
-// split over n_split blocks. Returns a cudaError_t code.
+// (N,) f32; out (M, N) row-major in out_dtype (f32 or x_dtype). form 0 runs
+// quantize-on-revisit (dequant_matmul_int8_fused2, and _fused's "revisit"
+// form); form 1 the panel form
+// (split 4 or 8 ranks of k_chunk K elements, `stages` ring stages) and form
+// 2 the cluster form (a K split of `split` CTAs of k_chunk elements), as
+// kernels/wgmma_plan.py::fused_plan says. Returns a cudaError_t code.
 extern "C" int smelter_int8_matmul_fused(const void* x, const void* w_q, const void* s_row,
                                          const void* s_col, void* out, int M, int N, int K,
-                                         int x_dtype, int out_dtype, int panel_rows,
-                                         int n_split, void* stream) {
+                                         int x_dtype, int out_dtype, int form, int split,
+                                         int k_chunk, int stages, void* stream) {
   const auto* w = static_cast<const int8_t*>(w_q);
   const auto* sr = static_cast<const float*>(s_row);
   const auto* sc = static_cast<const float*>(s_col);
@@ -280,15 +571,16 @@ extern "C" int smelter_int8_matmul_fused(const void* x, const void* w_q, const v
   if (M <= 0 || N <= 0) return 0;
   switch (x_dtype) {
     case kF32:
-      return launch_x<float>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, panel_rows,
-                             n_split, st);
+      return launch_x<float>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, form, split,
+                             k_chunk, stages, st);
     case kBF16:
-      return launch_x<__nv_bfloat16>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype,
-                                     panel_rows, n_split, st);
+      return launch_x<__nv_bfloat16>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, form,
+                                     split, k_chunk, stages, st);
     case kF16:
-      return launch_x<__half>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, panel_rows,
-                              n_split, st);
+      return launch_x<__half>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, form, split,
+                              k_chunk, stages, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+

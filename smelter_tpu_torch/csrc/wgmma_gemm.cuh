@@ -99,7 +99,8 @@
 //   bank; its epilogue stores two adjacent columns a thread from the
 //   accumulators (no staging). The cluster form transposes W into [n][k] on
 //   its way into shared memory (4 x 4 byte blocks) and runs SS m64n64k32;
-//   its partials are int32, summed in rank order.
+//   its partials are int32, summed in rank order. Its x may also be floats
+//   that it quantizes per row as it loads them (csrc/int8_matmul_fused.cu).
 //
 // Shared-memory layouts (what wgmma's descriptors read):
 //   K-major with the 128-byte swizzle (A; x as gemm_tma_ra's B): row r of 64
@@ -1522,19 +1523,46 @@ gemm_tma_s8(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
   }
 }
 
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
+
+// The int8 byte of one activation at its row's scale, as quantize_rows:
+// IEEE division (no reciprocal), round half to even, clip to [-127, 127].
+__device__ __forceinline__ uint32_t quant(float v, float s) {
+  const int q = __float2int_rn(__fdiv_rn(v, s));
+  return static_cast<uint32_t>(max(-127, min(127, q))) & 0xffu;
+}
+
+// The four activations at e quantized at scale s, as four bytes.
+template <typename T>
+__device__ __forceinline__ uint32_t quant4(const T* e, float s) {
+  return quant(to_f32(e[0]), s) | quant(to_f32(e[1]), s) << 8 | quant(to_f32(e[2]), s) << 16 |
+         quant(to_f32(e[3]), s) << 24;
+}
+
 // The cluster form for int8, any shape: a 128 x 64 tile a CTA, two consumer
 // warpgroups of 64 rows; x and W go global -> registers -> shared (the next
 // two steps' loads in flight), W transposed to [n][k] on its way (4 x 4 byte
 // blocks through byte permutes), both read K-major by wgmma.m64n64k32 s8.
 // The K range is split over a cluster of S <= 8 CTAs; the int32 partials are
 // summed in rank order through distributed shared memory and the epilogue
-// runs once. X_VEC: 16-byte loads of x's rows (K % 16, aligned base);
-// W_VEC: 4-byte loads of W's rows (N % 4, aligned base); otherwise bytes.
-template <typename OutT>
+// runs once. X_VEC: 16-byte loads of x's rows (K sizeof(TX) % 16, aligned
+// base); W_VEC: 4-byte loads of W's rows (N % 4, aligned base); otherwise
+// element by element. x is int8 (int8_matmul), or f32/bf16/f16 quantized at
+// its row's scale s_row as it loads (dequant_matmul_int8_fused): a thread's
+// chunk is 16 values of one row, quantized to 16 bytes, and since that
+// computes, the loads of step s + 2 are issued under step s's wgmma group
+// rather than before it.
+template <typename OutT, typename TX>
 __global__ void __launch_bounds__(CL_THREADS)
-gemm_cluster_s8(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+gemm_cluster_s8(const TX* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ s_row, const float* __restrict__ s_col, OutT* out,
                 int M, int N, int K, int k_chunk, bool x_vec, bool w_vec) {
+  constexpr bool QX = !std::is_same<TX, int8_t>::value;  // quantize x as it loads
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   cg::cluster_group cluster = cg::this_cluster();
@@ -1553,8 +1581,26 @@ gemm_cluster_s8(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < A_CH; ++i) {
       const int q = tid + i * CL_THREADS, gm = m0 + (q >> 3), gk = k0 + (q & 7) * 16;
-      const int8_t* p = x + static_cast<size_t>(gm) * K + gk;
-      if (x_vec && gm < M && gk + 16 <= k_end) {
+      const TX* p = x + static_cast<size_t>(gm) * K + gk;
+      if constexpr (QX) {
+        uint32_t e[4] = {0u, 0u, 0u, 0u};
+        if (gm < M) {
+          const float s = s_row[gm];
+          if (x_vec && gk + 16 <= k_end) {
+            alignas(16) TX v[16];
+#pragma unroll
+            for (int u = 0; u < static_cast<int>(sizeof(TX)); ++u)
+              reinterpret_cast<uint4*>(v)[u] = reinterpret_cast<const uint4*>(p)[u];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) e[j] = quant4(v + 4 * j, s);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+              if (gk + j < k_end) e[j >> 2] |= quant(to_f32(p[j]), s) << (8 * (j & 3));
+          }
+        }
+        ra[i] = make_uint4(e[0], e[1], e[2], e[3]);
+      } else if (x_vec && gm < M && gk + 16 <= k_end) {
         ra[i] = *reinterpret_cast<const uint4*>(p);
       } else {
         uint32_t e[4] = {0u, 0u, 0u, 0u};
@@ -1612,13 +1658,14 @@ gemm_cluster_s8(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     stash(ra, rw, stage);
     fence_proxy_async();
     __syncthreads();  // every thread has passed step s - 1's wait: step s - 3's stage is free
-    if (s + 2 < steps) load(ra, rw, k_begin + (s + 2) * S8_BK);  // in flight for two steps
+    if (!QX && s + 2 < steps) load(ra, rw, k_begin + (s + 2) * S8_BK);  // in flight two steps
     const uint8_t* a = sm + stage * (S8_CL_A + S8_CL_B);
     const uint64_t da = desc(a + wgi * 64 * S8_BK, 16, 1024), db = desc(a + S8_CL_A, 16, 1024);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < S8_BK / 32; ++kk) mma_s8_ss_m64n64k32(acc, da + 2 * kk, db + 2 * kk);
     wgmma_commit();
+    if (QX && s + 2 < steps) load(ra, rw, k_begin + (s + 2) * S8_BK);  // under the group
     wgmma_wait<1>();
   };
   if (steps > 0) load(ra0, rw0, k_begin);
@@ -1973,15 +2020,17 @@ static int launch_tma_s8(const void* x, const void* w, const float* s_row, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// The int8 cluster form with a K split of `split` CTAs of `k_chunk` rows each.
-template <typename OutT>
-static int launch_cluster_s8(const int8_t* x, const int8_t* w, const float* s_row,
+// The int8 cluster form with a K split of `split` CTAs of `k_chunk` rows
+// each; x int8, or f32/bf16/f16 quantized at s_row as it loads.
+template <typename OutT, typename TX>
+static int launch_cluster_s8(const TX* x, const int8_t* w, const float* s_row,
                              const float* s_col, void* out, int M, int N, int K, int split,
                              int k_chunk, cudaStream_t stream) {
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      gemm_cluster_s8<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, S8_CL_SMEM);
+      gemm_cluster_s8<OutT, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, S8_CL_SMEM);
   (void)smem_set;
-  const bool x_vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool x_vec = K * static_cast<int>(sizeof(TX)) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool w_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cdiv(N, CL_BN), cdiv(M, BM), split);
@@ -1996,7 +2045,7 @@ static int launch_cluster_s8(const int8_t* x, const int8_t* w, const float* s_ro
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, gemm_cluster_s8<OutT>, x, w, s_row, s_col,
+      cudaLaunchKernelEx(&cfg, gemm_cluster_s8<OutT, TX>, x, w, s_row, s_col,
                          static_cast<OutT*>(out), M, N, K, k_chunk, x_vec, w_vec);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -26,19 +26,29 @@ forms of the wgmma/TMA core `csrc/wgmma_gemm.cuh`:
 `dequant_matmul_int8_fused` and `dequant_matmul_int8_fused2` compute
 `dequant_matmul_int8`'s function in one kernel that quantizes x as it
 stages it (`csrc/int8_matmul_fused.cu`), in place of the Pallas kernels
-`_int8_matmul_fused_impl` (a BM x K int8 panel quantized once in shared
-memory, then swept against every N tile) and `_int8_matmul_fused2_impl`
+`_int8_matmul_fused_impl` (a BM x K int8 panel quantized once in VMEM,
+then swept against every N tile) and `_int8_matmul_fused2_impl`
 (quantize-on-revisit: each output tile quantizes the x tiles it stages).
+`dequant_matmul_int8_fused` runs the int8 wgmma core's design
+(`wgmma_plan.fused_plan`): the "panel" form keeps a 128-row panel of x,
+quantized once, resident in shared memory, its K split over a cluster of
+4 or 8 CTAs (128 x 4,096 int8 bytes do not fit one CTA), and sweeps N
+tiles against it with W by TMA as wgmma's register operand; the ranks add
+the int32 sums of each other's rows into their owners' shared memory. x
+crosses device memory once as floats. The "cluster" form (few tiles: the
+head) quantizes x as each 128 x 64 tile loads it, K split over up to 8
+CTAs. The shapes that neither takes (a K the panel's chunks do not fit,
+N % 16, an unaligned base, with tiles enough) run `_fused2`'s mma.sync
+kernel, the "revisit" form. No K is refused.
 The per-row scales stay plain PyTorch, as they were plain XLA. The Pallas
 entries' block sizes are accepted and not read; the JAX `fused` entry's
 fall-back to the two-pass path on unaligned M or K (a Mosaic rule) is not
-copied: the kernels mask every edge. The panel must fit in shared memory
-beside one weight tile, so `dequant_matmul_int8_fused` raises past K 5,952.
+copied: the kernels mask every edge.
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU or the
 `meta` device, and launches its kernel for a CUDA tensor or raises.
 `launches`, `fused_launches` and `fused2_launches` count kernel launches
-and nothing else.
+and nothing else; `fused_forms` splits `fused_launches` by form.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from . import _build, wgmma_plan
 launches = 0
 fused_launches = 0
 fused2_launches = 0
+fused_forms = {"panel": 0, "cluster": 0, "revisit": 0}  # dequant_matmul_int8_fused's launches by form
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -172,24 +183,16 @@ def dequant_matmul_int8_fused_plain(x: torch.Tensor, w_q: torch.Tensor, scales: 
     return int8_matmul_plain(x_q, w_q, s_row, scales, out_dtype=out_dtype or x.dtype)
 
 
-# Shared memory a block may take on sm_90 (227 KB), and the panel kernel's
-# tiles: BM rows of K (rounded up to 64 bytes, plus 16) beside a weight
-# tile of 64 * 8 * 32 / BM columns of 80 bytes.
-_SMEM_MAX = 232_448
-_PANEL_ROWS = (128, 64, 32)
+def fused_plan(x: torch.Tensor, w_q: torch.Tensor) -> wgmma_plan.FusedPlan:
+    """The form `dequant_matmul_int8_fused` launches for these (CUDA)
+    operands: `wgmma_plan.fused_plan` on x's shape, value size and base."""
+    return wgmma_plan.fused_plan(x.shape[0], w_q.shape[1], x.shape[1], x.element_size(),
+                                 aligned=_build.aligned16(x, w_q), sms=_build.sms(x.device))
 
 
-def _panel_rows(K: int) -> int:
-    kp = max(1, -(-K // 64)) * 64
-    for bm in _PANEL_ROWS:
-        if bm * (kp + 16) + 64 * 8 * 32 // bm * 80 <= _SMEM_MAX:
-            return bm
-    raise ValueError(f"dequant_matmul_int8_fused: K {K} is too long for a 32-row int8 panel "
-                     f"in shared memory ({_SMEM_MAX} bytes a block); "
-                     "dequant_matmul_int8_fused2 takes any K")
-
-
-def _fused(x, w_q, scales, out_dtype, panel: bool, what: str) -> torch.Tensor:
+def _fused(x, w_q, scales, out_dtype, what: str, fused2: bool = False) -> torch.Tensor:
+    """Checks, the row scales (plain PyTorch), and one launch: `_fused2`'s
+    kernel (the "revisit" form), else `fused_plan`'s form."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.dim() != 2 or w_q.dim() != 2 or w_q.shape[0] != x.shape[1]:
@@ -202,40 +205,44 @@ def _fused(x, w_q, scales, out_dtype, panel: bool, what: str) -> torch.Tensor:
         raise TypeError(f"{what}: out_dtype {out_dtype} is neither f32 nor x's dtype")
     if scales.numel() != N or any(t.device != x.device for t in (w_q, scales)):
         raise ValueError(f"{what}: scales must hold N = {N}, on x's device")
-    bm = _panel_rows(K) if panel else 0
     x, w_q = x.contiguous(), w_q.contiguous()
     s_row = quantize_rows_scales(x)
     s_col = scales.float().reshape(-1).contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    splits = 1
-    if panel:  # split N where the row panels leave SMs idle
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        tiles = -(-N // (64 * 8 * 32 // bm))
-        splits = min(tiles, max(1, -(-sms // -(-M // bm))))
+    p = wgmma_plan.revisit_plan(M, N, K) if fused2 else fused_plan(x, w_q)
+    _launch(x, w_q, s_row, s_col, out, p, what)
+    if not fused2:
+        fused_forms[p.form] += 1
+    return out
+
+
+def _launch(x, w_q, s_row, s_col, out, p: wgmma_plan.FusedPlan, what: str) -> None:
+    """One launch of the form `p` names on checked, contiguous operands."""
+    M, K = x.shape
     lib = _build.library("int8_matmul_fused")
     with torch.cuda.device(x.device):
         rc = lib.smelter_int8_matmul_fused(
             x.data_ptr(), w_q.data_ptr(), s_row.data_ptr(), s_col.data_ptr(), out.data_ptr(),
-            M, N, K, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype], bm, splits,
-            _build.stream_of(x))
+            M, w_q.shape[1], K, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out.dtype],
+            p.code, p.split, p.k_chunk, p.stages, _build.stream_of(x))
     _build.check(lib, rc, what)
-    return out
 
 
 def dequant_matmul_int8_fused(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
                               block_m: int = 512, block_n: int = 1024, block_k: int = 1024,
                               out_dtype=None) -> torch.Tensor:
     """`dequant_matmul_int8`'s function, x (M, K) f32/bf16/f16, w_q (K, N)
-    int8, scales (N,): one kernel that quantizes each block's row panel
-    into shared memory once and sweeps the N tiles against it. The block
-    arguments are not read."""
+    int8, scales (N,): one kernel that quantizes x as it loads it
+    (`fused_plan`: on int8 wgmma into a resident panel quantized once a
+    CTA, or, on the cluster form, into each tile's stages; else the
+    mma.sync revisit kernel). The block arguments are not read."""
     global fused_launches
     del block_m, block_n, block_k
     if x.device.type in ("cpu", "meta"):
         return dequant_matmul_int8_fused_plain(x, w_q, scales, out_dtype=out_dtype)
-    out = _fused(x, w_q, scales, out_dtype or x.dtype, True, "dequant_matmul_int8_fused")
+    out = _fused(x, w_q, scales, out_dtype or x.dtype, "dequant_matmul_int8_fused")
     fused_launches += 1
     return out
 
@@ -250,6 +257,6 @@ def dequant_matmul_int8_fused2(x: torch.Tensor, w_q: torch.Tensor, scales: torch
     del block_m, block_n, block_k
     if x.device.type in ("cpu", "meta"):
         return dequant_matmul_int8_fused_plain(x, w_q, scales, out_dtype=out_dtype)
-    out = _fused(x, w_q, scales, out_dtype or x.dtype, False, "dequant_matmul_int8_fused2")
+    out = _fused(x, w_q, scales, out_dtype or x.dtype, "dequant_matmul_int8_fused2", fused2=True)
     fused2_launches += 1
     return out

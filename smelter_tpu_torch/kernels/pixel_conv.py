@@ -20,7 +20,7 @@ pixel_conv_rowdot`, `::pixel_conv_rowdot_q`, `::pixel_conv_blockdot` and
 `::pixel_conv_patch`. The Hopper kernels are one entry point of
 `csrc/pixel_conv.cu`, which reads and writes the maps at the batch, row and
 channel strides it is given (W contiguous), so `pixel_conv_patch` launches
-rowdot's device code on NCHW with no layout copy:
+rowdot's and blockdot's device code on NCHW with no layout copy:
 
 - What bounds them on an H100: at ESRGAN's trunk convs (batch 8, 128 x 128,
   C_in 64-192, C_out 32/64) the bf16 tensor cores and HBM nearly tie: about
@@ -54,13 +54,18 @@ rowdot's device code on NCHW with no layout copy:
   (its first pixel 16-byte aligned) transposed by the producer warps into
   16-channel rows, the weight resident where it fits, and the epilogue below
   before a TMA store of int8 or 16-bit rows.
+- 16-bit `pixel_conv_patch` runs the same core on flat NCHW where
+  `patch_plan` takes it (blockdot's tile rule, and the wgmma form's shape
+  checks at NCHW strides: ESRGAN's eight shapes): the x map and the store
+  map are 4-D views (W, C, H, B) at strides (hw, W, C hw), so a staged
+  box is 16 channel planes of rows and a stored box of 64 pixels x C_out
+  channels is C_out runs of 128 bytes, `hw` apart. No layout copy.
 - Everything else (f32, which keeps a full-f32 FMA kernel, no TF32; other
-  C_out; strides or bases TMA cannot take; rowdot_q with f32 out and
-  `pixel_conv_patch`) runs the mma.sync implicit GEMM: a block of 2
-  (blockdot: 4) output rows x 128 pixels x 64 channels, the input rows
-  staged in shared memory transposed to [pixel][channel] so that the dx
-  taps are row offsets, both operands read by ldmatrix (m16n8k16 bf16/f16,
-  m16n8k32 s8). The Pallas kernels' `rows` (a TPU tiling) is accepted and
+  C_out; strides or bases TMA cannot take; rowdot_q with f32 out) runs the
+  mma.sync implicit GEMM: a block of 2 (blockdot: 4) output rows x 128
+  pixels x 64 channels, the input rows staged in shared memory transposed
+  to [pixel][channel] so that the dx taps are row offsets, both operands
+  read by ldmatrix (m16n8k16 bf16/f16, m16n8k32 s8). The Pallas kernels' `rows` (a TPU tiling) is accepted and
   not read, and H need not divide into it.
 
 The kernel reads the weight as [3, 3, C_out, C_in]: `weights.params_from_numpy`
@@ -86,6 +91,7 @@ launches = 0
 q_launches = 0
 blockdot_launches = 0
 patch_launches = 0
+patch_forms = {"wgmma": 0, "mma": 0}  # pixel_conv_patch's launches by plan form
 
 _X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -218,6 +224,21 @@ def plan(x, w, out=None, wp=None, *, out_dtype=None, tall: bool = False
                                  sms=_build.sms(x.device), tall=tall)
 
 
+def patch_plan(x, w, width: int, out=None, wp=None) -> wgmma_plan.PixelPlan:
+    """The kernel `pixel_conv_patch` launches for flat NCHW x (B, C_in, H*W)
+    of rows of `width` pixels: `pixel_plan(..., tall=True)` (blockdot's
+    tile rule) on dims (B, H, C_in, W) at x's strides (C_in hw, W, hw) and
+    out's (C_out hw, W, hw); `out` and `wp` join the alignment check where
+    given."""
+    B, C, hw = x.shape
+    cout = w.shape[0]
+    bases = [t for t in (x, out, wp) if t is not None]
+    return wgmma_plan.pixel_plan(B, hw // width, width, C, cout, (C * hw, width, hw),
+                                 _name(x.dtype), aligned=_build.aligned16(*bases),
+                                 sms=_build.sms(x.device), tall=True,
+                                 out_strides=(cout * hw, width, hw))
+
+
 def _nhcw(x, w, bias, alpha, tall: bool, what: str) -> torch.Tensor:
     bias = _float_operands(x, w, bias, what)
     x = x.contiguous()
@@ -270,10 +291,12 @@ def pixel_conv_patch(x, w, bias, *, width: int, alpha=None, rows: int = 8) -> to
     B, C, hw = x.shape
     cout = w.shape[0]
     out = torch.empty((B, cout, hw), dtype=x.dtype, device=x.device)
-    _launch(x, _packed_weight(w.to(x.dtype)), bias, None, out, alpha, 1.0, False,
-            dims=(B, hw // width, C, width, cout), x_strides=(C * hw, width, hw),
-            out_strides=(cout * hw, width, hw))
+    wp = _packed_weight(w.to(x.dtype))
+    p = patch_plan(x, w, width, out, wp)
+    _launch(x, wp, bias, None, out, alpha, 1.0, False, dims=(B, hw // width, C, width, cout),
+            x_strides=(C * hw, width, hw), out_strides=(cout * hw, width, hw), p=p)
     patch_launches += 1
+    patch_forms[p.form] += 1
     return out
 
 

@@ -28,6 +28,12 @@ implicit GEMM, any shape).
 "tma" (`gemm_tma_s8`, W^T the register operand of wgmma s8) for aligned
 shapes with tiles enough, else "cluster" (`gemm_cluster_s8`, a K split).
 
+`fused_plan` picks `dequant_matmul_int8_fused`'s (`csrc/
+int8_matmul_fused.cu`): "panel" (x quantized once into a resident panel
+whose K is split over a cluster, W by TMA) where its maps can read both,
+else "cluster" (a K split, x quantized as each tile loads it) for few
+tiles, else "revisit" (the mma.sync quantize-on-revisit kernel).
+
 `qconv_plan` picks `qlinear_conv`'s kernel: "gemm" (a 1x1 stride-1 conv
 on 2-D TMA maps) or "im2col" (any kernel and stride on an im2col map), the
 wgmma forms of `csrc/wgmma_qconv.cuh`, where the maps can read the conv,
@@ -161,6 +167,115 @@ def int8_plan(M: int, N: int, K: int, *, aligned: bool = True, sms: int = SMS) -
     per = cdiv(steps, split) if steps else 1
     split = cdiv(steps, per) if steps else 1
     return Plan("cluster", BM, CL_BN, split, per * S8_BK, tiles * split, INT8_CLUSTER_SMEM)
+
+
+# -- dequant_matmul_int8_fused (csrc/int8_matmul_fused.cu) ---------------------
+
+QP_SLOT = 16384           # a ring slot of the panel form: an x float box or a W box
+QP_EX = 256               # consumer threads of a CTA, each a row of the exchange
+QP_SPLITS = (4, 8)        # the panel form's cluster sizes (ranks of the K split)
+QP_MIN_STAGES = 4         # ring stages the panel form needs beside its panel
+QP_MAX_CHUNK = 1152       # K a rank at most: its exchanged sums stay below 2^25
+
+
+def qp_box_rows(x_bytes: int) -> int:
+    """Rows of the panel form's x landing box: 128 elements a row, 16 KB."""
+    return QP_SLOT // (S8_BK * x_bytes)
+
+
+def qp_smem(split: int, kb: int, stages: int) -> int:
+    """Bytes of the panel form: alignment, the panel (kb K blocks of 128 rows
+    x 128 bytes), the ring and its two mbarriers a stage, and the two
+    exchange buffers of 64 / split int32 sums a consumer thread (as 64-bit
+    pairs)."""
+    return 1024 + kb * S8_BOX + stages * (QP_SLOT + 16) + 2 * (64 // split) * QP_EX * 4
+
+
+def qp_stages(split: int, kb: int) -> int:
+    """Ring stages that fit beside a panel of kb K blocks, at most 8."""
+    return min(8, (SMEM_LIMIT - qp_smem(split, kb, 0)) // (QP_SLOT + 16))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    form: str        # "panel" (gemm_panel_qx), "cluster" (gemm_cluster_s8 on float x)
+                     # or "revisit" (int8_matmul_qx, mma.sync)
+    split: int       # CTAs a cluster, each a K chunk (revisit: 1)
+    k_chunk: int     # K elements a CTA sums (panel, cluster: a multiple of S8_BK)
+    stages: int      # panel: ring stages; cluster: CL_STAGES; revisit: 0
+    grid: int        # panel: work units (128-row panel, N tile), split evenly over
+                     # the clusters that fit the card at once; else CTAs launched
+    smem: int        # dynamic shared memory a CTA, bytes (revisit: static, 0)
+
+    @property
+    def code(self) -> int:
+        """The form's code at the entry point."""
+        return {"revisit": 0, "panel": 1, "cluster": 2}[self.form]
+
+
+def revisit_plan(M: int, N: int, K: int) -> FusedPlan:
+    """Quantize-on-revisit (`dequant_matmul_int8_fused2`'s kernel): 128 x 128
+    output tiles, each quantizing the x tiles it stages, all of K."""
+    return FusedPlan("revisit", 1, K, 0, cdiv(M, BM) * cdiv(N, TMA_BN), 0)
+
+
+def _panel_form(M: int, N: int, K: int, split: int) -> FusedPlan | None:
+    """The panel form on `split` ranks, or None where its chunks do not fit:
+    every rank's chunk must start inside K, hold at most QP_MAX_CHUNK and
+    leave room for QP_MIN_STAGES ring stages."""
+    kc = cdiv(cdiv(K, split), S8_BK) * S8_BK
+    kb = kc // S8_BK
+    stages = qp_stages(split, kb)
+    if (split - 1) * kc >= K or kc > QP_MAX_CHUNK or stages < QP_MIN_STAGES:
+        return None
+    return FusedPlan("panel", split, kc, stages, cdiv(M, BM) * cdiv(N, TMA_BN),
+                     qp_smem(split, kb, stages))
+
+
+def _cluster_form(M: int, N: int, K: int, sms: int) -> FusedPlan:
+    """The cluster form: 128 x 64 tiles, K split over S <= 8 CTAs as
+    `int8_plan`'s cluster form splits it."""
+    tiles = cdiv(M, BM) * cdiv(N, CL_BN)
+    steps = cdiv(K, S8_BK)
+    split = max(1, min(MAX_CLUSTER, sms // max(tiles, 1), steps))
+    per = cdiv(steps, split) if steps else 1
+    split = cdiv(steps, per) if steps else 1
+    return FusedPlan("cluster", split, per * S8_BK, CL_STAGES, tiles * split,
+                     INT8_CLUSTER_SMEM)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_plan(M: int, N: int, K: int, x_bytes: int, *, aligned: bool = True,
+               sms: int = SMS) -> FusedPlan:
+    """`dequant_matmul_int8_fused`'s form for x (M, K) of `x_bytes` a
+    value (2: bf16/f16, 4: f32) and W (K, N) int8.
+
+    "panel" where TMA can read both (16-byte aligned bases, K x_bytes % 16,
+    N % 16, no box past its matrix: M, N, K >= 128) and the first split of
+    QP_SPLITS whose chunks fit (`_panel_form`: K up to 4,096 on 4 ranks,
+    9,216 on 8) has units enough. The clusters persist and take the (panel,
+    N tile) units in even runs; at most sms / split of them fit the card at
+    once (30 of 4 on an H100 SXM). A unit on 4 ranks does twice the tensor
+    work of one on 8 for about the same exchange, so 4 ranks win where the
+    units come in several waves (units >= sms: the serving GEMM's 2,048,
+    0.743 ms against 1.119 on 8) and lose where few waves leave the last
+    one half idle (2,048 x 4,096 x 512's 64: 0.111 against 0.101; NVIDIA
+    H100 80GB HBM3, 700 W, experiments/torch_patch_fused_timing.py); 8 ranks
+    need a unit for each cluster (units x 8 >= sms). Else, where
+    128 x 64 tiles are too few to fill half the card, "cluster", which
+    splits K over up to 8 CTAs to fill it (the head); else "revisit", whose
+    128 x 128 tiles fill the card without a split (a K the panel form turns
+    down, N % 16, an unaligned base at a large shape: the cluster form on one
+    rank there runs at a third of its speed)."""
+    if aligned and K * x_bytes % 16 == 0 and N % 16 == 0 and min(M, N, K) >= BM:
+        units = cdiv(M, BM) * cdiv(N, TMA_BN)
+        for s, least in zip(QP_SPLITS, (sms, cdiv(sms, QP_SPLITS[1]))):
+            p = _panel_form(M, N, K, s)
+            if p is not None and units >= least:
+                return p
+    if 2 * cdiv(M, BM) * cdiv(N, CL_BN) <= sms:
+        return _cluster_form(M, N, K, sms)
+    return revisit_plan(M, N, K)
 
 
 def block_plan(M: int, N: int, K: int, *, group: int = 0, gelu: bool = False,
@@ -502,25 +617,28 @@ def pixel_tall_takes(c_in: int, c_out: int) -> bool:
 @functools.lru_cache(maxsize=1024)
 def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: str, *,
                out_dtype: str | None = None, aligned: bool = True, sms: int = SMS,
-               tall: bool = False) -> PixelPlan:
+               tall: bool = False, out_strides=None) -> PixelPlan:
     """`pixel_conv_rowdot`'s (and `pixel_conv_rowdot_q`'s) kernel for x (B,
-    H, C_in, W) NHCW at element strides `x_strides` (batch, row, channel; W
+    H, C_in, W) at element strides `x_strides` (batch, row, channel; W
     contiguous) in `dtype` ("bfloat16", "float16", "float32" or, for
-    rowdot_q, "int8"), out contiguous NHCW in `out_dtype` (default x's;
+    rowdot_q, "int8"), out (B, H, C_out, W) at element strides
+    `out_strides` (default: contiguous NHCW) in `out_dtype` (default x's;
     rowdot_q: "int8" under requant, else its float type); `aligned`: x's,
-    the packed weight's and out's bases 16-byte aligned.
+    the packed weight's and out's bases 16-byte aligned. `pixel_conv_patch`
+    passes flat NCHW's strides for both, (C hw, W, hw) and (C_out hw, W,
+    hw): the kernels read and store through 4-D maps at any strides.
 
     16-bit x: the wgmma form takes C_out 32 or 64, strides TMA can take
-    (x's strides and W multiples of 8 elements, which also makes out's rows
-    TMA strides; the weight's rows read in groups of 8 channels: C_in % 8
-    == 0), and no box larger than its tensor (x's box: W >= 80 pixels, H >=
-    PC_R + 2 rows, C_in >= 16 channels); f32 keeps its full-f32 FMA kernel
-    and the rest the mma.sync kernel.
+    (x's and out's strides and W multiples of 8 elements; the weight's rows
+    read in groups of 8 channels: C_in % 8 == 0), and no box larger than
+    its tensor (x's box: W >= 80 pixels, H >= PC_R + 2 rows, C_in >= 16
+    channels); f32 keeps its full-f32 FMA kernel and the rest the mma.sync
+    kernel.
 
     int8 x: the int8 wgmma form takes int8 or 16-bit out, C_out 32 or 64,
-    16-byte strides (x's strides, W and C_in multiples of 16) and boxes
-    inside their tensors (W >= 96 pixels, H >= 6 rows, C_in >= 32); f32 out
-    and the rest keep the mma.sync kernel.
+    16-byte strides (x's and out's strides, W and C_in multiples of 16) and
+    boxes inside their tensors (W >= 96 pixels, H >= 6 rows, C_in >= 32);
+    f32 out and the rest keep the mma.sync kernel.
 
     The weight stays resident where it leaves room for 4 stages of x (with
     3, ESRGAN's 160 -> 32 conv ran slower than with its weights brought a
@@ -533,14 +651,18 @@ def pixel_plan(b: int, h: int, w: int, c_in: int, c_out: int, x_strides, dtype: 
     out_dtype = out_dtype or dtype
     int8 = dtype == "int8"
     ob = _OUT_BYTES[out_dtype]
+    if out_strides is None:
+        out_strides = (h * c_out * w, c_out * w, w)
     if int8:
         strides_ok = (all(s % 16 == 0 and 0 < s < _MAX_STRIDE for s in x_strides)
+                      and all(s % 16 == 0 and 0 < s * ob < _MAX_STRIDE for s in out_strides)
                       and w % 16 == 0 and c_in % 16 == 0)
         ok = (out_dtype in ("int8", "bfloat16", "float16") and strides_ok
               and w >= PQ_RAWPX and c_in >= PQ_CK)
         res_ok = c_in >= PQ_CHUNK
     else:
-        strides_ok = (all(s % 8 == 0 and 0 < 2 * s < _MAX_STRIDE for s in x_strides)
+        strides_ok = (all(s % 8 == 0 and 0 < 2 * s < _MAX_STRIDE
+                          for s in tuple(x_strides) + tuple(out_strides))
                       and w % 8 == 0 and c_in % 8 == 0)
         ok = (dtype in ("bfloat16", "float16") and out_dtype == dtype and strides_ok
               and w >= PC_RAWPX and c_in >= PC_CK)

@@ -38,5 +38,12 @@ def _reduce(op_type: str, fn):
         ctx.set(node.outputs[0], _fn(x, axes, keep))
 
 
-_reduce("ReduceMean", lambda x, a, k: torch.mean(x, dim=a, keepdim=k))
+def _mean(x, axes, keep):
+    # jnp.mean of an integer tensor is the f32 mean (ONNX would keep T)
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.mean(x, dim=axes, keepdim=keep)
+
+
+_reduce("ReduceMean", _mean)
 _reduce("ReduceMax", lambda x, a, k: torch.amax(x, dim=a, keepdim=k))

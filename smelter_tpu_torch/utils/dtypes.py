@@ -168,12 +168,27 @@ _SATURATING = {torch.int8: torch.float32, torch.uint8: torch.float32,
                torch.int16: torch.float32, torch.int32: torch.float64}
 
 
+def _saturating_int64(x: torch.Tensor) -> torch.Tensor:
+    """A float into int64 as XLA's convert does under x64. The bounds are
+    compared in the float type (-2^63 and 2^63 are exact there) and the
+    integer constants selected: clamping through float(INT64_MAX) would
+    round it to 2^63, which wraps."""
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.float()
+    hi, lo, nan = x >= 2.0 ** 63, x < -2.0 ** 63, torch.isnan(x)
+    y = torch.where(hi | lo | nan, 0.0, x).to(torch.int64)
+    y = torch.where(hi, torch.iinfo(torch.int64).max, y)
+    return torch.where(lo, torch.iinfo(torch.int64).min, y)
+
+
 def saturating_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """x cast to `dtype` as the JAX package's `astype` lowers it (XLA's
-    convert): a float into int8, uint8, int16 or int32 is clamped to the
-    type's range, NaN goes to 0, and the rest truncates toward zero, on
+    convert): a float into int8, uint8, int16, int32 or int64 is clamped to
+    the type's range, NaN goes to 0, and the rest truncates toward zero, on
     every device. Every other cast is a plain `.to(dtype)` (an int into a
     narrower int keeps its low bits, as in XLA)."""
+    if dtype == torch.int64 and x.is_floating_point():
+        return _saturating_int64(x)
     wide = _SATURATING.get(dtype)
     if wide is None or not x.is_floating_point():
         return x.to(dtype)

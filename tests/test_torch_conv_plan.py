@@ -301,3 +301,82 @@ def test_blockdot_tall_taps_equal_the_plain_conv(shape):
     want = pixel_conv_blockdot_plain(torch.from_numpy(x), torch.from_numpy(wt),
                                      torch.zeros(co, dtype=torch.float64)).numpy()
     assert not np.isnan(got).any() and np.array_equal(got, want)
+
+
+# -- pixel_conv_patch on the wgmma core at flat NCHW strides (patch_plan) -------
+
+PATCH_EDGES = [
+    # (B, H, C_in, W, C_out, dtype, form): form 0 keeps rowdot's edges
+    (1, 16, 64, 128, 64, "float32", "mma"),     # f32: its FMA kernel
+    (1, 16, 64, 128, 40, "bfloat16", "mma"),    # C_out 40
+    (1, 16, 64, 100, 32, "bfloat16", "mma"),    # W % 8
+    (1, 16, 64, 72, 32, "float16", "mma"),      # W < 80: narrower than the box
+    (2, 5, 64, 128, 32, "bfloat16", "mma"),     # H < 6
+    (2, 7, 24, 100, 40, "bfloat16", "mma"),     # chip_smoke's odd shape
+    (2, 7, 64, 88, 32, "bfloat16", "wgmma"),    # H 7: the 4-row tile
+    (2, 12, 96, 88, 32, "bfloat16", "wgmma"),   # the 8-row tile, ragged H and W
+    (1, 12, 96, 136, 64, "float16", "wgmma"),   # C_out 64: the 4-row tile
+]
+
+
+def _patch_plan(b, h, c, w, co, dtype):
+    hw = h * w
+    return wp.pixel_plan(b, h, w, c, co, (c * hw, w, hw), dtype, tall=True,
+                         out_strides=(co * hw, w, hw))
+
+
+@pytest.mark.parametrize("shape", ESRGAN)
+def test_patch_plan_takes_the_wgmma_form_at_esrgans_shapes(shape):
+    """Flat NCHW at batch 8: the wgmma form on blockdot's tile rule, the same
+    plan as blockdot's NHCW one but for the strides; default out strides are
+    contiguous NHCW, so rowdot's and blockdot's plans are unchanged."""
+    b, h, c, w, co = shape
+    p = _patch_plan(b, h, c, w, co, "bfloat16")
+    assert p.form == "wgmma" and p == wp.pixel_plan(b, h, w, c, co, _strides(b, h, c, w),
+                                                    "bfloat16", tall=True)
+    assert p.rows == (wp.PC_TALL_R if wp.pixel_tall_takes(c, co) else wp.PC_R)
+    assert wp.pixel_plan(b, h, w, c, co, _strides(b, h, c, w), "bfloat16") == wp.pixel_plan(
+        b, h, w, c, co, _strides(b, h, c, w), "bfloat16", out_strides=(h * co * w, co * w, w))
+
+
+@pytest.mark.parametrize("case", PATCH_EDGES)
+def test_patch_plan_edges(case):
+    b, h, c, w, co, dtype, form = case
+    p = _patch_plan(b, h, c, w, co, dtype)
+    assert p.form == form and (p.code == 0) == (form == "mma")
+    # an out stride TMA cannot take sends even a good shape to form 0
+    if form == "wgmma":
+        hw = h * w
+        assert wp.pixel_plan(b, h, w, c, co, (c * hw, w, hw), dtype, tall=True,
+                             out_strides=(co * hw + 4, w, hw)).form == "mma"
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 64, 128, 32), (1, 128, 160, 128, 64),
+                                   (1, 256, 64, 256, 64), (1, 512, 64, 512, 64),
+                                   (2, 12, 96, 88, 32), (1, 7, 64, 136, 64)])
+def test_patch_stores_every_output_once_at_nchw_strides(shape):
+    """The wgmma form's TMA stores replayed at flat NCHW strides: each tile's
+    rows leave as boxes of 64 pixels x C_out channels at (pixel, channel,
+    row, image), clipped at W and H, each row channel's 128-byte run `hw`
+    apart; the persistent CTAs' boxes write every element of (B, C_out,
+    H * W) once."""
+    B, H, C, W, co = shape
+    p = _patch_plan(B, H, C, W, co, "bfloat16")
+    assert p.form == "wgmma"
+    hw = H * W
+    osb, osh, osc = co * hw, W, hw
+    written = np.zeros(B * co * hw, np.int32)
+    rw = p.rows // wp.CONSUMERS
+    row_blocks, pixel_tiles = wp.cdiv(H, p.rows), wp.cdiv(W, wp.PC_PX)
+    chans = np.arange(co)[:, None] * osc
+    for cta in range(p.grid):
+        for tile in range(cta, p.tiles, p.grid):
+            pt, rest = tile % pixel_tiles, tile // pixel_tiles
+            h0, b = (rest % row_blocks) * p.rows, rest // row_blocks
+            px = np.arange(pt * wp.PC_PX, min(W, pt * wp.PC_PX + wp.PC_PX))
+            for wgi in range(wp.CONSUMERS):
+                for r in range(rw):
+                    h = h0 + wgi * rw + r
+                    if h < H:
+                        np.add.at(written, (b * osb + h * osh + chans + px[None, :]).ravel(), 1)
+    assert (written == 1).all()

@@ -1186,6 +1186,41 @@ def test_pixel_conv_blockdot_wgmma_form(cuda, shape, dtype):
     assert err <= 1e-2 * ref.float().abs().max().item(), err
 
 
+# patch's wgmma form at flat NCHW strides: ESRGAN x4's shapes at batch 8 and
+# blockdot's ragged ones; shapes that keep form 0 (f32 runs on each case
+# below too): W % 8, W < 80, H < 6, C_out 40
+PATCH_FORM0 = [(2, 7, 24, 100, 40), (1, 16, 64, 72, 32), (2, 5, 64, 128, 32),
+               (1, 16, 32, 100, 64)]
+
+
+@pytest.mark.parametrize("shape", BLOCKDOT_ESRGAN + BLOCKDOT_RAGGED + PATCH_FORM0)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pixel_conv_patch_wgmma_form(cuda, shape, dtype):
+    """patch on the plan's form: the wgmma conv core reading and storing flat
+    NCHW at its strides (blockdot's tile rule), form 0 elsewhere and for f32;
+    one launch a call, counted by form; bf16 within 1e-2 x max|plain|, f32
+    within 1e-5."""
+    from smelter_tpu_torch.kernels import pixel_conv as pc
+
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b = _pixel_operands(*shape, cuda)
+    B, H, Cin, W, Cout = shape
+    xf = x.permute(0, 2, 1, 3).reshape(B, Cin, H * W).contiguous().to(dtype)
+    p = pc.patch_plan(xf, w, W)
+    wgmma = dtype != torch.float32 and shape not in PATCH_FORM0
+    assert p.form == ("wgmma" if wgmma else "mma")
+    before, forms = pc.patch_launches, dict(pc.patch_forms)
+    got = pc.pixel_conv_patch(xf, w, b, width=W, alpha=0.2)
+    torch.cuda.synchronize()
+    assert pc.patch_launches == before + 1
+    assert pc.patch_forms[p.form] == forms[p.form] + 1
+    ref = pc.pixel_conv_patch_plain(xf, w, b, width=W, alpha=0.2)
+    assert got.dtype == dtype and got.shape == (B, Cout, H * W)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
 def test_pixel_conv_variants_raise_on_bad_operands(cuda):
     from smelter_tpu_torch.kernels import pixel_conv as pc
 
@@ -1205,9 +1240,10 @@ def test_pixel_conv_variants_raise_on_bad_operands(cuda):
 
 # -- dequant_matmul_int8_fused, dequant_matmul_int8_fused2 -----------------------------
 
-# Ragged M, N and K beside the ResNet-50 head; K 4096 and 6000 take the
-# panel's 32 rows.
-FUSED_SHAPES = SHAPES + [(17, 72, 200), (64, 300, 4096), (40, 200, 5952)]
+# Ragged M, N and K beside the ResNet-50 head (the cluster form); long K;
+# the panel form on 8 ranks (2,048 rows x 512 columns, K 4,096 and 6,144).
+FUSED_SHAPES = SHAPES + [(17, 72, 200), (64, 300, 4096), (40, 200, 5952), (256, 256, 6144),
+                         (2048, 512, 4096), (2048, 512, 6144)]
 
 
 @pytest.mark.parametrize("shape", FUSED_SHAPES)
@@ -1233,15 +1269,50 @@ def test_dequant_matmul_int8_fused_equal_plain(cuda, shape, dtype, out_dtype):
 
 
 def test_dequant_matmul_int8_fused_raises(cuda):
+    """No K is refused any more (the cluster form takes K past the panel's);
+    what the kernels do not take still raises."""
     x, w, s = _operands(8, 16, 5953, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="too long"):  # no 32-row panel fits
-        im.dequant_matmul_int8_fused(x, w, s)
-    assert torch.equal(im.dequant_matmul_int8_fused2(x, w, s),
-                       im.dequant_matmul_int8_fused_plain(x, w, s))
+    ref = im.dequant_matmul_int8_fused_plain(x, w, s)
+    assert torch.equal(im.dequant_matmul_int8_fused(x, w, s), ref)
+    assert torch.equal(im.dequant_matmul_int8_fused2(x, w, s), ref)
+    with pytest.raises(TypeError):
+        im.dequant_matmul_int8_fused(x, w, s, out_dtype=torch.float16)
     with pytest.raises(TypeError):  # an out_dtype that is neither f32 nor x's
         im.dequant_matmul_int8_fused2(x, w, s, out_dtype=torch.float16)
     with pytest.raises(ValueError):  # K mismatch
         im.dequant_matmul_int8_fused2(x[:, :100], w, s)
+
+
+# (M, N, K) -> the form and ranks fused_plan picks: the serving GEMM and the
+# ResNet-50 head, the panel form on 4 and 8 ranks at 2,048 rows (256 units,
+# and 64: too few for 4), a K past 5,952 on the cluster form, the small odd
+# shape, and the serving GEMM's size at a K the panel's chunks do not fit
+# (the revisit kernel)
+FUSED_FORMS = {(8192, 4096, 4096): ("panel", 4), (128, 1000, 2048): ("cluster", 8),
+               (2048, 2048, 4096): ("panel", 4), (2048, 512, 4096): ("panel", 8),
+               (2048, 512, 6144): ("panel", 8),
+               (256, 256, 6144): ("cluster", 8), (17, 72, 200): ("cluster", 2),
+               (8192, 4096, 4104): ("revisit", 1)}
+
+
+@pytest.mark.parametrize("shape", list(FUSED_FORMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequant_matmul_int8_fused_forms(cuda, shape, dtype):
+    """dequant_matmul_int8_fused on the form its plan names, bit-equal to the
+    plain version and to the two-pass dequant_matmul_int8; one launch a
+    call, counted by form."""
+    m, n, k = shape
+    x, w, s = _operands(m, n, k, dtype, cuda, seed=11)
+    x[min(3, m - 1)] = 0
+    ref = im.dequant_matmul_int8_fused_plain(x, w, s)
+    assert torch.equal(ref, im.dequant_matmul_int8(x, w, s))
+    p = im.fused_plan(x, w)
+    assert (p.form, p.split) == FUSED_FORMS[shape]
+    before, forms = im.fused_launches, dict(im.fused_forms)
+    got = im.dequant_matmul_int8_fused(x, w, s)
+    torch.cuda.synchronize()
+    assert im.fused_launches == before + 1 and im.fused_forms[p.form] == forms[p.form] + 1
+    assert got.dtype == dtype and torch.equal(got, ref)
 
 
 # -- max_unpool2x2 (SegNet) ------------------------------------------------------

@@ -173,10 +173,12 @@ def test_patch_refuses_a_map_that_is_not_whole_rows():
 
 
 def test_fused_panel_rows_follow_k():
-    """The panel's rows by K: 128 to K 1,664, 64 to 3,264, 32 to 5,952
-    (the panel and a weight tile within 227 KB of shared memory); a longer K
-    raises and names the other schedule."""
-    assert [im._panel_rows(k) for k in (1, 1664, 1665, 2048, 3264, 3265, 4096, 5952)] == \
-        [128, 128, 64, 64, 64, 32, 32, 32]
-    with pytest.raises(ValueError, match="fused2 takes any K"):
-        im._panel_rows(5953)
+    """The fused form by K at the serving GEMM's M and N: a resident panel
+    of 128 rows on 4 ranks to K 4,096, on 8 to 9,216, the mma.sync revisit
+    kernel past it. No K raises (the mma.sync panel kernel raised past
+    5,952)."""
+    ks = (1024, 4096, 5952, 5960, 9216, 9344)
+    forms = [im.wgmma_plan.fused_plan(8192, 4096, k, 2) for k in ks]
+    assert [(p.form, p.split if p.form == "panel" else 0) for p in forms] == [
+        ("panel", 4), ("panel", 4), ("panel", 8), ("panel", 8), ("panel", 8), ("revisit", 0)]
+    assert all(p.k_chunk * p.split >= k for p, k in zip(forms, ks))
