@@ -69,8 +69,10 @@ its number:
    of ESRGAN x4's PixelConv shapes at batch 8 in bf16 and at batch 1 in
    f32 (each on the tile its plan chose; blockdot's both wgmma tiles, 8
    rows and 4, timed beside it; every patch call at batch 8 on the wgmma
-   form, the fused GEMM on the panel form at the serving GEMM and the
-   cluster form at the head, each call's form recorded), then small odd
+   form, `_fused` on the panel form at the serving GEMM and the cluster
+   form at the head, `_fused2` on the revisit form (persistent TMA-fed int8
+   wgmma) at the serving GEMM, beside the mma.sync kernel it ran on before,
+   and the cluster form at the head, each call's form recorded), then small odd
    shapes, and a profile showing one kernel a `patch` call (no layout copy);
 3. the ResNet-50 path at full width: ResNet-50 (batch 128, 224 px, random
    weights from a seed) exported to ONNX bytes with the port's writer,
@@ -97,18 +99,18 @@ its number:
    32000, dim 2048, 16 heads, 8 KV heads, ffn 5632, 24 layers; random
    weights from a seed), int4-g128 weights, int8 KV pools of 128-row pages,
    bf16: one step against the port's CPU f32 run of the same graph and
-   inputs, then `PagedDecodeServer` (8 slots) serving 34 requests at
-   tick_steps 1 with tokens equal to solo runs, and a short run at
-   tick_steps 4; tok/s, ms a tick, idle share, peak memory and the device
-   ms of each host op in a step;
+   inputs, the step's idle share and the device ms of each host op, then,
+   on the first SERVE_LAYERS (4) layers, `PagedDecodeServer` (8 slots)
+   serving 34 requests at tick_steps 1 with tokens equal to solo runs, and
+   a short run at tick_steps 4; tok/s, ms a tick, peak memory;
 7. the static-cache decode path at llama_1b's full width and depth (int4-
    g128, int8 KV caches of 512 rows, bf16, `ragged_attention=True`, prefill
    graphs of 64 and 256 tokens): one step and one 256-token prefill
    forward (logits and int8 cache rows) against the port's CPU f32 runs;
    `FusedGenerator` (the step as a CUDA graph, one replay a token) against
    `Generator`'s tokens, single-stream tok/s K-differenced over n_new
-   16->272 as `bench.py --decode` does; `DecodeServer` (8 slots, the step
-   vmapped over slots) serving `bench.py --serve-decode`'s 32 requests plus
+   16->272 as `bench.py --decode` does; on the first SERVE_LAYERS (4)
+   layers, `DecodeServer` (8 slots, the step vmapped over slots) serving `bench.py --serve-decode`'s 32 requests plus
    a 100- and a 300-token prompt, every prompt admitted by a prefill, with
    tokens equal to solo runs and to tick_steps 4; and `PagedDecodeServer`
    with the same prefill graphs on phase 5's traffic;
@@ -235,6 +237,11 @@ SERVING = (8192, 4096, 4096)      # serving GEMM (M, K, N)
 
 # llama_1b as bench.py serves it paged (bench.py:179, 400-528).
 LLAMA_1B = dict(vocab=32000, dim=2048, heads=16, kv_heads=8, ffn=5632, layers=24)
+# The decode servers of phases 5 and 7 run llama_1b's first SERVE_LAYERS
+# layers (full width): at 24 their host-bound ticks took over half of the
+# run's 1,200 s limit (PERF.md §6). The step and prefill checks against the
+# CPU, the step profile and FusedGenerator keep all 24.
+SERVE_LAYERS = 4
 SLOTS, PAGE, NPG = 8, 128, 4      # max_len 512; pool 1 + SLOTS * NPG pages
 GROUP = 128                       # int4-g128
 # int4_matmul calls of one decode step: (N, K) -> calls (q, k, v, o; gate,
@@ -1849,6 +1856,15 @@ def phase_conv_kernels(torch, power_w: float) -> dict:
     return rows
 
 
+def _fused_form(p) -> str:
+    """A fused int8 GEMM plan in words (`wgmma_plan.FusedPlan`)."""
+    if p.form == "revisit":
+        return f"revisit form, {p.cols}-column tiles, {p.stages} stages, grid {p.grid}"
+    if p.form == "mma":
+        return f"mma form (mma.sync), grid {p.grid}"
+    return f"{p.form} form, split {p.split}, k_chunk {p.k_chunk}, grid {p.grid}"
+
+
 def phase_variant_kernels(torch, power_w: float) -> dict:
     """The four kernels no path of either package reaches, through their
     own entry points: first each called once at its main shapes (its
@@ -1912,14 +1928,15 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                 (("head", HEAD), ("serving", SERVING))}
     conv_ops = {key: conv_operands(*key)[0] for key in ESRGAN_CONVS}
     _zero_counts()
-    for forms in (pc.patch_forms, im.fused_forms):
+    for forms in (pc.patch_forms, im.fused_forms, im.fused2_forms):
         forms.update({k: 0 for k in forms})
-    gemm_forms, patch_forms = {}, {}
+    gemm_forms, patch_forms = {"dequant_matmul_int8_fused": {},
+                               "dequant_matmul_int8_fused2": {}}, {}
     for label, (x, w, s) in gemm_ops.items():
-        for fn in fused.values():
+        for name, fn in fused.items():
             fn(x, w, s)
-        p = im.fused_plan(x, w)
-        gemm_forms[label] = f"{p.form}, split {p.split}, k_chunk {p.k_chunk}, grid {p.grid}"
+            gemm_forms[name][label] = _fused_form(im.fused_plan(
+                x, w, fused2=name == "dequant_matmul_int8_fused2"))
     for (cin, cout, px), (x, w, b) in conv_ops.items():
         pc.pixel_conv_blockdot(x, w, b, alpha=0.2)
         xf = flat(x)
@@ -1933,15 +1950,20 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
               "pixel_conv_blockdot": len(ESRGAN_CONVS), "pixel_conv_patch": len(ESRGAN_CONVS)}
     _check_routed("variant entry points", entry, set(expect))
     check(all(entry[k] == n for k, n in expect.items()), f"variant launches {entry}")
-    # every ESRGAN shape's patch call launched the wgmma form; the fused
-    # GEMM the panel form at the serving GEMM and the cluster form at the head
+    # every ESRGAN shape's patch call launched the wgmma form; `_fused` the
+    # panel form at the serving GEMM and the cluster form at the head,
+    # `_fused2` the revisit form at the serving GEMM and the cluster form at
+    # the head
     check(pc.patch_forms == {"wgmma": len(ESRGAN_CONVS), "mma": 0},
           f"pixel_conv_patch forms {pc.patch_forms}")
-    check(im.fused_forms == {"panel": 1, "cluster": 1, "revisit": 0},
+    check(im.fused_forms == {"panel": 1, "cluster": 1, "revisit": 0, "mma": 0},
           f"fused forms {im.fused_forms}")
+    check(im.fused2_forms == {"revisit": 1, "cluster": 1, "mma": 0}
+          and gemm_forms["dequant_matmul_int8_fused2"]["serving"].startswith("revisit")
+          and gemm_forms["dequant_matmul_int8_fused2"]["head"].startswith("cluster"),
+          f"fused2 forms {im.fused2_forms}, {gemm_forms['dequant_matmul_int8_fused2']}")
     REPORT["variant_entry_launches"] = {k: entry[k] for k in expect}
-    REPORT["variant_forms"] = {"pixel_conv_patch": patch_forms,
-                               "dequant_matmul_int8_fused": gemm_forms}
+    REPORT["variant_forms"] = {"pixel_conv_patch": patch_forms, **gemm_forms}
     del gemm_ops, conv_ops
 
     rows = {}
@@ -1963,7 +1985,6 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
         # the row scales stay plain PyTorch: their pass, timed apart
         scales_ms = graph_ms(torch, side, lambda i: im.quantize_rows_scales(sets[i % n][0]),
                              iters)
-        fp = im.fused_plan(x, w)
         b_ms, b_by = bound(nbytes, 2 * M * N * K, "int8", power_w)
         for name, fn in fused.items():
             got = fn(x, w, s)
@@ -1977,13 +1998,25 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                 ms=graph_ms(torch, side, lambda i, fn=fn: fn(*sets[i % n]), iters),
                 call_ms=time_ms(torch, lambda i, fn=fn: fn(*sets[i % n]), iters),
                 plain_ms=plain_ms, library_ms=lib_ms, two_pass_ms=two_pass_ms,
-                scales_ms=scales_ms,
-                form=(f"{fp.form} form, split {fp.split}, k_chunk {fp.k_chunk}, grid {fp.grid}"
-                      if name == "dequant_matmul_int8_fused"
-                      else "quantize-on-revisit, mma.sync"),
+                scales_ms=scales_ms, form=gemm_forms[name][label],
                 library="dequant_matmul_int8_reference (quantize_rows, torch._int_mm, "
                         "epilogue)", bound_ms=b_ms, bound_by=b_by, ops=2 * M * N * K,
                 calls_per_forward=1)
+        if label == "serving":
+            # the mma.sync kernel `_fused2` ran before the revisit form, on a
+            # forced plan: the row's "before"
+            mp = wgmma_plan.mma_plan(M, N, K)
+
+            def mma_call(i):
+                x_, w_, s_ = sets[i % n]
+                out = torch.empty(M, N, dtype=bf16, device="cuda")
+                im._launch(x_, w_, im.quantize_rows_scales(x_), s_, out, mp, "mma")
+                return out
+
+            check(torch.equal(mma_call(0), ref), "fused2 serving, mma.sync kernel: outputs "
+                  "differ from the plain version")
+            rows[("dequant_matmul_int8_fused2", label)]["mma_ms"] = graph_ms(
+                torch, side, mma_call, iters)
         del sets, ref
     checks = []
     for dtype in (torch.float32, bf16):  # small odd shape, f32 out
@@ -2100,6 +2133,8 @@ def phase_variant_kernels(torch, power_w: float) -> dict:
                  f"{r['scales_ms']:.4f} ms, {r['ops'] / r['ms'] / 1e9:.1f} TOP/s"
                  if "two_pass_ms" in r
                  else f"; f32 b1 err {r['f32_b1_err']:.3g} (1e-5 x max)")
+        extra += (f", the mma.sync kernel it ran on before {r['mma_ms']:.4f} ms"
+                  if "mma_ms" in r else "")
         extra += f" | {r['form']}" if "form" in r else ""
         say(2, f"{r['name']} {r['shape']}: err {r['max_abs_err']:.3g} ({r['tolerance']}) | "
                f"kernel {r['ms']:.4f} ms (host cost of a call {r['call_ms']:.4f} ms), plain "
@@ -2911,9 +2946,13 @@ def phase_paged(torch, np, stt) -> dict:
     say(5, "  device ms a step by kernel: "
            + "; ".join(f"{k[:60]} {v:.3f}" for k, v in r["top_kernels_ms"][:6]))
 
-    # (b) serving: bench.py's 32 requests (prompts of 8-47 tokens, 64 new
-    # each, seed 0; none reaches row 128) and two longer ones (100 and 120
-    # tokens) that cross the page boundary
+    # (b) serving on the first SERVE_LAYERS layers: bench.py's 32 requests
+    # (prompts of 8-47 tokens, 64 new each, seed 0; none reaches row 128)
+    # and two longer ones (100 and 120 tokens) that cross the page boundary
+    del g
+    t0 = time.perf_counter()
+    g = _llama_graph(SERVE_LAYERS)
+    res["serve_build_s"] = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     vocab = LLAMA_1B["vocab"]
     reqs = [[int(t) for t in rng.integers(1, vocab - 1, n)]
@@ -2935,7 +2974,7 @@ def phase_paged(torch, np, stt) -> dict:
         stats = server.stats()
         steps = stats["steps"] - steps0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        _expect_decode_launches("paged serving", launches, steps)
+        _expect_decode_launches("paged serving", launches, steps, SERVE_LAYERS)
         check(all(len(r) == len(p) + n_new and r[:len(p)] == p for r, p in zip(served, reqs)),
               "paged serving: a request came back short or altered")
         crossed = sum(len(r) > PAGE for r in served)
@@ -2949,13 +2988,15 @@ def phase_paged(torch, np, stt) -> dict:
         server.shutdown()
     del server
     tokens = len(reqs) * n_new
-    res["serve_t1"] = {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
+    res["serve_t1"] = {"layers": SERVE_LAYERS, "requests": len(reqs), "tokens": tokens,
+                       "wall_s": wall,
                        "tok_s": tokens / wall, "ticks": steps, "ms_per_tick": 1e3 * wall / steps,
                        "peak_mem_gb": peak_gb, "pool_gb": cache_gb, "launches": launches,
                        "page_crossings": crossed, "stall_ticks": stats["stall_ticks"],
                        "solo_equal": list(solo_idx)}
     r = res["serve_t1"]
-    say(5, f"(b) served {len(reqs)} requests, {tokens} new tokens in {wall:.2f} s: "
+    say(5, f"(b) {SERVE_LAYERS}-layer cut (built in {res['serve_build_s']:.1f} s): served "
+           f"{len(reqs)} requests, {tokens} new tokens in {wall:.2f} s: "
            f"{r['tok_s']:.1f} tok/s, {steps} ticks, {r['ms_per_tick']:.2f} ms a tick, peak "
            f"{peak_gb:.2f} GB (pools {cache_gb:.3f} GB), {crossed} sequences crossed a page, "
            f"stall ticks {stats['stall_ticks']} | launches {launches} | requests {solo_idx} "
@@ -2976,7 +3017,7 @@ def phase_paged(torch, np, stt) -> dict:
     finally:
         server.shutdown()
     del server
-    _expect_decode_launches("paged serving, tick_steps 4", launches4, steps4)
+    _expect_decode_launches("paged serving, tick_steps 4", launches4, steps4, SERVE_LAYERS)
     want4 = [served[i][:len(reqs[i]) + n4] for i in list(range(8)) + [33]]
     check(got4 == want4, "paged serving: tick_steps 4 tokens differ from tick_steps 1")
     res["serve_t4"] = {"requests": len(short), "tokens": len(short) * n4, "wall_s": wall4,
@@ -3174,21 +3215,22 @@ def _serve_run(torch, server, reqs, n_new, label):
     return served, r
 
 
-def _expect_serving_launches(label, counts, r, attention):
-    layers = LLAMA_1B["layers"]
+def _expect_serving_launches(label, counts, r, attention, layers: int):
     per = {"int4_matmul": (7 * layers + 1) * (r["steps"] + r["prefills"]),
            attention: layers * r["steps"]}
     _check_routed(label, counts, per)
     for k, n in per.items():
-        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, not {n} (169 a step "
-                              f"and a prefill, 24 attention a step)")
+        check(counts[k] == n, f"{label}: {k} launched {counts[k]} times, not {n} "
+                              f"({7 * layers + 1} a step and a prefill, {layers} attention a "
+                              "step)")
 
 
 def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
     """The static-cache decode path at llama_1b's full width and depth:
-    the step against the CPU, FusedGenerator (CUDA graph of the step),
-    DecodeServer (a vmapped step, prefill ladder), and PagedDecodeServer
-    with the same prefill ladder."""
+    the step and a prefill against the CPU, FusedGenerator (CUDA graph of
+    the step); then on the first SERVE_LAYERS layers DecodeServer (a
+    vmapped step, prefill ladder) and PagedDecodeServer with the same
+    prefill ladder (`paged_graph`, phase 5's cut)."""
     from smelter_tpu_torch.runtime.generate import FusedGenerator, Generator
     from smelter_tpu_torch.serving.decode_server import DecodeServer
     from smelter_tpu_torch.serving.paged_server import PagedDecodeServer
@@ -3254,8 +3296,12 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
            + (f"{100 * r['idle_share']:.1f}%" if r["idle_share"] is not None else "not measured")
            + f" | 64 tokens equal Generator's | a replay launches {gen.step_launches['greedy']}"
            f" | prefill 64 + 16 tokens in {pf_s:.3f} s")
-    del gen, graph
+    del gen, graph, step, pfs
     torch.cuda.empty_cache()
+    # (c) and (d) on the first SERVE_LAYERS layers
+    t0 = time.perf_counter()
+    step, pfs = _static_graphs(SERVE_LAYERS)
+    res["serve_build_s"] = time.perf_counter() - t0
 
     # (c) DecodeServer: bench.py --serve-decode's 32 requests plus a 100- and
     # a 300-token prompt (the last prefills the 256 bucket, then is fed)
@@ -3268,7 +3314,8 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
     server = DecodeServer(step, slots=SLOTS, config=cfg, prefill_graphs=pfs, tick_steps=1)
     try:
         served, r = _serve_run(torch, server, reqs, n_new, "DecodeServer")
-        _expect_serving_launches("DecodeServer", r["launches"], r, "ragged_decode_attention")
+        _expect_serving_launches("DecodeServer", r["launches"], r, "ragged_decode_attention",
+                                 SERVE_LAYERS)
         # the prefill graphs share the step graph's weights: only small
         # constants that differ between the graphs (their position ids) are
         # held under a second name
@@ -3297,8 +3344,10 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
     finally:
         server.shutdown()
     del server
+    r["layers"] = SERVE_LAYERS
     res["decode_server"] = r
-    say(7, f"(c) DecodeServer (8 slots, vmapped step, prefill {BUCKETS}): {r['requests']} "
+    say(7, f"(c) DecodeServer, {SERVE_LAYERS}-layer cut (built in {res['serve_build_s']:.1f} s; 8 "
+           f"slots, vmapped step, prefill {BUCKETS}): {r['requests']} "
            f"requests, {r['tokens']} new tokens in {r['wall_s']:.2f} s: {r['tok_s']:.1f} tok/s, "
            f"{r['steps']} ticks at {r['ms_per_tick']:.2f} ms, {r['prefills']} prefills | a tick "
            f"alone {r['tick_ms_alone']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, idle "
@@ -3315,7 +3364,7 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
         server.shutdown()
     del server
     _expect_serving_launches("DecodeServer tick_steps 4", r4["launches"], r4,
-                             "ragged_decode_attention")
+                             "ragged_decode_attention", SERVE_LAYERS)
     check(got4 == [served[i][:len(reqs[i]) + n4] for i in list(range(8)) + [33]],
           "DecodeServer: tick_steps 4 tokens differ from tick_steps 1")
     res["decode_server_t4"] = r4
@@ -3332,10 +3381,11 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
         server.shutdown()
     del server
     _expect_serving_launches("PagedDecodeServer prefill", rp["launches"], rp,
-                             "paged_decode_attention")
+                             "paged_decode_attention", SERVE_LAYERS)
     rp["tok_s_fed_a_token_a_tick"] = paged_tok_s
     res["paged_prefill"] = rp
-    say(7, f"(d) PagedDecodeServer with prefill {BUCKETS}: {rp['requests']} requests in "
+    say(7, f"(d) PagedDecodeServer with prefill {BUCKETS}, {SERVE_LAYERS}-layer cut: "
+           f"{rp['requests']} requests in "
            f"{rp['wall_s']:.2f} s: {rp['tok_s']:.1f} tok/s ({paged_tok_s:.1f} fed a token a "
            f"tick, phase 5), {rp['steps']} ticks at {rp['ms_per_tick']:.2f} ms, "
            f"{rp['prefills']} prefills, peak {rp['peak_mem_gb']:.3f} GB over "

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """`pixel_conv_patch` on the wgmma conv core at flat NCHW strides, and
-`dequant_matmul_int8_fused` on its int8 wgmma forms, each beside the
+`dequant_matmul_int8_fused` and `_fused2` on their int8 forms, each beside the
 designs it was chosen from, timed on one card in one process by CUDA-graph
 replay (`chip_smoke.graph_ms`, operands rotated past the 50 MB L2), the
 kernel variants in turns (A B B A):
@@ -11,15 +11,17 @@ kernel variants in turns (A B B A):
   cost); form 0 (the mma.sync kernel patch ran before); then cuDNN NCHW +
   `F.leaky_relu`; each checked against the plain version within 1e-2 of
   its largest output; summed over a forward's 349 calls;
-- the fused GEMM at the ResNet-50 head, the serving GEMM, the serving
+- the fused GEMMs at the ResNet-50 head, the serving GEMM, the serving
   GEMM's size at K 4,104 (which the panel form turns down) and 2,048 x
-  4,096 x 512 (64 panel units), bf16: the plan's form, the panel form on 4
-  and 8 ranks (serving, 2,048 rows), the cluster
-  form at its own split, `dequant_matmul_int8_fused2` (quantize-on-revisit,
-  mma.sync, the "revisit" form), each checked bit-equal to the plain
-  version; then the two-pass `dequant_matmul_int8`, the library chain
-  (`quantize_rows`, `torch._int_mm`, the epilogue) and the row scales'
-  plain pass alone.
+  4,096 x 512 (64 panel units), bf16: the form each plan picks
+  (`dequant_matmul_int8_fused`'s and `_fused2`'s), the cluster form at its
+  own split and, where the TMA maps can read the shape, the revisit form
+  on 256- and 128-column tiles, the mma.sync kernel and the panel form on 4
+  and 8 ranks (where its chunks fit), then `_fused2` through its entry
+  point, each checked bit-equal to the plain version; then the two-pass
+  `dequant_matmul_int8`, the library chain (`quantize_rows`,
+  `torch._int_mm`, the epilogue) and the row scales' plain pass alone.
+  Every kernel time includes the row scales' pass, as the entry points do.
 
     python3 experiments/torch_patch_fused_timing.py [--only patch|fused]
 
@@ -148,14 +150,17 @@ def fused_rows(side, gen, power_w: float) -> list[dict]:
         n = len(sets)
         x, w, s = sets[0]
         ref = im.dequant_matmul_int8_fused_plain(x, w, s)
-        chosen = im.fused_plan(x, w)
-        plans = {"chosen": chosen, "cluster": wgmma_plan._cluster_form(M, N, K, sms)}
-        if label in ("serving", "rows2048_n512"):
-            plans.update({f"panel{sp}": wgmma_plan._panel_form(M, N, K, sp)
-                          for sp in wgmma_plan.QP_SPLITS})
+        plans = {"chosen": im.fused_plan(x, w), "chosen2": im.fused_plan(x, w, fused2=True),
+                 "cluster": wgmma_plan._cluster_form(M, N, K, sms)}
+        if label != "head":  # the shapes the TMA maps can read
+            plans.update({f"revisit{c}": wgmma_plan.revisit_form(M, N, K, 2, cols=c, sms=sms)
+                          for c in (256, 128)})
+            plans["mma"] = wgmma_plan.mma_plan(M, N, K)
+            plans.update({f"panel{sp}": p for sp in wgmma_plan.QP_SPLITS
+                          if (p := wgmma_plan._panel_form(M, N, K, sp)) is not None})
 
         def run(p):
-            def fn(i):  # what `dequant_matmul_int8_fused` does, on the plan `p`
+            def fn(i):  # what the fused entry points do, on the plan `p`
                 x, w, s = sets[i % n]
                 out = torch.empty(M, N, device="cuda", dtype=bf16)
                 im._launch(x, w, im.quantize_rows_scales(x), s, out, p, "fused")
@@ -179,7 +184,8 @@ def fused_rows(side, gen, power_w: float) -> list[dict]:
         row = {"name": "dequant_matmul_int8_fused", "label": label, "shape": [M, K, N],
                "ms": t, "bound_ms": b_ms, "bound_by": b_by,
                "plans": {k: f"{p.form}, split {p.split}, k_chunk {p.k_chunk}, {p.stages} "
-                            f"stages, grid {p.grid}, {p.smem} B" for k, p in plans.items()}}
+                            f"stages, grid {p.grid}, {p.cols} columns, {p.smem} B"
+                         for k, p in plans.items()}}
         print(f"fused {label} {[M, K, N]}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
               + f", bound {b_ms:.4f} ({b_by}); plans {row['plans']}", flush=True)
         rows.append(row)

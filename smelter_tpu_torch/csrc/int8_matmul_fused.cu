@@ -10,13 +10,16 @@
 // the two-pass dequant_matmul_int8, without x_q in device memory.
 //
 // What bounds them on an H100: at the serving GEMM (M 8192, K 4096, N 4096)
-// the int8 tensor cores (~139 us at 1,979 TOP/s); at the ResNet-50 head
-// (M 128, K 2048, N 1000) HBM (~2.8 MB, ~0.85 us at 3.35 TB/s).
+// the int8 tensor cores (~139 us at 1,979 TOP/s), with the CUDA-core work
+// of quantizing x (once a 256-column tile in the revisit form: 537 M
+// values, four instructions each) behind it and, on the card, ahead of it;
+// at the ResNet-50 head (M 128, K 2048, N 1000) HBM (~2.8 MB, ~0.85 us at
+// 3.35 TB/s).
 //
 // Design:
-// - dequant_matmul_int8_fused: three forms that kernels/wgmma_plan.py::
-//   fused_plan picks from the shape, two of them on the int8 wgmma core
-//   (csrc/wgmma_gemm.cuh):
+// - dequant_matmul_int8_fused: the panel form where it fits, else
+//   _fused2's forms; kernels/wgmma_plan.py::fused_plan picks from the
+//   shape, three of the forms on the int8 wgmma core (csrc/wgmma_gemm.cuh):
 //   * panel (gemm_panel_qx; aligned shapes with work units enough to fill
 //     the card's clusters: the serving GEMM): the Pallas kernel's point, x read from device memory once as
 //     floats and quantized once, kept for every N tile. A CTA holds the
@@ -49,19 +52,38 @@
 //     its float type, which it quantizes as each 128 x 64 tile loads it. K
 //     split over up to 8 CTAs, int32 partials summed in rank order through
 //     distributed shared memory. Each N tile quantizes the x rows it stages.
-//   * revisit (int8_matmul_qx below, form 0): shapes the panel form turns
-//     down (K 4,097-4,480 or past 9,216, N % 16, an unaligned base) with
-//     tiles enough to fill the card without a K split. The cluster form on
-//     one rank took 5.01 ms at the serving GEMM against this kernel's 1.89
-//     (NVIDIA H100 80GB HBM3, 700 W; experiments/torch_patch_fused_timing.py).
-//     So no K is refused.
-// - dequant_matmul_int8_fused2, quantize-on-revisit (int8_matmul_qx):
-//   int8_gemm.cuh's 128 x 128 mma.sync.m16n8k32 tile with another A loader,
-//   which reads the float x tile (bf16, f16 or f32), divides by s_row with
-//   IEEE division (__fdiv_rn: quantize_rows divides, no reciprocal), rounds
-//   half to even (__float2int_rn), clips to [-127, 127] and stores int8
-//   [m][k]. Every output tile quantizes the A tiles it stages, so x is read
-//   once an N tile, mostly from L2. No cp.async, TMA or wgmma yet.
+//   * revisit and mma: shapes the panel form turns down (K 4,097-4,480 or
+//     past 9,216, N % 16, an unaligned base) take _fused2's forms below.
+//     The cluster form on one rank took 5.01 ms at the serving GEMM against
+//     the mma.sync kernel's 1.89 (NVIDIA H100 80GB HBM3, 700 W; experiments/
+//     torch_patch_fused_timing.py), so many tiles never take it. No K is
+//     refused.
+// - dequant_matmul_int8_fused2, quantize-on-revisit: a row's int32
+//   accumulator across N (2 MB at 128 rows, N 4,096) fits no SM, so each
+//   output tile quantizes the x boxes it stages and x is reread through L2.
+//   wgmma_plan.revisit_plan picks the form:
+//   * revisit (gemm_revisit_qx below, form 3; aligned shapes with tiles
+//     enough: the serving GEMM): persistent, one CTA an SM, gemm_tma_s8's
+//     tile order. TMA brings each K step's x float box and W boxes into a
+//     ring; the warps quantize the x box into wgmma's K-major int8 B
+//     operand with no division (Markstein's correction of x fl(1/s): the
+//     IEEE quotient quantize_rows takes, bit for bit), then the consumers
+//     run gemm_tma_s8's product, W^T the register A operand. 256-column
+//     tiles (two W boxes, 128 int32 accumulators a thread, setmaxnreg
+//     moving the producer's registers to the consumers) halve the x reads
+//     and the quantizing of 128-column ones, which the plan takes where
+//     256-column tiles are too few to fill the card; a step's quantizing
+//     runs under the step before's wgmma groups. 0.583 ms at the serving
+//     GEMM with the row scales' pass, 0.139 its bound: the quantizing sets
+//     the pace (NVIDIA H100 80GB HBM3, 700 W;
+//     experiments/torch_patch_fused_timing.py).
+//   * cluster (few tiles: the head), as for _fused.
+//   * mma (int8_matmul_qx below, form 0; what the maps cannot read: N % 16,
+//     an unaligned base): int8_gemm.cuh's 128 x 128 mma.sync.m16n8k32 tile
+//     with another A loader, which reads the float x tile (bf16, f16 or
+//     f32), divides by s_row with IEEE division (__fdiv_rn: quantize_rows
+//     divides, no reciprocal), rounds half to even (__float2int_rn), clips
+//     to [-127, 127] and stores int8 [m][k]. No cp.async, TMA or wgmma.
 // The epilogue is __fmul_rn(__fmul_rn(float(acc), s_row), s_col), then one
 // rounding to out_dtype, as the Pallas kernels do. M, N and K edges are
 // masked (the TMA maps fill zeros past M and K).
@@ -74,6 +96,41 @@ namespace {
 template <typename T>
 constexpr CUtensorMapDataType x_map_type() {
   return std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : map_type<T>();
+}
+
+// -- W^T as wgmma's register operand (gemm_tma_s8's gather) --------------------
+
+// The byte permute that undoes lane t's rotated K-row order: byte i <- byte
+// (i - t) & 3.
+__device__ __forceinline__ uint32_t wt_rotation(int t) {
+  uint32_t rot = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rot |= static_cast<uint32_t>((i - t) & 3) << (4 * i);
+  return rot;
+}
+
+// This thread's A fragments of W^T for one 128-byte K step, from a W box of
+// 128 K rows x 128 columns (128-byte swizzle): W column pair nb of the box
+// (A rows g and g + 8 of the warp), K rows read in the lane-rotated order of
+// gemm_tma_s8 (no two lanes of a load on one bank), bytes put back in K
+// order by byte permutes.
+__device__ __forceinline__ void wt_fragments(uint32_t (&a)[S8_BK / 32][4], const uint8_t* w,
+                                             int nb, int t, uint32_t rot) {
+#pragma unroll
+  for (int kk = 0; kk < S8_BK / 32; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = kk * 32 + half * 16 + 4 * t + ((i + t) & 3);
+        h[i] = *reinterpret_cast<const uint16_t*>(w + k * 128 + (((nb >> 4) ^ (k & 7)) << 4) +
+                                                 (nb & 15));
+      }
+      const uint32_t p01 = __byte_perm(h[0], h[1], 0x5410), p23 = __byte_perm(h[2], h[3], 0x5410);
+      a[kk][2 * half] = __byte_perm(__byte_perm(p01, p23, 0x6420), 0, rot);      // column nb
+      a[kk][2 * half + 1] = __byte_perm(__byte_perm(p01, p23, 0x7531), 0, rot);  // nb + 1
+    }
 }
 
 // -- the panel form -----------------------------------------------------------
@@ -237,9 +294,7 @@ gemm_panel_qx(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
   };
 
   const int nb = wgi * 64 + warp * 16 + 2 * g;  // this thread's W column pair in the tile
-  uint32_t rot = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rot |= static_cast<uint32_t>((i - t4) & 3) << (4 * i);
+  const uint32_t rot = wt_rotation(t4);
   int acc[64], own[OWN];
   uint32_t ra0[S8_BK / 32][4], ra1[S8_BK / 32][4];
   uint32_t dst[S];  // each rank's exchange buffers, this thread's column (shared::cluster)
@@ -247,21 +302,7 @@ gemm_panel_qx(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
   for (int q = 0; q < S; ++q) dst[q] = mapa(smem_u32(xbuf + ct), q);
 
   auto step = [&](uint32_t (&a)[S8_BK / 32][4], const uint8_t* w, const uint8_t* x) {
-#pragma unroll
-    for (int kk = 0; kk < S8_BK / 32; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        uint32_t h[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int k = kk * 32 + half * 16 + 4 * t4 + ((i + t4) & 3);
-          h[i] = *reinterpret_cast<const uint16_t*>(w + k * 128 + (((nb >> 4) ^ (k & 7)) << 4) +
-                                                   (nb & 15));
-        }
-        const uint32_t p01 = __byte_perm(h[0], h[1], 0x5410), p23 = __byte_perm(h[2], h[3], 0x5410);
-        a[kk][2 * half] = __byte_perm(__byte_perm(p01, p23, 0x6420), 0, rot);
-        a[kk][2 * half + 1] = __byte_perm(__byte_perm(p01, p23, 0x7531), 0, rot);
-      }
+    wt_fragments(a, w, nb, t4, rot);
     wgmma_fence();
     const uint64_t db = desc(x, 16, 1024);
 #pragma unroll
@@ -399,6 +440,320 @@ static int launch_panel_qx(const void* x, const void* w, const float* s_row, con
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// -- the revisit form ---------------------------------------------------------
+
+constexpr int QR_THREADS = 128 * (CONSUMERS + 1);
+constexpr int QR_HELPERS = 96;  // the producer warpgroup's warps 1-3, which quantize too
+constexpr float QR_MAGIC = 12582912.0f;  // 1.5 * 2^23: the low byte of q + QR_MAGIC is rint(q)
+constexpr float QR_TINY = 0x1p-96f;      // a row scale below it is scaled by QR_UP
+constexpr float QR_UP = 0x1p100f;
+
+// Bytes of one x float box (128 rows x 128 elements) in a stage.
+template <typename T>
+__host__ __device__ constexpr int qr_x_bytes() {
+  return BM * S8_BK * static_cast<int>(sizeof(T));
+}
+// Bytes: alignment, the two quantized x boxes, the row table (two floats
+// and a bit a row), then the ring: a stage is the x float box and NB W
+// boxes, with two mbarriers.
+__host__ __device__ constexpr int qr_smem(int x_bytes, int nb, int stages) {
+  return 1024 + 2 * S8_BOX + BM * 8 + BM / 8 +
+         stages * (BM * S8_BK * x_bytes + nb * S8_BOX + 16);
+}
+
+// Keeps the compiler from reusing or moving a fragment set's registers
+// while a wgmma group may still read them.
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[S8_BK / 32][4]) {
+#pragma unroll
+  for (int i = 0; i < S8_BK / 32; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// 128 x 168 registers at launch: the producer warpgroup gives 112 of each
+// thread's to the consumers.
+__device__ __forceinline__ void setmaxnreg_dec56() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+}
+__device__ __forceinline__ void setmaxnreg_inc224() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+}
+
+// out (M, N) = float(q(x) @ W) * s_row * s_col, quantize-on-revisit on int8
+// wgmma: a persistent CTA an SM walks the output tiles of 128 x rows x NB *
+// 128 W columns in gemm_tma_s8's order (tile / nt, N fastest, so the tiles
+// in flight share a few x panels in L2). One producer thread TMA-loads each
+// K step's x float box (128 rows x 128 elements, no swizzle) and the NB W
+// boxes (128 K rows x 128 columns, 128-byte swizzle) into a ring of
+// `stages`. The two consumer warpgroups and the producer warpgroup's three
+// other warps (5 and 8 of the box's 16-byte loads a thread) quantize the x
+// box into one of two int8 boxes, K-major with the 128-byte swizzle
+// (wgmma's B); then the consumers run gemm_tma_s8's product on it: W^T
+// gathered from each W box as the register A operand of
+// wgmma.m64n128k32.s32.s8.s8, a commit group a W box. A step's quantizing
+// runs under the step before's groups (the two int8 boxes in turn), the
+// second W box's gather under the first box's group; the third warp on a
+// sub-partition hides the quantizer's latency. The quantizer computes
+// quantize_rows' fl(v / s) without a division: with r = fl(1/s) (__frcp_rn,
+// once a row),
+// q0 = fl(v r), rem = fma(-q0, s, v) (exact) and q1 = fma(rem, r, q0),
+// q1 = fl(v / s) (Markstein's theorem: r correctly rounded, q0 within an
+// ulp, no underflow, which rows with s >= 2^-96 keep; a row of smaller s
+// runs on v 2^100 and s 2^100, exact scalings of the same quotient); then
+// q1 + 1.5 * 2^23 rounds it half to even, its low byte the int8 value. No
+// clip: |v| <= the row's absmax = 127 s, so |q1| < 127.5. Four
+// floating-point instructions a value, no division, no branch.
+template <typename T, typename OutT, int NB>
+__global__ void __launch_bounds__(QR_THREADS, 1)
+gemm_revisit_qx(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_w, const float* __restrict__ s_row,
+                const float* __restrict__ s_col,
+                OutT* __restrict__ out, int M, int N, int K, int stages) {
+  static_assert(NB == 1 || NB == 2, "one or two W boxes a tile");
+  constexpr int XB = qr_x_bytes<T>(), STAGE = XB + NB * S8_BOX, LR = qp_box_rows<T>();
+  constexpr int E = 16 / static_cast<int>(sizeof(T));  // x elements a 16-byte load
+  constexpr int CT = CONSUMERS * 128, HT = QR_HELPERS;  // consumer and helper threads
+  // 16-byte x loads a step: a consumer thread's, then a helper thread's
+  constexpr int UC = 5 * 8 / E, UH = 8 * 8 / E;
+  static_assert(CT * UC + HT * UH == BM * S8_BK / E, "the loads of an x box, once each");
+  using Plain = std::integral_constant<bool, false>;
+  using Scaled = std::integral_constant<bool, true>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* xq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = xq + 2 * S8_BOX;
+  // (1/s, s) a row of the tile; a row of s < 2^-96: (1/s', -s'), s' = s 2^100
+  float2* table = reinterpret_cast<float2*>(ring + stages * STAGE);
+  uint32_t* small = reinterpret_cast<uint32_t*>(table + BM);  // such rows, a bit each
+  uint64_t* full = reinterpret_cast<uint64_t*>(small + BM / 32);
+  uint64_t* empty = full + stages;
+  const int nt = div_up(N, NB * RA_BW), tiles = div_up(M, BM) * nt, KT = div_up(K, S8_BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CT + HT);  // every consumer and helper thread, once done reading
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // 16-byte load q of the x box, consecutive threads along a row; its E
+  // bytes go to their swizzled place in dst. Scaled (a tile with a row of
+  // s < 2^-96), a row whose s in the table is negative has its values
+  // scaled by 2^100 too: the same quotients, exactly.
+  auto quantize_load = [&](const uint8_t* box, uint8_t* dst, int q, auto scaled) {
+    const int r = q / (S8_BK / E), c = q % (S8_BK / E) * E;
+    alignas(16) T v[E];
+    *reinterpret_cast<uint4*>(v) =
+        *reinterpret_cast<const uint4*>(box + (r * S8_BK + c) * static_cast<int>(sizeof(T)));
+    const float2 rs = table[r];
+    float up = 1.f, s = rs.y;
+    if constexpr (decltype(scaled)::value) {
+      up = rs.y < 0.f ? QR_UP : 1.f;
+      s = fabsf(rs.y);
+    }
+    uint32_t word[E / 4];
+#pragma unroll
+    for (int k = 0; k < E / 4; ++k) {
+      uint32_t b[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float f = to_f32(v[4 * k + e]);
+        if constexpr (decltype(scaled)::value) f = __fmul_rn(f, up);
+        const float p = __fmul_rn(f, rs.x), q1 = __fmaf_rn(__fmaf_rn(-p, s, f), rs.x, p);
+        b[e] = __float_as_uint(__fadd_rn(q1, QR_MAGIC));
+      }
+      word[k] = __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040),
+                            0x5410);
+    }
+    uint8_t* d = dst + r * 128 + (((c >> 4) ^ (r & 7)) << 4) + (c & 15);
+    if constexpr (E == 8)
+      *reinterpret_cast<uint2*>(d) = make_uint2(word[0], word[1]);
+    else
+      *reinterpret_cast<uint32_t*>(d) = word[0];
+  };
+  // `U` loads from load q0, `step` apart
+  auto quantize = [&](const uint8_t* box, uint8_t* dst, int q0, int step, auto units,
+                      auto scaled) {
+#pragma unroll
+    for (int i = 0; i < decltype(units)::value; ++i)
+      quantize_load(box, dst, q0 + i * step, scaled);
+  };
+  // whether the tile has a row of s < 2^-96 (after the barrier that
+  // follows the table): the same answer in every thread, so that each
+  // warpgroup runs one copy of the K loop (a test in the loop, or a second
+  // quantizer beside it, costs a sixth of the kernel's time)
+  auto tile_scaled = [&] {
+    const uint4 w = *reinterpret_cast<const uint4*>(small);
+    return (w.x | w.y | w.z | w.w) != 0u;
+  };
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    if constexpr (NB == 2) setmaxnreg_dec56();
+    int stage = 0, phase = 0;
+    if (threadIdx.x == 0) {  // one thread issues every load
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / nt * BM, n0 = tile % nt * NB * RA_BW;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE);
+          uint8_t* st = ring + stage * STAGE;
+#pragma unroll
+          for (int b = 0; b < BM / LR; ++b)
+            tma_load_2d(st + b * QP_SLOT, &map_x, &full[stage], kt * S8_BK, m0 + b * LR);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            tma_load_2d(st + XB + j * S8_BOX, &map_w, &full[stage], n0 + j * RA_BW, kt * S8_BK);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // warps 1-3 help quantize: the last HT * UH loads
+      const int q0 = CT * UC + threadIdx.x - 32;
+      const auto units = std::integral_constant<int, UH>();
+      auto k_loop = [&](auto scaled) {
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&full[stage], phase);
+          quantize(ring + stage * STAGE, xq + (kt & 1) * S8_BOX, q0, HT, units, scaled);
+          fence_proxy_async();
+          named_sync(1, CT + HT);
+          mbar_arrive(&empty[stage]);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      };
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        named_sync(1, CT + HT);  // the tile's row table is written
+        if (tile_scaled())
+          k_loop(Scaled());
+        else
+          k_loop(Plain());
+      }
+    }
+    return;
+  }
+  if constexpr (NB == 2) setmaxnreg_inc224();
+
+  const int ct = threadIdx.x - 128, wgi = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nb = wgi * 64 + warp * 16 + 2 * g;  // this thread's W column pair in a W box
+  const uint32_t rot = wt_rotation(t4);
+  const auto units = std::integral_constant<int, UC>();
+  int acc[NB][64];
+  uint32_t fa[S8_BK / 32][4], fb[S8_BK / 32][4];  // A fragments of the two W boxes
+  int stage = 0, phase = 0;
+
+  // one W box's products on the quantized box, as one commit group
+  auto issue = [&](int (&d)[64], uint32_t (&a)[S8_BK / 32][4], uint64_t db) {
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk) mma_s8_rs_m64n128k32(d, a[kk], db + 2 * kk);
+    wgmma_commit();
+    fence_regs(d);
+    fence_frag(a);
+  };
+  // A K step: quantize this thread's share of the x box into one of two
+  // int8 boxes under the step before's groups, then retire them before the
+  // barrier, so that past it no warpgroup's group still reads the int8 box
+  // the next step overwrites (wait_group covers a warpgroup's own groups
+  // only); then gather and issue each W box, the second box's gather under
+  // the first box's group.
+  auto k_loop = [&](auto scaled) {
+    for (int kt = 0; kt < KT; ++kt) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* st = ring + stage * STAGE;
+      uint8_t* xk = xq + (kt & 1) * S8_BOX;
+      quantize(st, xk, ct, CT, units, scaled);
+      wgmma_wait<0>();
+      fence_frag(fa);
+      if constexpr (NB == 2) fence_frag(fb);
+      fence_proxy_async();  // the int8 box, before wgmma reads it
+      named_sync(1, CT + HT);
+      const uint64_t db = desc(xk, 16, 1024);
+      wt_fragments(fa, st + XB, nb, t4, rot);
+      issue(acc[0], fa, db);
+      if constexpr (NB == 2) {
+        wt_fragments(fb, st + XB + S8_BOX, nb, t4, rot);
+        issue(acc[1], fb, db);
+      }
+      mbar_arrive(&empty[stage]);  // this thread's reads of the stage are done
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  };
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / nt * BM, n0 = tile % nt * NB * RA_BW;
+    // every consumer and helper passed the last tile's final quantizing
+    // (the barrier after it), so the table is free
+    if (ct < BM) {
+      const float s = m0 + ct < M ? s_row[m0 + ct] : 1.f;
+      table[ct] = s < QR_TINY ? make_float2(__frcp_rn(s * QR_UP), -(s * QR_UP))
+                              : make_float2(__frcp_rn(s), s);
+      const uint32_t bits = __ballot_sync(0xffffffffu, s < QR_TINY);
+      if (lane == 0) small[ct >> 5] = bits;
+    }
+    named_sync(1, CT + HT);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[j][i] = 0;
+    if (tile_scaled())
+      k_loop(Scaled());
+    else
+      k_loop(Plain());
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      fence_regs(acc[j]);
+      // acc[j][4i + 2h + e]: W column n0 + 128 j + nb + h, x row m0 + 8i + 2t4 + e
+      const int col = n0 + j * RA_BW + nb;
+      if (col >= N) continue;  // N % 16 == 0: col + 1 < N with it
+      const float sc0 = s_col[col], sc1 = s_col[col + 1];
+#pragma unroll
+      for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = m0 + 8 * i + 2 * t4 + e;
+          if (row < M)
+            put_s8_pair(out, static_cast<size_t>(row) * N + col, acc[j][4 * i + e],
+                        acc[j][4 * i + 2 + e], s_row[row], sc0, sc1);
+        }
+    }
+  }
+}
+
+// The revisit form: `grid` persistent CTAs (one an SM) over tiles of NB x
+// 128 W columns; x (M, K) in T and w (K, N) int8, both 16-byte aligned, K
+// sizeof(T) % 16 == 0, N % 16 == 0, M, N, K >= 128 (the plan's checks).
+template <typename T, typename OutT, int NB>
+static int launch_revisit_qx(const void* x, const void* w, const float* s_row,
+                             const float* s_col, void* out, int M, int N, int K, int stages,
+                             int grid, cudaStream_t stream) {
+  const int smem = qr_smem(static_cast<int>(sizeof(T)), NB, stages);
+  if (stages < 2 || smem > 232448 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  int rc = make_map(&map_x, x, x_map_type<T>(), sizeof(T), M, K, qp_box_rows<T>(), S8_BK,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc == 0)
+    rc = make_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, S8_BK, RA_BW,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  static const cudaError_t smem_set = cudaFuncSetAttribute(
+      gemm_revisit_qx<T, OutT, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  (void)smem_set;
+  gemm_revisit_qx<T, OutT, NB><<<grid, QR_THREADS, smem, stream>>>(
+      map_x, map_w, s_row, s_col, static_cast<OutT*>(out), M, N, K, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace wg
 }  // namespace smelter
@@ -512,13 +867,20 @@ int launch_qx(const void* x, const int8_t* w, const float* sr, const float* sc, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The form's kernel (form 0 quantize-on-revisit, 1 the panel form, 2 the
-// cluster form).
+// The form's kernel (form 0 the mma.sync kernel, 1 the panel form, 2 the
+// cluster form, 3 the revisit form on tiles of `cols` W columns).
 template <typename T, typename OutT>
 int launch(const void* x, const int8_t* w, const float* sr, const float* sc, void* out, int M,
-           int N, int K, int form, int split, int k_chunk, int stages, cudaStream_t st) {
+           int N, int K, int form, int split, int k_chunk, int stages, int cols, int grid,
+           cudaStream_t st) {
   switch (form) {
     case 0: return launch_qx<T, OutT>(x, w, sr, sc, out, M, N, K, st);
+    case 3:
+      if (cols == 128)
+        return wg::launch_revisit_qx<T, OutT, 1>(x, w, sr, sc, out, M, N, K, stages, grid, st);
+      if (cols == 256)
+        return wg::launch_revisit_qx<T, OutT, 2>(x, w, sr, sc, out, M, N, K, stages, grid, st);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 1:
       if (split == 4)
         return wg::launch_panel_qx<T, OutT, 4>(x, w, sr, sc, out, M, N, K, k_chunk, stages, st);
@@ -538,11 +900,13 @@ int launch(const void* x, const int8_t* w, const float* sr, const float* sc, voi
 template <typename T>
 int launch_x(const void* x, const int8_t* w, const float* sr, const float* sc, void* out, int M,
              int N, int K, int x_dtype, int out_dtype, int form, int split, int k_chunk,
-             int stages, cudaStream_t st) {
+             int stages, int cols, int grid, cudaStream_t st) {
   if (out_dtype == kF32)
-    return launch<T, float>(x, w, sr, sc, out, M, N, K, form, split, k_chunk, stages, st);
+    return launch<T, float>(x, w, sr, sc, out, M, N, K, form, split, k_chunk, stages, cols, grid,
+                            st);
   if (out_dtype == x_dtype)
-    return launch<T, T>(x, w, sr, sc, out, M, N, K, form, split, k_chunk, stages, st);
+    return launch<T, T>(x, w, sr, sc, out, M, N, K, form, split, k_chunk, stages, cols, grid,
+                        st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -555,15 +919,17 @@ extern "C" const char* smelter_error_string(int code) {
 // x (M, K) row-major in x_dtype (f32, bf16, f16); w_q (K, N) int8
 // row-major; s_row (M,) f32 (max(absmax, 1e-30) / 127 of each row); s_col
 // (N,) f32; out (M, N) row-major in out_dtype (f32 or x_dtype). form 0 runs
-// quantize-on-revisit (dequant_matmul_int8_fused2, and _fused's "revisit"
-// form); form 1 the panel form
-// (split 4 or 8 ranks of k_chunk K elements, `stages` ring stages) and form
-// 2 the cluster form (a K split of `split` CTAs of k_chunk elements), as
-// kernels/wgmma_plan.py::fused_plan says. Returns a cudaError_t code.
+// the mma.sync kernel ("mma"); form 1 the panel form (split 4 or 8 ranks of
+// k_chunk K elements, `stages` ring stages); form 2 the cluster form (a K
+// split of `split` CTAs of k_chunk elements); form 3 the revisit form
+// (`grid` persistent CTAs, tiles of `cols` 128 or 256 W columns, `stages`
+// ring stages), as kernels/wgmma_plan.py::fused_plan and revisit_plan say.
+// Returns a cudaError_t code.
 extern "C" int smelter_int8_matmul_fused(const void* x, const void* w_q, const void* s_row,
                                          const void* s_col, void* out, int M, int N, int K,
                                          int x_dtype, int out_dtype, int form, int split,
-                                         int k_chunk, int stages, void* stream) {
+                                         int k_chunk, int stages, int cols, int grid,
+                                         void* stream) {
   const auto* w = static_cast<const int8_t*>(w_q);
   const auto* sr = static_cast<const float*>(s_row);
   const auto* sc = static_cast<const float*>(s_col);
@@ -572,13 +938,13 @@ extern "C" int smelter_int8_matmul_fused(const void* x, const void* w_q, const v
   switch (x_dtype) {
     case kF32:
       return launch_x<float>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, form, split,
-                             k_chunk, stages, st);
+                             k_chunk, stages, cols, grid, st);
     case kBF16:
       return launch_x<__nv_bfloat16>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, form,
-                                     split, k_chunk, stages, st);
+                                     split, k_chunk, stages, cols, grid, st);
     case kF16:
       return launch_x<__half>(x, w, sr, sc, out, M, N, K, x_dtype, out_dtype, form, split,
-                              k_chunk, stages, st);
+                              k_chunk, stages, cols, grid, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

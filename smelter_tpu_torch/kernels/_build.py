@@ -39,7 +39,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "dequant_matmul": ("smelter_dequant_matmul", [_P] * 4 + [_I] * 10 + [_P]),
     "int8_matmul": ("smelter_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),
-    "int8_matmul_fused": ("smelter_int8_matmul_fused", [_P] * 5 + [_I] * 9 + [_P]),
+    "int8_matmul_fused": ("smelter_int8_matmul_fused", [_P] * 5 + [_I] * 11 + [_P]),
     "int4_matmul": ("smelter_int4_matmul", [_P] * 6 + [_I] * 9 + [_P]),
     "paged_decode_attention": ("smelter_paged_decode_attention",
                                [_P] * 9 + [_I] * 9 + [_F, _I, _I, _I, _P]),

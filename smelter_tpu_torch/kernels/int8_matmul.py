@@ -35,11 +35,24 @@ quantized once, resident in shared memory, its K split over a cluster of
 4 or 8 CTAs (128 x 4,096 int8 bytes do not fit one CTA), and sweeps N
 tiles against it with W by TMA as wgmma's register operand; the ranks add
 the int32 sums of each other's rows into their owners' shared memory. x
-crosses device memory once as floats. The "cluster" form (few tiles: the
-head) quantizes x as each 128 x 64 tile loads it, K split over up to 8
-CTAs. The shapes that neither takes (a K the panel's chunks do not fit,
-N % 16, an unaligned base, with tiles enough) run `_fused2`'s mma.sync
-kernel, the "revisit" form. No K is refused.
+crosses device memory once as floats. The shapes it turns down take
+`_fused2`'s forms (`wgmma_plan.revisit_plan`). No K is refused.
+`dequant_matmul_int8_fused2` is quantize-on-revisit, as its Pallas kernel:
+a row's int32 accumulator across N (2 MB at 128 rows and N 4,096) fits no
+SM, so each output tile quantizes the x boxes it stages and x is reread
+through L2. The "revisit" form (aligned shapes with tiles enough: the
+serving GEMM) is a persistent kernel, one CTA an SM, TMA loading x's float
+boxes and W's int8 boxes into a ring; its warps quantize each x box into
+wgmma's K-major int8 B operand without a division (Markstein's
+correction of x times the row's reciprocal gives `quantize_rows`' IEEE
+quotient exactly), then the consumers run `int8_matmul`'s product on it,
+W^T the register operand, on tiles of 256 W columns where they fill the
+card (x quantized once every 256 columns), else 128. What bounds it: the
+int8 tensor cores at the serving GEMM (~139 us) in principle; on the
+card the quantizing (CUDA cores, each x value once every 256 columns)
+sets its pace. The "cluster" form (few tiles: the head) quantizes x as
+each 128 x 64 tile loads it, K split over up to 8 CTAs. The "mma" form
+(the mma.sync kernel) takes the rest: N % 16, an unaligned base.
 The per-row scales stay plain PyTorch, as they were plain XLA. The Pallas
 entries' block sizes are accepted and not read; the JAX `fused` entry's
 fall-back to the two-pass path on unaligned M or K (a Mosaic rule) is not
@@ -48,7 +61,8 @@ copied: the kernels mask every edge.
 Each wrapper takes the plain PyTorch version for a tensor on the CPU or the
 `meta` device, and launches its kernel for a CUDA tensor or raises.
 `launches`, `fused_launches` and `fused2_launches` count kernel launches
-and nothing else; `fused_forms` splits `fused_launches` by form.
+and nothing else; `fused_forms` and `fused2_forms` split the last two by
+form.
 """
 
 from __future__ import annotations
@@ -60,7 +74,9 @@ from . import _build, wgmma_plan
 launches = 0
 fused_launches = 0
 fused2_launches = 0
-fused_forms = {"panel": 0, "cluster": 0, "revisit": 0}  # dequant_matmul_int8_fused's launches by form
+# launches by form: dequant_matmul_int8_fused's and dequant_matmul_int8_fused2's
+fused_forms = {"panel": 0, "cluster": 0, "revisit": 0, "mma": 0}
+fused2_forms = {"cluster": 0, "revisit": 0, "mma": 0}
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -183,16 +199,19 @@ def dequant_matmul_int8_fused_plain(x: torch.Tensor, w_q: torch.Tensor, scales: 
     return int8_matmul_plain(x_q, w_q, s_row, scales, out_dtype=out_dtype or x.dtype)
 
 
-def fused_plan(x: torch.Tensor, w_q: torch.Tensor) -> wgmma_plan.FusedPlan:
-    """The form `dequant_matmul_int8_fused` launches for these (CUDA)
-    operands: `wgmma_plan.fused_plan` on x's shape, value size and base."""
-    return wgmma_plan.fused_plan(x.shape[0], w_q.shape[1], x.shape[1], x.element_size(),
-                                 aligned=_build.aligned16(x, w_q), sms=_build.sms(x.device))
+def fused_plan(x: torch.Tensor, w_q: torch.Tensor, *, fused2: bool = False
+               ) -> wgmma_plan.FusedPlan:
+    """The form `dequant_matmul_int8_fused` (`fused2`: `_fused2`) launches
+    for these (CUDA) operands: `wgmma_plan.fused_plan` (`revisit_plan`) on
+    x's shape, value size and base."""
+    choose = wgmma_plan.revisit_plan if fused2 else wgmma_plan.fused_plan
+    return choose(x.shape[0], w_q.shape[1], x.shape[1], x.element_size(),
+                  aligned=_build.aligned16(x, w_q), sms=_build.sms(x.device))
 
 
 def _fused(x, w_q, scales, out_dtype, what: str, fused2: bool = False) -> torch.Tensor:
-    """Checks, the row scales (plain PyTorch), and one launch: `_fused2`'s
-    kernel (the "revisit" form), else `fused_plan`'s form."""
+    """Checks, the row scales (plain PyTorch), and one launch of the form
+    `fused_plan` names, counted by form."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.dim() != 2 or w_q.dim() != 2 or w_q.shape[0] != x.shape[1]:
@@ -211,10 +230,9 @@ def _fused(x, w_q, scales, out_dtype, what: str, fused2: bool = False) -> torch.
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    p = wgmma_plan.revisit_plan(M, N, K) if fused2 else fused_plan(x, w_q)
+    p = fused_plan(x, w_q, fused2=fused2)
     _launch(x, w_q, s_row, s_col, out, p, what)
-    if not fused2:
-        fused_forms[p.form] += 1
+    (fused2_forms if fused2 else fused_forms)[p.form] += 1
     return out
 
 
@@ -226,7 +244,7 @@ def _launch(x, w_q, s_row, s_col, out, p: wgmma_plan.FusedPlan, what: str) -> No
         rc = lib.smelter_int8_matmul_fused(
             x.data_ptr(), w_q.data_ptr(), s_row.data_ptr(), s_col.data_ptr(), out.data_ptr(),
             M, w_q.shape[1], K, _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out.dtype],
-            p.code, p.split, p.k_chunk, p.stages, _build.stream_of(x))
+            p.code, p.split, p.k_chunk, p.stages, p.cols, p.grid, _build.stream_of(x))
     _build.check(lib, rc, what)
 
 
@@ -236,8 +254,7 @@ def dequant_matmul_int8_fused(x: torch.Tensor, w_q: torch.Tensor, scales: torch.
     """`dequant_matmul_int8`'s function, x (M, K) f32/bf16/f16, w_q (K, N)
     int8, scales (N,): one kernel that quantizes x as it loads it
     (`fused_plan`: on int8 wgmma into a resident panel quantized once a
-    CTA, or, on the cluster form, into each tile's stages; else the
-    mma.sync revisit kernel). The block arguments are not read."""
+    cluster; else `_fused2`'s forms). The block arguments are not read."""
     global fused_launches
     del block_m, block_n, block_k
     if x.device.type in ("cpu", "meta"):
@@ -251,8 +268,10 @@ def dequant_matmul_int8_fused2(x: torch.Tensor, w_q: torch.Tensor, scales: torch
                                block_m: int = 256, block_n: int = 1024, block_k: int = 1024,
                                out_dtype=None) -> torch.Tensor:
     """`dequant_matmul_int8`'s function in one kernel whose output tiles
-    quantize the x tiles they stage (quantize-on-revisit). The block
-    arguments are not read."""
+    quantize the x tiles they stage (quantize-on-revisit; `revisit_plan`:
+    the persistent TMA-fed int8 wgmma kernel where its maps can read the
+    operands, the cluster form for few tiles, else the mma.sync kernel).
+    The block arguments are not read."""
     global fused2_launches
     del block_m, block_n, block_k
     if x.device.type in ("cpu", "meta"):

@@ -31,8 +31,11 @@ shapes with tiles enough, else "cluster" (`gemm_cluster_s8`, a K split).
 `fused_plan` picks `dequant_matmul_int8_fused`'s (`csrc/
 int8_matmul_fused.cu`): "panel" (x quantized once into a resident panel
 whose K is split over a cluster, W by TMA) where its maps can read both,
-else "cluster" (a K split, x quantized as each tile loads it) for few
-tiles, else "revisit" (the mma.sync quantize-on-revisit kernel).
+else `revisit_plan`'s form, which `dequant_matmul_int8_fused2` takes:
+"cluster" (a K split, x quantized as each tile loads it) for few tiles,
+else "revisit" (a persistent TMA-fed int8 wgmma kernel whose output tiles
+quantize the x boxes they stage) where its maps can read both, else "mma"
+(the mma.sync quantize-on-revisit kernel, any shape).
 
 `qconv_plan` picks `qlinear_conv`'s kernel: "gemm" (a 1x1 stride-1 conv
 on 2-D TMA maps) or "im2col" (any kernel and stride on an im2col map), the
@@ -196,27 +199,84 @@ def qp_stages(split: int, kb: int) -> int:
     return min(8, (SMEM_LIMIT - qp_smem(split, kb, 0)) // (QP_SLOT + 16))
 
 
+QR_COLS = 256             # W columns of the revisit form's tile: two W boxes
+
+
+def qr_smem(x_bytes: int, nb: int, stages: int) -> int:
+    """Bytes of the revisit form: alignment, two quantized x boxes, the row
+    table (two floats and a bit a row), and `stages` ring stages of an x
+    float box (128 rows x 128 elements) and nb W boxes, with two mbarriers
+    each."""
+    return (1024 + 2 * S8_BOX + BM * 8 + BM // 8
+            + stages * (BM * S8_BK * x_bytes + nb * S8_BOX + 16))
+
+
+def qr_stages(x_bytes: int, nb: int) -> int:
+    """Ring stages of the revisit form that fit a block, at most 8."""
+    return min(8, (SMEM_LIMIT - qr_smem(x_bytes, nb, 0)) // (BM * S8_BK * x_bytes
+                                                              + nb * S8_BOX + 16))
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    form: str        # "panel" (gemm_panel_qx), "cluster" (gemm_cluster_s8 on float x)
-                     # or "revisit" (int8_matmul_qx, mma.sync)
-    split: int       # CTAs a cluster, each a K chunk (revisit: 1)
+    form: str        # "panel" (gemm_panel_qx), "cluster" (gemm_cluster_s8 on float x),
+                     # "revisit" (gemm_revisit_qx) or "mma" (int8_matmul_qx, mma.sync)
+    split: int       # CTAs a cluster, each a K chunk (revisit, mma: 1)
     k_chunk: int     # K elements a CTA sums (panel, cluster: a multiple of S8_BK)
-    stages: int      # panel: ring stages; cluster: CL_STAGES; revisit: 0
+    stages: int      # panel, revisit: ring stages; cluster: CL_STAGES; mma: 0
     grid: int        # panel: work units (128-row panel, N tile), split evenly over
                      # the clusters that fit the card at once; else CTAs launched
-    smem: int        # dynamic shared memory a CTA, bytes (revisit: static, 0)
+    smem: int        # dynamic shared memory a CTA, bytes (mma: static, 0)
+    cols: int = TMA_BN  # W columns of an output tile (revisit: 128 or 256)
 
     @property
     def code(self) -> int:
         """The form's code at the entry point."""
-        return {"revisit": 0, "panel": 1, "cluster": 2}[self.form]
+        return {"mma": 0, "panel": 1, "cluster": 2, "revisit": 3}[self.form]
 
 
-def revisit_plan(M: int, N: int, K: int) -> FusedPlan:
-    """Quantize-on-revisit (`dequant_matmul_int8_fused2`'s kernel): 128 x 128
-    output tiles, each quantizing the x tiles it stages, all of K."""
-    return FusedPlan("revisit", 1, K, 0, cdiv(M, BM) * cdiv(N, TMA_BN), 0)
+def mma_plan(M: int, N: int, K: int) -> FusedPlan:
+    """The mma.sync quantize-on-revisit kernel (`int8_matmul_qx`): 128 x
+    128 output tiles, each quantizing the x tiles it stages, all of K; any
+    shape and alignment."""
+    return FusedPlan("mma", 1, K, 0, cdiv(M, BM) * cdiv(N, TMA_BN), 0)
+
+
+def revisit_form(M: int, N: int, K: int, x_bytes: int, *, cols: int = QR_COLS,
+                 sms: int = SMS) -> FusedPlan:
+    """The revisit form (`gemm_revisit_qx`) on tiles of 128 x rows x `cols`
+    (128 or 256) W columns: min(tiles, sms) persistent CTAs, the stages that
+    fit. The caller checks that its maps can read the operands."""
+    nb = cols // TMA_BN
+    stages = qr_stages(x_bytes, nb)
+    return FusedPlan("revisit", 1, K, stages, min(cdiv(M, BM) * cdiv(N, cols), sms),
+                     qr_smem(x_bytes, nb, stages), cols)
+
+
+@functools.lru_cache(maxsize=256)
+def revisit_plan(M: int, N: int, K: int, x_bytes: int, *, aligned: bool = True,
+                 sms: int = SMS) -> FusedPlan:
+    """Quantize-on-revisit, `dequant_matmul_int8_fused2`'s form (and
+    `fused_plan`'s where the panel form turns a shape down): every output
+    tile quantizes the x boxes it stages, all of K. "cluster" where 128 x
+    64 tiles are too few to fill the card (`2 * tiles <= sms`: the ResNet-50
+    head, whose N 1,000 no TMA stride can take; it quantizes each x tile as
+    it loads it, K split over up to 8 CTAs); else "revisit" where TMA can
+    read both operands (16-byte aligned bases, K x_bytes % 16, N % 16, no
+    box past its matrix: M, N, K >= 128): tiles of 128 x rows x QR_COLS W
+    columns (256, two W boxes: x is quantized and read once every 256
+    columns, where 128-column tiles do it twice as often) where they fill
+    the card, else 128-column tiles (the serving GEMM's 1,024 tiles of 256:
+    0.586 ms against 0.776 on 128; 2,048 x 4,096 x 512's 32: 0.0970
+    against 0.0731; NVIDIA H100 80GB HBM3, 700 W,
+    experiments/torch_patch_fused_timing.py); else "mma", the mma.sync
+    kernel (N % 16, an unaligned base at a large shape)."""
+    if 2 * cdiv(M, BM) * cdiv(N, CL_BN) <= sms:
+        return _cluster_form(M, N, K, sms)
+    if aligned and K * x_bytes % 16 == 0 and N % 16 == 0 and min(M, N, K) >= BM:
+        wide = N >= QR_COLS and cdiv(M, BM) * cdiv(N, QR_COLS) >= sms
+        return revisit_form(M, N, K, x_bytes, cols=QR_COLS if wide else TMA_BN, sms=sms)
+    return mma_plan(M, N, K)
 
 
 def _panel_form(M: int, N: int, K: int, split: int) -> FusedPlan | None:
@@ -261,21 +321,19 @@ def fused_plan(M: int, N: int, K: int, x_bytes: int, *, aligned: bool = True,
     0.743 ms against 1.119 on 8) and lose where few waves leave the last
     one half idle (2,048 x 4,096 x 512's 64: 0.111 against 0.101; NVIDIA
     H100 80GB HBM3, 700 W, experiments/torch_patch_fused_timing.py); 8 ranks
-    need a unit for each cluster (units x 8 >= sms). Else, where
-    128 x 64 tiles are too few to fill half the card, "cluster", which
-    splits K over up to 8 CTAs to fill it (the head); else "revisit", whose
-    128 x 128 tiles fill the card without a split (a K the panel form turns
-    down, N % 16, an unaligned base at a large shape: the cluster form on one
-    rank there runs at a third of its speed)."""
+    need a unit for each cluster (units x 8 >= sms). Else `revisit_plan`'s
+    form: "cluster" where 128 x 64 tiles are too few to fill the card (the
+    head), "revisit" where the maps can read the shape (a K the panel form
+    turns down: 4,097-4,480, past 9,216), else "mma" (N % 16, an unaligned
+    base at a large shape: the cluster form on one rank there runs at a
+    third of its speed)."""
     if aligned and K * x_bytes % 16 == 0 and N % 16 == 0 and min(M, N, K) >= BM:
         units = cdiv(M, BM) * cdiv(N, TMA_BN)
         for s, least in zip(QP_SPLITS, (sms, cdiv(sms, QP_SPLITS[1]))):
             p = _panel_form(M, N, K, s)
             if p is not None and units >= least:
                 return p
-    if 2 * cdiv(M, BM) * cdiv(N, CL_BN) <= sms:
-        return _cluster_form(M, N, K, sms)
-    return revisit_plan(M, N, K)
+    return revisit_plan(M, N, K, x_bytes, aligned=aligned, sms=sms)
 
 
 def block_plan(M: int, N: int, K: int, *, group: int = 0, gelu: bool = False,

@@ -1315,6 +1315,90 @@ def test_dequant_matmul_int8_fused_forms(cuda, shape, dtype):
     assert got.dtype == dtype and torch.equal(got, ref)
 
 
+# (M, N, K) -> the form dequant_matmul_int8_fused2 takes (revisit_plan): the
+# serving GEMM and K 4,104 on the revisit form's 256-column tiles; K off the
+# 128 grid with the last tile's second W box wholly past N (4,112); 128-column
+# tiles where 256-column ones are too few (M off the grid, N 400 and 272) or
+# N is narrower (144); the ResNet-50 head on the cluster form; N % 16 at many
+# tiles on the mma.sync kernel
+FUSED2_FORMS = {(8192, 4096, 4096): "revisit256", (8192, 4096, 4104): "revisit256",
+                (8192, 4112, 1000): "revisit256", (2000, 400, 1000): "revisit128",
+                (2000, 272, 1000): "revisit128", (4096, 144, 4104): "revisit128",
+                (128, 1000, 2048): "cluster", (1024, 1000, 512): "mma"}
+
+
+def _form_of(p) -> str:
+    return p.form + (str(p.cols) if p.form == "revisit" else "")
+
+
+@pytest.mark.parametrize("shape", list(FUSED2_FORMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_dequant_matmul_int8_fused2_forms(cuda, shape, dtype, out_dtype):
+    """dequant_matmul_int8_fused2 on the form its plan names, bit-equal to
+    the plain version; one launch a call, counted by form."""
+    m, n, k = shape
+    x, w, s = _operands(m, n, k, dtype, cuda, seed=13)
+    x[min(3, m - 1)] = 0  # the 1e-30 floor
+    ref = im.dequant_matmul_int8_fused_plain(x, w, s, out_dtype=out_dtype)
+    p = im.fused_plan(x, w, fused2=True)
+    assert _form_of(p) == FUSED2_FORMS[shape]
+    before, forms = im.fused2_launches, dict(im.fused2_forms)
+    got = im.dequant_matmul_int8_fused2(x, w, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert im.fused2_launches == before + 1 and im.fused2_forms[p.form] == forms[p.form] + 1
+    assert got.dtype == (out_dtype or dtype) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequant_matmul_int8_fused2_unaligned_base_takes_mma(cuda, dtype):
+    """x at a base no TMA map takes (a contiguous view 2 or 4 bytes into its
+    buffer) runs the mma.sync kernel, bit-equal to the plain version."""
+    m, n, k = 2048, 1024, 1024
+    x0, w, s = _operands(m, n, k, dtype, cuda, seed=17)
+    x = torch.empty(m * k + 1, dtype=dtype, device=cuda)[1:].view(m, k)
+    x.copy_(x0)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert im.fused_plan(x, w, fused2=True).form == "mma"
+    before = im.fused2_forms["mma"]
+    got = im.dequant_matmul_int8_fused2(x, w, s)
+    torch.cuda.synchronize()
+    assert im.fused2_forms["mma"] == before + 1
+    assert torch.equal(got, im.dequant_matmul_int8_fused_plain(x, w, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fused_forms_at_ties(cuda, dtype):
+    """Every form of both fused GEMMs (the revisit form on 256- and
+    128-column tiles, the panel, cluster and mma.sync forms), forced on the
+    same operands, bit-equal to the plain version where x / s_row lies at
+    (k + 0.5) and one ulp beside it, at +-127, in a zero row and in a row
+    whose scale is below 2^-96, beside random rows."""
+    from torch_fused_ties import tie_rows
+
+    from smelter_tpu_torch.kernels import wgmma_plan as wp
+    m, n, k = 256, 400, 1024  # the second 256-column tile: a box partly past N
+    ties = tie_rows(dtype)
+    x, w, s = _operands(m, n, k, dtype, cuda, seed=19)
+    x[:ties.shape[0]] = 0
+    x[:ties.shape[0], :ties.shape[1]] = ties.to(cuda)
+    x[ties.shape[0] + 1, ::7] = ties[0, 1:].to(cuda)[:k // 7 + 1]  # ties among random values
+    x[ties.shape[0] + 2] *= 1e-29  # s below 2^-96: the revisit form divides (f16: zeros)
+    ref = im.dequant_matmul_int8_fused_plain(x, w, s)
+    s_row = im.quantize_rows_scales(x)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    xb = x.element_size()
+    plans = {"revisit256": wp.revisit_form(m, n, k, xb, cols=256, sms=sms),
+             "revisit128": wp.revisit_form(m, n, k, xb, cols=128, sms=sms),
+             "panel": wp._panel_form(m, n, k, 4), "cluster": wp._cluster_form(m, n, k, sms),
+             "mma": wp.mma_plan(m, n, k)}
+    for name, p in plans.items():
+        out = torch.empty(m, n, dtype=dtype, device=cuda)
+        im._launch(x, w, s_row, s, out, p, name)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), name
+
+
 # -- max_unpool2x2 (SegNet) ------------------------------------------------------
 
 # SegNet's three unpools at batch 16, 256 px, base 32, and ragged ones.

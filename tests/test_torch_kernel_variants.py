@@ -174,9 +174,9 @@ def test_patch_refuses_a_map_that_is_not_whole_rows():
 
 def test_fused_panel_rows_follow_k():
     """The fused form by K at the serving GEMM's M and N: a resident panel
-    of 128 rows on 4 ranks to K 4,096, on 8 to 9,216, the mma.sync revisit
-    kernel past it. No K raises (the mma.sync panel kernel raised past
-    5,952)."""
+    of 128 rows on 4 ranks to K 4,096, on 8 to 9,216, the revisit form
+    (`_fused2`'s TMA-fed wgmma kernel) past it. No K raises (the mma.sync
+    panel kernel raised past 5,952)."""
     ks = (1024, 4096, 5952, 5960, 9216, 9344)
     forms = [im.wgmma_plan.fused_plan(8192, 4096, k, 2) for k in ks]
     assert [(p.form, p.split if p.form == "panel" else 0) for p in forms] == [
