@@ -22,10 +22,13 @@ its number:
    step, each on its wgmma form, with the step's sums, checked also at the
    prefill graphs' M of 64 and 256, `paged_decode_attention` at its decode
    shape (8 slots, int8 pools, positions spread over 0-511; its split plan
-   named, two calls bit-equal), and `ragged_decode_attention`
-   at the static-cache step's (8 slots over a 512-row int8 cache), at the
-   speculative chunk c 5 of one slot at row 511, over 4096 rows, and at
-   FusedGenerator's one slot at row 280 (its split-KV kernels);
+   named, two calls bit-equal) and at SpecPagedDecodeServer's verify
+   (g 2 x c 5 = 10 query rows a KV head), and `ragged_decode_attention`
+   at the static-cache step's (8 slots over a 512-row int8 cache), at a
+   chunk c 5 of one slot at row 511 with g 1, over 4096 rows, at
+   FusedGenerator's one slot at row 280, at SpecDecodeServer's verify (8
+   slots, g 2 x c 5) and at its tiny draft's step (8 slots, 4 KV heads of
+   32, bf16 caches) (its split-KV kernels);
    `fused_layer_norm` and `residual_layer_norm` over ViT-B/16's batch-128
    activations (25,216 rows of 768) and `vit_attention_block` at B 128,
    N 197, D 768, 12 heads (and in f32 at batch 8), plus small shapes for
@@ -184,6 +187,22 @@ its number:
    32,768 over 4 ranks in bf16 (16 launches), held head by head to the
    plain ring, SDPA over the full sequence as the yardstick, f32 at N 4096;
    a profile of how much of the slot copies' time lies under a step kernel;
+14. (run right after 7) speculative decoding at llama_1b's width (int4-
+   g128, int8 KV, bf16, ragged attention; gamma 4 and bench.py's tiny
+   independent draft: dim 256, 8 heads over 4 KV heads, ffn 1024, 4
+   layers, seed 7, unquantized): (b) the 24-layer chunk-5 verify step
+   against the port's CPU f32 run, as 7 (a); (c) `SpeculativeGenerator`'s
+   greedy tokens equal to `FusedGenerator`'s in f32 on a 2-layer cut, with
+   the tiny draft and a self-draft, and at 24 layers in bf16 its ms a
+   token, rounds, acceptance and a round's time split into draft steps
+   and verify; (d) on a 2-layer f32 cut, `SpecDecodeServer` (rounds 1 and
+   4 a tick) and `SpecPagedDecodeServer` with target and draft prefill
+   ladders give `DecodeServer`'s tokens, then on the first SERVE_LAYERS
+   (4) layers in bf16 each serves phase 7's 34 requests (SPEC_N_NEW new
+   tokens each): tok/s, ms a tick, acceptance, a round's time and idle
+   share split into draft steps and verify; (e) `BucketedDecodeServer`
+   with a 128-row plain bucket and a 512-row speculative one: routing,
+   spill-up, and the weights held once in device memory;
 6. printed last: each kernel's launches on its path, and the total time.
 
 Every kernel wrapper counts its launches. Each path (bf16, bf16 with int8
@@ -202,7 +221,11 @@ forward 53 int8 convs and 16 residual joins; `dequant_conv`'s entry point, calle
 shapes, 4; the fused GEMMs' entry points 2 each (head, serving), blockdot's
 and patch's 8 each (ESRGAN x4's eight PixelConv shapes); the Megatron pair
 over 4 ranks 16 all-gather and 16 reduce-scatter GEMM steps, the
-sequence-sharded ring attention 16 merge steps (a step a rank a launch).
+sequence-sharded ring attention 16 merge steps (a step a rank a launch); a
+speculative round 7 x layers + 1 int4_matmul (the verify) and (gamma + 1)
+x 4 draft ragged_decode_attention launches (a catch-up step and gamma
+drafts) plus one a target layer (ragged, or paged for the paged server),
+each target prefill the prefill graph's int4_matmul.
 `FusedGenerator` replays a CUDA graph, whose launches the wrappers count
 once, at capture. The last three lines are the kernels'
 JSON line, the card's name and power limit, and `{"ok": true, "device":
@@ -249,6 +272,11 @@ GROUP = 128                       # int4-g128
 DECODE_GEMMS = {(2048, 2048): 2 * 24, (1024, 2048): 2 * 24, (5632, 2048): 2 * 24,
                 (2048, 5632): 24, (32000, 2048): 1}
 BUCKETS = (64, 256)  # the prefill ladder bench.py --serve-decode builds
+# Speculative decoding as bench.py --serve-decode runs it: gamma 4
+# (bench.py:571) and its tiny independent draft, unquantized with float KV,
+# from seed 7 (bench.py:369-377).
+SPEC_GAMMA = 4
+SPEC_DRAFT = dict(vocab=32000, dim=256, heads=8, kv_heads=4, ffn=1024, layers=4)
 # ViT-B/16 as the JAX package's zoo builds it (`vit_b16`, bench.py --model
 # vit_b16 --quant none): 224 px, patch 16, dim 768, 12 heads, 12 layers,
 # MLP 3072, 1000 classes; served at batch 128 in bf16.
@@ -651,75 +679,86 @@ def phase_decode_kernels(torch, power_w: float, smi: str) -> dict:
         del weights
 
     # paged_decode_attention: 8 slots, 8 KV heads of 128 (g 2), int8 pools
-    # of 128-row pages, 4 pages a slot, positions spread over 0-511.
-    kvh, g, c, hd = LLAMA_1B["kv_heads"], LLAMA_1B["heads"] // LLAMA_1B["kv_heads"], 1, 128
+    # of 128-row pages, 4 pages a slot, positions spread over 0-511: the
+    # paged step (c 1) and SpecPagedDecodeServer's verify (c 5, g*c 10, up to
+    # the last round that fits)
+    kvh, g, hd = LLAMA_1B["kv_heads"], LLAMA_1B["heads"] // LLAMA_1B["kv_heads"], 128
     P_ = 1 + SLOTS * NPG
-    pos = torch.tensor([0, 73, 127, 128, 292, 365, 438, 511], device="cuda")
     table = (1 + torch.randperm(P_ - 1, device="cuda", generator=gen)).reshape(SLOTS, NPG)
     table = table.to(torch.int32)
-    kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
-    live = int((pos + c).sum())
-    for dtype, kind, rel in ((bf16, "bf16", 1e-2), (torch.float32, "f32", 1e-5)):
-        nbytes = (2 * live * kvh * hd + 2 * live * 2 + 2 * SLOTS * kvh * g * c * hd * 2
-                  + SLOTS * NPG * 4 + SLOTS * 8) if dtype == bf16 else None
-        sets = []
-        for _ in range(_copies(2 * P_ * PAGE * kvh * hd)):
-            q = torch.randn(SLOTS, kvh, g * c, hd, device="cuda", generator=gen).to(dtype)
-            k, v = (torch.randint(-127, 128, (P_, PAGE, kvh * hd), device="cuda",
-                                  generator=gen, dtype=torch.int8) for _ in range(2))
-            ks, vs = ((torch.rand(P_, PAGE, 1, device="cuda", generator=gen) * 0.02
-                       + 1e-3).to(dtype) for _ in range(2))
-            sets.append((q, k, v, table, pos, ks, vs))
-        n = len(sets)
-        got = pda.paged_decode_attention(*sets[0], **kw)
-        again = pda.paged_decode_attention(*sets[0], **kw)
-        ref = pda.paged_decode_attention_plain(*sets[0], **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        check(got.shape == sets[0][0].shape and math.isfinite(err) and err <= rel * scale,
-              f"paged_decode_attention {kind}: max-abs {err} > {rel} x {scale}")
-        check(torch.equal(got, again), f"paged_decode_attention {kind}: two calls differ")
-        if dtype != bf16:
-            rows[("paged_decode_attention", "f32")] = dict(max_abs_err=err,
-                                                            tolerance=f"{rel} x {scale:.4g}")
-            continue
+    spread = [0, 73, 127, 128, 292, 365, 438, 511]
+    for case, c, at, calls, per_round in (
+            ("", 1, spread, LLAMA_1B["layers"], 0),
+            ("verify_", SPEC_GAMMA + 1, spread[:-1] + [NPG * PAGE - 1 - SPEC_GAMMA], 0,
+             LLAMA_1B["layers"])):
+        pos = torch.tensor(at, device="cuda")
+        kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
+        live = int((pos + c).sum())
+        for dtype, kind, rel in ((bf16, "bf16", 1e-2), (torch.float32, "f32", 1e-5)):
+            nbytes = (2 * live * kvh * hd + 2 * live * 2 + 2 * SLOTS * kvh * g * c * hd * 2
+                      + SLOTS * NPG * 4 + SLOTS * 8) if dtype == bf16 else None
+            sets = []
+            for _ in range(_copies(2 * P_ * PAGE * kvh * hd)):
+                q = torch.randn(SLOTS, kvh, g * c, hd, device="cuda", generator=gen).to(dtype)
+                k, v = (torch.randint(-127, 128, (P_, PAGE, kvh * hd), device="cuda",
+                                      generator=gen, dtype=torch.int8) for _ in range(2))
+                ks, vs = ((torch.rand(P_, PAGE, 1, device="cuda", generator=gen) * 0.02
+                           + 1e-3).to(dtype) for _ in range(2))
+                sets.append((q, k, v, table, pos, ks, vs))
+            n = len(sets)
+            got = pda.paged_decode_attention(*sets[0], **kw)
+            again = pda.paged_decode_attention(*sets[0], **kw)
+            ref = pda.paged_decode_attention_plain(*sets[0], **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            check(got.shape == sets[0][0].shape and math.isfinite(err) and err <= rel * scale,
+                  f"paged_decode_attention {case}{kind}: max-abs {err} > {rel} x {scale}")
+            check(torch.equal(got, again),
+                  f"paged_decode_attention {case}{kind}: two calls differ")
+            if dtype != bf16:
+                rows[("paged_decode_attention", case + "f32")] = dict(
+                    case=case + "f32", max_abs_err=err, tolerance=f"{rel} x {scale:.4g}")
+                continue
 
-        def call(i):
-            return pda.paged_decode_attention(*sets[i % n], **kw)
+            def call(i):
+                return pda.paged_decode_attention(*sets[i % n], **kw)
 
-        ms = graph_ms(torch, side, call, 50)
-        call_ms = time_ms(torch, call, 50)
-        plain_ms = graph_ms(torch, side, lambda i: pda.paged_decode_attention_plain(
-            *sets[i % n], **kw), 10)
-        # library yardstick: SDPA over the gathered, dequantized caches
-        L = NPG * PAGE
-        mask = (torch.arange(L, device="cuda")[None] <= pos[:, None])[:, None, None, :]
-        dense = []
-        for q, k, v, _, _, ks, vs in sets:
-            kd, vd = ((pda.paged_gather_reference(a, table, L).float()
-                       * pda.paged_gather_reference(sa, table, L).float())
-                      .reshape(SLOTS, L, kvh, hd).transpose(1, 2).to(dtype).contiguous()
-                      for a, sa in ((k, ks), (v, vs)))
-            dense.append((q, kd, vd))
-        lib_ms = graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
-            *dense[i % n], attn_mask=mask, scale=kw["scale"]), 50)
-        b_ms, b_by = bound(nbytes, 4 * kvh * g * c * hd * live, "bf16", power_w)
-        split_rows, _, nblk = pda.paged_split_plan(SLOTS, kvh, NPG, PAGE)
-        rows[("paged_decode_attention", "bf16")] = dict(
-            name="paged_decode_attention", shape=[SLOTS, kvh, g * c, hd, PAGE, NPG],
-            plan=f"{split_rows} rows a block, {nblk} blocks a slot, {SLOTS * kvh * nblk} CTAs",
-            calls_per_step=LLAMA_1B["layers"], live_rows=live, max_abs_err=err,
-            tolerance=f"{rel} x max|plain| = {rel * scale:.4g}", ms=ms, call_ms=call_ms,
-            plain_ms=plain_ms, library_ms=lib_ms,
-            library="F.scaled_dot_product_attention over the gathered, dequantized cache",
-            bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
-        del sets, dense
+            ms = graph_ms(torch, side, call, 50)
+            call_ms = time_ms(torch, call, 50)
+            plain_ms = graph_ms(torch, side, lambda i: pda.paged_decode_attention_plain(
+                *sets[i % n], **kw), 10)
+            # library yardstick: SDPA over the gathered, dequantized caches,
+            # query row i of a slot masked to rows <= pos + i % c
+            L = NPG * PAGE
+            limit = pos[:, None] + torch.arange(g * c, device="cuda")[None] % c
+            mask = (torch.arange(L, device="cuda")[None, None] <= limit[..., None])[:, None]
+            dense = []
+            for q, k, v, _, _, ks, vs in sets:
+                kd, vd = ((pda.paged_gather_reference(a, table, L).float()
+                           * pda.paged_gather_reference(sa, table, L).float())
+                          .reshape(SLOTS, L, kvh, hd).transpose(1, 2).to(dtype).contiguous()
+                          for a, sa in ((k, ks), (v, vs)))
+                dense.append((q, kd, vd))
+            lib_ms = graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
+                *dense[i % n], attn_mask=mask, scale=kw["scale"]), 50)
+            b_ms, b_by = bound(nbytes, 4 * kvh * g * c * hd * live, "bf16", power_w)
+            split_rows, _, nblk = pda.paged_split_plan(SLOTS, kvh, NPG, PAGE)
+            rows[("paged_decode_attention", case + "bf16")] = dict(
+                name="paged_decode_attention", shape=[SLOTS, kvh, g * c, hd, PAGE, NPG],
+                plan=f"{split_rows} rows a block, {nblk} blocks a slot, "
+                     f"{SLOTS * kvh * nblk * -(-g * c // 16)} CTAs",
+                calls_per_step=calls, calls_per_round=per_round, live_rows=live,
+                max_abs_err=err, tolerance=f"{rel} x max|plain| = {rel * scale:.4g}", ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention over the gathered, dequantized cache",
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+            del sets, dense
 
     for key, r in rows.items():
         if "ms" not in r:
-            say(2, f"paged_decode_attention f32: err {r['max_abs_err']:.3g} ({r['tolerance']}), "
-                   "two calls bit-equal")
+            say(2, f"paged_decode_attention {r['case']}: err {r['max_abs_err']:.3g} "
+                   f"({r['tolerance']}), two calls bit-equal")
             continue
         what = (f"{r['form']} form, {r['plan']}" if "form" in r
                 else f"split-KV: {r['plan']}; two calls bit-equal")
@@ -728,7 +767,9 @@ def phase_decode_kernels(torch, power_w: float, smi: str) -> dict:
                f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
                f"{r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.5f} ms "
                f"({r['bound_by']}, {r['bytes']} bytes) = {100 * r['bound_ms'] / r['ms']:.1f}% "
-               f"of bound | {r['calls_per_step']} calls a step | {smi}")
+               f"of bound | {r['calls_per_step']} calls a step"
+               + (f", {r['calls_per_round']} a speculative round" if r.get("calls_per_round")
+                  else "") + f" | {smi}")
         if "prefill_m" in r:
             p = r["prefill_m"]
             say(2, "  at the prefill's M: " + "; ".join(
@@ -744,28 +785,37 @@ def phase_decode_kernels(torch, power_w: float, smi: str) -> dict:
     return rows
 
 
-def _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, calls):
+def _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, calls, g=None,
+                 kvh=None, hd=128, quant=True, calls_per_round=0):
     """ragged_decode_attention at one shape against its plain version: int8
-    caches with per-row scales in q's dtype, caches full of values past
-    every frontier. Timed for bf16 (the path's type): kernel by graph
-    replay, the host cost of a call, the plain version, SDPA over the
-    dequantized cache with the same mask, and the bound (live bytes)."""
+    caches with per-row scales in q's dtype (or float caches in q's dtype
+    where not `quant`), caches full of values past every frontier. llama_1b's
+    KV heads and, at c 1, its g unless given. Timed for bf16 (the path's
+    type): kernel by graph replay, the host cost of a call, the plain
+    version, SDPA over the dequantized cache with the same mask, and the
+    bound (live bytes)."""
     import torch.nn.functional as F
 
     from smelter_tpu_torch.kernels import ragged_decode_attention as rda
 
-    kvh, hd = LLAMA_1B["kv_heads"], 128
-    g = LLAMA_1B["heads"] // kvh if c == 1 else 1
+    kvh = kvh or LLAMA_1B["kv_heads"]
+    if g is None:
+        g = LLAMA_1B["heads"] // kvh if c == 1 else 1
     kvd, gc = kvh * hd, g * c
     pos = torch.tensor(pos, dtype=torch.int64, device="cuda")
     kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
     sets = []
     for _ in range(_copies(2 * B * L * kvd)):
         q = torch.randn(B, kvh, gc, hd, device="cuda", generator=gen).to(dtype)
-        k, v = (torch.randint(-127, 128, (B, L, kvd), device="cuda", generator=gen,
-                              dtype=torch.int8) for _ in range(2))
-        ks, vs = ((torch.rand(B, L, 1, device="cuda", generator=gen) * 0.02 + 1e-3).to(dtype)
-                  for _ in range(2))
+        if quant:
+            k, v = (torch.randint(-127, 128, (B, L, kvd), device="cuda", generator=gen,
+                                  dtype=torch.int8) for _ in range(2))
+            ks, vs = ((torch.rand(B, L, 1, device="cuda", generator=gen) * 0.02 + 1e-3)
+                      .to(dtype) for _ in range(2))
+        else:
+            k, v = (torch.randn(B, L, kvd, device="cuda", generator=gen).to(dtype)
+                    for _ in range(2))
+            ks = vs = None
         sets.append((q, k, v, pos, ks, vs))
     n = len(sets)
     got = rda.ragged_decode_attention(*sets[0], **kw)
@@ -776,8 +826,9 @@ def _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, cal
     check(got.shape == sets[0][0].shape and math.isfinite(err) and err <= rel * scale,
           f"ragged_decode_attention {label}: max-abs {err} > {rel} x {scale}")
     r = dict(name="ragged_decode_attention", case=label, shape=[B, kvh, gc, hd, L],
-             dtype=str(dtype).split(".")[-1], calls_per_step=calls, max_abs_err=err,
-             tolerance=f"{rel} x max|plain| = {rel * scale:.4g}")
+             dtype=str(dtype).split(".")[-1], calls_per_step=calls,
+             calls_per_round=calls_per_round, kv="int8" if quant else "bf16",
+             max_abs_err=err, tolerance=f"{rel} x max|plain| = {rel * scale:.4g}")
     if dtype != torch.bfloat16:
         return r
 
@@ -793,15 +844,18 @@ def _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, cal
     rows = torch.arange(L, device="cuda")
     limit = pos[:, None] + torch.arange(gc, device="cuda")[None] % c  # (B, gc)
     mask = (rows[None, None] <= limit[..., None])[:, None]  # (B, 1, gc, L)
-    dense = [(q_, (k_.float() * ks_.float()).reshape(B, L, kvh, hd).transpose(1, 2).to(dtype)
-              .contiguous(), (v_.float() * vs_.float()).reshape(B, L, kvh, hd).transpose(1, 2)
-              .to(dtype).contiguous()) for q_, k_, v_, _, ks_, vs_ in sets]
+    def deq(a, sa):  # (B, kvh, L, hd) in q's dtype; a KV head's g*c query rows attend it
+        a = a.float() * sa.float() if sa is not None else a.float()
+        return a.reshape(B, L, kvh, hd).transpose(1, 2).to(dtype).contiguous()
+
+    dense = [(q_, deq(k_, ks_), deq(v_, vs_)) for q_, k_, v_, _, ks_, vs_ in sets]
     r["library_ms"] = graph_ms(torch, side, lambda i: F.scaled_dot_product_attention(
         *dense[i % n], attn_mask=mask, scale=kw["scale"]), 50)
     r["library"] = "F.scaled_dot_product_attention over the dequantized cache"
     live = int(torch.clamp(pos + c, max=L).sum())
     r["live_rows"] = live
-    r["bytes"] = 2 * live * (kvd + 2) + 2 * B * kvh * gc * hd * 2 + B * 8
+    r["bytes"] = (2 * live * (kvd + 2) if quant else 2 * live * kvd * 2) \
+        + 2 * B * kvh * gc * hd * 2 + B * 8
     r["bound_ms"], r["bound_by"] = bound(r["bytes"], 4 * kvh * gc * hd * live, "bf16", power_w)
     del sets, dense
     return r
@@ -810,19 +864,31 @@ def _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, cal
 def phase_ragged_kernel(torch, power_w: float) -> dict:
     """ragged_decode_attention at the shapes of the static-cache decode path:
     8 slots spread over a 512-row cache (the DecodeServer's step, 24 calls),
-    the speculative chunk c 5 of one slot at its last row, a 4096-row cache,
-    and FusedGenerator's one slot at row 280 of 512."""
+    the chunk c 5 of one slot at its last row with g 1, a 4096-row cache,
+    and FusedGenerator's one slot at row 280 of 512; and at the speculative
+    path's: SpecDecodeServer's verify (8 slots, g 2 x c 5 = 10 query rows a
+    KV head, 24 calls a round) and its tiny draft's step (8 slots, 4 KV
+    heads of 32, g 2, bf16 caches, 4 layers x 5 steps = 20 calls a round)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     side = torch.cuda.Stream()
     spread = [0, 73, 127, 128, 292, 365, 438, 511]
+    verify_at = spread[:-1] + [PAGE * NPG - 1 - SPEC_GAMMA]  # the last round that fits
+    dh = SPEC_DRAFT["dim"] // SPEC_DRAFT["heads"]
     rows = {}
-    for label, B, c, L, pos, calls in (
-            ("b8_l512", SLOTS, 1, 512, spread, LLAMA_1B["layers"]),
-            ("c5_b1_pos511", 1, 5, 512, [511], 0),
-            ("b8_l4096", SLOTS, 1, 4096, [p * 8 for p in spread[:-1]] + [4095], 0),
-            ("b1_l512_pos280", 1, 1, 512, [280], 0)):
+    for label, B, c, L, pos, calls, extra in (
+            ("b8_l512", SLOTS, 1, 512, spread, LLAMA_1B["layers"], {}),
+            ("c5_b1_pos511", 1, 5, 512, [511], 0, {}),
+            ("b8_l4096", SLOTS, 1, 4096, [p * 8 for p in spread[:-1]] + [4095], 0, {}),
+            ("b1_l512_pos280", 1, 1, 512, [280], 0, {}),
+            ("verify_b8_g2_c5_l512", SLOTS, SPEC_GAMMA + 1, 512, verify_at, 0,
+             dict(g=2, calls_per_round=LLAMA_1B["layers"])),
+            ("draft_b8_kvh4_g2_hd32", SLOTS, 1, 512, spread, 0,
+             dict(g=SPEC_DRAFT["heads"] // SPEC_DRAFT["kv_heads"], kvh=SPEC_DRAFT["kv_heads"],
+                  hd=dh, quant=False,
+                  calls_per_round=(SPEC_GAMMA + 1) * SPEC_DRAFT["layers"]))):
         for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
-            r = _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, calls)
+            r = _ragged_case(torch, gen, side, power_w, label, B, c, L, pos, dtype, rel, calls,
+                             **extra)
             rows[(label, r["dtype"])] = r
     for r in rows.values():
         if "ms" not in r:
@@ -835,7 +901,7 @@ def phase_ragged_kernel(torch, power_w: float) -> dict:
                f"{r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.5f} ms "
                f"({r['bound_by']}, {r['bytes']} bytes, {r['live_rows']} live rows) = "
                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound | {r['calls_per_step']} calls "
-               f"a step")
+               f"a step, {r['calls_per_round']} a speculative round | {r['kv']} KV")
     REPORT["ragged_kernel"] = [dict(r) for r in rows.values()]
     return rows
 
@@ -2786,8 +2852,9 @@ def phase_int8_static(torch, np, stt, ref_f32) -> dict:
 
 # -- phase 5 ---------------------------------------------------------------
 
-def _llama_graph(layers: int):
-    """llama_1b's batched paged step graph, int4-g128 weights fused, int8 KV
+def _llama_graph(layers: int, chunk: int = 1):
+    """llama_1b's batched paged step graph (of `chunk` tokens a slot: the
+    speculative verify at chunk gamma + 1), int4-g128 weights fused, int8 KV
     pools: random weights from seed 0, quantized and fused by the port. With
     fewer layers, the same weights cut to the first `layers`."""
     from smelter_tpu_torch.models import llama_style as ls
@@ -2797,7 +2864,8 @@ def _llama_graph(layers: int):
     cfg = dict(LLAMA_1B, layers=layers)
     w = ls.make_weights(**cfg, max_len=PAGE * NPG, seed=0)
     g = ls.build_decode_step_paged(w, **cfg, slots=SLOTS, page_size=PAGE,
-                                   n_pages=1 + SLOTS * NPG, npg=NPG, kv_quant=True)[0]
+                                   n_pages=1 + SLOTS * NPG, npg=NPG, kv_quant=True,
+                                   chunk=chunk)[0]
     del w
     quantize_weights(g, f"int4-g{GROUP}", min_elements=1 << 16)
     run_passes(g, ["fuse_dequant_matmul", "dce"])
@@ -3031,11 +3099,13 @@ def phase_paged(torch, np, stt) -> dict:
 
 # -- phase 7 ---------------------------------------------------------------
 
-def _static_graphs(layers: int):
+def _static_graphs(layers: int, chunk: int = 0, short_len: int = 0):
     """llama_1b's static-cache step graph (max_len 512, int8 KV) and its
-    prefill graphs at BUCKETS, int4-g128 weights fused: random weights from
-    seed 0, each graph quantized on its own, as bench.py --decode and
-    --serve-decode build them."""
+    prefill graphs at BUCKETS, int4-g128 weights fused: random weights from seed 0, each graph quantized on its own, as
+    bench.py --decode and --serve-decode build them. Returns (step, prefill
+    graphs, more): `more` holds, where asked for, the chunk-`chunk` verify
+    step ("chunk") and a step over a cache of `short_len` rows ("short"),
+    from the same weights."""
     from smelter_tpu_torch.models import llama_style as ls
     from smelter_tpu_torch.passes.pass_manager import run_passes
     from smelter_tpu_torch.quant import quantize_weights
@@ -3052,22 +3122,31 @@ def _static_graphs(layers: int):
     step = q(ls.build_decode_step(w, **cfg, max_len=max_len, kv_quant=True)[0])
     pfs = [q(ls.build_prefill(w, prompt_len=p, max_len=max_len, kv_quant=True, **cfg))
            for p in BUCKETS]
-    return step, pfs
+    more = {}
+    if chunk:
+        more["chunk"] = q(ls.build_decode_step(w, **cfg, max_len=max_len, kv_quant=True,
+                                               chunk=chunk)[0])
+    if short_len:
+        more["short"] = q(ls.build_decode_step(w, **cfg, max_len=short_len, kv_quant=True)[0])
+    return step, pfs, more
 
 
-def _check_static_step(torch, np, stt, g) -> dict:
+def _check_static_step(torch, np, stt, g, phase: int = 7) -> dict:
     """One static-cache step of `g` with ragged_attention on the card (f32
     and bf16) against the port's CPU runs (f32, the reference, and bf16),
     with phase 5's bounds: f32 within 5e-2 of the largest reference logit at 24
     layers, bf16 within 3x the CPU's own bf16 error, top-1 equal where the
-    top-2 gap exceeds twice the error. Caches hold int8 rows with scales up
-    to pos 300, and other values past it."""
+    top-2 gap exceeds twice the error, on each of its c rows (a chunk-c
+    verify step takes c tokens from seed 4). Caches hold int8 rows with
+    scales up to pos 300, and other values past it."""
     from smelter_tpu_torch.runtime.executor import Executor
     from smelter_tpu_torch.runtime.generate import _decode_graph
 
     layers = LLAMA_1B["layers"]
     rng = np.random.default_rng(4)
-    by = {"token": np.array([LLAMA_1B["vocab"] // 7], np.int64),
+    c = next(v.type.shape[0] for v in g.inputs if v.name == "token")
+    by = {"token": (np.array([LLAMA_1B["vocab"] // 7], np.int64) if c == 1 else
+                    rng.integers(1, LLAMA_1B["vocab"] - 1, c).astype(np.int64)),
           "pos": np.array([PAGE * NPG * 300 // 512], np.int64)}
     for v in g.inputs:
         if v.name.startswith(("k_cache_scale", "v_cache_scale")):
@@ -3087,7 +3166,7 @@ def _check_static_step(torch, np, stt, g) -> dict:
         out_ = ex_.build_fn()(prm, *ins)[0]
         if ex_.device.type == "cuda":
             torch.cuda.synchronize()
-        return out_.float().cpu().numpy()[-1:], _counts()
+        return out_.float().cpu().numpy()[-c:], _counts()
 
     per = {"int4_matmul": 7 * layers + 1, "ragged_decode_attention": layers}
     got32, l32 = step("cuda", "float32")
@@ -3101,22 +3180,27 @@ def _check_static_step(torch, np, stt, g) -> dict:
     cpu_s = time.perf_counter() - t0
     scale = float(np.abs(ref).max())
     top2 = np.sort(ref, axis=1)[:, -2:]
-    gap = float(top2[0, 1] - top2[0, 0])
+    gaps = top2[:, 1] - top2[:, 0]
+    gap = float(gaps.min())
     err_cpu16 = float(np.abs(ref16 - ref).max())
     r = {"max_abs_ref": scale, "cpu_bf16_max_abs_err": err_cpu16, "gap": gap,
          "launches": l16, "cpu_s": cpu_s}
     text = []
     for label, a, lim in (("f32", got32, 5e-2 * scale), ("bf16", got16, 3 * err_cpu16)):
-        check(a.shape == (1, LLAMA_1B["vocab"]) and np.isfinite(a).all(),
+        check(a.shape == (c, LLAMA_1B["vocab"]) and np.isfinite(a).all(),
               f"static step {label}: logits")
         err = float(np.abs(a - ref).max())
-        agree = bool(a.argmax() == ref.argmax())
+        rows_agree = a.argmax(1) == ref.argmax(1)
+        agree = bool(rows_agree.all())
         r[label] = {"max_abs_err": err, "bound": lim, "top1_agree": agree}
         check(err <= lim, f"static step {label}: max-abs {err} > {lim}")
-        check(agree or gap <= 2 * err, f"static step {label}: top-1 differs at gap {gap}")
+        check(bool((rows_agree | (gaps <= 2 * err)).all()),
+              f"static step {label}: top-1 differs at gaps {gaps.tolist()}")
         text.append(f"card {label} max-abs {err:.4g} (bound {lim:.4g}), top-1 "
-                    f"{'equal' if agree else 'differs'} (gap {gap:.3g})")
-    say(7, f"(a) {layers}-layer static step, ragged attention, vs the CPU's f32 run (max|ref| "
+                    + (f"{'equal' if agree else 'differs'} (gap {gap:.3g})" if c == 1 else
+                       f"{int(rows_agree.sum())}/{c} rows (least gap {gap:.3g})"))
+    say(phase, f"(a) {layers}-layer static {'step' if c == 1 else f'chunk-{c} verify'}, "
+               "ragged attention, vs the CPU's f32 run (max|ref| "
            f"{scale:.4g}, CPU bf16 max-abs {err_cpu16:.4g}, CPU runs {cpu_s:.1f} s): "
            + "; ".join(text) + f" | launches {l16}")
     return r
@@ -3225,22 +3309,26 @@ def _expect_serving_launches(label, counts, r, attention, layers: int):
                               "step)")
 
 
-def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
+def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s, keep: dict) -> dict:
     """The static-cache decode path at llama_1b's full width and depth:
     the step and a prefill against the CPU, FusedGenerator (CUDA graph of
     the step); then on the first SERVE_LAYERS layers DecodeServer (a
     vmapped step, prefill ladder) and PagedDecodeServer with the same
-    prefill ladder (`paged_graph`, phase 5's cut)."""
+    prefill ladder (`paged_graph`, phase 5's cut). `keep` receives the
+    graphs phase 14 runs (the step graphs, with their chunk verify twins
+    built beside them, and the 128-row step of its bucket ladder)."""
     from smelter_tpu_torch.runtime.generate import FusedGenerator, Generator
     from smelter_tpu_torch.serving.decode_server import DecodeServer
     from smelter_tpu_torch.serving.paged_server import PagedDecodeServer
 
     res: dict = {}
     t0 = time.perf_counter()
-    step, pfs = _static_graphs(LLAMA_1B["layers"])
+    step, pfs, more = _static_graphs(LLAMA_1B["layers"], chunk=SPEC_GAMMA + 1)
     res["build_s"] = time.perf_counter() - t0
+    keep.update(step24=step, chunk24=more["chunk"])
     say(7, f"llama_1b static step graph and prefill graphs {BUCKETS}, int4-g{GROUP} fused, "
-           f"int8 KV, built in {res['build_s']:.1f} s")
+           f"int8 KV (and phase 14's chunk-{SPEC_GAMMA + 1} verify graph), built in "
+           f"{res['build_s']:.1f} s")
     res["step_vs_cpu_f32"] = _check_static_step(torch, np, stt, step)
     res["prefill_vs_cpu_f32"] = _check_prefill(torch, np, stt, pfs[-1])
     cfg = stt.Config(compute_dtype="bfloat16", ragged_attention=True)
@@ -3300,8 +3388,10 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
     torch.cuda.empty_cache()
     # (c) and (d) on the first SERVE_LAYERS layers
     t0 = time.perf_counter()
-    step, pfs = _static_graphs(SERVE_LAYERS)
+    step, pfs, more = _static_graphs(SERVE_LAYERS, chunk=SPEC_GAMMA + 1, short_len=PAGE)
     res["serve_build_s"] = time.perf_counter() - t0
+    keep.update(step4=step, pfs4=pfs, chunk4=more["chunk"], short4=more["short"])
+    del more
 
     # (c) DecodeServer: bench.py --serve-decode's 32 requests plus a 100- and
     # a 300-token prompt (the last prefills the 256 bucket, then is fed)
@@ -3390,6 +3480,343 @@ def phase_static(torch, np, stt, paged_graph, paged_reqs, paged_tok_s) -> dict:
            f"tick, phase 5), {rp['steps']} ticks at {rp['ms_per_tick']:.2f} ms, "
            f"{rp['prefills']} prefills, peak {rp['peak_mem_gb']:.3f} GB over "
            f"{rp['resident_gb']:.3f} GB resident | launches {rp['launches']}")
+    return res
+
+
+# -- phase 14 --------------------------------------------------------------
+
+# Tokens a request in phase 14's timed serving runs: a speculative tick runs
+# gamma + 1 vmapped draft steps and a verify, several times phase 7's tick
+# on the host, so phase 7's 64 would outrun the phase's share of the limit.
+SPEC_N_NEW = 16
+
+
+def _draft_graphs():
+    """The tiny draft's step graph (max_len 512, bf16 KV) and its prefill
+    graphs at BUCKETS, unquantized, from seed 7 (bench.py:369-377)."""
+    from smelter_tpu_torch.models import llama_style as ls
+
+    max_len = PAGE * NPG
+    w = ls.make_weights(**SPEC_DRAFT, max_len=max_len, seed=7)
+    step = ls.build_decode_step(w, **SPEC_DRAFT, max_len=max_len)[0]
+    pfs = [ls.build_prefill(w, prompt_len=p, max_len=max_len, **SPEC_DRAFT) for p in BUCKETS]
+    return step, pfs
+
+
+def _spec_per_round(layers: int, paged: bool) -> dict:
+    """A speculative round's launches: the verify's 7 int4_matmul a layer
+    and the head, its attention a layer (ragged, or paged), and the draft's
+    ragged_decode_attention a layer in each of its gamma + 1 steps (gamma
+    drafts after a catch-up step at pos - 1)."""
+    draft = (SPEC_GAMMA + 1) * SPEC_DRAFT["layers"]
+    if paged:
+        return {"int4_matmul": 7 * layers + 1, "paged_decode_attention": layers,
+                "ragged_decode_attention": draft}
+    return {"int4_matmul": 7 * layers + 1, "ragged_decode_attention": layers + draft}
+
+
+def _spec_serve(torch, server, reqs, n_new, label, layers: int, paged: bool):
+    """Serve `reqs` after a warm-up request: the tokens, and the run's
+    numbers, its launches held exactly to its rounds and prefills (a target
+    prefill launches the 7 x layers + 1 int4_matmul of the prefill graph)."""
+    server.submit(reqs[0][:8], 4).result(timeout=600)  # first use outside the clock
+    st0 = server.stats()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = [f.result(timeout=900) for f in [server.submit(p, n_new) for p in reqs]]
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    st1 = server.stats()
+    ticks, rounds, prefills = (st1[k] - st0[k] for k in ("ticks", "rounds", "prefills"))
+    tokens = sum(len(x) - len(p) for x, p in zip(served, reqs))
+    check(all(x[:len(p)] == p and len(x) == len(p) + n_new for x, p in zip(served, reqs)),
+          f"{label}: a request came back short or altered")
+    check(prefills == sum(len(p) > 1 for p in reqs),
+          f"{label}: {prefills} prefills for {len(reqs)} prompts")
+    want = {k: n * rounds for k, n in _spec_per_round(layers, paged).items()}
+    want["int4_matmul"] += (7 * layers + 1) * prefills
+    _check_routed(label, launches, want)
+    check(all(launches[k] == n for k, n in want.items()),
+          f"{label}: launches {launches}, not {want} ({rounds} rounds of "
+          f"{_spec_per_round(layers, paged)}, {prefills} prefills)")
+    return served, {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
+                    "tok_s": tokens / wall, "ticks": ticks, "rounds": rounds,
+                    "ms_per_tick": 1e3 * wall / max(1, ticks), "prefills": prefills,
+                    "accept_rate": st1["accept_rate"], "launches": launches,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _round_split(torch, server, paged: bool) -> dict:
+    """One round of an idle server (8 slots spread over the cache, a free
+    prompt) timed by CUDA events from the host and profiled: its gamma + 1
+    draft steps and its verify apart, each one's device busy time and so
+    the idle share."""
+    from smelter_tpu_torch.serving.decode_server import _spec_round
+
+    dev, g = server.device, SPEC_GAMMA
+    tok = torch.ones(SLOTS, dtype=torch.int64, device=dev)
+    pos = torch.tensor([0, 73, 127, 128, 292, 365, 438, 500], device=dev)
+    toks = torch.ones(SLOTS, g + 1, dtype=torch.int64, device=dev)
+    forced = torch.zeros(SLOTS, g, dtype=torch.int64, device=dev)
+    if paged:
+        server._table_d = torch.from_numpy(server._table).to(dev)
+    parts = {
+        "drafts": lambda *_: [server._draft_all(tok[:, None], (pos + j).clamp_min(0)[:, None])
+                              for j in range(-1, g)],
+        "verify": lambda *_: server._verify_all(toks, pos),
+        "round": lambda *_: _spec_round(server._draft_all, server._verify_all, g, tok, tok, pos,
+                                        forced, forced[:, 0], tok > 0)}
+    with torch.inference_mode():
+        return _timed_parts(torch, parts)
+
+
+def _timed_parts(torch, parts: dict) -> dict:
+    """Each part's ms a call by CUDA events from the host (5 calls), its
+    device busy ms by torch.profiler, and so its idle share."""
+    out = {}
+    for name, run in parts.items():
+        ms = time_ms(torch, run, 5, warmup=2)
+        kernels, _, n_k = _profile(torch, run)
+        busy = sum(kernels.values())
+        out[name] = {"ms": ms, "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / ms),
+                     "kernels": n_k}
+    return out
+
+
+def phase_spec(torch, np, stt, graphs: dict) -> dict:
+    """Speculative decoding at llama_1b's width (int4-g128, int8 KV, bf16,
+    ragged attention; gamma 4 and bench.py's tiny draft): (b) the 24-layer
+    chunk-5 verify step against the port's CPU f32 run; (c)
+    SpeculativeGenerator's greedy tokens equal FusedGenerator's in f32 on
+    a 2-layer cut (tiny draft and self-draft), and at 24 layers in bf16 its
+    ms a token, rounds and acceptance; (d) on a 2-layer f32 cut
+    SpecDecodeServer (rounds 1 and 4) and SpecPagedDecodeServer give
+    DecodeServer's tokens, then on the first SERVE_LAYERS layers in bf16
+    each serves phase 7's 34 requests (SPEC_N_NEW tokens each) with its
+    launches held exactly to its rounds, a round's time split into draft
+    steps and verify; (e) BucketedDecodeServer with a 128-row plain bucket
+    and a 512-row speculative one: routing, spill-up, and one upload of
+    the weights. `graphs`: phase 7's step graphs at 24 and SERVE_LAYERS
+    layers with their chunk twins, prefill graphs and 128-row step, which
+    it empties."""
+    from smelter_tpu_torch.runtime.generate import FusedGenerator
+    from smelter_tpu_torch.runtime.speculative import SpeculativeGenerator
+    from smelter_tpu_torch.serving.decode_server import (BucketedDecodeServer, DecodeServer,
+                                                         SpecDecodeServer)
+    from smelter_tpu_torch.serving.paged_server import SpecPagedDecodeServer
+
+    res: dict = {}
+    c = SPEC_GAMMA + 1
+    cfg32 = stt.Config(compute_dtype="float32", ragged_attention=True)
+    cfg16 = stt.Config(compute_dtype="bfloat16", ragged_attention=True)
+    t0 = time.perf_counter()
+    draft, dpfs = _draft_graphs()
+    res["build_s"] = time.perf_counter() - t0
+    step, chunk = graphs.pop("step24"), graphs.pop("chunk24")
+    say(14, f"the draft ({SPEC_DRAFT}, seed 7, unquantized, bf16 KV) and its prefill graphs "
+            f"built in {res['build_s']:.1f} s; phase 7's llama_1b step and chunk-{c} verify "
+            "graphs")
+    # (b) the verify step against the CPU
+    res["verify_vs_cpu_f32"] = _check_static_step(torch, np, stt, chunk, phase=14)
+
+    # (c) SpeculativeGenerator: f32 parity on a 2-layer cut, then 24 layers
+    step2, pfs2, more2 = _static_graphs(2, chunk=c)
+    prompt = list(range(1, 9))
+    want = FusedGenerator(step2, cfg32).generate(prompt, 48)
+    gens = {}
+    for name, d in (("tiny draft", draft), ("self-draft", step2)):
+        gen = SpeculativeGenerator(step2, more2["chunk"], d, cfg32)
+        got = gen.generate(prompt, 48)
+        check(got == want, f"SpeculativeGenerator ({name}) f32 tokens differ from "
+                           f"FusedGenerator's: {got} != {want}")
+        gens[name] = {"rounds": gen.last_rounds, "accept_rate": gen.last_accept_rate}
+    res["generator_f32_2_layers"] = gens
+    gen = SpeculativeGenerator(step, chunk, draft, cfg16)
+    fused = FusedGenerator(step, cfg16)
+    gen.generate(prompt, 8)  # first use outside the clock
+    n = 64
+    _zero_counts()
+    t = time.perf_counter()
+    out = gen.generate(prompt, n)
+    wall = time.perf_counter() - t
+    launches = _counts()
+    per = _spec_per_round(LLAMA_1B["layers"], False)
+    steps = len(prompt) - 1  # the prompt's target steps (no plain tail this far from max_len)
+    want16 = fused.generate(prompt, n)
+    r = {"n_new": n, "wall_s": wall, "ms_per_token": 1e3 * wall / n,
+         "rounds": gen.last_rounds, "accept_rate": gen.last_accept_rate,
+         "tokens_equal_fused_bf16": sum(a == b for a, b in zip(out[len(prompt):],
+                                                             want16[len(prompt):])),
+         "launches": launches}
+    check(len(out) == len(prompt) + n, "SpeculativeGenerator output length")
+    check(launches["int4_matmul"] == per["int4_matmul"] * (gen.last_rounds + steps)
+          and launches["ragged_decode_attention"]
+          == per["ragged_decode_attention"] * gen.last_rounds
+          + LLAMA_1B["layers"] * steps + SPEC_DRAFT["layers"] * (len(prompt) - 1),
+          f"SpeculativeGenerator launches {launches} ({gen.last_rounds} rounds, {steps} "
+          "target steps)")
+    del fused
+    # where a round's time goes: gamma + 1 draft steps, the verify
+    t_caches = [torch.zeros(s, dtype=d, device="cuda")
+                for s, d in zip(gen._cshapes_t, gen._cdts_t)]
+    d_caches = [torch.zeros(s, dtype=d, device="cuda")
+                for s, d in zip(gen._cshapes_d, gen._cdts_d)]
+    one = torch.ones(1, dtype=torch.int64, device="cuda")
+    toks = torch.ones(c, dtype=torch.int64, device="cuda")
+    r.update(_timed_parts(torch, {
+        "drafts": lambda *_: [gen._draft(d_caches, one, 280 + j) for j in range(c)],
+        "verify": lambda *_: gen._run(gen._chunk_t, gen._params_t, gen._in_c, gen._cn_t,
+                                      t_caches, toks, 280)}))
+    res["generator_bf16"] = r
+    del gen, t_caches, d_caches, step, chunk
+    torch.cuda.empty_cache()
+    say(14, f"(c) SpeculativeGenerator f32, 2-layer cut: 48 tokens equal FusedGenerator's "
+            f"with the tiny draft ({gens['tiny draft']['rounds']} rounds, acceptance "
+            f"{gens['tiny draft']['accept_rate']:.3f}) and a self-draft "
+            f"({gens['self-draft']['rounds']} rounds, acceptance "
+            f"{gens['self-draft']['accept_rate']:.3f}) | 24 layers bf16, tiny draft: "
+            f"{r['ms_per_token']:.2f} ms a token over {n} ({r['rounds']} rounds, acceptance "
+            f"{r['accept_rate']:.3f}; {r['tokens_equal_fused_bf16']}/{n} tokens as "
+            f"FusedGenerator's in bf16) | a round: {c} draft steps {r['drafts']['ms']:.2f} ms "
+            f"(device busy {r['drafts']['device_busy_ms']:.3f}), verify "
+            f"{r['verify']['ms']:.2f} ms (device busy {r['verify']['device_busy_ms']:.3f}) | "
+            f"launches {launches}")
+
+    # (d) the servers: f32 token parity on the 2-layer cut
+    rng = np.random.default_rng(0)
+    vocab = LLAMA_1B["vocab"]
+    reqs = [[int(t) for t in rng.integers(1, vocab - 1, n_)]
+            for n_ in rng.integers(8, min(48, PAGE * NPG // 4), 32)]
+    reqs += [[int(t) for t in rng.integers(1, vocab - 1, n_)] for n_ in (100, 300)]
+    few, n_few = reqs[:7] + reqs[32:33], 24
+    plain = DecodeServer(step2, slots=SLOTS, config=cfg32, prefill_graphs=pfs2)
+    try:
+        want = [f.result(timeout=600) for f in [plain.submit(p, n_few) for p in few]]
+    finally:
+        plain.shutdown()
+    paged2 = _llama_graph(2, chunk=c)
+    parity = {}
+    for name, make in (
+            ("SpecDecodeServer rounds 1", lambda: SpecDecodeServer(
+                step2, more2["chunk"], draft, slots=SLOTS, config=cfg32, prefill_graphs=pfs2,
+                draft_prefill_graphs=dpfs)),
+            ("SpecDecodeServer rounds 4", lambda: SpecDecodeServer(
+                step2, more2["chunk"], draft, slots=SLOTS, config=cfg32, prefill_graphs=pfs2,
+                draft_prefill_graphs=dpfs, rounds_per_tick=4)),
+            ("SpecPagedDecodeServer", lambda: SpecPagedDecodeServer(
+                paged2, draft, config=cfg32, prefill_graphs=pfs2, draft_prefill_graphs=dpfs))):
+        server = make()
+        try:
+            got = [f.result(timeout=600) for f in [server.submit(p, n_few) for p in few]]
+            st = server.stats()
+        finally:
+            server.shutdown()
+        check(got == want, f"{name} f32 tokens differ from DecodeServer's")
+        parity[name] = {"ticks": st["ticks"], "rounds": st["rounds"],
+                        "accept_rate": st["accept_rate"]}
+    res["servers_f32_2_layers"] = parity
+    del paged2, step2, pfs2, more2
+    say(14, f"(d) 2-layer cut, f32: {len(few)} requests x {n_few} tokens equal DecodeServer's "
+            "from " + "; ".join(f"{k} ({v['ticks']} ticks, {v['rounds']} rounds)"
+                                for k, v in parity.items()))
+
+    # (d) timed on the first SERVE_LAYERS layers, bf16
+    t0 = time.perf_counter()
+    step4, pfs4, chunk4, short4 = (graphs.pop(k) for k in ("step4", "pfs4", "chunk4", "short4"))
+    paged4 = _llama_graph(SERVE_LAYERS, chunk=c)
+    res["serve_build_s"] = time.perf_counter() - t0
+    runs = {}
+    for name, make, paged in (
+            ("rounds 1", lambda: SpecDecodeServer(
+                step4, chunk4, draft, slots=SLOTS, config=cfg16, prefill_graphs=pfs4,
+                draft_prefill_graphs=dpfs), False),
+            ("rounds 4", lambda: SpecDecodeServer(
+                step4, chunk4, draft, slots=SLOTS, config=cfg16, prefill_graphs=pfs4,
+                draft_prefill_graphs=dpfs, rounds_per_tick=4), False),
+            ("paged", lambda: SpecPagedDecodeServer(
+                paged4, draft, config=cfg16, prefill_graphs=pfs4, draft_prefill_graphs=dpfs),
+             True)):
+        server = make()
+        try:
+            _, rr = _spec_serve(torch, server, reqs, SPEC_N_NEW, f"spec serving {name}",
+                                SERVE_LAYERS, paged)
+            rr["round_alone"] = _round_split(torch, server, paged)
+        finally:
+            server.shutdown()
+        del server
+        runs[name] = rr
+        a = rr["round_alone"]
+        say(14, f"(d) {'SpecPagedDecodeServer' if paged else 'SpecDecodeServer'} {name}, "
+                f"{SERVE_LAYERS}-layer cut bf16 (paged verify graph built in "
+                f"{res['serve_build_s']:.1f} s): "
+                f"{rr['requests']} requests, {rr['tokens']} new tokens in {rr['wall_s']:.2f} s: "
+                f"{rr['tok_s']:.1f} tok/s, {rr['ticks']} ticks at {rr['ms_per_tick']:.2f} ms, "
+                f"{rr['rounds']} rounds, acceptance {rr['accept_rate']:.3f}, {rr['prefills']} "
+                f"prefills, peak {rr['peak_mem_gb']:.3f} GB | a round alone "
+                f"{a['round']['ms']:.2f} ms (device busy {a['round']['device_busy_ms']:.3f}, "
+                f"idle share {100 * a['round']['idle_share']:.1f}%): {c} draft steps "
+                f"{a['drafts']['ms']:.2f} ms (busy {a['drafts']['device_busy_ms']:.3f}), verify "
+                f"{a['verify']['ms']:.2f} ms (busy {a['verify']['device_busy_ms']:.3f}) | "
+                f"launches {rr['launches']}")
+    res["serving"] = runs
+    del paged4
+
+    # (e) the bucket ladder: a 128-row plain bucket, a 512-row speculative one
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ladder = BucketedDecodeServer([
+        {"step": short4, "slots": SLOTS},
+        {"step": step4, "chunk": chunk4, "draft": draft, "slots": SLOTS,
+         "prefills": pfs4, "draft_prefills": dpfs}], config=cfg16)
+    try:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        small, big = ladder._servers
+        params = small.shared_weights()[0]
+        check(params is big.shared_weights()[0], "the buckets hold two weight sets")
+        big_ones = {}  # (shape, dtype) -> the names of the weights over 1 MB
+        for k, v in params.items():
+            if v.numel() * v.element_size() > 1 << 20:
+                big_ones.setdefault((tuple(v.shape), v.dtype), []).append(k)
+        dup = [(a, b) for names in big_ones.values() for i, a in enumerate(names)
+               for b in names[i + 1:] if torch.equal(params[a], params[b])]
+        check(not dup, f"BucketedDecodeServer holds weights twice: {dup[:5]}")
+        params_b = sum(v.numel() * v.element_size() for v in params.values())
+        caches_b = ladder.cache_bytes()
+        check(held <= params_b + caches_b + (64 << 20),
+              f"the ladder holds {held} bytes, over its weights {params_b} and caches {caches_b}")
+        short = ladder.submit(reqs[0], 16).result(timeout=600)
+        steps_small, rounds_big = small.stats()["steps"], big.stats()["rounds"]
+        check(len(short) == len(reqs[0]) + 16 and steps_small > 0 and rounds_big == 0,
+              "a short request did not go to the 128-row bucket")
+        long = ladder.submit(reqs[32], 40).result(timeout=600)
+        check(len(long) == len(reqs[32]) + 40 and big.stats()["rounds"] > 0
+              and small.stats()["steps"] == steps_small,
+              "a 140-token request did not go to the 512-row bucket")
+        small.stats = lambda: {"active": SLOTS, "queued": 0, "slots": SLOTS}  # as if full
+        rounds_big = big.stats()["rounds"]
+        spilled = ladder.submit(reqs[1], 16).result(timeout=600)
+        check(len(spilled) == len(reqs[1]) + 16 and big.stats()["rounds"] > rounds_big,
+              "a short request did not spill up from a full 128-row bucket")
+        res["ladder"] = {"held_gb": held / 1e9, "params_gb": params_b / 1e9,
+                         "cache_gb": caches_b / 1e9,
+                         "uniform_cache_gb": ladder.uniform_cache_bytes() / 1e9}
+    finally:
+        ladder.shutdown()
+    del ladder, step4, pfs4, chunk4, short4, draft, dpfs
+    torch.cuda.empty_cache()
+    e = res["ladder"]
+    say(14, f"(e) BucketedDecodeServer, {SERVE_LAYERS}-layer cut (a 128-row plain bucket and "
+            f"a 512-row speculative one, {SLOTS} slots each): the ladder holds "
+            f"{e['held_gb']:.3f} GB on the card, its weights {e['params_gb']:.3f} GB once and "
+            f"caches {e['cache_gb']:.3f} GB (flat at 512 rows: {e['uniform_cache_gb']:.3f} GB "
+            "of target caches) | a short request went to the 128-row bucket, a 140-token one "
+            "to the 512-row bucket, a short one spilled up from a full 128-row bucket")
     return res
 
 
@@ -4905,9 +5332,12 @@ def main() -> int:
     del ref_f32
     paged, paged_graph, paged_reqs, _ = phase_paged(torch, np, stt)
     REPORT["paged"] = paged
+    spec_graphs: dict = {}
     static = REPORT["static"] = phase_static(torch, np, stt, paged_graph, paged_reqs,
-                                             paged["serve_t1"]["tok_s"])
+                                             paged["serve_t1"]["tok_s"], spec_graphs)
     del paged_graph
+    REPORT["spec"] = phase_spec(torch, np, stt, spec_graphs)
+    del spec_graphs
     vit, zoo = phase_vit(torch, np, stt)
     REPORT["vit"] = vit
     sr = REPORT["esrgan"] = phase_esrgan(torch, np, stt)

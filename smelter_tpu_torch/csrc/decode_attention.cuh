@@ -16,20 +16,28 @@
 // What bounds it: the live K/V bytes, while one CUDA block per (KV head,
 // slot) would leave most SMs idle (llama_1b: 64 blocks on 132 SMs; one
 // slot, 8) with each block's row blocks in series. So `split_chunk` runs a
-// block of 4 warps per (row block, KV head, slot), and the grid grows with
-// the cache's length and not with pos (a captured CUDA graph replays at any
-// position): a block wholly past the frontier reads nothing and writes a
-// neutral partial. Each warp takes U = 32 / GCP rows a step (GCP: g*c
-// padded to 4 or 8), lanes over the head dims, K and V of the step loaded
-// together; its 32 partial dots (U rows x GCP query rows) are summed across
-// the lanes by a transposed butterfly (31 shuffles leave lane u GCP + i
-// with the score of row u and query row i), so the streaming softmax in
-// f32 runs one (row, query row) a lane, and p @ v takes each p by a
-// shuffle. The 4 warps' states are merged in warp order into the block's
-// partial (running max, sum, f32 sums over hd) in the scratch the wrapper
-// allocates; `split_combine` merges a slot's partials in block order and
-// divides. Every sum's order is fixed, so two calls agree bit for bit. No
-// tensor cores: at g*c <= 8 query rows there is nothing for them to do.
+// block of 4 warps per (row block, query-row group, KV head, slot), and the
+// grid grows with the cache's length and not with pos (a captured CUDA
+// graph replays at any position): a block wholly past the frontier reads
+// nothing and writes a neutral partial. A block holds up to GMAX query rows
+// (16, or 8 at hd 256, where 16 rows of f32 sums would not fit the
+// registers); g*c past that runs in further groups, each reading the
+// block's K/V rows once. Each warp takes U = 32 / GCP rows a step (GCP:
+// the group's rows padded to 4, 8 or 16), lanes over the head dims, K and V
+// of the step loaded together; its 32 partial dots (U rows x GCP query
+// rows) are summed across the lanes by a transposed butterfly (31 shuffles
+// leave lane u GCP + i with the score of row u and query row i). The
+// streaming softmax in f32 then advances a pair of rows at a time, the
+// pairs of warp w being rows 2w, 2w + 1, then 2w + 8, 2w + 9, ...: which
+// rows a warp takes and in what order, and so every rounding, is the same
+// at every GCP, so a query row's output does not depend on how many rows
+// share its block (a chunk-5 verify gives the tokens single steps give).
+// p @ v takes each p by a shuffle. The 4 warps' states are merged in warp
+// order into the block's partial (running max, sum, f32 sums over hd) in
+// the scratch the wrapper allocates; `split_combine` merges a slot's
+// partials in block order and divides. Every sum's order is fixed, so two
+// calls agree bit for bit. No tensor cores: at g*c <= 16 query rows a
+// block there is nothing for them to do.
 #pragma once
 
 #include "common.cuh"
@@ -39,7 +47,6 @@
 namespace smelter {
 namespace decode_attention {
 
-constexpr int GC_MAX = 8;  // query rows a block holds (g * c)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -69,12 +76,14 @@ __device__ __forceinline__ void load_vec(const T* p, float (&f)[N]) {
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = to_f(e[i]);
-  } else {
-    static_assert(BYTES == 2, "load_vec: 2, 4, 8 or 16k bytes");
+  } else if constexpr (BYTES == 2) {
     const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = to_f(e[i]);
+  } else {
+    static_assert(BYTES == 1, "load_vec: 1, 2, 4, 8 or 16k bytes");
+    f[0] = to_f(static_cast<T>(__ldg(reinterpret_cast<const signed char*>(p))));
   }
 }
 
@@ -175,13 +184,14 @@ __device__ __forceinline__ void warp_sum_transposed(float (&v)[32], int lane) {
   if constexpr (O > 1) warp_sum_transposed<O / 2>(v, lane);
 }
 
-// Pass 1: block (j, h, b) attends query rows (b, h) over row block j of
-// slot b; part_acc (B, kvh, nblk, gc, HD) and part_ml (B, kvh, nblk, gc, 2)
-// receive its f32 sums, running max and sum (a neutral partial -inf, 0, 0
-// where the block lies wholly past the frontier). GCP: gc rounded up to 4
-// or 8 (U = 32 / GCP rows a warp's step).
+// Pass 1: block (j + nblk grp, h, b) attends query rows i0 ... i0 + GCP - 1
+// (i0 = grp GCP, those below gc) of (b, h) over row block j of slot b;
+// part_acc (B, kvh, nblk, gc, HD) and part_ml (B, kvh, nblk, gc, 2)
+// receive their f32 sums, running max and sum (a neutral partial -inf, 0,
+// 0 where the block lies wholly past the frontier). GCP: the group's rows
+// rounded up to 4, 8 or 16 (U = 32 / GCP rows a warp's step).
 template <typename QT, typename KT, int HD, int GCP, typename Rows>
-__global__ void __launch_bounds__(SPLIT_THREADS, HD <= 128 ? 4 : 1)
+__global__ void __launch_bounds__(SPLIT_THREADS, HD > 128 ? 1 : GCP * HD <= 1024 ? 4 : 2)
 split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __restrict__ vp,
             const void* __restrict__ ksp, const void* __restrict__ vsp, int scale_f32,
             const long long* __restrict__ pos, float* __restrict__ part_acc,
@@ -189,19 +199,24 @@ split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __res
             float scale) {
   constexpr bool QUANT = sizeof(KT) == 1;
   constexpr int EPL = HD / 32, U = 32 / GCP;
+  const float NEG = -CUDART_INF_F;
   __shared__ float s_m[SPLIT_WARPS][GCP], s_l[SPLIT_WARPS][GCP];
   __shared__ float s_acc[SPLIT_WARPS][GCP][HD];
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int j = blockIdx.x % nblk, i0 = blockIdx.x / nblk * GCP;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int gn = min(GCP, gc - i0);  // the group's query rows
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long p = pos[b];
   const long long last = p + c - 1;  // the frontier: last row written
   const size_t part = (static_cast<size_t>(b) * kvh + h) * nblk + j;
+  float* const acc_out = part_acc + (part * gc + i0) * HD;
+  float* const ml_out = part_ml + (part * gc + i0) * 2;
   const int live = j < src.blocks(b, last) ? src.rows(j, last) : 0;
   if (live <= 0) {  // wholly past the frontier
-    for (int e = threadIdx.x; e < gc * HD; e += SPLIT_THREADS) part_acc[part * gc * HD + e] = 0.f;
-    for (int i = threadIdx.x; i < gc; i += SPLIT_THREADS) {
-      part_ml[(part * gc + i) * 2] = -CUDART_INF_F;
-      part_ml[(part * gc + i) * 2 + 1] = 0.f;
+    for (int e = threadIdx.x; e < gn * HD; e += SPLIT_THREADS) acc_out[e] = 0.f;
+    for (int i = threadIdx.x; i < gn; i += SPLIT_THREADS) {
+      ml_out[i * 2] = NEG;
+      ml_out[i * 2 + 1] = 0.f;
     }
     return;
   }
@@ -209,12 +224,13 @@ split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __res
   const size_t base = src.first_row(b, j);                          // flat row of row 0
   const long long lo = static_cast<long long>(j) * src.block_rows;  // its row in the sequence
   const int my_u = lane / GCP, my_i = lane % GCP;  // the (row, query row) this lane scores
+  const int my_c = (i0 + my_i) % c;                // its query row's chunk offset
 
   float qf[GCP][EPL], acc[GCP][EPL];
-  const QT* qb = q + (static_cast<size_t>(b) * kvh + h) * gc * HD + d0;
+  const QT* qb = q + ((static_cast<size_t>(b) * kvh + h) * gc + i0) * HD + d0;
 #pragma unroll
   for (int i = 0; i < GCP; ++i) {
-    if (i < gc) {
+    if (i < gn) {
       load_vec<QT, EPL>(qb + i * HD, qf[i]);
     } else {
 #pragma unroll
@@ -223,14 +239,18 @@ split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __res
 #pragma unroll
     for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
   }
-  float m_run = -CUDART_INF_F, l_run = 0.f;  // of query row my_i
+  float m_run = NEG, l_run = 0.f;  // of query row my_i
 
-  for (int r0 = warp * U; r0 < live; r0 += SPLIT_WARPS * U) {
+  // warp w's row pairs are 2w + 8t, t = 0, 1, ...; a step takes U / 2 of
+  // them: row u of the step is 2w + 8 (t0 + u / 2) + u % 2
+  for (int t0 = 0; 2 * warp + 8 * t0 < live; t0 += U / 2) {
+    const int r_first = 2 * warp + 8 * t0;
     float kf[U][EPL], vf[U][EPL];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (r0 + u < live) {
-        const size_t row = (base + r0 + u) * kvd + h * HD + d0;
+      const int r = r_first + 8 * (u / 2) + u % 2;
+      if (r < live) {
+        const size_t row = (base + r) * kvd + h * HD + d0;
         load_row<KT, EPL>(kp + row, kf[u]);
         load_row<KT, EPL>(vp + row, vf[u]);
       } else {
@@ -238,7 +258,7 @@ split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __res
         for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.f;
       }
     }
-    const int r = r0 + my_u;  // this lane's row in the block
+    const int r = r_first + 8 * (my_u / 2) + my_u % 2;  // this lane's row in the block
     float ks = 1.f, vs = 0.f;
     if (r < live) {
       ks = QUANT ? scale_at<QT>(ksp, scale_f32, base + r) : 1.f;
@@ -255,37 +275,31 @@ split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __res
         dot[u * GCP + i] = d;
       }
     warp_sum_transposed<16>(dot, lane);
-    const float dsum = dot[0];
-    const bool valid = r < live && my_i < gc && lo + r <= p + my_i % c;
-    const float s = valid ? dsum * ks * scale : -CUDART_INF_F;
-    // the streaming softmax of query row my_i over the step's U rows: its
-    // lanes are my_i, my_i + GCP, ...
-    float mx = s;
+    const bool valid = r < live && my_i < gn && lo + r <= p + my_c;
+    const float s = valid ? dot[0] * ks * scale : NEG;
+    // the streaming softmax of query row my_i, a pair of rows at a time
 #pragma unroll
-    for (int o = GCP; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_new = fmaxf(m_run, mx);
-    const float pr = valid ? expf(s - m_new) : 0.f;
-    const float alpha = m_new == -CUDART_INF_F ? 1.f : expf(m_run - m_new);
-    float psum = pr;
-#pragma unroll
-    for (int o = GCP; o < 32; o <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l_run = alpha * l_run + psum;
-    m_run = m_new;
-    const float pw = pr * vs;
-#pragma unroll
-    for (int i = 0; i < GCP; ++i) {
-      const float a = __shfl_sync(0xffffffffu, alpha, i);
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[i][e] *= a;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
+    for (int t = 0; t < U / 2; ++t) {
+      const float sa = __shfl_sync(0xffffffffu, s, 2 * t * GCP + my_i);
+      const float sb = __shfl_sync(0xffffffffu, s, (2 * t + 1) * GCP + my_i);
+      const float m_new = fmaxf(m_run, fmaxf(sa, sb));
+      const float pa = sa == NEG ? 0.f : expf(sa - m_new);
+      const float pb = sb == NEG ? 0.f : expf(sb - m_new);
+      const float alpha = m_new == NEG ? 1.f : expf(m_run - m_new);
+      l_run = alpha * l_run + (pa + pb);
+      m_run = m_new;
+      const float wa = pa * __shfl_sync(0xffffffffu, vs, 2 * t * GCP);
+      const float wb = pb * __shfl_sync(0xffffffffu, vs, (2 * t + 1) * GCP);
 #pragma unroll
       for (int i = 0; i < GCP; ++i) {
-        const float w = __shfl_sync(0xffffffffu, pw, u * GCP + i);
+        const float a = __shfl_sync(0xffffffffu, alpha, i);
+        const float xa = __shfl_sync(0xffffffffu, wa, i);
+        const float xb = __shfl_sync(0xffffffffu, wb, i);
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(w, vf[u][e], acc[i][e]);
+        for (int e = 0; e < EPL; ++e)
+          acc[i][e] = fmaf(xb, vf[2 * t + 1][e], fmaf(xa, vf[2 * t][e], acc[i][e] * a));
       }
+    }
   }
 
   // the warps' states, merged in warp order into the block's partial
@@ -298,22 +312,22 @@ split_chunk(const QT* __restrict__ q, const KT* __restrict__ kp, const KT* __res
 #pragma unroll
     for (int e = 0; e < EPL; ++e) s_acc[warp][i][d0 + e] = acc[i][e];
   __syncthreads();
-  for (int e = threadIdx.x; e < gc * HD; e += SPLIT_THREADS) {
+  for (int e = threadIdx.x; e < gn * HD; e += SPLIT_THREADS) {
     const int i = e / HD, d = e % HD;
-    float M = -CUDART_INF_F;
+    float M = NEG;
 #pragma unroll
     for (int w = 0; w < SPLIT_WARPS; ++w) M = fmaxf(M, s_m[w][i]);
     float sum = 0.f, l = 0.f;
 #pragma unroll
     for (int w = 0; w < SPLIT_WARPS; ++w) {
-      const float f = s_m[w][i] == -CUDART_INF_F ? 0.f : expf(s_m[w][i] - M);
+      const float f = s_m[w][i] == NEG ? 0.f : expf(s_m[w][i] - M);
       sum += s_acc[w][i][d] * f;
       l += s_l[w][i] * f;
     }
-    part_acc[part * gc * HD + e] = sum;
+    acc_out[e] = sum;
     if (d == 0) {
-      part_ml[(part * gc + i) * 2] = M;
-      part_ml[(part * gc + i) * 2 + 1] = l;
+      ml_out[i * 2] = M;
+      ml_out[i * 2 + 1] = l;
     }
   }
 }
@@ -341,26 +355,41 @@ split_combine(const float* __restrict__ part_acc, const float* __restrict__ part
   }
 }
 
+// Query rows a block holds at head dim HD: 16, or 8 at hd 256 (16 rows of
+// f32 sums and q would not fit a thread's 255 registers).
+template <int HD>
+constexpr int group_max() {
+  return HD > 128 ? 8 : 16;
+}
+
 // Both passes on the caller's stream: scratch holds B kvh nblk gc (hd + 2)
 // floats. Float K/V hold q's type; int8 ones take scales in f32
-// (scale_f32) or q's type.
+// (scale_f32) or q's type. g*c rows go in groups of GCP: one group padded
+// to 4, 8 or 16 where gc <= group_max, else groups of group_max.
 template <typename QT, typename KT, int HD, typename Rows>
 int launch_split_hd(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                     int scale_f32, const long long* pos, void* out, float* scratch,
                     const Rows& src, int B, int kvh, int gc, int c, int nblk, float scale,
                     cudaStream_t stream) {
+  constexpr int GMAX = group_max<HD>();
   float* part_acc = scratch;
   float* part_ml = scratch + static_cast<size_t>(B) * kvh * nblk * gc * HD;
-  const dim3 grid(nblk, kvh, B);
   const auto* qq = static_cast<const QT*>(q);
   const auto* kk = static_cast<const KT*>(k);
   const auto* vv = static_cast<const KT*>(v);
-  if (gc <= 4)
-    split_chunk<QT, KT, HD, 4, Rows><<<grid, SPLIT_THREADS, 0, stream>>>(
-        qq, kk, vv, ks, vs, scale_f32, pos, part_acc, part_ml, src, kvh, gc, c, nblk, scale);
-  else
-    split_chunk<QT, KT, HD, 8, Rows><<<grid, SPLIT_THREADS, 0, stream>>>(
-        qq, kk, vv, ks, vs, scale_f32, pos, part_acc, part_ml, src, kvh, gc, c, nblk, scale);
+  const int gcp = gc > GMAX ? GMAX : gc <= 4 ? 4 : gc <= 8 ? 8 : 16;
+  const dim3 grid(nblk * cdiv(gc, gcp), kvh, B);
+#define SMELTER_CHUNK(GCP_)                                                                    \
+  split_chunk<QT, KT, HD, GCP_, Rows><<<grid, SPLIT_THREADS, 0, stream>>>(                     \
+      qq, kk, vv, ks, vs, scale_f32, pos, part_acc, part_ml, src, kvh, gc, c, nblk, scale)
+  if (gcp == 4) {
+    SMELTER_CHUNK(4);
+  } else if (gcp == 8) {
+    SMELTER_CHUNK(8);
+  } else if constexpr (GMAX >= 16) {
+    SMELTER_CHUNK(16);
+  }
+#undef SMELTER_CHUNK
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   split_combine<QT><<<dim3(kvh, B), SPLIT_THREADS, 0, stream>>>(
@@ -383,6 +412,7 @@ int launch_split(int kv_dtype, int scale_dtype, const void* q, const void* k, co
              : launch_split_hd<QT, QT, HD_>(q, k, v, ks, vs, f32, p, out, sc, src, B, kvh, gc, \
                                             c, nblk, scale, st)
   switch (hd) {
+    case 32: SMELTER_SPLIT(32);
     case 64: SMELTER_SPLIT(64);
     case 128: SMELTER_SPLIT(128);
     case 256: SMELTER_SPLIT(256);

@@ -34,16 +34,15 @@ extern "C" const char* smelter_error_string(int code) {
 // (P, ps, kvh*hd) in q_dtype or int8 (kv_dtype) with scale pools (P, ps, 1)
 // in f32 or q_dtype (scale_dtype); table (B, npg) int32; pos (B,) int64;
 // scratch of B kvh (npg split) gc (hd + 2) floats. All contiguous, 16-byte
-// aligned. Needs hd in {64, 128, 256}, gc <= 8 and split dividing ps (the
-// wrapper checks). Two launches. Returns a cudaError_t code.
+// aligned. Needs hd in {32, 64, 128, 256}, c dividing gc and split dividing
+// ps (the wrapper checks). Two launches. Returns a cudaError_t code.
 extern "C" int smelter_paged_decode_attention(const void* q, const void* k, const void* v,
                                               const void* ks, const void* vs, const void* table,
                                               const void* pos, void* out, void* scratch, int B,
                                               int P, int ps, int kvh, int hd, int gc, int c,
                                               int npg, int split, float scale, int q_dtype,
                                               int kv_dtype, int scale_dtype, void* stream) {
-  using decode_attention::GC_MAX;
-  if (gc < 1 || gc > GC_MAX || c < 1 || gc % c || ps < 1 || npg < 1 || P < 1 || split < 1 ||
+  if (gc < 1 || c < 1 || gc % c || ps < 1 || npg < 1 || P < 1 || split < 1 ||
       ps % split)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || kvh == 0) return 0;

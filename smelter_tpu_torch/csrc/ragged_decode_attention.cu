@@ -34,7 +34,7 @@ extern "C" const char* smelter_error_string(int code) {
 // q_dtype or int8 (kv_dtype) with scales (B, L, 1) in f32 or q_dtype
 // (scale_dtype); pos (B,) int64; scratch of B kvh nblk gc (hd + 2) floats,
 // nblk = ceil(L / block_rows). All contiguous, 16-byte aligned. Needs hd in
-// {64, 128, 256}, gc <= 8 (the wrapper checks). Two launches.
+// {32, 64, 128, 256} and c dividing gc (the wrapper checks). Two launches.
 // Returns a cudaError_t code.
 extern "C" int smelter_ragged_decode_attention(const void* q, const void* k, const void* v,
                                                const void* ks, const void* vs, const void* pos,
@@ -42,8 +42,7 @@ extern "C" int smelter_ragged_decode_attention(const void* q, const void* k, con
                                                int hd, int gc, int c, int block_rows,
                                                float scale, int q_dtype, int kv_dtype,
                                                int scale_dtype, void* stream) {
-  using decode_attention::GC_MAX;
-  if (gc < 1 || gc > GC_MAX || c < 1 || gc % c || L < 1 || block_rows < 1)
+  if (gc < 1 || c < 1 || gc % c || L < 1 || block_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || kvh == 0) return 0;
   const decode_attention::ContiguousRows src{L, block_rows};

@@ -48,8 +48,7 @@ from .ragged_decode_attention import _SPLIT_BLOCKS, _SPLIT_ROWS, ragged_decode_a
 launches = 0
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128, 256)
-_GC_MAX = 8
+_HEAD_DIMS = (32, 64, 128, 256)
 
 
 @functools.lru_cache(maxsize=256)  # planned on every call of a decode step
@@ -112,27 +111,21 @@ def paged_decode_attention_plain(q, k_pool, v_pool, page_table, pos, k_scale=Non
                                              kv_heads=kv_heads, scale=scale)
 
 
-def paged_decode_attention(q, k_pool, v_pool, page_table, pos, k_scale=None, v_scale=None,
-                           *, c: int, kv_heads: int, scale: float) -> torch.Tensor:
-    """Slot-batched paged attention: q (B, kvh, g*c, hd); pools (P, ps,
-    kvh*hd) in q's dtype, or int8 with scale pools (P, ps, 1); page_table
-    (B, npg) int32; pos (B,) int. Returns (B, kvh, g*c, hd) in q's dtype."""
-    global launches
-    if q.device.type in ("cpu", "meta"):
-        return paged_decode_attention_plain(q, k_pool, v_pool, page_table, pos, k_scale,
-                                            v_scale, c=c, kv_heads=kv_heads, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
+def _check(q, k_pool, v_pool, page_table, pos, k_scale, v_scale, c: int,
+           kv_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raise for operands the kernels do not take; return the table as
+    (B, npg) int32 and pos as (B,) int64."""
     bsz, kvh, gc, hd = q.shape
     P_, ps, kvd = k_pool.shape
-    npg = page_table.shape[-1]
     quant = k_scale is not None
-    if kvh != kv_heads or kvd != kvh * hd or v_pool.shape != k_pool.shape:
-        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} and pools "
-                         f"{tuple(k_pool.shape)} do not match ({kv_heads} KV heads)")
-    if hd not in _HEAD_DIMS or gc > _GC_MAX or gc % c:
+    if kvh != kv_heads or kvd != kvh * hd or v_pool.shape != k_pool.shape \
+            or page_table.numel() != bsz * page_table.shape[-1] or pos.numel() != bsz:
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}, table {tuple(page_table.shape)} and pos "
+                         f"{tuple(pos.shape)} do not match ({kv_heads} KV heads)")
+    if hd not in _HEAD_DIMS or c < 1 or gc % c:
         raise ValueError(f"paged_decode_attention: head dim {hd} (of {_HEAD_DIMS}) and "
-                         f"g*c {gc} (at most {_GC_MAX}, a multiple of c {c}) not taken")
+                         f"g*c {gc} (a multiple of c {c}) not taken")
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"paged_decode_attention: q {q.dtype} not taken")
     if quant:
@@ -145,15 +138,33 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, pos, k_scale=None, v_s
                             "or q's dtype")
     elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError("paged_decode_attention: float pools must hold q's dtype")
-    table = page_table.reshape(bsz, npg).to(torch.int32)
+    table = page_table.reshape(bsz, page_table.shape[-1]).to(torch.int32)
     pos = pos.reshape(bsz).to(torch.int64)
-    ops = [q, k_pool, v_pool, table, pos] + ([k_scale, v_scale] if quant else [])
-    for t in ops:
+    for t in [q, k_pool, v_pool, table, pos] + ([k_scale, v_scale] if quant else []):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("paged_decode_attention: operands must be contiguous, on one "
                              "device")
     if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:  # vectors
         raise ValueError("paged_decode_attention: q and the pools must be 16-byte aligned")
+    return table, pos
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, pos, k_scale=None, v_scale=None,
+                           *, c: int, kv_heads: int, scale: float) -> torch.Tensor:
+    """Slot-batched paged attention: q (B, kvh, g*c, hd); pools (P, ps,
+    kvh*hd) in q's dtype, or int8 with scale pools (P, ps, 1); page_table
+    (B, npg) int32; pos (B,) int. Returns (B, kvh, g*c, hd) in q's dtype."""
+    global launches
+    if q.device.type in ("cpu", "meta"):
+        return paged_decode_attention_plain(q, k_pool, v_pool, page_table, pos, k_scale,
+                                            v_scale, c=c, kv_heads=kv_heads, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
+    bsz, kvh, gc, hd = q.shape
+    P_, ps, _ = k_pool.shape
+    npg = page_table.shape[-1]
+    quant = k_scale is not None
+    table, pos = _check(q, k_pool, v_pool, page_table, pos, k_scale, v_scale, c, kv_heads)
     _, split, nblk = paged_split_plan(bsz, kvh, npg, ps)
     out = torch.empty_like(q)
     scratch = torch.empty(bsz * kvh * nblk * gc * (hd + 2), dtype=torch.float32,

@@ -19,7 +19,9 @@ ragged_decode_attention` (its batched `_batched`). The Hopper kernel is
   frontier, K and V of a warp's rows in flight together, and writes a
   partial softmax state (running max, sum, f32 sums) into scratch the
   wrapper allocates; a second launch merges each slot's partials in block
-  order. A block past the frontier reads nothing (a reused slot's stale
+  order. Up to 16 query rows (8 at hd 256) share a block's K/V reads, more
+  go in further groups, and a query row's sums run in the same order
+  whatever the group's size. A block past the frontier reads nothing (a reused slot's stale
   rows are neither scored nor added). The grid depends on (B, kvh, L), never
   on pos, so a captured decode step replays right at any position.
 
@@ -45,9 +47,8 @@ from . import _build
 launches = 0
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128, 256)
-_GC_MAX = 8
-_SPLIT_ROWS = 32        # a row block is a multiple of this: one step of 4 warps x 8 rows
+_HEAD_DIMS = (32, 64, 128, 256)
+_SPLIT_ROWS = 32        # a row block is a multiple of this: 4 warps x 8 rows
 _SPLIT_BLOCKS = 8 * 132  # CUDA blocks to aim for: eight an SM of an H100
 _SPLIT_MAX = 256         # row blocks a slot at most (the merge walks them in order)
 
@@ -100,9 +101,9 @@ def _check(q, k, v, pos, k_scale, v_scale, c: int, kv_heads: int) -> None:
         raise ValueError(f"ragged_decode_attention: q {tuple(q.shape)}, caches "
                          f"{tuple(k.shape)} and pos {tuple(pos.shape)} do not match "
                          f"({kv_heads} KV heads)")
-    if hd not in _HEAD_DIMS or gc > _GC_MAX or gc % c:
+    if hd not in _HEAD_DIMS or c < 1 or gc % c:
         raise ValueError(f"ragged_decode_attention: head dim {hd} (of {_HEAD_DIMS}) and "
-                         f"g*c {gc} (at most {_GC_MAX}, a multiple of c {c}) not taken")
+                         f"g*c {gc} (a multiple of c {c}) not taken")
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"ragged_decode_attention: q {q.dtype} not taken")
     if pos.dtype != torch.int64:

@@ -82,19 +82,23 @@ def _merge_params(params: dict, host_map: dict, graph, cfg) -> Executor:
     wherever name AND content match one already there (the builders name
     weights by their weight-dict key and quantization is deterministic, so
     a prefill graph shares every weight with its step graph). A name whose
-    content differs is renamed in a structure-only clone of `graph`; a
-    renamed array above 1 MB is warned about, since its weights are then
-    held twice. Returns the companion's Executor (on the clone)."""
+    content differs is renamed in a structure-only clone of `graph`, to an
+    earlier companion's renamed twin of the same content where there is one
+    (a draft model's prefill graphs then share the draft step's weights); a
+    newly renamed array above 1 MB is warned about, since its weights are
+    then held twice unless it is another model's. Returns the companion's
+    Executor (on the clone)."""
     graph = _shallow_clone(graph)
     renames = {}
     for name, want in list(graph.initializers.items()):
         have = host_map.get(name)
         if have is not None and not _arr_eq(have, want):
             new = name + "__p"
-            while new in host_map or new in graph.initializers:
+            while (new in host_map and not _arr_eq(host_map[new], want)) \
+                    or new in graph.initializers:
                 new += "_"
             renames[name] = new
-            if want.nbytes > (1 << 20):
+            if new not in host_map and want.nbytes > (1 << 20):
                 warnings.warn(
                     f"companion graph initializer {name!r} ({want.nbytes >> 20} MB) differs "
                     f"from the step graph's: weights are being duplicated on the device; "

@@ -30,8 +30,12 @@ of the smallest bucket that holds it (pad rows are written before they are
 read); a longer prompt fills the largest bucket and feeds the rest a token
 a tick. A prefill that fails fails its own request: the JAX server falls
 back to feeding the prompt a token a tick, which would hide the failure.
-Context inputs (cross-attention decoders), SpecDecodeServer and
-BucketedDecodeServer are not ported yet.
+
+`SpecDecodeServer` is the speculative form (a draft-and-verify round for
+all slots a tick, `runtime/speculative.py`'s rounds over slots) and
+`BucketedDecodeServer` a ladder of plain and speculative servers of
+several cache lengths over one uploaded weight set. Context inputs
+(cross-attention decoders) are not ported yet.
 """
 
 from __future__ import annotations
@@ -69,6 +73,34 @@ def _bucket(prefills: list, n: int):
     ups = [p for p, _ in prefills if p >= n]
     p_len = min(ups) if ups else max(p for p, _ in prefills)
     return p_len, dict(prefills)[p_len], min(n, p_len)
+
+
+def _prefill_into(prefills, params, caches, i: int, prompt: list[int], device):
+    """Fill slot i of `caches` with one prefill forward of the prompt's
+    bucket. Returns (the forward's logits, rows of the prompt it took)."""
+    p_len, fn, eff = _bucket(prefills, len(prompt))
+    toks = np.zeros((p_len,), np.int64)
+    toks[:eff] = prompt[:eff]
+    with torch.inference_mode():
+        outs = fn(params, torch.from_numpy(toks).to(device))
+        for c, new in zip(caches, outs[1:]):
+            c[i].copy_(new)
+    return outs[0], eff
+
+
+def _drain(server) -> None:
+    """Fail every request a stopping server still holds, in a slot or
+    queued."""
+    with server._lock:
+        for s in server._state:
+            if s.active and s.future is not None and not s.future.done():
+                s.future.set_exception(RuntimeError("server shut down"))
+        while True:
+            try:
+                *_rest, fut = server._pending.get_nowait()
+            except queue.Empty:
+                break
+            fut.set_exception(RuntimeError("server shut down"))
 
 
 @dataclass
@@ -246,14 +278,9 @@ class DecodeServer:
         written, `first` the greedy first generation when the whole prompt
         fit the bucket, else None (the rest of the prompt feeds a token a
         tick)."""
-        p_len, fn, eff = _bucket(self._prefills, len(prompt))
-        toks = np.zeros((p_len,), np.int64)
-        toks[:eff] = prompt[:eff]
-        with torch.inference_mode():
-            outs = fn(self._params, torch.from_numpy(toks).to(self.device))
-            for c, new in zip(self._caches, outs[1:]):
-                c[i].copy_(new)
-            first = int(outs[0][eff - 1].argmax()) if eff == len(prompt) else None
+        logits, eff = _prefill_into(self._prefills, self._params, self._caches, i, prompt,
+                                    self.device)
+        first = int(logits[eff - 1].argmax()) if eff == len(prompt) else None
         self._prefilled += 1
         return eff - 1, first
 
@@ -335,13 +362,422 @@ class DecodeServer:
                     if _commit(s, nxt[i], T, self.max_len, self.stop_tokens):
                         s.future.set_result(list(s.prompt) + s.generated)
                         self._state[i] = _Slot()
+        _drain(self)
+
+
+def _vmapped_draft(draft_fn, params, in_d, cn_d):
+    """The draft step vmapped over slots: (tokens (B, 1), pos (B, 1),
+    *caches) -> (B,) greedy tokens, left on the device; the caches are
+    updated in place."""
+    def one(tok, pos, *caches):
+        by = {"token": tok, "pos": pos}
+        by.update(zip(cn_d, caches))
+        return draft_fn(params, *[by[n] for n in in_d])[0][-1].argmax()
+
+    return torch.func.vmap(one)
+
+
+def _spec_inputs(state, slots: int, g: int):
+    """(tokens, prevs, pos, forced, n_forced, free) of a speculative tick,
+    as numpy arrays: a slot still on its prompt passes its next prompt
+    tokens as forced drafts; `free` once the prompt is consumed."""
+    toks = np.zeros((slots,), np.int64)
+    prevs = np.zeros((slots,), np.int64)
+    pos = np.zeros((slots,), np.int64)
+    forced = np.zeros((slots, g), np.int64)
+    n_forced = np.zeros((slots,), np.int64)
+    free = np.zeros((slots,), bool)
+    for i, s in enumerate(state):
+        if not s.active:
+            continue
+        seq = s.prompt + s.generated
+        toks[i] = seq[s.pos]
+        prevs[i] = seq[max(s.pos - 1, 0)]
+        pos[i] = s.pos
+        rem = s.prompt[s.pos + 1:s.pos + 1 + g]
+        n_forced[i] = len(rem)
+        forced[i, :len(rem)] = rem
+        free[i] = s.pos + 1 + len(rem) >= len(s.prompt)
+    return toks, prevs, pos, forced, n_forced, free
+
+
+def _spec_round(draft_all, verify_all, g: int, tok, prev, pos, forced, n_forced, free):
+    """One draft-and-verify round for every slot, on the device: a catch-up
+    draft step at pos - 1 (after a fully accepted round the draft never
+    ingested its last draft token), gamma draft steps, one verify of the
+    gamma + 1 tokens. Forced drafts (the prompt) are taken as given; a draft
+    beyond them counts only once the prompt is consumed (`free`). Returns
+    the target's (B, gamma + 1) greedy tokens and the (B,) accepted
+    count."""
+    tk, drafts = prev, []
+    for j in range(-1, g):
+        nxt = draft_all(tk[:, None], (pos + j).clamp_min(0)[:, None])
+        if j < 0:
+            tk = tok
+            continue
+        tk = torch.where(j < n_forced, forced[:, j], nxt)
+        drafts.append(tk)
+    drafts = torch.stack(drafts, dim=1)  # (B, gamma)
+    tnext = verify_all(torch.cat([tok[:, None], drafts], dim=1), pos)
+    steps = torch.arange(g, device=tok.device)[None]
+    ok = (steps < n_forced[:, None]) | (free[:, None] & (drafts == tnext[:, :g]))
+    return tnext, torch.cumprod(ok.long(), dim=1).sum(dim=1)
+
+
+def _spec_rounds(draft_all, verify_all, g: int, R: int, tok, prev, pos):
+    """R rounds chained on the device for slots past their prompts: each
+    round's last token, the one before it and its position feed the next.
+    Returns (B, R, gamma + 1) tokens and (B, R) accepted counts."""
+    zf = torch.zeros((tok.shape[0], g), dtype=torch.int64, device=tok.device)
+    zn = torch.zeros_like(tok)
+    fr = torch.ones_like(tok, dtype=torch.bool)
+    emits, accs = [], []
+    for _ in range(R):
+        tnext, a = _spec_round(draft_all, verify_all, g, tok, prev, pos, zf, zn, fr)
+        emits.append(tnext)
+        accs.append(a)
+        prev = torch.where(a > 0, tnext.gather(1, (a - 1).clamp_min(0)[:, None])[:, 0], tok)
+        tok = tnext.gather(1, a[:, None])[:, 0]
+        pos = pos + a + 1
+    return torch.stack(emits, dim=1), torch.stack(accs, dim=1)
+
+
+class _SpecTicks:
+    """What both speculative servers share: running a tick on the device,
+    applying a round's (accepted count, tokens) to a slot, and the
+    acceptance counts (draft positions past the prompt only: forced prompt
+    tokens are always accepted and would inflate the rate)."""
+
+    def _apply_round(self, s: _Slot, a: int, nf: int, row, was_free: bool) -> bool:
+        """Take one round into slot s; True when the request is done. A
+        token for sequence position pos + j + 1 is generated only once past
+        the prompt; a bonus token inside the prompt is dropped."""
+        g = self.gamma
+        if was_free and g > nf:
+            self._acc_den += g - nf
+            self._acc_num += max(0, a - nf)
+        plen = len(s.prompt)
+        new = [int(row[j]) for j in range(nf, a + 1) if s.pos + j + 1 >= plen]
+        s.pos += a + 1
+        for tok in new:
+            s.generated.append(tok)
+            if len(s.generated) >= s.n_new or tok in self.stop_tokens:
+                s.generated = s.generated[:s.n_new]
+                return True
+        return False
+
+    def _commit_tick(self, slots, multi: bool, emit, acc, n_forced, free) -> list[int]:
+        """Apply a tick to `slots` (indices); returns those that finished."""
+        done_slots = []
+        for i in slots:
+            s = self._state[i]
+            if multi:  # emit (B, R, g + 1), acc (B, R): the rounds in order;
+                # rounds past a finish are dropped (their rows die with the slot)
+                for r in range(self.rounds_per_tick):
+                    done = self._apply_round(s, int(acc[i, r]), 0, emit[i, r], True)
+                    if done:
+                        break
+            else:
+                done = self._apply_round(s, int(acc[i]), int(n_forced[i]), emit[i],
+                                         bool(free[i]))
+            if done:
+                done_slots.append(i)
+        return done_slots
+
+    def _run_tick(self, multi: bool, toks, prevs, pos, forced, n_forced, free):
+        """One tick on the device (R rounds where `multi`, else one), its
+        (emit, accepted) read back as numpy."""
+        dev, g = self.device, self.gamma
+        with torch.inference_mode():
+            t = [torch.from_numpy(a).to(dev) for a in (toks, prevs, pos)]
+            if multi:
+                emit, acc = _spec_rounds(self._draft_all, self._verify_all, g,
+                                         self.rounds_per_tick, *t)
+            else:
+                emit, acc = _spec_round(self._draft_all, self._verify_all, g, *t,
+                                        *(torch.from_numpy(a).to(dev)
+                                          for a in (forced, n_forced, free)))
+            return emit.cpu().numpy(), acc.cpu().numpy()
+
+    def _spec_stats(self) -> dict:
+        return {"ticks": self._ticks, "rounds": self._rounds,
+                "accept_rate": self._acc_num / self._acc_den if self._acc_den else None,
+                "gamma": self.gamma, "prefills": self._prefilled}
+
+
+class SpecDecodeServer(_SpecTicks):
+    """Speculative continuous batching: each tick runs one draft-and-verify
+    round for all slots (gamma + 1 draft steps and one (gamma + 1)-token
+    chunk verify, each vmapped over the slots), up to gamma + 1 tokens a
+    slot a tick, with greedy tokens identical to DecodeServer's.
+
+    A slot still on its prompt passes its next prompt tokens as FORCED
+    drafts (accepted as given), so prompts also go in gamma + 1 tokens a
+    tick and the draft sees them. `prefill_graphs` (target twins) fill a new
+    slot's target caches with one forward instead; `draft_prefill_graphs`
+    do the same for the draft (without them the draft starts blind on that
+    prompt: acceptance suffers, the tokens do not). `rounds_per_tick` R > 1
+    chains R rounds on the device when every active slot is past its prompt
+    with R (gamma + 1) rows of room, else the tick runs one round. The host
+    keeps each slot's token sequence and reads back (emit (B, gamma + 1),
+    accepted (B,)) once a tick. The draft's weights join the target's
+    uploaded set (`_merge_params`), so an early-exit self-draft shares
+    every layer it has with the target.
+    """
+
+    def __init__(self, step_graph, chunk_graph, draft_graph, slots: int = 4, config=None,
+                 draft_config=None, stop_tokens: tuple[int, ...] = (), prefill_graphs=(),
+                 draft_prefill_graphs=(), shared_weights=None, rounds_per_tick: int = 1):
+        from ..runtime.config import Config
+        from ..runtime.executor import Executor
+        from ..runtime.generate import _cache_dtypes, _decode_graph, _merge_params, _step_io
+
+        self.slots = slots
+        self.stop_tokens = set(stop_tokens)
+        cfg = config or Config()
+        dcfg = draft_config or cfg
+        step_graph = _decode_graph(step_graph, cfg)
+        chunk_graph = _decode_graph(chunk_graph, cfg)
+        draft_graph = _decode_graph(draft_graph, dcfg)
+        if shared_weights is None:
+            ex_t = Executor(step_graph, cfg)
+            params = ex_t.cast_params(ex_t.init_params())
+            host_map = {n: step_graph.initializers[n] for n in ex_t.param_names}
+        else:
+            params, host_map = shared_weights
+            ex_t = _merge_params(params, host_map, step_graph, cfg)
+            step_graph = ex_t.graph
+        self._params, self._host_map = params, host_map
+        self.device = ex_t.device
+        ex_c = _merge_params(params, host_map, chunk_graph, cfg)
+        ex_d = _merge_params(params, host_map, draft_graph, dcfg)
+        _, cn_t = _step_io(step_graph)
+        in_c, cn_c = _step_io(ex_c.graph)
+        in_d, cn_d = _step_io(ex_d.graph)
+        if cn_c != cn_t:
+            raise ValueError("chunk_graph's caches differ from step_graph's")
+        chunk_fn = ex_c.build_fn(donate=cn_c)
+        shapes_t = {v.name: tuple(v.type.shape) for v in step_graph.inputs}
+        shapes_d = {v.name: tuple(v.type.shape) for v in ex_d.graph.inputs}
+        self.max_len = min(shapes_t[cn_t[0]][0], shapes_d[cn_d[0]][0])
+        self.gamma = next(v.type.shape[0] for v in chunk_graph.inputs if v.name == "token") - 1
+        if self.gamma < 1:
+            raise ValueError("chunk_graph must take >= 2 tokens")
+        self.rounds_per_tick = max(1, int(rounds_per_tick))
+
+        def verify_one(toks, pos, *caches):
+            # one slot's (gamma + 1)-token verify: the target's greedy tokens
+            by = {"token": toks, "pos": pos}
+            by.update(zip(cn_t, caches))
+            return chunk_fn(params, *[by[n] for n in in_c])[0].argmax(-1)
+
+        draft_v = _vmapped_draft(ex_d.build_fn(donate=cn_d), params, in_d, cn_d)
+        verify_v = torch.func.vmap(verify_one)
+        self._draft_all = lambda tok, pos: draft_v(tok, pos, *self._d_caches)
+        self._verify_all = lambda toks, pos: verify_v(toks, pos[:, None], *self._t_caches)
+        self._prefills = _build_prefill_ladder(prefill_graphs, params, host_map, cfg)
+        self._d_prefills = _build_prefill_ladder(draft_prefill_graphs, params, host_map, dcfg)
+        dts_t = _cache_dtypes(step_graph, cfg, cn_t)
+        dts_d = _cache_dtypes(ex_d.graph, dcfg, cn_d)
+        self._t_caches = [torch.zeros((slots,) + shapes_t[n], dtype=d, device=self.device)
+                          for n, d in zip(cn_t, dts_t)]
+        self._d_caches = [torch.zeros((slots,) + shapes_d[n], dtype=d, device=self.device)
+                          for n, d in zip(cn_d, dts_d)]
+        self._state = [_Slot() for _ in range(slots)]
+        self._pending: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._shutdown = False
+        self._wake = threading.Event()
+        self._ticks = 0      # ticks run
+        self._rounds = 0     # draft-and-verify rounds run (R a multi-round tick)
+        self._prefilled = 0  # target prefill forwards at admission
+        self._acc_num = 0
+        self._acc_den = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # -- public API ------------------------------------------------------
+
+    submit = DecodeServer.submit
+    shutdown = DecodeServer.shutdown
+    shared_weights = DecodeServer.shared_weights
+
+    def stats(self) -> dict:
         with self._lock:
-            for s in self._state:
-                if s.active and s.future is not None and not s.future.done():
-                    s.future.set_exception(RuntimeError("server shut down"))
-            while True:
+            return {"slots": self.slots,
+                    "active": sum(s.active for s in self._state),
+                    "queued": self._pending.qsize(), **self._spec_stats()}
+
+    def cache_bytes(self) -> int:
+        """Device bytes of the target AND draft KV caches."""
+        return sum(c.numel() * c.element_size() for c in self._t_caches + self._d_caches)
+
+    # -- slot loop -------------------------------------------------------
+
+    def _admit(self) -> None:
+        for i, s in enumerate(self._state):
+            if s.active:
+                continue
+            try:
+                prompt, n_new, fut = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            n_new = min(n_new, self.max_len - len(prompt) - self.gamma)
+            if n_new < 1:
+                fut.set_result(list(prompt))
+                continue
+            fed = 0
+            if len(prompt) > 1:
                 try:
-                    *_rest, fut = self._pending.get_nowait()
-                except queue.Empty:
+                    if self._prefills:
+                        fed = _prefill_into(self._prefills, self._params, self._t_caches, i,
+                                            prompt, self.device)[1] - 1
+                        self._prefilled += 1
+                    if self._d_prefills:
+                        _prefill_into(self._d_prefills, self._params, self._d_caches, i, prompt,
+                                      self.device)
+                except Exception as e:  # noqa: BLE001 — this request fails; the
+                    # prefills wrote only slot i's rows
+                    fut.set_exception(e)
+                    continue
+            # fed: the last prompt token whose target row is written; the
+            # ticks take prompt[fed + 1:] as forced drafts
+            self._state[i] = _Slot(active=True, prompt=prompt, fed=fed, n_new=n_new,
+                                   last_token=prompt[fed], pos=fed, future=fut)
+
+    def _loop(self) -> None:
+        g, R = self.gamma, self.rounds_per_tick
+        while not self._shutdown:
+            with self._lock:
+                self._admit()
+                active = [i for i, s in enumerate(self._state) if s.active]
+            if not active:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+                continue
+            multi = R > 1 and all(
+                self._state[i].pos + 1 >= len(self._state[i].prompt)
+                and self._state[i].pos + R * (g + 1) < self.max_len for i in active)
+            inputs = _spec_inputs(self._state, self.slots, g)
+            try:
+                emit, acc = self._run_tick(multi, *inputs)
+            except Exception as e:  # noqa: BLE001 — fail the requests, keep the
+                # serving thread; the caches were written in place
+                with self._lock:
+                    failed = [s.future for s in self._state if s.active and s.future]
+                    self._state = [_Slot() for _ in range(self.slots)]
+                    for fut in failed:
+                        fut.set_exception(e)
+                continue
+            with self._lock:
+                self._ticks += 1
+                self._rounds += R if multi else 1
+                for i in self._commit_tick(active, multi, emit, acc, *inputs[4:]):
+                    s = self._state[i]
+                    s.future.set_result(list(s.prompt) + s.generated)
+                    self._state[i] = _Slot()
+        _drain(self)
+
+
+class BucketedDecodeServer:
+    """A ladder of KV-cache lengths over DecodeServer: several slot groups
+    ("buckets"), each with its own cache length, all sharing ONE uploaded
+    weight set (`_merge_params` by name and content), so that the caches
+    cost sum(slots_i x len_i) instead of slots x max(len).
+
+    `buckets`: dicts {"step": step graph, "slots": n, "prefills": [prefill
+    graphs at this bucket's max_len], "tick_steps": T}; a bucket with
+    "chunk" and "draft" graphs (and optionally "draft_prefills",
+    "rounds_per_tick") is a SpecDecodeServer. Build every bucket's graphs
+    from one weight dict, quantized alike, or the weights are held twice
+    (a warning says so).
+
+    A request goes to the smallest bucket whose cache holds len(prompt) +
+    n_new; when that bucket has no free slot and a larger fitting one has
+    one and no queue, it spills up. A request longer than every bucket goes
+    to the largest, which clamps n_new or rejects the prompt.
+    """
+
+    def __init__(self, buckets, config=None, stop_tokens=()):
+        if not buckets:
+            raise ValueError("need at least one bucket")
+        for i, b in enumerate(buckets):
+            if ("chunk" in b) != ("draft" in b):
+                raise ValueError("speculative bucket needs BOTH 'chunk' and 'draft' graphs "
+                                 f"(bucket {i} has only one)")
+        self._servers = []
+        built: dict[int, object] = {}
+        shared = None
+        try:
+            # largest first: its server uploads the weights, the rest share them
+            for i in sorted(range(len(buckets)),
+                            key=lambda i: -self._graph_max_len(buckets[i]["step"])):
+                b = buckets[i]
+                if "chunk" in b:
+                    srv = SpecDecodeServer(
+                        b["step"], b["chunk"], b["draft"], slots=b.get("slots", 4),
+                        config=config, stop_tokens=stop_tokens,
+                        prefill_graphs=b.get("prefills", ()),
+                        draft_prefill_graphs=b.get("draft_prefills", ()),
+                        shared_weights=shared, rounds_per_tick=b.get("rounds_per_tick", 1))
+                else:
+                    srv = DecodeServer(b["step"], slots=b.get("slots", 4), config=config,
+                                       stop_tokens=stop_tokens,
+                                       prefill_graphs=b.get("prefills", ()),
+                                       shared_weights=shared,
+                                       tick_steps=b.get("tick_steps", 1))
+                built[i] = srv
+                if shared is None:
+                    shared = srv.shared_weights()
+        except BaseException:
+            for srv in built.values():
+                srv.shutdown()
+            raise
+        self._servers = sorted(built.values(), key=lambda s: s.max_len)
+
+    @staticmethod
+    def _graph_max_len(g) -> int:
+        for v in g.inputs:
+            if v.name.startswith(("k_cache_", "v_cache_")):
+                return int(v.type.shape[0])
+        raise ValueError("step graph has no KV cache inputs")
+
+    @property
+    def max_len(self) -> int:
+        return self._servers[-1].max_len
+
+    def submit(self, prompt, n_new, context=None) -> Future:
+        need = len(prompt) + max(int(n_new), 0)
+        # need == max_len fits: plen + n_new tokens fill rows 0 .. max_len - 1
+        fits = [s for s in self._servers if need <= s.max_len] or [self._servers[-1]]
+        target = fits[0]
+        if target.stats()["active"] >= target.slots:
+            for s in fits[1:]:
+                st = s.stats()
+                if st["active"] < s.slots and st["queued"] == 0:
+                    target = s  # spill up: a longer-cache slot is idle
                     break
-                fut.set_exception(RuntimeError("server shut down"))
+        return target.submit(prompt, n_new, context)
+
+    def stats(self) -> dict:
+        per = [s.stats() for s in self._servers]
+        return {"buckets": [{"max_len": s.max_len, **st} for s, st in zip(self._servers, per)],
+                "slots": sum(p["slots"] for p in per),
+                "active": sum(p["active"] for p in per),
+                "queued": sum(p["queued"] for p in per)}
+
+    def cache_bytes(self) -> int:
+        return sum(s.cache_bytes() for s in self._servers)
+
+    def uniform_cache_bytes(self) -> int:
+        """What the same slot count would cost at the largest bucket's
+        length (the flat DecodeServer this ladder replaces); of a
+        speculative largest bucket only its target caches count."""
+        big = self._servers[-1]
+        caches = getattr(big, "_t_caches", None) or big._caches
+        per_slot = sum(c.numel() * c.element_size() for c in caches) // big.slots
+        return per_slot * sum(s.slots for s in self._servers)
+
+    def shutdown(self) -> None:
+        for s in self._servers:
+            s.shutdown()

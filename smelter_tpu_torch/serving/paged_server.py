@@ -39,6 +39,11 @@ prompt is fed a token a tick instead, as the JAX server does; any other
 prefill failure fails its own request (the JAX server falls back to feeding
 there too, which would hide the failure). `stats()["prefills"]` counts the
 prompts admitted by a prefill.
+
+`SpecPagedDecodeServer` is the speculative form: each tick gamma + 1 draft
+steps vmapped over the slots (the draft keeps small dense per-slot caches)
+and ONE batched paged verify of gamma + 1 tokens a slot
+(`build_decode_step_paged(chunk=gamma + 1)`).
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ import numpy as np
 import torch
 
 from ..kernels.paged_decode_attention import paged_cache_update
-from .decode_server import _Slot, _bucket, _build_prefill_ladder, _commit
+from .decode_server import (_Slot, _SpecTicks, _bucket, _build_prefill_ladder, _commit, _drain,
+                            _prefill_into, _spec_inputs, _vmapped_draft)
 from .kv_pool import PagePool, PoolExhausted
 
 
@@ -340,14 +346,237 @@ class PagedDecodeServer:
                         s.future.set_result(list(s.prompt) + s.generated)
                         self._state[i] = _Slot()
                         self.pool.release(i)  # pages free THIS tick
+        _drain(self)
+
+
+class SpecPagedDecodeServer(_SpecTicks):
+    """Speculative continuous batching over the paged pool: each tick runs
+    gamma + 1 draft steps vmapped over the slots and ONE batched paged
+    chunk verify across all slots, SpecDecodeServer's tick with the
+    target's KV memory paged. The draft keeps flat per-slot caches (a
+    4-layer, 256-wide draft's caches are ~1 % of the target's); the target
+    allocates pages as sequences grow and frees them when they finish.
+
+    `chunk_graph` is a `build_decode_step_paged(chunk=gamma + 1,
+    slots=B)` graph, `draft_graph` a `build_decode_step` graph (its weights
+    join the target's uploaded set by name and content, so an early-exit
+    self-draft shares every layer it has). `prefill_graphs` (dense target
+    twins) write a new prompt's rows into its pages with one forward,
+    `draft_prefill_graphs` fill its draft cache.
+
+    The two servers' disciplines compose: rows of rejected drafts are
+    overwritten before anything attends them (row i of a chunk attends
+    rows <= pos + i); a stalled slot rides the tick with its real pos, so
+    its target writes land on the scratch page and its round is not
+    committed, and its draft writes hit its own rows, rewritten on resume.
+    """
+
+    def __init__(self, chunk_graph, draft_graph, config=None, draft_config=None,
+                 stop_tokens: tuple[int, ...] = (), prefill_graphs=(), draft_prefill_graphs=(),
+                 rounds_per_tick: int = 1):
+        from ..runtime.config import Config
+        from ..runtime.executor import Executor
+        from ..runtime.generate import _cache_dtypes, _decode_graph, _merge_params, _step_io
+
+        cfg = config or Config()
+        dcfg = draft_config or cfg
+        draft_graph = _decode_graph(draft_graph, dcfg)
+        ex_t = Executor(chunk_graph, cfg)
+        self.device = ex_t.device
+        params = self._params = ex_t.cast_params(ex_t.init_params())
+        host = {n: chunk_graph.initializers[n] for n in ex_t.param_names}
+        chunk_fn = ex_t.build_fn()
+        ex_d = _merge_params(params, host, draft_graph, dcfg)
+        in_d, cn_d = _step_io(ex_d.graph)
+        in_t = [v.name for v in chunk_graph.inputs]
+        shapes_t = {v.name: tuple(v.type.shape) for v in chunk_graph.inputs}
+        shapes_d = {v.name: tuple(v.type.shape) for v in ex_d.graph.inputs}
+        self._pool_names = [n for n in in_t if n.startswith(
+            ("k_pool_", "v_pool_", "k_scale_pool_", "v_scale_pool_"))]
+        if not self._pool_names:
+            raise ValueError("chunk graph has no k_pool_/v_pool_ inputs "
+                             "(need build_decode_step_paged form)")
+        self.slots, c = shapes_t["token"]
+        self.gamma = c - 1
+        if self.gamma < 1:
+            raise ValueError("chunk graph must take >= 2 tokens")
+        n_pages, page_size, _ = shapes_t[self._pool_names[0]]
+        self._npg = npg = shapes_t["page_table"][1]
+        self.max_len = min(npg * page_size, shapes_d[cn_d[0]][0])
+        self.stop_tokens = set(stop_tokens)
+        self.rounds_per_tick = max(1, int(rounds_per_tick))
+        # one allocator for all layers; page 0 is the scratch page
+        self.pool = PagePool(n_pages, page_size, self.slots, scratch=True)
+        self._prefills = _build_prefill_ladder(prefill_graphs, params, host, cfg)
+        self._d_prefills = _build_prefill_ladder(draft_prefill_graphs, params, host, dcfg)
+
+        def verify_all(toks, pos):
+            # ONE batched paged verify: (B, gamma + 1) tokens -> greedy tokens
+            by = {"token": toks, "pos": pos, "page_table": self._table_d}
+            by.update(zip(self._pool_names, self._pools))
+            return chunk_fn(params, *[by[n] for n in in_t])[0].argmax(-1)
+
+        draft_v = _vmapped_draft(ex_d.build_fn(donate=cn_d), params, in_d, cn_d)
+        self._draft_all = lambda tok, pos: draft_v(tok, pos, *self._d_caches)
+        self._verify_all = verify_all
+        dts_t = _cache_dtypes(chunk_graph, cfg, self._pool_names)
+        dts_d = _cache_dtypes(ex_d.graph, dcfg, cn_d)
+        self._pools = [torch.zeros(shapes_t[n], dtype=d, device=self.device)
+                       for n, d in zip(self._pool_names, dts_t)]
+        self._d_caches = [torch.zeros((self.slots,) + shapes_d[n], dtype=d, device=self.device)
+                          for n, d in zip(cn_d, dts_d)]
+        self._table = self.pool.table(npg)
+        self._table_d = None
+        self._state = [_Slot() for _ in range(self.slots)]
+        self._pending: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._shutdown = False
+        self._wake = threading.Event()
+        self._ticks = 0
+        self._rounds = 0
+        self._prefilled = 0
+        self._acc_num = 0
+        self._acc_den = 0
+        self._stall_ticks = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    shutdown = PagedDecodeServer.shutdown
+    _prefill_slot = PagedDecodeServer._prefill_slot
+
+    def submit(self, prompt: list[int], n_new: int, context=None) -> Future:
+        fut: Future = Future()
+        if context:
+            fut.set_exception(ValueError("SpecPagedDecodeServer does not take context arrays"))
+            return fut
+        if not prompt:
+            fut.set_exception(ValueError("prompt must be non-empty"))
+            return fut
+        if len(prompt) + self.gamma >= self.max_len:
+            fut.set_exception(ValueError(
+                f"prompt length {len(prompt)} too long for max_len {self.max_len} at gamma "
+                f"{self.gamma}"))
+            return fut
+        n_new = min(int(n_new), self.max_len - len(prompt) - self.gamma)
+        if n_new <= 0:
+            fut.set_result(list(prompt))
+            return fut
+        self._pending.put((list(prompt), n_new, fut))
+        self._wake.set()
+        return fut
+
+    def stats(self) -> dict:
         with self._lock:
-            for s in self._state:
-                if s.active and s.future is not None \
-                        and not s.future.done():
-                    s.future.set_exception(RuntimeError("server shut down"))
-            while True:
+            return {"slots": self.slots,
+                    "active": sum(s.active for s in self._state),
+                    "queued": self._pending.qsize(),
+                    "free_pages": self.pool.free_pages,
+                    "page_size": self.pool.page_size,
+                    "stall_ticks": self._stall_ticks, **self._spec_stats()}
+
+    def cache_bytes(self) -> int:
+        return sum(p.numel() * p.element_size() for p in self._pools + self._d_caches)
+
+    # -- slot loop -------------------------------------------------------
+
+    def _admit(self) -> None:
+        for i, s in enumerate(self._state):
+            if s.active:
+                continue
+            try:
+                prompt, n_new, fut = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            fed = 0
+            if len(prompt) > 1:
                 try:
-                    *_rest, fut = self._pending.get_nowait()
-                except queue.Empty:
+                    if self._prefills:
+                        # fed: the last prompt token whose pool row is written
+                        try:
+                            fed, _ = self._prefill_slot(i, prompt)
+                        except PoolExhausted:
+                            fed = 0  # forced drafts take the prompt, stalling as needed
+                    if self._d_prefills:
+                        _prefill_into(self._d_prefills, self._params, self._d_caches, i, prompt,
+                                      self.device)
+                except Exception as e:  # noqa: BLE001 — this request fails; the
+                    # prefills wrote only slot i's pages and rows
+                    self.pool.release(i)
+                    fut.set_exception(e)
+                    continue
+            self._state[i] = _Slot(active=True, prompt=prompt, fed=fed, n_new=n_new,
+                                   last_token=prompt[fed], pos=fed, future=fut)
+
+    def _evict(self, active: list[int]) -> None:
+        """Every active slot is stalled: fail the least-progressed sequences
+        until one of the rest can grow."""
+        g = self.gamma
+        with self._lock:
+            self._stall_ticks += 1
+            for i in sorted(active, key=lambda j: self._state[j].pos):
+                self._state[i].future.set_exception(PoolExhausted(
+                    "page pool exhausted by longer sequences"))
+                self._state[i] = _Slot()
+                self.pool.release(i)
+                rest = [j for j in active if self._state[j].active]
+                if any(self.pool.pages_for(self._state[j].pos + g + 1)
+                       - len(self.pool.pages_of(j)) <= self.pool.free_pages for j in rest):
                     break
-                fut.set_exception(RuntimeError("server shut down"))
+
+    def _loop(self) -> None:
+        g, R = self.gamma, self.rounds_per_tick
+        while not self._shutdown:
+            with self._lock:
+                self._admit()
+                active = [i for i, s in enumerate(self._state) if s.active]
+            if not active:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+                continue
+            # several rounds a tick need every active slot past its prompt
+            # with R (gamma + 1) rows of room in the table and in pages
+            multi = R > 1 and all(
+                self._state[i].pos + 1 >= len(self._state[i].prompt)
+                and self._state[i].pos + R * (g + 1) < self.max_len for i in active)
+            if multi:
+                try:
+                    for i in active:
+                        self.pool.ensure(i, self._state[i].pos + R * (g + 1))
+                except PoolExhausted:
+                    multi = False
+            live: list[int] = []
+            for i in active:
+                try:  # a round writes rows pos .. pos + gamma
+                    self.pool.ensure(i, self._state[i].pos + (R if multi else 1) * (g + 1))
+                    live.append(i)
+                except PoolExhausted:
+                    pass
+            if not live:
+                self._evict(active)
+                continue
+            if len(live) < len(active):
+                self._stall_ticks += 1
+            self._table = self.pool.table(self._npg, out=self._table)
+            inputs = _spec_inputs(self._state, self.slots, g)
+            try:
+                self._table_d = torch.from_numpy(self._table).to(self.device)
+                emit, acc = self._run_tick(multi, *inputs)
+            except Exception as e:  # noqa: BLE001 — fail the requests and release
+                # every page; the pools were written in place
+                with self._lock:
+                    failed = [s.future for s in self._state if s.active and s.future]
+                    for i in range(self.slots):
+                        self._state[i] = _Slot()
+                        self.pool.release(i)
+                    for fut in failed:
+                        fut.set_exception(e)
+                continue
+            with self._lock:
+                self._ticks += 1
+                self._rounds += R if multi else 1
+                for i in self._commit_tick(live, multi, emit, acc, *inputs[4:]):
+                    s = self._state[i]
+                    s.future.set_result(list(s.prompt) + s.generated)
+                    self._state[i] = _Slot()
+                    self.pool.release(i)
+        _drain(self)

@@ -224,10 +224,16 @@ def _paged_operands(B, kvh, g, c, hd, ps, npg, quant, dtype, scale_dtype, device
 
 
 # geometries (B, kvh, g, c, hd, ps, npg): llama_1b's step (32-row blocks, 4
-# a page), two slots of 128-row pages (4 a page), whole pages of 32 and 16
+# a page), two slots of 128-row pages (4 a page), whole pages of 32 and 16;
+# then wide query-row groups and the tiny draft's head dim: llama_1b's
+# chunk-5 verify (g*c 10), g*c 16 (one full group), 20 (two groups), 20 at
+# hd 256 (groups of 8), and hd 32 alone and under a chunk-5 verify
 @pytest.mark.parametrize("geom", [(8, 8, 2, 1, 128, 128, 4), (2, 2, 2, 1, 128, 128, 3),
                                   (3, 2, 2, 2, 128, 32, 3), (2, 4, 4, 1, 64, 16, 5),
-                                  (2, 1, 2, 4, 256, 32, 2)])
+                                  (2, 1, 2, 4, 256, 32, 2),
+                                  (8, 8, 2, 5, 128, 128, 4), (2, 4, 4, 4, 128, 32, 3),
+                                  (2, 2, 4, 5, 64, 16, 5), (2, 1, 4, 5, 256, 32, 2),
+                                  (8, 4, 2, 1, 32, 128, 4), (2, 4, 2, 5, 32, 32, 3)])
 @pytest.mark.parametrize("quant,dtype,scale_dtype", [
     (True, torch.bfloat16, torch.bfloat16), (True, torch.float32, torch.float32),
     (True, torch.bfloat16, torch.float32), (False, torch.float32, None),
@@ -346,9 +352,13 @@ def _ragged_check(q, k, v, pos, ks, vs, c, kvh, hd):
     return got
 
 
+# (B, kvh, g, c, hd, L); the last six: the paged test's wide groups and hd 32
 @pytest.mark.parametrize("geom", [(8, 8, 2, 1, 128, 512), (3, 2, 1, 5, 128, 64),
                                   (2, 4, 4, 2, 64, 100), (2, 1, 2, 4, 256, 300),
-                                  (1, 8, 1, 5, 128, 512)])
+                                  (1, 8, 1, 5, 128, 512),
+                                  (8, 8, 2, 5, 128, 512), (2, 4, 4, 4, 128, 300),
+                                  (2, 2, 4, 5, 64, 300), (2, 1, 4, 5, 256, 300),
+                                  (8, 4, 2, 1, 32, 512), (2, 4, 2, 5, 32, 300)])
 @pytest.mark.parametrize("quant,dtype,scale_dtype", [
     (True, torch.bfloat16, torch.bfloat16), (True, torch.float32, torch.float32),
     (True, torch.bfloat16, torch.float32), (False, torch.float32, None),
@@ -452,6 +462,23 @@ def test_ragged_split_graph_replays_at_any_position(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, rda.ragged_decode_attention(q, k, v, pos, ks, vs, **kw)), new
+
+
+@pytest.mark.parametrize("hd", [32, 128, 256])
+def test_decode_attention_rows_do_not_depend_on_their_group(cuda, hd):
+    """A query row's output is bit-equal whether its block holds 2, 6, 10,
+    16 or 20 rows: every row's sums run in one order at every group size,
+    so a chunk verify gives what single steps give."""
+    from smelter_tpu_torch.kernels import ragged_decode_attention as rda
+
+    B, kvh, L = 3, 2, 512
+    q, k, v, pos, ks, vs = _ragged_operands(B, kvh, 20, 1, hd, L, True, torch.float32,
+                                            torch.float32, cuda, seed=23, pos=[0, 301, 511])
+    kw = dict(c=1, kv_heads=kvh, scale=hd ** -0.5)
+    full = rda.ragged_decode_attention(q, k, v, pos, ks, vs, **kw)
+    for gc in (2, 6, 10, 16):
+        part = rda.ragged_decode_attention(q[:, :, :gc].contiguous(), k, v, pos, ks, vs, **kw)
+        assert torch.equal(part, full[:, :, :gc]), gc
 
 
 def test_vmap_rules_launch_once_for_all_slots(cuda):

@@ -7,14 +7,15 @@ plan, checked without a card:
 
 - the walk: each page cut into `split` blocks of ps / split rows; block j
   of slot b is run j % split of page table[b, j // split], clamped into the
-  pool; in a block, 4 warps take U = 32 / GCP rows a step in turn (GCP: g*c
-  rounded up to 4 or 8) with a streaming softmax in f32 (running max, sum,
-  f32 sums over hd), merged in warp order into the block's partial; a
+  pool; in a block, warp w of 4 takes the row pairs 2w + 8t, t = 0, 1, ...,
+  whatever g*c, with a streaming softmax in f32 advanced a pair at a time
+  (running max, sum, f32 sums over hd), merged in warp order into the
+  block's partial; a
   block wholly past the frontier is the neutral partial (-inf, 0, 0); a
   slot's partials merged in block order. Held within 1e-5 in f32 with
   permuted and shared pages, table entries past the pool, frontiers on a
-  block's first and last row, pos + c - 1 past npg * ps, c 5, int8 and
-  float pools, and every row no slot reads filled with large values;
+  block's first and last row, pos + c - 1 past npg * ps, c 5, g*c 10
+  (llama_1b's verify) and 20, head dim 32, int8 and float pools, and every row no slot reads filled with large values;
 - the wrapper's CPU path (the plain version, which clamps table entries
   into the pool as the kernels do) against the same walk;
 - `paged_split_plan`: a function of (B, kvh, npg, ps) alone, blocks of a
@@ -57,8 +58,6 @@ def _paged_split_emulation(q, k, v, table, pos, ks, vs, *, c, scale, split):
     npg = table.shape[1]
     br = ps // split
     nblk = npg * split
-    gcp = 4 if gc <= 4 else 8
-    U = 32 // gcp
     out = torch.empty(B, kvh, gc, hd)
     for b in range(B):
         p = int(pos[b])
@@ -79,15 +78,15 @@ def _paged_split_emulation(q, k, v, table, pos, ks, vs, *, c, scale, split):
                 warps = []
                 for w in range(WARPS):
                     m, l_, acc = torch.full((gc,), NEG), torch.zeros(gc), torch.zeros(gc, hd)
-                    for r0 in range(w * U, live, WARPS * U):
-                        rr = torch.arange(r0, min(r0 + U, live))
+                    for r0 in range(2 * w, live, 2 * WARPS):  # its row pairs
+                        rr = torch.arange(r0, min(r0 + 2, live))
                         kk = k[page, r0b + rr, h * hd:(h + 1) * hd].float()
                         vv = v[page, r0b + rr, h * hd:(h + 1) * hd].float()
                         ksr = ks[page, r0b + rr, 0].float() if ks is not None \
                             else torch.ones(len(rr))
                         vsr = vs[page, r0b + rr, 0].float() if vs is not None \
                             else torch.ones(len(rr))
-                        s = (qh @ kk.T) * ksr * scale  # (gc, rows of the step)
+                        s = (qh @ kk.T) * ksr * scale  # (gc, rows of the pair)
                         ok = (lo + rr)[None] <= p + torch.arange(gc)[:, None] % c
                         s = torch.where(ok, s, NEG)
                         m_new = torch.maximum(m, s.amax(1))
@@ -135,20 +134,23 @@ def _case(B, kvh, g, c, hd, P, ps, npg, pos, table, quant, seed):
 # slot 2 at row 0; pages permuted, slots 1 and 2 sharing page 4, and
 # entries past the pool (9 of 8 pages, 12 of 6: read as the last page); c 5
 # with pos + c - 1 past npg * ps (blocks of 8 rows);
-# g*c 8 (GCP 8, U 4); whole pages of 16 rows.
+# g*c 8; whole pages of 16 rows; llama_1b's verify (g 2, c 5: g*c 10) over
+# 32-row blocks of 128-row pages; g*c 20 (two row groups) at head dim 32.
 CASES = [
     (3, 2, 2, 1, 8, 128, 2, [32, 63, 0], [[5, 1], [4, 7], [4, 9]], 4),
     (2, 2, 1, 5, 6, 32, 2, [62, 17], [[2, 12], [0, 1]], 4),
     (2, 1, 4, 2, 7, 64, 3, [5, 190], [[3, 0, 6], [1, 2, 5]], 2),
     (2, 2, 2, 1, 5, 16, 3, [20, 47], [[4, 2, 1], [0, 3, 4]], 1),
+    (2, 2, 2, 5, 5, 128, 2, [31, 252], [[3, 1], [4, 2]], 4),
+    (2, 1, 4, 5, 7, 32, 3, [40, 93], [[6, 0, 2], [1, 5, 3]], 1, 32),
 ]
 
 
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("quant", [False, True])
 def test_paged_split_emulation_matches_pallas(case, quant):
-    B, kvh, g, c, P, ps, npg, pos, table, split = case
-    hd = 128
+    B, kvh, g, c, P, ps, npg, pos, table, split = case[:10]
+    hd = case[10] if len(case) > 10 else 128
     q, k, v, table, pos, ks, vs = _case(B, kvh, g, c, hd, P, ps, npg, pos, table, quant,
                                         seed=B * 10 + c + ps)
     kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)

@@ -4,15 +4,18 @@ in plain PyTorch and held to the JAX package's Pallas kernel in interpret
 mode (`smelter_tpu/kernels/ragged_decode_attention.py`, as
 tests/test_torch_decode.py runs it), and its plan, checked without a card:
 
-- the walk: row blocks of `rows` cache rows; in each, 4 warps take U = 32 /
-  GCP rows a step in turn (GCP: g*c rounded up to 4 or 8) with a streaming
-  softmax in f32 (running max, sum, f32 sums over hd), merged in warp order
-  into the block's partial; a block wholly past the frontier is the neutral
+- the walk: row blocks of `rows` cache rows; in each, warp w of 4 takes the
+  row pairs 2w + 8t, t = 0, 1, ..., whatever g*c, with a streaming softmax
+  in f32 advanced a pair at a time (running max, sum, f32 sums over hd),
+  merged in warp order into the block's partial; a block wholly past the frontier is the neutral
   partial (-inf, 0, 0); a slot's partials merged in block order. Held within
   1e-5 in f32 with blocks forced small enough to split: frontiers on a
   block's first and last row, blocks wholly past the frontier, pos + c - 1
-  past the cache, c 5, int8 and float caches, stale rows past every
-  frontier filled with large values (never read);
+  past the cache, c 5, g*c 10 (llama_1b's chunk-5 verify), 16 and 20 (two
+  row groups), head dim 32 (the tiny draft's), int8 and float caches,
+  stale rows past every frontier filled with large values (never read);
+- the wrappers' operand checks (both kernels) take g*c 10, 16 and 20 and
+  head dim 32, which the kernels now run;
 - `split_plan`: a function of (B, kvh, L) alone, whole blocks of 32 rows
   covering the cache, at most 256 of them a slot, and at least 128 CUDA
   blocks for one llama_1b slot at L 512.
@@ -51,8 +54,6 @@ def _split_emulation(q, k, v, pos, ks, vs, *, c, scale, rows):
     kvh*hd), scales (B, L, 1) or None."""
     B, kvh, gc, hd = q.shape
     L = k.shape[1]
-    gcp = 4 if gc <= 4 else 8
-    U = 32 // gcp
     nblk = math.ceil(L / rows)
     out = torch.empty(B, kvh, gc, hd)
     for b in range(B):
@@ -72,13 +73,13 @@ def _split_emulation(q, k, v, pos, ks, vs, *, c, scale, rows):
                 warps = []
                 for w in range(WARPS):
                     m, l_, acc = torch.full((gc,), NEG), torch.zeros(gc), torch.zeros(gc, hd)
-                    for r0 in range(w * U, live, WARPS * U):
-                        rr = torch.arange(r0, min(r0 + U, live))
+                    for r0 in range(2 * w, live, 2 * WARPS):  # its row pairs
+                        rr = torch.arange(r0, min(r0 + 2, live))
                         kk = k[b, lo + rr, h * hd:(h + 1) * hd].float()
                         vv = v[b, lo + rr, h * hd:(h + 1) * hd].float()
                         ksr = ks[b, lo + rr, 0].float() if ks is not None else torch.ones(len(rr))
                         vsr = vs[b, lo + rr, 0].float() if vs is not None else torch.ones(len(rr))
-                        s = (qh @ kk.T) * ksr * scale  # (gc, rows of the step)
+                        s = (qh @ kk.T) * ksr * scale  # (gc, rows of the pair)
                         ok = (lo + rr)[None] <= p + torch.arange(gc)[:, None] % c
                         s = torch.where(ok, s, NEG)
                         m_new = torch.maximum(m, s.amax(1))
@@ -115,23 +116,28 @@ def _case(B, kvh, g, c, hd, L, pos, quant, seed):
     return q, k, v, pos, ks, vs
 
 
-# (B, kvh, g, c, L, pos, rows): the frontier on a block's first row (32,
-# rows 32) and last (63); blocks wholly past the frontier; pos + c - 1 past
-# the cache (c 5 at pos L - 2); a single slot split into blocks of 8 rows;
-# g*c 8 (GCP 8, U 4)
+# (B, kvh, g, c, L, pos, rows[, hd]): the frontier on a block's first row
+# (32, rows 32) and last (63); blocks wholly past the frontier; pos + c - 1
+# past the cache (c 5 at pos L - 2); a single slot split into blocks of 8
+# rows; g*c 8; llama_1b's verify (g 2, c 5: g*c 10) with its frontier past
+# the cache; g*c 16 and 20 (two row groups); the tiny draft's head dim 32
 CASES = [
     (3, 2, 2, 1, 96, [32, 63, 0], 32),
     (2, 2, 1, 5, 64, [62, 17], 16),
     (1, 2, 2, 1, 48, [40], 8),
     (2, 1, 4, 2, 80, [5, 78], 32),
+    (2, 2, 2, 5, 96, [33, 93], 32),
+    (2, 1, 4, 4, 64, [7, 61], 32),
+    (1, 2, 4, 5, 64, [30], 32),
+    (3, 4, 2, 1, 80, [0, 31, 79], 32, 32),
 ]
 
 
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("quant", [False, True])
 def test_split_emulation_matches_pallas(case, quant):
-    B, kvh, g, c, L, pos, rows = case
-    hd = 128
+    B, kvh, g, c, L, pos, rows = case[:7]
+    hd = case[7] if len(case) > 7 else 128
     q, k, v, pos, ks, vs = _case(B, kvh, g, c, hd, L, pos, quant, seed=B * 10 + c)
     kw = dict(c=c, kv_heads=kvh, scale=hd ** -0.5)
     t = (lambda a: None if a is None else torch.from_numpy(a.copy()))
@@ -162,3 +168,32 @@ def test_split_plan_is_a_function_of_the_shape():
     assert 8 * nblk >= 128
     rows, nblk = rda.split_plan(8, 8, 512)  # the DecodeServer's 8 slots
     assert 64 * nblk >= 2 * 132
+
+
+WIDE = [(8, 4, 2, 5, 128), (8, 4, 4, 4, 128), (2, 1, 4, 5, 64), (8, 4, 2, 1, 32),
+        (8, 4, 2, 5, 32), (2, 2, 2, 1, 256), (2, 2, 4, 5, 256)]
+
+
+@pytest.mark.parametrize("shape", WIDE, ids=[f"b{b}_kvh{h}_g{g}_c{c}_hd{d}"
+                                             for b, h, g, c, d in WIDE])
+def test_wrappers_take_wide_groups_and_hd32(shape):
+    """Both wrappers' operand checks pass at g*c 10 (llama_1b's chunk-5
+    verify), 16 and 20 and at head dim 32 (the tiny draft's): the kernels
+    run those shapes (in groups of 16 query rows, 8 at hd 256), so a CUDA
+    tensor of them launches and does not raise."""
+    from smelter_tpu_torch.kernels import paged_decode_attention as pda
+
+    B, kvh, g, c, hd = shape
+    L, ps = 64, 32
+    q = torch.zeros(B, kvh, g * c, hd, dtype=torch.bfloat16)
+    k = torch.zeros(B, L, kvh * hd, dtype=torch.int8)
+    sc = torch.ones(B, L, 1, dtype=torch.bfloat16)
+    pos = torch.zeros(B, dtype=torch.int64)
+    rda._check(q, k, k.clone(), pos, sc, sc.clone(), c, kvh)
+    pool = torch.zeros(1 + B * L // ps, ps, kvh * hd, dtype=torch.bfloat16)
+    table = torch.arange(1, 1 + B * L // ps, dtype=torch.int32).reshape(B, L // ps)
+    pda._check(q, pool, pool.clone(), table, pos, None, None, c, kvh)
+    with pytest.raises(ValueError):  # c must divide g*c
+        rda._check(q, k, k.clone(), pos, sc, sc.clone(), 3, kvh)
+    with pytest.raises(ValueError):
+        pda._check(q, pool, pool.clone(), table, pos, None, None, 3, kvh)
